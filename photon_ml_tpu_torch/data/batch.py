@@ -1,0 +1,134 @@
+"""Padded sparse example batches (port of ``photon_ml_tpu/data/batch.py``).
+
+Reference data model: photon-ml .../data/LabeledPoint.scala (label, sparse
+features, offset, weight; margin = features . coef + offset).
+
+A batch is a padded gather-format block ("padded COO rows"):
+
+- ``indices[n, k]`` int32: feature ids per row, padded with 0
+- ``values[n, k]`` float32: feature values per row, padded with 0.0
+- ``labels/offsets/weights[n]``: padded rows carry ``weight == 0``, which
+  zeroes their contribution to loss, gradient, Hessian and metrics.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class SparseBatch:
+    """Row i: sum_j values[i, j] * w[indices[i, j]]."""
+
+    indices: Tensor  # int32 [n, k]
+    values: Tensor  # float32 [n, k]
+    labels: Tensor  # float32 [n]
+    offsets: Tensor  # float32 [n]
+    weights: Tensor  # float32 [n]; 0 for padding rows
+
+    @property
+    def num_rows(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def nnz_per_row(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def to(self, device) -> "SparseBatch":
+        return SparseBatch(
+            *(t.to(device) for t in (
+                self.indices, self.values, self.labels, self.offsets,
+                self.weights,
+            ))
+        )
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def make_sparse_batch(
+    rows: Sequence[Tuple[Sequence[int], Sequence[float]]],
+    labels: Sequence[float],
+    offsets: Optional[Sequence[float]] = None,
+    weights: Optional[Sequence[float]] = None,
+    *,
+    pad_rows_to: int = 8,
+    pad_nnz_to: int = 8,
+    max_nnz: Optional[int] = None,
+    device: DeviceLike = None,
+) -> SparseBatch:
+    """Build a padded SparseBatch from per-row (indices, values) lists,
+    padded exactly as the reference pads (rows and nnz rounded up to
+    ``pad_rows_to`` / ``pad_nnz_to``)."""
+    dev = resolve_device(device)
+    n = len(rows)
+    if n == 0:
+        raise ValueError("empty batch")
+    k = max((len(ix) for ix, _ in rows), default=1)
+    if max_nnz is not None:
+        k = min(k, max_nnz)
+    k = max(_round_up(max(k, 1), pad_nnz_to), pad_nnz_to)
+    n_pad = max(_round_up(n, pad_rows_to), pad_rows_to)
+
+    indices = np.zeros((n_pad, k), dtype=np.int32)
+    values = np.zeros((n_pad, k), dtype=np.float32)
+    for i, (ix, vs) in enumerate(rows):
+        m = min(len(ix), k)
+        indices[i, :m] = np.asarray(ix[:m], dtype=np.int32)
+        values[i, :m] = np.asarray(vs[:m], dtype=np.float32)
+    lab = np.zeros((n_pad,), dtype=np.float32)
+    lab[:n] = np.asarray(labels, dtype=np.float32)
+    off = np.zeros((n_pad,), dtype=np.float32)
+    if offsets is not None:
+        off[:n] = np.asarray(offsets, dtype=np.float32)
+    wgt = np.zeros((n_pad,), dtype=np.float32)
+    wgt[:n] = 1.0 if weights is None else np.asarray(weights, dtype=np.float32)
+    return sparse_batch_from_arrays(indices, values, lab, off, wgt, device=dev)
+
+
+def sparse_batch_from_arrays(
+    indices: np.ndarray,
+    values: np.ndarray,
+    labels: np.ndarray,
+    offsets: np.ndarray,
+    weights: np.ndarray,
+    *,
+    device: DeviceLike = None,
+) -> SparseBatch:
+    """Already padded numpy arrays -> SparseBatch on ``device`` (the bulk
+    path for large synthetic or loaded data)."""
+    dev = resolve_device(device)
+    return SparseBatch(
+        indices=torch.as_tensor(np.asarray(indices, np.int32), device=dev),
+        values=torch.as_tensor(np.asarray(values, np.float32), device=dev),
+        labels=torch.as_tensor(np.asarray(labels, np.float32), device=dev),
+        offsets=torch.as_tensor(np.asarray(offsets, np.float32), device=dev),
+        weights=torch.as_tensor(np.asarray(weights, np.float32), device=dev),
+    )
+
+
+def sparse_dot(batch: SparseBatch, w_eff: Tensor) -> Tensor:
+    """Per-row sparse dot product: [n]."""
+    gathered = w_eff.index_select(0, batch.indices.reshape(-1))
+    return (batch.values * gathered.view(batch.indices.shape)).sum(dim=-1)
+
+
+def sparse_scatter_add(batch: SparseBatch, row_coef: Tensor, dim: int) -> Tensor:
+    """sum_i row_coef[i] * x_i as a dense [dim] vector (the reference's
+    per-datum axpy, ValueAndGradientAggregator.scala:133-154)."""
+    contrib = (batch.values * row_coef[:, None]).reshape(-1)
+    out = torch.zeros(dim, dtype=batch.values.dtype, device=batch.values.device)
+    return out.index_add_(0, batch.indices.reshape(-1), contrib)

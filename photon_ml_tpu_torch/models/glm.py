@@ -1,0 +1,61 @@
+"""Generalized linear models (port of ``photon_ml_tpu/models/glm.py``).
+
+Reference: photon-ml .../supervised/model/GeneralizedLinearModel.scala
+(computeScore at :47, computeMeanFunctionWithOffset at :56-66).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from photon_ml_tpu_torch.data.batch import SparseBatch, sparse_dot
+from photon_ml_tpu_torch.models.coefficients import Coefficients
+from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.task import TaskType
+
+Tensor = torch.Tensor
+
+
+def compute_scores(coef: Tensor, batch: SparseBatch) -> Tensor:
+    """Raw margins WITHOUT offsets: features . coef."""
+    return sparse_dot(batch, coef)
+
+
+def compute_margins(coef: Tensor, batch: SparseBatch) -> Tensor:
+    """Margins including offsets: features . coef + offset."""
+    return compute_scores(coef, batch) + batch.offsets
+
+
+def compute_means(task: TaskType, coef: Tensor, batch: SparseBatch) -> Tensor:
+    """Mean response with offsets: sigmoid / identity / exp / raw margin."""
+    return loss_for_task(task).mean(compute_margins(coef, batch))
+
+
+@dataclass(frozen=True)
+class GeneralizedLinearModel:
+    task: TaskType
+    coefficients: Coefficients
+
+    @property
+    def means(self) -> Tensor:
+        return self.coefficients.means
+
+    def score(self, batch: SparseBatch) -> Tensor:
+        return compute_scores(self.means, batch)
+
+    def mean(self, batch: SparseBatch) -> Tensor:
+        return compute_means(self.task, self.means, batch)
+
+    def predict_class(self, batch: SparseBatch, threshold: float = 0.5) -> Tensor:
+        """Binary 0/1 prediction; classification tasks only."""
+        if not self.task.is_classification:
+            raise ValueError(f"{self.task} is not a classification task")
+        if self.task == TaskType.LOGISTIC_REGRESSION:
+            return (self.mean(batch) > threshold).float()
+        return (compute_margins(self.means, batch) > 0.0).float()
+
+
+def create_model(task: TaskType, coefficients: Coefficients) -> GeneralizedLinearModel:
+    return GeneralizedLinearModel(task, coefficients)

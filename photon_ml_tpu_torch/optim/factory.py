@@ -1,0 +1,76 @@
+"""Optimizer selection rules (port of ``photon_ml_tpu/optim/factory.py``).
+
+Reference: photon-ml .../optimization/OptimizerFactory.scala:49-86:
+(LBFGS, L2/NONE) -> LBFGS; (TRON, L2/NONE) -> TRON; TRON with any L1 is
+rejected, as is TRON for the once-differentiable smoothed hinge loss.
+(LBFGS, L1/ELASTIC_NET) -> OWL-QN, which the port does not have yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from photon_ml_tpu_torch.optim.common import BoxConstraints, OptResult, ValueAndGrad
+from photon_ml_tpu_torch.optim.config import (
+    OptimizerConfig,
+    OptimizerType,
+    RegularizationContext,
+)
+from photon_ml_tpu_torch.optim.lbfgs import minimize_lbfgs
+from photon_ml_tpu_torch.optim.tron import minimize_tron
+
+Tensor = torch.Tensor
+
+
+def validate_optimizer_choice(
+    config: OptimizerConfig,
+    regularization: RegularizationContext,
+    *,
+    loss_has_hessian: bool = True,
+) -> None:
+    if config.optimizer_type == OptimizerType.TRON:
+        if regularization.has_l1:
+            raise ValueError(
+                "TRON does not support L1/ELASTIC_NET regularization "
+                "(OptimizerFactory.scala:49-86)"
+            )
+        if not loss_has_hessian:
+            raise ValueError(
+                "TRON requires a twice-differentiable loss; the smoothed "
+                "hinge loss is only once-differentiable"
+            )
+    elif regularization.has_l1:
+        raise NotImplementedError(
+            "L1/ELASTIC_NET needs OWL-QN, which the PyTorch port does not "
+            "have yet"
+        )
+
+
+def make_optimizer(
+    config: OptimizerConfig,
+    regularization: RegularizationContext,
+    *,
+    loss_has_hessian: bool = True,
+    box: Optional[BoxConstraints] = None,
+) -> Callable[..., OptResult]:
+    """Build ``optimize(value_and_grad_fn, w0, hvp_fn=None)``."""
+    validate_optimizer_choice(config, regularization, loss_has_hessian=loss_has_hessian)
+
+    def optimize(value_and_grad_fn: ValueAndGrad, w0: Tensor, *, hvp_fn=None) -> OptResult:
+        if config.optimizer_type == OptimizerType.TRON:
+            if hvp_fn is None:
+                raise ValueError("TRON requires hvp_fn")
+            return minimize_tron(
+                value_and_grad_fn, hvp_fn, w0,
+                max_iter=config.max_iter, tol=config.tolerance,
+                max_cg=config.tron_max_cg, box=box,
+            )
+        return minimize_lbfgs(
+            value_and_grad_fn, w0,
+            max_iter=config.max_iter, tol=config.tolerance,
+            history=config.lbfgs_history, box=box,
+        )
+
+    return optimize

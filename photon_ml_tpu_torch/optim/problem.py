@@ -1,0 +1,156 @@
+"""GLM optimization problems: optimizer + objective + model construction
+(port of ``photon_ml_tpu/optim/problem.py``, single device).
+
+Reference: photon-ml .../optimization/GeneralizedLinearOptimizationProblem.
+scala (run at :112-121, de-normalization at :89-95) and
+DistributedOptimizationProblem.scala (variances 1/(Hdiag + eps) at
+:79-93).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+import torch
+
+from photon_ml_tpu_torch.data.batch import SparseBatch
+from photon_ml_tpu_torch.models.coefficients import Coefficients
+from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel, create_model
+from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.ops.normalization import (
+    NormalizationContext,
+    identity_context,
+)
+from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.ops.tiled_sparse import (
+    TiledGLMObjective,
+    tiled_batch_from_sparse,
+)
+from photon_ml_tpu_torch.optim.common import BoxConstraints, OptResult
+from photon_ml_tpu_torch.optim.config import (
+    OptimizerConfig,
+    OptimizerType,
+    RegularizationContext,
+)
+from photon_ml_tpu_torch.optim.factory import make_optimizer
+from photon_ml_tpu_torch.task import TaskType
+from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+
+# Added when inverting the Hessian diagonal
+# (DistributedOptimizationProblem.scala:79-93).
+_VARIANCE_EPSILON = 1e-12
+
+
+@dataclass(frozen=True)
+class GLMOptimizationProblem:
+    """One (task, optimizer, regularization) problem over a coefficient
+    dimension, reused across a lambda grid (the weight is an argument)."""
+
+    task: TaskType
+    objective: object  # GLMObjective or TiledGLMObjective
+    config: OptimizerConfig = field(default_factory=OptimizerConfig)
+    regularization: RegularizationContext = field(default_factory=RegularizationContext)
+    compute_variances: bool = False
+    box: Optional[BoxConstraints] = None
+    intercept_index: Optional[int] = None
+
+    def run(
+        self,
+        batch,
+        initial: Optional[Tensor] = None,
+        reg_weight: float = 0.0,
+    ) -> Tuple[Coefficients, OptResult]:
+        """Optimize and build coefficients (+ variances if requested).
+        The batch's device is where the fit runs."""
+        if isinstance(self.objective, TiledGLMObjective) and isinstance(batch, SparseBatch):
+            batch = tiled_batch_from_sparse(batch, self.objective.dim, device=batch.device)
+        device = batch.labels.device
+        w0 = (
+            torch.zeros(self.objective.dim, device=device)
+            if initial is None
+            else torch.as_tensor(initial, dtype=torch.float32, device=device)
+        )
+        _, l2 = self.regularization.split(reg_weight)
+        optimize = make_optimizer(
+            self.config, self.regularization,
+            loss_has_hessian=self.objective.loss.has_hessian,
+            box=self.box,
+        )
+        objective = self.objective
+
+        def vg(w):
+            return objective.value_and_gradient(w, batch, l2)
+
+        def hvp(w, d):
+            return objective.hessian_vector(w, d, batch, l2)
+
+        needs_hvp = self.config.optimizer_type == OptimizerType.TRON
+        result = optimize(vg, w0, hvp_fn=hvp if needs_hvp else None)
+        variances = None
+        if self.compute_variances:
+            hdiag = objective.hessian_diagonal(result.coefficients, batch, l2)
+            variances = 1.0 / (hdiag + _VARIANCE_EPSILON)
+        return Coefficients(result.coefficients, variances), result
+
+    def create_model(
+        self,
+        coefficients: Coefficients,
+        norm: Optional[NormalizationContext] = None,
+    ) -> GeneralizedLinearModel:
+        """Build the model with coefficients mapped back to the raw feature
+        space (GeneralizedLinearOptimizationProblem.scala:89-95)."""
+        norm = norm if norm is not None else identity_context()
+        if not norm.is_identity:
+            means = norm.model_to_original_space(coefficients.means)
+            if self.intercept_index is not None:
+                means = means.clone()
+                means[self.intercept_index] += norm.intercept_adjustment(
+                    coefficients.means
+                )
+            coefficients = Coefficients(means, coefficients.variances)
+        return create_model(self.task, coefficients)
+
+
+def resolve_kernel(kernel: str, device: DeviceLike = None) -> str:
+    """"scatter" | "tiled" | "auto": "auto" is the tiled objective (and so
+    the CUDA kernel) on the card and the scatter objective on the CPU."""
+    if kernel not in ("auto", "tiled", "scatter"):
+        raise ValueError(f"unknown kernel {kernel!r}; expected auto | tiled | scatter")
+    if kernel != "auto":
+        return kernel
+    return "tiled" if resolve_device(device).type == "cuda" else "scatter"
+
+
+def create_glm_problem(
+    task: TaskType,
+    dim: int,
+    *,
+    config: Optional[OptimizerConfig] = None,
+    regularization: Optional[RegularizationContext] = None,
+    norm: Optional[NormalizationContext] = None,
+    compute_variances: bool = False,
+    box: Optional[BoxConstraints] = None,
+    intercept_index: Optional[int] = None,
+    kernel: str = "scatter",
+) -> GLMOptimizationProblem:
+    """``kernel``: "scatter" (GLMObjective over a SparseBatch) or "tiled"
+    (TiledGLMObjective over a TiledSparseBatch); both share one contract."""
+    norm_ctx = norm if norm is not None else identity_context()
+    if kernel not in ("tiled", "scatter"):
+        raise ValueError(f"unknown kernel {kernel!r}; expected tiled | scatter")
+    cls = TiledGLMObjective if kernel == "tiled" else GLMObjective
+    return GLMOptimizationProblem(
+        task=task,
+        objective=cls(loss_for_task(task), dim, norm_ctx),
+        config=config if config is not None else OptimizerConfig(),
+        regularization=(
+            regularization if regularization is not None else RegularizationContext()
+        ),
+        compute_variances=compute_variances,
+        box=box,
+        intercept_index=intercept_index,
+    )
+

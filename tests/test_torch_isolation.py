@@ -1,0 +1,103 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor
+``photon_ml_tpu`` (checked in a fresh interpreter and by an AST scan of
+its sources and of ``chip_smoke.py``), and its entry points run on the
+CUDA card unless the caller asks for the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import photon_ml_tpu_torch
+from photon_ml_tpu_torch.data.batch import make_sparse_batch
+from photon_ml_tpu_torch.ops.tiled_sparse import build_tiled_batch
+from photon_ml_tpu_torch.optim.problem import resolve_kernel
+from photon_ml_tpu_torch.task import TaskType
+from photon_ml_tpu_torch.training import train_generalized_linear_model
+from photon_ml_tpu_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(photon_ml_tpu_torch.__file__)
+FORBIDDEN = ("jax", "jaxlib", "photon_ml_tpu")
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_fresh_interpreter_imports_no_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "before = set(sys.modules)\n"
+        "import photon_ml_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'photon_ml_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "new = sorted(set(sys.modules) - before)\n"
+        "print('\\n'.join(new))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, check=True,
+        capture_output=True, text=True,
+    ).stdout.split()
+    assert "photon_ml_tpu_torch.training" in out
+    assert not [m for m in out if _forbidden(m)]
+
+
+def test_sources_import_no_jax():
+    offenders = []
+    for path in _sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [(path, n) for n in names if _forbidden(n)]
+    assert offenders == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        make_sparse_batch([([0], [1.0])], [1.0])
+    rows = np.zeros(1, np.int64)
+    with pytest.raises(RuntimeError):
+        build_tiled_batch(
+            rows, rows, np.ones(1, np.float32), np.ones(1, np.float32),
+            np.zeros(1, np.float32), np.ones(1, np.float32), 4,
+        )
+    batch = make_sparse_batch([([0], [1.0])], [1.0], device="cpu")
+    with pytest.raises(RuntimeError):
+        train_generalized_linear_model(batch, TaskType.LOGISTIC_REGRESSION, 4)
+    with pytest.raises(RuntimeError):
+        resolve_kernel("auto")
+
+
+def test_cpu_on_request(no_cuda):
+    assert resolve_device("cpu").type == "cpu"
+    assert resolve_kernel("auto", "cpu") == "scatter"
+    assert resolve_kernel("tiled", "cpu") == "tiled"
+    with pytest.raises(ValueError):
+        resolve_kernel("pallas", "cpu")
