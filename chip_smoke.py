@@ -105,10 +105,14 @@ def time_ms(fn, reps=20, warmup=3):
 def pass_bound_ms(sched, n_src, n_out):
     """Least time for one pass: each entry's (in_pos, out_pos, val) read
     once, the source read once, the output written once, over the HBM
-    rate; or 2 flops per entry over the f32 rate, whichever is larger."""
-    entries = sched.num_steps * sched.in_pos.shape[1]
+    rate; or 2 flops per entry over the f32 rate, whichever is larger.
+    Entries are the slots of the G steps that hold a value (the data's
+    values are normal draws, never 0); padding slots and spilled entries
+    (added by ``apply_spill``, not K1) do no work of K1's function."""
+    entries = int(torch.count_nonzero(sched.vals[: sched.num_steps]))
     nbytes = 12 * entries + 4 * n_src + 4 * n_out
-    return max(nbytes / HBM_BYTES_PER_S, 2 * entries / F32_FLOPS_PER_S) * 1e3, nbytes
+    bound = max(nbytes / HBM_BYTES_PER_S, 2 * entries / F32_FLOPS_PER_S) * 1e3
+    return bound, nbytes, entries
 
 
 def main() -> int:
@@ -232,10 +236,11 @@ def main() -> int:
     ):
         times[name] = time_ms(fn)
     del x_csr, xt_csr
-    z_bound, z_bytes = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
-    g_bound, g_bytes = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim)
+    z_bound, z_bytes, z_entries = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
+    g_bound, g_bytes, g_entries = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim)
     say(f"k1_times ({smi}): " + " ".join(f"{k}={v!r}" for k, v in times.items())
         + f" z_bound_ms={z_bound!r} g_bound_ms={g_bound!r} "
+        f"z_entries={z_entries} g_entries={g_entries} "
         f"z_bytes={z_bytes} g_bytes={g_bytes}")
 
     # -- 4. main path at full width ---------------------------------------------

@@ -101,7 +101,23 @@ def bilinear_pass(
     """Apply a schedule to the flat ``src``; -> flat [num_out_blocks * W].
 
     ``sched`` is a ``_Schedule`` of ``ops/tiled_sparse.py``; ``vals``
-    overrides its entry values (the Hessian diagonal squares them)."""
+    overrides its entry values (the Hessian diagonal squares them).
+    ``src``, ``num_out_blocks`` and ``window`` must be those the schedule's
+    indices were checked against: the kernel reads and adds unchecked."""
+    if window != sched.window or num_out_blocks != sched.num_out_blocks:
+        raise ValueError(
+            f"bilinear_pass: window {window} and {num_out_blocks} output "
+            f"blocks, but the schedule was checked for window {sched.window} "
+            f"and {sched.num_out_blocks} output blocks"
+        )
+    if src.dim() != 1 or src.shape[0] != sched.num_in_blocks * window:
+        raise ValueError(
+            f"bilinear_pass: src must be flat [{sched.num_in_blocks} * "
+            f"{window}], got {tuple(src.shape)}"
+        )
+    v = sched.vals if vals is None else vals
+    if v.shape != sched.in_pos.shape or sched.out_pos.shape != sched.in_pos.shape:
+        raise ValueError("bilinear_pass: entry arrays differ in shape")
     if src.device.type == "cpu":
         return bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
     if src.device.type != "cuda":
@@ -128,11 +144,7 @@ def _launch(sched, src: Tensor, num_out_blocks: int, window: int, vals) -> Tenso
             raise TypeError(f"bilinear_pass: {name} is {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"bilinear_pass: {name} is not contiguous")
-    G8, L = sched.in_pos.shape
-    if sched.out_pos.shape != (G8, L) or v.shape != (G8, L):
-        raise ValueError("bilinear_pass: entry arrays differ in shape")
-    if src.dim() != 1 or src.shape[0] % window:
-        raise ValueError(f"bilinear_pass: src must be flat whole windows, got {tuple(src.shape)}")
+    L = sched.in_pos.shape[1]
     if segments.dim() != 2 or segments.shape[1] != 3:
         raise ValueError("bilinear_pass: segments must be [n_seg, 3]")
     if window * 4 > _MAX_SHARED_BYTES:

@@ -95,7 +95,9 @@ class _Schedule:
     """One pass's static schedule: steps of ``L`` entries sorted by output
     block (the JAX package's ``_Schedule`` arrays, as tensors).
 
-    ``segments`` is K1's CTA work table (``plan_segments``)."""
+    ``segments`` is K1's CTA work table (``plan_segments``). The window
+    and block counts are those the indices were checked against; K1's
+    wrapper holds its operands to them."""
 
     step_out: Tensor  # int32 [G] output block per step
     step_in: Tensor  # int32 [G] input block per step
@@ -107,6 +109,9 @@ class _Schedule:
     spill_in: Tensor  # int32 [S] flat input coordinate
     spill_vals: Tensor  # float32 [S] (0 for padding)
     segments: Tensor  # int32 [n_seg, 3]
+    window: int
+    num_out_blocks: int
+    num_in_blocks: int
 
     @property
     def num_steps(self) -> int:
@@ -138,12 +143,14 @@ class _Schedule:
             t(step_init, np.int32), t(o_pos, np.int32), t(i_pos, np.int32),
             t(sv, np.float32), t(sp_out, np.int32), t(sp_in, np.int32),
             t(sp_vals, np.float32), t(plan_segments(step_out), np.int32),
+            window, num_out_blocks, num_in_blocks,
         )
 
     def to(self, device) -> "_Schedule":
-        return _Schedule(*(
-            getattr(self, f.name).to(device) for f in dataclasses.fields(self)
-        ))
+        return dataclasses.replace(self, **{
+            f.name: v.to(device) for f in dataclasses.fields(self)
+            if isinstance(v := getattr(self, f.name), Tensor)
+        })
 
     def apply_spill(
         self, out_flat: Tensor, src_flat: Tensor, vals: Optional[Tensor] = None

@@ -92,6 +92,23 @@ def test_segments_cover_each_step_once_within_one_block(steps_per_cta):
     assert k1.plan_segments(np.zeros(0, np.int32)).shape == (0, 3)
 
 
+@pytest.mark.parametrize("bad", ["short_src", "long_src", "few_out_blocks", "window"])
+def test_operands_outside_the_checked_schedule_raise(bad):
+    _, params, _, tb = _problem("multi_window")
+    win, n_out = params.window, tb.num_row_blocks
+    src = torch.zeros(tb.dim)
+    if bad == "short_src":
+        src = src[:-win]
+    elif bad == "long_src":
+        src = torch.zeros(tb.dim + win)
+    elif bad == "few_out_blocks":
+        n_out -= 1
+    else:
+        win //= 2
+    with pytest.raises(ValueError, match="bilinear_pass"):
+        k1.bilinear_pass(tb.z_sched, src, n_out, win)
+
+
 def test_unsupported_device_raises():
     _, params, _, tb = _problem("spills")
     src = torch.zeros(tb.dim, device="meta")

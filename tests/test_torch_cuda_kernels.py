@@ -113,3 +113,9 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         k1.bilinear_pass(tb.z_sched, torch.zeros(tb.dim + 1, device=cuda),
                          tb.num_row_blocks, win)
+    with pytest.raises(ValueError):
+        k1.bilinear_pass(tb.z_sched, torch.zeros(tb.dim - win, device=cuda),
+                         tb.num_row_blocks, win)
+    with pytest.raises(ValueError):
+        k1.bilinear_pass(tb.z_sched, torch.zeros(tb.dim, device=cuda),
+                         tb.num_row_blocks - 1, win)
