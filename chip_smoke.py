@@ -6,20 +6,33 @@ NVIDIA card.
 
 Phases, each printing its own lines:
 
-1. device: the card's name and power limit (nvidia-smi), and the build of
-   the CUDA kernel (nvcc, sm_90a) and the native schedule builder (g++);
-2. K1, the bilinear pass, against its plain PyTorch version on the card,
-   at a small shape (forced spills, ragged tiles) and at the ads shape
-   (2^18 rows x 64 nnz x 2^20 features): z-pass, g-pass and the g-pass
-   over squared values;
-3. K1 times at the ads shape (CUDA events, after warm-up) beside the plain
-   version's, one torch.sparse CSR matvec of the same X (a yardstick the
-   port never calls) and the bytes bound;
-4. the main path at full width on planted-model logistic data: the
-   L-BFGS lambda-grid [10, 1] with variances and a TRON fit through
-   ``train_generalized_linear_model(kernel="tiled")``, then scores and
-   AUC, with K1's launch count over exactly that run;
-5. a ``kernels`` JSON line, the nvidia-smi line, and the last line
+1. device: the card's name and power limit (nvidia-smi), and the builds of
+   the CUDA kernels K1 and K2 (nvcc, sm_90a, side by side) and of the
+   native schedule builder (g++);
+2. K1, the bilinear pass, and K2, its grid form over a [G, d] bank,
+   against their plain PyTorch versions on the card: at a small shape
+   (forced spills, ragged tiles; K2 for G = 1, 3, 4, 5) and at the ads
+   shape (2^18 rows x 64 nnz x 2^20 features; K2 for G = 4, also against
+   4 launches of K1): z-pass, g-pass and the g-pass over squared values;
+3. times at the ads shape (CUDA events, after warm-up): K1 beside its
+   plain version and one torch.sparse CSR matvec of the same X; K2 at
+   G = 4 beside its plain version, the CSR product with the bank (SpMM),
+   4 launches of K1 and K2 on a transposed [n, G] layout; K3, the spill
+   remainder (index_add_), for a vector and for the bank; each with its
+   bound. The CSR calls are yardsticks the port never makes;
+4. the sequential path at full width on planted-model logistic data: the
+   warm-started L-BFGS lambda-grid [10, 1] with variances and a TRON fit
+   through ``train_generalized_linear_model(kernel="tiled")``, then scores
+   and AUC, with K1's launches over exactly that run;
+5. the batched grid path at full width on the same data, through
+   ``train_grid_batched(kernel="tiled")``: L-BFGS over [10, 1, 0.1, 0.01]
+   with variances, TRON over [10, 1] and OWL-QN elastic net over [1, 0.1],
+   with K2's and K1's launches and the host fetches over exactly each run;
+   then the bank objective against K1's objective at every L-BFGS
+   member's final point, each L-BFGS member against a cold sequential
+   fit of its lambda, and the batched L-BFGS grid's seconds against the
+   warm-started sequential grid's over the same lambdas, in turns;
+6. a ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -42,6 +55,8 @@ F32_FLOPS_PER_S = 67e12
 N_ROWS, NNZ_PER_ROW, DIM = 1 << 18, 64, 1 << 20
 N_HELD_OUT = 1 << 16
 RTOL = 1e-5  # of the output's largest magnitude: f32 sums, another order
+GRID_G = 4  # members of the bank K2 is checked and timed at, ads shape
+GRID_LAMBDAS = [10.0, 1.0, 0.1, 0.01]
 
 
 def say(*parts):
@@ -63,29 +78,64 @@ def planted_data(rng, n, w_true):
     return idx, vals, labels
 
 
-def compare_passes(k1, tb, rng, label):
-    """K1 against its plain version on z, g and g_sq passes; -> max abs err."""
-    win = tb.params.window
-    w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device="cuda")
-    c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device="cuda")
-    worst_abs, worst_rel = 0.0, 0.0
-    for name, sched, src, n_out, vals in (
+def pass_args(tb, w, c):
+    """(name, schedule, source, output blocks, values) of the z, g and
+    g_sq passes for sources ``w`` (coefficients) and ``c`` (rows)."""
+    return (
         ("z", tb.z_sched, w, tb.num_row_blocks, None),
         ("g", tb.g_sched, c, tb.num_feat_blocks, None),
         ("g_sq", tb.g_sched, c, tb.num_feat_blocks, tb.g_vals_sq),
-    ):
+    )
+
+
+def check_close(what, got, ref):
+    """Normwise: max |got - ref| <= 1e-6 + RTOL * max |ref|; -> (abs, rel)."""
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    rel = err / max(scale, 1e-30)
+    say(f"{what}: max_abs_err={err!r} max_rel_err={rel!r} scale={scale!r}")
+    if not np.isfinite(err) or err > 1e-6 + RTOL * scale:
+        fail(f"{what} disagrees")
+    return err, rel
+
+
+def compare_passes(k1, tb, rng, label):
+    """K1 against its plain version on z, g and g_sq passes; -> worst
+    (abs, rel) error."""
+    win = tb.params.window
+    w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device="cuda")
+    c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device="cuda")
+    worst = (0.0, 0.0)
+    for name, sched, src, n_out, vals in pass_args(tb, w, c):
         got = k1.bilinear_pass(sched, src, n_out, win, vals=vals)
         ref = k1.bilinear_pass_plain(sched, src, n_out, win, vals=vals)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        rel = err / max(scale, 1e-30)
-        say(f"k1_check {label} {name}: max_abs_err={err!r} max_rel_err={rel!r} "
-            f"scale={scale!r}")
-        if not np.isfinite(err) or err > 1e-6 + RTOL * scale:
-            fail(f"K1 {label} {name} disagrees with its plain version")
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-    return worst_abs, worst_rel
+        err = check_close(f"k1_check {label} {name}", got, ref)
+        worst = tuple(map(max, worst, err))
+    return worst
+
+
+def compare_grid_passes(k1, k2, tb, rng, label, G, against_k1=False):
+    """K2 against its plain version (and, if asked, against G launches of
+    K1) on z, g and g_sq passes over a bank of G members; -> worst (abs,
+    rel) error."""
+    win = tb.params.window
+    w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device="cuda")
+    c = torch.as_tensor(rng.normal(size=(G, tb.num_rows)).astype(np.float32), device="cuda")
+    worst = (0.0, 0.0)
+    for name, sched, src, n_out, vals in pass_args(tb, w, c):
+        got = k2.grid_bilinear_pass(sched, src, n_out, win, vals=vals)
+        ref = k2.grid_bilinear_pass_plain(sched, src, n_out, win, vals=vals)
+        err = check_close(f"k2_check {label} G={G} {name}", got, ref)
+        worst = tuple(map(max, worst, err))
+        if against_k1:
+            per_member = torch.stack([
+                k1.bilinear_pass(sched, src[g], n_out, win, vals=vals)
+                for g in range(G)
+            ])
+            err = check_close(f"k2_vs_k1 {label} G={G} {name}", got, per_member)
+            worst = tuple(map(max, worst, err))
+    return worst
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -102,17 +152,30 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def pass_bound_ms(sched, n_src, n_out):
-    """Least time for one pass: each entry's (in_pos, out_pos, val) read
-    once, the source read once, the output written once, over the HBM
-    rate; or 2 flops per entry over the f32 rate, whichever is larger.
-    Entries are the slots of the G steps that hold a value (the data's
-    values are normal draws, never 0); padding slots and spilled entries
-    (added by ``apply_spill``, not K1) do no work of K1's function."""
+def pass_bound_ms(sched, n_src, n_out, members=1):
+    """Least time for one pass over ``members`` source vectors: each
+    entry's (in_pos, out_pos, val) read once, each source read once, each
+    output written once, over the HBM rate; or 2 flops per entry and
+    member over the f32 rate, whichever is larger. Entries are the slots
+    of the G steps that hold a value (the data's values are normal draws,
+    never 0); padding slots and spilled entries (added by ``apply_spill``,
+    not K1 or K2) do no work of the kernel's function."""
     entries = int(torch.count_nonzero(sched.vals[: sched.num_steps]))
-    nbytes = 12 * entries + 4 * n_src + 4 * n_out
-    bound = max(nbytes / HBM_BYTES_PER_S, 2 * entries / F32_FLOPS_PER_S) * 1e3
+    nbytes = 12 * entries + 4 * members * (n_src + n_out)
+    bound = max(
+        nbytes / HBM_BYTES_PER_S, 2 * members * entries / F32_FLOPS_PER_S
+    ) * 1e3
     return bound, nbytes, entries
+
+
+def spill_bound_ms(sched, members=1):
+    """Least time for K3: each spilled entry's (out, in, val) read once,
+    its source element read once and its output element read and written
+    once per member, over the HBM rate (its 2 flops per entry and member
+    bound it far less)."""
+    spills = int(torch.count_nonzero(sched.spill_vals))
+    nbytes = 12 * spills + 12 * members * spills
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, spills
 
 
 def main() -> int:
@@ -131,11 +194,15 @@ def main() -> int:
     from photon_ml_tpu_torch.ops import losses
     from photon_ml_tpu_torch.ops import tiled_sparse as ts
     from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.ops.kernels import grid_bilinear_pass as k2
     from photon_ml_tpu_torch.ops.objective import GLMObjective
     from photon_ml_tpu_torch.optim import common
     from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
     from photon_ml_tpu_torch.task import TaskType
-    from photon_ml_tpu_torch.training import train_generalized_linear_model
+    from photon_ml_tpu_torch.training import (
+        train_generalized_linear_model,
+        train_grid_batched,
+    )
     from photon_ml_tpu_torch.utils.device import gpu_name_and_power_limit
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -149,17 +216,20 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     say(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ side by side
+    with ThreadPoolExecutor(3) as pool:  # two nvcc and one g++ side by side
         f_k1 = pool.submit(k1.build_kernel)
+        f_k2 = pool.submit(k2.build_kernel)
         f_native = pool.submit(ts._tile_lib)
         k1_build_s = f_k1.result()
+        k2_build_s = f_k2.result()
         native_ok = bool(f_native.result())
-    say(f"build: bilinear_pass.cu {k1_build_s:.2f} s; native schedule "
-        f"builder {'ok' if native_ok else 'unavailable (numpy builder)'}")
+    say(f"build: bilinear_pass.cu {k1_build_s:.2f} s, grid_bilinear_pass.cu "
+        f"{k2_build_s:.2f} s (in parallel); native schedule builder "
+        f"{'ok' if native_ok else 'unavailable (numpy builder)'}")
 
     rng = np.random.default_rng(args.seed)
 
-    # -- 2a. K1 against plain at a small shape ----------------------------------
+    # -- 2a. K1 and K2 against plain at a small shape ---------------------------
     n_s, d_s = 3000, 5000
     rows = rng.integers(0, n_s, 40000)
     feats = rng.integers(0, d_s, 40000)
@@ -176,6 +246,9 @@ def main() -> int:
         fail("small shape did not spill")
     say(f"small shape: {n_s} x {d_s}, window 64, chunk 32, {n_spill} spills")
     small_err = compare_passes(k1, small, rng, "small")
+    k2_errs = [
+        compare_grid_passes(k1, k2, small, rng, "small", G) for G in (1, 3, 4, 5)
+    ]
 
     # -- main-path data at the ads shape ----------------------------------------
     t0 = time.perf_counter()
@@ -206,15 +279,34 @@ def main() -> int:
         np.ones(N_HELD_OUT, np.float32), device="cuda",
     )
 
-    # -- 2b. K1 against plain at the ads shape ----------------------------------
+    # -- 2b. K1 and K2 against plain at the ads shape ---------------------------
     ads_err = compare_passes(k1, tb, rng, "ads")
+    k2_errs.append(
+        compare_grid_passes(k1, k2, tb, rng, "ads", GRID_G, against_k1=True)
+    )
+    k2_err = tuple(map(max, *k2_errs))
 
     # -- 3. times at the ads shape ----------------------------------------------
     win = tb.params.window
+    G = GRID_G
     w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device="cuda")
     c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device="cuda")
+    w_bank = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device="cuda")
+    c_bank = torch.as_tensor(rng.normal(size=(G, tb.num_rows)).astype(np.float32), device="cuda")
     z_args = (tb.z_sched, w, tb.num_row_blocks, win)
     g_args = (tb.g_sched, c, tb.num_feat_blocks, win)
+    zb_args = (tb.z_sched, w_bank, tb.num_row_blocks, win)
+    gb_args = (tb.g_sched, c_bank, tb.num_feat_blocks, win)
+
+    def transposed(sched, bank, n_out_blocks):
+        """K2 on a [n, G] layout, the transposes in and out included."""
+        n_out = n_out_blocks * win
+        out_t = torch.zeros(n_out, G, device="cuda")
+        k2.launch_strided(
+            sched, bank.T.contiguous(), (1, G), out_t, (1, G), G, win, sched.vals
+        )
+        return out_t.T.contiguous()
+
     coo = torch.stack([
         torch.arange(N_ROWS, device="cuda").repeat_interleave(NNZ_PER_ROW),
         torch.as_tensor(idx.reshape(-1), device="cuda"),
@@ -223,28 +315,103 @@ def main() -> int:
     x_csr = torch.sparse_coo_tensor(coo, x_vals, (tb.num_rows, tb.dim)).coalesce().to_sparse_csr()
     xt_csr = torch.sparse_coo_tensor(coo.flip(0), x_vals, (tb.dim, tb.num_rows)).coalesce().to_sparse_csr()
     del coo, x_vals
-    times = {}
-    for name, fn in (
-        ("z_ms", lambda: k1.bilinear_pass(*z_args)),
-        ("g_ms", lambda: k1.bilinear_pass(*g_args)),
-        ("z_plain_ms", lambda: k1.bilinear_pass_plain(*z_args)),
-        ("g_plain_ms", lambda: k1.bilinear_pass_plain(*g_args)),
-        ("z_library_ms", lambda: x_csr @ w[:, None]),
-        ("g_library_ms", lambda: xt_csr @ c[:, None]),
-        ("z_ms_again", lambda: k1.bilinear_pass(*z_args)),
-        ("g_ms_again", lambda: k1.bilinear_pass(*g_args)),
+    k1_times, k2_times = {}, {}
+    for table, name, fn in (
+        (k1_times, "z_ms", lambda: k1.bilinear_pass(*z_args)),
+        (k1_times, "g_ms", lambda: k1.bilinear_pass(*g_args)),
+        (k1_times, "z_plain_ms", lambda: k1.bilinear_pass_plain(*z_args)),
+        (k1_times, "g_plain_ms", lambda: k1.bilinear_pass_plain(*g_args)),
+        (k1_times, "z_library_ms", lambda: x_csr @ w[:, None]),
+        (k1_times, "g_library_ms", lambda: xt_csr @ c[:, None]),
+        (k1_times, "z_ms_again", lambda: k1.bilinear_pass(*z_args)),
+        (k1_times, "g_ms_again", lambda: k1.bilinear_pass(*g_args)),
+        (k2_times, "z_ms", lambda: k2.grid_bilinear_pass(*zb_args)),
+        (k2_times, "g_ms", lambda: k2.grid_bilinear_pass(*gb_args)),
+        (k2_times, "z_plain_ms", lambda: k2.grid_bilinear_pass_plain(*zb_args)),
+        (k2_times, "g_plain_ms", lambda: k2.grid_bilinear_pass_plain(*gb_args)),
+        (k2_times, "z_library_ms", lambda: x_csr @ w_bank.T),
+        (k2_times, "g_library_ms", lambda: xt_csr @ c_bank.T),
+        (k2_times, "z_k1_x_G_ms", lambda: [
+            k1.bilinear_pass(tb.z_sched, w_bank[g], tb.num_row_blocks, win)
+            for g in range(G)
+        ]),
+        (k2_times, "g_k1_x_G_ms", lambda: [
+            k1.bilinear_pass(tb.g_sched, c_bank[g], tb.num_feat_blocks, win)
+            for g in range(G)
+        ]),
+        (k2_times, "z_transposed_ms", lambda: transposed(tb.z_sched, w_bank, tb.num_row_blocks)),
+        (k2_times, "g_transposed_ms", lambda: transposed(tb.g_sched, c_bank, tb.num_feat_blocks)),
+        (k2_times, "z_ms_again", lambda: k2.grid_bilinear_pass(*zb_args)),
+        (k2_times, "g_ms_again", lambda: k2.grid_bilinear_pass(*gb_args)),
     ):
-        times[name] = time_ms(fn)
+        table[name] = time_ms(fn)
     del x_csr, xt_csr
+    check_close(
+        "k2_transposed_layout z",
+        transposed(tb.z_sched, w_bank, tb.num_row_blocks),
+        k2.grid_bilinear_pass_plain(*zb_args),
+    )
     z_bound, z_bytes, z_entries = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
     g_bound, g_bytes, g_entries = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim)
-    say(f"k1_times ({smi}): " + " ".join(f"{k}={v!r}" for k, v in times.items())
+    say(f"k1_times ({smi}): " + " ".join(f"{k}={v!r}" for k, v in k1_times.items())
         + f" z_bound_ms={z_bound!r} g_bound_ms={g_bound!r} "
         f"z_entries={z_entries} g_entries={g_entries} "
         f"z_bytes={z_bytes} g_bytes={g_bytes}")
+    zb_bound, zb_bytes, _ = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows, G)
+    gb_bound, gb_bytes, _ = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim, G)
+    say(f"k2_times G={G} members_per_cta={k2.members_per_cta(G, win)} ({smi}): "
+        + " ".join(f"{k}={v!r}" for k, v in k2_times.items())
+        + f" z_bound_ms={zb_bound!r} g_bound_ms={gb_bound!r} "
+        f"z_bytes={zb_bytes} g_bytes={gb_bytes}")
 
-    # -- 4. main path at full width ---------------------------------------------
+    # K3, the spill remainder, as the objective calls it (in place)
+    z_out = torch.zeros(tb.num_rows, device="cuda")
+    z_out_bank = torch.zeros(G, tb.num_rows, device="cuda")
+    k3_times = {
+        "seq_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out, w)),
+        "bank_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out_bank, w_bank)),
+    }
+    k3_bound, k3_bytes, k3_spills = spill_bound_ms(tb.z_sched)
+    k3b_bound, k3b_bytes, _ = spill_bound_ms(tb.z_sched, G)
+    say(f"k3_times z-pass spills ({smi}): spills={k3_spills} "
+        + " ".join(f"{k}={v!r}" for k, v in k3_times.items())
+        + f" seq_bound_ms={k3_bound!r} bank_bound_ms={k3b_bound!r} "
+        f"seq_bytes={k3_bytes} bank_bytes={k3b_bytes}")
+    del w_bank, c_bank, z_out, z_out_bank
+
+    def member_checks(label, model, result, variances_expected):
+        """Fail unless the objective fell, coefficients, scores and
+        variances are finite, variances positive and the AUCs above the
+        thresholds for planted data."""
+        means = model.coefficients.means
+        train_auc = float(area_under_roc_curve(
+            compute_margins(means, train), train.labels, train.weights))
+        held_margins = compute_margins(means, held_out)
+        held_auc = float(area_under_roc_curve(
+            held_margins, held_out.labels, held_out.weights))
+        f_first, f_last = float(result.tracker.values[0]), float(result.value)
+        say(f"fit {label}: iterations={result.iterations} "
+            f"reason={result.reason_name} objective {f_first!r} -> {f_last!r} "
+            f"train_auc={train_auc!r} held_out_auc={held_auc!r}")
+        if not f_last < f_first:
+            fail(f"{label}: the objective did not fall")
+        if not bool(torch.isfinite(means).all()) or not bool(
+            torch.isfinite(held_margins).all()
+        ):
+            fail(f"{label}: non-finite coefficients or scores")
+        if not (train_auc > 0.75 and held_auc > 0.55):
+            fail(f"{label}: AUC too low for planted data")
+        variances = model.coefficients.variances
+        if variances_expected and (
+            variances is None
+            or not bool(torch.isfinite(variances).all())
+            or not bool((variances > 0).all())
+        ):
+            fail(f"{label}: variances missing, non-finite or not positive")
+
+    # -- 4. sequential path at full width ---------------------------------------
     k1.launches = 0
+    k2.launches = 0
     common.host_fetches = 0
     t0 = time.perf_counter()
     models, results = train_generalized_linear_model(
@@ -267,44 +434,21 @@ def main() -> int:
     )
     torch.cuda.synchronize()
     tron_s = time.perf_counter() - t0
-    fits = [("lbfgs", lam, models[lam], results[lam]) for lam in models]
-    fits.append(("tron", 1.0, tron_models[1.0], tron_results[1.0]))
-    aucs = {}
-    for opt, lam, model, res in fits:
-        means = model.coefficients.means
-        train_auc = float(area_under_roc_curve(
-            compute_margins(means, train), train.labels, train.weights))
-        held_margins = compute_margins(means, held_out)
-        held_auc = float(area_under_roc_curve(
-            held_margins, held_out.labels, held_out.weights))
-        f_first, f_last = float(res.tracker.values[0]), float(res.value)
-        say(f"fit {opt} lambda={lam}: iterations={res.iterations} "
-            f"reason={res.reason_name} objective {f_first!r} -> {f_last!r} "
-            f"train_auc={train_auc!r} held_out_auc={held_auc!r}")
-        if not f_last < f_first:
-            fail(f"{opt} lambda={lam}: the objective did not fall")
-        if not bool(torch.isfinite(means).all()) or not bool(
-            torch.isfinite(held_margins).all()
-        ):
-            fail(f"{opt} lambda={lam}: non-finite coefficients or scores")
-        if not (train_auc > 0.75 and held_auc > 0.55):
-            fail(f"{opt} lambda={lam}: AUC too low for planted data")
-        aucs[f"{opt}_{lam}"] = held_auc
-    variances = models[1.0].coefficients.variances
-    if variances is None or not bool(torch.isfinite(variances).all()) or not bool(
-        (variances > 0).all()
-    ):
-        fail("variances missing, non-finite or not positive")
-    launches, fetches = k1.launches, common.host_fetches
-    say(f"main_path: lbfgs grid {lbfgs_s:.3f} s ({lbfgs_launches} K1 launches, "
-        f"{lbfgs_fetches} host fetches, iterations "
+    launches, fetches, seq_k2 = k1.launches, common.host_fetches, k2.launches
+    say(f"sequential_path: lbfgs grid {lbfgs_s:.3f} s ({lbfgs_launches} K1 "
+        f"launches, {lbfgs_fetches} host fetches, iterations "
         f"{[results[lam].iterations for lam in models]}); tron {tron_s:.3f} s "
         f"({launches - lbfgs_launches} K1 launches, "
         f"{fetches - lbfgs_fetches} host fetches, iterations "
-        f"{tron_results[1.0].iterations}); K1 launches {launches}, host "
-        f"fetches {fetches}")
+        f"{tron_results[1.0].iterations}); K1 launches {launches}, K2 "
+        f"launches {seq_k2}, host fetches {fetches}")
     if launches == 0:
-        fail("the main path never launched K1")
+        fail("the sequential path never launched K1")
+    if seq_k2:
+        fail("the sequential path launched K2")
+    for lam in models:
+        member_checks(f"lbfgs lambda={lam}", models[lam], results[lam], True)
+    member_checks("tron lambda=1.0", tron_models[1.0], tron_results[1.0], False)
 
     # the tiled CUDA objective at the fitted point against the scatter
     # objective (plain PyTorch gather/scatter) on the same rows; at l2 = 0,
@@ -320,7 +464,126 @@ def main() -> int:
     if not (v_err < 1e-5 and g_err < RTOL):
         fail("tiled objective disagrees with the scatter objective")
 
-    # -- 5. result lines --------------------------------------------------------
+    # -- 5. batched grid path at full width -------------------------------------
+    lbfgs_grid = dict(
+        optimizer_type=OptimizerType.LBFGS,
+        regularization_type=RegularizationType.L2,
+        regularization_weights=GRID_LAMBDAS, max_iter=10,
+        compute_variances=True, kernel="tiled", device="cuda",
+    )
+
+    def counted(fn):
+        """Run ``fn`` with every count at 0; -> (its result, host seconds
+        to a synchronised end, K1 launches, K2 launches, host fetches)."""
+        k1.launches = 0
+        k2.launches = 0
+        common.host_fetches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, k1.launches, k2.launches,
+                common.host_fetches)
+
+    grid_runs = {}
+    for label, kw in (
+        ("lbfgs", lbfgs_grid),
+        ("tron", dict(
+            optimizer_type=OptimizerType.TRON,
+            regularization_type=RegularizationType.L2,
+            regularization_weights=[10.0, 1.0], max_iter=3,
+            kernel="tiled", device="cuda",
+        )),
+        ("owlqn", dict(
+            optimizer_type=OptimizerType.LBFGS,
+            regularization_type=RegularizationType.ELASTIC_NET,
+            elastic_net_alpha=0.5, regularization_weights=[1.0, 0.1],
+            max_iter=5, kernel="tiled", device="cuda",
+        )),
+    ):
+        (g_models, g_results), seconds, n_k1, n_k2, n_fetch = counted(
+            lambda: train_grid_batched(tb, TaskType.LOGISTIC_REGRESSION, DIM, **kw)
+        )
+        run = dict(
+            seconds=seconds, k1=n_k1, k2=n_k2, fetches=n_fetch,
+            models=g_models, results=g_results,
+        )
+        grid_runs[label] = run
+        say(f"grid_path {label}: {seconds:.3f} s, {run['k2']} K2 launches, "
+            f"{run['k1']} K1 launches, {run['fetches']} host fetches; "
+            "members " + ", ".join(
+                f"lambda={lam}: {r.iterations} it {r.reason_name}"
+                for lam, r in g_results.items()
+            ))
+        if run["k1"]:
+            fail(f"grid {label}: K1 launched during a grid fit")
+        if run["k2"] == 0:
+            fail(f"grid {label}: K2 never launched")
+        for lam in g_models:
+            member_checks(
+                f"grid {label} lambda={lam}", g_models[lam], g_results[lam],
+                "compute_variances" in kw,
+            )
+    owl_means = grid_runs["owlqn"]["models"][1.0].coefficients.means
+    owl_zeros = int((owl_means == 0.0).sum())
+    say(f"grid owlqn lambda=1.0: {owl_zeros} exact zeros of {DIM}")
+    if owl_zeros == 0:
+        fail("the OWL-QN member at lambda=1 has no exact zeros")
+
+    # equivalence: the bank objective (K2) and K1's objective agree at
+    # every L-BFGS member's final point, at l2 = 0
+    lbfgs_models = grid_runs["lbfgs"]["models"]
+    bank = torch.stack([lbfgs_models[lam].coefficients.means for lam in GRID_LAMBDAS])
+    v_bank, g_bank = tiled_obj.value_and_gradient(
+        bank, tb, torch.zeros(len(GRID_LAMBDAS), device="cuda")
+    )
+    for i, lam in enumerate(GRID_LAMBDAS):
+        v_one, g_one = tiled_obj.value_and_gradient(bank[i], tb, 0.0)
+        v_rel = abs(float(v_bank[i]) - float(v_one)) / abs(float(v_one))
+        say(f"equivalence lambda={lam}: value rel err {v_rel!r}")
+        if v_rel > RTOL:
+            fail(f"bank objective value disagrees with K1's at lambda={lam}")
+        check_close(f"equivalence lambda={lam} gradient", g_bank[i], g_one)
+
+    # information, gated loosely: each L-BFGS member against a cold
+    # sequential fit of its lambda (float atomics can move line-search
+    # branch points, so the two need not agree to rounding)
+    grid_results = grid_runs["lbfgs"]["results"]
+    cold_s = 0.0
+    for lam in GRID_LAMBDAS:
+        (_, cold), seconds, _, _, _ = counted(lambda: train_generalized_linear_model(
+            tb, TaskType.LOGISTIC_REGRESSION, DIM,
+            **{**lbfgs_grid, "regularization_weights": [lam]},
+        ))
+        cold_s += seconds
+        f_grid, f_cold = float(grid_results[lam].value), float(cold[lam].value)
+        rel = abs(f_grid - f_cold) / abs(f_cold)
+        say(f"grid vs cold sequential lambda={lam}: objective {f_grid!r} vs "
+            f"{f_cold!r} (rel {rel!r}), iterations "
+            f"{grid_results[lam].iterations} vs {cold[lam].iterations}, "
+            f"cold fit {seconds!r} s")
+        if rel > 1e-2:
+            fail(f"grid member lambda={lam} far from its cold sequential fit")
+
+    # end to end: the batched L-BFGS grid against the warm-started
+    # sequential grid (the other path resolve_grid_mode can pick) over the
+    # same lambdas and budget, in turns, both after the first fit's warm-up
+    for label, trainer in (
+        ("batched", train_grid_batched),
+        ("sequential", train_generalized_linear_model),
+        ("sequential", train_generalized_linear_model),
+        ("batched", train_grid_batched),
+    ):
+        (_, res), seconds, n_k1, n_k2, n_fetch = counted(
+            lambda: trainer(tb, TaskType.LOGISTIC_REGRESSION, DIM, **lbfgs_grid)
+        )
+        say(f"grid_end_to_end {label}: {seconds!r} s over {len(GRID_LAMBDAS)} "
+            f"lambdas, iterations {[res[lam].iterations for lam in GRID_LAMBDAS]}, "
+            f"{n_k1} K1 launches, {n_k2} K2 launches, {n_fetch} host fetches "
+            f"({smi})")
+    say(f"grid_end_to_end cold sequential fits: {cold_s!r} s in all")
+
+    # -- 6. result lines --------------------------------------------------------
+    grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
         "route": "cuda",
@@ -328,15 +591,34 @@ def main() -> int:
         "replaces": "photon_ml_tpu/ops/tiled_sparse.py:1294",
         "launches": launches,
         "max_abs_err": max(small_err[0], ads_err[0]),
-        "ms": times["z_ms"] + times["g_ms"],
-        "plain_ms": times["z_plain_ms"] + times["g_plain_ms"],
+        "ms": k1_times["z_ms"] + k1_times["g_ms"],
+        "plain_ms": k1_times["z_plain_ms"] + k1_times["g_plain_ms"],
         "bound_ms": z_bound + g_bound,
         "bound_by": "bytes",
-        "library_ms": times["z_library_ms"] + times["g_library_ms"],
+        "library_ms": k1_times["z_library_ms"] + k1_times["g_library_ms"],
         "work": "one z-pass + one g-pass at the ads shape",
-        "z_ms": times["z_ms"], "g_ms": times["g_ms"],
+        "z_ms": k1_times["z_ms"], "g_ms": k1_times["g_ms"],
         "z_bound_ms": z_bound, "g_bound_ms": g_bound,
         "max_rel_err": max(small_err[1], ads_err[1]),
+    }, {
+        "name": "grid_bilinear_pass",
+        "route": "cuda",
+        "source": "photon_ml_tpu_torch/ops/csrc/grid_bilinear_pass.cu",
+        "replaces": "photon_ml_tpu/ops/tiled_sparse.py:1509",
+        "launches": grid_k2,
+        "G": G,
+        "max_abs_err": k2_err[0],
+        "ms": k2_times["z_ms"] + k2_times["g_ms"],
+        "plain_ms": k2_times["z_plain_ms"] + k2_times["g_plain_ms"],
+        "bound_ms": zb_bound + gb_bound,
+        "bound_by": "bytes",
+        "library_ms": k2_times["z_library_ms"] + k2_times["g_library_ms"],
+        "k1_x_G_ms": k2_times["z_k1_x_G_ms"] + k2_times["g_k1_x_G_ms"],
+        "transposed_ms": k2_times["z_transposed_ms"] + k2_times["g_transposed_ms"],
+        "work": f"one z-pass + one g-pass over a bank of {G} at the ads shape",
+        "z_ms": k2_times["z_ms"], "g_ms": k2_times["g_ms"],
+        "z_bound_ms": zb_bound, "g_bound_ms": gb_bound,
+        "max_rel_err": k2_err[1],
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

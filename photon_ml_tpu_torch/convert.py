@@ -39,6 +39,20 @@ def coefficients_from_reference(
     return Coefficients(_tensor(means, dev), _tensor(variances, dev))
 
 
+def coefficient_bank_from_reference(
+    means: np.ndarray, variances: Optional[np.ndarray] = None, *,
+    device: DeviceLike = None,
+) -> Coefficients:
+    """A reference coefficient bank (the batched grid's ``[G, d]`` means,
+    and optionally its ``[G, d]`` variances) -> the port's, e.g. as the
+    ``initial`` bank of ``run_grid``."""
+    if np.ndim(means) != 2 or (
+        variances is not None and np.shape(variances) != np.shape(means)
+    ):
+        raise ValueError("a coefficient bank is [G, d] means (and variances)")
+    return coefficients_from_reference(means, variances, device=device)
+
+
 def normalization_from_reference(
     factor: Optional[np.ndarray] = None, shift: Optional[np.ndarray] = None,
     *, device: DeviceLike = None,

@@ -121,14 +121,16 @@ def sparse_batch_from_arrays(
 
 
 def sparse_dot(batch: SparseBatch, w_eff: Tensor) -> Tensor:
-    """Per-row sparse dot product: [n]."""
-    gathered = w_eff.index_select(0, batch.indices.reshape(-1))
-    return (batch.values * gathered.view(batch.indices.shape)).sum(dim=-1)
+    """Per-row sparse dot product: w [d] -> [n], or a bank [G, d] ->
+    [G, n]."""
+    gathered = w_eff.index_select(-1, batch.indices.reshape(-1))
+    return (batch.values * gathered.unflatten(-1, batch.indices.shape)).sum(dim=-1)
 
 
 def sparse_scatter_add(batch: SparseBatch, row_coef: Tensor, dim: int) -> Tensor:
-    """sum_i row_coef[i] * x_i as a dense [dim] vector (the reference's
-    per-datum axpy, ValueAndGradientAggregator.scala:133-154)."""
-    contrib = (batch.values * row_coef[:, None]).reshape(-1)
-    out = torch.zeros(dim, dtype=batch.values.dtype, device=batch.values.device)
-    return out.index_add_(0, batch.indices.reshape(-1), contrib)
+    """sum_i row_coef[i] * x_i as a dense [dim] vector, or [G, dim] for a
+    bank of row coefficients [G, n] (the reference's per-datum axpy,
+    ValueAndGradientAggregator.scala:133-154)."""
+    contrib = (batch.values * row_coef[..., None]).flatten(-2)
+    out = row_coef.new_zeros(row_coef.shape[:-1] + (dim,))
+    return out.index_add_(-1, batch.indices.reshape(-1), contrib)

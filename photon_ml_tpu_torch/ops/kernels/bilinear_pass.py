@@ -32,16 +32,14 @@ rounding (relative error ~1e-7 of the output's scale, checked at 1e-5).
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.utils.device import build_dir
+from photon_ml_tpu_torch.ops.kernels.cuda_build import (
+    load_kernel_library,
+    timed_build,
+)
 
 Tensor = torch.Tensor
 
@@ -51,13 +49,7 @@ launches = 0
 # Steps of one output block given to one CTA (see the .cu source note).
 STEPS_PER_CTA = 8
 
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "bilinear_pass.cu",
-)
-_MAX_SHARED_BYTES = 227 * 1024
-_LIB_LOCK = threading.Lock()
-_lib = None
+MAX_SHARED_BYTES = 227 * 1024  # the H100's opt-in per CTA
 
 
 def plan_segments(step_out: np.ndarray, steps_per_cta: int = STEPS_PER_CTA) -> np.ndarray:
@@ -95,6 +87,43 @@ def bilinear_pass_plain(
     return out.index_add_(0, flat_out, v * src.index_select(0, flat_in))
 
 
+def check_operands(kernel: str, sched, num_out_blocks: int, window: int, vals):
+    """Checks a pass makes before its kernel reads ``sched`` unchecked:
+    ``num_out_blocks`` and ``window`` are those the schedule's indices were
+    checked against, and the entry arrays share one shape. -> the values."""
+    if window != sched.window or num_out_blocks != sched.num_out_blocks:
+        raise ValueError(
+            f"{kernel}: window {window} and {num_out_blocks} output "
+            f"blocks, but the schedule was checked for window {sched.window} "
+            f"and {sched.num_out_blocks} output blocks"
+        )
+    v = sched.vals if vals is None else vals
+    if v.shape != sched.in_pos.shape or sched.out_pos.shape != sched.in_pos.shape:
+        raise ValueError(f"{kernel}: entry arrays differ in shape")
+    return v
+
+
+def check_cuda_operands(kernel: str, sched, v: Tensor, src: Tensor) -> None:
+    """Device, type and contiguity of what a CUDA pass hands the kernel."""
+    tensors = {
+        "segments": (sched.segments, torch.int32),
+        "step_in": (sched.step_in, torch.int32),
+        "in_pos": (sched.in_pos, torch.int32),
+        "out_pos": (sched.out_pos, torch.int32),
+        "vals": (v, torch.float32),
+        "src": (src, torch.float32),
+    }
+    for name, (t, dtype) in tensors.items():
+        if t.device != src.device:
+            raise ValueError(f"{kernel}: {name} on {t.device}, src on {src.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+    if sched.segments.dim() != 2 or sched.segments.shape[1] != 3:
+        raise ValueError(f"{kernel}: segments must be [n_seg, 3]")
+
+
 def bilinear_pass(
     sched, src: Tensor, num_out_blocks: int, window: int, vals: Tensor = None
 ) -> Tensor:
@@ -104,57 +133,31 @@ def bilinear_pass(
     overrides its entry values (the Hessian diagonal squares them).
     ``src``, ``num_out_blocks`` and ``window`` must be those the schedule's
     indices were checked against: the kernel reads and adds unchecked."""
-    if window != sched.window or num_out_blocks != sched.num_out_blocks:
-        raise ValueError(
-            f"bilinear_pass: window {window} and {num_out_blocks} output "
-            f"blocks, but the schedule was checked for window {sched.window} "
-            f"and {sched.num_out_blocks} output blocks"
-        )
+    v = check_operands("bilinear_pass", sched, num_out_blocks, window, vals)
     if src.dim() != 1 or src.shape[0] != sched.num_in_blocks * window:
         raise ValueError(
             f"bilinear_pass: src must be flat [{sched.num_in_blocks} * "
             f"{window}], got {tuple(src.shape)}"
         )
-    v = sched.vals if vals is None else vals
-    if v.shape != sched.in_pos.shape or sched.out_pos.shape != sched.in_pos.shape:
-        raise ValueError("bilinear_pass: entry arrays differ in shape")
     if src.device.type == "cpu":
         return bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
     if src.device.type != "cuda":
         raise ValueError(f"bilinear_pass: unsupported device {src.device}")
-    return _launch(sched, src, num_out_blocks, window, vals)
+    return _launch(sched, src, num_out_blocks, window, v)
 
 
-def _launch(sched, src: Tensor, num_out_blocks: int, window: int, vals) -> Tensor:
+def _launch(sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor) -> Tensor:
     global launches
-    v = sched.vals if vals is None else vals
-    segments = sched.segments
-    tensors = {
-        "segments": (segments, torch.int32),
-        "step_in": (sched.step_in, torch.int32),
-        "in_pos": (sched.in_pos, torch.int32),
-        "out_pos": (sched.out_pos, torch.int32),
-        "vals": (v, torch.float32),
-        "src": (src, torch.float32),
-    }
-    for name, (t, dtype) in tensors.items():
-        if t.device != src.device:
-            raise ValueError(f"bilinear_pass: {name} on {t.device}, src on {src.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"bilinear_pass: {name} is {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"bilinear_pass: {name} is not contiguous")
-    L = sched.in_pos.shape[1]
-    if segments.dim() != 2 or segments.shape[1] != 3:
-        raise ValueError("bilinear_pass: segments must be [n_seg, 3]")
-    if window * 4 > _MAX_SHARED_BYTES:
+    check_cuda_operands("bilinear_pass", sched, v, src)
+    if window * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"bilinear_pass: window {window} exceeds shared memory")
     lib = _kernel_lib()
     out = torch.zeros(num_out_blocks * window, dtype=torch.float32, device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     rc = lib.photon_bilinear_pass(
-        segments.data_ptr(), segments.shape[0], sched.step_in.data_ptr(),
-        sched.in_pos.data_ptr(), sched.out_pos.data_ptr(), v.data_ptr(), L,
+        sched.segments.data_ptr(), sched.segments.shape[0],
+        sched.step_in.data_ptr(), sched.in_pos.data_ptr(),
+        sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
         src.data_ptr(), out.data_ptr(), window, stream,
     )
     if rc != 0:
@@ -164,54 +167,20 @@ def _launch(sched, src: Tensor, num_out_blocks: int, window: int, vals) -> Tenso
     return out
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
+def _declare(lib) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.photon_bilinear_pass.restype = i
+    lib.photon_bilinear_pass.argtypes = [p, i, p, p, p, p, i, p, p, i, p]
+    lib.photon_cuda_error_string.restype = ctypes.c_char_p
+    lib.photon_cuda_error_string.argtypes = [i]
+
+
+def _kernel_lib():
+    return load_kernel_library("bilinear_pass.cu", _declare)
 
 
 def build_kernel() -> float:
     """Compile the kernel (if its library is older than its source) and
     load it; -> seconds spent. Raises when ``nvcc`` fails."""
-    t0 = time.perf_counter()
-    _kernel_lib()
-    return time.perf_counter() - t0
-
-
-def _kernel_lib():
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _LIB_LOCK:
-        if _lib is not None:
-            return _lib
-        out_dir = build_dir()
-        lib_path = os.path.join(out_dir, "libbilinear_pass.so")
-        if not (
-            os.path.isfile(lib_path)
-            and os.path.getmtime(lib_path) >= os.path.getmtime(_SOURCE)
-        ):
-            os.makedirs(out_dir, exist_ok=True)
-            tmp_path = f"{lib_path}.{os.getpid()}.tmp"
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-o", tmp_path, _SOURCE,
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            os.replace(tmp_path, lib_path)
-        lib = ctypes.CDLL(lib_path)
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.photon_bilinear_pass.restype = i
-        lib.photon_bilinear_pass.argtypes = [p, i, p, p, p, p, i, p, p, i, p]
-        lib.photon_cuda_error_string.restype = ctypes.c_char_p
-        lib.photon_cuda_error_string.argtypes = [i]
-        _lib = lib
-    return _lib
+    return timed_build(_kernel_lib)

@@ -8,7 +8,9 @@ objective:
     margin = x . (factor * w) - shift . (factor * w)
     grad   = factor * (sum_i c_i x_i - shift * sum_i c_i)
 
-The intercept column (if any) has ``shift = 0, factor = 1``.
+The intercept column (if any) has ``shift = 0, factor = 1``. Every
+method takes one coefficient vector ``[d]`` or a bank ``[G, d]`` (the
+batched λ-grid); per-vector scalars come back as ``[]`` or ``[G]``.
 """
 
 from __future__ import annotations
@@ -53,15 +55,15 @@ class NormalizationContext:
     def shift_dot(self, coef_eff: Tensor) -> Tensor:
         """shift . w_eff, the scalar subtracted from every margin."""
         if self.shift is None:
-            return torch.zeros((), dtype=coef_eff.dtype, device=coef_eff.device)
-        return torch.dot(self.shift, coef_eff)
+            return coef_eff.new_zeros(coef_eff.shape[:-1])
+        return coef_eff @ self.shift
 
     def unshift_gradient(self, vector_sum: Tensor, prefactor_sum: Tensor) -> Tensor:
         """(vectorSum - shift * prefactor) * factor
         (ValueAndGradientAggregator.scala:199-221)."""
         g = vector_sum
         if self.shift is not None:
-            g = g - self.shift * prefactor_sum
+            g = g - self.shift * prefactor_sum[..., None]
         if self.factor is not None:
             g = g * self.factor
         return g
@@ -73,8 +75,8 @@ class NormalizationContext:
     def intercept_adjustment(self, coef: Tensor) -> Tensor:
         """Amount to add to the intercept when mapping back to original space."""
         if self.shift is None:
-            return torch.zeros((), dtype=coef.dtype, device=coef.device)
-        return -torch.dot(self.shift, self.effective_coefficients(coef))
+            return coef.new_zeros(coef.shape[:-1])
+        return -(self.effective_coefficients(coef) @ self.shift)
 
 
 def identity_context() -> NormalizationContext:

@@ -10,6 +10,11 @@ oracle for the tiled objective.
 Semantics match the reference: total = sum_i weight_i * loss_i (no 1/n),
 the L2 term lambda/2 * ||w||^2 is added once, L1 is not part of the
 objective, and normalization is applied algebraically.
+
+Every method takes one coefficient vector ``[d]`` with a scalar
+``l2_weight``, or a bank ``[G, d]`` with an ``l2_weight`` per member
+``[G]`` (the batched λ-grid: what the reference gets from ``jax.vmap``).
+Values come back as ``[]`` or ``[G]``, vectors as ``[d]`` or ``[G, d]``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,21 @@ from photon_ml_tpu_torch.ops.normalization import (
 Tensor = torch.Tensor
 
 
+def squared_norm(coef: Tensor) -> Tensor:
+    """||w||^2 of a vector, or of each member of a bank."""
+    if coef.dim() == 1:
+        return torch.dot(coef, coef)
+    return (coef * coef).sum(dim=-1)
+
+
+def per_member(weight, coef: Tensor):
+    """A weight as a factor of ``coef``: a per-member ``[G]`` weight becomes
+    a column ``[G, 1]`` against a bank; a scalar stays as it is."""
+    if torch.is_tensor(weight) and weight.dim() == 1:
+        return weight[:, None]
+    return weight
+
+
 @dataclass(frozen=True)
 class GLMObjective:
     """A weighted GLM objective over a SparseBatch of dimension ``dim``."""
@@ -45,12 +65,12 @@ class GLMObjective:
         """z_i = x_eff_i . w_eff + offset_i (normalized-space margin)."""
         w_eff = self.norm.effective_coefficients(coef)
         raw = sparse_dot(batch, w_eff)
-        return raw - self.norm.shift_dot(w_eff) + batch.offsets
+        return raw - self.norm.shift_dot(w_eff)[..., None] + batch.offsets
 
     def value(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
         z = self.margins(coef, batch)
-        val = torch.sum(batch.weights * self.loss.value(z, batch.labels))
-        return val + 0.5 * l2_weight * torch.dot(coef, coef)
+        val = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
+        return val + 0.5 * l2_weight * squared_norm(coef)
 
     def value_and_gradient(
         self, coef: Tensor, batch: SparseBatch, l2_weight=0.0
@@ -58,11 +78,11 @@ class GLMObjective:
         """grad = factor * (vectorSum - shift * prefactorSum) + lambda * w."""
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d1(z, batch.labels)
-        value_sum = torch.sum(batch.weights * self.loss.value(z, batch.labels))
+        value_sum = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
         vector_sum = sparse_scatter_add(batch, c, self.dim)
-        grad = self.norm.unshift_gradient(vector_sum, torch.sum(c))
-        value = value_sum + 0.5 * l2_weight * torch.dot(coef, coef)
-        return value, grad + l2_weight * coef
+        grad = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        value = value_sum + 0.5 * l2_weight * squared_norm(coef)
+        return value, grad + per_member(l2_weight, coef) * coef
 
     def gradient(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
         return self.value_and_gradient(coef, batch, l2_weight)[1]
@@ -71,14 +91,13 @@ class GLMObjective:
         self, coef: Tensor, direction: Tensor, batch: SparseBatch, l2_weight=0.0
     ) -> Tensor:
         """H(w) @ d (HessianVectorAggregator.scala:137-152)."""
-        w_eff = self.norm.effective_coefficients(coef)
         d_eff = self.norm.effective_coefficients(direction)
-        z = sparse_dot(batch, w_eff) - self.norm.shift_dot(w_eff) + batch.offsets
-        zd = sparse_dot(batch, d_eff) - self.norm.shift_dot(d_eff)
+        z = self.margins(coef, batch)
+        zd = sparse_dot(batch, d_eff) - self.norm.shift_dot(d_eff)[..., None]
         c = batch.weights * self.loss.d2(z, batch.labels) * zd
         vector_sum = sparse_scatter_add(batch, c, self.dim)
-        hv = self.norm.unshift_gradient(vector_sum, torch.sum(c))
-        return hv + l2_weight * direction
+        hv = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        return hv + per_member(l2_weight, direction) * direction
 
     def hessian_diagonal(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
         """diag(H) for variances 1/(Hdiag + eps). With x_eff = (x - shift) *
@@ -86,12 +105,14 @@ class GLMObjective:
         c_i = weight_i l''_i, S2 = sum c x^2, S1 = sum c x, S0 = sum c."""
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d2(z, batch.labels)
-        diag = torch.zeros(self.dim, dtype=c.dtype, device=c.device).index_add_(
-            0, batch.indices.reshape(-1), (batch.values**2 * c[:, None]).reshape(-1)
+        diag = c.new_zeros(c.shape[:-1] + (self.dim,)).index_add_(
+            -1, batch.indices.reshape(-1),
+            (batch.values**2 * c[..., None]).flatten(-2),
         )
         if self.norm.shift is not None:
             s1 = sparse_scatter_add(batch, c, self.dim)
-            diag = diag - 2.0 * self.norm.shift * s1 + self.norm.shift**2 * torch.sum(c)
+            s0 = torch.sum(c, dim=-1)[..., None]
+            diag = diag - 2.0 * self.norm.shift * s1 + self.norm.shift**2 * s0
         if self.norm.factor is not None:
             diag = diag * self.norm.factor**2
-        return diag + l2_weight
+        return diag + per_member(l2_weight, coef)

@@ -13,6 +13,12 @@ format, and applied on every evaluation by K1, the bilinear pass
   gradient and each Hessian-vector product, and, over squared values, the
   Hessian diagonal.
 
+Over a coefficient bank ``[G, d]`` (the batched λ-grid) every pass goes
+to K2, the grid pass (``ops/kernels/grid_bilinear_pass.py``), which reads
+the schedule once for the whole bank; only the source is batched, never
+the schedule or its values (the reference's ``custom_vmap`` rule,
+``photon_ml_tpu/ops/tiled_sparse.py:1583-1601``).
+
 Tile tails too small for a step are "spilled" to an exact ``index_add_``
 remainder (``_Schedule.apply_spill``).
 
@@ -41,10 +47,12 @@ from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
     bilinear_pass,
     plan_segments,
 )
+from photon_ml_tpu_torch.ops.kernels.grid_bilinear_pass import grid_bilinear_pass
 from photon_ml_tpu_torch.ops.normalization import (
     NormalizationContext,
     identity_context,
 )
+from photon_ml_tpu_torch.ops.objective import per_member, squared_norm
 from photon_ml_tpu_torch.utils.device import DeviceLike, build_dir, resolve_device
 
 Tensor = torch.Tensor
@@ -156,13 +164,14 @@ class _Schedule:
         self, out_flat: Tensor, src_flat: Tensor, vals: Optional[Tensor] = None
     ) -> Tensor:
         """out_flat[spill_out] += spill_vals * src_flat[spill_in], in place
-        (K3: the exact remainder completing K1's partial sums). ``vals``
+        (K3: the exact remainder completing K1's and K2's partial sums),
+        over the last axis, so a bank [G, n] takes it row by row. ``vals``
         overrides the values (the Hessian diagonal squares them)."""
         if self.spill_vals.shape[0] == 0:
             return out_flat
         v = self.spill_vals if vals is None else vals
         return out_flat.index_add_(
-            0, self.spill_out, v * src_flat.index_select(0, self.spill_in)
+            -1, self.spill_out, v * src_flat.index_select(-1, self.spill_in)
         )
 
 
@@ -659,21 +668,28 @@ def tiled_batch_from_sparse(
 @dataclass(frozen=True)
 class TiledGLMObjective:
     """The GLM objective over a TiledSparseBatch: the scatter objective's
-    math and method contract (``ops/objective.py``), with margins and
-    gradients computed by K1 over the two schedules."""
+    math and method contract (``ops/objective.py``, one vector or a bank),
+    with margins and gradients computed by K1 (a vector) or K2 (a bank)
+    over the two schedules."""
 
     loss: object
     dim: int  # real (unpadded) coefficient dimension
     norm: NormalizationContext = dataclasses.field(default_factory=identity_context)
 
     def _pad(self, w: Tensor, batch: TiledSparseBatch) -> Tensor:
-        if w.shape[0] == batch.dim:
+        if w.shape[-1] == batch.dim:
             return w.contiguous()
-        return torch.nn.functional.pad(w, (0, batch.dim - w.shape[0]))
+        return torch.nn.functional.pad(w, (0, batch.dim - w.shape[-1]))
+
+    @staticmethod
+    def _pass(sched, src: Tensor, num_out_blocks: int, window: int, vals=None):
+        """K1 for a vector, K2 for a bank (the spills are the caller's)."""
+        run = grid_bilinear_pass if src.dim() == 2 else bilinear_pass
+        return run(sched, src, num_out_blocks, window, vals=vals)
 
     def _z_pass(self, w_padded: Tensor, batch: TiledSparseBatch) -> Tensor:
-        """Raw row sums [num_rows] of X . w."""
-        raw = bilinear_pass(
+        """Raw row sums [num_rows] (or [G, num_rows]) of X . w."""
+        raw = self._pass(
             batch.z_sched, w_padded, batch.num_row_blocks, batch.params.window
         )
         return batch.z_sched.apply_spill(raw, w_padded)
@@ -682,9 +698,9 @@ class TiledGLMObjective:
         self, c_rows: Tensor, batch: TiledSparseBatch,
         vals: Optional[Tensor] = None, spill_vals: Optional[Tensor] = None,
     ) -> Tensor:
-        """X^T . c [dim] (padded)."""
+        """X^T . c [dim] (or [G, dim]), padded."""
         c_rows = c_rows.contiguous()
-        g = bilinear_pass(
+        g = self._pass(
             batch.g_sched, c_rows, batch.num_feat_blocks, batch.params.window,
             vals=vals,
         )
@@ -694,24 +710,24 @@ class TiledGLMObjective:
         """z_i = x_eff_i . w_eff + offset_i in padded row space."""
         w_eff = self.norm.effective_coefficients(coef)
         raw = self._z_pass(self._pad(w_eff, batch), batch)
-        return raw - self.norm.shift_dot(w_eff) + batch.offsets
+        return raw - self.norm.shift_dot(w_eff)[..., None] + batch.offsets
 
     def value(self, coef: Tensor, batch: TiledSparseBatch, l2_weight=0.0) -> Tensor:
         z = self.margins(coef, batch)
-        val = torch.sum(batch.weights * self.loss.value(z, batch.labels))
-        return val + 0.5 * l2_weight * torch.dot(coef, coef)
+        val = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
+        return val + 0.5 * l2_weight * squared_norm(coef)
 
     def value_and_gradient(
         self, coef: Tensor, batch: TiledSparseBatch, l2_weight=0.0
     ) -> Tuple[Tensor, Tensor]:
-        d_in = coef.shape[0]
+        d_in = coef.shape[-1]
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d1(z, batch.labels)
-        value_sum = torch.sum(batch.weights * self.loss.value(z, batch.labels))
-        vector_sum = self._grad_pass(c, batch)[:d_in]
-        grad = self.norm.unshift_gradient(vector_sum, torch.sum(c))
-        value = value_sum + 0.5 * l2_weight * torch.dot(coef, coef)
-        return value, grad + l2_weight * coef
+        value_sum = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
+        vector_sum = self._grad_pass(c, batch)[..., :d_in]
+        grad = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        value = value_sum + 0.5 * l2_weight * squared_norm(coef)
+        return value, grad + per_member(l2_weight, coef) * coef
 
     def gradient(self, coef: Tensor, batch: TiledSparseBatch, l2_weight=0.0) -> Tensor:
         return self.value_and_gradient(coef, batch, l2_weight)[1]
@@ -721,34 +737,34 @@ class TiledGLMObjective:
         l2_weight=0.0,
     ) -> Tensor:
         """H(w) @ d: two z-passes and one g-pass."""
-        d_in = coef.shape[0]
-        w_eff = self.norm.effective_coefficients(coef)
+        d_in = coef.shape[-1]
         d_eff = self.norm.effective_coefficients(direction)
-        z = (
-            self._z_pass(self._pad(w_eff, batch), batch)
-            - self.norm.shift_dot(w_eff) + batch.offsets
+        z = self.margins(coef, batch)
+        zd = (
+            self._z_pass(self._pad(d_eff, batch), batch)
+            - self.norm.shift_dot(d_eff)[..., None]
         )
-        zd = self._z_pass(self._pad(d_eff, batch), batch) - self.norm.shift_dot(d_eff)
         c = batch.weights * self.loss.d2(z, batch.labels) * zd
-        vector_sum = self._grad_pass(c, batch)[:d_in]
-        hv = self.norm.unshift_gradient(vector_sum, torch.sum(c))
-        return hv + l2_weight * direction
+        vector_sum = self._grad_pass(c, batch)[..., :d_in]
+        hv = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        return hv + per_member(l2_weight, direction) * direction
 
     def hessian_diagonal(
         self, coef: Tensor, batch: TiledSparseBatch, l2_weight=0.0
     ) -> Tensor:
         """diag(H): the g-pass over squared values (and, with a shift, the
         plain g-pass for S1)."""
-        d_in = coef.shape[0]
+        d_in = coef.shape[-1]
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d2(z, batch.labels)
         diag = self._grad_pass(
             c, batch, vals=batch.g_vals_sq,
             spill_vals=batch.g_sched.spill_vals**2,
-        )[:d_in]
+        )[..., :d_in]
         if self.norm.shift is not None:
-            s1 = self._grad_pass(c, batch)[:d_in]
-            diag = diag - 2.0 * self.norm.shift * s1 + self.norm.shift**2 * torch.sum(c)
+            s1 = self._grad_pass(c, batch)[..., :d_in]
+            s0 = torch.sum(c, dim=-1)[..., None]
+            diag = diag - 2.0 * self.norm.shift * s1 + self.norm.shift**2 * s0
         if self.norm.factor is not None:
             diag = diag * self.norm.factor**2
-        return diag + l2_weight
+        return diag + per_member(l2_weight, coef)

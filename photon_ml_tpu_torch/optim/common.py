@@ -4,11 +4,19 @@ projection (port of ``photon_ml_tpu/optim/common.py``).
 Reference: photon-ml .../optimization/Optimizer.scala (convergence checks
 at 156-170), OptimizationStatesTracker.scala, OptimizationUtils.
 
-The reference runs its optimizers as ``lax.while_loop`` programs. Here the
-loop is Python over tensors that stay on the device; the host reads only
-the scalars that decide control flow, batched into one copy by
-:func:`fetch`. ``host_fetches`` counts those copies: one per line-search
-trial, one per CG step and one per outer iteration.
+The reference runs its optimizers as ``lax.while_loop`` programs and
+``jax.vmap``s them over a ``[G, d]`` coefficient bank for the batched
+λ-grid. Here the loop is Python over tensors that stay on the device, and
+every optimizer runs over a bank: ``G`` members side by side, each with
+its own state, step sizes and stop reason (one fit is a bank of one). The
+host reads only what decides control flow, for the whole bank in one copy
+made by :func:`fetch`. ``host_fetches`` counts those copies: one per
+line-search trial, one per CG step and one per outer trip, so the count
+follows the slowest member and not G.
+
+Freeze (the batching rule of ``lax.while_loop``): a member whose reason is
+no longer NOT_CONVERGED keeps its state bit for bit while the others go
+on; every update is a ``torch.where`` on the ``[G]`` active mask.
 
 Convergence reasons mirror the reference's:
   MAX_ITERATIONS, FUNCTION_VALUES_WITHIN_TOLERANCE (|f_k - f_{k-1}| <=
@@ -18,8 +26,8 @@ Convergence reasons mirror the reference's:
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -43,11 +51,45 @@ CONVERGENCE_REASON_NAMES = {
 host_fetches = 0
 
 
-def fetch(*scalars: Tensor) -> List[float]:
-    """Copy a few 0-d tensors to the host in ONE transfer; counted."""
+def fetch(*tensors: Tensor) -> List:
+    """Copy a few small tensors to the host in ONE transfer; counted.
+    -> a float for each 0-d tensor, a list for each 1-d one."""
     global host_fetches
     host_fetches += 1
-    return torch.stack([s.to(torch.float64) for s in scalars]).tolist()
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).tolist()
+    out, i = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[i] if t.dim() == 0 else flat[i:i + n])
+        i += n
+    return out
+
+
+def dot(a: Tensor, b: Tensor) -> Tensor:
+    """Member-wise inner product of two banks [G, d] -> [G]."""
+    return (a * b).sum(dim=-1)
+
+
+def norm(a: Tensor) -> Tensor:
+    """Member-wise Euclidean norm [G, d] -> [G]."""
+    return torch.linalg.vector_norm(a, dim=-1)
+
+
+def select(mask: Tensor, new: Tensor, old: Tensor) -> Tensor:
+    """``new`` where the [G] mask holds, else ``old``, for [G] or [G, ...]
+    state (the per-member carry select of a batched while_loop)."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
+
+
+def as_bank_of_one(fn: Callable) -> Callable:
+    """A function of single vectors as a function of banks of one member:
+    what lets one fit run through the bank optimizers."""
+
+    def bank_fn(*banks):
+        out = fn(*(b[0] for b in banks))
+        return tuple(o[None] for o in out) if isinstance(out, tuple) else out[None]
+
+    return bank_fn
 
 
 @dataclass(frozen=True)
@@ -63,39 +105,61 @@ class BoxConstraints:
 
 @dataclass
 class Tracker:
-    """Per-iteration trace: value and gradient norm of the initial point
-    and of every iteration (device scalars)."""
+    """Per-iteration trace: slot i holds the value and gradient norm of
+    iteration i (slot 0 the initial point) and ``count`` the filled slots.
+    A bank's tracker has a leading grid axis and a count per member."""
 
-    values: List[Tensor] = field(default_factory=list)
-    grad_norms: List[Tensor] = field(default_factory=list)
+    values: Tensor  # [cap] or [G, cap]
+    grad_norms: Tensor  # [cap] or [G, cap]
+    count: Union[int, List[int]]
 
-    @property
-    def count(self) -> int:
-        return len(self.values)
+    @classmethod
+    def start(cls, value: Tensor, grad_norm: Tensor, capacity: int) -> "Tracker":
+        values = value.new_zeros(value.shape + (capacity,))
+        grad_norms = grad_norm.new_zeros(grad_norm.shape + (capacity,))
+        values[..., 0] = value
+        grad_norms[..., 0] = grad_norm
+        return cls(values, grad_norms, [1] * value.shape[0])
 
-    def record(self, value: Tensor, grad_norm: Tensor):
-        self.values.append(value)
-        self.grad_norms.append(grad_norm)
+    def record(self, trip: int, active: Tensor, value: Tensor, grad_norm: Tensor):
+        """Write slot ``trip`` of the active members (every active member
+        has made exactly ``trip`` iterations); the host keeps the counts."""
+        i = min(trip, self.values.shape[-1] - 1)
+        self.values[:, i] = torch.where(active, value, self.values[:, i])
+        self.grad_norms[:, i] = torch.where(active, grad_norm, self.grad_norms[:, i])
 
 
 @dataclass
 class OptResult:
-    """Result of one optimize() call."""
+    """Result of one optimize() call: one fit (``iterations`` and
+    ``reason`` ints) or a bank (tensors with a leading grid axis, and
+    lists of ints); :meth:`member` takes one fit out of a bank."""
 
     coefficients: Tensor
     value: Tensor
     grad_norm: Tensor
-    iterations: int
-    reason: int
+    iterations: Union[int, List[int]]
+    reason: Union[int, List[int]]
     tracker: Tracker
 
     @property
     def reason_name(self) -> str:
         return CONVERGENCE_REASON_NAMES.get(self.reason, "?")
 
+    def member(self, i: int) -> "OptResult":
+        t = self.tracker
+        return OptResult(
+            coefficients=self.coefficients[i],
+            value=self.value[i],
+            grad_norm=self.grad_norm[i],
+            iterations=self.iterations[i],
+            reason=self.reason[i],
+            tracker=Tracker(t.values[i], t.grad_norms[i], t.count[i]),
+        )
+
 
 def check_convergence(
-    iteration: int,
+    iteration: Tensor,
     f_prev: Tensor,
     f_cur: Tensor,
     g_norm: Tensor,
@@ -105,17 +169,18 @@ def check_convergence(
     max_iter: int,
     tol: float,
 ) -> Tensor:
-    """Convergence-reason code (0 if not converged), on the device;
-    relative tests against the initial state (Optimizer.scala:156-170)."""
+    """Convergence-reason code per member (0 if not converged), on the
+    device; relative tests against each member's initial state and its own
+    iteration count (Optimizer.scala:156-170)."""
     reason = torch.where(
         torch.abs(f_cur - f_prev) <= tol * torch.abs(f0),
         FUNCTION_VALUES_WITHIN_TOLERANCE,
         NOT_CONVERGED,
     )
     reason = torch.where(g_norm <= tol * g0_norm, GRADIENT_WITHIN_TOLERANCE, reason)
-    if iteration >= max_iter:
-        reason = torch.where(reason == NOT_CONVERGED, MAX_ITERATIONS, reason)
-    return reason
+    return torch.where(
+        (reason == NOT_CONVERGED) & (iteration >= max_iter), MAX_ITERATIONS, reason
+    )
 
 
 ValueAndGrad = Callable[[Tensor], Tuple[Tensor, Tensor]]
@@ -123,11 +188,11 @@ ValueAndGrad = Callable[[Tensor], Tuple[Tensor, Tensor]]
 
 @dataclass
 class LineSearchResult:
-    step: Tensor
+    step: Tensor  # [G]
     w: Tensor
     f: Tensor
     g: Tensor
-    ok: bool  # sufficient decrease achieved
+    ok: Tensor  # [G] bool: sufficient decrease achieved
 
 
 def backtracking_line_search(
@@ -137,36 +202,46 @@ def backtracking_line_search(
     g: Tensor,
     direction: Tensor,
     t0: Tensor,
+    searching: Tensor,
     *,
     c1: float = 1e-4,
     shrink: float = 0.5,
     max_steps: int = 24,
     project: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> LineSearchResult:
-    """Armijo backtracking, projecting each trial point; one objective
-    evaluation and one host fetch per trial. A search that finds no
-    decreasing step keeps the original point (``ok=False``)."""
+    """Armijo backtracking over a bank, projecting each trial point.
+
+    Each member in ``searching`` backtracks only while its own test fails;
+    the others keep their first trial untouched. Every trial evaluates the
+    whole bank once and makes one host fetch of the [G] flags. A member
+    that finds no decreasing step keeps its original point (``ok`` False).
+    """
 
     def trial(t):
-        w_t = w + t * direction
+        w_t = w + t[:, None] * direction
         if project is not None:
             w_t = project(w_t)
         f_t, g_t = vg(w_t)
         return w_t, f_t, g_t
 
-    def armijo_ok(w_t, f_t) -> bool:
-        ok = (f_t <= f + c1 * torch.dot(g, w_t - w)) & torch.isfinite(f_t)
-        return bool(fetch(ok)[0])
+    def armijo_ok(w_t, f_t):
+        return (f_t <= f + c1 * dot(g, w_t - w)) & torch.isfinite(f_t)
 
     t = t0
     w_t, f_t, g_t = trial(t)
     ok = armijo_ok(w_t, f_t)
+    need = searching & ~ok
+    (need_host,) = fetch(need)
     k = 0
-    while not ok and k < max_steps:
-        t = t * shrink
-        w_t, f_t, g_t = trial(t)
+    while any(need_host) and k < max_steps:
+        t = torch.where(need, t * shrink, t)
+        w_n, f_n, g_n = trial(t)
+        w_t, f_t, g_t = select(need, w_n, w_t), select(need, f_n, f_t), select(need, g_n, g_t)
         ok = armijo_ok(w_t, f_t)
+        need = searching & ~ok
+        (need_host,) = fetch(need)
         k += 1
-    if not ok:
-        return LineSearchResult(step=t, w=w, f=f, g=g, ok=False)
-    return LineSearchResult(step=t, w=w_t, f=f_t, g=g_t, ok=True)
+    return LineSearchResult(
+        step=t, w=select(ok, w_t, w), f=select(ok, f_t, f), g=select(ok, g_t, g),
+        ok=ok,
+    )

@@ -1,9 +1,9 @@
 """Optimizer selection rules (port of ``photon_ml_tpu/optim/factory.py``).
 
 Reference: photon-ml .../optimization/OptimizerFactory.scala:49-86:
-(LBFGS, L2/NONE) -> LBFGS; (TRON, L2/NONE) -> TRON; TRON with any L1 is
-rejected, as is TRON for the once-differentiable smoothed hinge loss.
-(LBFGS, L1/ELASTIC_NET) -> OWL-QN, which the port does not have yet.
+(LBFGS, L1/ELASTIC_NET) -> OWL-QN; (LBFGS, L2/NONE) -> LBFGS;
+(TRON, L2/NONE) -> TRON; TRON with any L1 is rejected, as is TRON for the
+once-differentiable smoothed hinge loss (Params.scala:200-222).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from photon_ml_tpu_torch.optim.config import (
     OptimizerType,
     RegularizationContext,
 )
-from photon_ml_tpu_torch.optim.lbfgs import minimize_lbfgs
+from photon_ml_tpu_torch.optim.lbfgs import minimize_lbfgs, minimize_owlqn
 from photon_ml_tpu_torch.optim.tron import minimize_tron
 
 Tensor = torch.Tensor
@@ -41,11 +41,6 @@ def validate_optimizer_choice(
                 "TRON requires a twice-differentiable loss; the smoothed "
                 "hinge loss is only once-differentiable"
             )
-    elif regularization.has_l1:
-        raise NotImplementedError(
-            "L1/ELASTIC_NET needs OWL-QN, which the PyTorch port does not "
-            "have yet"
-        )
 
 
 def make_optimizer(
@@ -54,11 +49,17 @@ def make_optimizer(
     *,
     loss_has_hessian: bool = True,
     box: Optional[BoxConstraints] = None,
+    l1_mask: Optional[Tensor] = None,
 ) -> Callable[..., OptResult]:
-    """Build ``optimize(value_and_grad_fn, w0, hvp_fn=None)``."""
+    """Build ``optimize(value_and_grad_fn, w0, l1_weight=0.0, hvp_fn=None)``,
+    one signature for L-BFGS, OWL-QN and TRON, over a vector ``w0`` [d] or
+    a bank [G, d] (then ``l1_weight`` may be one weight per member)."""
     validate_optimizer_choice(config, regularization, loss_has_hessian=loss_has_hessian)
+    use_owlqn = regularization.has_l1
 
-    def optimize(value_and_grad_fn: ValueAndGrad, w0: Tensor, *, hvp_fn=None) -> OptResult:
+    def optimize(
+        value_and_grad_fn: ValueAndGrad, w0: Tensor, *, l1_weight=0.0, hvp_fn=None
+    ) -> OptResult:
         if config.optimizer_type == OptimizerType.TRON:
             if hvp_fn is None:
                 raise ValueError("TRON requires hvp_fn")
@@ -66,6 +67,12 @@ def make_optimizer(
                 value_and_grad_fn, hvp_fn, w0,
                 max_iter=config.max_iter, tol=config.tolerance,
                 max_cg=config.tron_max_cg, box=box,
+            )
+        if use_owlqn:
+            return minimize_owlqn(
+                value_and_grad_fn, w0, l1_weight,
+                max_iter=config.max_iter, tol=config.tolerance,
+                history=config.lbfgs_history, l1_mask=l1_mask, box=box,
             )
         return minimize_lbfgs(
             value_and_grad_fn, w0,

@@ -1,24 +1,30 @@
-"""L-BFGS (port of ``minimize_lbfgs`` in ``photon_ml_tpu/optim/lbfgs.py``).
+"""L-BFGS and OWL-QN (port of ``minimize_lbfgs`` and ``minimize_owlqn`` in
+``photon_ml_tpu/optim/lbfgs.py``).
 
 Reference: photon-ml .../optimization/LBFGS.scala (Breeze adapter, defaults
-maxIter=100 m=10 tol=1e-7, box projection at :77). The optimizer is
-data-free: it sees only ``value_and_grad(w)``.
+maxIter=100 m=10 tol=1e-7, box projection at :77) and OWLQN.scala:43-91
+(L1 / elastic net). The optimizer is data-free: it sees only
+``value_and_grad(w)``.
 
-The reference's ``lax.while_loop`` becomes a Python loop over device
-tensors. The memory of (s, y) pairs is a host-side deque of device
-vectors; its length is known on the host, so the two-loop recursion runs
-over the valid pairs only (the reference masks invalid slots to exact
-zeros, which is the same arithmetic). Line search is projected Armijo
-backtracking with cautious memory updates (pairs with y.s <= 1e-10 are
-skipped). Each iteration makes one host fetch for its control scalars, plus
-one per line-search trial.
+Both run over a coefficient bank ``[G, d]`` (the batched λ-grid; see
+``optim/common.py`` for the freeze and fetch rules) or over one vector
+``[d]``, which is a bank of one. The memory of (s, y) pairs is the
+reference's ``[G, m, d]`` circular buffer with a length and a write slot
+per member; the cautious update (skip pairs with y.s <= 1e-10) differs per
+member. The two-loop recursion masks invalid slots to exact zeros, as the
+reference does, and skips the slots no member can have filled yet. Line
+search is projected Armijo backtracking. Each outer trip makes one host
+fetch for the whole bank, plus one per line-search trial.
 
-OWL-QN (L1 / elastic net) is not ported yet.
+OWL-QN (Andrew & Gao): pseudo-gradient, direction restricted to its
+descent orthant, trial points projected onto the orthant and then into the
+box; memory pairs use smooth gradients. ``l1_weight`` is per member,
+times ``l1_mask`` (the intercept is exempt).
 """
 
 from __future__ import annotations
 
-from collections import deque
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -31,33 +37,85 @@ from photon_ml_tpu_torch.optim.common import (
     OptResult,
     Tracker,
     ValueAndGrad,
+    as_bank_of_one,
     backtracking_line_search,
     check_convergence,
+    dot,
     fetch,
+    norm,
+    select,
 )
 
 Tensor = torch.Tensor
 
 
-def _two_loop_direction(g: Tensor, memory: deque) -> Tensor:
-    """Classic two-loop recursion over the (s, y, rho) pairs, oldest first;
-    returns -H~ g."""
+@dataclass
+class _Memory:
+    """Circular buffer of (s, y, rho) per member, updated in place."""
+
+    s: Tensor  # [G, m, d]
+    y: Tensor  # [G, m, d]
+    rho: Tensor  # [G, m]
+    length: Tensor  # int64 [G] valid pairs
+    ptr: Tensor  # int64 [G] next write slot
+
+    @classmethod
+    def empty(cls, G: int, m: int, d: int, like: Tensor) -> "_Memory":
+        zeros = torch.zeros(G, dtype=torch.int64, device=like.device)
+        return cls(
+            like.new_zeros(G, m, d), like.new_zeros(G, m, d), like.new_zeros(G, m),
+            zeros, zeros.clone(),
+        )
+
+    def push(self, s: Tensor, y: Tensor, active: Tensor) -> None:
+        """Cautious update: store the pair only where y.s > 1e-10 (keeps
+        H~ positive definite) and the member is active."""
+        m = self.rho.shape[1]
+        ys = dot(y, s)
+        ok = (ys > 1e-10) & active
+        rows = torch.arange(s.shape[0], device=s.device)
+        slot = (rows, self.ptr)
+        self.s[slot] = select(ok, s, self.s[slot])
+        self.y[slot] = select(ok, y, self.y[slot])
+        self.rho[slot] = torch.where(ok, 1.0 / torch.clamp_min(ys, 1e-30), self.rho[slot])
+        self.length = torch.where(ok, torch.clamp_max(self.length + 1, m), self.length)
+        self.ptr = torch.where(ok, (self.ptr + 1) % m, self.ptr)
+
+
+def _two_loop_direction(g: Tensor, mem: _Memory, max_pairs: int) -> Tensor:
+    """Two-loop recursion over each member's circular buffer; -> -H~ g.
+    Slots past a member's length contribute exact zeros; slots past
+    ``max_pairs`` (more than any member can hold yet) are skipped."""
+    G, m = mem.rho.shape
+    rows = torch.arange(G, device=g.device)
+    alphas = g.new_zeros(G, m)
     q = g
-    alphas = []
-    for s, y, rho in reversed(memory):
-        a = rho * torch.dot(s, q)
-        q = q - a * y
-        alphas.append(a)
-    if memory:
-        s, y, _ = memory[-1]
-        gamma = torch.dot(s, y) / torch.clamp_min(torch.dot(y, y), 1e-30)
-    else:
-        gamma = 1.0
-    r = gamma * q
-    for (s, y, rho), a in zip(memory, reversed(alphas)):
-        b = rho * torch.dot(y, r)
-        r = r + (a - b) * s
+    for i in range(max_pairs):
+        idx = (mem.ptr - 1 - i) % m
+        valid = i < mem.length
+        a = torch.where(valid, mem.rho[rows, idx] * dot(mem.s[rows, idx], q), 0.0)
+        q = q - a[:, None] * mem.y[rows, idx]
+        alphas[rows, idx] = a
+    last = (mem.ptr - 1) % m
+    s_l, y_l = mem.s[rows, last], mem.y[rows, last]
+    gamma = torch.where(
+        mem.length > 0, dot(s_l, y_l) / torch.clamp_min(dot(y_l, y_l), 1e-30), 1.0
+    )
+    r = gamma[:, None] * q
+    for i in range(max_pairs):
+        idx = (mem.ptr - mem.length + i) % m
+        valid = i < mem.length
+        b = torch.where(valid, mem.rho[rows, idx] * dot(mem.y[rows, idx], r), 0.0)
+        r = r + torch.where(valid, alphas[rows, idx] - b, 0.0)[:, None] * mem.s[rows, idx]
     return -r
+
+
+def _pseudo_gradient(w: Tensor, g: Tensor, l1: Tensor) -> Tensor:
+    """Andrew & Gao pseudo-gradient of f(w) + l1 * ||w||_1."""
+    right = g + l1
+    left = g - l1
+    at_zero = torch.where(right < 0, right, torch.where(left > 0, left, 0.0))
+    return torch.where(w > 0, right, torch.where(w < 0, left, at_zero))
 
 
 def minimize_lbfgs(
@@ -70,50 +128,134 @@ def minimize_lbfgs(
     box: Optional[BoxConstraints] = None,
     ls_max_steps: int = 24,
 ) -> OptResult:
-    """Minimize a smooth objective (defaults: LBFGS.scala:152-156)."""
-    project = box.project if box is not None else None
-    w = w0 if project is None else project(w0)
-    f, g = value_and_grad_fn(w)
-    f0 = f
-    g0_norm = torch.linalg.vector_norm(g)
-    tracker = Tracker()
-    tracker.record(f0, g0_norm)
-    memory: deque = deque(maxlen=history)
-    (zero_grad,) = fetch(g0_norm == 0.0)
-    reason = GRADIENT_WITHIN_TOLERANCE if zero_grad else NOT_CONVERGED
-    iteration = 0
-    while reason == NOT_CONVERGED:
-        d = _two_loop_direction(g, memory)
-        # steepest descent when d is not a descent direction
-        d = torch.where(torch.dot(d, g) < 0, d, -g)
-        if memory:
-            t0 = torch.ones((), dtype=f.dtype, device=f.device)
+    """Minimize a smooth objective (defaults: LBFGS.scala:152-156). ``w0``
+    is [d], or a bank [G, d] whose ``value_and_grad_fn`` maps [G, d] ->
+    ([G], [G, d])."""
+    return _minimize_qn(
+        value_and_grad_fn, w0, None, None, max_iter=max_iter, tol=tol,
+        history=history, box=box, ls_max_steps=ls_max_steps,
+    )
+
+
+def minimize_owlqn(
+    value_and_grad_fn: ValueAndGrad,
+    w0: Tensor,
+    l1_weight,
+    *,
+    max_iter: int = 100,
+    tol: float = 1e-7,
+    history: int = 10,
+    l1_mask: Optional[Tensor] = None,
+    box: Optional[BoxConstraints] = None,
+    ls_max_steps: int = 24,
+) -> OptResult:
+    """Minimize smooth(w) + l1_weight * ||l1_mask * w||_1 (OWL-QN).
+
+    ``l1_weight`` is a scalar or, for a bank, one weight per member [G];
+    ``l1_mask`` [d] exempts slots (the intercept) from the penalty.
+    ``box``: every trial point is projected into it AFTER the orthant
+    projection (the reference's OWLQN inherits LBFGS's projection,
+    OWLQN.scala:43-91, LBFGS.scala:77). The result's ``value`` is the
+    total objective and ``grad_norm`` the pseudo-gradient's norm."""
+    return _minimize_qn(
+        value_and_grad_fn, w0, l1_weight, l1_mask, max_iter=max_iter, tol=tol,
+        history=history, box=box, ls_max_steps=ls_max_steps,
+    )
+
+
+def _minimize_qn(
+    vg, w0, l1_weight, l1_mask, *, max_iter, tol, history, box, ls_max_steps
+) -> OptResult:
+    if w0.dim() == 1:
+        if l1_weight is not None:
+            l1_weight = torch.as_tensor(l1_weight, dtype=w0.dtype).reshape(1)
+        return _minimize_qn(
+            as_bank_of_one(vg), w0[None], l1_weight, l1_mask, max_iter=max_iter,
+            tol=tol, history=history, box=box, ls_max_steps=ls_max_steps,
+        ).member(0)
+    G, d = w0.shape
+    owl = l1_weight is not None
+    w = w0 if box is None else box.project(w0)
+    f, g = vg(w)  # f: the smooth value
+    if owl:
+        l1 = torch.as_tensor(l1_weight, dtype=w.dtype, device=w.device)
+        mask = w.new_ones(d) if l1_mask is None else l1_mask.to(w)
+        l1_vec = l1.reshape(-1, 1).expand(G, 1) * mask
+
+        def penalty(w_):
+            return (l1_vec * w_.abs()).sum(dim=-1)
+
+        f0 = f + penalty(w)
+        g0_norm = norm(_pseudo_gradient(w, g, l1_vec))
+    else:
+        f0, g0_norm = f, norm(g)
+    tracker = Tracker.start(f0, g0_norm, max_iter + 1)
+    mem = _Memory.empty(G, history, d, w)
+    reason = torch.where(g0_norm == 0.0, GRADIENT_WITHIN_TOLERANCE, NOT_CONVERGED)
+    it = torch.zeros(G, dtype=torch.int64, device=w.device)
+    (reasons,) = fetch(reason)
+    iters = [0] * G
+    trip = 0
+    while NOT_CONVERGED in reasons:
+        active = reason == NOT_CONVERGED
+        trip += 1
+        if owl:
+            pg = _pseudo_gradient(w, g, l1_vec)
+            direction = _two_loop_direction(pg, mem, min(trip - 1, history))
+            # restrict the direction to the descent orthant of the
+            # pseudo-gradient
+            direction = torch.where(direction * pg < 0, direction, 0.0)
+            orthant = torch.where(w != 0, torch.sign(w), torch.sign(-pg))
+
+            def project(w_t, orthant=orthant):
+                w_t = torch.where(torch.sign(w_t) == orthant, w_t, 0.0)
+                return w_t if box is None else box.project(w_t)
+
+            def ls_vg(w_t):
+                fs, gs = vg(w_t)
+                return fs + penalty(w_t), gs  # total value, SMOOTH gradient
+
+            f_cur, slope = f + penalty(w), pg
         else:
-            t0 = 1.0 / torch.clamp_min(torch.linalg.vector_norm(d), 1.0)
+            direction = _two_loop_direction(g, mem, min(trip - 1, history))
+            # steepest descent when d is not a descent direction
+            direction = select(dot(direction, g) < 0, direction, -g)
+            project = None if box is None else box.project
+            ls_vg, f_cur, slope = vg, f, g
+        t0 = torch.where(
+            mem.length > 0, 1.0, 1.0 / torch.clamp_min(norm(direction), 1.0)
+        )
         ls = backtracking_line_search(
-            value_and_grad_fn, w, f, g, d, t0,
+            ls_vg, w, f_cur, slope, direction, t0, active,
             max_steps=ls_max_steps, project=project,
         )
-        s, y = ls.w - w, ls.g - g
-        ys = torch.dot(y, s)
-        iteration += 1
-        g_norm = torch.linalg.vector_norm(ls.g)
-        code = check_convergence(
-            iteration, f, ls.f, g_norm, f0, g0_norm, max_iter=max_iter, tol=tol
-        )
-        keep_pair, code = fetch(ys > 1e-10, code)
-        if keep_pair:
-            memory.append((s, y, 1.0 / torch.clamp_min(ys, 1e-30)))
+        mem.push(ls.w - w, ls.g - g, active)
+        if owl:
+            f_new = ls.f - penalty(ls.w)
+            g_norm = norm(_pseudo_gradient(ls.w, ls.g, l1_vec))
+        else:
+            f_new, g_norm = ls.f, norm(ls.g)
+        it = torch.where(active, it + 1, it)
         # a failed search is reported before the function-change test (a
         # stalled search has delta f == 0 and would look converged)
-        reason = int(code) if ls.ok else LINE_SEARCH_STALLED
-        w, f, g = ls.w, ls.f, ls.g
-        tracker.record(f, g_norm)
+        code = torch.where(
+            ls.ok,
+            check_convergence(
+                it, f_cur, ls.f, g_norm, f0, g0_norm, max_iter=max_iter, tol=tol
+            ),
+            LINE_SEARCH_STALLED,
+        )
+        w, f, g = select(active, ls.w, w), select(active, f_new, f), select(active, ls.g, g)
+        reason = torch.where(active, code, reason)
+        tracker.record(trip, active, ls.f, g_norm)
+        iters = [n + (r == NOT_CONVERGED) for n, r in zip(iters, reasons)]
+        (reasons,) = fetch(reason)
+    tracker.count = [n + 1 for n in iters]
+    if owl:
+        value, grad_norm = f + penalty(w), norm(_pseudo_gradient(w, g, l1_vec))
+    else:
+        value, grad_norm = f, norm(g)
     return OptResult(
-        coefficients=w,
-        value=f,
-        grad_norm=torch.linalg.vector_norm(g),
-        iterations=iteration,
-        reason=reason,
-        tracker=tracker,
+        coefficients=w, value=value, grad_norm=grad_norm, iterations=iters,
+        reason=[int(r) for r in reasons], tracker=tracker,
     )

@@ -1,5 +1,6 @@
 """GLM optimization problems: optimizer + objective + model construction
-(port of ``photon_ml_tpu/optim/problem.py``, single device).
+(port of ``photon_ml_tpu/optim/problem.py``, single device): one fit
+(``run``) or the whole λ-grid over a coefficient bank (``run_grid``).
 
 Reference: photon-ml .../optimization/GeneralizedLinearOptimizationProblem.
 scala (run at :112-121, de-normalization at :89-95) and
@@ -10,7 +11,7 @@ DistributedOptimizationProblem.scala (variances 1/(Hdiag + eps) at
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -57,27 +58,26 @@ class GLMOptimizationProblem:
     box: Optional[BoxConstraints] = None
     intercept_index: Optional[int] = None
 
-    def run(
-        self,
-        batch,
-        initial: Optional[Tensor] = None,
-        reg_weight: float = 0.0,
-    ) -> Tuple[Coefficients, OptResult]:
-        """Optimize and build coefficients (+ variances if requested).
-        The batch's device is where the fit runs."""
+    def _l1_mask(self, device) -> Optional[Tensor]:
+        """The intercept is exempt from the L1 penalty."""
+        if self.intercept_index is None:
+            return None
+        mask = torch.ones(self.objective.dim, device=device)
+        mask[self.intercept_index] = 0.0
+        return mask
+
+    def _prepare(self, batch):
         if isinstance(self.objective, TiledGLMObjective) and isinstance(batch, SparseBatch):
             batch = tiled_batch_from_sparse(batch, self.objective.dim, device=batch.device)
-        device = batch.labels.device
-        w0 = (
-            torch.zeros(self.objective.dim, device=device)
-            if initial is None
-            else torch.as_tensor(initial, dtype=torch.float32, device=device)
-        )
-        _, l2 = self.regularization.split(reg_weight)
+        return batch
+
+    def _solve(self, batch, w0: Tensor, l1, l2) -> Tuple[OptResult, Optional[Tensor]]:
+        """Optimize from ``w0`` ([d] with scalar weights, or a bank [G, d]
+        with weights [G]); -> (result, variances or None)."""
         optimize = make_optimizer(
             self.config, self.regularization,
             loss_has_hessian=self.objective.loss.has_hessian,
-            box=self.box,
+            box=self.box, l1_mask=self._l1_mask(w0.device),
         )
         objective = self.objective
 
@@ -88,12 +88,60 @@ class GLMOptimizationProblem:
             return objective.hessian_vector(w, d, batch, l2)
 
         needs_hvp = self.config.optimizer_type == OptimizerType.TRON
-        result = optimize(vg, w0, hvp_fn=hvp if needs_hvp else None)
+        result = optimize(vg, w0, l1_weight=l1, hvp_fn=hvp if needs_hvp else None)
         variances = None
         if self.compute_variances:
             hdiag = objective.hessian_diagonal(result.coefficients, batch, l2)
             variances = 1.0 / (hdiag + _VARIANCE_EPSILON)
+        return result, variances
+
+    def run(
+        self,
+        batch,
+        initial: Optional[Tensor] = None,
+        reg_weight: float = 0.0,
+    ) -> Tuple[Coefficients, OptResult]:
+        """Optimize and build coefficients (+ variances if requested).
+        The batch's device is where the fit runs."""
+        batch = self._prepare(batch)
+        device = batch.labels.device
+        w0 = (
+            torch.zeros(self.objective.dim, device=device)
+            if initial is None
+            else torch.as_tensor(initial, dtype=torch.float32, device=device)
+        )
+        l1, l2 = self.regularization.split(reg_weight)
+        result, variances = self._solve(batch, w0, l1, l2)
         return Coefficients(result.coefficients, variances), result
+
+    def run_grid(
+        self,
+        batch,
+        reg_weights: Sequence[float],
+        initial: Optional[Tensor] = None,
+    ) -> Tuple[Optional[Tensor], OptResult]:
+        """Solve the whole λ grid at once over a [G, d] coefficient bank.
+
+        ``reg_weights`` is the λ sequence (member i is ``reg_weights[i]``);
+        ``initial`` is a [d] vector broadcast to every member or a [G, d]
+        bank. Members do NOT warm-start from each other. Every data pass
+        serves the whole bank (K2 on the tiled objective), converged
+        members freeze while the others run on, and the host fetches per
+        trip do not grow with G. -> (variances bank [G, d] or None, the
+        bank's OptResult, every field with a leading grid axis)."""
+        batch = self._prepare(batch)
+        device = batch.labels.device
+        splits = [self.regularization.split(float(w)) for w in reg_weights]
+        l1_vec = torch.tensor([s[0] for s in splits], dtype=torch.float32, device=device)
+        l2_vec = torch.tensor([s[1] for s in splits], dtype=torch.float32, device=device)
+        shape = (len(splits), self.objective.dim)
+        if initial is None:
+            w0 = torch.zeros(shape, device=device)
+        else:
+            w0 = torch.as_tensor(initial, dtype=torch.float32, device=device)
+            w0 = w0.expand(shape).contiguous()
+        result, variances = self._solve(batch, w0, l1_vec, l2_vec)
+        return variances, result
 
     def create_model(
         self,

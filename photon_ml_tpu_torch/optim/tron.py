@@ -7,8 +7,13 @@ Hessian-vector product per step, <= 20 CG steps, defaults maxIter=15
 tol=1e-5).
 
 The reference's two ``lax.while_loop``s become Python loops over device
-tensors. Each CG step makes one host fetch (its continue test) and each
-outer iteration one more (the convergence code).
+tensors, run over a coefficient bank ``[G, d]`` (the batched λ-grid; one
+fit is a bank of one; see ``optim/common.py`` for the freeze and fetch
+rules). Both loops are masked per member: a member's CG stops on its own
+test while the others go on. Each CG step makes one host fetch (the
+continue flags of the whole bank) and each outer trip one more (the
+convergence codes). The Hessian-vector product recomputes z(w) in every
+CG step, as the reference's ``hvp_fn`` does.
 """
 
 from __future__ import annotations
@@ -25,8 +30,12 @@ from photon_ml_tpu_torch.optim.common import (
     OptResult,
     Tracker,
     ValueAndGrad,
+    as_bank_of_one,
     check_convergence,
+    dot,
     fetch,
+    norm,
+    select,
 )
 
 Tensor = torch.Tensor
@@ -40,45 +49,48 @@ def _truncated_cg(
     hvp: Callable[[Tensor], Tensor],
     g: Tensor,
     delta: Tensor,
+    active: Tensor,
     *,
     max_cg: int,
     cg_tol_factor: float = 0.1,
 ):
-    """Steihaug truncated CG: approximately solve H s = -g, ||s|| <= delta
-    (TRON.scala:259-341). Returns ``(s, r)`` with r = -g - H s kept through
-    boundary exits."""
-    norm = torch.linalg.vector_norm
+    """Steihaug truncated CG for each active member: approximately solve
+    H s = -g, ||s|| <= delta (TRON.scala:259-341). Returns ``(s, r)`` with
+    r = -g - H s kept through boundary exits."""
     cg_tol = cg_tol_factor * norm(g)
 
     def boundary_tau(s, d):
-        dd = torch.dot(d, d)
-        sd = torch.dot(s, d)
-        ss = torch.dot(s, s)
+        dd = dot(d, d)
+        sd = dot(s, d)
+        ss = dot(s, s)
         rad = torch.sqrt(torch.clamp_min(sd * sd + dd * (delta * delta - ss), 0.0))
         return (-sd + rad) / torch.clamp_min(dd, 1e-30)
 
     r = -g
     s = torch.zeros_like(g)
     d = r
-    rtr = torch.dot(r, r)
-    done = torch.zeros((), dtype=torch.bool, device=g.device)
+    rtr = dot(r, r)
+    done = ~active
     iters = 0
     while iters < max_cg:
-        (go,) = fetch(~done & (torch.sqrt(rtr) > cg_tol))
-        if not go:
+        go = ~done & (torch.sqrt(rtr) > cg_tol)
+        (go_host,) = fetch(go)
+        if not any(go_host):
             break
         hd = hvp(d)
-        dhd = torch.dot(d, hd)
+        dhd = dot(d, hd)
         # negative curvature or radius hit: walk to the boundary and stop
         alpha = rtr / torch.where(dhd > 0, dhd, torch.ones_like(dhd))
-        hit = (norm(s + alpha * d) >= delta) | (dhd <= 0)
+        hit = (norm(s + alpha[:, None] * d) >= delta) | (dhd <= 0)
         step = torch.where(hit, boundary_tau(s, d), alpha)
-        s = s + step * d
-        r_new = r - step * hd
-        rtr_new = torch.dot(r_new, r_new)
+        s_new = s + step[:, None] * d
+        r_new = r - step[:, None] * hd
+        rtr_new = dot(r_new, r_new)
         beta = rtr_new / torch.clamp_min(rtr, 1e-30)
-        d = torch.where(hit, d, r_new + beta * d)
-        r, rtr, done = r_new, rtr_new, done | hit
+        d_new = select(hit, d, r_new + beta[:, None] * d)
+        s, r, d = select(go, s_new, s), select(go, r_new, r), select(go, d_new, d)
+        rtr = torch.where(go, rtr_new, rtr)
+        done = done | (go & hit)
         iters += 1
     return s, r
 
@@ -95,44 +107,52 @@ def minimize_tron(
     box: Optional[BoxConstraints] = None,
 ) -> OptResult:
     """Trust-region Newton; ``hvp_fn(w, d) -> H(w) @ d``
-    (defaults: TRON.scala:260-265)."""
-    norm = torch.linalg.vector_norm
+    (defaults: TRON.scala:260-265). ``w0`` is [d], or a bank [G, d] whose
+    functions map banks to banks."""
+    if w0.dim() == 1:
+        return minimize_tron(
+            as_bank_of_one(value_and_grad_fn), as_bank_of_one(hvp_fn), w0[None],
+            max_iter=max_iter, tol=tol, max_cg=max_cg,
+            max_improvement_failures=max_improvement_failures, box=box,
+        ).member(0)
+    G = w0.shape[0]
     w = w0 if box is None else box.project(w0)
     f, g = value_and_grad_fn(w)
     f0 = f
     g0_norm = norm(g)
     delta = g0_norm
-    tracker = Tracker()
-    tracker.record(f0, g0_norm)
-    (zero_grad,) = fetch(g0_norm == 0.0)
-    reason = GRADIENT_WITHIN_TOLERANCE if zero_grad else NOT_CONVERGED
-    failures = 0
-    iteration = 0
-    while reason == NOT_CONVERGED:
+    tracker = Tracker.start(f0, g0_norm, max_iter + 1)
+    reason = torch.where(g0_norm == 0.0, GRADIENT_WITHIN_TOLERANCE, NOT_CONVERGED)
+    failures = torch.zeros(G, dtype=torch.int64, device=w.device)
+    it = torch.zeros_like(failures)
+    (reasons,) = fetch(reason)
+    iters = [0] * G
+    trip = 0
+    while NOT_CONVERGED in reasons:
+        active = reason == NOT_CONVERGED
+        trip += 1
         w_cur = w
         s, r = _truncated_cg(
-            lambda d: hvp_fn(w_cur, d), g, delta, max_cg=max_cg
+            lambda d: hvp_fn(w_cur, d), g, delta, active, max_cg=max_cg
         )
         w_trial = w + s
         if box is not None:
             w_trial = box.project(w_trial)
             s = w_trial - w
         f_new, g_new = value_and_grad_fn(w_trial)
-        gs = torch.dot(g, s)
+        gs = dot(g, s)
         # r = -g - H s, so prered = -(g.s + 0.5 s.Hs) = -0.5 (g.s - s.r)
-        prered = -0.5 * (gs - torch.dot(s, r))
+        prered = -0.5 * (gs - dot(s, r))
         actred = f - f_new
         snorm = norm(s)
 
         # step-size estimate for the radius update (tron.cpp alpha rule)
         denom = f_new - f - gs
         alpha = torch.where(
-            denom <= 0,
-            torch.full_like(denom, _SIGMA3),
-            torch.clamp_min(-0.5 * (gs / denom), _SIGMA1),
+            denom <= 0, _SIGMA3, torch.clamp_min(-0.5 * (gs / denom), _SIGMA1)
         )
         a_s = alpha * snorm
-        delta = torch.where(
+        delta_new = torch.where(
             actred < _ETA0 * prered,
             torch.minimum(torch.clamp_min(alpha, _SIGMA1) * snorm, _SIGMA2 * delta),
             torch.where(
@@ -146,31 +166,39 @@ def minimize_tron(
             ),
         )
 
-        accept_t = (actred > _ETA0 * prered) & torch.isfinite(f_new)
-        w = torch.where(accept_t, w_trial, w)
-        f2 = torch.where(accept_t, f_new, f)
-        g = torch.where(accept_t, g_new, g)
-        iteration += 1
-        g_norm = norm(g)
+        accept = (actred > _ETA0 * prered) & torch.isfinite(f_new)
+        w2 = select(accept, w_trial, w)
+        f2 = torch.where(accept, f_new, f)
+        g2 = select(accept, g_new, g)
+        failures_new = torch.where(accept, 0, failures + 1)
+        it_new = it + 1
+        g_norm = norm(g2)
         code = check_convergence(
-            iteration, f, f2, g_norm, f0, g0_norm, max_iter=max_iter, tol=tol
+            it_new, f, f2, g_norm, f0, g0_norm, max_iter=max_iter, tol=tol
         )
-        accept, code = fetch(accept_t, code)
-        f = f2
-        failures = 0 if accept else failures + 1
-        if accept:
-            reason = int(code)
-        else:
-            # rejected steps must not trip the function-change test
-            reason = MAX_ITERATIONS if iteration >= max_iter else NOT_CONVERGED
-        if reason == NOT_CONVERGED and failures >= max_improvement_failures:
-            reason = MAX_ITERATIONS
-        tracker.record(f, g_norm)
+        # rejected steps must not trip the function-change test
+        code = torch.where(
+            accept, code,
+            torch.where(it_new >= max_iter, MAX_ITERATIONS, NOT_CONVERGED),
+        )
+        code = torch.where(
+            (code == NOT_CONVERGED) & (failures_new >= max_improvement_failures),
+            MAX_ITERATIONS, code,
+        )
+        w, f, g = select(active, w2, w), torch.where(active, f2, f), select(active, g2, g)
+        delta = torch.where(active, delta_new, delta)
+        failures = torch.where(active, failures_new, failures)
+        it = torch.where(active, it_new, it)
+        reason = torch.where(active, code, reason)
+        tracker.record(trip, active, f2, g_norm)
+        iters = [n + (r_ == NOT_CONVERGED) for n, r_ in zip(iters, reasons)]
+        (reasons,) = fetch(reason)
+    tracker.count = [n + 1 for n in iters]
     return OptResult(
         coefficients=w,
         value=f,
         grad_norm=norm(g),
-        iterations=iteration,
-        reason=reason,
+        iterations=iters,
+        reason=[int(r_) for r_ in reasons],
         tracker=tracker,
     )

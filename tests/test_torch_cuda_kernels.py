@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions:
+K1 (the bilinear pass) and K2 (its grid form over a coefficient bank).
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports neither jax nor the JAX package,
@@ -8,7 +9,11 @@ so it also runs where only the port is installed:
 
 Tolerance: rtol 1e-5 of the output's largest magnitude plus atol 1e-6.
 The kernel sums with float atomics, so its order of additions differs
-from the plain version's (and from run to run).
+from the plain version's (and from run to run). K2's checks bound each
+element by rtol 1e-5 of its own sum of absolute terms (the same pass over
+|vals| and |src|) plus atol 1e-6: a heavy column sums tens of thousands of
+products, and the rounding of another order grows with that sum, not with
+the output's largest element.
 """
 
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 
 from photon_ml_tpu_torch.ops import losses
 from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+from photon_ml_tpu_torch.ops.kernels import grid_bilinear_pass as k2
 from photon_ml_tpu_torch.ops.tiled_sparse import (
     TiledGLMObjective,
     TileParams,
@@ -119,3 +125,117 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         k1.bilinear_pass(tb.z_sched, torch.zeros(tb.dim, device=cuda),
                          tb.num_row_blocks - 1, win)
+
+
+def _close_per_term(got, expected, abs_sum):
+    """|got - expected| <= 1e-6 + 1e-5 * abs_sum, elementwise."""
+    err = (got - expected).abs().cpu().numpy()
+    bound = 1e-6 + 1e-5 * abs_sum.cpu().numpy()
+    worst = np.unravel_index(np.argmax(err - bound), err.shape)
+    assert np.all(err <= bound), (worst, err[worst], bound[worst])
+
+
+def _passes(tb, w, c):
+    """(schedule, source, output blocks, values) of the z, g and g_sq
+    passes."""
+    return (
+        (tb.z_sched, w, tb.num_row_blocks, None),
+        (tb.g_sched, c, tb.num_feat_blocks, None),
+        (tb.g_sched, c, tb.num_feat_blocks, tb.g_vals_sq),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3, 4, 5, 9])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_grid_pass_matches_plain_and_k1(cuda, name, G):
+    """K2 against its plain version and against G launches of K1, on all
+    three passes (9 members: two member tiles at the default window)."""
+    rng, tb, _ = _batch(name, cuda)
+    win = tb.params.window
+    w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device=cuda)
+    c = torch.as_tensor(rng.normal(size=(G, tb.num_rows)).astype(np.float32), device=cuda)
+    for sched, src, n_out, vals in _passes(tb, w, c):
+        before = k2.launches
+        got = k2.grid_bilinear_pass(sched, src, n_out, win, vals=vals)
+        torch.cuda.synchronize()
+        assert k2.launches == before + 1
+        assert got.shape == (G, n_out * win)
+        abs_vals = (sched.vals if vals is None else vals).abs()
+        abs_sum = k2.grid_bilinear_pass_plain(sched, src.abs(), n_out, win, vals=abs_vals)
+        plain = k2.grid_bilinear_pass_plain(sched, src, n_out, win, vals=vals)
+        _close_per_term(got, plain, abs_sum)
+        per_member = torch.stack([
+            k1.bilinear_pass(sched, src[g], n_out, win, vals=vals) for g in range(G)
+        ])
+        _close_per_term(got, per_member, abs_sum)
+
+
+@pytest.mark.cuda
+def test_grid_pass_transposed_layout_matches(cuda):
+    """The kernel on a transposed [n, G] source and output (strides
+    swapped) computes the same bank."""
+    rng, tb, _ = _batch("spills", cuda)
+    win, G = tb.params.window, 3
+    w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device=cuda)
+    n_out = tb.num_row_blocks * win
+    out_t = torch.zeros(n_out, G, device=cuda)
+    k2.launch_strided(
+        tb.z_sched, w.T.contiguous(), (1, G), out_t, (1, G), G, win, tb.z_sched.vals
+    )
+    _close(out_t.T, k2.grid_bilinear_pass_plain(tb.z_sched, w, tb.num_row_blocks, win))
+
+
+@pytest.mark.cuda
+def test_bank_objective_on_card_matches_cpu(cuda):
+    """The tiled objective over a bank on the card (K2) against the same
+    on the CPU (the plain grid pass), with per-member l2."""
+    rng, tb, d = _batch("spills", cuda)
+    obj = TiledGLMObjective(losses.LOGISTIC, d)
+    G = 3
+    w = rng.normal(scale=0.1, size=(G, d)).astype(np.float32)
+    v = rng.normal(size=(G, d)).astype(np.float32)
+    l2 = np.array([0.0, 0.5, 2.0], np.float32)
+    cpu_tb = tb.to("cpu")
+    for method, args in (
+        ("value_and_gradient", (w,)),
+        ("hessian_vector", (w, v)),
+        ("hessian_diagonal", (w,)),
+    ):
+        before = (k1.launches, k2.launches)
+        on_card = getattr(obj, method)(
+            *(torch.as_tensor(a, device=cuda) for a in args), tb,
+            torch.as_tensor(l2, device=cuda),
+        )
+        torch.cuda.synchronize()
+        assert k1.launches == before[0] and k2.launches > before[1]
+        on_cpu = getattr(obj, method)(
+            *(torch.as_tensor(a) for a in args), cpu_tb, torch.as_tensor(l2)
+        )
+        for x, y in zip(
+            on_card if isinstance(on_card, tuple) else (on_card,),
+            on_cpu if isinstance(on_cpu, tuple) else (on_cpu,),
+        ):
+            _close(x, y)
+
+
+@pytest.mark.cuda
+def test_grid_wrapper_rejects_bad_operands(cuda):
+    _, tb, _ = _batch("spills", cuda)
+    win = tb.params.window
+    ok = torch.zeros(2, tb.dim, device=cuda)
+    with pytest.raises(TypeError):
+        k2.grid_bilinear_pass(tb.z_sched, ok.double(), tb.num_row_blocks, win)
+    with pytest.raises(ValueError):
+        k2.grid_bilinear_pass(tb.z_sched, ok[:, :-1], tb.num_row_blocks, win)
+    with pytest.raises(ValueError):  # not contiguous
+        k2.grid_bilinear_pass(
+            tb.z_sched, torch.zeros(tb.dim, 2, device=cuda).T, tb.num_row_blocks, win
+        )
+    with pytest.raises(ValueError):
+        k2.grid_bilinear_pass(tb.z_sched, ok, tb.num_row_blocks - 1, win)
+    with pytest.raises(ValueError, match="strides"):
+        k2.launch_strided(
+            tb.z_sched, ok, (tb.dim, 1), torch.zeros(2, 8, device=cuda), (8, 1),
+            2, win, tb.z_sched.vals,
+        )
