@@ -16,8 +16,8 @@ Phases, each printing its own lines:
    4 launches of K1): z-pass, g-pass and the g-pass over squared values;
 3. times at the ads shape (CUDA events, after warm-up): K1 beside its
    plain version and one torch.sparse CSR matvec of the same X; K2 at
-   G = 4 beside its plain version, the CSR product with the bank (SpMM),
-   4 launches of K1 and K2 on a transposed [n, G] layout; K3, the spill
+   G = 4 beside its plain version, the CSR product with the bank (SpMM)
+   and 4 launches of K1; K3, the spill
    remainder (index_add_), for a vector and for the bank; each with its
    bound. The CSR calls are yardsticks the port never makes;
 4. the sequential path at full width on planted-model logistic data: the
@@ -298,15 +298,6 @@ def main() -> int:
     zb_args = (tb.z_sched, w_bank, tb.num_row_blocks, win)
     gb_args = (tb.g_sched, c_bank, tb.num_feat_blocks, win)
 
-    def transposed(sched, bank, n_out_blocks):
-        """K2 on a [n, G] layout, the transposes in and out included."""
-        n_out = n_out_blocks * win
-        out_t = torch.zeros(n_out, G, device="cuda")
-        k2.launch_strided(
-            sched, bank.T.contiguous(), (1, G), out_t, (1, G), G, win, sched.vals
-        )
-        return out_t.T.contiguous()
-
     coo = torch.stack([
         torch.arange(N_ROWS, device="cuda").repeat_interleave(NNZ_PER_ROW),
         torch.as_tensor(idx.reshape(-1), device="cuda"),
@@ -339,18 +330,11 @@ def main() -> int:
             k1.bilinear_pass(tb.g_sched, c_bank[g], tb.num_feat_blocks, win)
             for g in range(G)
         ]),
-        (k2_times, "z_transposed_ms", lambda: transposed(tb.z_sched, w_bank, tb.num_row_blocks)),
-        (k2_times, "g_transposed_ms", lambda: transposed(tb.g_sched, c_bank, tb.num_feat_blocks)),
         (k2_times, "z_ms_again", lambda: k2.grid_bilinear_pass(*zb_args)),
         (k2_times, "g_ms_again", lambda: k2.grid_bilinear_pass(*gb_args)),
     ):
         table[name] = time_ms(fn)
     del x_csr, xt_csr
-    check_close(
-        "k2_transposed_layout z",
-        transposed(tb.z_sched, w_bank, tb.num_row_blocks),
-        k2.grid_bilinear_pass_plain(*zb_args),
-    )
     z_bound, z_bytes, z_entries = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
     g_bound, g_bytes, g_entries = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim)
     say(f"k1_times ({smi}): " + " ".join(f"{k}={v!r}" for k, v in k1_times.items())
@@ -614,7 +598,6 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": k2_times["z_library_ms"] + k2_times["g_library_ms"],
         "k1_x_G_ms": k2_times["z_k1_x_G_ms"] + k2_times["g_k1_x_G_ms"],
-        "transposed_ms": k2_times["z_transposed_ms"] + k2_times["g_transposed_ms"],
         "work": f"one z-pass + one g-pass over a bank of {G} at the ads shape",
         "z_ms": k2_times["z_ms"], "g_ms": k2_times["g_ms"],
         "z_bound_ms": zb_bound, "g_bound_ms": gb_bound,

@@ -28,12 +28,10 @@
 //   CTAs of 1024 threads fit on an SM (W * GT * 4 bytes within half the
 //   227 KB opt-in: GT = 3 at the default window) and balances the tiles,
 //   so G = 4 runs as two tiles of 2; the last tile may be short (gt < GT).
-//   A sweep at the ads shape (photon_ml_tpu_torch/tools/k2_sweep.py) chose
-//   1024 threads and two CTAs per SM over one CTA of four members.
-// - The source and the output are addressed through (member, position)
-//   strides in elements, as int64: the bank layout [G, n] (member stride n,
-//   position stride 1) is what the port passes; a transposed [n, G] layout
-//   is the same kernel with the strides swapped.
+// - The source and the output are the optimizer's banks as they are,
+//   [G, n_in] and [G, n_out] row-major, with int64 offsets; a member's
+//   gathers are strided by n_in (a transposed [n, G] copy of the bank was
+//   timed and was slower once its transposes are counted; PERF.md).
 // - Accumulation is f32 with shared-memory atomicAdd, the flush global
 //   atomicAdd into the zeroed output, as in K1; the order of additions
 //   varies from run to run, so results match the plain version to f32
@@ -47,12 +45,7 @@
 
 namespace {
 
-// Threads per CTA; a build may set another count (-DGRID_PASS_THREADS=n)
-// to compare them.
-#ifndef GRID_PASS_THREADS
-#define GRID_PASS_THREADS 1024
-#endif
-constexpr int kThreads = GRID_PASS_THREADS;
+constexpr int kThreads = 1024;  // threads per CTA; two CTAs fill an SM
 constexpr int kMaxGT = 8;  // members per CTA, at most
 
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)
@@ -62,11 +55,10 @@ grid_bilinear_pass_kernel(const int32_t* __restrict__ segments,  // [n_seg, 3]
                           const int32_t* __restrict__ out_pos,   // [S8, L]
                           const float* __restrict__ vals,        // [S8, L]
                           int L,
-                          const float* __restrict__ src,
-                          int64_t src_g_stride, int64_t src_p_stride,
-                          float* __restrict__ out,
-                          int64_t out_g_stride, int64_t out_p_stride,
-                          int window, int num_members, int gt_per_cta) {
+                          const float* __restrict__ src,  // [G, n_in]
+                          int64_t n_in,
+                          float* __restrict__ out,        // [G, n_out]
+                          int64_t n_out, int window, int num_members, int gt_per_cta) {
   extern __shared__ float acc[];  // [gt][window]
   const int seg = blockIdx.x;
   const int out_block = segments[3 * seg];
@@ -79,7 +71,7 @@ grid_bilinear_pass_kernel(const int32_t* __restrict__ segments,  // [n_seg, 3]
   for (int i = threadIdx.x; i < gt * window; i += kThreads) acc[i] = 0.0f;
   __syncthreads();
 
-  const float* src_tile = src + static_cast<int64_t>(g0) * src_g_stride;
+  const float* src_tile = src + static_cast<int64_t>(g0) * n_in;
   for (int s = first; s < last; ++s) {
     const int64_t in_base = static_cast<int64_t>(step_in[s]) * window;
     const int64_t base = static_cast<int64_t>(s) * L;
@@ -87,12 +79,12 @@ grid_bilinear_pass_kernel(const int32_t* __restrict__ segments,  // [n_seg, 3]
       const int ip = __ldg(in_pos + base + e);
       const int op = __ldg(out_pos + base + e);
       const float v = __ldg(vals + base + e);
-      const float* p = src_tile + (in_base + ip) * src_p_stride;
+      const float* p = src_tile + in_base + ip;
 #pragma unroll
       for (int j = 0; j < kMaxGT; ++j) {
         if (j < gt) {
           atomicAdd(acc + j * window + op,
-                    v * __ldg(p + static_cast<int64_t>(j) * src_g_stride));
+                    v * __ldg(p + static_cast<int64_t>(j) * n_in));
         }
       }
     }
@@ -101,12 +93,12 @@ grid_bilinear_pass_kernel(const int32_t* __restrict__ segments,  // [n_seg, 3]
 
   const int64_t out_base = static_cast<int64_t>(out_block) * window;
   for (int j = 0; j < gt; ++j) {
-    float* dst = out + static_cast<int64_t>(g0 + j) * out_g_stride;
+    float* dst = out + static_cast<int64_t>(g0 + j) * n_out + out_base;
     const float* a_j = acc + j * window;
     for (int i = threadIdx.x; i < window; i += kThreads) {
       const float a = a_j[i];
       // untouched slots add nothing; a NaN (a != a) still propagates
-      if (a != 0.0f || a != a) atomicAdd(dst + (out_base + i) * out_p_stride, a);
+      if (a != 0.0f || a != a) atomicAdd(dst + i, a);
     }
   }
 }
@@ -118,10 +110,8 @@ extern "C" {
 int photon_grid_bilinear_pass(const void* segments, int n_segments,
                               const void* step_in, const void* in_pos,
                               const void* out_pos, const void* vals, int L,
-                              const void* src, int64_t src_g_stride,
-                              int64_t src_p_stride, void* out,
-                              int64_t out_g_stride, int64_t out_p_stride,
-                              int window, int num_members, int gt_per_cta,
+                              const void* src, int64_t n_in, void* out,
+                              int64_t n_out, int window, int num_members, int gt_per_cta,
                               void* stream) {
   if (gt_per_cta < 1 || gt_per_cta > kMaxGT) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -144,8 +134,8 @@ int photon_grid_bilinear_pass(const void* segments, int n_segments,
         static_cast<const int32_t*>(in_pos),
         static_cast<const int32_t*>(out_pos),
         static_cast<const float*>(vals), L, static_cast<const float*>(src),
-        src_g_stride, src_p_stride, static_cast<float*>(out), out_g_stride,
-        out_p_stride, window, num_members, gt_per_cta);
+        n_in, static_cast<float*>(out), n_out, window, num_members,
+        gt_per_cta);
   }
   return static_cast<int>(cudaGetLastError());
 }

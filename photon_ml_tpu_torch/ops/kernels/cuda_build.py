@@ -36,9 +36,9 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def compile_library(source_name: str, lib_path: str, flags=()) -> None:
-    """``nvcc`` ``csrc/<source_name>`` into ``lib_path`` (with extra
-    ``flags``, e.g. a ``-D`` a sweep sets); raises when it fails."""
+def compile_library(source_name: str, lib_path: str) -> None:
+    """``nvcc`` ``csrc/<source_name>`` into ``lib_path``; raises when it
+    fails."""
     source = os.path.join(CSRC, source_name)
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     # temp path + atomic rename: another process never loads a half-written
@@ -46,7 +46,7 @@ def compile_library(source_name: str, lib_path: str, flags=()) -> None:
     tmp_path = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", *flags,
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
         "-o", tmp_path, source,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)

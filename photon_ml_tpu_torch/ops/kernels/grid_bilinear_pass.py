@@ -33,7 +33,6 @@ f32 rounding (checked at 1e-5 of the output's scale).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
 
 import torch
 
@@ -93,6 +92,7 @@ def grid_bilinear_pass(
 
     ``sched``, ``vals``, ``num_out_blocks`` and ``window`` as for K1's
     ``bilinear_pass``; the kernel reads and adds unchecked."""
+    global launches
     v = check_operands("grid_bilinear_pass", sched, num_out_blocks, window, vals)
     n_in = sched.num_in_blocks * window
     if src.dim() != 2 or src.shape[0] < 1 or src.shape[1] != n_in:
@@ -104,46 +104,24 @@ def grid_bilinear_pass(
         return grid_bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
     if src.device.type != "cuda":
         raise ValueError(f"grid_bilinear_pass: unsupported device {src.device}")
-    G = src.shape[0]
-    out = torch.zeros(G, num_out_blocks * window, dtype=torch.float32, device=src.device)
-    launch_strided(sched, src, (n_in, 1), out, (num_out_blocks * window, 1), G, window, v)
-    return out
-
-
-def launch_strided(
-    sched, src: Tensor, src_strides: Tuple[int, int], out: Tensor,
-    out_strides: Tuple[int, int], num_members: int, window: int, v: Tensor,
-) -> None:
-    """Launch the kernel with the source and the (zeroed) output addressed
-    by (member, position) strides in elements. :func:`grid_bilinear_pass`
-    passes the bank layout; a transposed ``[n, G]`` layout swaps them.
-    Every element the strides reach is checked to lie inside its tensor."""
-    global launches
     check_cuda_operands("grid_bilinear_pass", sched, v, src)
-    if out.device != src.device or out.dtype != torch.float32 or not out.is_contiguous():
-        raise ValueError("grid_bilinear_pass: out must be contiguous f32 beside src")
-    n_in = sched.num_in_blocks * window
-    n_out = sched.num_out_blocks * window
-    for name, t, (gs, ps), n in (
-        ("src", src, src_strides, n_in), ("out", out, out_strides, n_out),
-    ):
-        if min(gs, ps) < 0 or (num_members - 1) * gs + (n - 1) * ps >= t.numel():
-            raise ValueError(f"grid_bilinear_pass: {name} strides reach past it")
-    gt = members_per_cta(num_members, window)
+    G = src.shape[0]
+    n_out = num_out_blocks * window
+    out = torch.zeros(G, n_out, dtype=torch.float32, device=src.device)
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(src.device).cuda_stream
     rc = lib.photon_grid_bilinear_pass(
         sched.segments.data_ptr(), sched.segments.shape[0],
         sched.step_in.data_ptr(), sched.in_pos.data_ptr(),
         sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
-        src.data_ptr(), src_strides[0], src_strides[1],
-        out.data_ptr(), out_strides[0], out_strides[1],
-        window, num_members, gt, stream,
+        src.data_ptr(), n_in, out.data_ptr(), n_out,
+        window, G, members_per_cta(G, window), stream,
     )
     if rc != 0:
         msg = lib.photon_grid_cuda_error_string(rc).decode()
         raise RuntimeError(f"grid_bilinear_pass launch failed: {msg} ({rc})")
     launches += 1
+    return out
 
 
 def _declare(lib) -> None:
@@ -152,7 +130,7 @@ def _declare(lib) -> None:
     i64 = ctypes.c_int64
     lib.photon_grid_bilinear_pass.restype = i
     lib.photon_grid_bilinear_pass.argtypes = [
-        p, i, p, p, p, p, i, p, i64, i64, p, i64, i64, i, i, i, p,
+        p, i, p, p, p, p, i, p, i64, p, i64, i, i, i, p,
     ]
     lib.photon_grid_cuda_error_string.restype = ctypes.c_char_p
     lib.photon_grid_cuda_error_string.argtypes = [i]

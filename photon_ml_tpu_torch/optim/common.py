@@ -16,7 +16,10 @@ follows the slowest member and not G.
 
 Freeze (the batching rule of ``lax.while_loop``): a member whose reason is
 no longer NOT_CONVERGED keeps its state bit for bit while the others go
-on; every update is a ``torch.where`` on the ``[G]`` active mask.
+on; every update is a ``torch.where`` on the ``[G]`` active mask, skipped
+where the host already knows that the mask holds for every member (one
+fit always, until it stops), since it would return the new state as it
+is.
 
 Convergence reasons mirror the reference's:
   MAX_ITERATIONS, FUNCTION_VALUES_WITHIN_TOLERANCE (|f_k - f_{k-1}| <=
@@ -75,9 +78,13 @@ def norm(a: Tensor) -> Tensor:
     return torch.linalg.vector_norm(a, dim=-1)
 
 
-def select(mask: Tensor, new: Tensor, old: Tensor) -> Tensor:
+def select(mask: Tensor, new: Tensor, old: Tensor, every: bool = False) -> Tensor:
     """``new`` where the [G] mask holds, else ``old``, for [G] or [G, ...]
-    state (the per-member carry select of a batched while_loop)."""
+    state (the per-member carry select of a batched while_loop).
+    ``every``: the host knows the mask holds for every member, so ``new``
+    is the result and no kernel runs."""
+    if every:
+        return new
     return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
 
 
@@ -121,12 +128,16 @@ class Tracker:
         grad_norms[..., 0] = grad_norm
         return cls(values, grad_norms, [1] * value.shape[0])
 
-    def record(self, trip: int, active: Tensor, value: Tensor, grad_norm: Tensor):
+    def record(
+        self, trip: int, active: Tensor, value: Tensor, grad_norm: Tensor,
+        every: bool = False,
+    ):
         """Write slot ``trip`` of the active members (every active member
-        has made exactly ``trip`` iterations); the host keeps the counts."""
+        has made exactly ``trip`` iterations); the host keeps the counts.
+        ``every`` as for :func:`select`."""
         i = min(trip, self.values.shape[-1] - 1)
-        self.values[:, i] = torch.where(active, value, self.values[:, i])
-        self.grad_norms[:, i] = torch.where(active, grad_norm, self.grad_norms[:, i])
+        self.values[:, i] = select(active, value, self.values[:, i], every)
+        self.grad_norms[:, i] = select(active, grad_norm, self.grad_norms[:, i], every)
 
 
 @dataclass
@@ -143,7 +154,10 @@ class OptResult:
     tracker: Tracker
 
     @property
-    def reason_name(self) -> str:
+    def reason_name(self) -> Union[str, List[str]]:
+        """The reason's name; a list of them for a bank."""
+        if isinstance(self.reason, list):
+            return [CONVERGENCE_REASON_NAMES.get(r, "?") for r in self.reason]
         return CONVERGENCE_REASON_NAMES.get(self.reason, "?")
 
     def member(self, i: int) -> "OptResult":
@@ -204,6 +218,7 @@ def backtracking_line_search(
     t0: Tensor,
     searching: Tensor,
     *,
+    every: bool = False,
     c1: float = 1e-4,
     shrink: float = 0.5,
     max_steps: int = 24,
@@ -215,6 +230,7 @@ def backtracking_line_search(
     the others keep their first trial untouched. Every trial evaluates the
     whole bank once and makes one host fetch of the [G] flags. A member
     that finds no decreasing step keeps its original point (``ok`` False).
+    ``every``: the host knows that every member is searching.
     """
 
     def trial(t):
@@ -234,14 +250,18 @@ def backtracking_line_search(
     (need_host,) = fetch(need)
     k = 0
     while any(need_host) and k < max_steps:
-        t = torch.where(need, t * shrink, t)
+        all_need = all(need_host)
+        t = select(need, t * shrink, t, all_need)
         w_n, f_n, g_n = trial(t)
-        w_t, f_t, g_t = select(need, w_n, w_t), select(need, f_n, f_t), select(need, g_n, g_t)
+        w_t = select(need, w_n, w_t, all_need)
+        f_t = select(need, f_n, f_t, all_need)
+        g_t = select(need, g_n, g_t, all_need)
         ok = armijo_ok(w_t, f_t)
         need = searching & ~ok
         (need_host,) = fetch(need)
         k += 1
+    all_ok = every and not any(need_host)
     return LineSearchResult(
-        step=t, w=select(ok, w_t, w), f=select(ok, f_t, f), g=select(ok, g_t, g),
-        ok=ok,
+        step=t, w=select(ok, w_t, w, all_ok), f=select(ok, f_t, f, all_ok),
+        g=select(ok, g_t, g, all_ok), ok=ok,
     )

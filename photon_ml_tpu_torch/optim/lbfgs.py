@@ -11,10 +11,16 @@ Both run over a coefficient bank ``[G, d]`` (the batched λ-grid; see
 ``[d]``, which is a bank of one. The memory of (s, y) pairs is the
 reference's ``[G, m, d]`` circular buffer with a length and a write slot
 per member; the cautious update (skip pairs with y.s <= 1e-10) differs per
-member. The two-loop recursion masks invalid slots to exact zeros, as the
-reference does, and skips the slots no member can have filled yet. Line
-search is projected Armijo backtracking. Each outer trip makes one host
-fetch for the whole bank, plus one per line-search trial.
+member. Which members keep their pair rides in the per-trip fetch, so
+the host knows every member's length and slot, and the pair is stored
+after the fetch. While
+the members agree (one fit always, a bank until a member freezes or skips
+a pair), the memory is read and written through views of one slot;
+otherwise each member's slot is gathered, and the two-loop recursion
+masks invalid slots to exact zeros, as the reference does. Both give the
+same direction. Line search is projected Armijo backtracking. Each outer
+trip makes one host fetch for the whole bank, plus one per line-search
+trial.
 
 OWL-QN (Andrew & Gao): pseudo-gradient, direction restricted to its
 descent orthant, trial points projected onto the orthant and then into the
@@ -25,7 +31,7 @@ times ``l1_mask`` (the intercept is exempt).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -51,60 +57,96 @@ Tensor = torch.Tensor
 
 @dataclass
 class _Memory:
-    """Circular buffer of (s, y, rho) per member, updated in place."""
+    """Circular buffer of (s, y, rho) per member, updated in place; each
+    member's count of valid pairs and next write slot live on the host."""
 
     s: Tensor  # [G, m, d]
     y: Tensor  # [G, m, d]
     rho: Tensor  # [G, m]
-    length: Tensor  # int64 [G] valid pairs
-    ptr: Tensor  # int64 [G] next write slot
+    length: List[int]
+    ptr: List[int]
 
     @classmethod
     def empty(cls, G: int, m: int, d: int, like: Tensor) -> "_Memory":
-        zeros = torch.zeros(G, dtype=torch.int64, device=like.device)
         return cls(
             like.new_zeros(G, m, d), like.new_zeros(G, m, d), like.new_zeros(G, m),
-            zeros, zeros.clone(),
+            [0] * G, [0] * G,
         )
 
-    def push(self, s: Tensor, y: Tensor, active: Tensor) -> None:
-        """Cautious update: store the pair only where y.s > 1e-10 (keeps
-        H~ positive definite) and the member is active."""
+    def uniform(self) -> bool:
+        """Every member holds as many pairs, ending at the same slot."""
+        return len(set(zip(self.length, self.ptr))) == 1
+
+    def on_device(self, values: List[int]) -> Tensor:
+        """A host list as an int64 [G] tensor (after the trip's fetch the
+        device has little queued, so the copy waits on little)."""
+        return torch.tensor(values, dtype=torch.int64, device=self.s.device)
+
+    def push(self, s: Tensor, y: Tensor, rho: Tensor, keep: Tensor, kept: List[float]):
+        """Cautious update: store member g's pair where ``keep`` holds
+        (y.s > 1e-10, keeps H~ positive definite, and the member is
+        active); ``kept`` is ``keep`` as the host fetched it."""
         m = self.rho.shape[1]
-        ys = dot(y, s)
-        ok = (ys > 1e-10) & active
-        rows = torch.arange(s.shape[0], device=s.device)
-        slot = (rows, self.ptr)
-        self.s[slot] = select(ok, s, self.s[slot])
-        self.y[slot] = select(ok, y, self.y[slot])
-        self.rho[slot] = torch.where(ok, 1.0 / torch.clamp_min(ys, 1e-30), self.rho[slot])
-        self.length = torch.where(ok, torch.clamp_max(self.length + 1, m), self.length)
-        self.ptr = torch.where(ok, (self.ptr + 1) % m, self.ptr)
+        if not any(kept):
+            return
+        if self.uniform():
+            p = self.ptr[0]
+            every = all(kept)
+            self.s[:, p] = select(keep, s, self.s[:, p], every)
+            self.y[:, p] = select(keep, y, self.y[:, p], every)
+            self.rho[:, p] = select(keep, rho, self.rho[:, p], every)
+        else:
+            slot = (torch.arange(s.shape[0], device=s.device), self.on_device(self.ptr))
+            self.s[slot] = select(keep, s, self.s[slot])
+            self.y[slot] = select(keep, y, self.y[slot])
+            self.rho[slot] = select(keep, rho, self.rho[slot])
+        self.length = [min(n + 1, m) if k else n for n, k in zip(self.length, kept)]
+        self.ptr = [(p + 1) % m if k else p for p, k in zip(self.ptr, kept)]
 
 
-def _two_loop_direction(g: Tensor, mem: _Memory, max_pairs: int) -> Tensor:
-    """Two-loop recursion over each member's circular buffer; -> -H~ g.
-    Slots past a member's length contribute exact zeros; slots past
-    ``max_pairs`` (more than any member can hold yet) are skipped."""
-    G, m = mem.rho.shape
+def _two_loop_direction(g: Tensor, mem: _Memory) -> Tensor:
+    """Two-loop recursion over each member's circular buffer; -> -H~ g."""
+    m = mem.rho.shape[1]
+    if mem.uniform():
+        # every member's pairs sit in the same slots: views, no masks
+        n, p = mem.length[0], mem.ptr[0]
+        slots = [(p - 1 - i) % m for i in range(n)]  # newest first
+        alphas = []
+        q = g
+        for k in slots:
+            a = mem.rho[:, k] * dot(mem.s[:, k], q)
+            q = q - a[:, None] * mem.y[:, k]
+            alphas.append(a)
+        r = q
+        if n:
+            s_l, y_l = mem.s[:, slots[0]], mem.y[:, slots[0]]
+            r = (dot(s_l, y_l) / torch.clamp_min(dot(y_l, y_l), 1e-30))[:, None] * q
+        for k, a in zip(reversed(slots), reversed(alphas)):
+            b = mem.rho[:, k] * dot(mem.y[:, k], r)
+            r = r + (a - b)[:, None] * mem.s[:, k]
+        return -r
+    # Slots past a member's length contribute exact zeros; slots past the
+    # longest member's length are skipped.
+    G = g.shape[0]
     rows = torch.arange(G, device=g.device)
+    length, ptr = mem.on_device(mem.length), mem.on_device(mem.ptr)
     alphas = g.new_zeros(G, m)
     q = g
-    for i in range(max_pairs):
-        idx = (mem.ptr - 1 - i) % m
-        valid = i < mem.length
+    for i in range(max(mem.length)):
+        idx = (ptr - 1 - i) % m
+        valid = i < length
         a = torch.where(valid, mem.rho[rows, idx] * dot(mem.s[rows, idx], q), 0.0)
         q = q - a[:, None] * mem.y[rows, idx]
         alphas[rows, idx] = a
-    last = (mem.ptr - 1) % m
+    last = (ptr - 1) % m
     s_l, y_l = mem.s[rows, last], mem.y[rows, last]
     gamma = torch.where(
-        mem.length > 0, dot(s_l, y_l) / torch.clamp_min(dot(y_l, y_l), 1e-30), 1.0
+        length > 0, dot(s_l, y_l) / torch.clamp_min(dot(y_l, y_l), 1e-30), 1.0
     )
     r = gamma[:, None] * q
-    for i in range(max_pairs):
-        idx = (mem.ptr - mem.length + i) % m
-        valid = i < mem.length
+    for i in range(max(mem.length)):
+        idx = (ptr - length + i) % m
+        valid = i < length
         b = torch.where(valid, mem.rho[rows, idx] * dot(mem.y[rows, idx], r), 0.0)
         r = r + torch.where(valid, alphas[rows, idx] - b, 0.0)[:, None] * mem.s[rows, idx]
     return -r
@@ -198,10 +240,11 @@ def _minimize_qn(
     trip = 0
     while NOT_CONVERGED in reasons:
         active = reason == NOT_CONVERGED
+        every = all(r == NOT_CONVERGED for r in reasons)  # known on the host
         trip += 1
         if owl:
             pg = _pseudo_gradient(w, g, l1_vec)
-            direction = _two_loop_direction(pg, mem, min(trip - 1, history))
+            direction = _two_loop_direction(pg, mem)
             # restrict the direction to the descent orthant of the
             # pseudo-gradient
             direction = torch.where(direction * pg < 0, direction, 0.0)
@@ -217,25 +260,32 @@ def _minimize_qn(
 
             f_cur, slope = f + penalty(w), pg
         else:
-            direction = _two_loop_direction(g, mem, min(trip - 1, history))
+            direction = _two_loop_direction(g, mem)
             # steepest descent when d is not a descent direction
             direction = select(dot(direction, g) < 0, direction, -g)
             project = None if box is None else box.project
             ls_vg, f_cur, slope = vg, f, g
-        t0 = torch.where(
-            mem.length > 0, 1.0, 1.0 / torch.clamp_min(norm(direction), 1.0)
-        )
+        # a unit first step once a member has pairs (rho > 0 marks them)
+        if all(mem.length):
+            t0 = direction.new_ones(G)
+        else:
+            t0 = torch.where(
+                (mem.rho > 0).any(dim=1), 1.0,
+                1.0 / torch.clamp_min(norm(direction), 1.0),
+            )
         ls = backtracking_line_search(
-            ls_vg, w, f_cur, slope, direction, t0, active,
+            ls_vg, w, f_cur, slope, direction, t0, active, every=every,
             max_steps=ls_max_steps, project=project,
         )
-        mem.push(ls.w - w, ls.g - g, active)
+        s_k, y_k = ls.w - w, ls.g - g
+        ys = dot(y_k, s_k)
+        keep = (ys > 1e-10) & active
         if owl:
             f_new = ls.f - penalty(ls.w)
             g_norm = norm(_pseudo_gradient(ls.w, ls.g, l1_vec))
         else:
             f_new, g_norm = ls.f, norm(ls.g)
-        it = torch.where(active, it + 1, it)
+        it = select(active, it + 1, it, every)
         # a failed search is reported before the function-change test (a
         # stalled search has delta f == 0 and would look converged)
         code = torch.where(
@@ -245,11 +295,14 @@ def _minimize_qn(
             ),
             LINE_SEARCH_STALLED,
         )
-        w, f, g = select(active, ls.w, w), select(active, f_new, f), select(active, ls.g, g)
-        reason = torch.where(active, code, reason)
-        tracker.record(trip, active, ls.f, g_norm)
+        w = select(active, ls.w, w, every)
+        f = select(active, f_new, f, every)
+        g = select(active, ls.g, g, every)
+        reason = select(active, code, reason, every)
+        tracker.record(trip, active, ls.f, g_norm, every)
         iters = [n + (r == NOT_CONVERGED) for n, r in zip(iters, reasons)]
-        (reasons,) = fetch(reason)
+        reasons, kept = fetch(reason, keep)
+        mem.push(s_k, y_k, 1.0 / torch.clamp_min(ys, 1e-30), keep, kept)
     tracker.count = [n + 1 for n in iters]
     if owl:
         value, grad_norm = f + penalty(w), norm(_pseudo_gradient(w, g, l1_vec))

@@ -88,8 +88,9 @@ def _truncated_cg(
         rtr_new = dot(r_new, r_new)
         beta = rtr_new / torch.clamp_min(rtr, 1e-30)
         d_new = select(hit, d, r_new + beta[:, None] * d)
-        s, r, d = select(go, s_new, s), select(go, r_new, r), select(go, d_new, d)
-        rtr = torch.where(go, rtr_new, rtr)
+        every = all(go_host)
+        s, r = select(go, s_new, s, every), select(go, r_new, r, every)
+        d, rtr = select(go, d_new, d, every), select(go, rtr_new, rtr, every)
         done = done | (go & hit)
         iters += 1
     return s, r
@@ -130,6 +131,7 @@ def minimize_tron(
     trip = 0
     while NOT_CONVERGED in reasons:
         active = reason == NOT_CONVERGED
+        every = all(r_ == NOT_CONVERGED for r_ in reasons)
         trip += 1
         w_cur = w
         s, r = _truncated_cg(
@@ -185,12 +187,14 @@ def minimize_tron(
             (code == NOT_CONVERGED) & (failures_new >= max_improvement_failures),
             MAX_ITERATIONS, code,
         )
-        w, f, g = select(active, w2, w), torch.where(active, f2, f), select(active, g2, g)
-        delta = torch.where(active, delta_new, delta)
-        failures = torch.where(active, failures_new, failures)
-        it = torch.where(active, it_new, it)
-        reason = torch.where(active, code, reason)
-        tracker.record(trip, active, f2, g_norm)
+        w = select(active, w2, w, every)
+        f = select(active, f2, f, every)
+        g = select(active, g2, g, every)
+        delta = select(active, delta_new, delta, every)
+        failures = select(active, failures_new, failures, every)
+        it = select(active, it_new, it, every)
+        reason = select(active, code, reason, every)
+        tracker.record(trip, active, f2, g_norm, every)
         iters = [n + (r_ == NOT_CONVERGED) for n, r_ in zip(iters, reasons)]
         (reasons,) = fetch(reason)
     tracker.count = [n + 1 for n in iters]

@@ -2,8 +2,8 @@
 
     python3 -m photon_ml_tpu_torch.tools.profile_grid [--seed 0]
 
-Builds the planted-model logistic data of ``chip_smoke.py`` (2^18 rows x
-64 nnz x 2^20 features), warms up with one fit, then traces the batched
+Builds the planted-model logistic data of ``time_sequential_grid`` (2^18
+rows x 64 nnz x 2^20 features), warms up with one fit, then traces the batched
 L-BFGS grid (``train_grid_batched``) and the warm-started sequential grid
 (``train_generalized_linear_model``) over λ in {10, 1, 0.1, 0.01} with 10
 iterations and variances, each under ``torch.profiler``. For each it
@@ -19,10 +19,10 @@ import argparse
 import sys
 import time
 
-import numpy as np
 import torch
 
-LAMBDAS = [10.0, 1.0, 0.1, 0.01]
+from photon_ml_tpu_torch.tools.time_sequential_grid import DIM, LAMBDAS, ads_batch
+
 TOP = 8
 
 
@@ -36,7 +36,6 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from photon_ml_tpu_torch.ops import tiled_sparse as ts
     from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
     from photon_ml_tpu_torch.task import TaskType
     from photon_ml_tpu_torch.training import (
@@ -45,18 +44,7 @@ def main() -> int:
     )
     from photon_ml_tpu_torch.utils.device import gpu_name_and_power_limit
 
-    n_rows, nnz, dim = 1 << 18, 64, 1 << 20
-    rng = np.random.default_rng(args.seed)
-    w_true = (rng.normal(size=dim) * 0.3).astype(np.float32)
-    idx = rng.integers(0, dim, size=(n_rows, nnz), dtype=np.int64)
-    vals = rng.normal(size=(n_rows, nnz)).astype(np.float32)
-    margin = (vals * w_true[idx]).sum(axis=1)
-    labels = (rng.uniform(size=n_rows) < 1 / (1 + np.exp(-margin))).astype(np.float32)
-    tb = ts.build_tiled_batch(
-        np.repeat(np.arange(n_rows, dtype=np.int64), nnz), idx.reshape(-1),
-        vals.reshape(-1), labels, np.zeros(n_rows, np.float32),
-        np.ones(n_rows, np.float32), dim, device="cuda",
-    )
+    tb = ads_batch(args.seed)
     kw = dict(
         optimizer_type=OptimizerType.LBFGS,
         regularization_type=RegularizationType.L2,
@@ -65,7 +53,7 @@ def main() -> int:
     )
     task = TaskType.LOGISTIC_REGRESSION
     for trainer in (train_grid_batched, train_generalized_linear_model):
-        trainer(tb, task, dim, **kw)  # warm-up: builds, allocator, handles
+        trainer(tb, task, DIM, **kw)  # warm-up: builds, allocator, handles
     torch.cuda.synchronize()
     for label, trainer in (
         ("batched", train_grid_batched),
@@ -73,7 +61,7 @@ def main() -> int:
     ):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trainer(tb, task, dim, **kw)
+            trainer(tb, task, DIM, **kw)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         kernels = sorted(

@@ -172,21 +172,6 @@ def test_grid_pass_matches_plain_and_k1(cuda, name, G):
 
 
 @pytest.mark.cuda
-def test_grid_pass_transposed_layout_matches(cuda):
-    """The kernel on a transposed [n, G] source and output (strides
-    swapped) computes the same bank."""
-    rng, tb, _ = _batch("spills", cuda)
-    win, G = tb.params.window, 3
-    w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device=cuda)
-    n_out = tb.num_row_blocks * win
-    out_t = torch.zeros(n_out, G, device=cuda)
-    k2.launch_strided(
-        tb.z_sched, w.T.contiguous(), (1, G), out_t, (1, G), G, win, tb.z_sched.vals
-    )
-    _close(out_t.T, k2.grid_bilinear_pass_plain(tb.z_sched, w, tb.num_row_blocks, win))
-
-
-@pytest.mark.cuda
 def test_bank_objective_on_card_matches_cpu(cuda):
     """The tiled objective over a bank on the card (K2) against the same
     on the CPU (the plain grid pass), with per-member l2."""
@@ -234,8 +219,3 @@ def test_grid_wrapper_rejects_bad_operands(cuda):
         )
     with pytest.raises(ValueError):
         k2.grid_bilinear_pass(tb.z_sched, ok, tb.num_row_blocks - 1, win)
-    with pytest.raises(ValueError, match="strides"):
-        k2.launch_strided(
-            tb.z_sched, ok, (tb.dim, 1), torch.zeros(2, 8, device=cuda), (8, 1),
-            2, win, tb.z_sched.vals,
-        )

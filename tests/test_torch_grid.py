@@ -45,7 +45,7 @@ from photon_ml_tpu_torch.convert import (
 )
 from photon_ml_tpu_torch.data.batch import sparse_batch_from_arrays
 from photon_ml_tpu_torch.ops import tiled_sparse as ts
-from photon_ml_tpu_torch.optim import common
+from photon_ml_tpu_torch.optim import common, lbfgs
 from photon_ml_tpu_torch.optim.common import BoxConstraints
 from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig,
@@ -192,10 +192,70 @@ def test_run_grid_from_a_reference_bank():
     assert result.coefficients.shape == (G, D)
     assert result.iterations == [int(i) for i in ref_result.iterations]
     assert result.reason == [int(r) for r in ref_result.reason]
+    assert result.reason_name == [
+        result.member(g).reason_name for g in range(G)
+    ] == [common.CONVERGENCE_REASON_NAMES[int(r)] for r in ref_result.reason]
     assert_close(result.value, ref_result.value, rtol=1e-5)
     assert_close_to_scale(result.coefficients, ref_result.coefficients, rtol=1e-4)
     with pytest.raises(ValueError, match="bank"):
         coefficient_bank_from_reference(bank[0])
+
+
+def _pushed_memory(G, skip, frozen_after, trips=6, m=4, d=16):
+    """An L-BFGS memory of G members after ``trips`` pushes of seeded
+    pairs: member ``skip`` gets a pair with y.s < 0 (the cautious update
+    drops it) on every third trip; member ``frozen_after`` stops being
+    active after that many trips. Also -> each member's pairs as a list,
+    oldest first, kept by hand."""
+    rng = np.random.default_rng(9)
+    mem = lbfgs._Memory.empty(G, m, d, torch.zeros(1))
+    pairs = [[] for _ in range(G)]
+    for trip in range(trips):
+        s = torch.as_tensor(rng.normal(size=(G, d)).astype(np.float32))
+        y = s * torch.as_tensor(rng.uniform(0.5, 2.0, size=(G, d)).astype(np.float32))
+        if skip is not None and trip % 3 == 2:
+            y[skip] = -y[skip]
+        active = torch.ones(G, dtype=torch.bool)
+        if frozen_after is not None and trip >= frozen_after:
+            active[frozen_after] = False
+        ys = (s * y).sum(dim=1)
+        keep = (ys > 1e-10) & active
+        mem.push(s, y, 1.0 / ys, keep, keep.tolist())
+        for k in range(G):
+            if keep[k]:
+                pairs[k] = (pairs[k] + [(s[k], y[k])])[-m:]
+    return mem, pairs
+
+
+@pytest.mark.parametrize(
+    "skip,frozen_after", [(None, None), (1, None), (None, 2), (1, 2)]
+)
+def test_two_loop_slot_views_match_gathers(skip, frozen_after):
+    """The memory's host counts follow the pairs each member kept; the
+    two-loop direction of each member of the bank (slot views while the
+    members agree, per-member gathers once one skips a pair or freezes)
+    equals the classic recursion over that member's own pairs, and
+    forcing gathers on the bank changes nothing. Tolerance: rtol 1e-5,
+    atol 1e-6 (f32 sums of another shape)."""
+    G, d = 3, 16
+    mem, pairs = _pushed_memory(G, skip, frozen_after, d=d)
+    assert mem.length == [len(p) for p in pairs]
+    assert mem.uniform() == (skip is None and frozen_after is None)
+    g = torch.as_tensor(np.random.default_rng(10).normal(size=(G, d)).astype(np.float32))
+    bank = lbfgs._two_loop_direction(g, mem)
+    mem.uniform = lambda: False
+    assert_close(lbfgs._two_loop_direction(g, mem), bank, rtol=1e-5, atol=1e-6)
+    for k in range(G):
+        q, alphas = g[k], []
+        for s, y in reversed(pairs[k]):
+            a = torch.dot(s, q) / torch.dot(y, s)
+            q = q - a * y
+            alphas.append(a)
+        s, y = pairs[k][-1]
+        r = torch.dot(s, y) / torch.dot(y, y) * q
+        for (s, y), a in zip(pairs[k], reversed(alphas)):
+            r = r + (a - torch.dot(y, r) / torch.dot(y, s)) * s
+        assert_close(bank[k], -r, rtol=1e-5, atol=1e-6)
 
 
 def _freeze_problem(max_iter):
