@@ -32,7 +32,18 @@ Phases, each printing its own lines:
    member's final point, each L-BFGS member against a cold sequential
    fit of its lambda, and the batched L-BFGS grid's seconds against the
    warm-started sequential grid's over the same lambdas, in turns;
-6. a ``kernels`` JSON line, the nvidia-smi line, and the last line
+6. the mesh path: a 2 x 2 (data, model) mesh of 4 spawned ranks on the
+   card (gloo), each holding one cell of the same data: K1 and K2 against
+   their plain versions on every cell, the cell-shape times (rank 0, the
+   others idle), the mesh objective against the single-card one, then
+   ``train_feature_sharded`` (L-BFGS over [10, 1] with variances, TRON at
+   1), ``train_grid_batched_feature_sharded`` (L-BFGS over the four grid
+   lambdas) and the data-parallel ``train_generalized_linear_model(mesh=)``
+   on a 4-rank data mesh, each against phase 4's or 5's fit of its lambda,
+   with every rank's launches, host fetches, collectives and seconds. Four
+   ranks share one card and gloo stages each collective through the host:
+   this checks the path and counts it; it measures no scaling;
+7. a ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -57,6 +68,8 @@ N_HELD_OUT = 1 << 16
 RTOL = 1e-5  # of the output's largest magnitude: f32 sums, another order
 GRID_G = 4  # members of the bank K2 is checked and timed at, ads shape
 GRID_LAMBDAS = [10.0, 1.0, 0.1, 0.01]
+MESH_SHAPE = (2, 2)  # (data, model) ranks of the mesh phase
+MESH_TIMEOUT_S = 600.0
 
 
 def say(*parts):
@@ -76,6 +89,14 @@ def planted_data(rng, n, w_true):
     margin = (vals * w_true[idx]).sum(axis=1)
     labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float32)
     return idx, vals, labels
+
+
+def ads_data(seed):
+    """The ads-shape training rows and held-out rows, from a generator of
+    their own: the mesh ranks make the same data from the same seed."""
+    rng = np.random.default_rng([seed, 1])
+    w_true = (rng.normal(size=DIM) * 0.3).astype(np.float32)
+    return planted_data(rng, N_ROWS, w_true), planted_data(rng, N_HELD_OUT, w_true)
 
 
 def pass_args(tb, w, c):
@@ -178,6 +199,217 @@ def spill_bound_ms(sched, members=1):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, spills
 
 
+def pass_errors(k1, k2, tb, rng, G):
+    """K1 (z, g, g_sq) and K2 over a bank of G against their plain
+    versions on ``tb``; -> [(name, max abs error, scale)]."""
+    win = tb.params.window
+    out = []
+    for label, kernel, plain, shape in (
+        ("k1", k1.bilinear_pass, k1.bilinear_pass_plain, ()),
+        (f"k2 G={G}", k2.grid_bilinear_pass, k2.grid_bilinear_pass_plain, (G,)),
+    ):
+        w = torch.as_tensor(rng.normal(size=shape + (tb.dim,)).astype(np.float32), device="cuda")
+        c = torch.as_tensor(rng.normal(size=shape + (tb.num_rows,)).astype(np.float32), device="cuda")
+        for name, sched, src, n_out, v in pass_args(tb, w, c):
+            got = kernel(sched, src, n_out, win, vals=v)
+            ref = plain(sched, src, n_out, win, vals=v)
+            out.append((f"{label} {name}", float((got - ref).abs().max()), float(ref.abs().max())))
+    return out
+
+
+def cell_times(k1, k2, tb, rows, feats, vals, rng):
+    """K1 and K2 (G = GRID_G) on one cell: CUDA-event ms per z and g pass,
+    their plain versions', the cell's CSR matvec / SpMM, and the bounds."""
+    win = tb.params.window
+    G = GRID_G
+    w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device="cuda")
+    c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device="cuda")
+    wb = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device="cuda")
+    cb = torch.as_tensor(rng.normal(size=(G, tb.num_rows)).astype(np.float32), device="cuda")
+    coo = torch.stack([torch.as_tensor(rows, device="cuda"), torch.as_tensor(feats, device="cuda")])
+    x_vals = torch.as_tensor(vals, device="cuda")
+    x = torch.sparse_coo_tensor(coo, x_vals, (tb.num_rows, tb.dim)).coalesce().to_sparse_csr()
+    xt = torch.sparse_coo_tensor(coo.flip(0), x_vals, (tb.dim, tb.num_rows)).coalesce().to_sparse_csr()
+    z = (tb.z_sched, tb.num_row_blocks, win)
+    g = (tb.g_sched, tb.num_feat_blocks, win)
+    times = {}
+    for name, fn in (
+        ("k1_z_ms", lambda: k1.bilinear_pass(z[0], w, *z[1:])),
+        ("k1_g_ms", lambda: k1.bilinear_pass(g[0], c, *g[1:])),
+        ("k1_z_plain_ms", lambda: k1.bilinear_pass_plain(z[0], w, *z[1:])),
+        ("k1_g_plain_ms", lambda: k1.bilinear_pass_plain(g[0], c, *g[1:])),
+        ("k1_z_library_ms", lambda: x @ w[:, None]),
+        ("k1_g_library_ms", lambda: xt @ c[:, None]),
+        ("k2_z_ms", lambda: k2.grid_bilinear_pass(z[0], wb, *z[1:])),
+        ("k2_g_ms", lambda: k2.grid_bilinear_pass(g[0], cb, *g[1:])),
+        ("k2_z_plain_ms", lambda: k2.grid_bilinear_pass_plain(z[0], wb, *z[1:])),
+        ("k2_g_plain_ms", lambda: k2.grid_bilinear_pass_plain(g[0], cb, *g[1:])),
+        ("k2_z_library_ms", lambda: x @ wb.T),
+        ("k2_g_library_ms", lambda: xt @ cb.T),
+    ):
+        times[name] = time_ms(fn)
+    for kernel, members in (("k1", 1), ("k2", G)):
+        times[f"{kernel}_z_bound_ms"] = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows, members)[0]
+        times[f"{kernel}_g_bound_ms"] = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim, members)[0]
+    times["entries"] = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)[2]
+    return times
+
+
+def mesh_rank(mesh, seed, w_eval):
+    """One rank of the mesh phase (a spawned process); -> its numbers. It
+    makes the phase-4 data from the seed, builds its own cell, checks K1
+    and K2 on it, and runs the mesh path's fits, each with every count at
+    0 just before it and read just after."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.data.batch import sparse_batch_from_arrays
+    from photon_ml_tpu_torch.ops import losses
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.ops.kernels import grid_bilinear_pass as k2
+    from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+    from photon_ml_tpu_torch.optim import common
+    from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
+    from photon_ml_tpu_torch.parallel.distributed import block_local_vg
+    from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+    from photon_ml_tpu_torch.task import TaskType
+    from photon_ml_tpu_torch.training import (
+        train_feature_sharded,
+        train_generalized_linear_model,
+        train_grid_batched_feature_sharded,
+    )
+
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    (idx, vals, labels), _ = ads_data(seed)
+    batch = sparse_batch_from_arrays(
+        idx, vals, labels, np.zeros(N_ROWS, np.float32),
+        np.ones(N_ROWS, np.float32), device="cpu",
+    )
+    d_i, m_i = mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS)
+    t0 = time.perf_counter()
+    cell, block_dim = ts.feature_shard_tiled_batch(
+        batch, DIM, *mesh.shape, d_i, m_i, device=mesh.device,
+    )
+    torch.cuda.synchronize()
+    tb = cell.cell
+    out["cell"] = dict(
+        build_s=time.perf_counter() - t0, rows=tb.num_rows, block_dim=block_dim,
+        chunk=tb.params.chunk, z_steps=tb.z_sched.num_steps,
+        g_steps=tb.g_sched.num_steps,
+    )
+    rng = np.random.default_rng([seed, 2, mesh.rank])
+    out["checks"] = pass_errors(k1, k2, tb, rng, GRID_G)
+
+    # cell-shape times on rank 0 while the other ranks wait
+    if mesh.rank == 0:
+        rows = np.repeat(np.arange(N_ROWS, dtype=np.int64), NNZ_PER_ROW)
+        feats = idx.reshape(-1)
+        R = cell.meta.rows_per_shard
+        mine = (rows // R == d_i) & (feats // block_dim == m_i)
+        out["times"] = cell_times(
+            k1, k2, tb, rows[mine] - d_i * R, feats[mine] - m_i * block_dim,
+            vals.reshape(-1)[mine], rng,
+        )
+    dist.barrier(group=mesh.world)
+
+    # the mesh objective at w_eval, l2 = 0
+    dg, mg = mesh.groups[DATA_AXIS], mesh.groups[MODEL_AXIS]
+    own = slice(m_i * block_dim, (m_i + 1) * block_dim)
+    w_block = torch.as_tensor(w_eval[own], device=mesh.device)
+    value, grad = block_local_vg(
+        losses.LOGISTIC, cell, dg, mg, 0.0, NormalizationContext()
+    )(w_block)
+    out["objective"] = (float(value), common.all_gather_last(grad, mg))
+
+    # what one collective costs here (host clock, every rank taking part):
+    # the fetch alone and with its flag broadcast, and all-reduces of one
+    # value, of the partial margins and of the block gradient
+    def per_call_us(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    reductions = common.MeshReductions(model=mg, world=mesh.world)
+    flag = torch.zeros(1, device=mesh.device)
+    rows_vec = torch.zeros(tb.num_rows + 1, device=mesh.device)
+    block_vec = torch.zeros(block_dim + 2, device=mesh.device)
+    out["collective_us"] = {
+        "fetch": per_call_us(lambda: common.fetch(flag)),
+        "fetch_with_broadcast": per_call_us(lambda: common.fetch(flag, mesh=reductions)),
+        "all_reduce_1": per_call_us(lambda: common.all_reduce(flag.clone(), mg)),
+        "all_reduce_margins": per_call_us(lambda: common.all_reduce(rows_vec.clone(), mg)),
+        "all_reduce_gradient": per_call_us(lambda: common.all_reduce(block_vec.clone(), dg)),
+    }
+    del cell, tb
+
+    def counted(fn):
+        k1.launches = k2.launches = 0
+        common.host_fetches = common.collectives = 0
+        t0 = time.perf_counter()
+        models, results = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        fits = {}
+        for lam, model in models.items():
+            means, variances = model.coefficients.means, model.coefficients.variances
+            ok = bool(torch.isfinite(means).all()) and (
+                variances is None
+                or bool(torch.isfinite(variances).all() and (variances > 0).all())
+            )
+            fits[lam] = dict(
+                value=float(results[lam].value),
+                iterations=results[lam].iterations,
+                reason=results[lam].reason_name, finite=ok,
+                variances=variances is not None,
+                digest=hashlib.sha256(means.cpu().numpy().tobytes()).hexdigest()[:16],
+            )
+        return dict(
+            seconds=seconds, k1=k1.launches, k2=k2.launches,
+            fetches=common.host_fetches, collectives=common.collectives,
+            fits=fits,
+        )
+
+    task = TaskType.LOGISTIC_REGRESSION
+    l2 = dict(regularization_type=RegularizationType.L2, kernel="tiled")
+    out["lbfgs"] = counted(lambda: train_feature_sharded(
+        batch, task, DIM, mesh=mesh, regularization_weights=[10.0, 1.0],
+        max_iter=10, compute_variances=True, **l2,
+    ))
+    out["tron"] = counted(lambda: train_feature_sharded(
+        batch, task, DIM, mesh=mesh, regularization_weights=[1.0], max_iter=3,
+        optimizer_type=OptimizerType.TRON, **l2,
+    ))
+    out["grid"] = counted(lambda: train_grid_batched_feature_sharded(
+        batch, task, DIM, mesh=mesh, regularization_weights=GRID_LAMBDAS,
+        max_iter=10, compute_variances=True, **l2,
+    ))
+    data_mesh = make_mesh((mesh.world_size,), (DATA_AXIS,))
+    out["data_parallel"] = counted(lambda: train_generalized_linear_model(
+        batch, task, DIM, mesh=data_mesh, regularization_weights=[10.0, 1.0],
+        max_iter=10, compute_variances=True, **l2,
+    ))
+    return out
+
+
+def mesh_fields(kernel, launches, cell, errs):
+    """A kernel's mesh-phase fields for the ``kernels`` line: its launches
+    over the mesh fits (all ranks), its times per pass at the cell shape
+    with their plain, library and bound times, and its worst error on
+    the cells."""
+    fields = {"mesh_launches": launches[kernel]}
+    for key in ("z_ms", "g_ms", "z_plain_ms", "g_plain_ms", "z_library_ms",
+                "g_library_ms", "z_bound_ms", "g_bound_ms"):
+        fields[f"cell_{key}"] = cell[f"{kernel}_{key}"]
+    fields["cell_max_abs_err"], fields["cell_max_rel_err"] = errs[kernel]
+    return fields
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -198,6 +430,7 @@ def main() -> int:
     from photon_ml_tpu_torch.ops.objective import GLMObjective
     from photon_ml_tpu_torch.optim import common
     from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
+    from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, spawn_mesh
     from photon_ml_tpu_torch.task import TaskType
     from photon_ml_tpu_torch.training import (
         train_generalized_linear_model,
@@ -252,9 +485,7 @@ def main() -> int:
 
     # -- main-path data at the ads shape ----------------------------------------
     t0 = time.perf_counter()
-    w_true = (rng.normal(size=DIM) * 0.3).astype(np.float32)
-    idx, vals, labels = planted_data(rng, N_ROWS, w_true)
-    h_idx, h_vals, h_labels = planted_data(rng, N_HELD_OUT, w_true)
+    (idx, vals, labels), (h_idx, h_vals, h_labels) = ads_data(args.seed)
     say(f"data: {N_ROWS} x {NNZ_PER_ROW} nnz x {DIM} features "
         f"({N_ROWS * NNZ_PER_ROW} entries), made in "
         f"{time.perf_counter() - t0:.2f} s; positive rate {labels.mean():.4f}")
@@ -566,7 +797,77 @@ def main() -> int:
             f"({smi})")
     say(f"grid_end_to_end cold sequential fits: {cold_s!r} s in all")
 
-    # -- 6. result lines --------------------------------------------------------
+    # -- 6. the mesh path -------------------------------------------------------
+    say(f"mesh: {MESH_SHAPE} (data, model) ranks on ONE card ({smi}); they "
+        "time-slice its SMs and gloo stages every collective through the "
+        "host: this checks the path and counts it, it measures no scaling")
+    w_eval = (rng.normal(size=DIM) * 0.05).astype(np.float32)
+    v_one, g_one = tiled_obj.value_and_gradient(
+        torch.as_tensor(w_eval, device="cuda"), tb, 0.0
+    )
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_mesh(
+            mesh_rank, MESH_SHAPE, (DATA_AXIS, MODEL_AXIS),
+            args=(args.seed, w_eval), timeout_s=MESH_TIMEOUT_S,
+        )
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"mesh phase: {e}")
+    mesh_s = time.perf_counter() - t0
+    cell_errs = {"k1": (0.0, 0.0), "k2": (0.0, 0.0)}
+    for r in ranks:
+        say(f"mesh rank {r['rank']} {r['coords']}: cell " + " ".join(
+            f"{k}={v!r}" for k, v in r["cell"].items()))
+        for name, err, scale in r["checks"]:
+            say(f"mesh_check rank {r['rank']} {name}: max_abs_err={err!r} "
+                f"max_rel_err={err / max(scale, 1e-30)!r} scale={scale!r}")
+            if not np.isfinite(err) or err > 1e-6 + RTOL * scale:
+                fail(f"mesh rank {r['rank']}: {name} disagrees with its plain version")
+            key = name[:2]
+            cell_errs[key] = tuple(map(max, cell_errs[key], (err, err / max(scale, 1e-30))))
+    cell = ranks[0]["times"]
+    say(f"mesh_cell_times rank 0, {cell['entries']} entries ({smi}): " + " ".join(
+        f"{k}={v!r}" for k, v in cell.items() if k != "entries"))
+    v_err = abs(ranks[0]["objective"][0] - float(v_one)) / abs(float(v_one))
+    g_mesh = torch.as_tensor(ranks[0]["objective"][1], device="cuda")
+    g_err = float((g_mesh - g_one).abs().max() / g_one.abs().max())
+    say(f"mesh_collective_us rank 0, {MESH_SHAPE} gloo on one card ({smi}): "
+        + " ".join(f"{k}={v!r}" for k, v in ranks[0]["collective_us"].items()))
+    say(f"mesh objective vs single card at a random w, l2 = 0: value rel err "
+        f"{v_err!r}, gradient err {g_err!r} of its scale")
+    if not (v_err < RTOL and g_err < RTOL):
+        fail("the mesh objective disagrees with the single-card objective")
+    single = {
+        "lbfgs": results, "tron": tron_results,
+        "grid": grid_runs["lbfgs"]["results"], "data_parallel": results,
+    }
+    kernel_of = {"lbfgs": "k1", "tron": "k1", "grid": "k2", "data_parallel": "k1"}
+    mesh_launches = {"k1": 0, "k2": 0}
+    for label, ref in single.items():
+        runs = [r[label] for r in ranks]
+        for r, run in zip(ranks, runs):
+            say(f"mesh_path {label} rank {r['rank']}: {run['seconds']!r} s, "
+                f"{run['k1']} K1 launches, {run['k2']} K2 launches, "
+                f"{run['fetches']} host fetches, {run['collectives']} collectives")
+            other = "k2" if kernel_of[label] == "k1" else "k1"
+            if run[kernel_of[label]] == 0 or run[other]:
+                fail(f"mesh {label} rank {r['rank']}: launched "
+                     f"{run['k1']} K1 and {run['k2']} K2")
+            mesh_launches[kernel_of[label]] += run[kernel_of[label]]
+        for lam, fit in runs[0]["fits"].items():
+            f_one = float(ref[lam].value)
+            rel = abs(fit["value"] - f_one) / abs(f_one)
+            say(f"mesh_fit {label} lambda={lam}: objective {fit['value']!r} vs "
+                f"single card {f_one!r} (rel {rel!r}), iterations "
+                f"{fit['iterations']} vs {ref[lam].iterations}, {fit['reason']}")
+            if rel > 1e-3 or not fit["finite"]:
+                fail(f"mesh {label} lambda={lam}: off the single-card fit, or "
+                     "non-finite coefficients or variances")
+            if any(run["fits"][lam] != fit for run in runs):
+                fail(f"mesh {label} lambda={lam}: the ranks disagree")
+    say(f"mesh phase: {mesh_s!r} s of host time, spawn to the last rank's end")
+
+    # -- 7. result lines --------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -584,6 +885,7 @@ def main() -> int:
         "z_ms": k1_times["z_ms"], "g_ms": k1_times["g_ms"],
         "z_bound_ms": z_bound, "g_bound_ms": g_bound,
         "max_rel_err": max(small_err[1], ads_err[1]),
+        **mesh_fields("k1", mesh_launches, cell, cell_errs),
     }, {
         "name": "grid_bilinear_pass",
         "route": "cuda",
@@ -602,6 +904,7 @@ def main() -> int:
         "z_ms": k2_times["z_ms"], "g_ms": k2_times["g_ms"],
         "z_bound_ms": zb_bound, "g_bound_ms": gb_bound,
         "max_rel_err": k2_err[1],
+        **mesh_fields("k2", mesh_launches, cell, cell_errs),
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

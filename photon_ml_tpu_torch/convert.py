@@ -17,6 +17,8 @@ import torch
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.tiled_sparse import (
+    FeatureShardedTiledBatch,
+    FeatureShardedTiledMeta,
     TiledMeta,
     TiledSparseBatch,
     TileParams,
@@ -81,11 +83,7 @@ def tiled_batch_from_reference(
     """
     if meta.get("data_shards", 1) != 1:
         raise ValueError("only single-device (data_shards == 1) batches carry over")
-    p = meta["params"]
-    params = TileParams(
-        s_hi=p["s_hi"], s_lo=p["s_lo"], chunk=p["chunk"],
-        spill_cap=p.get("spill_cap"),
-    )
+    params = _params(meta)
     return tiled_batch_from_arrays(
         list(z_sched), list(g_sched), g_vals_sq, labels, offsets, weights,
         meta=TiledMeta(
@@ -94,3 +92,73 @@ def tiled_batch_from_reference(
         ),
         device=device,
     )
+
+
+def _params(meta: Mapping) -> TileParams:
+    p = meta["params"]
+    return TileParams(
+        s_hi=p["s_hi"], s_lo=p["s_lo"], chunk=p["chunk"],
+        spill_cap=p.get("spill_cap"),
+    )
+
+
+def feature_sharded_block(w_pad: np.ndarray, block_dim: int, model_index: int) -> np.ndarray:
+    """Block ``model_index`` of the reference's padded feature-sharded
+    coefficient vector ``[d_pad]`` (or bank ``[G, d_pad]``): its slots
+    ``[m * block_dim, (m + 1) * block_dim)``."""
+    w_pad = np.asarray(w_pad)
+    return w_pad[..., model_index * block_dim:(model_index + 1) * block_dim]
+
+
+def feature_sharded_vector(blocks: Sequence[np.ndarray]) -> np.ndarray:
+    """Each block in model order -> the padded ``[d_pad]`` vector (or
+    bank) again."""
+    return np.concatenate([np.asarray(b) for b in blocks], axis=-1)
+
+
+def feature_sharded_cell_from_reference(
+    meta: Mapping,
+    z_sched: Sequence[np.ndarray],
+    g_sched: Sequence[np.ndarray],
+    labels: np.ndarray,
+    offsets: np.ndarray,
+    weights: np.ndarray,
+    *,
+    data_index: int,
+    model_index: int,
+    device: DeviceLike = None,
+) -> FeatureShardedTiledBatch:
+    """Cell (data_index, model_index) of a reference
+    ``FeatureShardedTiledBatch`` -> the port's cell for that rank.
+
+    ``meta`` is ``dataclasses.asdict`` of the reference's
+    ``_FeatureShardedTiledMeta``; ``z_sched`` / ``g_sched`` the nine
+    concatenated ``_Schedule`` arrays of each pass (cells in data-major,
+    model-minor order, each padded to one step count, entry-row count and
+    spill count, so each array splits evenly); the row arrays span every
+    data shard."""
+    params = _params(meta)
+    R = meta["rows_per_shard"]
+    n_cells = meta["data_shards"] * meta["model_shards"]
+    cell = data_index * meta["model_shards"] + model_index
+
+    def own(arrays):
+        out = []
+        for a in arrays:
+            a = np.asarray(a)
+            k = a.shape[0] // n_cells
+            out.append(a[cell * k:(cell + 1) * k])
+        return out
+
+    z, g = own(z_sched), own(g_sched)
+    rows = slice(data_index * R, (data_index + 1) * R)
+    fs_meta = FeatureShardedTiledMeta(
+        params, R, meta["block_dim"], meta["num_real_rows"], meta["real_dim"],
+        meta["data_shards"], meta["model_shards"],
+    )
+    tiled = tiled_batch_from_arrays(
+        z, g, g[5] ** 2, np.asarray(labels)[rows], np.asarray(offsets)[rows],
+        np.asarray(weights)[rows], meta=fs_meta.cell_meta(data_index, model_index),
+        device=device,
+    )
+    return FeatureShardedTiledBatch(fs_meta, tiled, data_index, model_index)

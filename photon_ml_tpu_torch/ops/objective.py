@@ -15,12 +15,15 @@ Every method takes one coefficient vector ``[d]`` with a scalar
 ``l2_weight``, or a bank ``[G, d]`` with an ``l2_weight`` per member
 ``[G]`` (the batched λ-grid: what the reference gets from ``jax.vmap``).
 Values come back as ``[]`` or ``[G]``, vectors as ``[d]`` or ``[G, d]``.
+With ``group`` (a data-parallel shard of the rows) each evaluation's
+partial sums are summed over the group in one all-reduce, as the
+reference's ``axis_name`` psums them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +37,7 @@ from photon_ml_tpu_torch.ops.normalization import (
     NormalizationContext,
     identity_context,
 )
+from photon_ml_tpu_torch.optim.common import sum_over
 
 Tensor = torch.Tensor
 
@@ -53,13 +57,24 @@ def per_member(weight, coef: Tensor):
     return weight
 
 
+def sum_partials(group, *parts: Tensor, scalars: int = 0):
+    """The objective's partial sums, summed over the ranks of ``group`` in
+    one all-reduce (``optim.common.sum_over``); as they are without one."""
+    return list(parts) if group is None else sum_over(group, *parts, scalars=scalars)
+
+
 @dataclass(frozen=True)
 class GLMObjective:
-    """A weighted GLM objective over a SparseBatch of dimension ``dim``."""
+    """A weighted GLM objective over a SparseBatch of dimension ``dim``.
+
+    ``group``: a process group whose ranks each hold a shard of the rows
+    (the data-parallel fit, the reference's ``with_axis``); every partial
+    sum is then summed over it before the L2 term is added."""
 
     loss: PointwiseLoss
     dim: int
     norm: NormalizationContext = field(default_factory=identity_context)
+    group: Optional[object] = None
 
     def margins(self, coef: Tensor, batch: SparseBatch) -> Tensor:
         """z_i = x_eff_i . w_eff + offset_i (normalized-space margin)."""
@@ -70,6 +85,7 @@ class GLMObjective:
     def value(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
         z = self.margins(coef, batch)
         val = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
+        (val,) = sum_partials(self.group, val, scalars=1)
         return val + 0.5 * l2_weight * squared_norm(coef)
 
     def value_and_gradient(
@@ -80,7 +96,10 @@ class GLMObjective:
         c = batch.weights * self.loss.d1(z, batch.labels)
         value_sum = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
         vector_sum = sparse_scatter_add(batch, c, self.dim)
-        grad = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        value_sum, prefactor_sum, vector_sum = sum_partials(
+            self.group, value_sum, torch.sum(c, dim=-1), vector_sum, scalars=2
+        )
+        grad = self.norm.unshift_gradient(vector_sum, prefactor_sum)
         value = value_sum + 0.5 * l2_weight * squared_norm(coef)
         return value, grad + per_member(l2_weight, coef) * coef
 
@@ -96,7 +115,10 @@ class GLMObjective:
         zd = sparse_dot(batch, d_eff) - self.norm.shift_dot(d_eff)[..., None]
         c = batch.weights * self.loss.d2(z, batch.labels) * zd
         vector_sum = sparse_scatter_add(batch, c, self.dim)
-        hv = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        prefactor_sum, vector_sum = sum_partials(
+            self.group, torch.sum(c, dim=-1), vector_sum, scalars=1
+        )
+        hv = self.norm.unshift_gradient(vector_sum, prefactor_sum)
         return hv + per_member(l2_weight, direction) * direction
 
     def hessian_diagonal(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
@@ -111,8 +133,12 @@ class GLMObjective:
         )
         if self.norm.shift is not None:
             s1 = sparse_scatter_add(batch, c, self.dim)
-            s0 = torch.sum(c, dim=-1)[..., None]
+            s0, s1, diag = sum_partials(
+                self.group, torch.sum(c, dim=-1)[..., None], s1, diag
+            )
             diag = diag - 2.0 * self.norm.shift * s1 + self.norm.shift**2 * s0
+        else:
+            (diag,) = sum_partials(self.group, diag)
         if self.norm.factor is not None:
             diag = diag * self.norm.factor**2
         return diag + per_member(l2_weight, coef)

@@ -22,6 +22,13 @@ the schedule or its values (the reference's ``custom_vmap`` rule,
 Tile tails too small for a step are "spilled" to an exact ``index_add_``
 remainder (``_Schedule.apply_spill``).
 
+On a mesh of ranks a rank builds only its part of the reference's mesh
+layouts: its shard of the rows over every feature
+(:func:`build_sharded_tiled_batch`, the data-parallel fit) or its (data
+shard x feature block) cell (:func:`feature_shard_tiled_batch`, the
+feature-sharded fit), resolving the chunk from the global counts as the
+reference does.
+
 The schedule builder is the native counting sort of
 ``native/tile_schedule.cpp`` (compiled with g++ into the port's build
 directory and loaded with ctypes), with a numpy builder that is its oracle
@@ -52,7 +59,7 @@ from photon_ml_tpu_torch.ops.normalization import (
     NormalizationContext,
     identity_context,
 )
-from photon_ml_tpu_torch.ops.objective import per_member, squared_norm
+from photon_ml_tpu_torch.ops.objective import per_member, squared_norm, sum_partials
 from photon_ml_tpu_torch.utils.device import DeviceLike, build_dir, resolve_device
 
 Tensor = torch.Tensor
@@ -487,13 +494,17 @@ def _build_schedule(rows, feats, vals, **kw) -> Tuple[Tuple[np.ndarray, ...], st
 @dataclass(frozen=True)
 class TiledMeta:
     """Shape metadata: padded row count and dimension (whole windows) and
-    the real ones."""
+    the real ones. ``data_shards > 1`` marks one rank's shard of a
+    data-parallel layout (:func:`build_sharded_tiled_batch`): ``num_rows``
+    are then the shard's padded rows and ``num_real_rows`` the global real
+    count, as in the reference's ``_TiledMeta``."""
 
     params: TileParams
     num_rows: int
     dim: int
     num_real_rows: int
     real_dim: int
+    data_shards: int = 1
 
 
 @dataclass(frozen=True)
@@ -568,35 +579,58 @@ def build_tiled_batch(
     device: DeviceLike = None,
 ) -> TiledSparseBatch:
     """COO triples + per-row arrays -> tiled batch on ``device``. Entries
-    with zero value are dropped. The two passes build in parallel threads
-    (the native builder and numpy's sorts release the GIL)."""
+    with zero value are dropped."""
     dev = resolve_device(device)
     nz = vals != 0
     rows, feats, vals = rows[nz], feats[nz], vals[nz]
     win = params.window
     n = labels.shape[0]
-    n_pad = max(((n + win - 1) // win) * win, win)
-    d_pad = max(((dim + win - 1) // win) * win, win)
+    n_pad = _whole_windows(n, win)
+    d_pad = _whole_windows(dim, win)
     params = params.resolved(len(vals), (n_pad // win) * (d_pad // win))
+    return _build_from_coo(
+        rows, feats, vals, *_padded_rows(n_pad, labels, offsets, weights),
+        meta=TiledMeta(params, n_pad, d_pad, n, dim), device=dev,
+    )
+
+
+def _whole_windows(n: int, win: int) -> int:
+    """``n`` rounded up to whole windows (at least one)."""
+    return max(((n + win - 1) // win) * win, win)
+
+
+def _padded_rows(total: int, *arrays) -> list:
+    """Row arrays zero-padded (weight 0 = inert) to ``total`` rows."""
+    out = []
+    for a in arrays:
+        padded = np.zeros(total, np.float32)
+        padded[: len(a)] = a
+        out.append(padded)
+    return out
+
+
+def _build_from_coo(
+    rows, feats, vals, labels, offsets, weights, *, meta: TiledMeta, device,
+) -> TiledSparseBatch:
+    """COO triples in the batch's own row and feature space (nonzero
+    values) and row arrays padded to ``meta.num_rows`` -> TiledSparseBatch,
+    with ``meta.params`` already resolved. The two passes build in parallel
+    threads (the native builder and numpy's sorts release the GIL)."""
+    win = meta.params.window
     with ThreadPoolExecutor(2) as pool:
         fz = pool.submit(
-            _build_schedule, rows, feats, vals, params=params,
-            sort_by_feature_block=False, num_out_blocks=n_pad // win,
+            _build_schedule, rows, feats, vals, params=meta.params,
+            sort_by_feature_block=False, num_out_blocks=meta.num_rows // win,
         )
         fg = pool.submit(
-            _build_schedule, rows, feats, vals, params=params,
-            sort_by_feature_block=True, num_out_blocks=d_pad // win,
+            _build_schedule, rows, feats, vals, params=meta.params,
+            sort_by_feature_block=True, num_out_blocks=meta.dim // win,
         )
         z_arrays, z_builder = fz.result()
         g_arrays, g_builder = fg.result()
-    pad = np.zeros(n_pad, np.float32)
-    lab, off, wgt = pad.copy(), pad.copy(), pad.copy()
-    lab[:n] = labels
-    off[:n] = offsets
-    wgt[:n] = weights
     return tiled_batch_from_arrays(
-        z_arrays, g_arrays, g_arrays[5] ** 2, lab, off, wgt,
-        meta=TiledMeta(params, n_pad, d_pad, n, dim), device=dev,
+        z_arrays, g_arrays, g_arrays[5] ** 2, labels, offsets, weights,
+        meta=meta, device=device,
         builder=z_builder if z_builder == g_builder else "mixed",
     )
 
@@ -647,6 +681,13 @@ def _sparse_coo(batch: SparseBatch):
     return rows[nz], feats[nz], vals[nz]
 
 
+def _row_arrays(batch: SparseBatch):
+    return (
+        batch.labels.cpu().numpy(), batch.offsets.cpu().numpy(),
+        batch.weights.cpu().numpy(),
+    )
+
+
 def tiled_batch_from_sparse(
     batch: SparseBatch, dim: int, *, params: TileParams = TileParams(),
     device: DeviceLike = None,
@@ -654,10 +695,149 @@ def tiled_batch_from_sparse(
     """SparseBatch (padded rows) -> TiledSparseBatch on ``device``."""
     rows, feats, vals = _sparse_coo(batch)
     return build_tiled_batch(
-        rows, feats, vals,
-        batch.labels.cpu().numpy(), batch.offsets.cpu().numpy(),
-        batch.weights.cpu().numpy(), dim, params=params, device=device,
+        rows, feats, vals, *_row_arrays(batch), dim, params=params, device=device,
     )
+
+
+def build_sharded_tiled_batch(
+    batch: SparseBatch, dim: int, n_shards: int, shard_index: int, *,
+    params: TileParams = TileParams(), device: DeviceLike = None,
+) -> TiledSparseBatch:
+    """Shard ``shard_index`` of the reference's data-parallel layout
+    (``build_sharded_tiled_batch``): rows split into ``n_shards``
+    contiguous ranges of ``R`` rows (whole windows), this range's
+    schedules built in its local row space over every feature. ``params``
+    resolve from the GLOBAL entry and tile counts, as the reference's do,
+    so every shard gets the chunk the reference gives it."""
+    dev = resolve_device(device)
+    rows, feats, vals = _sparse_coo(batch)
+    win = params.window
+    n = batch.num_rows
+    R = _whole_windows(-(-n // n_shards), win)
+    d_pad = _whole_windows(dim, win)
+    params = params.resolved(len(vals), n_shards * (R // win) * (d_pad // win))
+    mine = rows // R == shard_index
+    local = slice(shard_index * R, (shard_index + 1) * R)
+    row_arrays = [a[local] for a in _padded_rows(n_shards * R, *_row_arrays(batch))]
+    return _build_from_coo(
+        rows[mine] - shard_index * R, feats[mine], vals[mine], *row_arrays,
+        meta=TiledMeta(params, R, d_pad, n, dim, data_shards=n_shards),
+        device=dev,
+    )
+
+
+@dataclass(frozen=True)
+class FeatureShardedTiledMeta:
+    """Shapes of the reference's feature-sharded tiled layout; a cell is
+    ``rows_per_shard`` rows by ``block_dim`` features."""
+
+    params: TileParams
+    rows_per_shard: int  # padded rows per data shard (whole windows)
+    block_dim: int  # padded features per model block (whole windows)
+    num_real_rows: int
+    real_dim: int
+    data_shards: int
+    model_shards: int
+
+    def cell_meta(self, data_index: int, model_index: int) -> TiledMeta:
+        """The TiledMeta of one cell, in its local row and feature space."""
+        R, b = self.rows_per_shard, self.block_dim
+        return TiledMeta(
+            self.params, R, b,
+            num_real_rows=int(np.clip(self.num_real_rows - data_index * R, 0, R)),
+            real_dim=int(np.clip(self.real_dim - model_index * b, 0, b)),
+        )
+
+
+@dataclass(frozen=True)
+class FeatureShardedTiledBatch:
+    """ONE rank's cell of the reference's ``FeatureShardedTiledBatch``: the
+    entries of data shard ``data_index`` whose features fall in block
+    ``model_index``, tiled in the cell's local row and feature space
+    (``cell``, a single-shard TiledSparseBatch), with that data shard's
+    padded labels, offsets and weights. Global feature f is coefficient
+    ``f % block_dim`` of block ``f // block_dim``.
+
+    Its z-pass gives the block's partial margins of the shard's rows (an
+    all-reduce over the model group completes them); its g-pass the
+    shard's part of the block's gradient (an all-reduce over the data
+    group completes it). K1 runs them for a vector, K2 for a bank."""
+
+    meta: FeatureShardedTiledMeta
+    cell: TiledSparseBatch
+    data_index: int
+    model_index: int
+
+    @property
+    def block_dim(self) -> int:
+        return self.meta.block_dim
+
+    @property
+    def labels(self) -> Tensor:
+        return self.cell.labels
+
+    @property
+    def offsets(self) -> Tensor:
+        return self.cell.offsets
+
+    @property
+    def weights(self) -> Tensor:
+        return self.cell.weights
+
+    def z_pass(self, x_block: Tensor) -> Tensor:
+        """Raw partial margins ``[..., rows_per_shard]`` of a block vector
+        or bank ``[..., block_dim]``."""
+        return tiled_z_pass(self.cell, x_block.contiguous())
+
+    def g_pass(self, c: Tensor) -> Tensor:
+        """``X_cell^T c`` ``[..., block_dim]`` of row coefficients ``c``."""
+        return tiled_g_pass(self.cell, c)
+
+    def g_sq_pass(self, c: Tensor) -> Tensor:
+        """The g-pass over squared values (the Hessian diagonal's S2)."""
+        return tiled_g_pass(
+            self.cell, c, vals=self.cell.g_vals_sq,
+            spill_vals=self.cell.g_sched.spill_vals**2,
+        )
+
+
+def feature_shard_tiled_batch(
+    batch: SparseBatch, dim: int, data_shards: int, model_shards: int,
+    data_index: int, model_index: int, *,
+    params: TileParams = TileParams(), device: DeviceLike = None,
+) -> Tuple[FeatureShardedTiledBatch, int]:
+    """SparseBatch -> (this rank's cell of the reference's
+    ``feature_shard_tiled_batch`` layout, block_dim). Every rank calls it
+    with the whole batch and builds only its own cell.
+
+    ``block_dim`` is ``ceil(dim / model_shards)`` rounded up to whole
+    windows; the sharded coefficient vector has ``model_shards *
+    block_dim`` slots. ``params`` resolve from the GLOBAL entry count and
+    the tile count of all cells, as the reference's do: a cell resolved
+    from its own entries would get another chunk and so another
+    schedule. The reference pads every cell's schedule to one shape for
+    ``shard_map``; a rank here holds only its own, unpadded."""
+    dev = resolve_device(device)
+    rows, feats, vals = _sparse_coo(batch)
+    win = params.window
+    n = batch.num_rows
+    R = _whole_windows(-(-n // data_shards), win)
+    block_dim = _whole_windows(-(-dim // model_shards), win)
+    params = params.resolved(
+        len(vals), data_shards * model_shards * (R // win) * (block_dim // win)
+    )
+    meta = FeatureShardedTiledMeta(
+        params, R, block_dim, n, dim, data_shards, model_shards,
+    )
+    mine = (rows // R == data_index) & (feats // block_dim == model_index)
+    local = slice(data_index * R, (data_index + 1) * R)
+    row_arrays = [a[local] for a in _padded_rows(data_shards * R, *_row_arrays(batch))]
+    cell = _build_from_coo(
+        rows[mine] - data_index * R, feats[mine] - model_index * block_dim,
+        vals[mine], *row_arrays, meta=meta.cell_meta(data_index, model_index),
+        device=dev,
+    )
+    return FeatureShardedTiledBatch(meta, cell, data_index, model_index), block_dim
 
 
 # ---------------------------------------------------------------------------
@@ -665,56 +845,61 @@ def tiled_batch_from_sparse(
 # ---------------------------------------------------------------------------
 
 
+def _pass(sched, src: Tensor, num_out_blocks: int, window: int, vals=None):
+    """K1 for a vector, K2 for a bank (the spills are the caller's)."""
+    run = grid_bilinear_pass if src.dim() == 2 else bilinear_pass
+    return run(sched, src, num_out_blocks, window, vals=vals)
+
+
+def tiled_z_pass(batch: TiledSparseBatch, w_padded: Tensor) -> Tensor:
+    """Raw row sums [num_rows] (or [G, num_rows]) of X . w, for a
+    contiguous ``w_padded`` [dim] (or [G, dim])."""
+    raw = _pass(batch.z_sched, w_padded, batch.num_row_blocks, batch.params.window)
+    return batch.z_sched.apply_spill(raw, w_padded)
+
+
+def tiled_g_pass(
+    batch: TiledSparseBatch, c_rows: Tensor,
+    vals: Optional[Tensor] = None, spill_vals: Optional[Tensor] = None,
+) -> Tensor:
+    """X^T . c [dim] (or [G, dim]), padded; ``vals`` / ``spill_vals``
+    override the values (the Hessian diagonal squares them)."""
+    c_rows = c_rows.contiguous()
+    g = _pass(
+        batch.g_sched, c_rows, batch.num_feat_blocks, batch.params.window,
+        vals=vals,
+    )
+    return batch.g_sched.apply_spill(g, c_rows, vals=spill_vals)
+
+
 @dataclass(frozen=True)
 class TiledGLMObjective:
     """The GLM objective over a TiledSparseBatch: the scatter objective's
-    math and method contract (``ops/objective.py``, one vector or a bank),
-    with margins and gradients computed by K1 (a vector) or K2 (a bank)
-    over the two schedules."""
+    math and method contract (``ops/objective.py``, one vector or a bank,
+    ``group`` for a data-parallel shard), with margins and gradients
+    computed by K1 (a vector) or K2 (a bank) over the two schedules."""
 
     loss: object
     dim: int  # real (unpadded) coefficient dimension
     norm: NormalizationContext = dataclasses.field(default_factory=identity_context)
+    group: Optional[object] = None
 
     def _pad(self, w: Tensor, batch: TiledSparseBatch) -> Tensor:
         if w.shape[-1] == batch.dim:
             return w.contiguous()
         return torch.nn.functional.pad(w, (0, batch.dim - w.shape[-1]))
 
-    @staticmethod
-    def _pass(sched, src: Tensor, num_out_blocks: int, window: int, vals=None):
-        """K1 for a vector, K2 for a bank (the spills are the caller's)."""
-        run = grid_bilinear_pass if src.dim() == 2 else bilinear_pass
-        return run(sched, src, num_out_blocks, window, vals=vals)
-
-    def _z_pass(self, w_padded: Tensor, batch: TiledSparseBatch) -> Tensor:
-        """Raw row sums [num_rows] (or [G, num_rows]) of X . w."""
-        raw = self._pass(
-            batch.z_sched, w_padded, batch.num_row_blocks, batch.params.window
-        )
-        return batch.z_sched.apply_spill(raw, w_padded)
-
-    def _grad_pass(
-        self, c_rows: Tensor, batch: TiledSparseBatch,
-        vals: Optional[Tensor] = None, spill_vals: Optional[Tensor] = None,
-    ) -> Tensor:
-        """X^T . c [dim] (or [G, dim]), padded."""
-        c_rows = c_rows.contiguous()
-        g = self._pass(
-            batch.g_sched, c_rows, batch.num_feat_blocks, batch.params.window,
-            vals=vals,
-        )
-        return batch.g_sched.apply_spill(g, c_rows, vals=spill_vals)
 
     def margins(self, coef: Tensor, batch: TiledSparseBatch) -> Tensor:
         """z_i = x_eff_i . w_eff + offset_i in padded row space."""
         w_eff = self.norm.effective_coefficients(coef)
-        raw = self._z_pass(self._pad(w_eff, batch), batch)
+        raw = tiled_z_pass(batch, self._pad(w_eff, batch))
         return raw - self.norm.shift_dot(w_eff)[..., None] + batch.offsets
 
     def value(self, coef: Tensor, batch: TiledSparseBatch, l2_weight=0.0) -> Tensor:
         z = self.margins(coef, batch)
         val = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
+        (val,) = sum_partials(self.group, val, scalars=1)
         return val + 0.5 * l2_weight * squared_norm(coef)
 
     def value_and_gradient(
@@ -724,8 +909,11 @@ class TiledGLMObjective:
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d1(z, batch.labels)
         value_sum = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
-        vector_sum = self._grad_pass(c, batch)[..., :d_in]
-        grad = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        vector_sum = tiled_g_pass(batch, c)[..., :d_in]
+        value_sum, prefactor_sum, vector_sum = sum_partials(
+            self.group, value_sum, torch.sum(c, dim=-1), vector_sum, scalars=2
+        )
+        grad = self.norm.unshift_gradient(vector_sum, prefactor_sum)
         value = value_sum + 0.5 * l2_weight * squared_norm(coef)
         return value, grad + per_member(l2_weight, coef) * coef
 
@@ -741,12 +929,15 @@ class TiledGLMObjective:
         d_eff = self.norm.effective_coefficients(direction)
         z = self.margins(coef, batch)
         zd = (
-            self._z_pass(self._pad(d_eff, batch), batch)
+            tiled_z_pass(batch, self._pad(d_eff, batch))
             - self.norm.shift_dot(d_eff)[..., None]
         )
         c = batch.weights * self.loss.d2(z, batch.labels) * zd
-        vector_sum = self._grad_pass(c, batch)[..., :d_in]
-        hv = self.norm.unshift_gradient(vector_sum, torch.sum(c, dim=-1))
+        vector_sum = tiled_g_pass(batch, c)[..., :d_in]
+        prefactor_sum, vector_sum = sum_partials(
+            self.group, torch.sum(c, dim=-1), vector_sum, scalars=1
+        )
+        hv = self.norm.unshift_gradient(vector_sum, prefactor_sum)
         return hv + per_member(l2_weight, direction) * direction
 
     def hessian_diagonal(
@@ -757,14 +948,18 @@ class TiledGLMObjective:
         d_in = coef.shape[-1]
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d2(z, batch.labels)
-        diag = self._grad_pass(
-            c, batch, vals=batch.g_vals_sq,
+        diag = tiled_g_pass(
+            batch, c, vals=batch.g_vals_sq,
             spill_vals=batch.g_sched.spill_vals**2,
         )[..., :d_in]
         if self.norm.shift is not None:
-            s1 = self._grad_pass(c, batch)[..., :d_in]
-            s0 = torch.sum(c, dim=-1)[..., None]
+            s1 = tiled_g_pass(batch, c)[..., :d_in]
+            s0, s1, diag = sum_partials(
+                self.group, torch.sum(c, dim=-1)[..., None], s1, diag
+            )
             diag = diag - 2.0 * self.norm.shift * s1 + self.norm.shift**2 * s0
+        else:
+            (diag,) = sum_partials(self.group, diag)
         if self.norm.factor is not None:
             diag = diag * self.norm.factor**2
         return diag + per_member(l2_weight, coef)

@@ -14,6 +14,20 @@ made by :func:`fetch`. ``host_fetches`` counts those copies: one per
 line-search trial, one per CG step and one per outer trip, so the count
 follows the slowest member and not G.
 
+On a mesh of ranks (``parallel/mesh.py``) the optimizers take a
+:class:`MeshReductions` (the reference's ``axis_name``). With the
+coefficients sharded by feature block, every inner product, norm and sum
+over the feature axis is a member-wise partial plus one all-reduce of a
+``[G]`` vector over the model group. And on any mesh, sharded or
+replicated, every rank must take the same branch, or the next collective
+hangs: so one fetch serves every rank too. It broadcasts world rank 0's
+flags in the same fetch: one collective of the few ``float64`` flags,
+staged through the host like the copy itself, and counted on
+``collectives`` beside ``host_fetches``. With four gloo ranks sharing one
+H100 a fetch took 0.4-0.6 ms alone and 1.2-1.5 ms with its broadcast
+(``chip_smoke.py`` phase 6, ``mesh_collective_us``). Without a mesh every
+function here is the single-card code.
+
 Freeze (the batching rule of ``lax.while_loop``): a member whose reason is
 no longer NOT_CONVERGED keeps its state bit for bit while the others go
 on; every update is a ``torch.where`` on the ``[G]`` active mask, skipped
@@ -33,6 +47,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 Tensor = torch.Tensor
 
@@ -52,14 +67,66 @@ CONVERGENCE_REASON_NAMES = {
 
 # Device-to-host copies made by fetch() (a run sets it to 0 and reads it).
 host_fetches = 0
+# Collectives over process groups (all_reduce, all_gather_last and the
+# flag broadcast in fetch); a run sets it to 0 and reads it.
+collectives = 0
 
 
-def fetch(*tensors: Tensor) -> List:
+@dataclass(frozen=True)
+class MeshReductions:
+    """Where an optimizer's reductions go on a mesh of ranks.
+
+    ``model``: the group whose ranks hold the other feature blocks of the
+    coefficients; inner products, norms and sums over the feature axis are
+    summed over it. None when every rank holds the whole vector (the
+    data-parallel fit). ``world``: every rank of the mesh; each fetch
+    hands world rank 0's flags to all of them."""
+
+    model: Optional[object]
+    world: object
+
+
+def all_reduce(t: Tensor, group) -> Tensor:
+    """Sum ``t`` over the ranks of ``group``, in place (``t`` must be a
+    contiguous tensor the caller owns); counted. -> ``t``."""
+    global collectives
+    collectives += 1
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def sum_over(group, *parts: Tensor, scalars: int = 0) -> List[Tensor]:
+    """Each part summed over the ranks of ``group`` in ONE all-reduce (the
+    reference's ``psum`` of a tuple). The first ``scalars`` parts are one
+    value per member (``[]`` or ``[G]``), the others vectors ``[..., k]``."""
+    cols = [p[..., None] for p in parts[:scalars]] + list(parts[scalars:])
+    flat = all_reduce(torch.cat(cols, dim=-1), group)
+    out = flat.split([c.shape[-1] for c in cols], dim=-1)
+    return [o[..., 0] for o in out[:scalars]] + list(out[scalars:])
+
+
+def all_gather_last(t: Tensor, group) -> Tensor:
+    """Each rank's ``t`` [..., k] concatenated along the last axis in the
+    group's rank order -> [..., n * k]; counted."""
+    global collectives
+    collectives += 1
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=-1)
+
+
+def fetch(*tensors: Tensor, mesh: Optional[MeshReductions] = None) -> List:
     """Copy a few small tensors to the host in ONE transfer; counted.
-    -> a float for each 0-d tensor, a list for each 1-d one."""
-    global host_fetches
+    -> a float for each 0-d tensor, a list for each 1-d one. On a mesh
+    every rank gets world rank 0's values (one counted broadcast)."""
+    global host_fetches, collectives
     host_fetches += 1
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).tolist()
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    if mesh is not None:
+        collectives += 1
+        dist.broadcast(flat, src=dist.get_global_rank(mesh.world, 0), group=mesh.world)
+    flat = flat.tolist()
     out, i = [], 0
     for t in tensors:
         n = t.numel()
@@ -68,14 +135,37 @@ def fetch(*tensors: Tensor) -> List:
     return out
 
 
-def dot(a: Tensor, b: Tensor) -> Tensor:
-    """Member-wise inner product of two banks [G, d] -> [G]."""
-    return (a * b).sum(dim=-1)
+def _sharded(mesh: Optional[MeshReductions]) -> bool:
+    return mesh is not None and mesh.model is not None
 
 
-def norm(a: Tensor) -> Tensor:
+def dot(a: Tensor, b: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:
+    """Member-wise inner product of two banks [G, d] -> [G] (over every
+    feature block on a sharded mesh)."""
+    out = (a * b).sum(dim=-1)
+    return all_reduce(out, mesh.model) if _sharded(mesh) else out
+
+
+def dots(*pairs, mesh: Optional[MeshReductions] = None) -> List[Tensor]:
+    """:func:`dot` of each pair; on a sharded mesh the partials share ONE
+    all-reduce."""
+    if not _sharded(mesh):
+        return [dot(a, b) for a, b in pairs]
+    parts = torch.stack([(a * b).sum(dim=-1) for a, b in pairs])
+    return list(all_reduce(parts, mesh.model).unbind(0))
+
+
+def norm(a: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:
     """Member-wise Euclidean norm [G, d] -> [G]."""
-    return torch.linalg.vector_norm(a, dim=-1)
+    if not _sharded(mesh):
+        return torch.linalg.vector_norm(a, dim=-1)
+    return torch.sqrt(torch.clamp_min(dot(a, a, mesh), 0.0))
+
+
+def feature_sum(a: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:
+    """Member-wise sum over the feature axis [G, d] -> [G]."""
+    out = a.sum(dim=-1)
+    return all_reduce(out, mesh.model) if _sharded(mesh) else out
 
 
 def select(mask: Tensor, new: Tensor, old: Tensor, every: bool = False) -> Tensor:
@@ -223,6 +313,7 @@ def backtracking_line_search(
     shrink: float = 0.5,
     max_steps: int = 24,
     project: Optional[Callable[[Tensor], Tensor]] = None,
+    mesh: Optional[MeshReductions] = None,
 ) -> LineSearchResult:
     """Armijo backtracking over a bank, projecting each trial point.
 
@@ -230,7 +321,8 @@ def backtracking_line_search(
     the others keep their first trial untouched. Every trial evaluates the
     whole bank once and makes one host fetch of the [G] flags. A member
     that finds no decreasing step keeps its original point (``ok`` False).
-    ``every``: the host knows that every member is searching.
+    ``every``: the host knows that every member is searching. ``mesh``:
+    see :class:`MeshReductions`.
     """
 
     def trial(t):
@@ -241,13 +333,13 @@ def backtracking_line_search(
         return w_t, f_t, g_t
 
     def armijo_ok(w_t, f_t):
-        return (f_t <= f + c1 * dot(g, w_t - w)) & torch.isfinite(f_t)
+        return (f_t <= f + c1 * dot(g, w_t - w, mesh)) & torch.isfinite(f_t)
 
     t = t0
     w_t, f_t, g_t = trial(t)
     ok = armijo_ok(w_t, f_t)
     need = searching & ~ok
-    (need_host,) = fetch(need)
+    (need_host,) = fetch(need, mesh=mesh)
     k = 0
     while any(need_host) and k < max_steps:
         all_need = all(need_host)
@@ -258,7 +350,7 @@ def backtracking_line_search(
         g_t = select(need, g_n, g_t, all_need)
         ok = armijo_ok(w_t, f_t)
         need = searching & ~ok
-        (need_host,) = fetch(need)
+        (need_host,) = fetch(need, mesh=mesh)
         k += 1
     all_ok = every and not any(need_host)
     return LineSearchResult(

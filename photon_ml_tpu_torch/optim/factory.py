@@ -12,7 +12,12 @@ from typing import Callable, Optional
 
 import torch
 
-from photon_ml_tpu_torch.optim.common import BoxConstraints, OptResult, ValueAndGrad
+from photon_ml_tpu_torch.optim.common import (
+    BoxConstraints,
+    MeshReductions,
+    OptResult,
+    ValueAndGrad,
+)
 from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig,
     OptimizerType,
@@ -50,34 +55,40 @@ def make_optimizer(
     loss_has_hessian: bool = True,
     box: Optional[BoxConstraints] = None,
     l1_mask: Optional[Tensor] = None,
+    mesh: Optional[MeshReductions] = None,
 ) -> Callable[..., OptResult]:
-    """Build ``optimize(value_and_grad_fn, w0, l1_weight=0.0, hvp_fn=None)``,
-    one signature for L-BFGS, OWL-QN and TRON, over a vector ``w0`` [d] or
-    a bank [G, d] (then ``l1_weight`` may be one weight per member)."""
+    """Build ``optimize(value_and_grad_fn, w0, l1_weight=0.0, hvp_fn=None,
+    hvp_factory=None)``, one signature for L-BFGS, OWL-QN and TRON, over a
+    vector ``w0`` [d] or a bank [G, d] (then ``l1_weight`` may be one
+    weight per member). ``mesh``: the optimizers' reductions on a mesh of
+    ranks (``optim/common.py``)."""
     validate_optimizer_choice(config, regularization, loss_has_hessian=loss_has_hessian)
     use_owlqn = regularization.has_l1
 
     def optimize(
-        value_and_grad_fn: ValueAndGrad, w0: Tensor, *, l1_weight=0.0, hvp_fn=None
+        value_and_grad_fn: ValueAndGrad, w0: Tensor, *, l1_weight=0.0,
+        hvp_fn=None, hvp_factory=None,
     ) -> OptResult:
         if config.optimizer_type == OptimizerType.TRON:
-            if hvp_fn is None:
-                raise ValueError("TRON requires hvp_fn")
+            if hvp_fn is None and hvp_factory is None:
+                raise ValueError("TRON requires hvp_fn or hvp_factory")
             return minimize_tron(
                 value_and_grad_fn, hvp_fn, w0,
                 max_iter=config.max_iter, tol=config.tolerance,
-                max_cg=config.tron_max_cg, box=box,
+                max_cg=config.tron_max_cg, box=box, hvp_factory=hvp_factory,
+                mesh=mesh,
             )
         if use_owlqn:
             return minimize_owlqn(
                 value_and_grad_fn, w0, l1_weight,
                 max_iter=config.max_iter, tol=config.tolerance,
                 history=config.lbfgs_history, l1_mask=l1_mask, box=box,
+                mesh=mesh,
             )
         return minimize_lbfgs(
             value_and_grad_fn, w0,
             max_iter=config.max_iter, tol=config.tolerance,
-            history=config.lbfgs_history, box=box,
+            history=config.lbfgs_history, box=box, mesh=mesh,
         )
 
     return optimize

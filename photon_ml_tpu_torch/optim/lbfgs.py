@@ -40,6 +40,7 @@ from photon_ml_tpu_torch.optim.common import (
     LINE_SEARCH_STALLED,
     NOT_CONVERGED,
     BoxConstraints,
+    MeshReductions,
     OptResult,
     Tracker,
     ValueAndGrad,
@@ -47,6 +48,8 @@ from photon_ml_tpu_torch.optim.common import (
     backtracking_line_search,
     check_convergence,
     dot,
+    dots,
+    feature_sum,
     fetch,
     norm,
     select,
@@ -104,7 +107,9 @@ class _Memory:
         self.ptr = [(p + 1) % m if k else p for p, k in zip(self.ptr, kept)]
 
 
-def _two_loop_direction(g: Tensor, mem: _Memory) -> Tensor:
+def _two_loop_direction(
+    g: Tensor, mem: _Memory, mesh: Optional[MeshReductions] = None
+) -> Tensor:
     """Two-loop recursion over each member's circular buffer; -> -H~ g."""
     m = mem.rho.shape[1]
     if mem.uniform():
@@ -114,15 +119,16 @@ def _two_loop_direction(g: Tensor, mem: _Memory) -> Tensor:
         alphas = []
         q = g
         for k in slots:
-            a = mem.rho[:, k] * dot(mem.s[:, k], q)
+            a = mem.rho[:, k] * dot(mem.s[:, k], q, mesh)
             q = q - a[:, None] * mem.y[:, k]
             alphas.append(a)
         r = q
         if n:
             s_l, y_l = mem.s[:, slots[0]], mem.y[:, slots[0]]
-            r = (dot(s_l, y_l) / torch.clamp_min(dot(y_l, y_l), 1e-30))[:, None] * q
+            sy, yy = dots((s_l, y_l), (y_l, y_l), mesh=mesh)
+            r = (sy / torch.clamp_min(yy, 1e-30))[:, None] * q
         for k, a in zip(reversed(slots), reversed(alphas)):
-            b = mem.rho[:, k] * dot(mem.y[:, k], r)
+            b = mem.rho[:, k] * dot(mem.y[:, k], r, mesh)
             r = r + (a - b)[:, None] * mem.s[:, k]
         return -r
     # Slots past a member's length contribute exact zeros; slots past the
@@ -135,19 +141,22 @@ def _two_loop_direction(g: Tensor, mem: _Memory) -> Tensor:
     for i in range(max(mem.length)):
         idx = (ptr - 1 - i) % m
         valid = i < length
-        a = torch.where(valid, mem.rho[rows, idx] * dot(mem.s[rows, idx], q), 0.0)
+        a = torch.where(
+            valid, mem.rho[rows, idx] * dot(mem.s[rows, idx], q, mesh), 0.0
+        )
         q = q - a[:, None] * mem.y[rows, idx]
         alphas[rows, idx] = a
     last = (ptr - 1) % m
     s_l, y_l = mem.s[rows, last], mem.y[rows, last]
-    gamma = torch.where(
-        length > 0, dot(s_l, y_l) / torch.clamp_min(dot(y_l, y_l), 1e-30), 1.0
-    )
+    sy, yy = dots((s_l, y_l), (y_l, y_l), mesh=mesh)
+    gamma = torch.where(length > 0, sy / torch.clamp_min(yy, 1e-30), 1.0)
     r = gamma[:, None] * q
     for i in range(max(mem.length)):
         idx = (ptr - length + i) % m
         valid = i < length
-        b = torch.where(valid, mem.rho[rows, idx] * dot(mem.y[rows, idx], r), 0.0)
+        b = torch.where(
+            valid, mem.rho[rows, idx] * dot(mem.y[rows, idx], r, mesh), 0.0
+        )
         r = r + torch.where(valid, alphas[rows, idx] - b, 0.0)[:, None] * mem.s[rows, idx]
     return -r
 
@@ -169,13 +178,15 @@ def minimize_lbfgs(
     history: int = 10,
     box: Optional[BoxConstraints] = None,
     ls_max_steps: int = 24,
+    mesh: Optional[MeshReductions] = None,
 ) -> OptResult:
     """Minimize a smooth objective (defaults: LBFGS.scala:152-156). ``w0``
     is [d], or a bank [G, d] whose ``value_and_grad_fn`` maps [G, d] ->
-    ([G], [G, d])."""
+    ([G], [G, d]). ``mesh``: this rank's reductions when ``w0`` is its
+    feature block (or a replica) on a mesh of ranks (``optim/common.py``)."""
     return _minimize_qn(
         value_and_grad_fn, w0, None, None, max_iter=max_iter, tol=tol,
-        history=history, box=box, ls_max_steps=ls_max_steps,
+        history=history, box=box, ls_max_steps=ls_max_steps, mesh=mesh,
     )
 
 
@@ -190,6 +201,7 @@ def minimize_owlqn(
     l1_mask: Optional[Tensor] = None,
     box: Optional[BoxConstraints] = None,
     ls_max_steps: int = 24,
+    mesh: Optional[MeshReductions] = None,
 ) -> OptResult:
     """Minimize smooth(w) + l1_weight * ||l1_mask * w||_1 (OWL-QN).
 
@@ -198,15 +210,17 @@ def minimize_owlqn(
     ``box``: every trial point is projected into it AFTER the orthant
     projection (the reference's OWLQN inherits LBFGS's projection,
     OWLQN.scala:43-91, LBFGS.scala:77). The result's ``value`` is the
-    total objective and ``grad_norm`` the pseudo-gradient's norm."""
+    total objective and ``grad_norm`` the pseudo-gradient's norm. ``mesh``
+    as for :func:`minimize_lbfgs` (``l1_mask`` is then this rank's block)."""
     return _minimize_qn(
         value_and_grad_fn, w0, l1_weight, l1_mask, max_iter=max_iter, tol=tol,
-        history=history, box=box, ls_max_steps=ls_max_steps,
+        history=history, box=box, ls_max_steps=ls_max_steps, mesh=mesh,
     )
 
 
 def _minimize_qn(
-    vg, w0, l1_weight, l1_mask, *, max_iter, tol, history, box, ls_max_steps
+    vg, w0, l1_weight, l1_mask, *, max_iter, tol, history, box, ls_max_steps,
+    mesh,
 ) -> OptResult:
     if w0.dim() == 1:
         if l1_weight is not None:
@@ -214,6 +228,7 @@ def _minimize_qn(
         return _minimize_qn(
             as_bank_of_one(vg), w0[None], l1_weight, l1_mask, max_iter=max_iter,
             tol=tol, history=history, box=box, ls_max_steps=ls_max_steps,
+            mesh=mesh,
         ).member(0)
     G, d = w0.shape
     owl = l1_weight is not None
@@ -225,17 +240,17 @@ def _minimize_qn(
         l1_vec = l1.reshape(-1, 1).expand(G, 1) * mask
 
         def penalty(w_):
-            return (l1_vec * w_.abs()).sum(dim=-1)
+            return feature_sum(l1_vec * w_.abs(), mesh)
 
         f0 = f + penalty(w)
-        g0_norm = norm(_pseudo_gradient(w, g, l1_vec))
+        g0_norm = norm(_pseudo_gradient(w, g, l1_vec), mesh)
     else:
-        f0, g0_norm = f, norm(g)
+        f0, g0_norm = f, norm(g, mesh)
     tracker = Tracker.start(f0, g0_norm, max_iter + 1)
     mem = _Memory.empty(G, history, d, w)
     reason = torch.where(g0_norm == 0.0, GRADIENT_WITHIN_TOLERANCE, NOT_CONVERGED)
     it = torch.zeros(G, dtype=torch.int64, device=w.device)
-    (reasons,) = fetch(reason)
+    (reasons,) = fetch(reason, mesh=mesh)
     iters = [0] * G
     trip = 0
     while NOT_CONVERGED in reasons:
@@ -244,7 +259,7 @@ def _minimize_qn(
         trip += 1
         if owl:
             pg = _pseudo_gradient(w, g, l1_vec)
-            direction = _two_loop_direction(pg, mem)
+            direction = _two_loop_direction(pg, mem, mesh)
             # restrict the direction to the descent orthant of the
             # pseudo-gradient
             direction = torch.where(direction * pg < 0, direction, 0.0)
@@ -260,9 +275,9 @@ def _minimize_qn(
 
             f_cur, slope = f + penalty(w), pg
         else:
-            direction = _two_loop_direction(g, mem)
+            direction = _two_loop_direction(g, mem, mesh)
             # steepest descent when d is not a descent direction
-            direction = select(dot(direction, g) < 0, direction, -g)
+            direction = select(dot(direction, g, mesh) < 0, direction, -g)
             project = None if box is None else box.project
             ls_vg, f_cur, slope = vg, f, g
         # a unit first step once a member has pairs (rho > 0 marks them)
@@ -271,20 +286,20 @@ def _minimize_qn(
         else:
             t0 = torch.where(
                 (mem.rho > 0).any(dim=1), 1.0,
-                1.0 / torch.clamp_min(norm(direction), 1.0),
+                1.0 / torch.clamp_min(norm(direction, mesh), 1.0),
             )
         ls = backtracking_line_search(
             ls_vg, w, f_cur, slope, direction, t0, active, every=every,
-            max_steps=ls_max_steps, project=project,
+            max_steps=ls_max_steps, project=project, mesh=mesh,
         )
         s_k, y_k = ls.w - w, ls.g - g
-        ys = dot(y_k, s_k)
+        ys = dot(y_k, s_k, mesh)
         keep = (ys > 1e-10) & active
         if owl:
             f_new = ls.f - penalty(ls.w)
-            g_norm = norm(_pseudo_gradient(ls.w, ls.g, l1_vec))
+            g_norm = norm(_pseudo_gradient(ls.w, ls.g, l1_vec), mesh)
         else:
-            f_new, g_norm = ls.f, norm(ls.g)
+            f_new, g_norm = ls.f, norm(ls.g, mesh)
         it = select(active, it + 1, it, every)
         # a failed search is reported before the function-change test (a
         # stalled search has delta f == 0 and would look converged)
@@ -301,13 +316,13 @@ def _minimize_qn(
         reason = select(active, code, reason, every)
         tracker.record(trip, active, ls.f, g_norm, every)
         iters = [n + (r == NOT_CONVERGED) for n, r in zip(iters, reasons)]
-        reasons, kept = fetch(reason, keep)
+        reasons, kept = fetch(reason, keep, mesh=mesh)
         mem.push(s_k, y_k, 1.0 / torch.clamp_min(ys, 1e-30), keep, kept)
     tracker.count = [n + 1 for n in iters]
     if owl:
-        value, grad_norm = f + penalty(w), norm(_pseudo_gradient(w, g, l1_vec))
+        value, grad_norm = f + penalty(w), norm(_pseudo_gradient(w, g, l1_vec), mesh)
     else:
-        value, grad_norm = f, norm(g)
+        value, grad_norm = f, norm(g, mesh)
     return OptResult(
         coefficients=w, value=value, grad_norm=grad_norm, iterations=iters,
         reason=[int(r) for r in reasons], tracker=tracker,

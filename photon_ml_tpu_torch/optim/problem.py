@@ -1,6 +1,10 @@
 """GLM optimization problems: optimizer + objective + model construction
-(port of ``photon_ml_tpu/optim/problem.py``, single device): one fit
-(``run``) or the whole λ-grid over a coefficient bank (``run_grid``).
+(port of ``photon_ml_tpu/optim/problem.py``): one fit (``run``) or the
+whole λ-grid over a coefficient bank (``run_grid``), on one device or, with
+``mesh``, data-parallel over the ranks of a mesh (each rank holds one
+shard of the rows, the coefficients are replicated, and the objective
+sums its partials over the data group: the reference's ``shard_map`` with
+``with_axis``).
 
 Reference: photon-ml .../optimization/GeneralizedLinearOptimizationProblem.
 scala (run at :112-121, de-normalization at :89-95) and
@@ -10,6 +14,7 @@ DistributedOptimizationProblem.scala (variances 1/(Hdiag + eps) at
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
@@ -26,15 +31,21 @@ from photon_ml_tpu_torch.ops.normalization import (
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.ops.tiled_sparse import (
     TiledGLMObjective,
+    TiledSparseBatch,
     tiled_batch_from_sparse,
 )
-from photon_ml_tpu_torch.optim.common import BoxConstraints, OptResult
+from photon_ml_tpu_torch.optim.common import (
+    BoxConstraints,
+    MeshReductions,
+    OptResult,
+)
 from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig,
     OptimizerType,
     RegularizationContext,
 )
 from photon_ml_tpu_torch.optim.factory import make_optimizer
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, ProcessMesh
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -66,20 +77,44 @@ class GLMOptimizationProblem:
         mask[self.intercept_index] = 0.0
         return mask
 
-    def _prepare(self, batch):
-        if isinstance(self.objective, TiledGLMObjective) and isinstance(batch, SparseBatch):
-            batch = tiled_batch_from_sparse(batch, self.objective.dim, device=batch.device)
+    def _prepare(self, batch, mesh: Optional[ProcessMesh]):
+        """On a mesh ``batch`` is this rank's data shard: a SparseBatch of
+        its rows (``parallel.mesh.data_shard_sparse_batch``) or its
+        ``build_sharded_tiled_batch``."""
+        if isinstance(self.objective, TiledGLMObjective):
+            if isinstance(batch, SparseBatch) and mesh is None:
+                batch = tiled_batch_from_sparse(
+                    batch, self.objective.dim, device=batch.device
+                )
+            if not isinstance(batch, TiledSparseBatch):
+                raise TypeError(
+                    "the tiled objective takes a TiledSparseBatch (on a mesh, "
+                    "this rank's build_sharded_tiled_batch), got "
+                    f"{type(batch).__name__}"
+                )
+            shards = 1 if mesh is None else mesh.size(DATA_AXIS)
+            if batch.meta.data_shards != shards:
+                raise ValueError(
+                    f"the tiled batch is laid out for {batch.meta.data_shards} "
+                    f"data shards, the mesh has {shards}"
+                )
         return batch
 
-    def _solve(self, batch, w0: Tensor, l1, l2) -> Tuple[OptResult, Optional[Tensor]]:
+    def _solve(
+        self, batch, w0: Tensor, l1, l2, mesh: Optional[ProcessMesh]
+    ) -> Tuple[OptResult, Optional[Tensor]]:
         """Optimize from ``w0`` ([d] with scalar weights, or a bank [G, d]
         with weights [G]); -> (result, variances or None)."""
+        objective = self.objective
+        reductions = None
+        if mesh is not None:
+            objective = dataclasses.replace(objective, group=mesh.groups[DATA_AXIS])
+            reductions = MeshReductions(model=None, world=mesh.world)
         optimize = make_optimizer(
             self.config, self.regularization,
-            loss_has_hessian=self.objective.loss.has_hessian,
-            box=self.box, l1_mask=self._l1_mask(w0.device),
+            loss_has_hessian=objective.loss.has_hessian,
+            box=self.box, l1_mask=self._l1_mask(w0.device), mesh=reductions,
         )
-        objective = self.objective
 
         def vg(w):
             return objective.value_and_gradient(w, batch, l2)
@@ -100,10 +135,13 @@ class GLMOptimizationProblem:
         batch,
         initial: Optional[Tensor] = None,
         reg_weight: float = 0.0,
+        mesh: Optional[ProcessMesh] = None,
     ) -> Tuple[Coefficients, OptResult]:
         """Optimize and build coefficients (+ variances if requested).
-        The batch's device is where the fit runs."""
-        batch = self._prepare(batch)
+        The batch's device is where the fit runs. With ``mesh`` every rank
+        calls it with its shard (see ``_prepare``) and gets the same
+        result."""
+        batch = self._prepare(batch, mesh)
         device = batch.labels.device
         w0 = (
             torch.zeros(self.objective.dim, device=device)
@@ -111,7 +149,7 @@ class GLMOptimizationProblem:
             else torch.as_tensor(initial, dtype=torch.float32, device=device)
         )
         l1, l2 = self.regularization.split(reg_weight)
-        result, variances = self._solve(batch, w0, l1, l2)
+        result, variances = self._solve(batch, w0, l1, l2, mesh)
         return Coefficients(result.coefficients, variances), result
 
     def run_grid(
@@ -119,6 +157,7 @@ class GLMOptimizationProblem:
         batch,
         reg_weights: Sequence[float],
         initial: Optional[Tensor] = None,
+        mesh: Optional[ProcessMesh] = None,
     ) -> Tuple[Optional[Tensor], OptResult]:
         """Solve the whole λ grid at once over a [G, d] coefficient bank.
 
@@ -128,8 +167,9 @@ class GLMOptimizationProblem:
         serves the whole bank (K2 on the tiled objective), converged
         members freeze while the others run on, and the host fetches per
         trip do not grow with G. -> (variances bank [G, d] or None, the
-        bank's OptResult, every field with a leading grid axis)."""
-        batch = self._prepare(batch)
+        bank's OptResult, every field with a leading grid axis). ``mesh``
+        as for :meth:`run`."""
+        batch = self._prepare(batch, mesh)
         device = batch.labels.device
         splits = [self.regularization.split(float(w)) for w in reg_weights]
         l1_vec = torch.tensor([s[0] for s in splits], dtype=torch.float32, device=device)
@@ -140,7 +180,7 @@ class GLMOptimizationProblem:
         else:
             w0 = torch.as_tensor(initial, dtype=torch.float32, device=device)
             w0 = w0.expand(shape).contiguous()
-        result, variances = self._solve(batch, w0, l1_vec, l2_vec)
+        result, variances = self._solve(batch, w0, l1_vec, l2_vec, mesh)
         return variances, result
 
     def create_model(

@@ -7,10 +7,20 @@
 - ``train_grid_batched``: the whole grid as one bank ``[G, d]`` of cold
   starts, every data pass shared by all members (K2 on the card), and
   ``resolve_grid_mode``, the policy that picks between the two.
+- ``mesh=`` on both: the data-parallel fit over the ranks of a mesh (each
+  rank tiles or keeps only its shard of the rows).
+- ``train_feature_sharded`` and ``train_grid_batched_feature_sharded``:
+  the same two over a coefficient vector sharded by feature block on a
+  (data, model) mesh (``parallel/distributed.py``).
+
+On a mesh every rank calls the trainer with the same arguments (the whole
+batch) and gets the same models.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -18,9 +28,13 @@ import torch
 from photon_ml_tpu_torch.data.batch import SparseBatch
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.ops.tiled_sparse import (
     TiledSparseBatch,
+    build_sharded_tiled_batch,
+    feature_shard_tiled_batch,
     tiled_batch_from_sparse,
 )
 from photon_ml_tpu_torch.optim.common import BoxConstraints, OptResult, fetch
@@ -30,10 +44,24 @@ from photon_ml_tpu_torch.optim.config import (
     RegularizationContext,
     RegularizationType,
 )
+from photon_ml_tpu_torch.optim.factory import validate_optimizer_choice
 from photon_ml_tpu_torch.optim.problem import (
+    _VARIANCE_EPSILON,
     GLMOptimizationProblem,
     create_glm_problem,
     resolve_kernel,
+)
+from photon_ml_tpu_torch.parallel.distributed import (
+    feature_shard_sparse_batch,
+    feature_sharded_extras,
+    feature_sharded_glm_fit,
+    feature_sharded_hessian_diagonal,
+)
+from photon_ml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    ProcessMesh,
+    data_shard_sparse_batch,
 )
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -45,14 +73,24 @@ Models = Dict[float, GeneralizedLinearModel]
 Results = Dict[float, OptResult]
 
 
+def _fit_device(device: DeviceLike, mesh: Optional[ProcessMesh]) -> torch.device:
+    """Where a fit runs: ``device``, or on a mesh the mesh's device."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        raise ValueError("on a mesh the fit runs on mesh.device; pass no device")
+    return mesh.device
+
+
 def _problem_on_device(
     batch, task, dim, *, optimizer_type, regularization_type,
     elastic_net_alpha, max_iter, tolerance, normalization, compute_variances,
-    box, intercept_index, kernel, device,
+    box, intercept_index, kernel, device, mesh,
 ) -> Tuple[GLMOptimizationProblem, object, Optional[NormalizationContext]]:
     """The problem both trainers solve, with the batch (tiled for the
-    tiled kernel) and the other tensors moved to ``device``."""
-    dev = resolve_device(device)
+    tiled kernel; on a mesh, this rank's shard of it) and the other tensors
+    moved to the fit's device."""
+    dev = _fit_device(device, mesh)
     base = OptimizerConfig.default_for(optimizer_type)
     config = OptimizerConfig(
         optimizer_type=optimizer_type,
@@ -63,9 +101,13 @@ def _problem_on_device(
     )
     regularization = RegularizationContext(regularization_type, elastic_net_alpha)
     kernel = resolve_kernel(kernel, dev)
+    shard = None if mesh is None else (mesh.size(DATA_AXIS), mesh.index(DATA_AXIS))
     if kernel == "tiled":
         if isinstance(batch, SparseBatch):
-            batch = tiled_batch_from_sparse(batch, dim, device=dev)
+            batch = (
+                tiled_batch_from_sparse(batch, dim, device=dev) if shard is None
+                else build_sharded_tiled_batch(batch, dim, *shard, device=dev)
+            )
         elif not isinstance(batch, TiledSparseBatch):
             raise TypeError(
                 "kernel='tiled' requires a SparseBatch or TiledSparseBatch, "
@@ -75,6 +117,8 @@ def _problem_on_device(
         raise TypeError(
             f"kernel='scatter' requires a SparseBatch, got {type(batch).__name__}"
         )
+    elif shard is not None:
+        batch = data_shard_sparse_batch(batch, *shard)
     batch = batch.to(dev)
     if normalization is not None:
         normalization = normalization.to(dev)
@@ -112,6 +156,7 @@ def train_generalized_linear_model(
     initial: Optional[Tensor] = None,
     kernel: str = "scatter",
     device: DeviceLike = None,
+    mesh: Optional[ProcessMesh] = None,
 ) -> Tuple[Models, Results]:
     """Train one model per regularization weight with warm starts.
 
@@ -125,6 +170,11 @@ def train_generalized_linear_model(
     once here with the default TileParams; pass a TiledSparseBatch to
     choose them. ``device`` (default: the CUDA card) is where the fit runs;
     the batch and the other tensors are moved there.
+
+    ``mesh``: the data-parallel fit on this rank of a mesh with a "data"
+    axis (every rank passes the whole SparseBatch; the fit runs on
+    ``mesh.device``). A TiledSparseBatch must then be this rank's
+    ``build_sharded_tiled_batch``.
     """
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
@@ -133,6 +183,7 @@ def train_generalized_linear_model(
         tolerance=tolerance, normalization=normalization,
         compute_variances=compute_variances, box=box,
         intercept_index=intercept_index, kernel=kernel, device=device,
+        mesh=mesh,
     )
     # strongest regularization first, so each warm start relaxes an
     # already-shrunk model
@@ -141,7 +192,9 @@ def train_generalized_linear_model(
     dev = batch.labels.device
     current = None if initial is None else torch.as_tensor(initial, device=dev)
     for lam in _descending(regularization_weights):
-        coefficients, result = problem.run(batch, initial=current, reg_weight=lam)
+        coefficients, result = problem.run(
+            batch, initial=current, reg_weight=lam, mesh=mesh
+        )
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result
         if warm_start:
@@ -226,6 +279,7 @@ def train_grid_batched(
     initial: Optional[Tensor] = None,
     kernel: str = "scatter",
     device: DeviceLike = None,
+    mesh: Optional[ProcessMesh] = None,
 ) -> Tuple[Models, Results]:
     """Batched twin of :func:`train_generalized_linear_model`: the grid
     stacks into a [G, d] coefficient bank and one run of the optimizer
@@ -238,9 +292,9 @@ def train_grid_batched(
     There are NO warm starts between members: each λ starts from
     ``initial``. Returns the sequential trainer's ({lambda: model},
     {lambda: OptResult}) contract, λ descending; the values stay on the
-    device for :func:`grid_result_scalars`' one fetch. ``kernel`` and
-    ``device`` as for the sequential trainer ("auto" is the tiled kernel
-    on the card).
+    device for :func:`grid_result_scalars`' one fetch. ``kernel``,
+    ``device`` and ``mesh`` as for the sequential trainer ("auto" is the
+    tiled kernel on the card).
     """
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
@@ -249,9 +303,12 @@ def train_grid_batched(
         tolerance=tolerance, normalization=normalization,
         compute_variances=compute_variances, box=box,
         intercept_index=intercept_index, kernel=kernel, device=device,
+        mesh=mesh,
     )
     weights_desc = _descending(regularization_weights)
-    variances, result = problem.run_grid(batch, weights_desc, initial=initial)
+    variances, result = problem.run_grid(
+        batch, weights_desc, initial=initial, mesh=mesh
+    )
     models: Models = {}
     results: Results = {}
     for i, lam in enumerate(weights_desc):
@@ -259,6 +316,221 @@ def train_grid_batched(
         coefficients = Coefficients(result.coefficients[i], var_i)
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result.member(i)
+    return models, results
+
+
+@dataclass
+class _FeatureShardedProblem:
+    """What both feature-sharded trainers share: this rank's cell, the fit
+    and Hessian-diagonal builders and the extras protocol."""
+
+    problem: GLMOptimizationProblem  # for create_model
+    normalization: Optional[NormalizationContext]
+    cell: object
+    d_pad: int
+    fit: object
+    hdiag: object
+    extras_tail: list  # [shift, factor] with normalization, then [lower, upper]
+    norm_extras: list  # [shift, factor] or []
+    l1_mask: Optional[Tensor]
+
+    def solve(self, w0: Tensor, l1, l2) -> Tuple[OptResult, Optional[Tensor]]:
+        """One fit ([d_pad] with scalar weights) or a bank ([G, d_pad] with
+        [G] weights) -> (result over d_pad, variances over dim or None)."""
+        extras = ([l1, self.l1_mask] if self.l1_mask is not None else []) + self.extras_tail
+        result = self.fit(w0, self.cell, l2, *extras)
+        variances = None
+        if self.hdiag is not None:
+            hd = self.hdiag(result.coefficients, self.cell, l2, *self.norm_extras)
+            variances = (1.0 / (hd + _VARIANCE_EPSILON))[..., : self.problem.objective.dim]
+        return result, variances
+
+    def model(self, coef_pad: Tensor, variances: Optional[Tensor]) -> GeneralizedLinearModel:
+        """The model in the original feature space (normalization undone)."""
+        dim = self.problem.objective.dim
+        return self.problem.create_model(
+            Coefficients(coef_pad[:dim], variances), self.normalization
+        )
+
+
+def _feature_sharded_problem(
+    batch, task, dim, *, mesh, regularization, max_iter, tolerance, history,
+    normalization, compute_variances, box, intercept_index, kernel,
+    optimizer_type, track_models, tile_cache_dir,
+) -> _FeatureShardedProblem:
+    if track_models or tile_cache_dir is not None:
+        raise NotImplementedError(
+            "track_models and tile_cache_dir are not ported yet (they come "
+            "with the coefficient tracker and the schedule cache)"
+        )
+    if not isinstance(batch, SparseBatch):
+        raise TypeError(
+            "feature-sharded training requires a SparseBatch, got "
+            f"{type(batch).__name__}"
+        )
+    if MODEL_AXIS not in mesh.axis_names or DATA_AXIS not in mesh.axis_names:
+        raise ValueError(
+            "feature-sharded training needs a (data, model) mesh, got "
+            f"axes {mesh.axis_names}"
+        )
+    loss = loss_for_task(task)
+    validate_optimizer_choice(
+        OptimizerConfig(optimizer_type=optimizer_type), regularization,
+        loss_has_hessian=loss.has_hessian,
+    )
+    base = OptimizerConfig.default_for(optimizer_type)
+    dev = mesh.device
+    kernel = resolve_kernel(kernel, dev)
+    layout = feature_shard_tiled_batch if kernel == "tiled" else feature_shard_sparse_batch
+    cell, block_dim = layout(
+        batch, dim, mesh.size(DATA_AXIS), mesh.size(MODEL_AXIS),
+        mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS), device=dev,
+    )
+    d_pad = mesh.size(MODEL_AXIS) * block_dim
+    if normalization is not None:
+        normalization = normalization.to(dev)
+    use_owlqn = regularization.has_l1
+    extras_tail, l1_mask, with_norm = feature_sharded_extras(
+        dim, d_pad, normalization=normalization,
+        box=None if box is None else BoxConstraints(box.lower.to(dev), box.upper.to(dev)),
+        use_owlqn=use_owlqn, intercept_index=intercept_index, device=dev,
+    )
+    objective = GLMObjective(loss, dim)
+    fit = feature_sharded_glm_fit(
+        objective, mesh,
+        optimizer=(
+            "tron" if optimizer_type == OptimizerType.TRON
+            else "owlqn" if use_owlqn else "lbfgs"
+        ),
+        max_iter=max_iter if max_iter is not None else base.max_iter,
+        tol=tolerance if tolerance is not None else base.tolerance,
+        history=history, max_cg=base.tron_max_cg, with_norm=with_norm,
+        with_box=box is not None,
+    )
+    hdiag = (
+        feature_sharded_hessian_diagonal(objective, mesh, with_norm=with_norm)
+        if compute_variances else None
+    )
+    problem = GLMOptimizationProblem(
+        task=task, objective=objective, intercept_index=intercept_index
+    )
+    return _FeatureShardedProblem(
+        problem, normalization, cell, d_pad, fit, hdiag, extras_tail,
+        extras_tail[:2] if with_norm else [], l1_mask,
+    )
+
+
+def train_feature_sharded(
+    batch: SparseBatch,
+    task: TaskType,
+    dim: int,
+    *,
+    mesh: ProcessMesh,
+    regularization_type: RegularizationType = RegularizationType.NONE,
+    regularization_weights: Sequence[float] = (0.0,),
+    elastic_net_alpha: Optional[float] = None,
+    max_iter: Optional[int] = None,
+    tolerance: Optional[float] = None,
+    history: int = 10,
+    warm_start: bool = True,
+    normalization: Optional[NormalizationContext] = None,
+    compute_variances: bool = False,
+    box: Optional[BoxConstraints] = None,
+    intercept_index: Optional[int] = None,
+    kernel: str = "scatter",
+    optimizer_type: OptimizerType = OptimizerType.LBFGS,
+    track_models: bool = False,
+    tile_cache_dir: Optional[str] = None,
+) -> Tuple[Models, Results]:
+    """λ-grid over a FEATURE-SHARDED coefficient vector on a (data, model)
+    mesh, warm-started λ to λ (the reference's ``train_feature_sharded``).
+
+    Every rank calls it with the same arguments and the whole batch, builds
+    only its own cell once (``kernel``: "tiled" = K1 on the cell's
+    schedules, "scatter" = gather/scatter; "auto" = tiled on the card) and
+    gets the same ({lambda: model}, {lambda: OptResult}). L1 and elastic
+    net run sharded OWL-QN; L2/none sharded L-BFGS or, with
+    ``optimizer_type=TRON``, sharded TRON with the block Hv factory.
+    Normalization, variances and box constraints compose as in the
+    reference. ``track_models`` and ``tile_cache_dir`` raise
+    NotImplementedError."""
+    regularization = RegularizationContext(regularization_type, elastic_net_alpha)
+    fs = _feature_sharded_problem(
+        batch, task, dim, mesh=mesh, regularization=regularization,
+        max_iter=max_iter, tolerance=tolerance, history=history,
+        normalization=normalization, compute_variances=compute_variances,
+        box=box, intercept_index=intercept_index, kernel=kernel,
+        optimizer_type=optimizer_type, track_models=track_models,
+        tile_cache_dir=tile_cache_dir,
+    )
+    models: Models = {}
+    results: Results = {}
+    current = torch.zeros(fs.d_pad, device=mesh.device)
+    for lam in _descending(regularization_weights):
+        l1, l2 = regularization.split(lam)
+        result, variances = fs.solve(current, l1, l2)
+        models[lam] = fs.model(result.coefficients, variances)
+        # the padded vector is only the warm-start currency
+        results[lam] = dataclasses.replace(
+            result, coefficients=result.coefficients[:dim]
+        )
+        if warm_start:
+            current = result.coefficients
+    return models, results
+
+
+def train_grid_batched_feature_sharded(
+    batch: SparseBatch,
+    task: TaskType,
+    dim: int,
+    *,
+    mesh: ProcessMesh,
+    regularization_type: RegularizationType = RegularizationType.NONE,
+    regularization_weights: Sequence[float] = (0.0,),
+    elastic_net_alpha: Optional[float] = None,
+    max_iter: Optional[int] = None,
+    tolerance: Optional[float] = None,
+    history: int = 10,
+    normalization: Optional[NormalizationContext] = None,
+    compute_variances: bool = False,
+    box: Optional[BoxConstraints] = None,
+    intercept_index: Optional[int] = None,
+    kernel: str = "scatter",
+    optimizer_type: OptimizerType = OptimizerType.LBFGS,
+    track_models: bool = False,
+    tile_cache_dir: Optional[str] = None,
+) -> Tuple[Models, Results]:
+    """Batched λ-grid twin of :func:`train_feature_sharded`: the grid is a
+    ``[G, d_pad]`` bank whose feature axis is sharded over the mesh, every
+    member a cold start from zero, one optimizer loop for all of them; on
+    the tiled layout every cell pass over the bank is one K2 launch."""
+    regularization = RegularizationContext(regularization_type, elastic_net_alpha)
+    fs = _feature_sharded_problem(
+        batch, task, dim, mesh=mesh, regularization=regularization,
+        max_iter=max_iter, tolerance=tolerance, history=history,
+        normalization=normalization, compute_variances=compute_variances,
+        box=box, intercept_index=intercept_index, kernel=kernel,
+        optimizer_type=optimizer_type, track_models=track_models,
+        tile_cache_dir=tile_cache_dir,
+    )
+    weights_desc = _descending(regularization_weights)
+    splits = [regularization.split(w) for w in weights_desc]
+    l1_vec, l2_vec = (
+        torch.tensor(v, dtype=torch.float32, device=mesh.device)
+        for v in zip(*splits)
+    )
+    w0 = torch.zeros(len(weights_desc), fs.d_pad, device=mesh.device)
+    result, variances = fs.solve(w0, l1_vec, l2_vec)
+    models: Models = {}
+    results: Results = {}
+    for i, lam in enumerate(weights_desc):
+        member = result.member(i)
+        models[lam] = fs.model(
+            member.coefficients, None if variances is None else variances[i]
+        )
+        results[lam] = dataclasses.replace(
+            member, coefficients=member.coefficients[:dim]
+        )
     return models, results
 
 

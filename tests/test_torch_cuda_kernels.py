@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions:
-K1 (the bilinear pass) and K2 (its grid form over a coefficient bank).
+K1 (the bilinear pass) and K2 (its grid form over a coefficient bank),
+and both on the cells of a 2 x 2 mesh of spawned ranks.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports neither jax nor the JAX package,
@@ -28,6 +29,7 @@ from photon_ml_tpu_torch.ops.tiled_sparse import (
     TileParams,
     build_tiled_batch,
 )
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, spawn_mesh
 
 CASES = {
     "spills": (TileParams(s_hi=8, s_lo=8, chunk=32, spill_cap=8), 700, 900),
@@ -219,3 +221,65 @@ def test_grid_wrapper_rejects_bad_operands(cuda):
         )
     with pytest.raises(ValueError):
         k2.grid_bilinear_pass(tb.z_sched, ok, tb.num_row_blocks - 1, win)
+
+
+def _mesh_fit_rank(mesh):
+    """Feature-sharded L-BFGS and its batched grid, each with variances,
+    on this rank's cell; -> values, iterations and K1 / K2 launches."""
+    from photon_ml_tpu_torch.data.batch import sparse_batch_from_arrays
+    from photon_ml_tpu_torch.optim.config import RegularizationType
+    from photon_ml_tpu_torch.task import TaskType
+    from photon_ml_tpu_torch.training import (
+        train_feature_sharded,
+        train_grid_batched_feature_sharded,
+    )
+
+    rng = np.random.default_rng(5)
+    n, d, k = 4000, 30000, 8
+    idx = rng.integers(0, d, size=(n, k)).astype(np.int32)
+    vals = rng.normal(size=(n, k)).astype(np.float32)
+    labels = (rng.uniform(size=n) > 0.5).astype(np.float32)
+    batch = sparse_batch_from_arrays(
+        idx, vals, labels, np.zeros(n, np.float32), np.ones(n, np.float32),
+        device="cpu",
+    )
+    kw = dict(
+        regularization_type=RegularizationType.L2, max_iter=8,
+        compute_variances=True, kernel="tiled",
+    )
+    out = {}
+    for name, trainer, weights in (
+        ("k1", train_feature_sharded, [1.0, 0.1]),
+        ("k2", train_grid_batched_feature_sharded, [1.0, 0.1, 0.01]),
+    ):
+        k1.launches = k2.launches = 0
+        models, results = trainer(
+            batch, TaskType.LOGISTIC_REGRESSION, d, mesh=mesh,
+            regularization_weights=weights, **kw,
+        )
+        out[name] = dict(
+            launches=(k1.launches, k2.launches),
+            fits={lam: (float(r.value), r.iterations) for lam, r in results.items()},
+        )
+    return out
+
+
+@pytest.mark.cuda
+def test_feature_sharded_fits_on_card_match_cpu(cuda):
+    """Every rank of a 2 x 2 mesh on the card launches K1 for the
+    sequential fits and K2 for the grid, never the other, and lands where
+    the same mesh on the CPU (the plain passes) does: the same iterations,
+    values within rtol 1e-5."""
+    k1.build_kernel()
+    k2.build_kernel()
+    axes = (DATA_AXIS, MODEL_AXIS)
+    card = spawn_mesh(_mesh_fit_rank, (2, 2), axes, timeout_s=600.0)
+    cpu = spawn_mesh(_mesh_fit_rank, (2, 2), axes, device="cpu", timeout_s=600.0)
+    for rank in card:
+        assert rank["k1"]["launches"][0] > 0 and rank["k1"]["launches"][1] == 0
+        assert rank["k2"]["launches"][0] == 0 and rank["k2"]["launches"][1] > 0
+        for name in ("k1", "k2"):
+            for lam, (value, iterations) in rank[name]["fits"].items():
+                want_value, want_iterations = cpu[0][name]["fits"][lam]
+                assert iterations == want_iterations
+                np.testing.assert_allclose(value, want_value, rtol=1e-5)

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor
-``photon_ml_tpu`` (checked in a fresh interpreter and by an AST scan of
-its sources and of ``chip_smoke.py``), and its entry points run on the
-CUDA card unless the caller asks for the CPU.
+``photon_ml_tpu`` (checked in a fresh interpreter, in the spawned ranks of
+a mesh, and by an AST scan of its sources and of ``chip_smoke.py``), and
+its entry points run on the CUDA card unless the caller asks for the CPU.
+
+This module imports nothing of JAX: its rank function runs in spawned
+ranks that re-import it.
 """
 
 import ast
@@ -16,7 +19,9 @@ import torch
 import photon_ml_tpu_torch
 from photon_ml_tpu_torch.data.batch import make_sparse_batch
 from photon_ml_tpu_torch.ops.tiled_sparse import build_tiled_batch
+from photon_ml_tpu_torch.optim import common
 from photon_ml_tpu_torch.optim.problem import resolve_kernel
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, spawn_mesh
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import train_generalized_linear_model
 from photon_ml_tpu_torch.utils.device import resolve_device
@@ -93,6 +98,8 @@ def test_default_device_raises_without_cuda(no_cuda):
         train_generalized_linear_model(batch, TaskType.LOGISTIC_REGRESSION, 4)
     with pytest.raises(RuntimeError):
         resolve_kernel("auto")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spawn_mesh(_probe_rank, (1,), timeout_s=60.0)
 
 
 def test_cpu_on_request(no_cuda):
@@ -101,3 +108,49 @@ def test_cpu_on_request(no_cuda):
     assert resolve_kernel("tiled", "cpu") == "tiled"
     with pytest.raises(ValueError):
         resolve_kernel("pallas", "cpu")
+
+
+def _probe_rank(mesh):
+    """What a spawned rank sees: its modules, coordinates and collectives."""
+    common.collectives = 0
+    model, data = mesh.groups[MODEL_AXIS], mesh.groups[DATA_AXIS]
+    x = torch.tensor([float(mesh.rank)])
+    reductions = common.MeshReductions(model=model, world=mesh.world)
+    out = dict(
+        forbidden=sorted(m for m in sys.modules if _forbidden(m)),
+        coords=mesh.coords,
+        model_sum=common.all_reduce(x.clone(), model),
+        data_sum=common.all_reduce(x.clone(), data),
+        gathered=common.all_gather_last(x, model),
+        flags=common.fetch(x, mesh=reductions)[0],
+        dot=common.dot(torch.ones(1, 3), torch.ones(1, 3), reductions),
+    )
+    out["collectives"] = common.collectives
+    return out
+
+
+@pytest.fixture(scope="module")
+def probes():
+    return spawn_mesh(
+        _probe_rank, (2, 2), (DATA_AXIS, MODEL_AXIS), device="cpu", timeout_s=120.0
+    )
+
+
+def test_spawned_ranks_import_no_jax(probes):
+    assert [p["forbidden"] for p in probes] == [[]] * 4
+
+
+def test_spawned_ranks_see_their_mesh(probes):
+    """Rank r = 2 d + m sits at (d, m); the model group sums along m, the
+    data group along d; a gather comes back in model order; every rank
+    fetches world rank 0's flags; a sharded dot sums over both blocks."""
+    for r, p in enumerate(probes):
+        d, m = divmod(r, 2)
+        assert p["coords"] == (d, m)
+        assert p["model_sum"].tolist() == [4.0 * d + 1.0]
+        assert p["data_sum"].tolist() == [2.0 * m + 2.0]
+        assert p["gathered"].tolist() == [2.0 * d, 2.0 * d + 1.0]
+        assert p["flags"] == [0.0]
+        assert p["dot"].tolist() == [6.0]
+        assert p["collectives"] == 5
+
