@@ -11,15 +11,23 @@ Phases, each printing its own lines:
    native schedule builder (g++);
 2. K1, the bilinear pass, and K2, its grid form over a [G, d] bank,
    against their plain PyTorch versions on the card: at a small shape
-   (forced spills, ragged tiles; K2 for G = 1, 3, 4, 5) and at the ads
-   shape (2^18 rows x 64 nnz x 2^20 features; K2 for G = 4, also against
-   4 launches of K1): z-pass, g-pass and the g-pass over squared values;
-3. times at the ads shape (CUDA events, after warm-up): K1 beside its
+   (forced spills, ragged tiles; K2 for G = 1, 3, 4, 5, 7, 9), at the work
+   plan's edge cases (a pass with fewer steps than the card's CTA slots,
+   an output block of one step, a chunk that is not a multiple of 4, a
+   row with many entries in one block; each without a NaN in the source,
+   with one where a nonzero entry reads, and with one at the first slot
+   of a window that a padded step reads, held against the real entries;
+   and an output block without steps) and at the ads shape (2^18 rows x
+   64 nnz x 2^20 features; K2 for G = 4, also against 4 launches of K1):
+   z-pass, g-pass and the g-pass over squared values;
+3. times at the ads shape (CUDA events over 50 launches queued behind a
+   sleep, so they are the card's and not the wrappers'): K1 beside its
    plain version and one torch.sparse CSR matvec of the same X; K2 at
    G = 4 beside its plain version, the CSR product with the bank (SpMM)
-   and 4 launches of K1; K3, the spill
-   remainder (index_add_), for a vector and for the bank; each with its
-   bound. The CSR calls are yardsticks the port never makes;
+   and 4 launches of K1; K3, the spill remainder (index_add_), for a
+   vector and for the bank; each with its bound, and each pass's launch
+   plan (CTAs, entries per work item, resident CTAs per SM) and share of
+   its bound. The CSR calls are yardsticks the port never makes;
 4. the sequential path at full width on planted-model logistic data: the
    warm-started L-BFGS lambda-grid [10, 1] with variances and a TRON fit
    through ``train_generalized_linear_model(kernel="tiled")``, then scores
@@ -30,12 +38,15 @@ Phases, each printing its own lines:
    with K2's and K1's launches and the host fetches over exactly each run;
    then the bank objective against K1's objective at every L-BFGS
    member's final point, each L-BFGS member against a cold sequential
-   fit of its lambda, and the batched L-BFGS grid's seconds against the
-   warm-started sequential grid's over the same lambdas, in turns;
+   fit of its lambda, the batched L-BFGS grid's seconds against the
+   warm-started sequential grid's over the same lambdas, in turns, and
+   both grids under torch.profiler (``tools/profile_grid.py``: device
+   busy time and idle share);
 6. the mesh path: a 2 x 2 (data, model) mesh of 4 spawned ranks on the
    card (gloo), each holding one cell of the same data: K1 and K2 against
    their plain versions on every cell, the cell-shape times (rank 0, the
-   others idle), the mesh objective against the single-card one, then
+   others idle; warm and with the L2 flushed before each launch) and
+   plans, the mesh objective against the single-card one, then
    ``train_feature_sharded`` (L-BFGS over [10, 1] with variances, TRON at
    1), ``train_grid_batched_feature_sharded`` (L-BFGS over the four grid
    lambdas) and the data-parallel ``train_generalized_linear_model(mesh=)``
@@ -67,6 +78,7 @@ N_ROWS, NNZ_PER_ROW, DIM = 1 << 18, 64, 1 << 20
 N_HELD_OUT = 1 << 16
 RTOL = 1e-5  # of the output's largest magnitude: f32 sums, another order
 GRID_G = 4  # members of the bank K2 is checked and timed at, ads shape
+EDGE_GS = (1, 3, 4, 5, 7, 9)  # banks K2 is checked at: 1, 2 and 3+ tiles
 GRID_LAMBDAS = [10.0, 1.0, 0.1, 0.01]
 MESH_SHAPE = (2, 2)  # (data, model) ranks of the mesh phase
 MESH_TIMEOUT_S = 600.0
@@ -109,15 +121,22 @@ def pass_args(tb, w, c):
     )
 
 
-def check_close(what, got, ref):
-    """Normwise: max |got - ref| <= 1e-6 + RTOL * max |ref|; -> (abs, rel)."""
+def check_close(what, got, ref, quiet=False):
+    """Normwise: max |got - ref| <= 1e-6 + RTOL * max |ref|, over the
+    finite elements, with NaN in the same places; -> (abs, rel)."""
     torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    scale = float(ref.abs().max())
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        fail(f"{what}: NaN in other places than in the plain version")
+    if bool(nan.any()):
+        got, ref = got[~nan], ref[~nan]
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
     rel = err / max(scale, 1e-30)
-    say(f"{what}: max_abs_err={err!r} max_rel_err={rel!r} scale={scale!r}")
+    if not quiet:
+        say(f"{what}: max_abs_err={err!r} max_rel_err={rel!r} scale={scale!r}")
     if not np.isfinite(err) or err > 1e-6 + RTOL * scale:
-        fail(f"{what} disagrees")
+        fail(f"{what} disagrees: max_abs_err={err!r} scale={scale!r}")
     return err, rel
 
 
@@ -159,18 +178,126 @@ def compare_grid_passes(k1, k2, tb, rng, label, G, against_k1=False):
     return worst
 
 
-def time_ms(fn, reps=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def edge_checks(k1, k2, seed):
+    """K1 and K2 (G in EDGE_GS) on the work plan's edge cases
+    (``tools/kernel_cases.edge_case_batches``), each with a finite source
+    and with a NaN where a nonzero entry reads (against the plain version),
+    and with a NaN at the first slot of a window that a padded step reads
+    (against the pass over the real entries: the plain version's padding
+    slots carry that NaN into slot 0 of their output block, the kernels'
+    do not); then an output block without steps, into an output whose
+    memory held NaN just before. One line per case. -> worst (abs, rel)
+    error of K1 and of K2."""
+    from photon_ml_tpu_torch.tools.kernel_cases import (
+        edge_case_batches,
+        nan_at_window_start,
+        nan_source,
+        real_entries_pass,
+        schedule_without_block,
+    )
+
+    worst = {"k1": (0.0, 0.0), "k2": (0.0, 0.0)}
+    rng = np.random.default_rng([seed, 4])
+
+    def kernel_pass(G, sched, src, n_out, win, vals):
+        if G is None:
+            return k1.bilinear_pass(sched, src, n_out, win, vals=vals)
+        return k2.grid_bilinear_pass(sched, src, n_out, win, vals=vals)
+
+    batches = edge_case_batches("cuda", seed)
+    for name, tb in batches:
+        win = tb.params.window
+        cfg = k1.launch_config(tb.z_sched, tb.z_sched.vals, torch.device("cuda"))
+        items = cfg.plan.items.cpu().numpy()
+        split = int(np.count_nonzero((items[:, 1] == items[:, 3]) & (items[:, 2] > 0)))
+        for nan in ("none", "entry", "window_start"):
+            for G in (None,) + EDGE_GS:
+                shape = () if G is None else (G,)
+                w = torch.as_tensor(rng.normal(size=shape + (tb.dim,)).astype(np.float32), device="cuda")
+                c = torch.as_tensor(rng.normal(size=shape + (tb.num_rows,)).astype(np.float32), device="cuda")
+                kernel = "k1" if G is None else "k2"
+                for pname, sched, src, n_out, vals in pass_args(tb, w, c):
+                    if nan == "window_start":
+                        src, _, ref = nan_at_window_start(sched, src, n_out, win, vals)
+                    else:
+                        if nan == "entry":
+                            src = nan_source(sched, src)
+                        ref = (k1.bilinear_pass_plain(sched, src, n_out, win, vals=vals)
+                               if G is None else
+                               k2.grid_bilinear_pass_plain(sched, src, n_out, win, vals=vals))
+                    if nan != "none" and not bool(torch.isnan(ref).any()):
+                        fail(f"edge {name} {pname}: the NaN reached no output")
+                    got = kernel_pass(G, sched, src, n_out, win, vals)
+                    err = check_close(f"edge {name} {kernel} G={G} {pname} nan={nan}",
+                                      got, ref, quiet=True)
+                    worst[kernel] = tuple(map(max, worst[kernel], err))
+            say(f"edge_check {name} nan={nan}: window {win}, chunk "
+                f"{tb.params.chunk}, z steps {tb.z_sched.num_steps}, z plan "
+                f"{cfg.ctas} CTAs ({split} inside a step), K1 and K2 at G in "
+                f"{list(EDGE_GS)} on z, g, g_sq within {RTOL} of scale"
+                + (" (against the real entries; the plain version has more "
+                   "NaN)" if nan == "window_start" else ""))
+
+    tb = dict(batches)["one_step_block"]
+    sched = schedule_without_block(tb.z_sched, 1)
+    win, n_out = tb.params.window, tb.num_row_blocks
+    for G in (None,) + EDGE_GS:
+        shape = () if G is None else (G,)
+        src = torch.as_tensor(rng.normal(size=shape + (tb.dim,)).astype(np.float32), device="cuda")
+        torch.full(shape + (n_out * win,), float("nan"), device="cuda")  # freed
+        got = kernel_pass(G, sched, src, n_out, win, None)
+        ref = real_entries_pass(sched, src, n_out, win)
+        if bool(got[..., win : 2 * win].any()) or bool(torch.isnan(got).any()):
+            fail(f"edge block_without_steps G={G}: the block is not zero")
+        kernel = "k1" if G is None else "k2"
+        err = check_close(f"edge block_without_steps {kernel} G={G}", got, ref, quiet=True)
+        worst[kernel] = tuple(map(max, worst[kernel], err))
+    say(f"edge_check block_without_steps: z steps {sched.num_steps} (block 1's "
+        f"taken out), K1 and K2 at G in {list(EDGE_GS)} write its window as zeros")
+    return worst
+
+
+def plan_fields(cfg, sched):
+    """A pass's launch plan and occupancy (``launch_config``), as numbers."""
+    return dict(
+        ctas=cfg.ctas, items=cfg.plan.num_items, tiles=cfg.tiles,
+        members_per_cta=cfg.members_per_cta,
+        entries_per_item=int(sched.step_sizes.sum()) / max(cfg.plan.num_items, 1),
+        ctas_per_sm=cfg.ctas_per_sm, threads=cfg.threads, vec=cfg.vec,
+        shared_blocks=cfg.plan.zero_output,
+    )
+
+
+def plan_line(what, plan, bound, ms):
+    """One line: a pass's launch plan, occupancy and share of its bound."""
+    say(f"{what}: {plan['ctas']} CTAs ({plan['items']} work items x "
+        f"{plan['tiles']} member tiles of {plan['members_per_cta']}), "
+        f"{plan['entries_per_item']:.0f} entries per item, "
+        f"{plan['ctas_per_sm']} resident CTAs per SM of {plan['threads']} "
+        f"threads, {'16' if plan['vec'] else '4'}-byte entry loads, "
+        f"{'some blocks shared' if plan['shared_blocks'] else 'one writer per block'}; "
+        f"{ms!r} ms against a {bound!r} ms bound, share of bound {bound / ms!r}")
+
+
+def pass_plans(k1, k2, tb, G):
+    """The launch plans of K1's and K2's (bank of G) z and g passes on
+    ``tb``: {"k1_z": fields, ...}."""
+    cuda = torch.device("cuda")
+    plans = {}
+    for p, sched in (("z", tb.z_sched), ("g", tb.g_sched)):
+        plans[f"k1_{p}"] = plan_fields(k1.launch_config(sched, sched.vals, cuda), sched)
+        plans[f"k2_{p}"] = plan_fields(k2.launch_config(sched, sched.vals, cuda, G), sched)
+    return plans
+
+
+def time_ms(fn, flush=None):
+    """Device ms per call of ``fn``: CUDA events over 50 calls queued
+    behind a sleep, so the card and not the wrapper's Python sets the pace;
+    with ``flush``, the L2 is evicted before each call
+    (``tools/device_timing.py``)."""
+    from photon_ml_tpu_torch.tools.device_timing import device_ms
+
+    return device_ms(fn, 50, flush=flush)
 
 
 def pass_bound_ms(sched, n_src, n_out, members=1):
@@ -218,8 +345,12 @@ def pass_errors(k1, k2, tb, rng, G):
 
 
 def cell_times(k1, k2, tb, rows, feats, vals, rng):
-    """K1 and K2 (G = GRID_G) on one cell: CUDA-event ms per z and g pass,
-    their plain versions', the cell's CSR matvec / SpMM, and the bounds."""
+    """K1 and K2 (G = GRID_G) on one cell: device ms per z and g pass (warm,
+    and with the L2 flushed before each launch: the cell's ~53 MB of
+    schedule barely exceeds the 50 MB L2), their plain versions', the
+    cell's CSR matvec / SpMM, the bounds and the launch plans."""
+    from photon_ml_tpu_torch.tools.device_timing import l2_flush_buffer
+
     win = tb.params.window
     G = GRID_G
     w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device="cuda")
@@ -248,6 +379,17 @@ def cell_times(k1, k2, tb, rows, feats, vals, rng):
         ("k2_g_library_ms", lambda: xt @ cb.T),
     ):
         times[name] = time_ms(fn)
+    flush = l2_flush_buffer()
+    for name in ("k1_z_ms", "k1_g_ms", "k2_z_ms", "k2_g_ms"):
+        fn = dict(
+            k1_z_ms=lambda: k1.bilinear_pass(z[0], w, *z[1:]),
+            k1_g_ms=lambda: k1.bilinear_pass(g[0], c, *g[1:]),
+            k2_z_ms=lambda: k2.grid_bilinear_pass(z[0], wb, *z[1:]),
+            k2_g_ms=lambda: k2.grid_bilinear_pass(g[0], cb, *g[1:]),
+        )[name]
+        times[name.replace("_ms", "_l2_flushed_ms")] = time_ms(fn, flush)
+    del flush
+    times["plans"] = pass_plans(k1, k2, tb, G)
     for kernel, members in (("k1", 1), ("k2", G)):
         times[f"{kernel}_z_bound_ms"] = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows, members)[0]
         times[f"{kernel}_g_bound_ms"] = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim, members)[0]
@@ -403,8 +545,9 @@ def mesh_fields(kernel, launches, cell, errs):
     with their plain, library and bound times, and its worst error on
     the cells."""
     fields = {"mesh_launches": launches[kernel]}
-    for key in ("z_ms", "g_ms", "z_plain_ms", "g_plain_ms", "z_library_ms",
-                "g_library_ms", "z_bound_ms", "g_bound_ms"):
+    for key in ("z_ms", "g_ms", "z_l2_flushed_ms", "g_l2_flushed_ms",
+                "z_plain_ms", "g_plain_ms", "z_library_ms", "g_library_ms",
+                "z_bound_ms", "g_bound_ms"):
         fields[f"cell_{key}"] = cell[f"{kernel}_{key}"]
     fields["cell_max_abs_err"], fields["cell_max_rel_err"] = errs[kernel]
     return fields
@@ -479,9 +622,11 @@ def main() -> int:
         fail("small shape did not spill")
     say(f"small shape: {n_s} x {d_s}, window 64, chunk 32, {n_spill} spills")
     small_err = compare_passes(k1, small, rng, "small")
-    k2_errs = [
-        compare_grid_passes(k1, k2, small, rng, "small", G) for G in (1, 3, 4, 5)
-    ]
+    k2_errs = [compare_grid_passes(k1, k2, small, rng, "small", G) for G in EDGE_GS]
+
+    # -- 2b. the work plan's edge cases -------------------------------------------
+    edge_err = edge_checks(k1, k2, args.seed)
+    k2_errs.append(edge_err["k2"])
 
     # -- main-path data at the ads shape ----------------------------------------
     t0 = time.perf_counter()
@@ -510,7 +655,7 @@ def main() -> int:
         np.ones(N_HELD_OUT, np.float32), device="cuda",
     )
 
-    # -- 2b. K1 and K2 against plain at the ads shape ---------------------------
+    # -- 2c. K1 and K2 against plain at the ads shape ---------------------------
     ads_err = compare_passes(k1, tb, rng, "ads")
     k2_errs.append(
         compare_grid_passes(k1, k2, tb, rng, "ads", GRID_G, against_k1=True)
@@ -574,10 +719,16 @@ def main() -> int:
         f"z_bytes={z_bytes} g_bytes={g_bytes}")
     zb_bound, zb_bytes, _ = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows, G)
     gb_bound, gb_bytes, _ = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim, G)
-    say(f"k2_times G={G} members_per_cta={k2.members_per_cta(G, win)} ({smi}): "
+    say(f"k2_times G={G} ({smi}): "
         + " ".join(f"{k}={v!r}" for k, v in k2_times.items())
         + f" z_bound_ms={zb_bound!r} g_bound_ms={gb_bound!r} "
         f"z_bytes={zb_bytes} g_bytes={gb_bytes}")
+    ads_plans = pass_plans(k1, k2, tb, G)
+    for key, bound, ms in (
+        ("k1_z", z_bound, k1_times["z_ms"]), ("k1_g", g_bound, k1_times["g_ms"]),
+        ("k2_z", zb_bound, k2_times["z_ms"]), ("k2_g", gb_bound, k2_times["g_ms"]),
+    ):
+        plan_line(f"plan ads {key}", ads_plans[key], bound, ms)
 
     # K3, the spill remainder, as the objective calls it (in place)
     z_out = torch.zeros(tb.num_rows, device="cuda")
@@ -797,6 +948,11 @@ def main() -> int:
             f"({smi})")
     say(f"grid_end_to_end cold sequential fits: {cold_s!r} s in all")
 
+    # where the two grids' time goes: the device's busy and idle shares
+    from photon_ml_tpu_torch.tools.profile_grid import profile_fits
+
+    profile_fits(tb, DIM, lbfgs_grid, say=say)
+
     # -- 6. the mesh path -------------------------------------------------------
     say(f"mesh: {MESH_SHAPE} (data, model) ranks on ONE card ({smi}); they "
         "time-slice its SMs and gloo stages every collective through the "
@@ -827,7 +983,11 @@ def main() -> int:
             cell_errs[key] = tuple(map(max, cell_errs[key], (err, err / max(scale, 1e-30))))
     cell = ranks[0]["times"]
     say(f"mesh_cell_times rank 0, {cell['entries']} entries ({smi}): " + " ".join(
-        f"{k}={v!r}" for k, v in cell.items() if k != "entries"))
+        f"{k}={v!r}" for k, v in cell.items() if k not in ("entries", "plans")))
+    for key in ("k1_z", "k1_g", "k2_z", "k2_g"):
+        plan_line(f"plan cell {key} (warm; L2 flushed "
+                  f"{cell[key + '_l2_flushed_ms']!r} ms)", cell["plans"][key],
+                  cell[key + "_bound_ms"], cell[key + "_ms"])
     v_err = abs(ranks[0]["objective"][0] - float(v_one)) / abs(float(v_one))
     g_mesh = torch.as_tensor(ranks[0]["objective"][1], device="cuda")
     g_err = float((g_mesh - g_one).abs().max() / g_one.abs().max())
@@ -875,7 +1035,7 @@ def main() -> int:
         "source": "photon_ml_tpu_torch/ops/csrc/bilinear_pass.cu",
         "replaces": "photon_ml_tpu/ops/tiled_sparse.py:1294",
         "launches": launches,
-        "max_abs_err": max(small_err[0], ads_err[0]),
+        "max_abs_err": max(small_err[0], ads_err[0], edge_err["k1"][0]),
         "ms": k1_times["z_ms"] + k1_times["g_ms"],
         "plain_ms": k1_times["z_plain_ms"] + k1_times["g_plain_ms"],
         "bound_ms": z_bound + g_bound,
@@ -884,7 +1044,7 @@ def main() -> int:
         "work": "one z-pass + one g-pass at the ads shape",
         "z_ms": k1_times["z_ms"], "g_ms": k1_times["g_ms"],
         "z_bound_ms": z_bound, "g_bound_ms": g_bound,
-        "max_rel_err": max(small_err[1], ads_err[1]),
+        "max_rel_err": max(small_err[1], ads_err[1], edge_err["k1"][1]),
         **mesh_fields("k1", mesh_launches, cell, cell_errs),
     }, {
         "name": "grid_bilinear_pass",

@@ -4,7 +4,7 @@
 // (_bilinear_pass_kernel, launched by _run_bilinear_pass). It computes the
 // block-sparse matvec that a static schedule encodes:
 //
-//   for every step s (steps sorted by output block) and entry e < L:
+//   for every step s (steps sorted by output block) and entry e:
 //     out[step_out[s] * W + out_pos[s, e]] +=
 //         vals[s, e] * src[step_in[s] * W + in_pos[s, e]]
 //
@@ -14,74 +14,60 @@
 //
 // What bounds it: bytes. Each entry is read once as 12 bytes (in_pos,
 // out_pos, val) and does one multiply-add; at the ads shape (16.7M
-// entries per pass) that is ~200 MB, ~60 us at the H100's 3.35 TB/s. The
-// gathered source window (32 KB) and the output window stay on chip.
+// entries per pass) that is ~200 MB, ~60 us at the H100's 3.35 TB/s.
 //
-// Design (a simple one that is right; making it fast is later work):
-// - The TPU kernel's one-hot compares, bf16 hi/lo split, (8, L) entry rows
-//   and sublane row selection answered TPU limits and are gone. The
-//   arithmetic is f32 with one rounding per product, like the reference's
-//   mxu="highest" numerics.
-// - The host cuts each output block's run of steps into segments of at most
-//   a few steps; one CTA owns one segment. That keeps enough CTAs in flight
-//   (the z-pass at the ads shape has only 32 output blocks, which one CTA
-//   per block would spread over 32 of 132 SMs).
-// - A CTA zeroes a window-sized accumulator in shared memory, walks its
-//   steps reading the entry arrays coalesced, gathers src through the
-//   read-only path, accumulates with shared-memory atomicAdd, and flushes
-//   the window into the (zeroed) output with global atomicAdd.
-// - step_init is implied: the wrapper zeroes the output and every step of a
-//   block adds into it, which equals "the first step of a block starts the
-//   window" because a block's steps are consecutive (checked on the host).
-// - Float atomics make the order of additions vary from run to run, so
-//   results agree with the plain version to f32 rounding, not bitwise.
+// The device code is bilinear_pass_core.cuh (shared with K2, which is the
+// same core for a tile of members); its note says what the design does
+// about the bound. The TPU kernel's one-hot compares, bf16 hi/lo split,
+// (8, L) entry rows and sublane row selection answered TPU limits and are
+// gone: the arithmetic is f32 with one rounding per product, like the
+// reference's mxu="highest" numerics.
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream and does not synchronise; the return value is cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bilinear_pass_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using photon::GATHERED;
+using photon::STAGED;
 
+constexpr int kThreads = 512;  // per CTA: 2 resident CTAs per SM
+
+template <int V, int MODE>
 __global__ void __launch_bounds__(kThreads)
-bilinear_pass_kernel(const int32_t* __restrict__ segments,  // [n_seg, 3]
-                     const int32_t* __restrict__ step_in,   // [G]
-                     const int32_t* __restrict__ in_pos,    // [G8, L]
-                     const int32_t* __restrict__ out_pos,   // [G8, L]
-                     const float* __restrict__ vals,        // [G8, L]
-                     int L,
-                     const float* __restrict__ src,  // [n_in_blocks * W]
-                     float* __restrict__ out,        // [n_out_blocks * W]
-                     int window) {
-  extern __shared__ float acc[];
-  const int seg = blockIdx.x;
-  const int out_block = segments[3 * seg];
-  const int first = segments[3 * seg + 1];
-  const int last = segments[3 * seg + 2];
+bilinear_pass_kernel(photon::Pass a) {
+  photon::run_item<V, 1, MODE, kThreads>(a);
+}
 
-  for (int i = threadIdx.x; i < window; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
-
-  for (int s = first; s < last; ++s) {
-    const float* win = src + static_cast<int64_t>(step_in[s]) * window;
-    const int64_t base = static_cast<int64_t>(s) * L;
-    for (int e = threadIdx.x; e < L; e += kThreads) {
-      const int ip = __ldg(in_pos + base + e);
-      const int op = __ldg(out_pos + base + e);
-      const float v = __ldg(vals + base + e);
-      atomicAdd(acc + op, v * __ldg(win + ip));
-    }
+template <int V, int MODE>
+int launch(const photon::Pass& a, int n_items, cudaStream_t stream, int* ctas) {
+  // the accumulator, and staged two source windows
+  const size_t smem = static_cast<size_t>(a.window) * sizeof(float) *
+                      (MODE == STAGED ? 3 : 1);
+  static size_t done_smem = 0;  // configured once per shared-memory size
+  static int done_ctas = 0;
+  if (done_smem != smem) {
+    cudaError_t err = photon::configure(bilinear_pass_kernel<V, MODE>,
+                                        kThreads, smem, &done_ctas);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done_smem = smem;
   }
-  __syncthreads();
+  *ctas = done_ctas;
+  if (n_items > 0) {
+    bilinear_pass_kernel<V, MODE><<<n_items, kThreads, smem, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
-  float* dst = out + static_cast<int64_t>(out_block) * window;
-  for (int i = threadIdx.x; i < window; i += kThreads) {
-    const float a = acc[i];
-    // untouched slots add nothing; a NaN (a != a) still propagates
-    if (a != 0.0f || a != a) atomicAdd(dst + i, a);
+template <int V>
+int by_mode(const photon::Pass& a, int n_items, int mode, cudaStream_t s,
+            int* ctas) {
+  switch (mode) {
+    case STAGED: return launch<V, STAGED>(a, n_items, s, ctas);
+    case GATHERED: return launch<V, GATHERED>(a, n_items, s, ctas);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -89,29 +75,35 @@ bilinear_pass_kernel(const int32_t* __restrict__ segments,  // [n_seg, 3]
 
 extern "C" {
 
-int photon_bilinear_pass(const void* segments, int n_segments,
-                         const void* step_in, const void* in_pos,
+// mode: STAGED or GATHERED (a photon::Mode; STAGED needs window % 4 == 0).
+// With n_items = 0 it launches nothing and only reports the kernel's resident CTAs per SM in
+// *ctas_per_sm.
+int photon_bilinear_pass(const void* items, int n_items, const void* step_in,
+                         const void* step_sizes, const void* in_pos,
                          const void* out_pos, const void* vals, int L,
-                         const void* src, void* out, int window,
-                         void* stream) {
-  const size_t smem = static_cast<size_t>(window) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bilinear_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+                         const void* src, void* out, int window, int vec,
+                         int mode, int* ctas_per_sm, void* stream) {
+  if (mode == STAGED && window % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_segments > 0) {
-    bilinear_pass_kernel<<<n_segments, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(segments),
-        static_cast<const int32_t*>(step_in),
-        static_cast<const int32_t*>(in_pos),
-        static_cast<const int32_t*>(out_pos),
-        static_cast<const float*>(vals), L, static_cast<const float*>(src),
-        static_cast<float*>(out), window);
-  }
-  return static_cast<int>(cudaGetLastError());
+  photon::Pass a;
+  a.items = static_cast<const int32_t*>(items);
+  a.step_in = static_cast<const int32_t*>(step_in);
+  a.step_sizes = static_cast<const int32_t*>(step_sizes);
+  a.in_pos = static_cast<const int32_t*>(in_pos);
+  a.out_pos = static_cast<const int32_t*>(out_pos);
+  a.vals = static_cast<const float*>(vals);
+  a.L = L;
+  a.src = static_cast<const float*>(src);
+  a.n_in = 0;
+  a.out = static_cast<float*>(out);
+  a.n_out = 0;
+  a.window = window;
+  a.num_members = 1;
+  a.gt = 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? by_mode<4>(a, n_items, mode, s, ctas_per_sm)
+             : by_mode<1>(a, n_items, mode, s, ctas_per_sm);
 }
 
 const char* photon_cuda_error_string(int code) {

@@ -1,4 +1,5 @@
-"""K1, the tiled bilinear pass: CUDA kernel wrapper and plain version.
+"""K1, the tiled bilinear pass: CUDA kernel wrapper, work plan and plain
+version.
 
 Replaces the Pallas kernel ``photon_ml_tpu/ops/tiled_sparse.py``
 (``_bilinear_pass_kernel``, launched by ``_run_bilinear_pass``). One
@@ -8,7 +9,7 @@ Hessian-diagonal g-pass over squared values:
     out[step_out[s] * W + out_pos[s, e]] +=
         vals[s, e] * src[step_in[s] * W + in_pos[s, e]]
 
-over the ``G`` steps of a schedule (entry rows past ``G`` are padding) and
+over the ``S`` steps of a schedule (entry rows past ``S`` are padding) and
 the ``L`` entries of each step, with ``W`` the window. ``src`` and the
 result are flat padded vectors. The spill remainder is not part of it
 (``_Schedule.apply_spill`` adds it after).
@@ -16,22 +17,30 @@ result are flat padded vectors. The spill remainder is not part of it
 What bounds it on the H100: bytes. Each entry is read once as 12 bytes
 (``in_pos``, ``out_pos``, ``val``): ~200 MB per pass at the ads shape
 (16.7M entries), so ~60 us at 3.35 TB/s is the least it could take. That
-is a bound, not a measurement; ``PERF.md`` has the measured times. The
-design keeps the gathered source window and the output window on chip
-(L2 and shared memory); ``ops/csrc/bilinear_pass.cu`` says how.
+is a bound, not a measurement; ``PERF.md`` has the measured times.
 
-On a CUDA tensor :func:`bilinear_pass` launches the kernel (built with
-``nvcc`` for ``sm_90a`` at first use) or raises; only a CPU tensor takes
-the plain version. ``launches`` counts kernel launches.
+The kernel (``ops/csrc/bilinear_pass_core.cuh``, shared with K2) runs one
+CTA per *work item* of :func:`plan_work`: a contiguous run of one output
+block's entries, sized so that the pass fills the card once
+(``ctas_per_sm`` resident CTAs on each SM) and no CTA walks more than its
+share. A step's real entry count (:func:`step_sizes`) ends its walk, so
+padding slots cost nothing. A pass whose gathers fall at random in the
+window copies each window into shared memory; one whose gathers come in
+order reads it through L1 (:func:`default_mode`). On a CUDA tensor
+:func:`bilinear_pass` launches the kernel (built with ``nvcc`` for
+``sm_90a`` at first use) or raises; only a CPU tensor takes the plain
+version. ``launches`` counts kernel launches.
 
-Tolerance: the kernel sums with float atomics, so the order of additions
-changes from run to run; against the plain version it agrees to f32
-rounding (relative error ~1e-7 of the output's scale, checked at 1e-5).
+Tolerance: where several CTAs share an output block they add their windows
+with float atomics, so the order of additions changes from run to run;
+against the plain version the kernel agrees to f32 rounding (relative
+error ~1e-7 of the output's scale, checked at 1e-5).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -46,27 +55,126 @@ Tensor = torch.Tensor
 # Kernel launches on the CUDA path (a run sets it to 0 and reads it).
 launches = 0
 
-# Steps of one output block given to one CTA (see the .cu source note).
-STEPS_PER_CTA = 8
-
 MAX_SHARED_BYTES = 227 * 1024  # the H100's opt-in per CTA
 
+# Columns of a work item: output block, first step, first entry (of the
+# first step), last step (inclusive), end entry (of the last step), and 1
+# when the item is its block's only writer.
+ITEM_COLUMNS = 6
+# Item boundaries inside a step fall on multiples of this many entries, so
+# the kernel's 16-byte entry loads stay aligned.
+ENTRY_ALIGN = 4
 
-def plan_segments(step_out: np.ndarray, steps_per_cta: int = STEPS_PER_CTA) -> np.ndarray:
-    """CTA work table [n_seg, 3] int32: (output block, first step, end
-    step). Each output block's consecutive run of steps is cut into
-    segments of at most ``steps_per_cta`` steps."""
+
+def step_sizes(vals: np.ndarray, num_steps: int) -> np.ndarray:
+    """Real entries of each step [S] int32: the last slot of the step with
+    a nonzero value, plus one (0 for a step without one). Both schedule
+    builders fill a step's entries from slot 0 and pad with zero values,
+    so this is the builder's chunk size; an explicit zero at a step's tail
+    is skipped with the padding (it adds ``0 * src``)."""
+    nz = np.asarray(vals)[:num_steps] != 0
+    if nz.shape[1] == 0:
+        return np.zeros(num_steps, np.int32)
+    last = nz.shape[1] - np.argmax(nz[:, ::-1], axis=1)
+    return np.where(nz.any(axis=1), last, 0).astype(np.int32)
+
+
+def gathers_in_order(in_pos: np.ndarray, sizes: np.ndarray, sample: int = 256) -> bool:
+    """Whether the steps' entries read their input window in order: at
+    least 90% of neighbouring real entries with a non-decreasing
+    ``in_pos``, over up to ``sample`` steps spread through the schedule.
+    Both builders keep the input's order within a tile, so this is the
+    data's order: a z-pass over row-major rows reads its features at
+    random, the g-pass reads its rows in order."""
+    S = sizes.shape[0]
+    steps = np.unique(np.linspace(0, S - 1, min(S, sample)).astype(np.int64))
+    pos = np.asarray(in_pos)[steps]
+    real = np.arange(1, pos.shape[1])[None, :] < sizes[steps][:, None]
+    pairs = int(real.sum())
+    rising = int((real & (np.diff(pos, axis=1) >= 0)).sum())
+    return pairs > 0 and rising >= 0.9 * pairs
+
+
+def plan_work(
+    step_out: np.ndarray, sizes: np.ndarray, target: int, num_out_blocks: int,
+    *, min_entries: int = 1,
+) -> np.ndarray:
+    """CTA work table [n_items, ITEM_COLUMNS] int32 for ``target`` CTAs.
+
+    The pass's entries are cut into about ``min(target, entries /
+    min_entries)`` items of equal size. An item never crosses an output
+    block: a block gets ``round(its entries / share)`` items (at least one,
+    so a block without entries is still written), cut at equal entry
+    offsets rounded down to ``ENTRY_ALIGN`` within a step. A block with
+    fewer steps than items splits its steps across CTAs. An item alone on
+    its block writes the window with plain stores; items that share a
+    block add with atomics. A block of ``range(num_out_blocks)`` without
+    steps gets an item without steps (last step = first step - 1), which
+    writes its zero window, so every output element is written."""
     step_out = np.asarray(step_out)
-    G = step_out.shape[0]
-    if G == 0:
-        return np.zeros((0, 3), np.int32)
-    idx = np.arange(G)
-    new_block = np.ones(G, bool)
-    new_block[1:] = step_out[1:] != step_out[:-1]
-    run_start = np.maximum.accumulate(np.where(new_block, idx, 0))
-    heads = np.nonzero(new_block | ((idx - run_start) % steps_per_cta == 0))[0]
-    ends = np.append(heads[1:], G)
-    return np.stack([step_out[heads], heads, ends], axis=1).astype(np.int32)
+    sizes = np.asarray(sizes).astype(np.int64)
+    S = step_out.shape[0]
+    total = int(sizes.sum())
+    n_ctas = max(1, min(int(target), -(-total // max(int(min_entries), 1))))
+    share = max(total / n_ctas, 1.0)
+    heads = np.flatnonzero(np.diff(step_out, prepend=-1) != 0)  # block starts
+    ends = np.r_[heads[1:], S]
+    ends_at = np.cumsum(sizes)  # flat entry offset where each step ends
+    starts_at = ends_at - sizes
+    items = []
+    for a, b in zip(heads.tolist(), ends.tolist()):
+        block_entries = int(ends_at[b - 1] - starts_at[a])
+        k = max(1, int(block_entries / share + 0.5))
+        cuts = [(a, 0)]
+        for i in range(1, k):
+            flat = int(starts_at[a]) + block_entries * i // k
+            s = a + int(np.searchsorted(ends_at[a:b], flat, side="right"))
+            if s >= b:
+                continue
+            pos = (flat - int(starts_at[s])) // ENTRY_ALIGN * ENTRY_ALIGN
+            if (s, pos) > cuts[-1]:
+                cuts.append((s, pos))
+        cuts.append((b, 0))
+        sole = int(len(cuts) == 2)
+        for (s0, p0), (s1, p1) in zip(cuts[:-1], cuts[1:]):
+            if p1 == 0:  # ends at a step boundary: the end of step s1 - 1
+                s1, p1 = s1 - 1, int(sizes[s1 - 1])
+            items.append((int(step_out[a]), s0, p0, s1, p1, sole))
+    for block in np.setdiff1d(np.arange(num_out_blocks), step_out).tolist():
+        items.append((block, 0, 0, -1, 0, 1))
+    return np.asarray(items, np.int32).reshape(-1, ITEM_COLUMNS)
+
+
+@dataclass(frozen=True)
+class WorkPlan:
+    """A schedule's work table on its device, for one CTA target."""
+
+    items: Tensor  # int32 [n_items, ITEM_COLUMNS]
+    zero_output: bool  # some block has several writers: zero, then add
+
+    @property
+    def num_items(self) -> int:
+        return self.items.shape[0]
+
+
+def make_plan(sched, target: int) -> WorkPlan:
+    """``sched``'s work plan for ``target`` CTAs, made once per schedule
+    and target and cached on the schedule (one read of its step table from
+    the device the first time). An item holds at least a quarter window of
+    entries: its walk then takes at least as many 16-byte trips as zeroing
+    and flushing its window."""
+    plan = sched.plans.get(int(target))
+    if plan is None:
+        items = plan_work(
+            sched.step_out.cpu().numpy(), sched.step_sizes.cpu().numpy(),
+            target, sched.num_out_blocks, min_entries=max(1, sched.window // 4),
+        )
+        plan = WorkPlan(
+            torch.as_tensor(items, device=sched.step_out.device),
+            zero_output=bool(len(items)) and not bool(items[:, 5].all()),
+        )
+        sched.plans[int(target)] = plan
+    return plan
 
 
 def bilinear_pass_plain(
@@ -106,8 +214,8 @@ def check_operands(kernel: str, sched, num_out_blocks: int, window: int, vals):
 def check_cuda_operands(kernel: str, sched, v: Tensor, src: Tensor) -> None:
     """Device, type and contiguity of what a CUDA pass hands the kernel."""
     tensors = {
-        "segments": (sched.segments, torch.int32),
         "step_in": (sched.step_in, torch.int32),
+        "step_sizes": (sched.step_sizes, torch.int32),
         "in_pos": (sched.in_pos, torch.int32),
         "out_pos": (sched.out_pos, torch.int32),
         "vals": (v, torch.float32),
@@ -120,8 +228,27 @@ def check_cuda_operands(kernel: str, sched, v: Tensor, src: Tensor) -> None:
             raise TypeError(f"{kernel}: {name} is {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
-    if sched.segments.dim() != 2 or sched.segments.shape[1] != 3:
-        raise ValueError(f"{kernel}: segments must be [n_seg, 3]")
+    if sched.step_sizes.shape != sched.step_out.shape:
+        raise ValueError(f"{kernel}: step_sizes must be [{sched.num_steps}]")
+
+
+def vector_loads(sched, v: Tensor) -> bool:
+    """Whether the kernel may read entries 4 at a time: rows of a multiple
+    of 4 entries, 16-byte aligned."""
+    return sched.in_pos.shape[1] % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (sched.in_pos, sched.out_pos, v)
+    )
+
+
+_sms: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (asked once per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def bilinear_pass(
@@ -143,35 +270,127 @@ def bilinear_pass(
         return bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
     if src.device.type != "cuda":
         raise ValueError(f"bilinear_pass: unsupported device {src.device}")
-    return _launch(sched, src, num_out_blocks, window, v)
+    return launch(sched, src, num_out_blocks, window, v)
 
 
-def _launch(sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor) -> Tensor:
-    global launches
+# Threads per CTA of K1 (the kernel's kThreads).
+THREADS = 512
+# How a CTA reads the source windows (the kernel's Mode): copied into shared
+# memory step by step, or gathered through L1.
+STAGED, GATHERED = 0, 1
+
+
+def default_mode(sched) -> int:
+    """How a pass reads its source windows: where a step's entries read
+    the window in order (``sched.ordered_gathers``) a warp's gathers share
+    L1 lines, so they go through L1 (``GATHERED``); where they fall at
+    random each lane would take an L1 line of its own, so the window is
+    copied into shared memory (``STAGED``), where three windows fit."""
+    window = sched.window
+    stageable = window % 4 == 0 and 3 * 4 * window <= MAX_SHARED_BYTES
+    return STAGED if stageable and not sched.ordered_gathers else GATHERED
+
+
+_occupancy: dict = {}  # (window, vec, mode) -> CTAs per SM
+
+
+def ctas_per_sm(window: int, vec: bool, mode: int) -> int:
+    """Resident CTAs of K1 on one SM at this window (the CUDA occupancy
+    calculator, asked once per configuration). Raises when the window does
+    not fit shared memory."""
+    key = (window, bool(vec), mode)
+    if key not in _occupancy:
+        if window * 4 * (3 if mode == STAGED else 1) > MAX_SHARED_BYTES:
+            raise ValueError(f"bilinear_pass: window {window} exceeds shared memory")
+        n = ctypes.c_int()
+        _call(0, 0, None, None, None, None, None, 0, None, None, window,
+              int(vec), mode, n, None)
+        _occupancy[key] = n.value
+    return _occupancy[key]
+
+
+@dataclass(frozen=True)
+class LaunchConfig:
+    """How a pass launches: its work plan, the kernel's resident CTAs per
+    SM, 16-byte entry loads, the source-window mode, threads per CTA and
+    (K2) members per CTA and member tiles."""
+
+    plan: WorkPlan
+    ctas_per_sm: int
+    vec: bool
+    mode: int
+    threads: int
+    members_per_cta: int = 1
+    tiles: int = 1
+
+    @property
+    def ctas(self) -> int:
+        return self.plan.num_items * self.tiles
+
+
+def launch_config(sched, v: Tensor, device: torch.device) -> LaunchConfig:
+    """The launch of a pass over ``sched`` with values ``v``: 16-byte entry
+    loads where the entry arrays allow them, the schedule's source-window
+    mode (:func:`default_mode`), and a plan for every resident CTA slot of
+    the card (SMs x resident CTAs per SM). Made once per schedule and load
+    width, and cached on the schedule beside its plans."""
+    vec = vector_loads(sched, v)
+    key = ("k1", vec)
+    cfg = sched.plans.get(key)
+    if cfg is None:
+        mode = default_mode(sched)
+        per_sm = ctas_per_sm(sched.window, vec, mode)
+        plan = make_plan(sched, sm_count(device) * per_sm)
+        cfg = sched.plans[key] = LaunchConfig(plan, per_sm, vec, mode, THREADS)
+    return cfg
+
+
+def launch(
+    sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+) -> Tensor:
+    """The CUDA launch behind :func:`bilinear_pass`."""
     check_cuda_operands("bilinear_pass", sched, v, src)
-    if window * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"bilinear_pass: window {window} exceeds shared memory")
-    lib = _kernel_lib()
-    out = torch.zeros(num_out_blocks * window, dtype=torch.float32, device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = lib.photon_bilinear_pass(
-        sched.segments.data_ptr(), sched.segments.shape[0],
-        sched.step_in.data_ptr(), sched.in_pos.data_ptr(),
+    cfg = launch_config(sched, v, src.device)
+    return launch_with(cfg, sched, src, num_out_blocks, window, v)
+
+
+def launch_with(
+    cfg: LaunchConfig, sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+) -> Tensor:
+    """Launch K1 over ``sched`` as ``cfg`` says (:func:`launch` passes
+    :func:`launch_config`'s; ``tools/pass_ablation.py`` times others) on
+    operands :func:`launch` has checked; -> the output."""
+    global launches
+    n_out = num_out_blocks * window
+    alloc = torch.zeros if cfg.plan.zero_output else torch.empty
+    out = alloc(n_out, dtype=torch.float32, device=src.device)
+    n = ctypes.c_int()
+    _call(
+        cfg.plan.items.data_ptr(), cfg.plan.num_items, sched.step_in.data_ptr(),
+        sched.step_sizes.data_ptr(), sched.in_pos.data_ptr(),
         sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
-        src.data_ptr(), out.data_ptr(), window, stream,
+        src.data_ptr(), out.data_ptr(), window, int(cfg.vec), cfg.mode, n,
+        torch.cuda.current_stream(src.device).cuda_stream,
     )
+    launches += 1
+    return out
+
+
+def _call(*args) -> None:
+    lib = _kernel_lib()
+    rc = lib.photon_bilinear_pass(*args[:-2], ctypes.byref(args[-2]), args[-1])
     if rc != 0:
         msg = lib.photon_cuda_error_string(rc).decode()
         raise RuntimeError(f"bilinear_pass launch failed: {msg} ({rc})")
-    launches += 1
-    return out
 
 
 def _declare(lib) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.photon_bilinear_pass.restype = i
-    lib.photon_bilinear_pass.argtypes = [p, i, p, p, p, p, i, p, p, i, p]
+    lib.photon_bilinear_pass.argtypes = [
+        p, i, p, p, p, p, p, i, p, p, i, i, i, ctypes.POINTER(i), p,
+    ]
     lib.photon_cuda_error_string.restype = ctypes.c_char_p
     lib.photon_cuda_error_string.argtypes = [i]
 
@@ -181,6 +400,6 @@ def _kernel_lib():
 
 
 def build_kernel() -> float:
-    """Compile the kernel (if its library is older than its source) and
+    """Compile the kernel (if its library is older than its sources) and
     load it; -> seconds spent. Raises when ``nvcc`` fails."""
     return timed_build(_kernel_lib)

@@ -2,9 +2,11 @@
 
 Each kernel source (``ops/csrc/*.cu``) has a plain C interface. At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library in
-the port's build directory (rebuilt when the source is newer) and loaded
-with ctypes. Libraries build independently, so two threads can run two
-``nvcc`` processes side by side.
+the port's build directory (rebuilt when the source, or any header under
+``csrc/`` it may include, is newer) and loaded with ctypes. Libraries
+build independently, so two threads can run two ``nvcc`` processes side
+by side. ``build_logs`` keeps what ``ptxas -v`` said of each build
+(registers, shared memory and spills per kernel).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ CSRC = os.path.join(
 _GUARD = threading.Lock()
 _locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -46,7 +49,7 @@ def compile_library(source_name: str, lib_path: str) -> None:
     tmp_path = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
         "-o", tmp_path, source,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -56,6 +59,15 @@ def compile_library(source_name: str, lib_path: str) -> None:
             f"({proc.returncode}):\n{proc.stderr}"
         )
     os.replace(tmp_path, lib_path)
+    build_logs[source_name] = proc.stderr
+
+
+def _sources_mtime(source_name: str) -> float:
+    """Newest modification time of the source and the headers beside it."""
+    paths = [os.path.join(CSRC, source_name)] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")
+    ]
+    return max(os.path.getmtime(p) for p in paths)
 
 
 def load_kernel_library(
@@ -70,12 +82,11 @@ def load_kernel_library(
         lock = _locks.setdefault(source_name, threading.Lock())
     with lock:
         if source_name not in _libs:
-            source = os.path.join(CSRC, source_name)
             stem = os.path.splitext(source_name)[0]
             lib_path = os.path.join(build_dir(), f"lib{stem}.so")
             if not (
                 os.path.isfile(lib_path)
-                and os.path.getmtime(lib_path) >= os.path.getmtime(source)
+                and os.path.getmtime(lib_path) >= _sources_mtime(source_name)
             ):
                 compile_library(source_name, lib_path)
             lib = ctypes.CDLL(lib_path)

@@ -15,12 +15,16 @@ the schedule and the values are the same for every member. The spill
 remainder is not part of it (``_Schedule.apply_spill`` adds it after).
 
 What bounds it on the H100: bytes. The schedule (12 bytes per entry) is
-the dominant traffic, and the kernel reads each entry once for a tile of
-members (``members_per_cta``), not once per member. At the ads shape with
-G = 4 the least traffic is ~222 MB, ~0.066 ms at 3.35 TB/s; that is a
-bound, not a measurement (``PERF.md`` has the measured times). Its
-gathers and shared atomics are latency-bound, so the launch favours
-occupancy over reuse (two CTAs per SM, see ``members_per_cta``).
+the dominant traffic: at the ads shape with G = 4 the least traffic is
+~222 MB, ~0.066 ms at 3.35 TB/s; that is a bound, not a measurement
+(``PERF.md`` has the measured times). The kernel loads each entry once for
+a tile of members; ``members_per_cta`` cuts the bank into as many tiles as
+still run in one wave (their walks over the schedule then share it in L2,
+and each CTA gathers from fewer source windows), so a bank of 4 is four
+tiles of one on the ads shape's z-pass (32 output blocks) and one tile of
+4 on its g-pass (128). The CTAs follow K1's work plan
+(``bilinear_pass.plan_work``): one per work item and member tile, as many
+as the card holds at once.
 
 On a CUDA tensor :func:`grid_bilinear_pass` launches the kernel (built
 with ``nvcc`` for ``sm_90a`` at first use) or raises; only a CPU tensor
@@ -37,9 +41,14 @@ import ctypes
 import torch
 
 from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
+    GATHERED,
     MAX_SHARED_BYTES,
+    LaunchConfig,
     check_cuda_operands,
     check_operands,
+    make_plan,
+    sm_count,
+    vector_loads,
 )
 from photon_ml_tpu_torch.ops.kernels.cuda_build import (
     load_kernel_library,
@@ -51,18 +60,24 @@ Tensor = torch.Tensor
 # Kernel launches on the CUDA path (a run sets it to 0 and reads it).
 launches = 0
 
-# Members one CTA serves, at most (kMaxGT in the .cu source).
-MAX_MEMBERS_PER_CTA = 8
+# Members one CTA serves, at most (the kernel's instantiations, 1..7).
+MAX_MEMBERS_PER_CTA = 7
 
 
-def members_per_cta(num_members: int, window: int) -> int:
-    """GT: as many members as fit in a shared-memory accumulator
-    ``[GT, W]`` of half the opt-in (two CTAs per SM; at most 8), balanced
-    so the tiles differ by at most one."""
-    cap = min(MAX_MEMBERS_PER_CTA, MAX_SHARED_BYTES // 2 // (4 * window))
+def members_per_cta(num_members: int, window: int, num_out_blocks: int, slots: int) -> int:
+    """GT, members per CTA. Each member tile is one more CTA per work item
+    and one more walk over the schedule (mostly from L2 when the tiles run
+    at once), but a smaller tile gathers from fewer source windows, which
+    must stay in L1, and adds fewer members per entry. So the bank is cut
+    into as many tiles as still run in one wave beside at least one work
+    item per output block (``slots // num_out_blocks``, with ``slots`` the
+    card's resident CTAs), and into no fewer than its accumulators ``[GT,
+    W]`` need to fit a CTA's shared memory (at most 7 members); the tiles
+    are balanced (all of GT members but the last)."""
+    cap = min(MAX_MEMBERS_PER_CTA, MAX_SHARED_BYTES // (4 * window))
     if cap < 1:
         raise ValueError(f"grid_bilinear_pass: window {window} exceeds shared memory")
-    n_tiles = -(-num_members // cap)
+    n_tiles = max(-(-num_members // cap), min(num_members, slots // max(num_out_blocks, 1)))
     return -(-num_members // n_tiles)
 
 
@@ -92,7 +107,6 @@ def grid_bilinear_pass(
 
     ``sched``, ``vals``, ``num_out_blocks`` and ``window`` as for K1's
     ``bilinear_pass``; the kernel reads and adds unchecked."""
-    global launches
     v = check_operands("grid_bilinear_pass", sched, num_out_blocks, window, vals)
     n_in = sched.num_in_blocks * window
     if src.dim() != 2 or src.shape[0] < 1 or src.shape[1] != n_in:
@@ -104,24 +118,95 @@ def grid_bilinear_pass(
         return grid_bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
     if src.device.type != "cuda":
         raise ValueError(f"grid_bilinear_pass: unsupported device {src.device}")
+    return launch(sched, src, num_out_blocks, window, v)
+
+
+# Threads per CTA of K2 (the kernel's kThreads).
+THREADS = 1024
+
+_occupancy: dict = {}  # (gt, window, vec) -> CTAs per SM
+
+
+def ctas_per_sm(gt: int, window: int, vec: bool) -> int:
+    """Resident CTAs of K2 on one SM for ``gt`` members at this window
+    (the CUDA occupancy calculator, asked once per configuration)."""
+    key = (gt, window, bool(vec))
+    if key not in _occupancy:
+        n = ctypes.c_int()
+        _call(0, 0, None, None, None, None, None, 0, None, 0, None, 0, window,
+              gt, gt, int(vec), n, None)
+        _occupancy[key] = n.value
+    return _occupancy[key]
+
+
+def launch_config(sched, v: Tensor, device: torch.device, num_members: int) -> LaunchConfig:
+    """The launch of a pass over a bank of ``num_members`` with values
+    ``v``: 16-byte entry loads where the entry arrays allow them, member
+    tiles of ``members_per_cta``, windows read through L1 (whatever the
+    order of the gathers). Made once per schedule, bank size and load
+    width, and cached on the schedule beside its plans."""
+    vec = vector_loads(sched, v)
+    key = ("k2", num_members, vec)
+    cfg = sched.plans.get(key)
+    if cfg is None:
+        slots = sm_count(device) * ctas_per_sm(1, sched.window, vec)
+        gt = members_per_cta(num_members, sched.window, sched.num_out_blocks, slots)
+        cfg = sched.plans[key] = tile_config(sched, device, num_members, gt, vec)
+    return cfg
+
+
+def tile_config(
+    sched, device: torch.device, num_members: int, gt: int, vec: bool
+) -> LaunchConfig:
+    """The launch of a bank of ``num_members`` in tiles of ``gt``: each
+    work item runs once per tile, so the plan targets the card's resident
+    CTA slots over the tiles."""
+    n_tiles = -(-num_members // gt)
+    per_sm = ctas_per_sm(gt, sched.window, vec)
+    plan = make_plan(sched, max(1, sm_count(device) * per_sm // n_tiles))
+    return LaunchConfig(plan, per_sm, vec, GATHERED, THREADS, gt, n_tiles)
+
+
+def launch(
+    sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+) -> Tensor:
+    """The CUDA launch behind :func:`grid_bilinear_pass`."""
     check_cuda_operands("grid_bilinear_pass", sched, v, src)
+    cfg = launch_config(sched, v, src.device, src.shape[0])
+    return launch_with(cfg, sched, src, num_out_blocks, window, v)
+
+
+def launch_with(
+    cfg: LaunchConfig, sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+) -> Tensor:
+    """Launch K2 over ``sched`` as ``cfg`` says (:func:`launch` passes
+    :func:`launch_config`'s; ``tools/pass_ablation.py`` times others) on
+    operands :func:`launch` has checked; -> the output bank."""
+    global launches
     G = src.shape[0]
+    n_in = sched.num_in_blocks * window
     n_out = num_out_blocks * window
-    out = torch.zeros(G, n_out, dtype=torch.float32, device=src.device)
-    lib = _kernel_lib()
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = lib.photon_grid_bilinear_pass(
-        sched.segments.data_ptr(), sched.segments.shape[0],
-        sched.step_in.data_ptr(), sched.in_pos.data_ptr(),
+    alloc = torch.zeros if cfg.plan.zero_output else torch.empty
+    out = alloc(G, n_out, dtype=torch.float32, device=src.device)
+    n = ctypes.c_int()
+    _call(
+        cfg.plan.items.data_ptr(), cfg.plan.num_items, sched.step_in.data_ptr(),
+        sched.step_sizes.data_ptr(), sched.in_pos.data_ptr(),
         sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
-        src.data_ptr(), n_in, out.data_ptr(), n_out,
-        window, G, members_per_cta(G, window), stream,
+        src.data_ptr(), n_in, out.data_ptr(), n_out, window, G,
+        cfg.members_per_cta, int(cfg.vec), n,
+        torch.cuda.current_stream(src.device).cuda_stream,
     )
+    launches += 1
+    return out
+
+
+def _call(*args) -> None:
+    lib = _kernel_lib()
+    rc = lib.photon_grid_bilinear_pass(*args[:-2], ctypes.byref(args[-2]), args[-1])
     if rc != 0:
         msg = lib.photon_grid_cuda_error_string(rc).decode()
         raise RuntimeError(f"grid_bilinear_pass launch failed: {msg} ({rc})")
-    launches += 1
-    return out
 
 
 def _declare(lib) -> None:
@@ -130,7 +215,8 @@ def _declare(lib) -> None:
     i64 = ctypes.c_int64
     lib.photon_grid_bilinear_pass.restype = i
     lib.photon_grid_bilinear_pass.argtypes = [
-        p, i, p, p, p, p, i, p, i64, p, i64, i, i, i, p,
+        p, i, p, p, p, p, p, i, p, i64, p, i64, i, i, i, i,
+        ctypes.POINTER(i), p,
     ]
     lib.photon_grid_cuda_error_string.restype = ctypes.c_char_p
     lib.photon_grid_cuda_error_string.argtypes = [i]
@@ -141,6 +227,6 @@ def _kernel_lib():
 
 
 def build_kernel() -> float:
-    """Compile the kernel (if its library is older than its source) and
+    """Compile the kernel (if its library is older than its sources) and
     load it; -> seconds spent. Raises when ``nvcc`` fails."""
     return timed_build(_kernel_lib)

@@ -52,7 +52,8 @@ import torch
 from photon_ml_tpu_torch.data.batch import SparseBatch
 from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
     bilinear_pass,
-    plan_segments,
+    gathers_in_order,
+    step_sizes,
 )
 from photon_ml_tpu_torch.ops.kernels.grid_bilinear_pass import grid_bilinear_pass
 from photon_ml_tpu_torch.ops.normalization import (
@@ -110,9 +111,14 @@ class _Schedule:
     """One pass's static schedule: steps of ``L`` entries sorted by output
     block (the JAX package's ``_Schedule`` arrays, as tensors).
 
-    ``segments`` is K1's CTA work table (``plan_segments``). The window
-    and block counts are those the indices were checked against; K1's
-    wrapper holds its operands to them."""
+    ``step_sizes`` are the steps' real entry counts (K1 and K2 end a
+    step's walk there); ``ordered_gathers`` says whether a step's entries
+    read their input window in order (``gathers_in_order``: the kernels
+    then read it through L1 rather than copy it); ``plans`` caches K1's and
+    K2's CTA work tables (``make_plan``), one per CTA target, on the
+    schedule's device, and their launch configurations (``launch_config``). The window and block counts are those the indices
+    were checked against; the kernels' wrappers hold their operands to
+    them."""
 
     step_out: Tensor  # int32 [G] output block per step
     step_in: Tensor  # int32 [G] input block per step
@@ -123,10 +129,12 @@ class _Schedule:
     spill_out: Tensor  # int32 [S] flat output coordinate
     spill_in: Tensor  # int32 [S] flat input coordinate
     spill_vals: Tensor  # float32 [S] (0 for padding)
-    segments: Tensor  # int32 [n_seg, 3]
+    step_sizes: Tensor  # int32 [G] real entries of each step
     window: int
     num_out_blocks: int
     num_in_blocks: int
+    ordered_gathers: bool = False
+    plans: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_steps(self) -> int:
@@ -153,19 +161,26 @@ class _Schedule:
         def t(a, dtype):
             return _to_tensor(a, dtype, device)
 
+        sizes = step_sizes(sv, step_out.shape[0])
         return cls(
             t(step_out, np.int32), t(step_in, np.int32),
             t(step_init, np.int32), t(o_pos, np.int32), t(i_pos, np.int32),
             t(sv, np.float32), t(sp_out, np.int32), t(sp_in, np.int32),
-            t(sp_vals, np.float32), t(plan_segments(step_out), np.int32),
+            t(sp_vals, np.float32), t(sizes, np.int32),
             window, num_out_blocks, num_in_blocks,
+            gathers_in_order(i_pos, sizes),
         )
 
     def to(self, device) -> "_Schedule":
-        return dataclasses.replace(self, **{
+        """On ``device``; the schedule itself (with its cached work plans)
+        where every tensor is there already."""
+        moved = {
             f.name: v.to(device) for f in dataclasses.fields(self)
             if isinstance(v := getattr(self, f.name), Tensor)
-        })
+        }
+        if all(moved[name] is getattr(self, name) for name in moved):
+            return self
+        return dataclasses.replace(self, plans={}, **moved)
 
     def apply_spill(
         self, out_flat: Tensor, src_flat: Tensor, vals: Optional[Tensor] = None

@@ -11,8 +11,11 @@ handles), then times ``--repeats`` fits of
 seconds, K1 launches, host fetches and iterations. One more fit runs
 under ``torch.profiler``: it prints the device operations launched (each
 one a host launch; a count that does not vary from run to run as the
-seconds do), the device's busy time and the kinds launched most often.
-Then the card's name and power limit.
+seconds do), the device's busy time and the kinds launched most often,
+then the host calls that took the most of the host's time. Last, the
+host's microseconds per K1 launch (200 launches enqueued behind a sleep
+on the card, so that only the host sets their pace) and the card's name
+and power limit.
 
 It calls only entry points the port has had since its first slice, so it
 can time an older checkout too: run it as a file with that checkout first
@@ -32,6 +35,7 @@ import torch
 LAMBDAS = [10.0, 1.0, 0.1, 0.01]
 N_ROWS, NNZ_PER_ROW, DIM = 1 << 18, 64, 1 << 20
 TOP = 8
+LAUNCHES = 200
 
 
 def ads_batch(seed: int):
@@ -106,6 +110,32 @@ def main() -> int:
           f"device busy", flush=True)
     for e in ops[:TOP]:
         print(f"  {e.count} x {e.self_device_time_total / 1e3:.3f} ms: {e.key[:80]}")
+    cpu = sorted(
+        (e for e in prof.key_averages() if e.device_type.name == "CPU"),
+        key=lambda e: e.self_cpu_time_total, reverse=True,
+    )
+    print(f"time_sequential_grid host calls by self time: {sum(e.count for e in cpu)} "
+          f"calls, {sum(e.self_cpu_time_total for e in cpu) / 1e3!r} ms", flush=True)
+    for e in cpu[:TOP]:
+        print(f"  {e.count} x {e.self_cpu_time_total / 1e3:.3f} ms: {e.key[:80]}")
+
+    # the host's cost of one K1 launch: calls enqueued behind a sleep on the
+    # card, so the card never holds the host back
+    win = tb.params.window
+    for name, sched, n, n_out in (
+        ("z", tb.z_sched, tb.dim, tb.num_row_blocks),
+        ("g", tb.g_sched, tb.num_rows, tb.num_feat_blocks),
+    ):
+        src = torch.zeros(n, device="cuda")
+        k1.bilinear_pass(sched, src, n_out, win)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(LAUNCHES * 400_000)
+        t0 = time.perf_counter()
+        for _ in range(LAUNCHES):
+            k1.bilinear_pass(sched, src, n_out, win)
+        host_us = (time.perf_counter() - t0) / LAUNCHES * 1e6
+        torch.cuda.synchronize()
+        print(f"time_sequential_grid host us per K1 {name}-pass launch: {host_us!r}")
     print(gpu_name_and_power_limit())
     return 0
 

@@ -17,6 +17,8 @@ products, and the rounding of another order grows with that sum, not with
 the output's largest element.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,13 @@ from photon_ml_tpu_torch.ops.tiled_sparse import (
     build_tiled_batch,
 )
 from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, spawn_mesh
+from photon_ml_tpu_torch.tools.kernel_cases import (
+    edge_case_batches,
+    nan_at_window_start,
+    nan_source,
+    real_entries_pass,
+    schedule_without_block,
+)
 
 CASES = {
     "spills": (TileParams(s_hi=8, s_lo=8, chunk=32, spill_cap=8), 700, 900),
@@ -46,9 +55,13 @@ def cuda():
 
 
 def _close(got, expected):
+    """Within 1e-6 + 1e-5 of the largest finite magnitude, with NaN in the
+    same places."""
     g, e = got.cpu().numpy(), expected.cpu().numpy()
-    scale = float(np.abs(e).max()) if e.size else 0.0
-    np.testing.assert_allclose(g, e, rtol=0.0, atol=1e-6 + 1e-5 * scale)
+    nan = np.isnan(e)
+    assert np.array_equal(np.isnan(g), nan)
+    scale = float(np.abs(e[~nan]).max()) if (~nan).any() else 0.0
+    np.testing.assert_allclose(g[~nan], e[~nan], rtol=0.0, atol=1e-6 + 1e-5 * scale)
 
 
 def _batch(name, device):
@@ -148,11 +161,12 @@ def _passes(tb, w, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 3, 4, 5, 9])
+@pytest.mark.parametrize("G", [1, 3, 4, 5, 7, 9])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_grid_pass_matches_plain_and_k1(cuda, name, G):
     """K2 against its plain version and against G launches of K1, on all
-    three passes (9 members: two member tiles at the default window)."""
+    three passes (7 members: one full tile at the default window; 9: two
+    tiles)."""
     rng, tb, _ = _batch(name, cuda)
     win = tb.params.window
     w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device=cuda)
@@ -171,6 +185,90 @@ def test_grid_pass_matches_plain_and_k1(cuda, name, G):
             k1.bilinear_pass(sched, src[g], n_out, win, vals=vals) for g in range(G)
         ])
         _close_per_term(got, per_member, abs_sum)
+
+
+EDGE_CASES = ["split_steps", "one_step_block", "odd_chunk", "heavy_row"]
+
+
+def _edge_batch(name, device):
+    return dict(edge_case_batches(device))[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", ["none", "entry", "window_start"])
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_edge_cases_match_plain(cuda, name, nan):
+    """K1 and K2 (G in 1, 3, 4, 5, 7, 9) on the work plan's edge cases:
+    against their plain versions with a finite source and with a NaN where
+    a nonzero entry reads it; with a NaN at the first slot of a window
+    that a padded step reads, against the pass over the real entries (the
+    plain version's padding slots carry that NaN into slot 0 of their
+    output block; the kernels skip padding, so theirs do not)."""
+    tb = _edge_batch(name, cuda)
+    win = tb.params.window
+    rng = np.random.default_rng(1)
+    for G in (None, 1, 3, 4, 5, 7, 9):
+        shape = () if G is None else (G,)
+        w = torch.as_tensor(rng.normal(size=shape + (tb.dim,)).astype(np.float32), device=cuda)
+        c = torch.as_tensor(rng.normal(size=shape + (tb.num_rows,)).astype(np.float32), device=cuda)
+        for sched, src, n_out, vals in _passes(tb, w, c):
+            plain_of = k1.bilinear_pass_plain if G is None else k2.grid_bilinear_pass_plain
+            if nan == "window_start":
+                src, plain, expected = nan_at_window_start(sched, src, n_out, win, vals)
+                assert int(torch.isnan(plain).sum()) > int(torch.isnan(expected).sum())
+            else:
+                if nan == "entry":
+                    src = nan_source(sched, src)
+                expected = plain_of(sched, src, n_out, win, vals=vals)
+            kernel = k1.bilinear_pass if G is None else k2.grid_bilinear_pass
+            got = kernel(sched, src, n_out, win, vals=vals)
+            torch.cuda.synchronize()
+            if nan != "none":
+                assert bool(torch.isnan(expected).any())
+            _close(got, expected)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [0, 3])
+def test_output_block_without_steps_is_zero(cuda, block):
+    """An output block without any step: the kernels write its window as
+    zeros into an output whose memory held NaN just before."""
+    tb = _edge_batch("one_step_block", cuda)
+    sched = schedule_without_block(tb.z_sched, block)
+    win, n_out = tb.params.window, tb.num_row_blocks
+    rng = np.random.default_rng(2)
+    for G in (None, 1, 4, 9):
+        shape = () if G is None else (G,)
+        src = torch.as_tensor(rng.normal(size=shape + (tb.dim,)).astype(np.float32), device=cuda)
+        torch.full(shape + (n_out * win,), float("nan"), device=cuda)  # freed
+        if G is None:
+            got = k1.bilinear_pass(sched, src, n_out, win)
+        else:
+            got = k2.grid_bilinear_pass(sched, src, n_out, win)
+        torch.cuda.synchronize()
+        assert not bool(got[..., block * win : (block + 1) * win].any())
+        _close(got, real_entries_pass(sched, src, n_out, win))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ads_window", "spills"])
+def test_both_window_modes_match_plain(cuda, name):
+    """K1 with the source windows staged in shared memory and read
+    through L1 (the schedule's gather order picks one per pass; both are
+    on the path) computes the plain version's pass on every pass, held per
+    term as above: the heavy column sums ~24,000 products."""
+    rng, tb, _ = _batch(name, cuda)
+    win = tb.params.window
+    w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device=cuda)
+    c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device=cuda)
+    for sched, src, n_out, vals in _passes(tb, w, c):
+        v = sched.vals if vals is None else vals
+        plain = k1.bilinear_pass_plain(sched, src, n_out, win, vals=vals)
+        abs_sum = k1.bilinear_pass_plain(sched, src.abs(), n_out, win, vals=v.abs())
+        cfg = k1.launch_config(sched, v, cuda)
+        for mode in (k1.STAGED, k1.GATHERED):
+            got = k1.launch_with(dataclasses.replace(cfg, mode=mode), sched, src, n_out, win, v)
+            _close_per_term(got, plain, abs_sum)
 
 
 @pytest.mark.cuda

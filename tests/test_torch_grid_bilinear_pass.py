@@ -24,6 +24,7 @@ from photon_ml_tpu.ops.tiled_sparse import (
 )
 from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
 from photon_ml_tpu_torch.ops.kernels import grid_bilinear_pass as k2
+from tests.test_torch_bilinear_pass import _emulate
 from tests.torch_parity import (
     assert_close_to_scale,
     both_batches,
@@ -105,17 +106,59 @@ def test_bank_spills_add_row_by_row():
         assert torch.equal(out[g], one)
 
 
+SLOTS = 132  # an H100's resident CTAs of K2 (132 SMs, one each)
+
+
 @pytest.mark.parametrize(
-    "G,window,expected",
-    [(1, 8192, 1), (3, 8192, 3), (4, 8192, 2), (5, 8192, 3), (9, 8192, 3),
-     (16, 64, 8), (17, 64, 6)],
+    "G,window,blocks,expected",
+    [(1, 8192, 32, 1), (4, 8192, 32, 1), (4, 8192, 128, 4), (4, 8192, 16, 1),
+     (4, 8192, 64, 2), (9, 8192, 128, 5), (9, 8192, 32, 3), (16, 64, 1, 1),
+     (17, 64, 200, 6), (7, 8192, 128, 7), (2, 32768, 4, 1), (4, 16384, 64, 2)],
 )
-def test_members_per_cta_fit_shared_memory_and_balance(G, window, expected):
-    gt = k2.members_per_cta(G, window)
+def test_members_per_cta_fit_shared_memory_and_balance(G, window, blocks, expected):
+    """As many member tiles as still run in one wave beside one work item
+    per output block, and no fewer than the accumulators [GT, W] need to
+    fit shared memory (at most 7 members a tile); balanced tiles of one
+    size but the last: every member in exactly one tile."""
+    gt = k2.members_per_cta(G, window, blocks, SLOTS)
     assert gt == expected
-    assert 2 * gt * window * 4 <= k1.MAX_SHARED_BYTES  # two CTAs per SM
+    assert gt * window * 4 <= k1.MAX_SHARED_BYTES
+    assert gt <= k2.MAX_MEMBERS_PER_CTA
     n_tiles = -(-G // gt)
     assert (n_tiles - 1) * gt < G <= n_tiles * gt
+    cap = min(k2.MAX_MEMBERS_PER_CTA, k1.MAX_SHARED_BYTES // (4 * window))
+    assert -(-G // cap) <= n_tiles <= max(-(-G // cap), min(G, SLOTS // blocks))
+    assert n_tiles * blocks <= SLOTS or n_tiles == -(-G // cap)  # one wave
+
+
+def test_members_per_cta_rejects_a_window_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.members_per_cta(1, 65536, 1, SLOTS)
+
+
+@pytest.mark.parametrize("G,target", [(1, 4), (4, 1), (4, 33), (9, 7)])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plan_emulation_matches_reference_grid_pass(name, G, target):
+    """K2's launch grid in numpy: each (work item, member tile) CTA's
+    partial windows for its members, stored or added as the plan says;
+    equal to the reference's ``_grid_bilinear_pass`` on every pass."""
+    rng, params, ref_tb, tb = _problem(name)
+    win = params.window
+    gt = k2.members_per_cta(G, win, ref_tb.num_row_blocks, SLOTS)
+    for label, ref_sched, sched, src, n_out, ref_vals, vals in _passes(
+        ref_tb, tb, rng, G
+    ):
+        items = k1.plan_work(sched.step_out.numpy(), sched.step_sizes.numpy(), target, n_out)
+        got = np.full((G, n_out * win), np.nan)
+        for g0 in range(0, G, gt):
+            tile = slice(g0, min(G, g0 + gt))
+            got[tile] = _emulate(items, sched, src[tile], n_out, win, vals)
+        assert not np.isnan(got).any(), label
+        expected = np.asarray(_grid_bilinear_pass(
+            ref_sched, jnp.asarray(src.reshape(G, -1, params.s_hi, params.s_lo)),
+            n_out, params, vals=ref_vals,
+        )).reshape(G, -1)
+        assert_close_to_scale(got, expected, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("bad", ["vector", "short", "empty", "few_out_blocks"])

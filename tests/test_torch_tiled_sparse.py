@@ -145,7 +145,7 @@ def test_apply_spill_adds_remainder_in_place():
         torch.tensor([0, 2, 2], dtype=torch.int32),
         torch.tensor([1, 0, 3], dtype=torch.int32),
         torch.tensor([2.0, 3.0, 0.5]),
-        torch.zeros((0, 3), dtype=torch.int32),
+        torch.zeros(0, dtype=torch.int32),
         window=1, num_out_blocks=3, num_in_blocks=4,
     )
     out = torch.zeros(3)
