@@ -54,7 +54,26 @@ Phases, each printing its own lines:
    with every rank's launches, host fetches, collectives and seconds. Four
    ranks share one card and gloo stages each collective through the host:
    this checks the path and counts it; it measures no scaling;
-7. a ``kernels`` JSON line, the nvidia-smi line, and the last line
+7. the GLM driver end to end through its CLI entry point,
+   ``photon_ml_tpu_torch.cli.glm_driver.main(argv)``, over LibSVM files
+   the script writes (2^16 training rows in 4 files and 2^16 validation
+   rows at the ads width, planted-model labels from the seed), with the
+   intercept: run A, the warm-started sequential L-BFGS grid [10, 1] with
+   variances (K1) and a cold ``--tile-cache-dir``; run B, the same with
+   ``--grid-mode batched`` (K2), the cache now warm. Each run's stage
+   timers, launches and cache counters; the written outputs, the models
+   read back, each lambda's held-out AUC in metrics.json against the AUC
+   of the written model, run B's train schedule from the cache, and A's
+   and B's objective at each lambda (float64, by its definition) within
+   1e-4 of ``train_generalized_linear_model(kernel="tiled")``'s on the
+   batch the port's LibSVM loader gives, with a wrong model as the
+   control (two identical fits with the intercept part by percents in
+   their coefficients: float-atomic sums on an ill-conditioned path).
+   Then run C, run A with ``--intercept false`` and no validation, whose
+   lambda = 1 model must be within 1e-4 of the direct trainer's on that
+   batch without its intercept column;
+8. a ``kernels`` JSON line (with each kernel's launches in the driver
+   runs), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -63,7 +82,9 @@ when any check fails. It imports nothing of JAX.
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -82,6 +103,19 @@ EDGE_GS = (1, 3, 4, 5, 7, 9)  # banks K2 is checked at: 1, 2 and 3+ tiles
 GRID_LAMBDAS = [10.0, 1.0, 0.1, 0.01]
 MESH_SHAPE = (2, 2)  # (data, model) ranks of the mesh phase
 MESH_TIMEOUT_S = 600.0
+# the driver phase's training rows: the ads shape's 2^18 rows took 250 s
+# of host time for runs A and B together on an H100 host (preprocess
+# 53-57 s a run), over the 4 minutes that cut them to 2^16; the width stays
+DRIVER_TRAIN_ROWS = 1 << 16
+DRIVER_PARTS = 4  # LibSVM part files of the training rows
+DRIVER_RTOL = 1e-4  # run C's model vs the direct trainer, of the max-abs
+# runs A and B (with the intercept) vs the direct fit: the objective at
+# each lambda, relative. The coefficients part by percents between two
+# identical fits (float-atomic sums, an ill-conditioned path); the value
+# does not. Fits stopping at a relative change of 1e-7 sit up to a few
+# 1e-6 above the optimum (the batched grid, without warm starts, the
+# furthest), and a model of the other lambda is percents off.
+DRIVER_OBJ_RTOL = 1e-4
 
 
 def say(*parts):
@@ -551,6 +585,274 @@ def mesh_fields(kernel, launches, cell, errs):
         fields[f"cell_{key}"] = cell[f"{kernel}_{key}"]
     fields["cell_max_abs_err"], fields["cell_max_rel_err"] = errs[kernel]
     return fields
+
+
+def write_libsvm(path, idx, vals, labels):
+    """Rows as LibSVM text (1-based indices, 0/1 labels), one numpy
+    format string per row; ``%.9g`` round-trips every float32 value."""
+    n, k = idx.shape
+    table = np.empty((n, 1 + 2 * k), np.float64)
+    table[:, 0] = labels
+    table[:, 1::2] = idx + 1
+    table[:, 2::2] = vals
+    np.savetxt(path, table, fmt=" ".join(["%d"] + ["%d:%.9g"] * k))
+
+
+def driver_data(seed, tmp):
+    """Planted-model logistic rows at the ads width from the seed, written
+    as LibSVM files: DRIVER_TRAIN_ROWS training rows in DRIVER_PARTS part
+    files and N_HELD_OUT validation rows; -> (train dir, validation dir,
+    seconds to make and write them)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 2])
+    w_true = (rng.normal(size=DIM) * 0.3).astype(np.float32)
+    dirs = []
+    for name, n, parts in (
+        ("train", DRIVER_TRAIN_ROWS, DRIVER_PARTS), ("validate", N_HELD_OUT, 1)
+    ):
+        idx, vals, labels = planted_data(rng, n, w_true)
+        order = np.argsort(idx, axis=1, kind="stable")
+        idx = np.take_along_axis(idx, order, axis=1)
+        vals = np.take_along_axis(vals, order, axis=1)
+        d = f"{tmp}/{name}"
+        os.makedirs(d)
+        for p, rows in enumerate(np.array_split(np.arange(n), parts)):
+            write_libsvm(f"{d}/part-{p:05d}.txt", idx[rows], vals[rows], labels[rows])
+        dirs.append(d)
+    return dirs[0], dirs[1], time.perf_counter() - t0
+
+
+DRIVER_OUTPUTS = (
+    "feature-index/index.json", "models/models.avro", "best-model/model.avro",
+    "models-text", "optimization-log.txt", "metrics.json",
+)
+
+
+def objective64(batch, means, lam):
+    """The L2-regularized logistic objective at ``means``, in float64 and
+    from its definition (no code of the port's objectives):
+    sum_i w_i (log(1 + e^z_i) - y_i z_i) + lam / 2 |means|^2 with
+    z_i = x_i . means + o_i; -> (value, max-abs of its gradient)."""
+    w = means.double()
+    idx = batch.indices.long()
+    v = batch.values.double()
+    z = (v * w[idx]).sum(1) + batch.offsets.double()
+    y, wt = batch.labels.double(), batch.weights.double()
+    value = (wt * (torch.nn.functional.softplus(z) - y * z)).sum() + 0.5 * lam * (w @ w)
+    r = wt * (torch.sigmoid(z) - y)
+    grad = torch.zeros_like(w).index_add_(0, idx.reshape(-1), (v * r[:, None]).reshape(-1))
+    return float(value), float((grad + lam * w).abs().max())
+
+
+def driver_run(label, argv, out, k1, k2, smi, outputs=DRIVER_OUTPUTS):
+    """One ``glm_driver.main(argv)`` with the launch and cache counters
+    set to 0 just before it; fails unless it writes ``outputs``; -> its
+    record (output dir, seconds, launches, timers, metrics.json,
+    iterations)."""
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.ops import schedule_cache
+
+    k1.launches = 0
+    k2.launches = 0
+    schedule_cache.reset_stats()
+    t0 = time.perf_counter()
+    driver = glm_driver.main(argv + ["--output-directory", out])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    missing = [f for f in outputs if not os.path.exists(f"{out}/{f}")]
+    if missing:
+        fail(f"driver run {label} wrote no {missing}")
+    with open(f"{out}/metrics.json") as f:
+        metrics = json.load(f)
+    run = dict(
+        out=out, seconds=seconds, k1=k1.launches, k2=k2.launches,
+        timers=driver.timer.durations, metrics=metrics,
+        iterations={lam: r.iterations for lam, r in driver.results.items()},
+    )
+    timers = " ".join(
+        f"{k}={driver.timer.durations[k]!r}"
+        for k in ("preprocess", "train", "validate", "write")
+        if k in driver.timer.durations
+    )
+    say(f"driver run {label} ({smi}): {seconds!r} s; stage timers s: {timers}; "
+        f"K1 launches {k1.launches}, K2 launches {k2.launches}; iterations "
+        f"{run['iterations']}; train rows per second of preprocess "
+        f"{DRIVER_TRAIN_ROWS / driver.timer.durations['preprocess']!r}")
+    sc = metrics["schedule_cache"]
+    say(f"driver run {label} schedule cache ({smi}): builds={sc['builds']} "
+        f"hits={sc['hits']} misses={sc['misses']} stores={sc['stores']} "
+        f"build_s={sc['build_s']!r} load_s={sc['load_s']!r} "
+        f"hash_s={sc['hash_s']!r} store_s={sc['store_s']!r}")
+    return run
+
+
+def driver_phase(seed, smi, k1, k2):
+    """Phase 7: the port's CLI entry point, ``glm_driver.main(argv)``, over
+    the same LibSVM files with the intercept (the driver's default): run
+    A, the warm-started sequential grid (K1) with a cold schedule cache;
+    run B, the batched grid (K2) with the cache now warm. Then run C, run
+    A without the intercept and without validation. Fails unless A and B
+    write every output, the models read back, each lambda's held-out AUC
+    in metrics.json is above 0.5 and equals the AUC of the written model
+    on the loaded validation rows, run B takes the train schedule from the
+    cache, A's and B's objective at each lambda is within DRIVER_OBJ_RTOL
+    of ``train_generalized_linear_model(kernel="tiled")``'s on the batch
+    the port's LibSVM loader gives (and A's lambda = 10 model is not, at
+    lambda = 1), and run C's lambda = 1 model is within DRIVER_RTOL of the
+    direct trainer's on that batch without its intercept column; -> the
+    launches of each run."""
+    from photon_ml_tpu_torch.data.batch import SparseBatch
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.io.input_format import create_input_format
+    from photon_ml_tpu_torch.io.model_io import load_glm_models_avro
+    from photon_ml_tpu_torch.models.glm import compute_margins
+    from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
+    from photon_ml_tpu_torch.task import TaskType
+    from photon_ml_tpu_torch.training import train_generalized_linear_model
+    from photon_ml_tpu_torch.utils.index_map import IndexMap
+
+    with tempfile.TemporaryDirectory(prefix="photon_driver_phase_") as tmp:
+        train_dir, val_dir, data_s = driver_data(seed, tmp)
+        say(f"driver data: {DRIVER_TRAIN_ROWS} train rows in {DRIVER_PARTS} LibSVM "
+            f"files, {N_HELD_OUT} validation rows, {NNZ_PER_ROW} nnz per row, "
+            f"{DIM} features; made and written in {data_s:.2f} s")
+        common = [
+            "--training-data-directory", train_dir,
+            "--input-file-format", "LIBSVM", "--feature-dimension", str(DIM),
+            "--regularization-weights", "10,1", "--optimizer", "LBFGS",
+            "--compute-variances", "true", "--tile-cache-dir", f"{tmp}/tile-cache",
+        ]
+        validated = common + ["--validating-data-directory", val_dir]
+        runs = {
+            label: driver_run(label, argv + ["--grid-mode", mode], f"{tmp}/out-{label}",
+                              k1, k2, f"{mode}, {smi}")
+            for label, mode, argv in (
+                ("A", "sequential", validated), ("B", "batched", validated),
+            )
+        }
+        a, b = runs["A"], runs["B"]
+        if a["k1"] == 0 or a["k2"]:
+            fail(f"driver run A launched {a['k1']} K1 and {a['k2']} K2")
+        if b["k2"] == 0:
+            fail("driver run B never launched K2")
+        sc_a, sc_b = a["metrics"]["schedule_cache"], b["metrics"]["schedule_cache"]
+        if sc_a["builds"] < 2 or sc_a["stores"] < 2:
+            fail("driver run A did not build and store both train schedules")
+        if sc_b["hits"] < 1 or sc_b["builds"]:
+            fail("driver run B did not take the train schedule from the cache")
+        say(f"driver schedule ({smi}): built cold in {sc_a['build_s']!r} s (run A), "
+            f"from the cache in {sc_b['load_s'] + sc_b['hash_s']!r} s "
+            f"(run B: load {sc_b['load_s']!r} + content hash {sc_b['hash_s']!r})")
+
+        # the validation rows and the written models, read back
+        index_map = IndexMap.load(f"{a['out']}/feature-index/index.json")
+        fmt = create_input_format("LIBSVM", feature_dimension=DIM)
+        val = fmt.load(val_dir, index_map=index_map, device="cuda").batch
+        for label, run in runs.items():
+            models = load_glm_models_avro(
+                f"{run['out']}/models/models.avro", index_map, device="cuda"
+            )
+            best = load_glm_models_avro(
+                f"{run['out']}/best-model/model.avro", index_map, device="cuda"
+            )
+            if sorted(models) != ["1.0", "10.0"] or len(best) != 1:
+                fail(f"driver run {label}: models {sorted(models)}, best {sorted(best)}")
+            run["models"] = models
+            for lam, m in models.items():
+                auc_file = run["metrics"]["validation"][lam]["AUC"]
+                auc = float(area_under_roc_curve(
+                    compute_margins(m.means, val), val.labels, val.weights))
+                say(f"driver run {label} lambda={lam}: held-out AUC {auc_file!r} "
+                    f"(metrics.json), {auc!r} (written model); variances "
+                    f"{'present' if m.coefficients.variances is not None else 'missing'}")
+                if not auc_file > 0.5 or auc != auc_file:
+                    fail(f"driver run {label} lambda={lam}: held-out AUC off")
+                if m.coefficients.variances is None:
+                    fail(f"driver run {label} lambda={lam}: no variances written")
+
+        # runs A and B against the trainer called directly on the batch the
+        # port's loader gives for the same files: the objective at each
+        # lambda, in float64
+        t0 = time.perf_counter()
+        direct = fmt.load(train_dir, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        say(f"driver load ({smi}): {DRIVER_TRAIN_ROWS} train rows in {load_s!r} s, "
+            f"{DRIVER_TRAIN_ROWS / load_s!r} rows per second")
+        fit = dict(
+            optimizer_type=OptimizerType.LBFGS,
+            regularization_type=RegularizationType.L2,
+            regularization_weights=[10.0, 1.0], compute_variances=True,
+            kernel="tiled", device="cuda",
+        )
+        batch = direct.batch
+        d_models, d_results = train_generalized_linear_model(
+            batch, TaskType.LOGISTIC_REGRESSION, direct.num_features,
+            intercept_index=direct.intercept_index, **fit,
+        )
+        _, g0 = objective64(batch, torch.zeros_like(d_models[1.0].means), 1.0)
+        for lam in (10.0, 1.0):
+            ref = d_models[lam].means
+            f_ref, g_ref = objective64(batch, ref, lam)
+            say(f"driver direct lambda={lam} ({smi}): objective {f_ref!r}, "
+                f"gradient max-abs {g_ref!r} ({g0!r} at 0), iterations "
+                f"{d_results[lam].iterations}")
+            for label, run in runs.items():
+                m = run["models"][str(lam)].means
+                f_run, g_run = objective64(batch, m, lam)
+                rel = (f_run - f_ref) / abs(f_ref)
+                spread = float((m - ref).abs().max() / ref.abs().max())
+                say(f"driver run {label} lambda={lam} vs the direct fit ({smi}): "
+                    f"objective {f_run!r}, relative difference {rel!r}; gradient "
+                    f"max-abs {g_run!r}; coefficients part by {spread!r} of their "
+                    f"max-abs (information)")
+                if not abs(rel) <= DRIVER_OBJ_RTOL:
+                    fail(f"driver run {label} lambda={lam}: objective off the "
+                         "direct fit's")
+        # the check tells models apart: run A's lambda = 10 model at lambda = 1
+        f_wrong, _ = objective64(batch, a["models"]["10.0"].means, 1.0)
+        f_ref, _ = objective64(batch, d_models[1.0].means, 1.0)
+        rel = (f_wrong - f_ref) / abs(f_ref)
+        say(f"driver control ({smi}): run A's lambda=10 model at lambda=1, "
+            f"objective relative difference {rel!r}")
+        if abs(rel) <= DRIVER_OBJ_RTOL:
+            fail("the objective check does not tell the lambda = 10 model apart")
+
+        # run C: without the intercept, the coefficients themselves. The
+        # loader appends the intercept after a row's entries and pads the
+        # width to a multiple of 8, so the batch's first NNZ_PER_ROW columns
+        # are the loader's batch without the intercept.
+        k = NNZ_PER_ROW
+        if not (bool((batch.indices[:, k] == DIM).all())
+                and bool((batch.values[:, k] == 1.0).all())
+                and bool((batch.values[:, k + 1:] == 0.0).all())):
+            fail("the loaded batch does not hold the intercept after each row's entries")
+        runs["C"] = c = driver_run(
+            "C", common + ["--grid-mode", "sequential", "--intercept", "false"],
+            f"{tmp}/out-C", k1, k2, f"sequential, no intercept, {smi}",
+            outputs=[f for f in DRIVER_OUTPUTS if not f.startswith("best-model")],
+        )
+        if c["k1"] == 0:
+            fail("driver run C never launched K1")
+        bare = SparseBatch(
+            batch.indices[:, :k].contiguous(), batch.values[:, :k].contiguous(),
+            batch.labels, batch.offsets, batch.weights,
+        )
+        del direct, batch, d_models
+        c_models, _ = train_generalized_linear_model(
+            bare, TaskType.LOGISTIC_REGRESSION, DIM, **fit,
+        )
+        ref = c_models[1.0].means
+        got = load_glm_models_avro(
+            f"{c['out']}/models/models.avro",
+            IndexMap.load(f"{c['out']}/feature-index/index.json"), device="cuda",
+        )["1.0"].means
+        err = float((got - ref).abs().max() / ref.abs().max())
+        say(f"driver run C lambda=1 vs the direct trainer: max-abs difference "
+            f"{err!r} of the coefficients' max-abs")
+        if not err <= DRIVER_RTOL:
+            fail("driver run C's lambda=1 model is off the direct trainer's")
+    return {label: {"k1": r["k1"], "k2": r["k2"]} for label, r in runs.items()}
 
 
 def main() -> int:
@@ -1027,7 +1329,12 @@ def main() -> int:
                 fail(f"mesh {label} lambda={lam}: the ranks disagree")
     say(f"mesh phase: {mesh_s!r} s of host time, spawn to the last rank's end")
 
-    # -- 7. result lines --------------------------------------------------------
+    # -- 7. the GLM driver end to end -------------------------------------------
+    t0 = time.perf_counter()
+    driver_launches = driver_phase(args.seed, smi, k1, k2)
+    say(f"driver phase: {time.perf_counter() - t0!r} s of host time ({smi})")
+
+    # -- 8. result lines --------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -1046,6 +1353,7 @@ def main() -> int:
         "z_bound_ms": z_bound, "g_bound_ms": g_bound,
         "max_rel_err": max(small_err[1], ads_err[1], edge_err["k1"][1]),
         **mesh_fields("k1", mesh_launches, cell, cell_errs),
+        "driver_launches": {run: n["k1"] for run, n in driver_launches.items()},
     }, {
         "name": "grid_bilinear_pass",
         "route": "cuda",
@@ -1065,6 +1373,7 @@ def main() -> int:
         "z_bound_ms": zb_bound, "g_bound_ms": gb_bound,
         "max_rel_err": k2_err[1],
         **mesh_fields("k2", mesh_launches, cell, cell_errs),
+        "driver_launches": {run: n["k2"] for run, n in driver_launches.items()},
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -1,0 +1,836 @@
+"""GLM training driver: the end-to-end single-model pipeline and its CLI
+(port of ``photon_ml_tpu/cli/glm_driver.py``, the single-process,
+in-memory path on one card).
+
+    python -m photon_ml_tpu_torch.cli.glm_driver \\
+        --training-data-directory DIR --output-directory OUT [options]
+
+Reference: photon-ml Driver.scala, a staged pipeline
+INIT -> PREPROCESSED -> TRAINED -> VALIDATED (DriverStage.scala:47-51;
+stage methods at Driver.scala:267-292 preprocess, 294-327 train, 329-413
+validate, main at 590-616), PhotonMLCmdLineParser.scala + OptionNames.scala
+(the option names, kept verbatim) and Params.scala:200-222 (cross-field
+validation).
+
+The parser accepts every option of the JAX package's driver. The options
+of paths not ported yet are rejected by :meth:`GLMParams.validate` with the
+ROADMAP item they wait for. The one option the port adds is ``--device``:
+the card by default (the driver raises without CUDA), ``cpu`` on request.
+Training goes through the tiled kernels on the card (``--kernel auto``): K1
+for the sequential λ-grid, K2 for the batched one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import enum
+import os
+import shutil
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from photon_ml_tpu_torch.data.stats import compute_summary
+from photon_ml_tpu_torch.data.validators import DataValidationType, sanity_check_data
+from photon_ml_tpu_torch.evaluation.metrics import (
+    area_under_roc_curve,
+    mean_pointwise_loss,
+    root_mean_squared_error,
+)
+from photon_ml_tpu_torch.events import (
+    EventEmitter,
+    PhotonOptimizationLogEvent,
+    ScheduleCacheEvent,
+    TrainingFinishEvent,
+    TrainingStartEvent,
+)
+from photon_ml_tpu_torch.io import schemas
+from photon_ml_tpu_torch.io.avro_codec import write_container
+from photon_ml_tpu_torch.io.input_format import LoadedData, create_input_format
+from photon_ml_tpu_torch.io.model_io import save_glm_models_avro, write_models_in_text
+from photon_ml_tpu_torch.models.glm import compute_margins, compute_means
+from photon_ml_tpu_torch.ops import schedule_cache
+from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.ops.normalization import (
+    NormalizationContext,
+    NormalizationType,
+    build_normalization,
+)
+from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
+from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
+from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json, atomic_writer
+from photon_ml_tpu_torch.reliability.retry import retry_stats
+from photon_ml_tpu_torch.task import TaskType
+from photon_ml_tpu_torch.training import (
+    grid_result_scalars,
+    resolve_grid_mode,
+    train_generalized_linear_model,
+    train_grid_batched,
+)
+from photon_ml_tpu_torch.utils.date_range import (
+    input_paths_within_date_range,
+    resolve_date_range,
+)
+from photon_ml_tpu_torch.utils.device import resolve_device
+from photon_ml_tpu_torch.utils.index_map import split_feature_key
+from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
+
+
+class DriverStage(enum.IntEnum):
+    INIT = 0
+    PREPROCESSED = 1
+    TRAINED = 2
+    VALIDATED = 3
+    DIAGNOSED = 4
+
+
+class DiagnosticMode(enum.Enum):
+    NONE = "NONE"
+    TRAIN = "TRAIN"
+    VALIDATE = "VALIDATE"
+    ALL = "ALL"
+
+    @classmethod
+    def parse(cls, s: str) -> "DiagnosticMode":
+        return cls(s.strip().upper())
+
+
+# The gate options' defaults: any other value asks for the registry gates.
+_GATE_DEFAULTS = {
+    "gate_max_auc_drop": 0.005,
+    "gate_max_rmse_increase": 0.01,
+    "gate_max_coef_norm_ratio": 10.0,
+    "gate_max_prediction_drift": None,
+}
+
+
+@dataclass
+class GLMParams:
+    """The reference's Params bean (Params.scala), with every field of the
+    JAX package's driver so that every option parses; the fields of paths
+    not ported yet must keep their defaults (:meth:`validate`)."""
+
+    train_dir: str = ""
+    output_dir: str = ""
+    validate_dir: Optional[str] = None
+    # dated inputs (DateRange.scala / IOUtils.scala:84+): with a range the
+    # directory is read in daily format <dir>/daily/yyyy/MM/dd
+    train_date_range: Optional[str] = None
+    train_date_range_days_ago: Optional[str] = None
+    validate_date_range: Optional[str] = None
+    validate_date_range_days_ago: Optional[str] = None
+    validate_per_iteration: bool = False
+    task: TaskType = TaskType.LOGISTIC_REGRESSION
+    input_format: str = "AVRO"  # AVRO | LIBSVM (INPUT_FILE_FORMAT)
+    # Avro field names (io/FieldNamesType.scala): the response is "label"
+    # for TRAINING_EXAMPLE, "response" for RESPONSE_PREDICTION
+    field_names: str = "TRAINING_EXAMPLE"
+    # pre-declared LibSVM dimension (LibSVMInputDataFormat.scala:32-39)
+    feature_dimension: Optional[int] = None
+    # writes optimization-log.txt under the output directory
+    enable_optimization_tracker: bool = True
+    add_intercept: bool = True
+    regularization_weights: List[float] = field(default_factory=lambda: [0.0])
+    regularization_type: RegularizationType = RegularizationType.L2
+    elastic_net_alpha: Optional[float] = None
+    optimizer_type: OptimizerType = OptimizerType.LBFGS
+    max_num_iterations: Optional[int] = None
+    tolerance: Optional[float] = None
+    normalization_type: NormalizationType = NormalizationType.NONE
+    data_validation_type: DataValidationType = DataValidationType.VALIDATE_FULL
+    constraint_string: Optional[str] = None
+    selected_features_file: Optional[str] = None
+    summarization_output_dir: Optional[str] = None
+    offheap_indexmap_dir: Optional[str] = None
+    offheap_indexmap_num_partitions: Optional[int] = None
+    diagnostic_mode: DiagnosticMode = DiagnosticMode.NONE
+    compute_variances: bool = False
+    delete_output_dirs_if_exist: bool = False
+    job_name: str = "photon-ml-tpu"
+    event_listeners: List[str] = field(default_factory=list)
+    # "auto" (the tiled kernels on the card, scatter on the CPU), "tiled"
+    # or "scatter": see optim.problem.resolve_kernel
+    kernel: str = "auto"
+    # "auto" and "off" train on one card; "feature" is the mesh path
+    distributed: str = "auto"
+    model_shards: Optional[int] = None
+    streaming: bool = False
+    stream_memory_budget: int = 0
+    profile_dir: Optional[str] = None
+    obs_dir: Optional[str] = None
+    # persistent schedule cache (ops/schedule_cache.py); None falls back
+    # to the PHOTON_TILE_CACHE_DIR env var; unset = off
+    tile_cache_dir: Optional[str] = None
+    # accepted: the port has no host-device overlap layer to turn off
+    no_overlap: bool = False
+    diagnostic_reservoir_rows: int = 100_000
+    diagnostic_reservoir_bytes: int = 256 << 20
+    # λ-grid policy (training.resolve_grid_mode): "batched" solves the grid
+    # as one [G, d] bank (K2), "sequential" warm-starts one fit per λ
+    # (K1), "auto" picks batched when the grid has more than one member
+    # and the bank fits grid_memory_budget
+    grid_mode: str = "auto"
+    grid_memory_budget: int = 1 << 30
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    checkpoint_dir: Optional[str] = None
+    fault_plan: Optional[str] = None
+    retrain_from: Optional[str] = None
+    publish_registry: Optional[str] = None
+    gate_max_auc_drop: float = 0.005
+    gate_max_rmse_increase: float = 0.01
+    gate_max_coef_norm_ratio: float = 10.0
+    gate_max_prediction_drift: Optional[float] = None
+    scan_cache_dir: Optional[str] = None
+    # where the fit runs: None = the CUDA card (raises without one), "cpu"
+    device: Optional[str] = None
+
+    def unported(self) -> List[str]:
+        """The options set here whose paths the port lacks, each with the
+        ROADMAP item it waits for."""
+        out = []
+
+        def need(cond: bool, what: str, item: str) -> None:
+            if cond:
+                out.append(f"{what} (ROADMAP {item})")
+
+        need(self.streaming, "--streaming", "item 11")
+        need(bool(self.stream_memory_budget), "--stream-memory-budget", "item 11")
+        need(self.scan_cache_dir is not None, "--scan-cache-dir", "item 11")
+        need(
+            self.diagnostic_mode != DiagnosticMode.NONE,
+            "--diagnostic-mode (and --training-diagnostics) other than NONE",
+            "item 8, diagnostics",
+        )
+        need(
+            self.offheap_indexmap_dir is not None
+            or self.offheap_indexmap_num_partitions is not None,
+            "--offheap-indexmap-dir", "item 8, the feature-indexing driver",
+        )
+        need(self.validate_per_iteration, "--validate-per-iteration true",
+             "item 9, track_models")
+        need(self.distributed == "feature", "--distributed feature", "item 13")
+        need(self.model_shards is not None, "--model-shards", "item 13")
+        need(
+            self.coordinator_address is not None or self.num_processes is not None
+            or self.process_id is not None,
+            "--coordinator-address / --num-processes / --process-id", "item 13",
+        )
+        need(self.checkpoint_dir is not None, "--checkpoint-dir", "item 12")
+        need(self.fault_plan is not None, "--fault-plan", "item 12")
+        need(self.retrain_from is not None, "--retrain-from", "item 15")
+        need(self.publish_registry is not None, "--publish-registry", "item 15")
+        need(
+            any(getattr(self, k) != v for k, v in _GATE_DEFAULTS.items()),
+            "the --gate-* options", "item 15",
+        )
+        need(self.obs_dir is not None, "--obs-dir", "item 15")
+        need(self.profile_dir is not None, "--profile-dir", "item 15")
+        return out
+
+    def validate(self) -> None:
+        """Cross-field checks (Params.validate, Params.scala:200-222)."""
+        unported = self.unported()
+        if unported:
+            raise NotImplementedError(
+                "not ported to photon_ml_tpu_torch yet: " + "; ".join(unported)
+            )
+        if not self.train_dir:
+            raise ValueError("training-data-directory is required")
+        if not self.output_dir:
+            raise ValueError("output-directory is required")
+        if self.kernel not in ("auto", "tiled", "scatter"):
+            raise ValueError(f"unknown kernel {self.kernel!r}")
+        if self.feature_dimension is not None and self.input_format.strip().upper() != "LIBSVM":
+            raise ValueError("feature-dimension only applies to the LIBSVM input format")
+        if self.distributed not in ("auto", "off", "feature"):
+            raise ValueError(f"unknown distributed mode {self.distributed!r}")
+        if self.optimizer_type == OptimizerType.TRON and self.regularization_type in (
+            RegularizationType.L1,
+            RegularizationType.ELASTIC_NET,
+        ):
+            raise ValueError(
+                f"Combination of optimizer {self.optimizer_type.value} and "
+                f"regularization {self.regularization_type.value} is not allowed"
+            )
+        if (
+            self.task == TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM
+            and self.optimizer_type == OptimizerType.TRON
+        ):
+            raise ValueError("TRON is not supported for the smoothed hinge loss")
+        if self.constraint_string is not None and self.normalization_type != NormalizationType.NONE:
+            raise ValueError("box constraints with normalization are not supported")
+        if any(w < 0 for w in self.regularization_weights):
+            raise ValueError("regularization weights must be non-negative")
+        if self.grid_mode not in ("batched", "sequential", "auto"):
+            raise ValueError(
+                f"unknown grid mode {self.grid_mode!r}; expected "
+                "batched | sequential | auto"
+            )
+        if self.grid_memory_budget < 1:
+            raise ValueError("grid-memory-budget must be >= 1")
+        if self.diagnostic_reservoir_rows < 1:
+            raise ValueError("diagnostic-reservoir-rows must be >= 1")
+        if self.diagnostic_reservoir_bytes < 1:
+            raise ValueError("diagnostic-reservoir-bytes must be >= 1")
+        # the range strings fail here, not mid-preprocess
+        resolve_date_range(self.train_date_range, self.train_date_range_days_ago)
+        resolve_date_range(self.validate_date_range, self.validate_date_range_days_ago)
+
+
+def prepare_output_dir(path: str, *, delete_if_exists: bool, hint: str = "") -> None:
+    """Refuse a non-empty output directory unless asked to replace it
+    (IOUtils.processOutputDir, Driver.scala:148-151)."""
+    if os.path.isdir(path) and os.listdir(path) and not delete_if_exists:
+        suffix = f" ({hint})" if hint else ""
+        raise ValueError(f"output directory {path} exists and is non-empty{suffix}")
+    if os.path.isdir(path) and delete_if_exists:
+        shutil.rmtree(path)
+    os.makedirs(path, exist_ok=True)
+
+
+class GLMDriver:
+    """Staged GLM pipeline. After run(): ``stage_history`` lists completed
+    stages, ``models`` maps lambda->model, ``best_model`` /
+    ``validation_metrics`` filled when a validation dir was given."""
+
+    def __init__(
+        self,
+        params: GLMParams,
+        logger: Optional[PhotonLogger] = None,
+        emitter: Optional[EventEmitter] = None,
+    ):
+        params.validate()
+        self.params = params
+        # before anything touches the output directory: without CUDA and
+        # without device="cpu" this raises
+        self.device = resolve_device(params.device)
+        # the output-dir guard precedes the logger, which opens photon.log
+        # inside the output dir
+        prepare_output_dir(
+            params.output_dir,
+            delete_if_exists=params.delete_output_dirs_if_exist,
+            hint="pass --delete-output-dirs-if-exist to overwrite",
+        )
+        self.logger = logger or PhotonLogger(params.output_dir)
+        self.emitter = emitter or EventEmitter()
+        for name in params.event_listeners:
+            self.emitter.register_by_name(name)
+        self.timer = Timer()
+        self.stage = DriverStage.INIT
+        self.stage_history: List[DriverStage] = []
+        self.models = {}
+        self.results = {}
+        self.best_model = None
+        self.best_lambda: Optional[float] = None
+        self.validation_metrics: Dict[float, Dict[str, float]] = {}
+        self._data: Optional[LoadedData] = None
+        self._norm: Optional[NormalizationContext] = None
+        self._summary = None
+        # tile-schedule cache counters captured after the train stage
+        self._schedule_cache_stats: Dict[str, float] = {}
+
+    # -- stages ------------------------------------------------------------
+
+    def _advance(self, stage: DriverStage) -> None:
+        self.stage_history.append(stage)
+        self.stage = stage
+
+    def preprocess(self) -> None:
+        p = self.params
+        with self.timer.time("preprocess"):
+            selected = None
+            if p.selected_features_file:
+                with open(p.selected_features_file) as f:
+                    selected = [line.strip() for line in f if line.strip()]
+            kwargs = dict(add_intercept=p.add_intercept, selected_features=selected)
+            if p.input_format.strip().upper() == "AVRO":
+                kwargs["field_names"] = p.field_names
+            elif p.feature_dimension is not None:
+                kwargs["feature_dimension"] = p.feature_dimension
+            fmt = create_input_format(p.input_format, **kwargs)
+            self._fmt = fmt
+            train_paths = self._dated_paths(
+                p.train_dir, p.train_date_range, p.train_date_range_days_ago
+            )
+            data = fmt.load(
+                train_paths, constraint_string=p.constraint_string, device=self.device
+            )
+            self._data = data
+            self.logger.info(
+                "loaded %d examples, %d features",
+                int((data.batch.weights > 0).sum()),
+                data.num_features,
+            )
+            sanity_check_data(data.batch, p.task, p.data_validation_type)
+            self._summary = compute_summary(data.batch, data.num_features)
+            self._norm = build_normalization(
+                p.normalization_type,
+                mean=self._summary.mean,
+                std=self._summary.std,
+                max_magnitude=self._summary.max_magnitude,
+                intercept_index=data.intercept_index,
+            )
+            if p.summarization_output_dir:
+                self._write_summary(p.summarization_output_dir)
+        self._advance(DriverStage.PREPROCESSED)
+
+    def _dated_paths(self, base_dir, date_range, days_ago):
+        """Expand a base dir to its daily paths when a date range is given
+        (IOUtils.getInputPathsWithinDateRange); otherwise the dir itself."""
+        rng = resolve_date_range(date_range, days_ago)
+        if rng is None:
+            return base_dir
+        paths = input_paths_within_date_range(base_dir, rng)
+        self.logger.info(
+            "date range %s expanded %s to %d daily paths", rng, base_dir, len(paths),
+        )
+        return paths
+
+    def train(self) -> None:
+        p = self.params
+        self.emitter.send(TrainingStartEvent(p.job_name))
+        with self.timer.time("train"):
+            data = self._data
+            trainer = train_generalized_linear_model
+            if self._resolved_grid_mode(data.num_features) == "batched":
+                trainer = train_grid_batched
+                self.logger.info(
+                    "training a BATCHED %d-member lambda grid (one optimizer "
+                    "loop over a [G, d] bank; no cross-lambda warm starts)",
+                    len(set(p.regularization_weights)),
+                )
+            self.models, self.results = trainer(
+                data.batch,
+                p.task,
+                data.num_features,
+                optimizer_type=p.optimizer_type,
+                regularization_type=p.regularization_type,
+                regularization_weights=p.regularization_weights,
+                elastic_net_alpha=p.elastic_net_alpha,
+                max_iter=p.max_num_iterations,
+                tolerance=p.tolerance,
+                normalization=self._norm,
+                compute_variances=p.compute_variances,
+                box=data.constraints,
+                intercept_index=data.intercept_index,
+                kernel=p.kernel,
+                device=self.device,
+                tile_cache_dir=p.tile_cache_dir,
+            )
+            self._log_results()
+        self._log_schedule_cache()
+        self.emitter.send(TrainingFinishEvent(p.job_name))
+        self._advance(DriverStage.TRAINED)
+
+    def _resolved_grid_mode(self, dim: int) -> str:
+        """Resolve --grid-mode for the in-memory training stage."""
+        p = self.params
+        n_weights = len(set(p.regularization_weights))
+        mode = resolve_grid_mode(
+            p.grid_mode,
+            num_weights=n_weights,
+            dim=dim,
+            optimizer_type=p.optimizer_type,
+            memory_budget_bytes=p.grid_memory_budget,
+            streaming=False,
+        )
+        if p.grid_mode == "auto" and mode == "sequential" and n_weights > 1:
+            self.logger.info(
+                "grid-mode auto: %d-member grid over %d features does not fit "
+                "the %d-byte bank budget; using the warm-started sequential path",
+                n_weights, dim, p.grid_memory_budget,
+            )
+        return mode
+
+    def _log_schedule_cache(self) -> None:
+        """Surface the tile-schedule cache outcome of the training stage
+        (build/load/hit-miss timers) to the log and the event stream."""
+        s = schedule_cache.stats()
+        if not (s.builds or s.hits or s.misses):
+            return  # scatter kernel: no tiled conversion this run
+        self._schedule_cache_stats = s.as_dict()
+        self.emitter.send(ScheduleCacheEvent(stats=self._schedule_cache_stats))
+        self.logger.info(
+            "tile-schedule cache: %d hit(s), %d miss(es), %d build(s) "
+            "(build %.2fs, load %.3fs, store %.2fs, hash %.2fs)",
+            s.hits, s.misses, s.builds, s.build_s, s.load_s, s.store_s, s.hash_s,
+        )
+
+    def _log_results(self) -> None:
+        # one fetch for the whole grid's (iterations, value, reason)
+        for lam, (iters, value, reason) in grid_result_scalars(self.results).items():
+            name = CONVERGENCE_REASON_NAMES.get(reason, "?")
+            self.emitter.send(
+                PhotonOptimizationLogEvent(
+                    reg_weight=lam, iterations=iters, convergence_reason=name,
+                    final_value=value,
+                )
+            )
+            self.logger.info(
+                "lambda=%g: %d iters, f=%g, reason=%s", lam, iters, value, name
+            )
+
+    def _metrics_for(self, model, batch) -> Dict[str, float]:
+        task = self.params.task
+        margins = compute_margins(model.means, batch)
+        loss = loss_for_task(task)
+        metrics = {
+            f"{loss.name}_loss": float(
+                mean_pointwise_loss(loss, margins, batch.labels, batch.weights)
+            )
+        }
+        if task in (TaskType.LOGISTIC_REGRESSION, TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM):
+            metrics["AUC"] = float(area_under_roc_curve(margins, batch.labels, batch.weights))
+        if task in (TaskType.LINEAR_REGRESSION, TaskType.POISSON_REGRESSION):
+            means = compute_means(task, model.means, batch)
+            metrics["RMSE"] = float(
+                root_mean_squared_error(means, batch.labels, batch.weights)
+            )
+        return metrics
+
+    def validate(self) -> None:
+        p = self.params
+        with self.timer.time("validate"):
+            validate_paths = self._dated_paths(
+                p.validate_dir, p.validate_date_range, p.validate_date_range_days_ago,
+            )
+            vdata = self._fmt.load(
+                validate_paths, index_map=self._data.index_map, device=self.device
+            )
+            sanity_check_data(vdata.batch, p.task, p.data_validation_type)
+            self._validation_data = vdata
+            # select by AUC for classification, RMSE/loss otherwise
+            # (ModelSelection.scala:36-63)
+            maximize = p.task == TaskType.LOGISTIC_REGRESSION
+            best = None
+            for lam, model in self.models.items():
+                metrics = self._metrics_for(model, vdata.batch)
+                self.validation_metrics[lam] = metrics
+                key = (
+                    "AUC"
+                    if maximize
+                    else ("RMSE" if "RMSE" in metrics else next(iter(metrics)))
+                )
+                score = metrics[key]
+                self.logger.info("lambda=%g validation %s", lam, metrics)
+                if (
+                    best is None
+                    or (maximize and score > best[2])
+                    or (not maximize and score < best[2])
+                ):
+                    best = (lam, model, score)
+            self.best_lambda, self.best_model, _ = best
+        self._advance(DriverStage.VALIDATED)
+
+    # -- outputs -----------------------------------------------------------
+
+    def _write_summary(self, out_dir: str) -> None:
+        os.makedirs(out_dir, exist_ok=True)
+        s = self._summary
+        columns = {
+            "mean": s.mean, "variance": s.variance, "numNonzeros": s.num_nonzeros,
+            "max": s.max, "min": s.min, "normL1": s.norm_l1, "normL2": s.norm_l2,
+            "meanAbs": s.mean_abs,
+        }
+        columns = {k: v.cpu().tolist() for k, v in columns.items()}
+        records = []
+        for key, i in self._data.index_map.items():
+            name, term = split_feature_key(key)
+            records.append(
+                {
+                    "featureName": name,
+                    "featureTerm": term,
+                    "metrics": {k: v[i] for k, v in columns.items()},
+                }
+            )
+        write_container(
+            os.path.join(out_dir, "part-00000.avro"),
+            schemas.FEATURE_SUMMARIZATION_RESULT_AVRO,
+            records,
+        )
+
+    def _write_outputs(self) -> None:
+        p = self.params
+        out = p.output_dir
+        os.makedirs(out, exist_ok=True)
+        index_map = self._data.index_map
+        index_map.save(os.path.join(out, "feature-index", "index.json"))
+        write_models_in_text(self.models, os.path.join(out, "models-text"), index_map)
+        save_glm_models_avro(
+            self.models, os.path.join(out, "models", "models.avro"), index_map
+        )
+        if self.best_model is not None:
+            save_glm_models_avro(
+                {self.best_lambda: self.best_model},
+                os.path.join(out, "best-model", "model.avro"),
+                index_map,
+            )
+        if p.enable_optimization_tracker:
+            with atomic_writer(os.path.join(out, "optimization-log.txt")) as f:
+                for lam, res in sorted(self.results.items()):
+                    t = res.tracker
+                    values = t.values.cpu().tolist()
+                    grad_norms = t.grad_norms.cpu().tolist()
+                    f.write(
+                        f"lambda={lam} iterations={int(res.iterations)} "
+                        f"converged={res.reason_name}\n"
+                    )
+                    # slot 0 is the pre-optimization initial point
+                    for i in range(int(t.count)):
+                        f.write(
+                            f"  iter={i} value={values[i]:.8g} "
+                            f"|grad|={grad_norms[i]:.8g}\n"
+                        )
+        payload = {
+            "validation": {str(k): v for k, v in self.validation_metrics.items()},
+            # --validate-per-iteration is not ported (ROADMAP item 9)
+            "per_iteration_validation": {},
+            "best_lambda": self.best_lambda,
+            "timers": self.timer.durations,
+            "schedule_cache": self._schedule_cache_stats,
+            # retry and quarantine accounting of the schedule cache's seams
+            "reliability": {"retries": retry_stats()},
+        }
+        atomic_write_json(os.path.join(out, "metrics.json"), payload)
+
+    def run(self) -> None:
+        p = self.params
+        self.preprocess()
+        self.train()
+        if p.validate_dir:
+            self.validate()
+        with self.timer.time("write"):
+            self._write_outputs()
+        self.logger.info("stages: %s", [s.name for s in self.stage_history])
+        self.logger.info("timers:\n%s", self.timer.summary())
+        self.emitter.close()
+        self.logger.close()
+
+
+# ---------------------------------------------------------------------------
+# CLI (option names from OptionNames.scala)
+# ---------------------------------------------------------------------------
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m photon_ml_tpu_torch.cli.glm_driver",
+        description="GLM training driver of the PyTorch/CUDA port (Photon ML parity)",
+    )
+    ap.add_argument("--training-data-directory", required=True)
+    ap.add_argument("--output-directory", required=True)
+    ap.add_argument("--validating-data-directory", default=None)
+    ap.add_argument("--train-date-range", default=None,
+                    help="yyyyMMdd-yyyyMMdd; expects <dir>/daily/yyyy/MM/dd")
+    ap.add_argument("--train-date-range-days-ago", default=None,
+                    help="start-end days ago, e.g. 90-1")
+    ap.add_argument("--validate-date-range", default=None)
+    ap.add_argument("--validate-date-range-days-ago", default=None)
+    ap.add_argument("--validate-per-iteration", default="false",
+                    help="true is not ported yet (ROADMAP item 9)")
+    ap.add_argument("--task", default="LOGISTIC_REGRESSION")
+    ap.add_argument(
+        "--format", default="TRAINING_EXAMPLE",
+        help="Avro field-name convention: TRAINING_EXAMPLE | "
+        "RESPONSE_PREDICTION (FieldNamesType). Legacy values AVRO|LIBSVM "
+        "are accepted as --input-file-format.",
+    )
+    ap.add_argument("--input-file-format", default=None, help="AVRO | LIBSVM")
+    ap.add_argument("--feature-dimension", type=int, default=None)
+    ap.add_argument("--optimization-tracker", default="true")
+    ap.add_argument(
+        "--training-diagnostics", default=None,
+        help="DEPRECATED -- use --diagnostic-mode (true -> ALL)",
+    )
+    # Spark-runtime tuning knobs, accepted for invocation compatibility and
+    # ignored: serialization, input splits and treeAggregate depth have no
+    # counterpart here
+    ap.add_argument("--kryo", default=None, help="ignored (Spark-only)")
+    ap.add_argument("--min-partitions", type=int, default=None, help="ignored (Spark-only)")
+    ap.add_argument("--tree-aggregate-depth", type=int, default=None,
+                    help="ignored (Spark-only)")
+    ap.add_argument("--intercept", default="true")
+    ap.add_argument("--regularization-weights", default="0")
+    ap.add_argument("--regularization-type", default="L2")
+    ap.add_argument("--elastic-net-alpha", type=float, default=None)
+    ap.add_argument("--optimizer", default="LBFGS")
+    ap.add_argument("--num-iterations", type=int, default=None)
+    ap.add_argument("--convergence-tolerance", type=float, default=None)
+    ap.add_argument("--normalization-type", default="NONE")
+    ap.add_argument("--data-validation-type", default="VALIDATE_FULL")
+    ap.add_argument("--coefficient-box-constraints", default=None)
+    ap.add_argument("--selected-features-file", default=None)
+    ap.add_argument("--summarization-output-dir", default=None)
+    ap.add_argument("--offheap-indexmap-dir", default=None,
+                    help="not ported yet (ROADMAP item 8)")
+    ap.add_argument("--offheap-indexmap-num-partitions", type=int, default=None)
+    ap.add_argument("--diagnostic-mode", default=None,
+                    help="only NONE is ported yet (ROADMAP item 8)")
+    ap.add_argument("--compute-variances", default="false")
+    ap.add_argument("--delete-output-dirs-if-exist", default="false")
+    ap.add_argument("--job-name", default="photon-ml-tpu")
+    ap.add_argument("--event-listeners", default=None)
+    ap.add_argument(
+        "--kernel", default="auto", choices=["auto", "tiled", "scatter"],
+        help="objective kernel (auto: the tiled kernels on the card, "
+        "scatter on the CPU)",
+    )
+    ap.add_argument(
+        "--distributed", default="auto", choices=["auto", "off", "feature"],
+        help="auto and off train on one card; feature is not ported yet "
+        "(ROADMAP item 13)",
+    )
+    ap.add_argument("--model-shards", type=int, default=None,
+                    help="not ported yet (ROADMAP item 13)")
+    ap.add_argument("--streaming", default="false",
+                    help="true is not ported yet (ROADMAP item 11)")
+    ap.add_argument("--stream-memory-budget", type=int, default=0,
+                    help="not ported yet (ROADMAP item 11)")
+    ap.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP item 15)")
+    ap.add_argument("--obs-dir", default=None, help="not ported yet (ROADMAP item 15)")
+    ap.add_argument(
+        "--tile-cache-dir", default=None,
+        help="persistent content-addressed tile-schedule cache directory: "
+        "warm reruns over the same dataset load the tiled layout instead "
+        "of rebuilding it. Default: $PHOTON_TILE_CACHE_DIR, unset = off",
+    )
+    ap.add_argument("--diagnostic-reservoir-rows", type=int, default=100_000)
+    ap.add_argument("--diagnostic-reservoir-bytes", type=int, default=256 << 20)
+    ap.add_argument("--coordinator-address", default=None,
+                    help="not ported yet (ROADMAP item 13)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument(
+        "--no-overlap", default="false",
+        help="accepted; the port has no host-device overlap layer to turn off",
+    )
+    ap.add_argument(
+        "--grid-mode", default="auto", choices=["batched", "sequential", "auto"],
+        help="lambda-grid execution: batched = one optimizer loop over a "
+        "[G, d] coefficient bank (K2 on the card; no cross-lambda warm "
+        "starts); sequential = warm-started one fit per lambda (K1); auto = "
+        "batched when the grid has >1 member and the bank fits "
+        "--grid-memory-budget",
+    )
+    ap.add_argument(
+        "--grid-memory-budget", type=int, default=1 << 30,
+        help="byte budget for the batched grid's G x d bank and optimizer "
+        "state; auto falls back to sequential above it (default 1 GiB)",
+    )
+    ap.add_argument("--checkpoint-dir", default=None, help="not ported yet (ROADMAP item 12)")
+    ap.add_argument("--fault-plan", default=None, help="not ported yet (ROADMAP item 12)")
+    ap.add_argument("--retrain-from", default=None, help="not ported yet (ROADMAP item 15)")
+    ap.add_argument("--publish-registry", default=None,
+                    help="not ported yet (ROADMAP item 15)")
+    ap.add_argument("--scan-cache-dir", default=None, help="not ported yet (ROADMAP item 11)")
+    ap.add_argument("--gate-max-auc-drop", type=float, default=0.005)
+    ap.add_argument("--gate-max-rmse-increase", type=float, default=0.01)
+    ap.add_argument("--gate-max-coef-norm-ratio", type=float, default=10.0)
+    ap.add_argument("--gate-max-prediction-drift", type=float, default=None)
+    ap.add_argument(
+        "--device", default=None,
+        help="where to train: the CUDA card by default (the driver raises "
+        "without one); cpu on request",
+    )
+    return ap
+
+
+def _bool(s) -> bool:
+    return str(s).strip().lower() in ("true", "1", "yes")
+
+
+def params_from_args(argv=None) -> GLMParams:
+    ns = build_arg_parser().parse_args(argv)
+    # --format carries the FieldNamesType; legacy invocations that passed
+    # AVRO|LIBSVM there are routed to --input-file-format instead
+    fmt = (ns.format or "TRAINING_EXAMPLE").strip().upper()
+    file_format = ns.input_file_format
+    field_names = "TRAINING_EXAMPLE"
+    if fmt in ("AVRO", "LIBSVM"):
+        file_format = file_format or fmt
+    elif fmt in ("TRAINING_EXAMPLE", "RESPONSE_PREDICTION", "NONE"):
+        field_names = fmt
+    else:
+        raise ValueError(f"unknown --format {ns.format!r}")
+    if ns.training_diagnostics is not None:
+        # deprecated boolean (PhotonMLCmdLineParser.scala:68-69,184-186):
+        # exclusive with --diagnostic-mode, maps to ALL/NONE
+        if ns.diagnostic_mode is not None:
+            raise ValueError(
+                "specifying both training-diagnostics and diagnostic-mode "
+                "is not supported"
+            )
+        ns.diagnostic_mode = "ALL" if _bool(ns.training_diagnostics) else "NONE"
+    return GLMParams(
+        train_dir=ns.training_data_directory,
+        output_dir=ns.output_directory,
+        validate_dir=ns.validating_data_directory,
+        train_date_range=ns.train_date_range,
+        train_date_range_days_ago=ns.train_date_range_days_ago,
+        validate_date_range=ns.validate_date_range,
+        validate_date_range_days_ago=ns.validate_date_range_days_ago,
+        validate_per_iteration=_bool(ns.validate_per_iteration),
+        task=TaskType.parse(ns.task),
+        input_format=file_format or "AVRO",
+        field_names=field_names,
+        feature_dimension=ns.feature_dimension,
+        enable_optimization_tracker=_bool(ns.optimization_tracker),
+        add_intercept=_bool(ns.intercept),
+        regularization_weights=[float(x) for x in ns.regularization_weights.split(",") if x],
+        regularization_type=RegularizationType.parse(ns.regularization_type),
+        elastic_net_alpha=ns.elastic_net_alpha,
+        optimizer_type=OptimizerType.parse(ns.optimizer),
+        max_num_iterations=ns.num_iterations,
+        tolerance=ns.convergence_tolerance,
+        normalization_type=NormalizationType(ns.normalization_type.strip().upper()),
+        data_validation_type=DataValidationType.parse(ns.data_validation_type),
+        constraint_string=ns.coefficient_box_constraints,
+        selected_features_file=ns.selected_features_file,
+        summarization_output_dir=ns.summarization_output_dir,
+        offheap_indexmap_dir=ns.offheap_indexmap_dir,
+        offheap_indexmap_num_partitions=ns.offheap_indexmap_num_partitions,
+        diagnostic_mode=DiagnosticMode.parse(ns.diagnostic_mode or "NONE"),
+        compute_variances=_bool(ns.compute_variances),
+        delete_output_dirs_if_exist=_bool(ns.delete_output_dirs_if_exist),
+        job_name=ns.job_name,
+        kernel=ns.kernel,
+        distributed=ns.distributed,
+        streaming=_bool(ns.streaming),
+        stream_memory_budget=ns.stream_memory_budget,
+        profile_dir=ns.profile_dir,
+        obs_dir=ns.obs_dir,
+        tile_cache_dir=ns.tile_cache_dir,
+        no_overlap=_bool(ns.no_overlap),
+        grid_mode=ns.grid_mode,
+        grid_memory_budget=ns.grid_memory_budget,
+        diagnostic_reservoir_rows=ns.diagnostic_reservoir_rows,
+        diagnostic_reservoir_bytes=ns.diagnostic_reservoir_bytes,
+        model_shards=ns.model_shards,
+        coordinator_address=ns.coordinator_address,
+        num_processes=ns.num_processes,
+        process_id=ns.process_id,
+        checkpoint_dir=ns.checkpoint_dir,
+        fault_plan=ns.fault_plan,
+        retrain_from=ns.retrain_from,
+        publish_registry=ns.publish_registry,
+        scan_cache_dir=ns.scan_cache_dir,
+        gate_max_auc_drop=ns.gate_max_auc_drop,
+        gate_max_rmse_increase=ns.gate_max_rmse_increase,
+        gate_max_coef_norm_ratio=ns.gate_max_coef_norm_ratio,
+        gate_max_prediction_drift=ns.gate_max_prediction_drift,
+        event_listeners=ns.event_listeners.split(",") if ns.event_listeners else [],
+        device=ns.device,
+    )
+
+
+def main(argv=None) -> GLMDriver:
+    """Parse ``argv``, run the pipeline; -> the driver (its models, stage
+    timers and metrics), for callers that run it in-process."""
+    driver = GLMDriver(params_from_args(argv))
+    driver.run()
+    return driver
+
+
+if __name__ == "__main__":
+    main()

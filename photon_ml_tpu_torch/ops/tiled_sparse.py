@@ -32,7 +32,9 @@ reference does.
 The schedule builder is the native counting sort of
 ``native/tile_schedule.cpp`` (compiled with g++ into the port's build
 directory and loaded with ctypes), with a numpy builder that is its oracle
-and its fallback.
+and its fallback. With a schedule cache directory configured
+(``ops/schedule_cache.py``, ``tile_cache_dir=`` on the trainers) a built
+schedule is stored and a stored one loaded in place of the build.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import dataclasses
 import os
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.batch import SparseBatch
+from photon_ml_tpu_torch.ops import schedule_cache
 from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
     bilinear_pass,
     gathers_in_order,
@@ -493,12 +497,37 @@ def _build_schedule_numpy(
     return (step_out, step_in, step_init, o_pos, i_pos, sv, sp_out, sp_in, sp_vals)
 
 
-def _build_schedule(rows, feats, vals, **kw) -> Tuple[Tuple[np.ndarray, ...], str]:
-    """-> (nine arrays, "native" or "numpy")."""
-    native = _build_schedule_native(rows, feats, vals, **kw)
-    if native is not None:
-        return native, "native"
-    return _build_schedule_numpy(rows, feats, vals, **kw), "numpy"
+def _build_schedule(
+    rows, feats, vals, *, params: TileParams, sort_by_feature_block: bool,
+    num_out_blocks: int, digest: Optional[str] = None,
+) -> Tuple[Tuple[np.ndarray, ...], str]:
+    """-> (nine arrays, "native", "numpy" or "cache"). With the schedule
+    cache on (``ops/schedule_cache.py``), a stored artifact is loaded in
+    place of the build, and a build is stored, as the JAX package's
+    ``_build_schedule_np`` does. ``digest``: the content digest of (rows,
+    feats, vals), when the caller has it (both passes of one batch share
+    it)."""
+    kw = dict(
+        params=params, sort_by_feature_block=sort_by_feature_block,
+        num_out_blocks=num_out_blocks,
+    )
+    cache_dir = schedule_cache.resolve_cache_dir()
+    key = None
+    if cache_dir is not None:
+        if digest is None:
+            digest = schedule_cache.content_digest(rows, feats, vals)
+        key = schedule_cache.schedule_key(digest, **kw)
+        cached = schedule_cache.load_schedule(cache_dir, key)
+        if cached is not None:
+            return cached, "cache"
+    t0 = time.perf_counter()
+    arrays, builder = _build_schedule_native(rows, feats, vals, **kw), "native"
+    if arrays is None:
+        arrays, builder = _build_schedule_numpy(rows, feats, vals, **kw), "numpy"
+    schedule_cache.record_build_seconds(time.perf_counter() - t0)
+    if key is not None:
+        schedule_cache.store_schedule(cache_dir, key, arrays)
+    return arrays, builder
 
 
 # ---------------------------------------------------------------------------
@@ -526,7 +555,8 @@ class TiledMeta:
 class TiledSparseBatch:
     """A sparse batch in tiled form. ``labels/offsets/weights`` live in
     padded row space (weight 0 padding). ``builder`` names what built the
-    schedules: "native", "numpy" or "converted"."""
+    schedules: "native", "numpy", "cache" (loaded from the schedule
+    cache), "mixed" (one pass each way) or "converted"."""
 
     meta: TiledMeta
     z_sched: _Schedule
@@ -632,14 +662,21 @@ def _build_from_coo(
     with ``meta.params`` already resolved. The two passes build in parallel
     threads (the native builder and numpy's sorts release the GIL)."""
     win = meta.params.window
+    # both passes key off the same COO triple: hash it once, up front
+    digest = (
+        schedule_cache.content_digest(rows, feats, vals)
+        if schedule_cache.resolve_cache_dir() is not None else None
+    )
     with ThreadPoolExecutor(2) as pool:
         fz = pool.submit(
             _build_schedule, rows, feats, vals, params=meta.params,
             sort_by_feature_block=False, num_out_blocks=meta.num_rows // win,
+            digest=digest,
         )
         fg = pool.submit(
             _build_schedule, rows, feats, vals, params=meta.params,
             sort_by_feature_block=True, num_out_blocks=meta.dim // win,
+            digest=digest,
         )
         z_arrays, z_builder = fz.result()
         g_arrays, g_builder = fg.result()
@@ -711,6 +748,21 @@ def tiled_batch_from_sparse(
     rows, feats, vals = _sparse_coo(batch)
     return build_tiled_batch(
         rows, feats, vals, *_row_arrays(batch), dim, params=params, device=device,
+    )
+
+
+def ensure_tiled(
+    batch, dim: int, *, params: Optional[TileParams] = None,
+    device: DeviceLike = None,
+) -> TiledSparseBatch:
+    """Idempotent tiled conversion (the JAX package's ``ensure_tiled``,
+    without its in-memory tier): a TiledSparseBatch passes through; any
+    other batch is tiled with ``tiled_batch_from_sparse``, whose schedules
+    come from the schedule cache when one is configured."""
+    if isinstance(batch, TiledSparseBatch):
+        return batch
+    return tiled_batch_from_sparse(
+        batch, dim, params=params or TileParams(), device=device
     )
 
 

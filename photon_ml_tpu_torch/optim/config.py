@@ -17,12 +17,20 @@ class OptimizerType(enum.Enum):
     LBFGS = "LBFGS"
     TRON = "TRON"
 
+    @classmethod
+    def parse(cls, s: str) -> "OptimizerType":
+        return cls(s.strip().upper())
+
 
 class RegularizationType(enum.Enum):
     NONE = "NONE"
     L1 = "L1"
     L2 = "L2"
     ELASTIC_NET = "ELASTIC_NET"
+
+    @classmethod
+    def parse(cls, s: str) -> "RegularizationType":
+        return cls(s.strip().upper())
 
 
 @dataclass(frozen=True)

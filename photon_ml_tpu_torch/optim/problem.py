@@ -32,7 +32,7 @@ from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.ops.tiled_sparse import (
     TiledGLMObjective,
     TiledSparseBatch,
-    tiled_batch_from_sparse,
+    ensure_tiled,
 )
 from photon_ml_tpu_torch.optim.common import (
     BoxConstraints,
@@ -83,9 +83,7 @@ class GLMOptimizationProblem:
         ``build_sharded_tiled_batch``."""
         if isinstance(self.objective, TiledGLMObjective):
             if isinstance(batch, SparseBatch) and mesh is None:
-                batch = tiled_batch_from_sparse(
-                    batch, self.objective.dim, device=batch.device
-                )
+                batch = ensure_tiled(batch, self.objective.dim, device=batch.device)
             if not isinstance(batch, TiledSparseBatch):
                 raise TypeError(
                     "the tiled objective takes a TiledSparseBatch (on a mesh, "

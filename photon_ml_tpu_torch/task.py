@@ -13,6 +13,10 @@ class TaskType(enum.Enum):
     LOGISTIC_REGRESSION = "LOGISTIC_REGRESSION"
     SMOOTHED_HINGE_LOSS_LINEAR_SVM = "SMOOTHED_HINGE_LOSS_LINEAR_SVM"
 
+    @classmethod
+    def parse(cls, s: str) -> "TaskType":
+        return cls(s.strip().upper())
+
     @property
     def is_classification(self) -> bool:
         return self in (

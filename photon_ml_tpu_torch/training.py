@@ -31,6 +31,7 @@ from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.ops.schedule_cache import cache_scope
 from photon_ml_tpu_torch.ops.tiled_sparse import (
     TiledSparseBatch,
     build_sharded_tiled_batch,
@@ -85,10 +86,11 @@ def _fit_device(device: DeviceLike, mesh: Optional[ProcessMesh]) -> torch.device
 def _problem_on_device(
     batch, task, dim, *, optimizer_type, regularization_type,
     elastic_net_alpha, max_iter, tolerance, normalization, compute_variances,
-    box, intercept_index, kernel, device, mesh,
+    box, intercept_index, kernel, device, mesh, tile_cache_dir=None,
 ) -> Tuple[GLMOptimizationProblem, object, Optional[NormalizationContext]]:
     """The problem both trainers solve, with the batch (tiled for the
-    tiled kernel; on a mesh, this rank's shard of it) and the other tensors
+    tiled kernel, through the schedule cache at ``tile_cache_dir`` when one
+    is given; on a mesh, this rank's shard of it) and the other tensors
     moved to the fit's device."""
     dev = _fit_device(device, mesh)
     base = OptimizerConfig.default_for(optimizer_type)
@@ -104,10 +106,11 @@ def _problem_on_device(
     shard = None if mesh is None else (mesh.size(DATA_AXIS), mesh.index(DATA_AXIS))
     if kernel == "tiled":
         if isinstance(batch, SparseBatch):
-            batch = (
-                tiled_batch_from_sparse(batch, dim, device=dev) if shard is None
-                else build_sharded_tiled_batch(batch, dim, *shard, device=dev)
-            )
+            with cache_scope(tile_cache_dir):
+                batch = (
+                    tiled_batch_from_sparse(batch, dim, device=dev) if shard is None
+                    else build_sharded_tiled_batch(batch, dim, *shard, device=dev)
+                )
         elif not isinstance(batch, TiledSparseBatch):
             raise TypeError(
                 "kernel='tiled' requires a SparseBatch or TiledSparseBatch, "
@@ -157,6 +160,7 @@ def train_generalized_linear_model(
     kernel: str = "scatter",
     device: DeviceLike = None,
     mesh: Optional[ProcessMesh] = None,
+    tile_cache_dir: Optional[str] = None,
 ) -> Tuple[Models, Results]:
     """Train one model per regularization weight with warm starts.
 
@@ -175,6 +179,11 @@ def train_generalized_linear_model(
     axis (every rank passes the whole SparseBatch; the fit runs on
     ``mesh.device``). A TiledSparseBatch must then be this rank's
     ``build_sharded_tiled_batch``.
+
+    ``tile_cache_dir``: the persistent schedule cache
+    (``ops/schedule_cache.py``) for tiling a SparseBatch here: a rerun over
+    the same data loads the schedules instead of building them. None
+    leaves an outer scope or ``PHOTON_TILE_CACHE_DIR`` in force.
     """
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
@@ -183,7 +192,7 @@ def train_generalized_linear_model(
         tolerance=tolerance, normalization=normalization,
         compute_variances=compute_variances, box=box,
         intercept_index=intercept_index, kernel=kernel, device=device,
-        mesh=mesh,
+        mesh=mesh, tile_cache_dir=tile_cache_dir,
     )
     # strongest regularization first, so each warm start relaxes an
     # already-shrunk model
@@ -280,6 +289,7 @@ def train_grid_batched(
     kernel: str = "scatter",
     device: DeviceLike = None,
     mesh: Optional[ProcessMesh] = None,
+    tile_cache_dir: Optional[str] = None,
 ) -> Tuple[Models, Results]:
     """Batched twin of :func:`train_generalized_linear_model`: the grid
     stacks into a [G, d] coefficient bank and one run of the optimizer
@@ -293,8 +303,8 @@ def train_grid_batched(
     ``initial``. Returns the sequential trainer's ({lambda: model},
     {lambda: OptResult}) contract, λ descending; the values stay on the
     device for :func:`grid_result_scalars`' one fetch. ``kernel``,
-    ``device`` and ``mesh`` as for the sequential trainer ("auto" is the
-    tiled kernel on the card).
+    ``device``, ``mesh`` and ``tile_cache_dir`` as for the sequential
+    trainer ("auto" is the tiled kernel on the card).
     """
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
@@ -303,7 +313,7 @@ def train_grid_batched(
         tolerance=tolerance, normalization=normalization,
         compute_variances=compute_variances, box=box,
         intercept_index=intercept_index, kernel=kernel, device=device,
-        mesh=mesh,
+        mesh=mesh, tile_cache_dir=tile_cache_dir,
     )
     weights_desc = _descending(regularization_weights)
     variances, result = problem.run_grid(
@@ -360,8 +370,8 @@ def _feature_sharded_problem(
 ) -> _FeatureShardedProblem:
     if track_models or tile_cache_dir is not None:
         raise NotImplementedError(
-            "track_models and tile_cache_dir are not ported yet (they come "
-            "with the coefficient tracker and the schedule cache)"
+            "track_models (ROADMAP item 9) and tile_cache_dir on the mesh "
+            "trainers (item 13) are not ported yet"
         )
     if not isinstance(batch, SparseBatch):
         raise TypeError(

@@ -1,0 +1,270 @@
+"""The port's GLM driver (``photon_ml_tpu_torch.cli.glm_driver``) against
+the JAX package's on the same seeded fixtures: Avro in the pattern of
+``tests/test_glm_driver.py`` and LibSVM, the λ-grid [10, 1, 0.1],
+sequential and batched grids, the scatter kernel and small tiled cases,
+STANDARDIZATION, variances and box constraints (one bound on an Avro
+feature and one on a LibSVM feature).
+
+Both drivers get the same argv (the reference with ``--distributed off``,
+the port also with ``--device cpu``) and must give the same stage history,
+feature index (byte-identical ``index.json``) and best λ; coefficients and
+variances within rtol 1e-4 of their largest magnitude (PR 1's fit
+tolerance); validation metrics within 1e-5; the same iteration counts and
+stop reasons in ``optimization-log.txt``; the same ``metrics.json`` keys;
+the same feature summary (``--summarization-output-dir``) within rtol
+1e-6.
+The fits run at a convergence tolerance of 1e-4: at the default 1e-7
+(and still at 1e-5, at the flat end of the warm-started path) the
+function-change test compares differences of a few f32 ulps, a line
+search can branch the other way in one package, and the two part on
+rounding.
+
+Also: the parser takes exactly the reference's option strings (and
+``--device``), each option of a path not ported yet raises naming its
+ROADMAP item, the output-directory guard, and the card as the default
+device.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu.cli import glm_driver as ref_driver
+from photon_ml_tpu.io.avro_codec import read_container
+from photon_ml_tpu_torch.cli import glm_driver
+from photon_ml_tpu_torch.io.model_io import load_glm_models_avro
+from photon_ml_tpu_torch.utils.index_map import IndexMap
+
+from tests.test_glm_driver import synth_avro
+from tests.torch_parity import assert_close_to_scale
+
+
+def synth_libsvm(path, rng, n, d=8):
+    """Planted logistic rows as LibSVM lines, labels in {-1, +1}."""
+    w = np.linspace(-1, 1, d)
+    lines = []
+    for _ in range(n):
+        ix = np.sort(rng.choice(d, size=4, replace=False))
+        vs = rng.normal(size=4)
+        z = float(np.sum(w[ix] * vs))
+        label = "+1" if 1 / (1 + np.exp(-z)) > rng.uniform() else "-1"
+        lines.append(label + "".join(f" {i + 1}:{v:.9g}" for i, v in zip(ix, vs)))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+@pytest.fixture(scope="module")
+def fixtures(tmp_path_factory):
+    root = tmp_path_factory.mktemp("driver_data")
+    rng = np.random.default_rng(42)
+    dirs = {}
+    for kind, write, ext in (("avro", synth_avro, "avro"), ("libsvm", synth_libsvm, "txt")):
+        for split, n in (("train", 200), ("val", 80)):
+            d = root / kind / split
+            d.mkdir(parents=True)
+            write(str(d / f"part-0.{ext}"), rng, n=n)
+        dirs[kind] = (str(root / kind / "train"), str(root / kind / "val"))
+    return dirs
+
+
+GRID = ["--regularization-weights", "10,1,0.1", "--convergence-tolerance", "1e-4"]
+BOX = json.dumps([{"name": "4", "term": "", "lowerBound": -0.05, "upperBound": 0.05}])
+AVRO_BOX = json.dumps([{"name": "f4", "term": "", "lowerBound": -0.05, "upperBound": 0.05}])
+CASES = {
+    "avro_sequential_box": ("avro", GRID + [
+        "--grid-mode", "sequential", "--compute-variances", "true",
+        "--coefficient-box-constraints", AVRO_BOX]),
+    "avro_batched_tiled_box": ("avro", GRID + [
+        "--grid-mode", "batched", "--kernel", "tiled",
+        "--coefficient-box-constraints", AVRO_BOX]),
+    "avro_sequential_variances": ("avro", GRID + [
+        "--grid-mode", "sequential", "--compute-variances", "true"]),
+    "avro_batched_standardized": ("avro", GRID + [
+        "--grid-mode", "batched", "--normalization-type", "STANDARDIZATION",
+        "--compute-variances", "true"]),
+    "libsvm_sequential_box": ("libsvm", GRID + [
+        "--input-file-format", "LIBSVM", "--grid-mode", "sequential",
+        "--coefficient-box-constraints", BOX]),
+    "libsvm_batched_dimension": ("libsvm", GRID + [
+        "--input-file-format", "LIBSVM", "--feature-dimension", "8",
+        "--grid-mode", "batched", "--compute-variances", "true"]),
+    "avro_tiled_variances": ("avro", GRID + [
+        "--grid-mode", "sequential", "--kernel", "tiled", "--num-iterations", "4",
+        "--compute-variances", "true"]),
+}
+
+
+def _run_both(tmp_path, fixtures, case):
+    kind, extra = CASES[case]
+    train, val = fixtures[kind]
+    argv = ["--training-data-directory", train, "--validating-data-directory", val] + extra
+    ref = ref_driver.GLMDriver(ref_driver.params_from_args(
+        argv + ["--output-directory", str(tmp_path / "ref"), "--distributed", "off",
+                "--summarization-output-dir", str(tmp_path / "ref_summary")]))
+    ref.run()
+    port = glm_driver.main(
+        argv + ["--output-directory", str(tmp_path / "port"), "--device", "cpu",
+                "--summarization-output-dir", str(tmp_path / "port_summary")])
+    return ref, port
+
+
+def _summary(path):
+    _, records = read_container(str(path / "part-00000.avro"))
+    return {(r["featureName"], r["featureTerm"]): r["metrics"] for r in records}
+
+
+def _log_headers(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return [ln for ln in lines if ln.startswith("lambda=")], len(lines)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_driver_matches_reference(tmp_path, fixtures, case):
+    ref, port = _run_both(tmp_path, fixtures, case)
+    out, ref_out = tmp_path / "port", tmp_path / "ref"
+    assert [s.name for s in port.stage_history] == [s.name for s in ref.stage_history]
+    assert (out / "feature-index" / "index.json").read_bytes() == \
+        (ref_out / "feature-index" / "index.json").read_bytes()
+    assert port.best_lambda == ref.best_lambda
+    assert sorted(port.models) == sorted(ref.models) == [0.1, 1.0, 10.0]
+    for lam, ref_model in ref.models.items():
+        got = port.models[lam].coefficients
+        want = ref_model.coefficients
+        assert_close_to_scale(got.means, np.asarray(want.means), rtol=1e-4)
+        assert (got.variances is None) == (want.variances is None)
+        if want.variances is not None:
+            assert_close_to_scale(got.variances, np.asarray(want.variances), rtol=1e-4)
+        metrics, ref_metrics = port.validation_metrics[lam], ref.validation_metrics[lam]
+        assert sorted(metrics) == sorted(ref_metrics)
+        for name, value in ref_metrics.items():
+            assert abs(metrics[name] - value) <= 1e-5, (lam, name)
+    assert _log_headers(out / "optimization-log.txt") == \
+        _log_headers(ref_out / "optimization-log.txt")
+    payload = json.loads((out / "metrics.json").read_text())
+    ref_payload = json.loads((ref_out / "metrics.json").read_text())
+    assert sorted(payload) == sorted(ref_payload)
+    assert sorted(payload["timers"]) == sorted(ref_payload["timers"])
+    assert payload["best_lambda"] == ref_payload["best_lambda"]
+    assert sorted(os.listdir(out / "models-text")) == sorted(os.listdir(ref_out / "models-text"))
+    # the feature summary: the same features and statistics (f32 sums in
+    # another order: rtol 1e-6)
+    summary, ref_summary = _summary(tmp_path / "port_summary"), _summary(tmp_path / "ref_summary")
+    assert sorted(summary) == sorted(ref_summary)
+    for key, metrics in ref_summary.items():
+        assert sorted(summary[key]) == sorted(metrics)
+        for name, value in metrics.items():
+            assert summary[key][name] == pytest.approx(value, rel=1e-6, abs=1e-6), (key, name)
+    # the written models read back to the trained ones
+    imap = IndexMap.load(str(out / "feature-index" / "index.json"))
+    loaded = load_glm_models_avro(str(out / "models" / "models.avro"), imap, device="cpu")
+    for lam, model in port.models.items():
+        torch.testing.assert_close(loaded[str(lam)].means, model.means, rtol=0, atol=0)
+
+
+def _options(parser):
+    return {s for action in parser._actions for s in action.option_strings}
+
+
+def test_parser_takes_the_reference_options():
+    assert _options(glm_driver.build_arg_parser()) == \
+        _options(ref_driver.build_arg_parser()) | {"--device"}
+
+
+UNPORTED = [
+    (["--streaming", "true"], "item 11"),
+    (["--stream-memory-budget", "1024"], "item 11"),
+    (["--scan-cache-dir", "/c"], "item 11"),
+    (["--diagnostic-mode", "ALL"], "item 8, diagnostics"),
+    (["--training-diagnostics", "true"], "item 8, diagnostics"),
+    (["--offheap-indexmap-dir", "/i"], "item 8, the feature-indexing driver"),
+    (["--validate-per-iteration", "true", "--validating-data-directory", "v"],
+     "item 9, track_models"),
+    (["--distributed", "feature"], "item 13"),
+    (["--model-shards", "2"], "item 13"),
+    (["--coordinator-address", "localhost:1234", "--num-processes", "2",
+      "--process-id", "0"], "item 13"),
+    (["--checkpoint-dir", "/k"], "item 12"),
+    (["--fault-plan", "chunk_read:1:EIO"], "item 12"),
+    (["--retrain-from", "/r"], "item 15"),
+    (["--publish-registry", "/r"], "item 15"),
+    (["--gate-max-auc-drop", "0.1"], "item 15"),
+    (["--obs-dir", "/o"], "item 15"),
+    (["--profile-dir", "/p"], "item 15"),
+]
+
+
+@pytest.mark.parametrize("extra,item", UNPORTED, ids=[u[0][0] for u in UNPORTED])
+def test_unported_options_raise_naming_their_item(tmp_path, extra, item):
+    argv = ["--training-data-directory", "t", "--output-directory",
+            str(tmp_path / "out"), "--device", "cpu"] + extra
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        glm_driver.main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_accepted_options_parse(tmp_path):
+    """The Spark-only knobs and --no-overlap are accepted."""
+    p = glm_driver.params_from_args([
+        "--training-data-directory", "t", "--output-directory", "o", "--kryo", "true",
+        "--min-partitions", "4", "--tree-aggregate-depth", "2", "--no-overlap", "true",
+        "--format", "LIBSVM", "--training-diagnostics", "false", "--device", "cpu",
+    ])
+    p.validate()
+    assert p.no_overlap and p.input_format == "LIBSVM" and p.device == "cpu"
+
+
+def test_output_dir_guard(tmp_path, fixtures):
+    train, _ = fixtures["avro"]
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "stale").write_text("x")
+    argv = ["--training-data-directory", train, "--output-directory", str(out),
+            "--regularization-weights", "1", "--device", "cpu"]
+    with pytest.raises(ValueError, match="non-empty"):
+        glm_driver.main(argv)
+    driver = glm_driver.main(argv + ["--delete-output-dirs-if-exist", "true"])
+    assert not (out / "stale").exists()
+    assert (out / "metrics.json").is_file() and driver.best_model is None
+
+
+def test_the_card_is_the_default_device(tmp_path, fixtures, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    train, _ = fixtures["avro"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        glm_driver.main(["--training-data-directory", train,
+                         "--output-directory", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+class Recorder:
+    """An event listener named on the command line (``--event-listeners``)."""
+
+    events = []
+
+    def on_event(self, event):
+        Recorder.events.append(event)
+
+    def close(self):
+        Recorder.events.append("closed")
+
+
+def test_event_listeners_see_the_training_events(tmp_path, fixtures):
+    train, _ = fixtures["libsvm"]
+    Recorder.events = []
+    glm_driver.main([
+        "--training-data-directory", train, "--output-directory", str(tmp_path / "out"),
+        "--input-file-format", "LIBSVM", "--regularization-weights", "1,0.1",
+        "--kernel", "tiled", "--tile-cache-dir", str(tmp_path / "cache"),
+        "--event-listeners", f"{__name__}.Recorder", "--device", "cpu",
+    ])
+    names = [e if isinstance(e, str) else type(e).__name__ for e in Recorder.events]
+    assert names == [
+        "TrainingStartEvent", "PhotonOptimizationLogEvent", "PhotonOptimizationLogEvent",
+        "ScheduleCacheEvent", "TrainingFinishEvent", "closed",
+    ]
+    assert [e.reg_weight for e in Recorder.events[1:3]] == [1.0, 0.1]
+    assert Recorder.events[3].stats["stores"] >= 2

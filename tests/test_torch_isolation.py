@@ -58,7 +58,59 @@ def test_fresh_interpreter_imports_no_jax():
         capture_output=True, text=True,
     ).stdout.split()
     assert "photon_ml_tpu_torch.training" in out
+    assert "photon_ml_tpu_torch.cli.glm_driver" in out
     assert not [m for m in out if _forbidden(m)]
+
+
+_BLOCKER = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'photon_ml_tpu'):\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n"
+)
+
+
+def test_cpu_driver_runs_where_jax_cannot_be_imported(tmp_path):
+    """``python -m photon_ml_tpu_torch.cli.glm_driver ... --device cpu`` in
+    a process where importing jax or the JAX package fails, over Avro (the
+    native decoder) and LibSVM files."""
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    rng = np.random.default_rng(0)
+    rows = [(rng.choice(6, size=3, replace=False), rng.normal(size=3)) for _ in range(40)]
+    labels = [int(v.sum() > 0) for _, v in rows]
+    (tmp_path / "svm").mkdir()
+    (tmp_path / "svm" / "part-0").write_text("".join(
+        f"{y} " + " ".join(f"{i + 1}:{x:.6g}" for i, x in zip(ix, v)) + "\n"
+        for (ix, v), y in zip(rows, labels)
+    ))
+    (tmp_path / "avro").mkdir()
+    write_container(str(tmp_path / "avro" / "part-0.avro"), schemas.TRAINING_EXAMPLE_AVRO, [
+        {"label": float(y), "features": [
+            {"name": f"f{i}", "term": "", "value": float(x)} for i, x in zip(ix, v)]}
+        for (ix, v), y in zip(rows, labels)
+    ])
+    for kind, extra in (("svm", ["--input-file-format", "LIBSVM"]), ("avro", [])):
+        argv = [
+            "--training-data-directory", str(tmp_path / kind),
+            "--validating-data-directory", str(tmp_path / kind),
+            "--output-directory", str(tmp_path / f"out-{kind}"),
+            "--regularization-weights", "1,0.1", "--device", "cpu", *extra,
+        ]
+        code = _BLOCKER + (
+            "import runpy\n"
+            f"sys.argv = ['glm_driver'] + {argv!r}\n"
+            "runpy.run_module('photon_ml_tpu_torch.cli.glm_driver', run_name='__main__')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'photon_ml_tpu'))\n"
+            "assert not bad, bad\n"
+        )
+        subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                       capture_output=True, text=True, timeout=300)
+        assert (tmp_path / f"out-{kind}" / "best-model" / "model.avro").is_file()
 
 
 def test_sources_import_no_jax():

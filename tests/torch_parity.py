@@ -72,3 +72,25 @@ def port_tiled_batch(ref_tb):
         np.asarray(ref_tb.weights),
         device="cpu",
     )
+
+
+def training_examples(seed, n=60, d=12):
+    """TrainingExampleAvro records with nulls, weights, offsets, metadata
+    and an empty feature bag among them."""
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(n):
+        k = int(rng.integers(0, 5))
+        ix = rng.choice(d, size=k, replace=False)
+        recs.append({
+            "uid": None if i % 7 == 0 else f"u{i}",
+            "label": float(rng.integers(0, 2)),
+            "features": [
+                {"name": f"f{j}", "term": "t" if j % 3 else "", "value": float(v)}
+                for j, v in zip(ix, rng.normal(size=k))
+            ],
+            "metadataMap": None if i % 2 else {"k": f"v{i}"},
+            "weight": None if i % 5 == 0 else float(rng.uniform(0.5, 2.0)),
+            "offset": None if i % 4 == 0 else float(rng.normal()),
+        })
+    return recs
