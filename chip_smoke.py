@@ -51,7 +51,10 @@ Phases, each printing its own lines:
    1), ``train_grid_batched_feature_sharded`` (L-BFGS over the four grid
    lambdas) and the data-parallel ``train_generalized_linear_model(mesh=)``
    on a 4-rank data mesh, each against phase 4's or 5's fit of its lambda,
-   with every rank's launches, host fetches, collectives and seconds. Four
+   with every rank's launches, host fetches, collectives and seconds; then
+   the TRON fit twice more with ``tile_cache_dir`` and ``track_models``:
+   every rank stores its cell cold and loads it warm, the warm fit equals
+   the cold one and each fit has one per-iteration model per iterate. Four
    ranks share one card and gloo stages each collective through the host:
    this checks the path and counts it; it measures no scaling;
 7. the GLM driver end to end through its CLI entry point,
@@ -69,11 +72,23 @@ Phases, each printing its own lines:
    batch the port's LibSVM loader gives, with a wrong model as the
    control (two identical fits with the intercept part by percents in
    their coefficients: float-atomic sums on an ill-conditioned path).
-   Then run C, run A with ``--intercept false`` and no validation, whose
-   lambda = 1 model must be within 1e-4 of the direct trainer's on that
-   batch without its intercept column;
+   Each lambda's stop reason and gradient max-abs for A, B and the direct
+   fit: a fit that stops for another reason than convergence or its
+   budget with 10x the others' gradient fails, and so does a coefficient
+   spread (intercept_spread) over 5e-2 of their max-abs. Then run D over
+   run A's files: ``feature_indexing_driver.main`` builds the off-heap
+   index store (checked against the files' keys and run A's index map),
+   and ``glm_driver.main`` trains at lambda = 1 over it (K1) with
+   ``--validate-per-iteration true --diagnostic-mode ALL``: one
+   per-iteration metric per iterate ending at the final model's, the HTML
+   report with every chapter and section and only finite numbers, the
+   bootstrap and fitting refits through K1, and the objective within 1e-4
+   of run A's. Then run C, run A with ``--intercept false`` and no
+   validation, whose lambda = 1 model must be within 1e-4 of the direct
+   trainer's on that batch without its intercept column;
 8. a ``kernels`` JSON line (with each kernel's launches in the driver
-   runs), the nvidia-smi line, and the last line
+   runs and K1's in run D's diagnose stage), the nvidia-smi line, and the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -116,6 +131,21 @@ DRIVER_RTOL = 1e-4  # run C's model vs the direct trainer, of the max-abs
 # 1e-6 above the optimum (the batched grid, without warm starts, the
 # furthest), and a model of the other lambda is percents off.
 DRIVER_OBJ_RTOL = 1e-4
+# runs A and B vs the direct fit, the coefficients' max-abs difference over
+# their max-abs: 2x the largest spread measured between two identical fits
+# with the intercept (2.4e-2, NVIDIA H100 80GB HBM3 at 700 W), a guard
+# against a regression rather than an agreement
+INTERCEPT_SPREAD_LIMIT = 5e-2
+# a fit that stops for another reason than convergence or its budget with
+# a gradient max-abs this many times the other fits' at its lambda fails
+GRADIENT_RATIO_LIMIT = 10.0
+# stop reasons that end a fit normally
+DONE_REASONS = ("FunctionValuesWithinTolerance", "GradientWithinTolerance", "MaxIterations")
+# run D (feature-indexing driver, per-iteration validation, diagnostics):
+# the reference's refits, 5 bootstrap resamples and 5 training portions,
+# each at least two evaluations of one z-pass and one g-pass
+DIAGNOSTIC_REFITS = 10
+DIAGNOSE_MIN_K1 = DIAGNOSTIC_REFITS * 2 * 2
 
 
 def say(*parts):
@@ -431,14 +461,17 @@ def cell_times(k1, k2, tb, rows, feats, vals, rng):
     return times
 
 
-def mesh_rank(mesh, seed, w_eval):
+def mesh_rank(mesh, seed, w_eval, cache_dir):
     """One rank of the mesh phase (a spawned process); -> its numbers. It
     makes the phase-4 data from the seed, builds its own cell, checks K1
     and K2 on it, and runs the mesh path's fits, each with every count at
-    0 just before it and read just after."""
+    0 just before it and read just after; the TRON fit twice more with
+    ``tile_cache_dir=cache_dir`` and ``track_models``, cold then warm."""
     import hashlib
 
     import torch.distributed as dist
+
+    from photon_ml_tpu_torch.ops import schedule_cache
 
     from photon_ml_tpu_torch.data.batch import sparse_batch_from_arrays
     from photon_ml_tpu_torch.ops import losses
@@ -452,6 +485,7 @@ def mesh_rank(mesh, seed, w_eval):
     from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
     from photon_ml_tpu_torch.task import TaskType
     from photon_ml_tpu_torch.training import (
+        iteration_models,
         train_feature_sharded,
         train_generalized_linear_model,
         train_grid_batched_feature_sharded,
@@ -527,10 +561,12 @@ def mesh_rank(mesh, seed, w_eval):
     def counted(fn):
         k1.launches = k2.launches = 0
         common.host_fetches = common.collectives = 0
+        schedule_cache.reset_stats()
         t0 = time.perf_counter()
         models, results = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        cache = schedule_cache.stats()
         fits = {}
         for lam, model in models.items():
             means, variances = model.coefficients.means, model.coefficients.variances
@@ -545,10 +581,15 @@ def mesh_rank(mesh, seed, w_eval):
                 variances=variances is not None,
                 digest=hashlib.sha256(means.cpu().numpy().tobytes()).hexdigest()[:16],
             )
+            if results[lam].tracker.coefs is not None:
+                tracked = iteration_models(results[lam], task)
+                fits[lam]["tracked"] = len(tracked)
+                fits[lam]["last_is_final"] = bool(torch.equal(tracked[-1].means, means))
         return dict(
             seconds=seconds, k1=k1.launches, k2=k2.launches,
             fetches=common.host_fetches, collectives=common.collectives,
-            fits=fits,
+            fits=fits, cache_hits=cache.hits, cache_builds=cache.builds,
+            cache_stores=cache.stores,
         )
 
     task = TaskType.LOGISTIC_REGRESSION
@@ -561,6 +602,14 @@ def mesh_rank(mesh, seed, w_eval):
         batch, task, DIM, mesh=mesh, regularization_weights=[1.0], max_iter=3,
         optimizer_type=OptimizerType.TRON, **l2,
     ))
+    # the same fit through the schedule cache with per-iteration models:
+    # cold (each rank stores its cell), then warm (each rank loads it)
+    for label in ("tron_cache_cold", "tron_cache_warm"):
+        out[label] = counted(lambda: train_feature_sharded(
+            batch, task, DIM, mesh=mesh, regularization_weights=[1.0], max_iter=3,
+            optimizer_type=OptimizerType.TRON, tile_cache_dir=cache_dir,
+            track_models=True, **l2,
+        ))
     out["grid"] = counted(lambda: train_grid_batched_feature_sharded(
         batch, task, DIM, mesh=mesh, regularization_weights=GRID_LAMBDAS,
         max_iter=10, compute_variances=True, **l2,
@@ -644,11 +693,11 @@ def objective64(batch, means, lam):
     return float(value), float((grad + lam * w).abs().max())
 
 
-def driver_run(label, argv, out, k1, k2, smi, outputs=DRIVER_OUTPUTS):
+def driver_run(label, argv, out, k1, k2, smi, outputs=DRIVER_OUTPUTS, keep_driver=False):
     """One ``glm_driver.main(argv)`` with the launch and cache counters
     set to 0 just before it; fails unless it writes ``outputs``; -> its
     record (output dir, seconds, launches, timers, metrics.json,
-    iterations)."""
+    iterations, stop reasons; the driver itself with ``keep_driver``)."""
     from photon_ml_tpu_torch.cli import glm_driver
     from photon_ml_tpu_torch.ops import schedule_cache
 
@@ -668,15 +717,18 @@ def driver_run(label, argv, out, k1, k2, smi, outputs=DRIVER_OUTPUTS):
         out=out, seconds=seconds, k1=k1.launches, k2=k2.launches,
         timers=driver.timer.durations, metrics=metrics,
         iterations={lam: r.iterations for lam, r in driver.results.items()},
+        reasons={lam: r.reason_name for lam, r in driver.results.items()},
     )
+    if keep_driver:
+        run["driver"] = driver
     timers = " ".join(
         f"{k}={driver.timer.durations[k]!r}"
-        for k in ("preprocess", "train", "validate", "write")
+        for k in ("preprocess", "train", "validate", "diagnose", "write")
         if k in driver.timer.durations
     )
     say(f"driver run {label} ({smi}): {seconds!r} s; stage timers s: {timers}; "
         f"K1 launches {k1.launches}, K2 launches {k2.launches}; iterations "
-        f"{run['iterations']}; train rows per second of preprocess "
+        f"{run['iterations']}, stop reasons {run['reasons']}; train rows per second of preprocess "
         f"{DRIVER_TRAIN_ROWS / driver.timer.durations['preprocess']!r}")
     sc = metrics["schedule_cache"]
     say(f"driver run {label} schedule cache ({smi}): builds={sc['builds']} "
@@ -791,24 +843,40 @@ def driver_phase(seed, smi, k1, k2):
             intercept_index=direct.intercept_index, **fit,
         )
         _, g0 = objective64(batch, torch.zeros_like(d_models[1.0].means), 1.0)
+        objectives = {}  # (run, lambda) -> objective
         for lam in (10.0, 1.0):
             ref = d_models[lam].means
             f_ref, g_ref = objective64(batch, ref, lam)
             say(f"driver direct lambda={lam} ({smi}): objective {f_ref!r}, "
                 f"gradient max-abs {g_ref!r} ({g0!r} at 0), iterations "
-                f"{d_results[lam].iterations}")
+                f"{d_results[lam].iterations}, stop reason {d_results[lam].reason_name}")
+            # the stop reason and the gradient max-abs at each returned point
+            # (no box: the projected gradient is the gradient)
+            stops = {"direct": (d_results[lam].reason_name, g_ref)}
             for label, run in runs.items():
                 m = run["models"][str(lam)].means
                 f_run, g_run = objective64(batch, m, lam)
                 rel = (f_run - f_ref) / abs(f_ref)
                 spread = float((m - ref).abs().max() / ref.abs().max())
+                stops[label] = (run["reasons"][lam], g_run)
+                objectives[label, lam] = f_run
                 say(f"driver run {label} lambda={lam} vs the direct fit ({smi}): "
                     f"objective {f_run!r}, relative difference {rel!r}; gradient "
-                    f"max-abs {g_run!r}; coefficients part by {spread!r} of their "
-                    f"max-abs (information)")
+                    f"max-abs {g_run!r}, stop reason {run['reasons'][lam]}; "
+                    f"intercept_spread {spread!r} of the coefficients' max-abs "
+                    f"(limit {INTERCEPT_SPREAD_LIMIT})")
                 if not abs(rel) <= DRIVER_OBJ_RTOL:
                     fail(f"driver run {label} lambda={lam}: objective off the "
                          "direct fit's")
+                if not spread <= INTERCEPT_SPREAD_LIMIT:
+                    fail(f"driver run {label} lambda={lam}: intercept_spread {spread!r} "
+                         f"over {INTERCEPT_SPREAD_LIMIT}")
+            for label, (reason, g) in stops.items():
+                others = max(g_o for other, (_, g_o) in stops.items() if other != label)
+                if reason not in DONE_REASONS and g > GRADIENT_RATIO_LIMIT * others:
+                    fail(f"driver {label} lambda={lam} stopped ({reason}) with a "
+                         f"gradient max-abs {g!r}, over {GRADIENT_RATIO_LIMIT}x the "
+                         f"other fits' {others!r}")
         # the check tells models apart: run A's lambda = 10 model at lambda = 1
         f_wrong, _ = objective64(batch, a["models"]["10.0"].means, 1.0)
         f_ref, _ = objective64(batch, d_models[1.0].means, 1.0)
@@ -817,6 +885,10 @@ def driver_phase(seed, smi, k1, k2):
             f"objective relative difference {rel!r}")
         if abs(rel) <= DRIVER_OBJ_RTOL:
             fail("the objective check does not tell the lambda = 10 model apart")
+
+        runs["D"] = diagnostics_run(
+            train_dir, val_dir, tmp, index_map, batch, objectives["A", 1.0], k1, k2, smi,
+        )
 
         # run C: without the intercept, the coefficients themselves. The
         # loader appends the intercept after a row's entries and pads the
@@ -852,7 +924,127 @@ def driver_phase(seed, smi, k1, k2):
             f"{err!r} of the coefficients' max-abs")
         if not err <= DRIVER_RTOL:
             fail("driver run C's lambda=1 model is off the direct trainer's")
-    return {label: {"k1": r["k1"], "k2": r["k2"]} for label, r in runs.items()}
+    out = {label: {"k1": r["k1"], "k2": r["k2"]} for label, r in runs.items()}
+    out["D"]["diagnose_k1"] = runs["D"]["diagnose_k1"]
+    return out
+
+
+DIAGNOSTIC_CHAPTERS = ("Model lambda=1.0", "Bootstrap analysis", "Fitting analysis")
+DIAGNOSTIC_SECTIONS = (
+    "Feature importance", "Hosmer-Lemeshow calibration",
+    "Prediction-error independence (Kendall tau)",
+    "Bootstrap (5 resamples, lambda=1.0)", "Learning curves",
+)
+
+
+def diagnostics_run(train_dir, val_dir, tmp, a_index_map, batch, f_a, k1, k2, smi):
+    """Run D of phase 7, over run A's files: ``feature_indexing_driver.main``
+    builds the off-heap store, then ``glm_driver.main`` trains over it at
+    lambda = 1 (sequential, K1; the intercept on, no variances) with
+    per-iteration validation and every diagnostic. Fails unless the store
+    holds exactly the training files' keys and the intercept, each of
+    them a key of run A's index map, as a bijection onto [0, size); the
+    per-iteration metrics are one per iterate and the last is the final
+    model's; the HTML report holds every chapter and section the
+    reference's report writes, with finite numbers only; the refits
+    launched K1 (at least DIAGNOSE_MIN_K1 times in the diagnose stage);
+    and the lambda = 1 model, read back in run A's index space, is within
+    DRIVER_OBJ_RTOL of run A's objective ``f_a``; -> its record."""
+    import re
+
+    from photon_ml_tpu_torch.cli import feature_indexing_driver, glm_driver
+    from photon_ml_tpu_torch.io.model_io import load_glm_models_avro
+    from photon_ml_tpu_torch.utils.index_map import feature_key, intercept_key
+    from photon_ml_tpu_torch.utils.native_index import load_offheap_index_map
+
+    t0 = time.perf_counter()
+    feature_indexing_driver.main([
+        "--input-paths", train_dir, "--output-dir", f"{tmp}/store", "--format", "LIBSVM",
+    ])
+    index_s = time.perf_counter() - t0
+    store = load_offheap_index_map(f"{tmp}/store")
+    cols = batch.indices[:, :NNZ_PER_ROW]
+    present = torch.unique(cols[batch.values[:, :NNZ_PER_ROW] != 0]).cpu().tolist()
+    keys = [feature_key(str(i)) for i in present] + [intercept_key()]
+    got = store._stores[0].get_indices(keys) if len(store._stores) == 1 else np.array(
+        [store.get_index(k) for k in keys])
+    bijection = sorted(got.tolist()) == list(range(store.size))
+    in_a = all(a_index_map.get_index(k) >= 0 for k in keys)
+    say(f"driver run D store ({smi}): {store.size} keys ({len(present)} features of the "
+        f"training files + the intercept) built in {index_s!r} s; a bijection onto "
+        f"[0, size): {bijection}; every key in run A's index map: {in_a}")
+    if store.size != len(keys) or not bijection or not in_a:
+        fail("run D's index store does not hold exactly the training files' keys")
+    if store.get_feature_name(int(got[0])) != keys[0]:
+        fail("run D's index store does not map an index back to its key")
+    store.close()
+
+    # the diagnose stage's launches: K1's count read on entering and leaving it
+    at_diagnose = {}
+    run_diagnostics = glm_driver.run_glm_diagnostics
+
+    def counted_diagnostics(driver):
+        at_diagnose["start"] = k1.launches
+        run_diagnostics(driver)
+        at_diagnose["end"] = k1.launches
+
+    glm_driver.run_glm_diagnostics = counted_diagnostics
+    try:
+        d = driver_run("D", [
+            "--training-data-directory", train_dir, "--validating-data-directory", val_dir,
+            "--input-file-format", "LIBSVM", "--offheap-indexmap-dir", f"{tmp}/store",
+            "--regularization-weights", "1", "--optimizer", "LBFGS",
+            "--validate-per-iteration", "true", "--diagnostic-mode", "ALL",
+            "--grid-mode", "sequential",
+        ], f"{tmp}/out-D", k1, k2, f"sequential, diagnostics, {smi}", keep_driver=True)
+    finally:
+        glm_driver.run_glm_diagnostics = run_diagnostics
+    driver = d.pop("driver")
+    diag_k1 = at_diagnose["end"] - at_diagnose["start"]
+    say(f"driver run D diagnose ({smi}): {diag_k1} K1 launches over "
+        f"{DIAGNOSTIC_REFITS} refits in {d['timers']['diagnose']!r} s; "
+        f"{d['k1'] - diag_k1} K1 launches in the fit; K2 launches {d['k2']}")
+    if diag_k1 < DIAGNOSE_MIN_K1 or d["k2"]:
+        fail(f"run D's refits launched {diag_k1} K1 (at least {DIAGNOSE_MIN_K1}) "
+             f"and {d['k2']} K2")
+
+    per_iter = driver.per_iteration_metrics[1.0]
+    final = driver.validation_metrics[1.0]
+    last_gap = max(abs(per_iter[-1][k] - v) for k, v in final.items())
+    say(f"driver run D per-iteration validation: {len(per_iter)} entries for "
+        f"{d['iterations'][1.0]} iterations; first {per_iter[0]}, last {per_iter[-1]}, "
+        f"final {final}; last vs final {last_gap!r}")
+    if len(per_iter) != d["iterations"][1.0] + 1 or not last_gap <= 1e-6:
+        fail("run D's per-iteration metrics do not end at the final model's")
+    if d["metrics"]["per_iteration_validation"]["1.0"] != per_iter:
+        fail("run D's metrics.json does not hold the per-iteration metrics")
+
+    report = f"{d['out']}/model-diagnostics/report.html"
+    if not os.path.isfile(report):
+        fail("run D wrote no diagnostics report")
+    with open(report) as f:
+        html = f.read()
+    missing = [t for t in DIAGNOSTIC_CHAPTERS + DIAGNOSTIC_SECTIONS if t not in html]
+    text = re.sub(r"<[^>]*>", " ", html)
+    numbers = re.findall(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?", text)
+    bad = re.findall(r"\b(?:nan|inf)\b", html, flags=re.IGNORECASE)
+    say(f"driver run D report ({smi}): {len(html)} bytes, {len(numbers)} numbers, "
+        f"missing titles {missing}, non-finite {bad}")
+    if missing or bad or not numbers:
+        fail("run D's report lacks a chapter or section, or holds a non-finite number")
+
+    # run D's model in run A's index space (the model file maps names)
+    d_model = load_glm_models_avro(
+        f"{d['out']}/models/models.avro", a_index_map, device="cuda")["1.0"]
+    f_d, g_d = objective64(batch, d_model.means, 1.0)
+    rel = (f_d - f_a) / abs(f_a)
+    say(f"driver run D lambda=1 vs run A ({smi}): objective {f_d!r} vs {f_a!r}, "
+        f"relative difference {rel!r}; gradient max-abs {g_d!r}; "
+        f"stop reason {d['reasons'][1.0]}")
+    if not abs(rel) <= DRIVER_OBJ_RTOL:
+        fail("run D's lambda=1 objective is off run A's")
+    d["diagnose_k1"] = diag_k1
+    return d
 
 
 def main() -> int:
@@ -1264,13 +1456,14 @@ def main() -> int:
         torch.as_tensor(w_eval, device="cuda"), tb, 0.0
     )
     t0 = time.perf_counter()
-    try:
-        ranks = spawn_mesh(
-            mesh_rank, MESH_SHAPE, (DATA_AXIS, MODEL_AXIS),
-            args=(args.seed, w_eval), timeout_s=MESH_TIMEOUT_S,
-        )
-    except (RuntimeError, TimeoutError) as e:
-        fail(f"mesh phase: {e}")
+    with tempfile.TemporaryDirectory(prefix="photon_mesh_cells_") as mesh_cache:
+        try:
+            ranks = spawn_mesh(
+                mesh_rank, MESH_SHAPE, (DATA_AXIS, MODEL_AXIS),
+                args=(args.seed, w_eval, mesh_cache), timeout_s=MESH_TIMEOUT_S,
+            )
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"mesh phase: {e}")
     mesh_s = time.perf_counter() - t0
     cell_errs = {"k1": (0.0, 0.0), "k2": (0.0, 0.0)}
     for r in ranks:
@@ -1300,10 +1493,12 @@ def main() -> int:
     if not (v_err < RTOL and g_err < RTOL):
         fail("the mesh objective disagrees with the single-card objective")
     single = {
-        "lbfgs": results, "tron": tron_results,
+        "lbfgs": results, "tron": tron_results, "tron_cache_cold": tron_results,
+        "tron_cache_warm": tron_results,
         "grid": grid_runs["lbfgs"]["results"], "data_parallel": results,
     }
-    kernel_of = {"lbfgs": "k1", "tron": "k1", "grid": "k2", "data_parallel": "k1"}
+    kernel_of = {"lbfgs": "k1", "tron": "k1", "tron_cache_cold": "k1",
+                 "tron_cache_warm": "k1", "grid": "k2", "data_parallel": "k1"}
     mesh_launches = {"k1": 0, "k2": 0}
     for label, ref in single.items():
         runs = [r[label] for r in ranks]
@@ -1327,6 +1522,26 @@ def main() -> int:
                      "non-finite coefficients or variances")
             if any(run["fits"][lam] != fit for run in runs):
                 fail(f"mesh {label} lambda={lam}: the ranks disagree")
+            if "tracked" in fit and not (
+                fit["tracked"] == fit["iterations"] + 1 and fit["last_is_final"]
+            ):
+                fail(f"mesh {label} lambda={lam}: {fit['tracked']} per-iteration "
+                     f"models for {fit['iterations']} iterations")
+    # the schedule cache on the mesh: every rank stores its cell cold and
+    # loads it warm, and the warm fit is the cold one
+    for r in ranks:
+        cold, warm = r["tron_cache_cold"], r["tron_cache_warm"]
+        say(f"mesh_cache rank {r['rank']} ({smi}): cold builds={cold['cache_builds']} "
+            f"stores={cold['cache_stores']} {cold['seconds']!r} s; warm "
+            f"hits={warm['cache_hits']} builds={warm['cache_builds']} "
+            f"{warm['seconds']!r} s")
+        if cold["cache_stores"] < 2 or warm["cache_hits"] < 2 or warm["cache_builds"]:
+            fail(f"mesh rank {r['rank']}: the warm rerun did not load its cell "
+                 "from the schedule cache")
+        for lam, fit in warm["fits"].items():
+            f_cold = cold["fits"][lam]["value"]
+            if abs(fit["value"] - f_cold) > 1e-3 * abs(f_cold):
+                fail(f"mesh rank {r['rank']}: the cached rerun's fit is off the cold one")
     say(f"mesh phase: {mesh_s!r} s of host time, spawn to the last rank's end")
 
     # -- 7. the GLM driver end to end -------------------------------------------
@@ -1354,6 +1569,7 @@ def main() -> int:
         "max_rel_err": max(small_err[1], ads_err[1], edge_err["k1"][1]),
         **mesh_fields("k1", mesh_launches, cell, cell_errs),
         "driver_launches": {run: n["k1"] for run, n in driver_launches.items()},
+        "driver_diagnose_launches": driver_launches["D"]["diagnose_k1"],
     }, {
         "name": "grid_bilinear_pass",
         "route": "cuda",

@@ -6,9 +6,10 @@ in-memory path on one card).
         --training-data-directory DIR --output-directory OUT [options]
 
 Reference: photon-ml Driver.scala, a staged pipeline
-INIT -> PREPROCESSED -> TRAINED -> VALIDATED (DriverStage.scala:47-51;
-stage methods at Driver.scala:267-292 preprocess, 294-327 train, 329-413
-validate, main at 590-616), PhotonMLCmdLineParser.scala + OptionNames.scala
+INIT -> PREPROCESSED -> TRAINED -> VALIDATED -> DIAGNOSED
+(DriverStage.scala:47-51; stage methods at Driver.scala:267-292
+preprocess, 294-327 train, 329-413 validate (with per-iteration models),
+525-552 diagnose, 618-638 report, main at 590-616), PhotonMLCmdLineParser.scala + OptionNames.scala
 (the option names, kept verbatim) and Params.scala:200-222 (cross-field
 validation).
 
@@ -17,7 +18,9 @@ of paths not ported yet are rejected by :meth:`GLMParams.validate` with the
 ROADMAP item they wait for. The one option the port adds is ``--device``:
 the card by default (the driver raises without CUDA), ``cpu`` on request.
 Training goes through the tiled kernels on the card (``--kernel auto``): K1
-for the sequential λ-grid, K2 for the batched one.
+for the sequential λ-grid and the diagnostics' refits, K2 for the batched
+grid. ``--offheap-indexmap-dir`` reads a store that
+``cli/feature_indexing_driver.py`` built.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Dict, List, Optional
 
 from photon_ml_tpu_torch.data.stats import compute_summary
 from photon_ml_tpu_torch.data.validators import DataValidationType, sanity_check_data
+from photon_ml_tpu_torch.diagnostics.report import run_glm_diagnostics
 from photon_ml_tpu_torch.evaluation.metrics import (
     area_under_roc_curve,
     mean_pointwise_loss,
@@ -62,6 +66,7 @@ from photon_ml_tpu_torch.reliability.retry import retry_stats
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import (
     grid_result_scalars,
+    iteration_models,
     resolve_grid_mode,
     train_generalized_linear_model,
     train_grid_batched,
@@ -72,6 +77,7 @@ from photon_ml_tpu_torch.utils.date_range import (
 )
 from photon_ml_tpu_torch.utils.device import resolve_device
 from photon_ml_tpu_torch.utils.index_map import split_feature_key
+from photon_ml_tpu_torch.utils.native_index import load_offheap_index_map
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
 
 
@@ -197,18 +203,6 @@ class GLMParams:
         need(self.streaming, "--streaming", "item 11")
         need(bool(self.stream_memory_budget), "--stream-memory-budget", "item 11")
         need(self.scan_cache_dir is not None, "--scan-cache-dir", "item 11")
-        need(
-            self.diagnostic_mode != DiagnosticMode.NONE,
-            "--diagnostic-mode (and --training-diagnostics) other than NONE",
-            "item 8, diagnostics",
-        )
-        need(
-            self.offheap_indexmap_dir is not None
-            or self.offheap_indexmap_num_partitions is not None,
-            "--offheap-indexmap-dir", "item 8, the feature-indexing driver",
-        )
-        need(self.validate_per_iteration, "--validate-per-iteration true",
-             "item 9, track_models")
         need(self.distributed == "feature", "--distributed feature", "item 13")
         need(self.model_shards is not None, "--model-shards", "item 13")
         need(
@@ -273,6 +267,8 @@ class GLMParams:
             raise ValueError("diagnostic-reservoir-rows must be >= 1")
         if self.diagnostic_reservoir_bytes < 1:
             raise ValueError("diagnostic-reservoir-bytes must be >= 1")
+        if self.validate_per_iteration and not self.validate_dir:
+            raise ValueError("validate-per-iteration requires a validating data directory")
         # the range strings fail here, not mid-preprocess
         resolve_date_range(self.train_date_range, self.train_date_range_days_ago)
         resolve_date_range(self.validate_date_range, self.validate_date_range_days_ago)
@@ -324,6 +320,8 @@ class GLMDriver:
         self.best_model = None
         self.best_lambda: Optional[float] = None
         self.validation_metrics: Dict[float, Dict[str, float]] = {}
+        # --validate-per-iteration: {lambda: [metrics of iteration 0, 1, ...]}
+        self.per_iteration_metrics: Dict[float, List[Dict[str, float]]] = {}
         self._data: Optional[LoadedData] = None
         self._norm: Optional[NormalizationContext] = None
         self._summary = None
@@ -353,8 +351,21 @@ class GLMDriver:
             train_paths = self._dated_paths(
                 p.train_dir, p.train_date_range, p.train_date_range_days_ago
             )
+            prebuilt = None
+            if p.offheap_indexmap_dir:
+                # a store from the feature-indexing driver replaces the
+                # vocabulary scan (PalDBIndexMapLoader analog)
+                prebuilt = load_offheap_index_map(
+                    p.offheap_indexmap_dir,
+                    num_partitions=p.offheap_indexmap_num_partitions,
+                )
+                self.logger.info(
+                    "offheap index map: %d features from %s",
+                    prebuilt.size, p.offheap_indexmap_dir,
+                )
             data = fmt.load(
-                train_paths, constraint_string=p.constraint_string, device=self.device
+                train_paths, index_map=prebuilt,
+                constraint_string=p.constraint_string, device=self.device,
             )
             self._data = data
             self.logger.info(
@@ -416,6 +427,7 @@ class GLMDriver:
                 intercept_index=data.intercept_index,
                 kernel=p.kernel,
                 device=self.device,
+                track_models=p.validate_per_iteration,
                 tile_cache_dir=p.tile_cache_dir,
             )
             self._log_results()
@@ -500,6 +512,8 @@ class GLMDriver:
             )
             sanity_check_data(vdata.batch, p.task, p.data_validation_type)
             self._validation_data = vdata
+            if p.validate_per_iteration:
+                self._validate_per_iteration(vdata)
             # select by AUC for classification, RMSE/loss otherwise
             # (ModelSelection.scala:36-63)
             maximize = p.task == TaskType.LOGISTIC_REGRESSION
@@ -522,6 +536,31 @@ class GLMDriver:
                     best = (lam, model, score)
             self.best_lambda, self.best_model, _ = best
         self._advance(DriverStage.VALIDATED)
+
+    def _validate_per_iteration(self, vdata) -> None:
+        """Metrics of every (lambda, iteration) model
+        (computeAndLogModelMetrics, Driver.scala:330-349)."""
+        p = self.params
+        for lam, result in self.results.items():
+            models = iteration_models(
+                result, p.task, self._norm, self._data.intercept_index
+            )
+            per_iter = [self._metrics_for(m, vdata.batch) for m in models]
+            self.per_iteration_metrics[lam] = per_iter
+            msg = "\n".join(
+                f"Iteration: [{i:6d}] " + " ".join(
+                    f"Metric: [{k}] value: {v}" for k, v in sorted(metrics.items())
+                )
+                for i, metrics in enumerate(per_iter)
+            )
+            self.logger.info("Model with lambda = %g:\n%s", lam, msg)
+
+    def diagnose(self) -> None:
+        """Model diagnostics and the HTML report (Driver.scala:525-552,
+        618-638)."""
+        with self.timer.time("diagnose"):
+            run_glm_diagnostics(self)
+        self._advance(DriverStage.DIAGNOSED)
 
     # -- outputs -----------------------------------------------------------
 
@@ -584,8 +623,9 @@ class GLMDriver:
                         )
         payload = {
             "validation": {str(k): v for k, v in self.validation_metrics.items()},
-            # --validate-per-iteration is not ported (ROADMAP item 9)
-            "per_iteration_validation": {},
+            "per_iteration_validation": {
+                str(k): v for k, v in self.per_iteration_metrics.items()
+            },
             "best_lambda": self.best_lambda,
             "timers": self.timer.durations,
             "schedule_cache": self._schedule_cache_stats,
@@ -600,6 +640,8 @@ class GLMDriver:
         self.train()
         if p.validate_dir:
             self.validate()
+        if p.diagnostic_mode != DiagnosticMode.NONE:
+            self.diagnose()
         with self.timer.time("write"):
             self._write_outputs()
         self.logger.info("stages: %s", [s.name for s in self.stage_history])
@@ -627,8 +669,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="start-end days ago, e.g. 90-1")
     ap.add_argument("--validate-date-range", default=None)
     ap.add_argument("--validate-date-range-days-ago", default=None)
-    ap.add_argument("--validate-per-iteration", default="false",
-                    help="true is not ported yet (ROADMAP item 9)")
+    ap.add_argument("--validate-per-iteration", default="false")
     ap.add_argument("--task", default="LOGISTIC_REGRESSION")
     ap.add_argument(
         "--format", default="TRAINING_EXAMPLE",
@@ -662,11 +703,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--coefficient-box-constraints", default=None)
     ap.add_argument("--selected-features-file", default=None)
     ap.add_argument("--summarization-output-dir", default=None)
-    ap.add_argument("--offheap-indexmap-dir", default=None,
-                    help="not ported yet (ROADMAP item 8)")
+    ap.add_argument(
+        "--offheap-indexmap-dir", default=None,
+        help="a feature index store built by "
+        "python -m photon_ml_tpu_torch.cli.feature_indexing_driver",
+    )
     ap.add_argument("--offheap-indexmap-num-partitions", type=int, default=None)
     ap.add_argument("--diagnostic-mode", default=None,
-                    help="only NONE is ported yet (ROADMAP item 8)")
+                    help="NONE | TRAIN | VALIDATE | ALL")
     ap.add_argument("--compute-variances", default="false")
     ap.add_argument("--delete-output-dirs-if-exist", default="false")
     ap.add_argument("--job-name", default="photon-ml-tpu")

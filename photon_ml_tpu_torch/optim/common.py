@@ -204,30 +204,50 @@ class BoxConstraints:
 class Tracker:
     """Per-iteration trace: slot i holds the value and gradient norm of
     iteration i (slot 0 the initial point) and ``count`` the filled slots.
-    A bank's tracker has a leading grid axis and a count per member."""
+    A bank's tracker has a leading grid axis and a count per member.
+
+    ``coefs`` (the reference's ``track_coefficients``, its ModelTracker
+    analog) is a buffer preallocated on the device, ``[G, cap, d]`` for a
+    bank: slot i holds the coefficients of iteration i. None unless the
+    optimizer was asked to track them. Writing it is a device copy per
+    trip and no host fetch."""
 
     values: Tensor  # [cap] or [G, cap]
     grad_norms: Tensor  # [cap] or [G, cap]
     count: Union[int, List[int]]
+    coefs: Optional[Tensor] = None  # [cap, d] or [G, cap, d]
 
     @classmethod
-    def start(cls, value: Tensor, grad_norm: Tensor, capacity: int) -> "Tracker":
+    def start(
+        cls, value: Tensor, grad_norm: Tensor, capacity: int,
+        coef: Optional[Tensor] = None,
+    ) -> "Tracker":
+        """Slot 0 of every member; ``coef`` ([G, d]) starts the coefficient
+        buffer when tracking."""
         values = value.new_zeros(value.shape + (capacity,))
         grad_norms = grad_norm.new_zeros(grad_norm.shape + (capacity,))
         values[..., 0] = value
         grad_norms[..., 0] = grad_norm
-        return cls(values, grad_norms, [1] * value.shape[0])
+        coefs = None
+        if coef is not None:
+            coefs = coef.new_zeros(coef.shape[:-1] + (capacity, coef.shape[-1]))
+            coefs[:, 0] = coef
+        return cls(values, grad_norms, [1] * value.shape[0], coefs)
 
     def record(
         self, trip: int, active: Tensor, value: Tensor, grad_norm: Tensor,
-        every: bool = False,
+        every: bool = False, coef: Optional[Tensor] = None,
     ):
         """Write slot ``trip`` of the active members (every active member
         has made exactly ``trip`` iterations); the host keeps the counts.
-        ``every`` as for :func:`select`."""
+        ``every`` as for :func:`select`; ``coef`` [G, d] is written when
+        the tracker holds coefficients. A frozen member's slots stay as
+        they are."""
         i = min(trip, self.values.shape[-1] - 1)
         self.values[:, i] = select(active, value, self.values[:, i], every)
         self.grad_norms[:, i] = select(active, grad_norm, self.grad_norms[:, i], every)
+        if self.coefs is not None:
+            self.coefs[:, i] = select(active, coef, self.coefs[:, i], every)
 
 
 @dataclass
@@ -258,7 +278,10 @@ class OptResult:
             grad_norm=self.grad_norm[i],
             iterations=self.iterations[i],
             reason=self.reason[i],
-            tracker=Tracker(t.values[i], t.grad_norms[i], t.count[i]),
+            tracker=Tracker(
+                t.values[i], t.grad_norms[i], t.count[i],
+                None if t.coefs is None else t.coefs[i],
+            ),
         )
 
 

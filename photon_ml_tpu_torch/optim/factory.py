@@ -56,12 +56,14 @@ def make_optimizer(
     box: Optional[BoxConstraints] = None,
     l1_mask: Optional[Tensor] = None,
     mesh: Optional[MeshReductions] = None,
+    track_coefficients: bool = False,
 ) -> Callable[..., OptResult]:
     """Build ``optimize(value_and_grad_fn, w0, l1_weight=0.0, hvp_fn=None,
     hvp_factory=None)``, one signature for L-BFGS, OWL-QN and TRON, over a
     vector ``w0`` [d] or a bank [G, d] (then ``l1_weight`` may be one
     weight per member). ``mesh``: the optimizers' reductions on a mesh of
-    ranks (``optim/common.py``)."""
+    ranks (``optim/common.py``). ``track_coefficients``: keep every
+    iterate in the result's tracker."""
     validate_optimizer_choice(config, regularization, loss_has_hessian=loss_has_hessian)
     use_owlqn = regularization.has_l1
 
@@ -76,19 +78,20 @@ def make_optimizer(
                 value_and_grad_fn, hvp_fn, w0,
                 max_iter=config.max_iter, tol=config.tolerance,
                 max_cg=config.tron_max_cg, box=box, hvp_factory=hvp_factory,
-                mesh=mesh,
+                mesh=mesh, track_coefficients=track_coefficients,
             )
         if use_owlqn:
             return minimize_owlqn(
                 value_and_grad_fn, w0, l1_weight,
                 max_iter=config.max_iter, tol=config.tolerance,
                 history=config.lbfgs_history, l1_mask=l1_mask, box=box,
-                mesh=mesh,
+                mesh=mesh, track_coefficients=track_coefficients,
             )
         return minimize_lbfgs(
             value_and_grad_fn, w0,
             max_iter=config.max_iter, tol=config.tolerance,
             history=config.lbfgs_history, box=box, mesh=mesh,
+            track_coefficients=track_coefficients,
         )
 
     return optimize

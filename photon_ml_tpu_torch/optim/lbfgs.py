@@ -179,14 +179,18 @@ def minimize_lbfgs(
     box: Optional[BoxConstraints] = None,
     ls_max_steps: int = 24,
     mesh: Optional[MeshReductions] = None,
+    track_coefficients: bool = False,
 ) -> OptResult:
     """Minimize a smooth objective (defaults: LBFGS.scala:152-156). ``w0``
     is [d], or a bank [G, d] whose ``value_and_grad_fn`` maps [G, d] ->
     ([G], [G, d]). ``mesh``: this rank's reductions when ``w0`` is its
-    feature block (or a replica) on a mesh of ranks (``optim/common.py``)."""
+    feature block (or a replica) on a mesh of ranks (``optim/common.py``).
+    ``track_coefficients``: keep every iterate in ``result.tracker.coefs``
+    (slot 0 the initial point)."""
     return _minimize_qn(
         value_and_grad_fn, w0, None, None, max_iter=max_iter, tol=tol,
         history=history, box=box, ls_max_steps=ls_max_steps, mesh=mesh,
+        track_coefficients=track_coefficients,
     )
 
 
@@ -202,6 +206,7 @@ def minimize_owlqn(
     box: Optional[BoxConstraints] = None,
     ls_max_steps: int = 24,
     mesh: Optional[MeshReductions] = None,
+    track_coefficients: bool = False,
 ) -> OptResult:
     """Minimize smooth(w) + l1_weight * ||l1_mask * w||_1 (OWL-QN).
 
@@ -211,16 +216,18 @@ def minimize_owlqn(
     projection (the reference's OWLQN inherits LBFGS's projection,
     OWLQN.scala:43-91, LBFGS.scala:77). The result's ``value`` is the
     total objective and ``grad_norm`` the pseudo-gradient's norm. ``mesh``
-    as for :func:`minimize_lbfgs` (``l1_mask`` is then this rank's block)."""
+    and ``track_coefficients`` as for :func:`minimize_lbfgs` (``l1_mask``
+    is then this rank's block)."""
     return _minimize_qn(
         value_and_grad_fn, w0, l1_weight, l1_mask, max_iter=max_iter, tol=tol,
         history=history, box=box, ls_max_steps=ls_max_steps, mesh=mesh,
+        track_coefficients=track_coefficients,
     )
 
 
 def _minimize_qn(
     vg, w0, l1_weight, l1_mask, *, max_iter, tol, history, box, ls_max_steps,
-    mesh,
+    mesh, track_coefficients,
 ) -> OptResult:
     if w0.dim() == 1:
         if l1_weight is not None:
@@ -228,7 +235,7 @@ def _minimize_qn(
         return _minimize_qn(
             as_bank_of_one(vg), w0[None], l1_weight, l1_mask, max_iter=max_iter,
             tol=tol, history=history, box=box, ls_max_steps=ls_max_steps,
-            mesh=mesh,
+            mesh=mesh, track_coefficients=track_coefficients,
         ).member(0)
     G, d = w0.shape
     owl = l1_weight is not None
@@ -246,7 +253,9 @@ def _minimize_qn(
         g0_norm = norm(_pseudo_gradient(w, g, l1_vec), mesh)
     else:
         f0, g0_norm = f, norm(g, mesh)
-    tracker = Tracker.start(f0, g0_norm, max_iter + 1)
+    tracker = Tracker.start(
+        f0, g0_norm, max_iter + 1, w if track_coefficients else None
+    )
     mem = _Memory.empty(G, history, d, w)
     reason = torch.where(g0_norm == 0.0, GRADIENT_WITHIN_TOLERANCE, NOT_CONVERGED)
     it = torch.zeros(G, dtype=torch.int64, device=w.device)
@@ -314,7 +323,7 @@ def _minimize_qn(
         f = select(active, f_new, f, every)
         g = select(active, ls.g, g, every)
         reason = select(active, code, reason, every)
-        tracker.record(trip, active, ls.f, g_norm, every)
+        tracker.record(trip, active, ls.f, g_norm, every, coef=ls.w)
         iters = [n + (r == NOT_CONVERGED) for n, r in zip(iters, reasons)]
         reasons, kept = fetch(reason, keep, mesh=mesh)
         mem.push(s_k, y_k, 1.0 / torch.clamp_min(ys, 1e-30), keep, kept)

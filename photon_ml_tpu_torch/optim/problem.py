@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from photon_ml_tpu_torch.data.batch import SparseBatch
+from photon_ml_tpu_torch.data.sampler import down_sample
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel, create_model
 from photon_ml_tpu_torch.ops.losses import loss_for_task
@@ -99,7 +100,8 @@ class GLMOptimizationProblem:
         return batch
 
     def _solve(
-        self, batch, w0: Tensor, l1, l2, mesh: Optional[ProcessMesh]
+        self, batch, w0: Tensor, l1, l2, mesh: Optional[ProcessMesh],
+        track_models: bool = False,
     ) -> Tuple[OptResult, Optional[Tensor]]:
         """Optimize from ``w0`` ([d] with scalar weights, or a bank [G, d]
         with weights [G]); -> (result, variances or None)."""
@@ -112,6 +114,7 @@ class GLMOptimizationProblem:
             self.config, self.regularization,
             loss_has_hessian=objective.loss.has_hessian,
             box=self.box, l1_mask=self._l1_mask(w0.device), mesh=reductions,
+            track_coefficients=track_models,
         )
 
         def vg(w):
@@ -134,11 +137,14 @@ class GLMOptimizationProblem:
         initial: Optional[Tensor] = None,
         reg_weight: float = 0.0,
         mesh: Optional[ProcessMesh] = None,
+        track_models: bool = False,
     ) -> Tuple[Coefficients, OptResult]:
         """Optimize and build coefficients (+ variances if requested).
         The batch's device is where the fit runs. With ``mesh`` every rank
         calls it with its shard (see ``_prepare``) and gets the same
-        result."""
+        result. ``track_models`` keeps every iterate in
+        ``result.tracker.coefs`` (the ModelTracker analog behind
+        validate-per-iteration, Driver.scala:329-372)."""
         batch = self._prepare(batch, mesh)
         device = batch.labels.device
         w0 = (
@@ -147,7 +153,7 @@ class GLMOptimizationProblem:
             else torch.as_tensor(initial, dtype=torch.float32, device=device)
         )
         l1, l2 = self.regularization.split(reg_weight)
-        result, variances = self._solve(batch, w0, l1, l2, mesh)
+        result, variances = self._solve(batch, w0, l1, l2, mesh, track_models)
         return Coefficients(result.coefficients, variances), result
 
     def run_grid(
@@ -156,6 +162,7 @@ class GLMOptimizationProblem:
         reg_weights: Sequence[float],
         initial: Optional[Tensor] = None,
         mesh: Optional[ProcessMesh] = None,
+        track_models: bool = False,
     ) -> Tuple[Optional[Tensor], OptResult]:
         """Solve the whole λ grid at once over a [G, d] coefficient bank.
 
@@ -165,8 +172,9 @@ class GLMOptimizationProblem:
         serves the whole bank (K2 on the tiled objective), converged
         members freeze while the others run on, and the host fetches per
         trip do not grow with G. -> (variances bank [G, d] or None, the
-        bank's OptResult, every field with a leading grid axis). ``mesh``
-        as for :meth:`run`."""
+        bank's OptResult, every field with a leading grid axis; a frozen
+        member's tracked slots stop changing). ``mesh`` and
+        ``track_models`` as for :meth:`run`."""
         batch = self._prepare(batch, mesh)
         device = batch.labels.device
         splits = [self.regularization.split(float(w)) for w in reg_weights]
@@ -178,8 +186,29 @@ class GLMOptimizationProblem:
         else:
             w0 = torch.as_tensor(initial, dtype=torch.float32, device=device)
             w0 = w0.expand(shape).contiguous()
-        result, variances = self._solve(batch, w0, l1_vec, l2_vec, mesh)
+        result, variances = self._solve(
+            batch, w0, l1_vec, l2_vec, mesh, track_models
+        )
         return variances, result
+
+    def run_with_sampling(
+        self,
+        batch,
+        generator: torch.Generator,
+        down_sampling_rate: float,
+        initial: Optional[Tensor] = None,
+        reg_weight: float = 0.0,
+        mesh: Optional[ProcessMesh] = None,
+        track_models: bool = False,
+    ) -> Tuple[Coefficients, OptResult]:
+        """Down-sample the rows with the task's sampler first
+        (DistributedOptimizationProblem.runWithSampling:112-124), drawing
+        from ``generator``; a rate of 1 or more samples nothing."""
+        if down_sampling_rate < 1.0:
+            batch = down_sample(generator, batch, down_sampling_rate, self.task)
+        return self.run(
+            batch, initial, reg_weight, mesh=mesh, track_models=track_models
+        )
 
     def create_model(
         self,

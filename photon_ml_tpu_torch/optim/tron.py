@@ -118,12 +118,14 @@ def minimize_tron(
     box: Optional[BoxConstraints] = None,
     hvp_factory: Optional[HvpFactory] = None,
     mesh: Optional[MeshReductions] = None,
+    track_coefficients: bool = False,
 ) -> OptResult:
     """Trust-region Newton; ``hvp_fn(w, d) -> H(w) @ d``, or
     ``hvp_factory(w) -> (d -> H(w) @ d)``, which computes the w-only pieces
     once per outer trip (``hvp_fn`` is then ignored; pass None)
     (defaults: TRON.scala:260-265). ``w0`` is [d], or a bank [G, d] whose
-    functions map banks to banks. ``mesh`` as for ``minimize_lbfgs``."""
+    functions map banks to banks. ``mesh`` and ``track_coefficients`` as
+    for ``minimize_lbfgs``."""
     if w0.dim() == 1:
         return minimize_tron(
             as_bank_of_one(value_and_grad_fn),
@@ -133,7 +135,7 @@ def minimize_tron(
             hvp_factory=(
                 None if hvp_factory is None else _bank_of_one_factory(hvp_factory)
             ),
-            mesh=mesh,
+            mesh=mesh, track_coefficients=track_coefficients,
         ).member(0)
     G = w0.shape[0]
     w = w0 if box is None else box.project(w0)
@@ -141,7 +143,9 @@ def minimize_tron(
     f0 = f
     g0_norm = norm(g, mesh)
     delta = g0_norm
-    tracker = Tracker.start(f0, g0_norm, max_iter + 1)
+    tracker = Tracker.start(
+        f0, g0_norm, max_iter + 1, w if track_coefficients else None
+    )
     reason = torch.where(g0_norm == 0.0, GRADIENT_WITHIN_TOLERANCE, NOT_CONVERGED)
     failures = torch.zeros(G, dtype=torch.int64, device=w.device)
     it = torch.zeros_like(failures)
@@ -215,7 +219,7 @@ def minimize_tron(
         failures = select(active, failures_new, failures, every)
         it = select(active, it_new, it, every)
         reason = select(active, code, reason, every)
-        tracker.record(trip, active, f2, g_norm, every)
+        tracker.record(trip, active, f2, g_norm, every, coef=w2)
         iters = [n + (r_ == NOT_CONVERGED) for n, r_ in zip(iters, reasons)]
         (reasons,) = fetch(reason, mesh=mesh)
     tracker.count = [n + 1 for n in iters]

@@ -295,6 +295,7 @@ def feature_sharded_glm_fit(
     max_cg: int = 20,
     with_norm: bool = False,
     with_box: bool = False,
+    track_models: bool = False,
 ) -> Callable[..., OptResult]:
     """``fit(w0, cell, l2, *extras) -> OptResult`` on this rank of a (data,
     model) mesh; call it on every rank with the same arguments and its own
@@ -308,7 +309,10 @@ def feature_sharded_glm_fit(
     (``with_norm``), ``lower, upper`` (``with_box``), vectors full
     ``[d_pad]``. The result's coefficients are the full vector (or bank),
     gathered over the model group: identical on every rank, as the
-    reference's global output."""
+    reference's global output. ``track_models``: each rank's optimizer
+    tracks its own block of every iterate (``[cap, block_dim]``, no
+    collective per trip), and the fit gathers the blocks over the model
+    group once, at its end, into the result's ``tracker.coefs``."""
     if optimizer not in ("lbfgs", "owlqn", "tron"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     loss = objective.loss
@@ -326,7 +330,7 @@ def feature_sharded_glm_fit(
         if optimizer == "tron":
             result = minimize_tron(
                 vg, None, w0_block, max_iter=max_iter, tol=tol, max_cg=max_cg,
-                box=box, mesh=reductions,
+                box=box, mesh=reductions, track_coefficients=track_models,
                 hvp_factory=block_local_hvp_factory(
                     loss, cell, data_group, model_group, l2, norm
                 ),
@@ -335,14 +339,21 @@ def feature_sharded_glm_fit(
             result = minimize_owlqn(
                 vg, w0_block, l1, max_iter=max_iter, tol=tol, history=history,
                 l1_mask=l1_mask, box=box, mesh=reductions,
+                track_coefficients=track_models,
             )
         else:
             result = minimize_lbfgs(
                 vg, w0_block, max_iter=max_iter, tol=tol, history=history,
-                box=box, mesh=reductions,
+                box=box, mesh=reductions, track_coefficients=track_models,
+            )
+        tracker = result.tracker
+        if tracker.coefs is not None:
+            tracker = dataclasses.replace(
+                tracker, coefs=all_gather_last(tracker.coefs, model_group)
             )
         return dataclasses.replace(
-            result, coefficients=all_gather_last(result.coefficients, model_group)
+            result, coefficients=all_gather_last(result.coefficients, model_group),
+            tracker=tracker,
         )
 
     return fit

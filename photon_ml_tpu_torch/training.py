@@ -160,6 +160,7 @@ def train_generalized_linear_model(
     kernel: str = "scatter",
     device: DeviceLike = None,
     mesh: Optional[ProcessMesh] = None,
+    track_models: bool = False,
     tile_cache_dir: Optional[str] = None,
 ) -> Tuple[Models, Results]:
     """Train one model per regularization weight with warm starts.
@@ -179,6 +180,11 @@ def train_generalized_linear_model(
     axis (every rank passes the whole SparseBatch; the fit runs on
     ``mesh.device``). A TiledSparseBatch must then be this rank's
     ``build_sharded_tiled_batch``.
+
+    ``track_models``: keep every iterate in each OptResult's
+    ``tracker.coefs`` (the ModelTracker analog, written on the device with
+    no host fetch); :func:`iteration_models` turns a result into
+    per-iteration models in the original feature space.
 
     ``tile_cache_dir``: the persistent schedule cache
     (``ops/schedule_cache.py``) for tiling a SparseBatch here: a rerun over
@@ -202,7 +208,8 @@ def train_generalized_linear_model(
     current = None if initial is None else torch.as_tensor(initial, device=dev)
     for lam in _descending(regularization_weights):
         coefficients, result = problem.run(
-            batch, initial=current, reg_weight=lam, mesh=mesh
+            batch, initial=current, reg_weight=lam, mesh=mesh,
+            track_models=track_models,
         )
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result
@@ -289,6 +296,7 @@ def train_grid_batched(
     kernel: str = "scatter",
     device: DeviceLike = None,
     mesh: Optional[ProcessMesh] = None,
+    track_models: bool = False,
     tile_cache_dir: Optional[str] = None,
 ) -> Tuple[Models, Results]:
     """Batched twin of :func:`train_generalized_linear_model`: the grid
@@ -303,8 +311,8 @@ def train_grid_batched(
     ``initial``. Returns the sequential trainer's ({lambda: model},
     {lambda: OptResult}) contract, λ descending; the values stay on the
     device for :func:`grid_result_scalars`' one fetch. ``kernel``,
-    ``device``, ``mesh`` and ``tile_cache_dir`` as for the sequential
-    trainer ("auto" is the tiled kernel on the card).
+    ``device``, ``mesh``, ``track_models`` and ``tile_cache_dir`` as for
+    the sequential trainer ("auto" is the tiled kernel on the card).
     """
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
@@ -317,7 +325,7 @@ def train_grid_batched(
     )
     weights_desc = _descending(regularization_weights)
     variances, result = problem.run_grid(
-        batch, weights_desc, initial=initial, mesh=mesh
+        batch, weights_desc, initial=initial, mesh=mesh, track_models=track_models
     )
     models: Models = {}
     results: Results = {}
@@ -368,11 +376,6 @@ def _feature_sharded_problem(
     normalization, compute_variances, box, intercept_index, kernel,
     optimizer_type, track_models, tile_cache_dir,
 ) -> _FeatureShardedProblem:
-    if track_models or tile_cache_dir is not None:
-        raise NotImplementedError(
-            "track_models (ROADMAP item 9) and tile_cache_dir on the mesh "
-            "trainers (item 13) are not ported yet"
-        )
     if not isinstance(batch, SparseBatch):
         raise TypeError(
             "feature-sharded training requires a SparseBatch, got "
@@ -392,10 +395,13 @@ def _feature_sharded_problem(
     dev = mesh.device
     kernel = resolve_kernel(kernel, dev)
     layout = feature_shard_tiled_batch if kernel == "tiled" else feature_shard_sparse_batch
-    cell, block_dim = layout(
-        batch, dim, mesh.size(DATA_AXIS), mesh.size(MODEL_AXIS),
-        mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS), device=dev,
-    )
+    # a tiled cell's schedules go through the schedule cache under this
+    # rank's own key (its cell's entries), as the JAX package keys them
+    with cache_scope(tile_cache_dir):
+        cell, block_dim = layout(
+            batch, dim, mesh.size(DATA_AXIS), mesh.size(MODEL_AXIS),
+            mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS), device=dev,
+        )
     d_pad = mesh.size(MODEL_AXIS) * block_dim
     if normalization is not None:
         normalization = normalization.to(dev)
@@ -415,7 +421,7 @@ def _feature_sharded_problem(
         max_iter=max_iter if max_iter is not None else base.max_iter,
         tol=tolerance if tolerance is not None else base.tolerance,
         history=history, max_cg=base.tron_max_cg, with_norm=with_norm,
-        with_box=box is not None,
+        with_box=box is not None, track_models=track_models,
     )
     hdiag = (
         feature_sharded_hessian_diagonal(objective, mesh, with_norm=with_norm)
@@ -462,8 +468,10 @@ def train_feature_sharded(
     net run sharded OWL-QN; L2/none sharded L-BFGS or, with
     ``optimizer_type=TRON``, sharded TRON with the block Hv factory.
     Normalization, variances and box constraints compose as in the
-    reference. ``track_models`` and ``tile_cache_dir`` raise
-    NotImplementedError."""
+    reference. ``track_models``: each rank tracks its own block of every
+    iterate and the fit gathers the blocks once, at its end, so every
+    rank's results hold the whole per-iteration coefficients.
+    ``tile_cache_dir``: the schedule cache for this rank's tiled cell."""
     regularization = RegularizationContext(regularization_type, elastic_net_alpha)
     fs = _feature_sharded_problem(
         batch, task, dim, mesh=mesh, regularization=regularization,
@@ -481,9 +489,7 @@ def train_feature_sharded(
         result, variances = fs.solve(current, l1, l2)
         models[lam] = fs.model(result.coefficients, variances)
         # the padded vector is only the warm-start currency
-        results[lam] = dataclasses.replace(
-            result, coefficients=result.coefficients[:dim]
-        )
+        results[lam] = _real_dims(result, dim)
         if warm_start:
             current = result.coefficients
     return models, results
@@ -513,7 +519,9 @@ def train_grid_batched_feature_sharded(
     """Batched λ-grid twin of :func:`train_feature_sharded`: the grid is a
     ``[G, d_pad]`` bank whose feature axis is sharded over the mesh, every
     member a cold start from zero, one optimizer loop for all of them; on
-    the tiled layout every cell pass over the bank is one K2 launch."""
+    the tiled layout every cell pass over the bank is one K2 launch.
+    ``track_models`` and ``tile_cache_dir`` as for
+    :func:`train_feature_sharded`."""
     regularization = RegularizationContext(regularization_type, elastic_net_alpha)
     fs = _feature_sharded_problem(
         batch, task, dim, mesh=mesh, regularization=regularization,
@@ -538,10 +546,41 @@ def train_grid_batched_feature_sharded(
         models[lam] = fs.model(
             member.coefficients, None if variances is None else variances[i]
         )
-        results[lam] = dataclasses.replace(
-            member, coefficients=member.coefficients[:dim]
-        )
+        results[lam] = _real_dims(member, dim)
     return models, results
+
+
+def _real_dims(result: OptResult, dim: int) -> OptResult:
+    """A mesh fit's result cut from the padded ``d_pad`` to the real
+    dimension, tracked coefficients too."""
+    tracker = result.tracker
+    if tracker.coefs is not None:
+        tracker = dataclasses.replace(tracker, coefs=tracker.coefs[..., :dim])
+    return dataclasses.replace(
+        result, coefficients=result.coefficients[..., :dim], tracker=tracker
+    )
+
+
+def iteration_models(
+    result: OptResult,
+    task: TaskType,
+    normalization: Optional[NormalizationContext] = None,
+    intercept_index: Optional[int] = None,
+) -> List[GeneralizedLinearModel]:
+    """Per-iteration models of one tracked fit (the ModelTracker analog):
+    slot 0 is the initial point, slot i the accepted iterate i, in the
+    original feature space exactly like the final model
+    (GeneralizedLinearOptimizationProblem.scala:89-95)."""
+    coefs = result.tracker.coefs
+    if coefs is None:
+        raise ValueError(
+            "OptResult has no coefficient history; train with track_models=True"
+        )
+    problem = create_glm_problem(task, int(coefs.shape[-1]), intercept_index=intercept_index)
+    return [
+        problem.create_model(Coefficients(coefs[i]), normalization)
+        for i in range(int(result.tracker.count))
+    ]
 
 
 def grid_result_scalars(results: Results) -> Dict[float, Tuple[int, float, int]]:

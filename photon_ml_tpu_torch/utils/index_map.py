@@ -1,6 +1,6 @@
 """Feature index maps: bidirectional name<->index lookup (port of
-``photon_ml_tpu/utils/index_map.py`` without the off-heap
-``PartitionedIndexMap``, which comes with the feature-indexing driver).
+``photon_ml_tpu/utils/index_map.py``; the off-heap ``PartitionedIndexMap``
+is in ``utils/native_index.py``).
 
 Reference: photon-ml .../util/IndexMap.scala:23-44 (getIndex /
 getFeatureName) and DefaultIndexMap(|Loader).scala (in-heap
@@ -95,17 +95,16 @@ class IndexMap:
 
     @staticmethod
     def load(path: str):
-        """-> IndexMap, or an IdentityIndexMap for the descriptor that
-        ``IdentityIndexMap.save`` writes. An off-heap store pointer (the
-        reference's ``--offheap-indexmap-dir`` output) is not read yet."""
+        """-> IndexMap; an IdentityIndexMap for the descriptor that
+        ``IdentityIndexMap.save`` writes; a PartitionedIndexMap for the
+        store pointer that ``PartitionedIndexMap.save`` writes (the
+        driver's feature-index output under ``--offheap-indexmap-dir``)."""
         with open(path, "r", encoding="utf-8") as f:
             data = json.load(f)
         if isinstance(data, dict) and "offheap_index_store" in data:
-            raise NotImplementedError(
-                f"{path} points at an off-heap index store; the port does "
-                "not read those yet (ROADMAP item 8, the feature-indexing "
-                "driver)"
-            )
+            from photon_ml_tpu_torch.utils.native_index import PartitionedIndexMap
+
+            return PartitionedIndexMap.from_pointer(data, path)
         if isinstance(data, dict) and "identity_index_map" in data:
             return IdentityIndexMap(
                 int(data["identity_index_map"]),

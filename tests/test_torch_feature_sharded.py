@@ -578,10 +578,12 @@ def test_guards():
         )
     with pytest.raises(TypeError, match="SparseBatch"):
         train_feature_sharded(object(), TaskType.LOGISTIC_REGRESSION, D, mesh=mesh)
+    # track_models and tile_cache_dir are ported: they pass the guards, and
+    # the next refusal is the batch's (test_torch_iteration_models.py runs them)
     for kw in (dict(track_models=True), dict(tile_cache_dir="cache")):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="SparseBatch"):
             train_feature_sharded(
-                batch, TaskType.LOGISTIC_REGRESSION, D, mesh=mesh, **kw
+                object(), TaskType.LOGISTIC_REGRESSION, D, mesh=mesh, **kw
             )
     other_cell, block_dim = feature_shard_tiled_batch(
         batch, D, *SHAPE, 1, 0, params=TileParams(**PARAMS), device="cpu"

@@ -22,7 +22,9 @@ rounding.
 Also: the parser takes exactly the reference's option strings (and
 ``--device``), each option of a path not ported yet raises naming its
 ROADMAP item, the output-directory guard, and the card as the default
-device.
+device. And per-iteration validation, diagnostics with their report and
+the off-heap index map: both drivers over one store built by the port's
+feature-indexing driver.
 """
 
 import json
@@ -178,11 +180,6 @@ UNPORTED = [
     (["--streaming", "true"], "item 11"),
     (["--stream-memory-budget", "1024"], "item 11"),
     (["--scan-cache-dir", "/c"], "item 11"),
-    (["--diagnostic-mode", "ALL"], "item 8, diagnostics"),
-    (["--training-diagnostics", "true"], "item 8, diagnostics"),
-    (["--offheap-indexmap-dir", "/i"], "item 8, the feature-indexing driver"),
-    (["--validate-per-iteration", "true", "--validating-data-directory", "v"],
-     "item 9, track_models"),
     (["--distributed", "feature"], "item 13"),
     (["--model-shards", "2"], "item 13"),
     (["--coordinator-address", "localhost:1234", "--num-processes", "2",
@@ -204,6 +201,37 @@ def test_unported_options_raise_naming_their_item(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         glm_driver.main(argv)
     assert not (tmp_path / "out").exists()
+
+
+SLICE_OPTIONS = [
+    (["--diagnostic-mode", "ALL"], {"diagnostic_mode": glm_driver.DiagnosticMode.ALL}),
+    (["--training-diagnostics", "true"], {"diagnostic_mode": glm_driver.DiagnosticMode.ALL}),
+    (["--offheap-indexmap-dir", "/i", "--offheap-indexmap-num-partitions", "3"],
+     {"offheap_indexmap_dir": "/i", "offheap_indexmap_num_partitions": 3}),
+    (["--validate-per-iteration", "true", "--validating-data-directory", "v"],
+     {"validate_per_iteration": True, "validate_dir": "v"}),
+]
+
+
+@pytest.mark.parametrize("extra,fields", SLICE_OPTIONS, ids=[o[0][0] for o in SLICE_OPTIONS])
+def test_options_of_the_driver_slice_are_accepted(extra, fields):
+    """Per-iteration validation, diagnostics and the off-heap index map
+    parse as the reference's and pass validation."""
+    argv = ["--training-data-directory", "t", "--output-directory", "o", "--device", "cpu"]
+    p = glm_driver.params_from_args(argv + extra)
+    ref = ref_driver.params_from_args(argv[:-2] + extra)
+    p.validate()
+    assert not p.unported()
+    for name, value in fields.items():
+        assert getattr(p, name) == value
+        assert str(getattr(ref, name)) == str(value)
+
+
+def test_validate_per_iteration_needs_a_validating_dir(tmp_path):
+    with pytest.raises(ValueError, match="validating data directory"):
+        glm_driver.main(["--training-data-directory", "t", "--output-directory",
+                         str(tmp_path / "o"), "--validate-per-iteration", "true",
+                         "--device", "cpu"])
 
 
 def test_accepted_options_parse(tmp_path):
@@ -268,3 +296,89 @@ def test_event_listeners_see_the_training_events(tmp_path, fixtures):
     ]
     assert [e.reg_weight for e in Recorder.events[1:3]] == [1.0, 0.1]
     assert Recorder.events[3].stats["stores"] >= 2
+
+
+# -- per-iteration validation, diagnostics and the off-heap index map --------
+
+
+def _numbers_match(text, ref_text):
+    """The two reports line for line: the same words, and each number within
+    1e-4 relative or half a unit of its last printed digit (the reports
+    print with %.3g-%.5g, so a value within 1e-5 can print one digit off)."""
+    import re
+
+    num = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+    lines, ref_lines = text.splitlines()[2:], ref_text.splitlines()[2:]  # past the title
+    assert len(lines) == len(ref_lines)
+    count = 0
+    for line, ref_line in zip(lines, ref_lines):
+        assert num.sub("#", line).replace(" ", "") == num.sub("#", ref_line).replace(" ", ""), \
+            (line, ref_line)
+        for a, b in zip(num.findall(line), num.findall(ref_line)):
+            mant = b.split("e")[0]
+            digits = len(mant.split(".")[1]) if "." in mant else 0
+            exp = int(b.split("e")[1]) if "e" in b else 0
+            unit = 10.0 ** (exp - digits)
+            assert abs(float(a) - float(b)) <= max(1e-4 * abs(float(b)), unit), (line, ref_line)
+            assert np.isfinite(float(a))
+            count += 1
+    return count
+
+
+@pytest.mark.parametrize("kind", ["avro", "libsvm"])
+def test_driver_slice_matches_reference(tmp_path, fixtures, kind):
+    """Both drivers with --validate-per-iteration true --diagnostic-mode ALL
+    --offheap-indexmap-dir over one store that the port's feature-indexing
+    driver built: per-iteration metrics within 1e-5 (the validation
+    metrics' tolerance), the same stages and report, the pointer written
+    as the feature index."""
+    from photon_ml_tpu_torch.cli import feature_indexing_driver
+
+    train, val = fixtures[kind]
+    fmt = "AVRO" if kind == "avro" else "LIBSVM"
+    store = feature_indexing_driver.run_feature_indexing(
+        [train], str(tmp_path / "store"), data_format=fmt, num_partitions=2)
+    argv = [
+        "--training-data-directory", train, "--validating-data-directory", val,
+        "--input-file-format", fmt, "--validate-per-iteration", "true",
+        "--diagnostic-mode", "ALL", "--offheap-indexmap-dir", store,
+        "--offheap-indexmap-num-partitions", "2",
+    ] + GRID
+    ref = ref_driver.GLMDriver(ref_driver.params_from_args(
+        argv + ["--output-directory", str(tmp_path / "ref"), "--distributed", "off"]))
+    ref.run()
+    port = glm_driver.main(argv + ["--output-directory", str(tmp_path / "port"),
+                                   "--device", "cpu"])
+    out, ref_out = tmp_path / "port", tmp_path / "ref"
+    assert [s.name for s in port.stage_history] == [s.name for s in ref.stage_history] == [
+        "PREPROCESSED", "TRAINED", "VALIDATED", "DIAGNOSED"]
+    assert port.best_lambda == ref.best_lambda
+    assert sorted(port.per_iteration_metrics) == sorted(ref.per_iteration_metrics)
+    for lam, ref_iters in ref.per_iteration_metrics.items():
+        iters = port.per_iteration_metrics[lam]
+        assert len(iters) == len(ref_iters) == int(port.results[lam].iterations) + 1
+        for metrics, ref_metrics in zip(iters, ref_iters):
+            assert sorted(metrics) == sorted(ref_metrics)
+            for name, value in ref_metrics.items():
+                assert abs(metrics[name] - value) <= 1e-5, (lam, name)
+        # the last iterate is the final model
+        for name, value in port.validation_metrics[lam].items():
+            assert iters[-1][name] == pytest.approx(value, abs=1e-6)
+        assert_close_to_scale(port.models[lam].means, np.asarray(ref.models[lam].means),
+                              rtol=1e-4)
+    payload = json.loads((out / "metrics.json").read_text())
+    ref_payload = json.loads((ref_out / "metrics.json").read_text())
+    assert sorted(payload["per_iteration_validation"]) == \
+        sorted(ref_payload["per_iteration_validation"])
+    assert "diagnose" in payload["timers"] and "diagnose" in ref_payload["timers"]
+    assert _numbers_match((out / "model-diagnostics" / "report.txt").read_text(),
+                          (ref_out / "model-diagnostics" / "report.txt").read_text()) > 50
+    html = (out / "model-diagnostics" / "report.html").read_text()
+    for title in ("Bootstrap analysis", "Fitting analysis", "Hosmer-Lemeshow calibration",
+                  "Feature importance", "Prediction-error independence (Kendall tau)"):
+        assert title in html
+    # the feature index is the store's pointer, read back by either package
+    pointer = json.loads((out / "feature-index" / "index.json").read_text())
+    assert pointer["num_partitions"] == 2
+    imap = IndexMap.load(str(out / "feature-index" / "index.json"))
+    assert dict(imap.items()) == dict(port._data.index_map.items())

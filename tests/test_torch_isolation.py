@@ -57,8 +57,13 @@ def test_fresh_interpreter_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, check=True,
         capture_output=True, text=True,
     ).stdout.split()
-    assert "photon_ml_tpu_torch.training" in out
-    assert "photon_ml_tpu_torch.cli.glm_driver" in out
+    for module in (
+        "training", "cli.glm_driver", "cli.feature_indexing_driver",
+        "diagnostics.diagnostics", "diagnostics.report", "diagnostics.reporting",
+        "evaluation.evaluator", "evaluation.metrics", "data.sampler",
+        "io.name_term_list", "utils.native_index",
+    ):
+        assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]
 
 
@@ -76,6 +81,17 @@ def test_cpu_driver_runs_where_jax_cannot_be_imported(tmp_path):
     """``python -m photon_ml_tpu_torch.cli.glm_driver ... --device cpu`` in
     a process where importing jax or the JAX package fails, over Avro (the
     native decoder) and LibSVM files."""
+    _blocked_driver_runs(tmp_path, slice_options=False)
+
+
+def test_cpu_driver_slice_runs_where_jax_cannot_be_imported(tmp_path):
+    """As above, over a store that ``python -m
+    photon_ml_tpu_torch.cli.feature_indexing_driver`` built in that
+    process, with per-iteration validation and diagnostics."""
+    _blocked_driver_runs(tmp_path, slice_options=True)
+
+
+def _blocked_driver_runs(tmp_path, slice_options):
     from photon_ml_tpu_torch.io import schemas
     from photon_ml_tpu_torch.io.avro_codec import write_container
 
@@ -100,8 +116,20 @@ def test_cpu_driver_runs_where_jax_cannot_be_imported(tmp_path):
             "--output-directory", str(tmp_path / f"out-{kind}"),
             "--regularization-weights", "1,0.1", "--device", "cpu", *extra,
         ]
+        index = ""
+        if slice_options:
+            store = str(tmp_path / f"store-{kind}")
+            argv += ["--validate-per-iteration", "true", "--diagnostic-mode", "ALL",
+                     "--offheap-indexmap-dir", store]
+            index_argv = ["--input-paths", str(tmp_path / kind), "--output-dir", store,
+                          "--format", "LIBSVM" if kind == "svm" else "AVRO"]
+            index = (
+                f"sys.argv = ['feature_indexing_driver'] + {index_argv!r}\n"
+                "runpy.run_module('photon_ml_tpu_torch.cli.feature_indexing_driver', "
+                "run_name='__main__')\n"
+            )
         code = _BLOCKER + (
-            "import runpy\n"
+            "import runpy\n" + index +
             f"sys.argv = ['glm_driver'] + {argv!r}\n"
             "runpy.run_module('photon_ml_tpu_torch.cli.glm_driver', run_name='__main__')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -111,6 +139,8 @@ def test_cpu_driver_runs_where_jax_cannot_be_imported(tmp_path):
         subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                        capture_output=True, text=True, timeout=300)
         assert (tmp_path / f"out-{kind}" / "best-model" / "model.avro").is_file()
+        if slice_options:
+            assert (tmp_path / f"out-{kind}" / "model-diagnostics" / "report.html").is_file()
 
 
 def test_sources_import_no_jax():
