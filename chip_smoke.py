@@ -86,9 +86,38 @@ Phases, each printing its own lines:
    of run A's. Then run C, run A with ``--intercept false`` and no
    validation, whose lambda = 1 model must be within 1e-4 of the direct
    trainer's on that batch without its intercept column;
-8. a ``kernels`` JSON line (with each kernel's launches in the driver
-   runs and K1's in run D's diagnose stage), the nvidia-smi line, and the
-   last line
+8. GAME (``photon_ml_tpu_torch.game``): run G, the JAX package's config-4
+   GLMix through the coordinate API on rows both coordinates share (100,000
+   users x 16 rows; a global shard of 2^20 features, 64 a row and the
+   intercept; a user shard of 32 a row from each user's pool of 1,000 ids,
+   INDEX_MAP-projected, banks cut into buckets of 25,000 entities as
+   bench.py cuts them): ``CoordinateDescent.run(2)`` with the fixed effect
+   on ``create_glm_problem(kernel="tiled")`` (K1; L-BFGS, L2 1, 50
+   iterations) and the user random effect (L-BFGS config, L2 1, 30
+   iterations, history 5, tolerance 1e-5; the dense Newton solver), each
+   sweep's seconds of FE fit, RE update and scores, the FE's iterations
+   and K1 launches, one schedule build over both sweeps (the in-memory
+   ``ensure_tiled`` tier), the RE tracker, a non-increasing objective,
+   the float64 gradient of 256 sampled entities under its limit, the
+   scatter densification against compare-and-reduce on one bucket, the
+   device memory peak, the tiled objective against the scatter objective
+   at each sweep's fixed-effect coefficients (value 1e-5, gradient 1e-4),
+   K1 against its plain version at that shape (each output within 1e-5
+   of its addends' magnitude) and its pass times, a profiled warm sweep
+   (device busy and idle share), and the same two sweeps with the fixed
+   effect on the scatter objective (non-increasing; its CD objectives
+   beside the tiled run's are printed, not held: identical runs part by
+   up to percents, ``photon_ml_tpu_torch/tools/fe_spread.py``);
+   then run H, the GAME
+   drivers' CLI entry points, ``game_training_driver.main`` (2^16
+   training rows of 4,096 users at run G's widths, as Avro written in
+   worker processes; FE lambda grid [10, 1], 2 iterations, AUC,
+   variances, BEST) and ``game_scoring_driver.main`` over the 2^16
+   validation rows: the output tree, a non-increasing objective, and the
+   scoring AUC equal to the training driver's validation AUC within 1e-6;
+9. a ``kernels`` JSON line (with each kernel's launches in the driver
+   runs, K1's in run D's diagnose stage and in the GAME runs), the
+   nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -1047,6 +1076,545 @@ def diagnostics_run(train_dir, val_dir, tmp, a_index_map, batch, f_a, k1, k2, sm
     return d
 
 
+# -- phase 8: GAME ---------------------------------------------------------
+
+# Run G: the JAX package's config-4 GLMix (bench.py:4149-4162) through the
+# coordinate API, its rows shared by both coordinates: 100,000 users of 16
+# rows, a global shard of 2^20 features (64 a row and the intercept) and a
+# user shard of 32 a row drawn from each user's pool of 1,000 feature ids
+GAME_USERS = 100_000
+GAME_ROWS_PER_USER = 16
+GAME_USER_NNZ = 32
+GAME_USER_POOL = 1000
+# entities per random-effect bucket: bench.py's chunk, so that a bucket's
+# dense block X [E, 16, D] fits the 2 GiB dense_bytes_budget and takes the
+# Newton solver
+GAME_BUCKET_ENTITIES = 25_000
+# run G, the tiled objective (K1) against the scatter objective at each
+# sweep's fixed-effect coefficients, on the same rows: the value relative,
+# the gradient of its max-abs (float32 sums of up to 1.6M terms)
+GAME_FN_RTOL = 1e-5
+GAME_GRAD_RTOL = 1e-4
+# run G, the CD objectives of the same two sweeps with the fixed effect on
+# the scatter objective are printed beside the tiled run's, as a
+# measurement: two identical runs of either end their 50-iteration cold
+# fixed-effect fit at points up to percents apart in objective (float
+# atomics steer L-BFGS; photon_ml_tpu_torch/tools/fe_spread.py), so the
+# two paths are held by GAME_FN_RTOL at each sweep's coefficients instead
+GAME_RE_SAMPLE = 256  # entities whose gradient is checked in float64
+# max-abs of a sampled entity's float64 gradient: 5x the first measurement
+# (4.3e-4, NVIDIA H100 80GB HBM3 at 700 W); the gradient at a row solved
+# against the wrong offsets or left at zero is of order 1
+GAME_RE_GRAD_LIMIT = 2e-3
+# densify by scatter vs compare-and-reduce where a row holds an index more
+# than once: three or more addends sum in another order, so the error is
+# held to 1e-6 of the sum of the addends' magnitudes
+GAME_DENSIFY_RTOL = 1e-6
+# Run H: the GAME drivers over Avro files at run G's widths
+GAME_H_USERS = 4096
+GAME_H_PARTS = 4  # Avro part files each of training and validation rows
+GAME_H_AUC_TOL = 1e-6
+
+
+def user_features(users, picks, dim):
+    """A user's pool of GAME_USER_POOL feature ids, distinct, spread over
+    the user shard's dim - 1 features (the last is the intercept)."""
+    return (users * 7919 + picks * 1031) % (dim - 1)
+
+
+def game_rows(rng, users, w_global, w_user):
+    """GLMix rows for the given users: global features (64 uniform, then
+    the intercept), user features (32 from the user's pool, then the
+    intercept), planted-model logistic labels; -> (global idx, global
+    values, user idx, user values, labels), widths padded to 8."""
+    n, dim = len(users), len(w_global)
+    g_idx = rng.integers(0, dim - 1, size=(n, NNZ_PER_ROW))
+    g_val = rng.normal(size=(n, NNZ_PER_ROW)).astype(np.float32)
+    picks = rng.integers(0, GAME_USER_POOL, size=(n, GAME_USER_NNZ))
+    u_val = rng.normal(size=(n, GAME_USER_NNZ)).astype(np.float32)
+    z = (g_val * w_global[g_idx]).sum(1) + (u_val * w_user[users[:, None], picks]).sum(1)
+    labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+
+    def with_intercept(idx, val):
+        k = idx.shape[1] + 1
+        width = (k + 7) // 8 * 8
+        out_i = np.zeros((n, width), np.int32)
+        out_v = np.zeros((n, width), np.float32)
+        out_i[:, : k - 1], out_v[:, : k - 1] = idx, val
+        out_i[:, k - 1], out_v[:, k - 1] = dim - 1, 1.0
+        return out_i, out_v
+
+    return (*with_intercept(g_idx, g_val),
+            *with_intercept(user_features(users[:, None], picks, dim), u_val), labels)
+
+
+def game_model(rng, n_users, dim):
+    w_global = (rng.normal(size=dim) * 0.3).astype(np.float32)
+    w_user = (rng.normal(size=(n_users, GAME_USER_POOL)) * 0.3).astype(np.float32)
+    return w_global, w_user
+
+
+def split_buckets(red, entities):
+    """The random-effect dataset with each bucket cut into buckets of at
+    most ``entities`` entities (bench.py's chunked banks)."""
+    import dataclasses
+
+    out = []
+    for b in red.buckets:
+        for s in range(0, b.num_entities, entities):
+            sl = slice(s, s + entities)
+            out.append(dataclasses.replace(
+                b, entity_codes=b.entity_codes[sl], row_index=b.row_index[sl],
+                indices=b.indices[sl], values=b.values[sl], labels=b.labels[sl],
+                offsets=b.offsets[sl], weights=b.weights[sl],
+            ))
+    return dataclasses.replace(red, buckets=out)
+
+
+class TimedCoordinate:
+    """A coordinate whose updates and scores are timed on the card (each
+    between two synchronizations) and whose K1 launches are counted."""
+
+    def __init__(self, coord, k1, log):
+        self.coord, self.k1, self.log = coord, k1, log
+
+    def __getattr__(self, name):
+        return getattr(self.coord, name)
+
+    def _timed(self, what, fn, *args):
+        torch.cuda.synchronize()
+        k0, t0 = self.k1.launches, time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self.log.append((what, self.coord.name, time.perf_counter() - t0,
+                         self.k1.launches - k0, out))
+        return out
+
+    def update_model(self, model, residual=None):
+        return self._timed("update", self.coord.update_model, model, residual)
+
+    def score(self, model):
+        return self._timed("score", self.coord.score, model)
+
+
+def game_cd(ds, red, kernel, k1, smi, label, sweeps=2, initial_model=None, profile=False):
+    """CoordinateDescent.run(sweeps) over the fixed effect (``kernel``) and
+    the user random effect, from ``initial_model``; with ``profile`` under
+    torch.profiler, printing the device's busy time and idle share; ->
+    (result, per-step log, the RE coordinate)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from photon_ml_tpu_torch.game import (
+        CoordinateDescent,
+        FixedEffectCoordinate,
+        RandomEffectCoordinate,
+        RandomEffectOptimizationProblem,
+    )
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig,
+        OptimizerType,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_ml_tpu_torch.optim.problem import create_glm_problem
+    from photon_ml_tpu_torch.task import TaskType
+
+    log = []
+    l2 = RegularizationContext(RegularizationType.L2)
+    fe = FixedEffectCoordinate(
+        name="global", dataset=ds,
+        problem=create_glm_problem(
+            TaskType.LOGISTIC_REGRESSION, DIM, config=OptimizerConfig(max_iter=50),
+            regularization=l2, intercept_index=DIM - 1, kernel=kernel,
+        ),
+        feature_shard_id="global", reg_weight=1.0,
+    )
+    re = RandomEffectCoordinate(
+        name="per-user", dataset=ds, re_dataset=red,
+        problem=RandomEffectOptimizationProblem(
+            LOGISTIC,
+            OptimizerConfig(OptimizerType.LBFGS, max_iter=30, tolerance=1e-5, lbfgs_history=5),
+            l2, reg_weight=1.0,
+        ),
+    )
+    coords = {"global": TimedCoordinate(fe, k1, log), "per-user": TimedCoordinate(re, k1, log)}
+    cd = CoordinateDescent(coords, ds, TaskType.LOGISTIC_REGRESSION)
+    if profile:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = cd.run(sweeps, initial_model=initial_model)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        kernels = sorted(
+            (e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+            key=lambda e: e.self_device_time_total, reverse=True,
+        )
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        top = "; ".join(
+            f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} calls: {e.key[:60]}"
+            for e in kernels[:6]
+        )
+        say(f"game run G profile ({smi}): one sweep {seconds!r} s host, {busy!r} s device "
+            f"busy, idle share {1 - busy / seconds!r}; top kernels: {top}")
+    else:
+        t0 = time.perf_counter()
+        result = cd.run(sweeps, initial_model=initial_model)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    hist = result.objective_history
+    say(f"game run G {label} ({smi}): CD {sweeps} sweeps {seconds!r} s; objective history {hist}")
+    if not all(np.isfinite(hist)) or any(b > a for a, b in zip(hist, hist[1:])):
+        fail(f"game run G {label}: the CD objective is not finite and non-increasing: {hist}")
+    return result, log, re
+
+
+def game_re_gradients(ds, red, bank, fe_score, sample):
+    """Max-abs of each sampled entity's gradient at its bank row, in
+    float64 from its definition: sum_s w_s (sigmoid(z_s) - y_s) x_s + l2 c
+    with z_s = x_s . c + o_s, o_s the fixed effect's score (the residual
+    its last update saw), l2 = 1."""
+    dev = bank.device
+    where = {}
+    for bi, b in enumerate(red.buckets):
+        for pos, e in enumerate(b.entity_codes.tolist()):
+            where[e] = (bi, pos)
+    worst = 0.0
+    for e in sample.tolist():
+        bi, pos = where[e]
+        b = red.buckets[bi]
+        rows = torch.as_tensor(b.row_index[pos], device=dev).long()
+        ix = torch.as_tensor(b.indices[pos], device=dev).long()
+        v = torch.as_tensor(b.values[pos], device=dev).double()
+        y = torch.as_tensor(b.labels[pos], device=dev).double()
+        w = torch.as_tensor(b.weights[pos], device=dev).double()
+        off = torch.where(rows >= 0, fe_score[rows.clamp_min(0)].double(), 0.0)
+        c = bank[e].double()
+        z = (v * c[ix]).sum(-1) + off
+        r = w * (torch.sigmoid(z) - y)
+        g = torch.zeros_like(c).index_add_(0, ix.reshape(-1), (v * r[:, None]).reshape(-1)) + c
+        worst = max(worst, float(g.abs().max()))
+    return worst
+
+
+def game_densify_check(red, smi, device):
+    """The scatter densification against the compare-and-reduce version on
+    the first bucket: bitwise where a row has no duplicate index, within
+    GAME_DENSIFY_RTOL of the addends' magnitudes where it has one; ->
+    (rows with a duplicate, max relative error on them)."""
+    from photon_ml_tpu_torch.game.random_effect import densify, densify_compare
+
+    b = red.buckets[0]
+    ix = torch.as_tensor(b.indices, device=device).long()
+    v = torch.as_tensor(b.values, device=device)
+    got = densify(ix, v, red.local_dim)
+    plain = densify_compare(ix, v, red.local_dim, chunk=512)
+    key = torch.where(v != 0, ix, -1 - torch.arange(ix.shape[-1], device=device))
+    srt = key.sort(dim=-1).values
+    dup = (srt[..., 1:] == srt[..., :-1]).any(dim=-1)
+    if not torch.equal(got[~dup], plain[~dup]):
+        fail("game densify: the scatter differs from compare-and-reduce on rows without duplicates")
+    mag = densify(ix, v.abs(), red.local_dim)[dup]
+    err = float(((got[dup] - plain[dup]).abs() / mag.clamp_min(1e-30)).max()) if bool(dup.any()) else 0.0
+    n_dup = int(dup.sum())
+    say(f"game densify ({smi}): bucket of {b.num_entities} entities x {b.capacity} rows x "
+        f"{red.local_dim} local features; rows without a duplicate index bitwise equal; "
+        f"{n_dup} rows with one, max relative error {err!r}")
+    if err > GAME_DENSIFY_RTOL:
+        fail(f"game densify: rows with a duplicate index part by {err!r}")
+    return n_dup, err
+
+
+def game_k1_times(k1, tb, rng, smi):
+    """K1 against its plain version at the GAME fixed effect's shape, each
+    output held to its own magnitude, |got - ref| <= 1e-6 + RTOL * mag with
+    mag the plain pass over |values| and |source| (the intercept's output
+    sums 1.6M terms of both signs, an ordinary feature's about 100); then
+    its device ms per z / g pass with their bounds; -> those numbers."""
+    win = tb.params.window
+    w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device=tb.device)
+    c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device=tb.device)
+    err = (0.0, 0.0)
+    for name, sched, src, n_out, vals in pass_args(tb, w, c):
+        got = k1.bilinear_pass(sched, src, n_out, win, vals=vals)
+        ref = k1.bilinear_pass_plain(sched, src, n_out, win, vals=vals)
+        mag = k1.bilinear_pass_plain(
+            sched, src.abs(), n_out, win, vals=(sched.vals if vals is None else vals).abs())
+        diff = (got - ref).abs()
+        abs_err = float(diff.max())
+        rel_err = float((diff / mag.clamp_min(1e-30)).max())
+        bad = int((diff > 1e-6 + RTOL * mag).sum())
+        say(f"k1_check game {name}: max_abs_err={abs_err!r} max error over the output's "
+            f"magnitude {rel_err!r}; outputs over 1e-6 + {RTOL!r} x magnitude: {bad}")
+        if bad or not np.isfinite(abs_err):
+            fail(f"k1_check game {name}: {bad} outputs disagree with the plain version")
+        err = tuple(map(max, err, (abs_err, rel_err)))
+    z_ms = time_ms(lambda: k1.bilinear_pass(tb.z_sched, w, tb.num_row_blocks, win))
+    g_ms = time_ms(lambda: k1.bilinear_pass(tb.g_sched, c, tb.num_feat_blocks, win))
+    z_bound, _, entries = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
+    g_bound, _, _ = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim)
+    say(f"game K1 ({smi}): {entries} entries; z {z_ms!r} ms (bound {z_bound!r}), "
+        f"g {g_ms!r} ms (bound {g_bound!r}); max_abs_err {err[0]!r}")
+    return dict(z_ms=z_ms, g_ms=g_ms, z_bound_ms=z_bound, g_bound_ms=g_bound,
+                max_abs_err=err[0], max_rel_err=err[1], entries=entries)
+
+
+def game_objective_parity(ds, tb, log, smi):
+    """The tiled objective (K1 over ``tb``) against the scatter objective
+    (gather / index_add_) on the same rows, at each sweep's fixed-effect
+    coefficients of the tiled run, l2 = 1."""
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+
+    batch = ds.batch_for_shard("global")
+    tiled, scatter = ts.TiledGLMObjective(LOGISTIC, DIM), GLMObjective(LOGISTIC, DIM)
+    fits = [out[0] for what, name, _, _, out in log if what == "update" and name == "global"]
+    for sweep, model in enumerate(fits, 1):
+        w = model.model.means
+        vt, gt = tiled.value_and_gradient(w, tb, 1.0)
+        vs, gs = scatter.value_and_gradient(w, batch, 1.0)
+        dv = abs(float(vt) - float(vs)) / abs(float(vs))
+        dg = float((gt - gs).abs().max()) / float(gs.abs().max())
+        say(f"game run G sweep {sweep} objective ({smi}): tiled {float(vt)!r} vs scatter "
+            f"{float(vs)!r}, value gap {dv!r}, gradient gap {dg!r} of its max-abs")
+        if not (dv <= GAME_FN_RTOL and dg <= GAME_GRAD_RTOL):
+            fail(f"game run G: the tiled objective is off the scatter one at sweep {sweep}")
+
+
+def game_data(seed, device):
+    """Run G's rows as a GameDataset built from arrays (bench.py's
+    ShardData), and its user random-effect dataset cut into buckets of
+    GAME_BUCKET_ENTITIES."""
+    from photon_ml_tpu_torch.game import EntityIndex, GameDataset, ShardData
+    from photon_ml_tpu_torch.game import RandomEffectDataConfiguration, build_random_effect_dataset
+    from photon_ml_tpu_torch.utils.index_map import IdentityIndexMap
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 3])
+    w_global, w_user = game_model(rng, GAME_USERS, DIM)
+    users = np.repeat(np.arange(GAME_USERS), GAME_ROWS_PER_USER)
+    n = len(users)
+    g_idx, g_val, u_idx, u_val, labels = game_rows(rng, users, w_global, w_user)
+    imap = IdentityIndexMap(DIM - 1, add_intercept=True)
+    ds = GameDataset(
+        uids=[""] * n, labels=labels, offsets=np.zeros(n, np.float32),
+        weights=np.ones(n, np.float32),
+        shards={"global": ShardData(g_idx, g_val, imap, DIM - 1),
+                "user": ShardData(u_idx, u_val, imap, DIM - 1)},
+        entity_codes={"userId": users.astype(np.int32)},
+        entity_indexes={"userId": EntityIndex.build("userId", [f"{u:06d}" for u in range(GAME_USERS)])},
+        num_real_rows=n, device=torch.device(device),
+    )
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    red = build_random_effect_dataset(ds, RandomEffectDataConfiguration("userId", "user"), seed=seed)
+    red_s = time.perf_counter() - t0
+    red = split_buckets(red, GAME_BUCKET_ENTITIES)
+    say(f"game run G data: {n} rows ({GAME_USERS} users x {GAME_ROWS_PER_USER}), global shard "
+        f"{DIM} features x {g_idx.shape[1]} slots, user shard {GAME_USER_NNZ} + intercept a row "
+        f"from pools of {GAME_USER_POOL}; made in {make_s!r} s; random-effect dataset built in "
+        f"{red_s!r} s: {len(red.buckets)} buckets of {[b.num_entities for b in red.buckets]} "
+        f"entities x {red.buckets[0].capacity} rows, bank D = {red.local_dim}")
+    return ds, red
+
+
+def game_run_g(seed, smi, k1, device="cuda"):
+    """Run G; -> (K1's launches over its two sweeps on the tiled problem,
+    K1's times and errors at its shape)."""
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+
+    ds, red = game_data(seed, device)
+
+    # the tiled fixed effect (K1): two sweeps, one schedule build
+    ts.tilings, ts.tiling_seconds = 0, 0.0
+    k1.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    result, log, re = game_cd(ds, red, "tiled", k1, smi, "tiled")
+    peak = torch.cuda.max_memory_allocated()
+    game_launches = k1.launches
+    kinds = sorted({re.problem._bucket_kind(b, red.local_dim) for b in red.buckets})
+    for it in range(2):
+        steps = log[2 + 4 * it: 6 + 4 * it]  # after the two initial scores
+        fe_up, fe_sc, re_up, re_sc = steps
+        tracker = re_up[4][1]
+        say(f"game run G sweep {it + 1} ({smi}): FE fit {fe_up[2]!r} s, {fe_up[4][1].iterations} "
+            f"iterations, {fe_up[3]} K1 launches, reason {fe_up[4][1].reason_name}; FE score "
+            f"{fe_sc[2]!r} s; RE bank update {re_up[2]!r} s ({kinds}), "
+            f"{GAME_USERS / re_up[2]!r} entities/s, iterations mean "
+            f"{tracker.iterations_mean!r} max {tracker.iterations_max}, reasons "
+            f"{tracker.reason_counts}; RE score {re_sc[2]!r} s")
+    say(f"game run G ({smi}): schedule builds over both sweeps {ts.tilings}, "
+        f"{ts.tiling_seconds!r} s (in sweep 1's FE fit); K1 launches {game_launches}; "
+        f"device memory peak {peak} bytes")
+    if ts.tilings != 1:
+        fail(f"game run G: {ts.tilings} schedule builds over two sweeps, not 1")
+    if game_launches == 0:
+        fail("game run G: the tiled fixed effect launched no K1")
+
+    # K1 at the shape this path gives it (an intercept column in every row)
+    tb = ts.ensure_tiled(ds.batch_for_shard("global"), DIM, device=device)
+    if ts.tilings != 1:
+        fail("game run G: the in-memory tier missed")
+    game_k1 = game_k1_times(k1, tb, np.random.default_rng([seed, 7]), smi)
+
+    # where a warm sweep's time goes (the tier hits: no schedule build)
+    game_cd(ds, red, "tiled", k1, smi, "profiled", sweeps=1, initial_model=result.model,
+            profile=True)
+
+    # the random effect's optimality on a sample, in float64
+    fe_model = result.model.models["global"]
+    fe_score = fe_model.score(ds)
+    sample = np.random.default_rng([seed, 4]).choice(GAME_USERS, GAME_RE_SAMPLE, replace=False)
+    grad = game_re_gradients(ds, red, result.model.models["per-user"].bank, fe_score, sample)
+    say(f"game run G ({smi}): RE gradient max-abs over {GAME_RE_SAMPLE} sampled entities "
+        f"(float64) {grad!r}, limit {GAME_RE_GRAD_LIMIT!r}")
+    if not grad <= GAME_RE_GRAD_LIMIT:
+        fail(f"game run G: a sampled entity's gradient is {grad!r}")
+    game_densify_check(red, smi, device)
+
+    # the tiled objective against the scatter objective at each sweep's FE
+    game_objective_parity(ds, tb, log, smi)
+
+    # the same two sweeps with the fixed effect on the scatter objective:
+    # its objective non-increasing (game_cd), the gaps a measurement
+    scatter, _, _ = game_cd(ds, red, "scatter", k1, smi, "scatter")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(result.objective_history, scatter.objective_history)]
+    say(f"game run G ({smi}): tiled vs scatter CD objectives, relative gaps {gaps} "
+        f"(a measurement, not a check)")
+    return game_launches, game_k1
+
+
+GAME_H_SCHEMA_EXTRA = {"name": "userFeatures", "type": {"type": "array", "items": "FeatureAvro"}}
+
+
+def game_h_part(args):
+    """One Avro part file of run H's rows (runs in a worker process):
+    TrainingExampleAvro-shaped records plus a userFeatures bag, the user
+    id in metadataMap."""
+    seed, path, kind, part, n_parts, n_users, dim = args
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    w_global, w_user = game_model(np.random.default_rng([seed, 5]), n_users, dim)
+    rng = np.random.default_rng([seed, 6, kind == "train", part])
+    if kind == "train":
+        users = np.repeat(np.arange(n_users), GAME_ROWS_PER_USER)
+    else:
+        users = rng.integers(0, n_users, size=n_users * GAME_ROWS_PER_USER)
+    users = np.array_split(users, n_parts)[part]
+    g_idx, g_val, u_idx, u_val, labels = game_rows(rng, users, w_global, w_user)
+    icept = dim - 1
+
+    def bag(idx, val):  # the driver adds the intercept itself
+        return [{"name": str(i), "term": "", "value": v}
+                for i, v in zip(idx, val) if v != 0 and i != icept]
+
+    recs = [{
+        "uid": f"{kind}-{part}-{r}", "label": float(labels[r]),
+        "features": bag(g_idx[r].tolist(), g_val[r].tolist()),
+        "userFeatures": bag(u_idx[r].tolist(), u_val[r].tolist()),
+        "metadataMap": {"userId": f"user{users[r]:05d}"}, "weight": None, "offset": None,
+    } for r in range(len(users))]
+    schema = dict(schemas.TRAINING_EXAMPLE_AVRO)
+    schema["fields"] = list(schema["fields"]) + [GAME_H_SCHEMA_EXTRA]
+    write_container(path, schema, recs)
+    return len(recs)
+
+
+def game_run_h(seed, smi, k1, device_args=()):
+    """Run H: ``game_training_driver.main`` and ``game_scoring_driver.main``
+    over Avro files; -> K1's launches over both drivers (the driver's fixed
+    effect is the scatter objective, as in the JAX driver)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from photon_ml_tpu_torch.cli import game_scoring_driver, game_training_driver
+
+    with tempfile.TemporaryDirectory(prefix="photon_game_phase_") as tmp:
+        t0 = time.perf_counter()
+        jobs = []
+        for kind in ("train", "validate"):
+            os.makedirs(f"{tmp}/{kind}")
+            for p in range(GAME_H_PARTS):
+                jobs.append((seed, f"{tmp}/{kind}/part-{p:05d}.avro", kind, p,
+                             GAME_H_PARTS, GAME_H_USERS, DIM))
+        with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+            written = list(pool.map(game_h_part, jobs))
+        say(f"game run H data: {sum(written[:GAME_H_PARTS])} training and "
+            f"{sum(written[GAME_H_PARTS:])} validation Avro records ({GAME_H_USERS} users) "
+            f"written in {time.perf_counter() - t0!r} s")
+        shards = "globalShard:features|userShard:userFeatures"
+        train_argv = [
+            "--train-input-dirs", f"{tmp}/train", "--validate-input-dirs", f"{tmp}/validate",
+            "--output-dir", f"{tmp}/out",
+            "--feature-shard-id-to-feature-section-keys-map", shards,
+            "--fixed-effect-data-configurations", "global:globalShard,1",
+            "--fixed-effect-optimization-configurations",
+            "global:50,1e-7,10,1,LBFGS,L2;50,1e-7,1,1,LBFGS,L2",
+            "--random-effect-data-configurations",
+            "per-user:userId,userShard,1,none,none,none,INDEX_MAP",
+            "--random-effect-optimization-configurations", "per-user:30,1e-5,1,1,LBFGS,L2",
+            "--num-iterations", "2", "--evaluator-types", "AUC",
+            "--compute-variance", "true", "--model-output-mode", "BEST",
+        ]
+        k1.launches = 0
+        t0 = time.perf_counter()
+        trainer = game_training_driver.main(train_argv + list(device_args))
+        train_s = time.perf_counter() - t0
+        timers = " ".join(f"{k}={v!r}" for k, v in trainer.timer.durations.items())
+        with open(f"{tmp}/out/metrics.json") as f:
+            metrics = json.load(f)
+        hist = metrics["objective_history"]
+        say(f"game run H training driver ({smi}): {train_s!r} s; stage timers s: {timers}; "
+            f"best combo {trainer.best_config['global'].render()}; validation AUC "
+            f"{metrics['best_metric']!r}; objective history {hist}")
+        if any(b > a for a, b in zip(hist, hist[1:])):
+            fail(f"game run H: the CD objective rose: {hist}")
+        want = [
+            "metrics.json", "best-model/model-spec",
+            "best-model/fixed-effect/global/id-info",
+            "best-model/fixed-effect/global/coefficients/part-00000.avro",
+            "best-model/random-effect/per-user/id-info",
+            "best-model/random-effect/per-user/coefficients/part-00000.avro",
+        ]
+        missing = [f for f in want if not os.path.isfile(f"{tmp}/out/{f}")]
+        if missing or os.path.exists(f"{tmp}/out/all"):
+            fail(f"game run H: the output tree lacks {missing} or holds all/")
+        t0 = time.perf_counter()
+        scorer = game_scoring_driver.main([
+            "--input-data-dirs", f"{tmp}/validate",
+            "--game-model-input-dir", f"{tmp}/out/best-model",
+            "--output-dir", f"{tmp}/scores",
+            "--feature-shard-id-to-feature-section-keys-map", shards,
+            "--evaluator-types", "AUC", *device_args,
+        ])
+        score_s = time.perf_counter() - t0
+        timers = " ".join(f"{k}={v!r}" for k, v in scorer.timer.durations.items())
+        auc = scorer.metrics["AUC"]
+        say(f"game run H scoring driver ({smi}): {score_s!r} s; stage timers s: {timers}; "
+            f"AUC {auc!r} against the training driver's {metrics['best_metric']!r}")
+        if not os.path.isfile(f"{tmp}/scores/scores/part-00000.avro"):
+            fail("game run H: the scoring driver wrote no scores")
+        if not abs(auc - metrics["best_metric"]) <= GAME_H_AUC_TOL or not auc > 0.5:
+            fail(f"game run H: scoring AUC {auc!r} is not the training driver's")
+    say(f"game run H ({smi}): K1 launches {k1.launches} (the driver's fixed effect is scatter)")
+    return k1.launches
+
+
+def game_phase(seed, smi, k1):
+    """Phase 8: runs G and H; -> (K1's launches in each, K1 at run G's
+    shape)."""
+    t0 = time.perf_counter()
+    launches_g, game_k1 = game_run_g(seed, smi, k1)
+    say(f"game run G: {time.perf_counter() - t0!r} s of host time ({smi})")
+    t0 = time.perf_counter()
+    launches_h = game_run_h(seed, smi, k1)
+    say(f"game run H: {time.perf_counter() - t0!r} s of host time ({smi})")
+    return {"G": launches_g, "H": launches_h}, game_k1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1549,7 +2117,10 @@ def main() -> int:
     driver_launches = driver_phase(args.seed, smi, k1, k2)
     say(f"driver phase: {time.perf_counter() - t0!r} s of host time ({smi})")
 
-    # -- 8. result lines --------------------------------------------------------
+    # -- 8. GAME -----------------------------------------------------------------
+    game_launches, game_k1 = game_phase(args.seed, smi, k1)
+
+    # -- 9. result lines --------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -1557,7 +2128,7 @@ def main() -> int:
         "source": "photon_ml_tpu_torch/ops/csrc/bilinear_pass.cu",
         "replaces": "photon_ml_tpu/ops/tiled_sparse.py:1294",
         "launches": launches,
-        "max_abs_err": max(small_err[0], ads_err[0], edge_err["k1"][0]),
+        "max_abs_err": max(small_err[0], ads_err[0], edge_err["k1"][0], game_k1["max_abs_err"]),
         "ms": k1_times["z_ms"] + k1_times["g_ms"],
         "plain_ms": k1_times["z_plain_ms"] + k1_times["g_plain_ms"],
         "bound_ms": z_bound + g_bound,
@@ -1570,6 +2141,8 @@ def main() -> int:
         **mesh_fields("k1", mesh_launches, cell, cell_errs),
         "driver_launches": {run: n["k1"] for run, n in driver_launches.items()},
         "driver_diagnose_launches": driver_launches["D"]["diagnose_k1"],
+        "game_launches": game_launches,
+        "game_shape": game_k1,
     }, {
         "name": "grid_bilinear_pass",
         "route": "cuda",

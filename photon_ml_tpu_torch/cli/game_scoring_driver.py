@@ -1,0 +1,346 @@
+"""GAME scoring driver: load a model directory -> score Avro data -> write
+ScoringResultAvro -> optional evaluation (port of
+``photon_ml_tpu/cli/game_scoring_driver.py``, the in-memory path).
+
+    python -m photon_ml_tpu_torch.cli.game_scoring_driver \\
+        --input-data-dirs DIR --game-model-input-dir MODEL --output-dir OUT \\
+        --feature-shard-id-to-feature-section-keys-map ... [options]
+
+Reference: photon-ml .../cli/game/scoring/Driver.scala:171-204 (run:
+prepareFeatureMaps -> prepareGameDataSet(isResponseRequired=false) ->
+loadGameModelFromHDFS -> score -> saveScoresToHDFS -> evaluateScores) and
+cli/game/scoring/Params.scala (option names kept), ScoredItem.scala.
+
+``--streaming`` waits for ROADMAP item 11, ``--obs-dir`` and
+``--profile-dir`` for item 15, ``--fault-plan`` for item 12. The port adds
+``--device`` (the card by default, ``cpu`` on request).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.cli.game_training_driver import (
+    _bool,
+    apply_intercept_map,
+    parse_shard_map,
+)
+from photon_ml_tpu_torch.cli.glm_driver import prepare_output_dir
+from photon_ml_tpu_torch.evaluation.evaluator import Evaluator, EvaluatorType
+from photon_ml_tpu_torch.game.config import FeatureShardConfiguration
+from photon_ml_tpu_torch.game.data import build_game_dataset_from_files
+from photon_ml_tpu_torch.game.model_io import _write_parts, load_game_model
+from photon_ml_tpu_torch.io import schemas
+from photon_ml_tpu_torch.ops import schedule_cache
+from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json
+from photon_ml_tpu_torch.reliability.retry import retry_stats
+from photon_ml_tpu_torch.task import TaskType
+from photon_ml_tpu_torch.utils.date_range import expand_dated_paths
+from photon_ml_tpu_torch.utils.device import resolve_device
+from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
+
+
+@dataclass
+class GameScoringParams:
+    input_dirs: List[str] = field(default_factory=list)
+    game_model_input_dir: str = ""
+    output_dir: str = ""
+    date_range: Optional[str] = None
+    date_range_days_ago: Optional[str] = None
+    # extra entity-id columns written with each score (randomEffectTypeSet)
+    random_effect_id_set: List[str] = field(default_factory=list)
+    num_files: int = 1
+    delete_output_dir_if_exists: bool = False
+    application_name: str = "photon-ml-tpu-game-scoring"
+    task_type: TaskType = TaskType.LOGISTIC_REGRESSION
+    feature_shards: List[FeatureShardConfiguration] = field(default_factory=list)
+    evaluator_types: List[EvaluatorType] = field(default_factory=list)
+    model_id: str = ""
+    has_response: bool = True
+    offheap_indexmap_dir: Optional[str] = None
+    offheap_indexmap_num_partitions: Optional[int] = None
+    feature_name_and_term_set_path: Optional[str] = None
+    profile_dir: Optional[str] = None
+    obs_dir: Optional[str] = None
+    tile_cache_dir: Optional[str] = None
+    no_overlap: bool = False
+    streaming: bool = False
+    rows_per_chunk: int = 100_000
+    stream_memory_budget: int = 0
+    fault_plan: Optional[str] = None
+    # where scoring runs: None = the CUDA card (raises without one), "cpu"
+    device: Optional[str] = None
+
+    def unported(self) -> List[str]:
+        out = []
+        for cond, what, item in (
+            (self.streaming, "--streaming", "item 11"),
+            (bool(self.stream_memory_budget), "--stream-memory-budget", "item 11"),
+            (self.fault_plan is not None, "--fault-plan", "item 12"),
+            (self.obs_dir is not None, "--obs-dir", "item 15"),
+            (self.profile_dir is not None, "--profile-dir", "item 15"),
+        ):
+            if cond:
+                out.append(f"{what} (ROADMAP {item})")
+        return out
+
+    def validate(self):
+        unported = self.unported()
+        if unported:
+            raise NotImplementedError(
+                "not ported to photon_ml_tpu_torch yet: " + "; ".join(unported)
+            )
+        if not self.input_dirs:
+            raise ValueError("input-data-dirs is required")
+        if not self.game_model_input_dir:
+            raise ValueError("game-model-input-dir is required")
+        if not self.output_dir:
+            raise ValueError("output-dir is required")
+
+
+class _ScoreRecordRows:
+    """Sliceable, re-iterable score records over column arrays: each record
+    dict is built only as the Avro writer consumes it, and ``[i::n]`` (the
+    part split) slices columns."""
+
+    def __init__(self, uids, labels, scores, weights, meta_cols, model_id):
+        self._uids = uids
+        self._labels = labels
+        self._scores = scores
+        self._weights = weights
+        self._meta_cols = meta_cols
+        self._model_id = model_id
+
+    def __len__(self) -> int:
+        return len(self._uids)
+
+    def __getitem__(self, sl):
+        if not isinstance(sl, slice):
+            raise TypeError("row views only slice")
+        return _ScoreRecordRows(
+            uids=self._uids[sl],
+            labels=self._labels[sl] if self._labels is not None else None,
+            scores=self._scores[sl],
+            weights=self._weights[sl],
+            meta_cols=[(t, vals[sl], mask[sl]) for t, vals, mask in self._meta_cols],
+            model_id=self._model_id,
+        )
+
+    def __iter__(self):
+        labels = self._labels
+        for i, uid in enumerate(self._uids):
+            meta = {t: vals[i] for t, vals, mask in self._meta_cols if mask[i]}
+            yield {
+                "uid": uid,
+                "label": labels[i] if labels is not None else None,
+                "modelId": self._model_id,
+                "predictionScore": self._scores[i],
+                "weight": self._weights[i],
+                "metadataMap": meta or None,
+            }
+
+
+class GameScoringDriver:
+    """After run(): ``metrics`` maps each evaluator's name to its value."""
+
+    def __init__(self, params: GameScoringParams, logger=None):
+        params.validate()
+        self.params = params
+        self.device = resolve_device(params.device)
+        prepare_output_dir(params.output_dir, delete_if_exists=params.delete_output_dir_if_exists)
+        self.logger = logger or PhotonLogger(params.output_dir)
+        self.timer = Timer()
+        self.metrics: Dict[str, float] = {}
+        self.scores: Optional[torch.Tensor] = None
+
+    def run(self) -> None:
+        p = self.params
+        self.logger.info("application: %s", p.application_name)
+        with self.timer.time("load-model"):
+            model = load_game_model(p.game_model_input_dir)
+        self.logger.info("loaded coordinates: %s", model.coordinate_names())
+
+        # id columns: RE types, MF types, sharded evaluator ids, pass-through ids
+        id_types = set(p.random_effect_id_set)
+        for _, (re_type, _, _) in model.random_effects.items():
+            id_types.add(re_type)
+        for _, (rt, ct, _, _) in model.matrix_factorizations.items():
+            id_types.update((rt, ct))
+        for et in p.evaluator_types:
+            if et.id_type:
+                id_types.add(et.id_type)
+
+        index_maps = None
+        if p.offheap_indexmap_dir:
+            from photon_ml_tpu_torch.utils.native_index import load_offheap_index_maps
+
+            index_maps = load_offheap_index_maps(
+                p.offheap_indexmap_dir, [cfg.shard_id for cfg in p.feature_shards],
+                num_partitions=p.offheap_indexmap_num_partitions,
+            )
+        elif p.feature_name_and_term_set_path:
+            from photon_ml_tpu_torch.io.name_term_list import index_maps_from_name_term_lists
+
+            index_maps = index_maps_from_name_term_lists(
+                p.feature_name_and_term_set_path, p.feature_shards
+            )
+        input_paths = expand_dated_paths(
+            p.input_dirs, p.date_range, p.date_range_days_ago, self.logger
+        )
+        scope = (
+            schedule_cache.cache_scope(p.tile_cache_dir)
+            if p.tile_cache_dir is not None else contextlib.nullcontext()
+        )
+        with scope:
+            with self.timer.time("load-data"):
+                dataset = build_game_dataset_from_files(
+                    input_paths, p.feature_shards, sorted(id_types),
+                    index_maps=index_maps, is_response_required=p.has_response,
+                    device=self.device,
+                )
+            with self.timer.time("score"):
+                scores = model.score(dataset, p.task_type) + dataset.row_tensors()[1]
+                self.scores = scores
+        with self.timer.time("write-scores"):
+            self._write_scores(dataset, scores.cpu().numpy())
+        if p.evaluator_types and p.has_response:
+            with self.timer.time("evaluate"):
+                self._evaluate(dataset, scores)
+            atomic_write_json(
+                os.path.join(p.output_dir, "metrics.json"),
+                {**self.metrics, "reliability": {"retries": retry_stats()}},
+            )
+        self.logger.info("timers:\n%s", self.timer.summary())
+
+    def _score_records(self, dataset, scores: np.ndarray) -> _ScoreRecordRows:
+        n = dataset.num_real_rows
+        meta_cols = []
+        for t in sorted(dataset.entity_indexes):
+            codes = np.asarray(dataset.entity_codes[t][:n])
+            ids_arr = np.asarray(dataset.entity_indexes[t].ids, dtype=object)
+            vals = ids_arr[np.maximum(codes, 0)] if ids_arr.size else np.empty((n,), dtype=object)
+            meta_cols.append((t, vals, codes >= 0))
+        return _ScoreRecordRows(
+            uids=list(dataset.uids[:n]),
+            labels=np.asarray(dataset.labels[:n]).tolist() if self.params.has_response else None,
+            scores=np.asarray(scores[:n]).tolist(),
+            weights=np.asarray(dataset.weights[:n]).tolist(),
+            meta_cols=meta_cols,
+            model_id=self.params.model_id or "game-model",
+        )
+
+    def _write_scores(self, dataset, scores: np.ndarray) -> None:
+        _write_parts(
+            os.path.join(self.params.output_dir, "scores"),
+            schemas.SCORING_RESULT_AVRO,
+            self._score_records(dataset, scores),
+            self.params.num_files,
+        )
+
+    def _evaluate(self, dataset, scores: torch.Tensor) -> None:
+        p = self.params
+        lab, _, w = dataset.row_tensors()
+        loss = loss_for_task(p.task_type)
+        for et in p.evaluator_types:
+            if et.is_sharded:
+                gids = torch.as_tensor(dataset.entity_codes[et.id_type], device=dataset.device)
+                ev = Evaluator(et, num_groups=dataset.entity_indexes[et.id_type].num_entities)
+                value = float(ev.evaluate(scores, lab, w, gids.long().clamp_min(0)))
+            else:
+                metric_in = loss.mean(scores) if et.name == "RMSE" else scores
+                value = float(Evaluator(et).evaluate(metric_in, lab, w))
+            self.metrics[et.render()] = value
+            self.logger.info("%s = %g", et.render(), value)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="photon-ml-tpu-torch game-scoring")
+    ap.add_argument("--input-data-dirs", required=True)
+    ap.add_argument("--game-model-input-dir", required=True)
+    ap.add_argument("--output-dir", required=True)
+    ap.add_argument("--task-type", default="LOGISTIC_REGRESSION")
+    ap.add_argument("--feature-shard-id-to-feature-section-keys-map", required=True)
+    ap.add_argument("--evaluator-types", default=None)
+    ap.add_argument("--game-model-id", default=None)
+    ap.add_argument("--model-id", default=None, help="alias of --game-model-id")
+    ap.add_argument("--has-response", default="true")
+    ap.add_argument("--offheap-indexmap-dir", default=None)
+    ap.add_argument("--offheap-indexmap-num-partitions", type=int, default=None)
+    ap.add_argument("--feature-name-and-term-set-path", default=None)
+    ap.add_argument("--feature-shard-id-to-intercept-map", default=None)
+    ap.add_argument("--date-range", default=None)
+    ap.add_argument("--date-range-days-ago", default=None)
+    ap.add_argument("--random-effect-id-set", default=None)
+    ap.add_argument("--num-files", type=int, default=1)
+    ap.add_argument("--delete-output-dir-if-exists", default="false")
+    ap.add_argument("--application-name", default=None)
+    ap.add_argument("--obs-dir", default=None)
+    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--tile-cache-dir", default=None)
+    ap.add_argument("--streaming", default="false")
+    ap.add_argument("--rows-per-chunk", type=int, default=100_000)
+    ap.add_argument("--stream-memory-budget", type=int, default=0)
+    ap.add_argument("--no-overlap", default="false")
+    ap.add_argument("--fault-plan", default=None)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a card) or cpu")
+    return ap
+
+
+def params_from_args(argv=None) -> GameScoringParams:
+    ns = build_arg_parser().parse_args(argv)
+    return GameScoringParams(
+        input_dirs=ns.input_data_dirs.split(","),
+        game_model_input_dir=ns.game_model_input_dir,
+        output_dir=ns.output_dir,
+        task_type=TaskType.parse(ns.task_type),
+        feature_shards=apply_intercept_map(
+            parse_shard_map(ns.feature_shard_id_to_feature_section_keys_map),
+            ns.feature_shard_id_to_intercept_map,
+        ),
+        evaluator_types=(
+            [EvaluatorType.parse(s) for s in ns.evaluator_types.split(",")]
+            if ns.evaluator_types else []
+        ),
+        model_id=ns.game_model_id or ns.model_id or "",
+        profile_dir=ns.profile_dir,
+        obs_dir=ns.obs_dir,
+        tile_cache_dir=ns.tile_cache_dir,
+        no_overlap=_bool(ns.no_overlap),
+        streaming=_bool(ns.streaming),
+        rows_per_chunk=ns.rows_per_chunk,
+        stream_memory_budget=ns.stream_memory_budget,
+        fault_plan=ns.fault_plan,
+        has_response=_bool(ns.has_response),
+        date_range=ns.date_range,
+        date_range_days_ago=ns.date_range_days_ago,
+        random_effect_id_set=(
+            [s for s in ns.random_effect_id_set.split(",") if s]
+            if ns.random_effect_id_set else []
+        ),
+        num_files=ns.num_files,
+        delete_output_dir_if_exists=_bool(ns.delete_output_dir_if_exists),
+        application_name=ns.application_name or "photon-ml-tpu-game-scoring",
+        offheap_indexmap_dir=ns.offheap_indexmap_dir,
+        offheap_indexmap_num_partitions=ns.offheap_indexmap_num_partitions,
+        feature_name_and_term_set_path=ns.feature_name_and_term_set_path,
+        device=ns.device,
+    )
+
+
+def main(argv=None) -> GameScoringDriver:
+    driver = GameScoringDriver(params_from_args(argv))
+    driver.run()
+    return driver
+
+
+if __name__ == "__main__":
+    main()

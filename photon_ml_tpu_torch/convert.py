@@ -162,3 +162,38 @@ def feature_sharded_cell_from_reference(
         device=device,
     )
     return FeatureShardedTiledBatch(fs_meta, tiled, data_index, model_index)
+
+
+def game_model_from_reference(
+    task,
+    fixed_effects: Mapping[str, tuple],
+    random_effects: Mapping[str, tuple],
+    re_datasets: Mapping[str, object],
+    *,
+    device: DeviceLike = None,
+):
+    """A JAX ``GameModel`` carried across as numpy -> the port's
+    ``GameModel``.
+
+    ``fixed_effects``: {name: (feature shard id, means [d], variances [d]
+    or None)}; ``random_effects``: {name: (random-effect type, feature
+    shard id, bank [E, D], variances [E, D] or None, projection [E, D],
+    entity ids)}; ``re_datasets``: {name: the port's RandomEffectDataset}
+    the bank is tied to, whose projection and entity order must be the
+    reference's (a mismatch raises: the bank would mean other features)."""
+    from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel, RandomEffectModel
+    from photon_ml_tpu_torch.models.glm import create_model
+
+    dev = resolve_device(device)
+    models = {}
+    for name, (shard_id, means, variances) in fixed_effects.items():
+        coefs = coefficients_from_reference(means, variances, device=dev)
+        models[name] = FixedEffectModel(create_model(task, coefs), shard_id)
+    for name, (re_type, shard_id, bank, variances, projection, ids) in random_effects.items():
+        red = re_datasets[name]
+        if not np.array_equal(red.projection, projection) or red.num_entities != len(ids):
+            raise ValueError(f"{name}: the port's dataset does not hold the reference's projection")
+        models[name] = RandomEffectModel(
+            _tensor(bank, dev), red, re_type, shard_id, _tensor(variances, dev)
+        )
+    return GameModel(models, task)

@@ -1,0 +1,97 @@
+"""GAME (Generalized Additive Mixed Effects) in memory on one device: multi-
+shard data, per-entity random effects, block coordinate descent, model
+files (port of ``photon_ml_tpu/game``). The factored random effect and
+matrix factorization training wait for ROADMAP item 10, the pod and mesh
+paths for item 13; their names raise with the item."""
+
+from photon_ml_tpu_torch.game.config import (
+    FactoredRandomEffectConfiguration,
+    FeatureShardConfiguration,
+    FixedEffectDataConfiguration,
+    MFOptimizationConfiguration,
+    ProjectorType,
+    RandomEffectDataConfiguration,
+)
+from photon_ml_tpu_torch.game.coordinate import (
+    Coordinate,
+    FactoredRandomEffectCoordinate,
+    FixedEffectCoordinate,
+    MatrixFactorizationCoordinate,
+    PodRandomEffectCoordinate,
+    RandomEffectCoordinate,
+)
+from photon_ml_tpu_torch.game.coordinate_descent import (
+    CoordinateDescent,
+    CoordinateDescentResult,
+)
+from photon_ml_tpu_torch.game.data import (
+    EntityIndex,
+    GameDataset,
+    ShardData,
+    build_game_dataset,
+    build_game_dataset_from_files,
+    slice_game_dataset,
+)
+from photon_ml_tpu_torch.game.model import (
+    DatumScoringModel,
+    FixedEffectModel,
+    GameModel,
+    MatrixFactorizationModel,
+    RandomEffectModel,
+)
+from photon_ml_tpu_torch.game.model_io import (
+    LoadedGameModel,
+    load_game_model,
+    save_game_model,
+    save_loaded_game_model,
+)
+from photon_ml_tpu_torch.game.random_effect import (
+    LazyRandomEffectTracker,
+    RandomEffectOptimizationProblem,
+    RandomEffectTracker,
+    score_random_effect,
+)
+from photon_ml_tpu_torch.game.random_effect_data import (
+    RandomEffectBucket,
+    RandomEffectDataset,
+    build_random_effect_dataset,
+)
+
+__all__ = [
+    "FactoredRandomEffectConfiguration",
+    "FeatureShardConfiguration",
+    "FixedEffectDataConfiguration",
+    "MFOptimizationConfiguration",
+    "ProjectorType",
+    "RandomEffectDataConfiguration",
+    "Coordinate",
+    "FactoredRandomEffectCoordinate",
+    "FixedEffectCoordinate",
+    "MatrixFactorizationCoordinate",
+    "PodRandomEffectCoordinate",
+    "RandomEffectCoordinate",
+    "CoordinateDescent",
+    "CoordinateDescentResult",
+    "EntityIndex",
+    "GameDataset",
+    "ShardData",
+    "build_game_dataset",
+    "build_game_dataset_from_files",
+    "slice_game_dataset",
+    "DatumScoringModel",
+    "FixedEffectModel",
+    "GameModel",
+    "MatrixFactorizationModel",
+    "RandomEffectModel",
+    "LoadedGameModel",
+    "load_game_model",
+    "save_game_model",
+    "save_loaded_game_model",
+    "LazyRandomEffectTracker",
+    "RandomEffectOptimizationProblem",
+    "RandomEffectTracker",
+    "score_random_effect",
+    "RandomEffectBucket",
+    "RandomEffectDataset",
+    "build_random_effect_dataset",
+]

@@ -45,6 +45,7 @@ import os
 import subprocess
 import threading
 import time
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -751,19 +752,71 @@ def tiled_batch_from_sparse(
     )
 
 
+# The in-memory tier of ensure_tiled: a caller that wraps the SAME indices,
+# values and weights tensors in a fresh SparseBatch per call (the GAME
+# coordinate-descent pattern, where only the offsets change between
+# sweeps) reuses the schedules and re-pads only the row metadata. A hit
+# needs the same tensor objects (held here, so an id cannot be recycled
+# while its entry lives) at the same version counter: torch bumps
+# ``_version`` on every in-place edit of a tensor or of a view of it, so an
+# edited batch misses and is tiled anew. At most two entries, each pinning
+# a tiled batch on the device, as in the JAX package.
+_TILED_CACHE_MAX = 2
+_tiled_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+# conversions that built a tiled batch (misses of the in-memory tier) and
+# their host seconds; a run sets them to 0 and reads them
+tilings = 0
+tiling_seconds = 0.0
+
+
+def _pad_rows_on_device(t: Tensor, total: int) -> Tensor:
+    out = torch.zeros(total, dtype=torch.float32, device=t.device)
+    out[: t.shape[0]] = t
+    return out
+
+
 def ensure_tiled(
     batch, dim: int, *, params: Optional[TileParams] = None,
     device: DeviceLike = None,
 ) -> TiledSparseBatch:
-    """Idempotent tiled conversion (the JAX package's ``ensure_tiled``,
-    without its in-memory tier): a TiledSparseBatch passes through; any
-    other batch is tiled with ``tiled_batch_from_sparse``, whose schedules
-    come from the schedule cache when one is configured."""
+    """Idempotent tiled conversion (the JAX package's ``ensure_tiled``): a
+    TiledSparseBatch passes through; a SparseBatch whose indices, values
+    and weights an earlier call tiled, unedited since, reuses that
+    conversion with its own labels and offsets; any other batch is tiled
+    with ``tiled_batch_from_sparse``, whose schedules come from the
+    schedule cache when one is configured."""
+    global tilings, tiling_seconds
     if isinstance(batch, TiledSparseBatch):
         return batch
-    return tiled_batch_from_sparse(
-        batch, dim, params=params or TileParams(), device=device
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    src = (batch.indices, batch.values, batch.weights)
+    key = (tuple((id(t), t._version) for t in src), dim, params, dev)
+    hit = _tiled_cache.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], src)):
+        _tiled_cache.move_to_end(key)
+        cached = hit[1]
+        rows = cached.meta.num_rows
+        return dataclasses.replace(
+            cached,
+            labels=_pad_rows_on_device(batch.labels.to(cached.device), rows),
+            offsets=_pad_rows_on_device(batch.offsets.to(cached.device), rows),
+            weights=_pad_rows_on_device(batch.weights.to(cached.device), rows),
+        )
+    for k in [k for k, (held, _) in _tiled_cache.items()
+              if all(a is b for a, b in zip(held, src))]:
+        del _tiled_cache[k]  # the same tensors, edited since
+    t0 = time.perf_counter()
+    out = tiled_batch_from_sparse(
+        batch, dim, params=params or TileParams(), device=dev
     )
+    tilings += 1
+    tiling_seconds += time.perf_counter() - t0
+    _tiled_cache[key] = (src, out)
+    while len(_tiled_cache) > _TILED_CACHE_MAX:
+        _tiled_cache.popitem(last=False)
+    return out
 
 
 def build_sharded_tiled_batch(

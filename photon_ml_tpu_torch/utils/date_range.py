@@ -147,3 +147,20 @@ def input_paths_within_date_range(
             )
         out.extend(existing)
     return out
+
+
+def expand_dated_paths(dirs, date_range, days_ago, logger=None) -> List[str]:
+    """Input dirs -> daily paths when a range is configured
+    (IOUtils.getInputPathsWithinDateRange), identity otherwise; the GAME
+    training and scoring drivers' input expansion."""
+    rng = resolve_date_range(date_range, days_ago)
+    dirs = list(dirs)
+    if rng is None:
+        return dirs
+    paths = input_paths_within_date_range(dirs, rng)
+    if logger is not None:
+        logger.info(
+            "date range %s expanded %d dir(s) to %d daily paths",
+            rng, len(dirs), len(paths),
+        )
+    return paths

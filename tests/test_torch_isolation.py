@@ -62,6 +62,10 @@ def test_fresh_interpreter_imports_no_jax():
         "diagnostics.diagnostics", "diagnostics.report", "diagnostics.reporting",
         "evaluation.evaluator", "evaluation.metrics", "data.sampler",
         "io.name_term_list", "utils.native_index",
+        "game", "game.config", "game.data", "game.random_effect_data",
+        "game.random_effect", "game.model", "game.coordinate",
+        "game.coordinate_descent", "game.model_io",
+        "cli.game_training_driver", "cli.game_scoring_driver", "tools.fe_spread",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]
@@ -143,6 +147,58 @@ def _blocked_driver_runs(tmp_path, slice_options):
             assert (tmp_path / f"out-{kind}" / "model-diagnostics" / "report.html").is_file()
 
 
+def test_cpu_game_drivers_run_where_jax_cannot_be_imported(tmp_path):
+    """``python -m photon_ml_tpu_torch.cli.game_training_driver`` and then
+    ``...game_scoring_driver`` with ``--device cpu`` in a process where
+    importing jax or the JAX package fails."""
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    rng = np.random.default_rng(0)
+    schema = dict(schemas.TRAINING_EXAMPLE_AVRO)
+    recs = []
+    for i in range(64):
+        x = rng.normal(size=3)
+        recs.append({
+            "label": float(x.sum() > 0), "metadataMap": {"userId": f"u{i % 4}"},
+            "features": [{"name": f"f{j}", "term": "", "value": float(x[j])} for j in range(3)],
+        })
+    (tmp_path / "in").mkdir()
+    write_container(str(tmp_path / "in" / "part-0.avro"), schema, recs)
+    shard_map = "global:features|user:features"
+    train = [
+        "--train-input-dirs", str(tmp_path / "in"), "--validate-input-dirs", str(tmp_path / "in"),
+        "--output-dir", str(tmp_path / "out"),
+        "--feature-shard-id-to-feature-section-keys-map", shard_map,
+        "--fixed-effect-data-configurations", "global:global,1",
+        "--fixed-effect-optimization-configurations", "global:20,1e-6,1,1,LBFGS,L2",
+        "--random-effect-data-configurations", "per-user:userId,user,1,none,none,none,INDEX_MAP",
+        "--random-effect-optimization-configurations", "per-user:20,1e-6,1,1,LBFGS,L2",
+        "--num-iterations", "2", "--model-output-mode", "BEST", "--device", "cpu",
+    ]
+    score = [
+        "--input-data-dirs", str(tmp_path / "in"),
+        "--game-model-input-dir", str(tmp_path / "out" / "best-model"),
+        "--output-dir", str(tmp_path / "scores"),
+        "--feature-shard-id-to-feature-section-keys-map", shard_map,
+        "--evaluator-types", "AUC", "--device", "cpu",
+    ]
+    code = _BLOCKER + (
+        "import runpy\n"
+        f"sys.argv = ['game_training_driver'] + {train!r}\n"
+        "runpy.run_module('photon_ml_tpu_torch.cli.game_training_driver', run_name='__main__')\n"
+        f"sys.argv = ['game_scoring_driver'] + {score!r}\n"
+        "runpy.run_module('photon_ml_tpu_torch.cli.game_scoring_driver', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'photon_ml_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   capture_output=True, text=True, timeout=300)
+    assert (tmp_path / "out" / "best-model" / "random-effect" / "per-user" / "id-info").is_file()
+    assert (tmp_path / "scores" / "scores" / "part-00000.avro").is_file()
+
+
 def test_sources_import_no_jax():
     offenders = []
     for path in _sources():
@@ -182,6 +238,18 @@ def test_default_device_raises_without_cuda(no_cuda):
         resolve_kernel("auto")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spawn_mesh(_probe_rank, (1,), timeout_s=60.0)
+    from photon_ml_tpu_torch.cli import game_training_driver
+    from photon_ml_tpu_torch.game import FeatureShardConfiguration, build_game_dataset
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_game_dataset(
+            [{"response": 1.0, "features": []}], [FeatureShardConfiguration("g", ["features"])]
+        )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        game_training_driver.GameTrainingDriver(game_training_driver.GameTrainingParams(
+            train_input_dirs=["t"], output_dir="o", random_effect_data_configs={},
+            fixed_effect_data_configs={"g": None}, fixed_effect_opt_configs={"g": ""},
+        ))
 
 
 def test_cpu_on_request(no_cuda):

@@ -5,6 +5,7 @@ schedule must be the one the builder makes, and an artifact the JAX
 package's cache wrote must load in the port to the JAX package's arrays.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -145,22 +146,31 @@ def test_reference_artifact_loads_in_the_port(tmp_path, fresh_stats):
 
 
 def test_ensure_tiled_reuses_the_conversion(tmp_path, fresh_stats):
-    """A tiled batch passes through; a SparseBatch is tiled afresh each
-    call (no in-memory tier: torch tensors are mutable), and its schedules
-    are reused only through the disk cache, keyed by content."""
+    """A tiled batch passes through; a SparseBatch whose tensors an earlier
+    call tiled, unedited since, reuses that conversion (the in-memory
+    tier); an in-place edit is seen and tiled afresh; new tensors reuse
+    schedules only through the disk cache, keyed by content."""
     _, batch = _batches(5)
     first = ensure_tiled(batch, D, device="cpu")
     assert ensure_tiled(first, D) is first
     again = ensure_tiled(batch, D, device="cpu")
-    assert again is not first and schedule_cache.stats().builds == 4
+    assert again is not first and schedule_cache.stats().builds == 2
+    assert again.z_sched is first.z_sched
     _assert_same_schedules(again, first)
     # values edited in place: the next conversion sees them
     batch.values.mul_(2.0)
     edited = ensure_tiled(batch, D, device="cpu")
+    assert schedule_cache.stats().builds == 4
     np.testing.assert_array_equal(edited.z_sched.vals.numpy(), 2.0 * first.z_sched.vals.numpy())
+
+    def fresh():
+        return dataclasses.replace(
+            batch, indices=batch.indices.clone(), values=batch.values.clone()
+        )
+
     with schedule_cache.cache_scope(str(tmp_path)):
-        ensure_tiled(batch, D, device="cpu")
-        cached = ensure_tiled(batch, D, device="cpu")
+        ensure_tiled(fresh(), D, device="cpu")
+        cached = ensure_tiled(fresh(), D, device="cpu")
     assert cached.builder == "cache"
     _assert_same_schedules(cached, edited)
 
