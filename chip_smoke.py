@@ -115,9 +115,35 @@ Phases, each printing its own lines:
    variances, BEST) and ``game_scoring_driver.main`` over the 2^16
    validation rows: the output tree, a non-increasing objective, and the
    scoring AUC equal to the training driver's validation AUC within 1e-6;
-9. a ``kernels`` JSON line (with each kernel's launches in the driver
-   runs, K1's in run D's diagnose stage and in the GAME runs), the
-   nvidia-smi line, and the last line
+9. the factored random effect, MF and the reliability layer: run F, run
+   G's rows and fixed effect (K1, its schedule from the in-memory tier)
+   with the user random effect factored (IDENTITY-projected user shard,
+   latent dimension 8, one inner iteration, L-BFGS 30 iterations for the
+   latent banks and the projection fit) through
+   ``CoordinateDescent.run(2)``: per sweep the FE, bank and projection-fit
+   seconds and the readbacks (one a sweep), the projection problem's
+   dimension and held entries, the device memory peak, a non-increasing
+   objective, and the scores within 1e-5 of a float64 recomputation
+   from the bank, B and the rows; run M, ``MatrixFactorizationCoordinate``
+   at MovieLens-20M entity counts (bench.py's settings: 138,493 x 26,744,
+   K = 32, 2,000,000 ratings from the seed, LINEAR, L2 1, L-BFGS 20),
+   uninterrupted for two sweeps, then with a ``TrainingCheckpointer`` and
+   an installed ``PreemptionGuard``: a SIGTERM to the process in sweep 1
+   stops the run after it, a new run resumes from the checkpoint (its
+   factors bitwise the checkpoint's) and ends within 1e-6 of the
+   uninterrupted objective, and 1,000 sampled row and column entities
+   each within 1e-4 of a float64 CPU solve of their own objective; run R,
+   run A's argv with ``--checkpoint-dir`` and a fault plan that kills the
+   driver (SIGKILL) in lambda = 1's snapshot, in a subprocess, then the
+   same argv through ``glm_driver.main``: lambda = 10 from its snapshot
+   (bitwise, no K1 launch), lambda = 1 warm-started from the snapshotted
+   means, both objectives within 1e-4 of run A's and the intercept_spread
+   limit, and the reliability block of metrics.json. The card repeats no
+   fit with an intercept bitwise (float atomics in K1), so the bitwise
+   resume is the CPU tests' (``tests/test_torch_reliability.py``);
+10. a ``kernels`` JSON line (with each kernel's launches in the driver
+   runs, K1's in run D's diagnose stage, in the GAME runs and in runs F
+   and R), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -127,6 +153,9 @@ when any check fails. It imports nothing of JAX.
 import argparse
 import json
 import os
+import shutil
+import signal
+import subprocess
 import sys
 import tempfile
 import time
@@ -768,6 +797,17 @@ def driver_run(label, argv, out, k1, k2, smi, outputs=DRIVER_OUTPUTS, keep_drive
 
 
 def driver_phase(seed, smi, k1, k2):
+    """Phase 7 (:func:`driver_runs`) in a temp directory that outlives it
+    for run R; removed here only if the phase fails."""
+    tmp = tempfile.mkdtemp(prefix="photon_driver_phase_")
+    try:
+        return driver_runs(seed, smi, k1, k2, tmp)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def driver_runs(seed, smi, k1, k2, tmp):
     """Phase 7: the port's CLI entry point, ``glm_driver.main(argv)``, over
     the same LibSVM files with the intercept (the driver's default): run
     A, the warm-started sequential grid (K1) with a cold schedule cache;
@@ -780,8 +820,9 @@ def driver_phase(seed, smi, k1, k2):
     of ``train_generalized_linear_model(kernel="tiled")``'s on the batch
     the port's LibSVM loader gives (and A's lambda = 10 model is not, at
     lambda = 1), and run C's lambda = 1 model is within DRIVER_RTOL of the
-    direct trainer's on that batch without its intercept column; -> the
-    launches of each run."""
+    direct trainer's on that batch without its intercept column; -> (the
+    launches of each run, run A's argv, models, objectives and loaded
+    batch for run R, in a temp directory the caller removes)."""
     from photon_ml_tpu_torch.data.batch import SparseBatch
     from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_ml_tpu_torch.io.input_format import create_input_format
@@ -792,170 +833,175 @@ def driver_phase(seed, smi, k1, k2):
     from photon_ml_tpu_torch.training import train_generalized_linear_model
     from photon_ml_tpu_torch.utils.index_map import IndexMap
 
-    with tempfile.TemporaryDirectory(prefix="photon_driver_phase_") as tmp:
-        train_dir, val_dir, data_s = driver_data(seed, tmp)
-        say(f"driver data: {DRIVER_TRAIN_ROWS} train rows in {DRIVER_PARTS} LibSVM "
-            f"files, {N_HELD_OUT} validation rows, {NNZ_PER_ROW} nnz per row, "
-            f"{DIM} features; made and written in {data_s:.2f} s")
-        common = [
-            "--training-data-directory", train_dir,
-            "--input-file-format", "LIBSVM", "--feature-dimension", str(DIM),
-            "--regularization-weights", "10,1", "--optimizer", "LBFGS",
-            "--compute-variances", "true", "--tile-cache-dir", f"{tmp}/tile-cache",
-        ]
-        validated = common + ["--validating-data-directory", val_dir]
-        runs = {
-            label: driver_run(label, argv + ["--grid-mode", mode], f"{tmp}/out-{label}",
-                              k1, k2, f"{mode}, {smi}")
-            for label, mode, argv in (
-                ("A", "sequential", validated), ("B", "batched", validated),
-            )
-        }
-        a, b = runs["A"], runs["B"]
-        if a["k1"] == 0 or a["k2"]:
-            fail(f"driver run A launched {a['k1']} K1 and {a['k2']} K2")
-        if b["k2"] == 0:
-            fail("driver run B never launched K2")
-        sc_a, sc_b = a["metrics"]["schedule_cache"], b["metrics"]["schedule_cache"]
-        if sc_a["builds"] < 2 or sc_a["stores"] < 2:
-            fail("driver run A did not build and store both train schedules")
-        if sc_b["hits"] < 1 or sc_b["builds"]:
-            fail("driver run B did not take the train schedule from the cache")
-        say(f"driver schedule ({smi}): built cold in {sc_a['build_s']!r} s (run A), "
-            f"from the cache in {sc_b['load_s'] + sc_b['hash_s']!r} s "
-            f"(run B: load {sc_b['load_s']!r} + content hash {sc_b['hash_s']!r})")
+    train_dir, val_dir, data_s = driver_data(seed, tmp)
+    say(f"driver data: {DRIVER_TRAIN_ROWS} train rows in {DRIVER_PARTS} LibSVM "
+        f"files, {N_HELD_OUT} validation rows, {NNZ_PER_ROW} nnz per row, "
+        f"{DIM} features; made and written in {data_s:.2f} s")
+    common = [
+        "--training-data-directory", train_dir,
+        "--input-file-format", "LIBSVM", "--feature-dimension", str(DIM),
+        "--regularization-weights", "10,1", "--optimizer", "LBFGS",
+        "--compute-variances", "true", "--tile-cache-dir", f"{tmp}/tile-cache",
+    ]
+    validated = common + ["--validating-data-directory", val_dir]
+    runs = {
+        label: driver_run(label, argv + ["--grid-mode", mode], f"{tmp}/out-{label}",
+                          k1, k2, f"{mode}, {smi}")
+        for label, mode, argv in (
+            ("A", "sequential", validated), ("B", "batched", validated),
+        )
+    }
+    a, b = runs["A"], runs["B"]
+    if a["k1"] == 0 or a["k2"]:
+        fail(f"driver run A launched {a['k1']} K1 and {a['k2']} K2")
+    if b["k2"] == 0:
+        fail("driver run B never launched K2")
+    sc_a, sc_b = a["metrics"]["schedule_cache"], b["metrics"]["schedule_cache"]
+    if sc_a["builds"] < 2 or sc_a["stores"] < 2:
+        fail("driver run A did not build and store both train schedules")
+    if sc_b["hits"] < 1 or sc_b["builds"]:
+        fail("driver run B did not take the train schedule from the cache")
+    say(f"driver schedule ({smi}): built cold in {sc_a['build_s']!r} s (run A), "
+        f"from the cache in {sc_b['load_s'] + sc_b['hash_s']!r} s "
+        f"(run B: load {sc_b['load_s']!r} + content hash {sc_b['hash_s']!r})")
 
-        # the validation rows and the written models, read back
-        index_map = IndexMap.load(f"{a['out']}/feature-index/index.json")
-        fmt = create_input_format("LIBSVM", feature_dimension=DIM)
-        val = fmt.load(val_dir, index_map=index_map, device="cuda").batch
+    # the validation rows and the written models, read back
+    index_map = IndexMap.load(f"{a['out']}/feature-index/index.json")
+    fmt = create_input_format("LIBSVM", feature_dimension=DIM)
+    val = fmt.load(val_dir, index_map=index_map, device="cuda").batch
+    for label, run in runs.items():
+        models = load_glm_models_avro(
+            f"{run['out']}/models/models.avro", index_map, device="cuda"
+        )
+        best = load_glm_models_avro(
+            f"{run['out']}/best-model/model.avro", index_map, device="cuda"
+        )
+        if sorted(models) != ["1.0", "10.0"] or len(best) != 1:
+            fail(f"driver run {label}: models {sorted(models)}, best {sorted(best)}")
+        run["models"] = models
+        for lam, m in models.items():
+            auc_file = run["metrics"]["validation"][lam]["AUC"]
+            auc = float(area_under_roc_curve(
+                compute_margins(m.means, val), val.labels, val.weights))
+            say(f"driver run {label} lambda={lam}: held-out AUC {auc_file!r} "
+                f"(metrics.json), {auc!r} (written model); variances "
+                f"{'present' if m.coefficients.variances is not None else 'missing'}")
+            if not auc_file > 0.5 or auc != auc_file:
+                fail(f"driver run {label} lambda={lam}: held-out AUC off")
+            if m.coefficients.variances is None:
+                fail(f"driver run {label} lambda={lam}: no variances written")
+
+    # runs A and B against the trainer called directly on the batch the
+    # port's loader gives for the same files: the objective at each
+    # lambda, in float64
+    t0 = time.perf_counter()
+    direct = fmt.load(train_dir, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    say(f"driver load ({smi}): {DRIVER_TRAIN_ROWS} train rows in {load_s!r} s, "
+        f"{DRIVER_TRAIN_ROWS / load_s!r} rows per second")
+    fit = dict(
+        optimizer_type=OptimizerType.LBFGS,
+        regularization_type=RegularizationType.L2,
+        regularization_weights=[10.0, 1.0], compute_variances=True,
+        kernel="tiled", device="cuda",
+    )
+    batch = a_batch = direct.batch
+    d_models, d_results = train_generalized_linear_model(
+        batch, TaskType.LOGISTIC_REGRESSION, direct.num_features,
+        intercept_index=direct.intercept_index, **fit,
+    )
+    _, g0 = objective64(batch, torch.zeros_like(d_models[1.0].means), 1.0)
+    objectives = {}  # (run, lambda) -> objective
+    for lam in (10.0, 1.0):
+        ref = d_models[lam].means
+        f_ref, g_ref = objective64(batch, ref, lam)
+        say(f"driver direct lambda={lam} ({smi}): objective {f_ref!r}, "
+            f"gradient max-abs {g_ref!r} ({g0!r} at 0), iterations "
+            f"{d_results[lam].iterations}, stop reason {d_results[lam].reason_name}")
+        # the stop reason and the gradient max-abs at each returned point
+        # (no box: the projected gradient is the gradient)
+        stops = {"direct": (d_results[lam].reason_name, g_ref)}
         for label, run in runs.items():
-            models = load_glm_models_avro(
-                f"{run['out']}/models/models.avro", index_map, device="cuda"
-            )
-            best = load_glm_models_avro(
-                f"{run['out']}/best-model/model.avro", index_map, device="cuda"
-            )
-            if sorted(models) != ["1.0", "10.0"] or len(best) != 1:
-                fail(f"driver run {label}: models {sorted(models)}, best {sorted(best)}")
-            run["models"] = models
-            for lam, m in models.items():
-                auc_file = run["metrics"]["validation"][lam]["AUC"]
-                auc = float(area_under_roc_curve(
-                    compute_margins(m.means, val), val.labels, val.weights))
-                say(f"driver run {label} lambda={lam}: held-out AUC {auc_file!r} "
-                    f"(metrics.json), {auc!r} (written model); variances "
-                    f"{'present' if m.coefficients.variances is not None else 'missing'}")
-                if not auc_file > 0.5 or auc != auc_file:
-                    fail(f"driver run {label} lambda={lam}: held-out AUC off")
-                if m.coefficients.variances is None:
-                    fail(f"driver run {label} lambda={lam}: no variances written")
+            m = run["models"][str(lam)].means
+            f_run, g_run = objective64(batch, m, lam)
+            rel = (f_run - f_ref) / abs(f_ref)
+            spread = float((m - ref).abs().max() / ref.abs().max())
+            stops[label] = (run["reasons"][lam], g_run)
+            objectives[label, lam] = f_run
+            say(f"driver run {label} lambda={lam} vs the direct fit ({smi}): "
+                f"objective {f_run!r}, relative difference {rel!r}; gradient "
+                f"max-abs {g_run!r}, stop reason {run['reasons'][lam]}; "
+                f"intercept_spread {spread!r} of the coefficients' max-abs "
+                f"(limit {INTERCEPT_SPREAD_LIMIT})")
+            if not abs(rel) <= DRIVER_OBJ_RTOL:
+                fail(f"driver run {label} lambda={lam}: objective off the "
+                     "direct fit's")
+            if not spread <= INTERCEPT_SPREAD_LIMIT:
+                fail(f"driver run {label} lambda={lam}: intercept_spread {spread!r} "
+                     f"over {INTERCEPT_SPREAD_LIMIT}")
+        for label, (reason, g) in stops.items():
+            others = max(g_o for other, (_, g_o) in stops.items() if other != label)
+            if reason not in DONE_REASONS and g > GRADIENT_RATIO_LIMIT * others:
+                fail(f"driver {label} lambda={lam} stopped ({reason}) with a "
+                     f"gradient max-abs {g!r}, over {GRADIENT_RATIO_LIMIT}x the "
+                     f"other fits' {others!r}")
+    # the check tells models apart: run A's lambda = 10 model at lambda = 1
+    f_wrong, _ = objective64(batch, a["models"]["10.0"].means, 1.0)
+    f_ref, _ = objective64(batch, d_models[1.0].means, 1.0)
+    rel = (f_wrong - f_ref) / abs(f_ref)
+    say(f"driver control ({smi}): run A's lambda=10 model at lambda=1, "
+        f"objective relative difference {rel!r}")
+    if abs(rel) <= DRIVER_OBJ_RTOL:
+        fail("the objective check does not tell the lambda = 10 model apart")
 
-        # runs A and B against the trainer called directly on the batch the
-        # port's loader gives for the same files: the objective at each
-        # lambda, in float64
-        t0 = time.perf_counter()
-        direct = fmt.load(train_dir, device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        say(f"driver load ({smi}): {DRIVER_TRAIN_ROWS} train rows in {load_s!r} s, "
-            f"{DRIVER_TRAIN_ROWS / load_s!r} rows per second")
-        fit = dict(
-            optimizer_type=OptimizerType.LBFGS,
-            regularization_type=RegularizationType.L2,
-            regularization_weights=[10.0, 1.0], compute_variances=True,
-            kernel="tiled", device="cuda",
-        )
-        batch = direct.batch
-        d_models, d_results = train_generalized_linear_model(
-            batch, TaskType.LOGISTIC_REGRESSION, direct.num_features,
-            intercept_index=direct.intercept_index, **fit,
-        )
-        _, g0 = objective64(batch, torch.zeros_like(d_models[1.0].means), 1.0)
-        objectives = {}  # (run, lambda) -> objective
-        for lam in (10.0, 1.0):
-            ref = d_models[lam].means
-            f_ref, g_ref = objective64(batch, ref, lam)
-            say(f"driver direct lambda={lam} ({smi}): objective {f_ref!r}, "
-                f"gradient max-abs {g_ref!r} ({g0!r} at 0), iterations "
-                f"{d_results[lam].iterations}, stop reason {d_results[lam].reason_name}")
-            # the stop reason and the gradient max-abs at each returned point
-            # (no box: the projected gradient is the gradient)
-            stops = {"direct": (d_results[lam].reason_name, g_ref)}
-            for label, run in runs.items():
-                m = run["models"][str(lam)].means
-                f_run, g_run = objective64(batch, m, lam)
-                rel = (f_run - f_ref) / abs(f_ref)
-                spread = float((m - ref).abs().max() / ref.abs().max())
-                stops[label] = (run["reasons"][lam], g_run)
-                objectives[label, lam] = f_run
-                say(f"driver run {label} lambda={lam} vs the direct fit ({smi}): "
-                    f"objective {f_run!r}, relative difference {rel!r}; gradient "
-                    f"max-abs {g_run!r}, stop reason {run['reasons'][lam]}; "
-                    f"intercept_spread {spread!r} of the coefficients' max-abs "
-                    f"(limit {INTERCEPT_SPREAD_LIMIT})")
-                if not abs(rel) <= DRIVER_OBJ_RTOL:
-                    fail(f"driver run {label} lambda={lam}: objective off the "
-                         "direct fit's")
-                if not spread <= INTERCEPT_SPREAD_LIMIT:
-                    fail(f"driver run {label} lambda={lam}: intercept_spread {spread!r} "
-                         f"over {INTERCEPT_SPREAD_LIMIT}")
-            for label, (reason, g) in stops.items():
-                others = max(g_o for other, (_, g_o) in stops.items() if other != label)
-                if reason not in DONE_REASONS and g > GRADIENT_RATIO_LIMIT * others:
-                    fail(f"driver {label} lambda={lam} stopped ({reason}) with a "
-                         f"gradient max-abs {g!r}, over {GRADIENT_RATIO_LIMIT}x the "
-                         f"other fits' {others!r}")
-        # the check tells models apart: run A's lambda = 10 model at lambda = 1
-        f_wrong, _ = objective64(batch, a["models"]["10.0"].means, 1.0)
-        f_ref, _ = objective64(batch, d_models[1.0].means, 1.0)
-        rel = (f_wrong - f_ref) / abs(f_ref)
-        say(f"driver control ({smi}): run A's lambda=10 model at lambda=1, "
-            f"objective relative difference {rel!r}")
-        if abs(rel) <= DRIVER_OBJ_RTOL:
-            fail("the objective check does not tell the lambda = 10 model apart")
+    runs["D"] = diagnostics_run(
+        train_dir, val_dir, tmp, index_map, batch, objectives["A", 1.0], k1, k2, smi,
+    )
 
-        runs["D"] = diagnostics_run(
-            train_dir, val_dir, tmp, index_map, batch, objectives["A", 1.0], k1, k2, smi,
-        )
-
-        # run C: without the intercept, the coefficients themselves. The
-        # loader appends the intercept after a row's entries and pads the
-        # width to a multiple of 8, so the batch's first NNZ_PER_ROW columns
-        # are the loader's batch without the intercept.
-        k = NNZ_PER_ROW
-        if not (bool((batch.indices[:, k] == DIM).all())
-                and bool((batch.values[:, k] == 1.0).all())
-                and bool((batch.values[:, k + 1:] == 0.0).all())):
-            fail("the loaded batch does not hold the intercept after each row's entries")
-        runs["C"] = c = driver_run(
-            "C", common + ["--grid-mode", "sequential", "--intercept", "false"],
-            f"{tmp}/out-C", k1, k2, f"sequential, no intercept, {smi}",
-            outputs=[f for f in DRIVER_OUTPUTS if not f.startswith("best-model")],
-        )
-        if c["k1"] == 0:
-            fail("driver run C never launched K1")
-        bare = SparseBatch(
-            batch.indices[:, :k].contiguous(), batch.values[:, :k].contiguous(),
-            batch.labels, batch.offsets, batch.weights,
-        )
-        del direct, batch, d_models
-        c_models, _ = train_generalized_linear_model(
-            bare, TaskType.LOGISTIC_REGRESSION, DIM, **fit,
-        )
-        ref = c_models[1.0].means
-        got = load_glm_models_avro(
-            f"{c['out']}/models/models.avro",
-            IndexMap.load(f"{c['out']}/feature-index/index.json"), device="cuda",
-        )["1.0"].means
-        err = float((got - ref).abs().max() / ref.abs().max())
-        say(f"driver run C lambda=1 vs the direct trainer: max-abs difference "
-            f"{err!r} of the coefficients' max-abs")
-        if not err <= DRIVER_RTOL:
-            fail("driver run C's lambda=1 model is off the direct trainer's")
+    # run C: without the intercept, the coefficients themselves. The
+    # loader appends the intercept after a row's entries and pads the
+    # width to a multiple of 8, so the batch's first NNZ_PER_ROW columns
+    # are the loader's batch without the intercept.
+    k = NNZ_PER_ROW
+    if not (bool((batch.indices[:, k] == DIM).all())
+            and bool((batch.values[:, k] == 1.0).all())
+            and bool((batch.values[:, k + 1:] == 0.0).all())):
+        fail("the loaded batch does not hold the intercept after each row's entries")
+    runs["C"] = c = driver_run(
+        "C", common + ["--grid-mode", "sequential", "--intercept", "false"],
+        f"{tmp}/out-C", k1, k2, f"sequential, no intercept, {smi}",
+        outputs=[f for f in DRIVER_OUTPUTS if not f.startswith("best-model")],
+    )
+    if c["k1"] == 0:
+        fail("driver run C never launched K1")
+    bare = SparseBatch(
+        batch.indices[:, :k].contiguous(), batch.values[:, :k].contiguous(),
+        batch.labels, batch.offsets, batch.weights,
+    )
+    del direct, batch, d_models
+    c_models, _ = train_generalized_linear_model(
+        bare, TaskType.LOGISTIC_REGRESSION, DIM, **fit,
+    )
+    ref = c_models[1.0].means
+    got = load_glm_models_avro(
+        f"{c['out']}/models/models.avro",
+        IndexMap.load(f"{c['out']}/feature-index/index.json"), device="cuda",
+    )["1.0"].means
+    err = float((got - ref).abs().max() / ref.abs().max())
+    say(f"driver run C lambda=1 vs the direct trainer: max-abs difference "
+        f"{err!r} of the coefficients' max-abs")
+    if not err <= DRIVER_RTOL:
+        fail("driver run C's lambda=1 model is off the direct trainer's")
     out = {label: {"k1": r["k1"], "k2": r["k2"]} for label, r in runs.items()}
     out["D"]["diagnose_k1"] = runs["D"]["diagnose_k1"]
-    return out
+    run_a = dict(
+        tmp=tmp, argv=validated + ["--grid-mode", "sequential"], batch=a_batch,
+        models={lam: a["models"][str(lam)].means for lam in (10.0, 1.0)},
+        objectives={lam: objectives["A", lam] for lam in (10.0, 1.0)},
+        seconds=a["seconds"], timers=a["timers"],
+    )
+    return out, run_a
 
 
 DIAGNOSTIC_CHAPTERS = ("Model lambda=1.0", "Bootstrap analysis", "Fitting analysis")
@@ -1126,7 +1172,8 @@ def game_rows(rng, users, w_global, w_user):
     """GLMix rows for the given users: global features (64 uniform, then
     the intercept), user features (32 from the user's pool, then the
     intercept), planted-model logistic labels; -> (global idx, global
-    values, user idx, user values, labels), widths padded to 8."""
+    values, user idx, user values, labels, each user feature's index in
+    its user's pool), widths padded to 8."""
     n, dim = len(users), len(w_global)
     g_idx = rng.integers(0, dim - 1, size=(n, NNZ_PER_ROW))
     g_val = rng.normal(size=(n, NNZ_PER_ROW)).astype(np.float32)
@@ -1145,7 +1192,7 @@ def game_rows(rng, users, w_global, w_user):
         return out_i, out_v
 
     return (*with_intercept(g_idx, g_val),
-            *with_intercept(user_features(users[:, None], picks, dim), u_val), labels)
+            *with_intercept(user_features(users[:, None], picks, dim), u_val), labels, picks)
 
 
 def game_model(rng, n_users, dim):
@@ -1173,24 +1220,34 @@ def split_buckets(red, entities):
 
 class TimedCoordinate:
     """A coordinate whose updates and scores are timed on the card (each
-    between two synchronizations) and whose K1 launches are counted."""
+    between two synchronizations), logged as (what, coordinate, seconds,
+    K1 launches, result, readbacks before it, the model it got);
+    ``on_first_update`` runs as its first update starts (a signal sent
+    during sweep 1)."""
 
-    def __init__(self, coord, k1, log):
+    def __init__(self, coord, k1, log, on_first_update=None):
         self.coord, self.k1, self.log = coord, k1, log
+        self.on_first_update = on_first_update
 
     def __getattr__(self, name):
         return getattr(self.coord, name)
 
     def _timed(self, what, fn, *args):
+        from photon_ml_tpu_torch.parallel import overlap
+
         torch.cuda.synchronize()
+        readbacks = overlap.readback_stats()
         k0, t0 = self.k1.launches, time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
         self.log.append((what, self.coord.name, time.perf_counter() - t0,
-                         self.k1.launches - k0, out))
+                         self.k1.launches - k0, out, readbacks, args[0]))
         return out
 
     def update_model(self, model, residual=None):
+        if self.on_first_update is not None:
+            first, self.on_first_update = self.on_first_update, None
+            first()
         return self._timed("update", self.coord.update_model, model, residual)
 
     def score(self, model):
@@ -1370,7 +1427,7 @@ def game_objective_parity(ds, tb, log, smi):
 
     batch = ds.batch_for_shard("global")
     tiled, scatter = ts.TiledGLMObjective(LOGISTIC, DIM), GLMObjective(LOGISTIC, DIM)
-    fits = [out[0] for what, name, _, _, out in log if what == "update" and name == "global"]
+    fits = [out[0] for what, name, _, _, out, *_ in log if what == "update" and name == "global"]
     for sweep, model in enumerate(fits, 1):
         w = model.model.means
         vt, gt = tiled.value_and_gradient(w, tb, 1.0)
@@ -1396,13 +1453,23 @@ def game_data(seed, device):
     w_global, w_user = game_model(rng, GAME_USERS, DIM)
     users = np.repeat(np.arange(GAME_USERS), GAME_ROWS_PER_USER)
     n = len(users)
-    g_idx, g_val, u_idx, u_val, labels = game_rows(rng, users, w_global, w_user)
+    g_idx, g_val, u_idx, u_val, labels, picks = game_rows(rng, users, w_global, w_user)
     imap = IdentityIndexMap(DIM - 1, add_intercept=True)
+    # run F's IDENTITY user shard: each user feature folded onto its index
+    # in the user's pool, the intercept after them (an IDENTITY projection
+    # table is [entities, shard width]: 400 GB at 2^20)
+    pool_idx = u_idx.copy()
+    pool_idx[:, :GAME_USER_NNZ] = picks
+    pool_idx[:, GAME_USER_NNZ] = GAME_USER_POOL
     ds = GameDataset(
         uids=[""] * n, labels=labels, offsets=np.zeros(n, np.float32),
         weights=np.ones(n, np.float32),
         shards={"global": ShardData(g_idx, g_val, imap, DIM - 1),
-                "user": ShardData(u_idx, u_val, imap, DIM - 1)},
+                "user": ShardData(u_idx, u_val, imap, DIM - 1),
+                "user_pool": ShardData(
+                    pool_idx, u_val, IdentityIndexMap(GAME_USER_POOL, add_intercept=True),
+                    GAME_USER_POOL,
+                )},
         entity_codes={"userId": users.astype(np.int32)},
         entity_indexes={"userId": EntityIndex.build("userId", [f"{u:06d}" for u in range(GAME_USERS)])},
         num_real_rows=n, device=torch.device(device),
@@ -1422,7 +1489,7 @@ def game_data(seed, device):
 
 def game_run_g(seed, smi, k1, device="cuda"):
     """Run G; -> (K1's launches over its two sweeps on the tiled problem,
-    K1's times and errors at its shape)."""
+    K1's times and errors at its shape, its GameDataset for run F)."""
     from photon_ml_tpu_torch.ops import tiled_sparse as ts
 
     ds, red = game_data(seed, device)
@@ -1483,7 +1550,7 @@ def game_run_g(seed, smi, k1, device="cuda"):
     gaps = [abs(a - b) / abs(b) for a, b in zip(result.objective_history, scatter.objective_history)]
     say(f"game run G ({smi}): tiled vs scatter CD objectives, relative gaps {gaps} "
         f"(a measurement, not a check)")
-    return game_launches, game_k1
+    return game_launches, game_k1, ds
 
 
 GAME_H_SCHEMA_EXTRA = {"name": "userFeatures", "type": {"type": "array", "items": "FeatureAvro"}}
@@ -1504,7 +1571,7 @@ def game_h_part(args):
     else:
         users = rng.integers(0, n_users, size=n_users * GAME_ROWS_PER_USER)
     users = np.array_split(users, n_parts)[part]
-    g_idx, g_val, u_idx, u_val, labels = game_rows(rng, users, w_global, w_user)
+    g_idx, g_val, u_idx, u_val, labels, _ = game_rows(rng, users, w_global, w_user)
     icept = dim - 1
 
     def bag(idx, val):  # the driver adds the intercept itself
@@ -1605,14 +1672,460 @@ def game_run_h(seed, smi, k1, device_args=()):
 
 def game_phase(seed, smi, k1):
     """Phase 8: runs G and H; -> (K1's launches in each, K1 at run G's
-    shape)."""
+    shape, run G's GameDataset)."""
     t0 = time.perf_counter()
-    launches_g, game_k1 = game_run_g(seed, smi, k1)
+    launches_g, game_k1, ds = game_run_g(seed, smi, k1)
     say(f"game run G: {time.perf_counter() - t0!r} s of host time ({smi})")
     t0 = time.perf_counter()
     launches_h = game_run_h(seed, smi, k1)
     say(f"game run H: {time.perf_counter() - t0!r} s of host time ({smi})")
-    return {"G": launches_g, "H": launches_h}, game_k1
+    return {"G": launches_g, "H": launches_h}, game_k1, ds
+
+
+# -- phase 9: the factored random effect, MF, checkpoints, kill -9 resume ----
+
+# Run F: run G's rows with the per-user random effect factored
+FACTORED_LATENT = 8
+FACTORED_SCORE_RTOL = 1e-5  # of the scores' max-abs, against float64
+# Run M: the JAX package's MF settings (bench.py:3930-4030) at MovieLens-20M
+# entity counts
+MF_ROWS, MF_COLS, MF_K, MF_RATINGS = 138_493, 26_744, 32, 2_000_000
+MF_SAMPLE = 1000  # row and column entities checked against a float64 solve
+MF_OBJ_RTOL = 1e-6  # resumed vs uninterrupted final CD objective, relative
+MF_L2 = 1.0  # run M's L2 weight: the coordinate's and its entity check's
+MF_ENTITY_RTOL = 1e-8  # an entity's objective above its float64 optimum, relative
+# Run R: killed at λ = 1's snapshot. ckpt_save crossings: 1 = the run
+# manifest, 2-3 = λ = 10's npz and marker, 4 = λ = 1's npz
+RUN_R_PLAN = "ckpt_save:4:KILL"
+RUN_R_WARM_RTOL = 1e-5  # λ = 1's first tracked value vs float64 at the warm start
+
+
+def timed_calls(obj, name, log):
+    """Replace ``obj.name`` with a wrapper logging each call's card
+    seconds."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def factored_scores64(red, bank, projection, chunk=1 << 18):
+    """Run F's scores in float64 from their definition:
+    sum_s v_s (B[ix_s] . bank[entity])."""
+    dev = bank.device
+    codes = torch.as_tensor(red.row_entity_codes, device=dev).long()
+    out = []
+    for s in range(0, codes.shape[0], chunk):
+        ix = torch.as_tensor(red.row_local_indices[s:s + chunk], device=dev).long()
+        v = torch.as_tensor(red.row_local_values[s:s + chunk], device=dev).double()
+        c = codes[s:s + chunk]
+        x = (v[..., None] * projection.double()[ix]).sum(1)
+        sc = (x * bank.double()[c.clamp_min(0)]).sum(-1)
+        out.append(torch.where(c >= 0, sc, 0.0))
+    return torch.cat(out)
+
+
+def factored_run_f(ds, seed, smi, k1, k2):
+    """Run F: run G's 1.6M rows and global fixed effect (K1, the schedule
+    from the in-memory tier) with the user random effect factored
+    (IDENTITY-projected user features folded onto their pool indices,
+    latent dimension 8, one inner iteration; RE and projection fit
+    L-BFGS, 30 iterations); ``CoordinateDescent.run(2)``; -> K1's and
+    K2's launches in that run."""
+    from photon_ml_tpu_torch.game import (
+        CoordinateDescent,
+        FactoredRandomEffectConfiguration,
+        FactoredRandomEffectCoordinate,
+        FixedEffectCoordinate,
+        ProjectorType,
+        RandomEffectDataConfiguration,
+        RandomEffectOptimizationProblem,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig,
+        OptimizerType,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_ml_tpu_torch.optim.problem import create_glm_problem
+    from photon_ml_tpu_torch.parallel import overlap
+    from photon_ml_tpu_torch.task import TaskType
+
+    t0 = time.perf_counter()
+    red = build_random_effect_dataset(
+        ds, RandomEffectDataConfiguration(
+            "userId", "user_pool", projector_type=ProjectorType.IDENTITY
+        ),
+        seed=seed,
+    )
+    red_s = time.perf_counter() - t0
+    l2 = RegularizationContext(RegularizationType.L2)
+    re_opt = OptimizerConfig(OptimizerType.LBFGS, max_iter=30, tolerance=1e-5, lbfgs_history=5)
+    fe = FixedEffectCoordinate(
+        name="global", dataset=ds,
+        problem=create_glm_problem(
+            TaskType.LOGISTIC_REGRESSION, DIM, config=OptimizerConfig(max_iter=50),
+            regularization=l2, intercept_index=DIM - 1, kernel="tiled",
+        ),
+        feature_shard_id="global", reg_weight=1.0,
+    )
+    fre = FactoredRandomEffectCoordinate(
+        name="per-user", dataset=ds, re_dataset=red,
+        problem=RandomEffectOptimizationProblem(LOGISTIC, re_opt, l2, reg_weight=1.0),
+        projection_problem=create_glm_problem(
+            TaskType.LOGISTIC_REGRESSION, red.local_dim * FACTORED_LATENT, config=re_opt,
+            regularization=l2,
+        ),
+        config=FactoredRandomEffectConfiguration(FACTORED_LATENT, 1),
+        reg_weight_projection=1.0,
+    )
+    bank_s, proj_s = [], []
+    timed_calls(fre.problem, "update_bank", bank_s)
+    timed_calls(fre, "_update_projection", proj_s)
+    log = []
+    coords = {"global": TimedCoordinate(fe, k1, log), "per-user": TimedCoordinate(fre, k1, log)}
+    tilings = ts.tilings
+    k1.launches = k2.launches = 0
+    overlap.reset_readback_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = CoordinateDescent(coords, ds, TaskType.LOGISTIC_REGRESSION).run(2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"k1": k1.launches, "k2": k2.launches}
+    readbacks = overlap.readback_stats()
+    peak = torch.cuda.max_memory_allocated()
+    hist = result.objective_history
+    updates = [e for e in log if e[0] == "update"]
+    n, k = red.row_local_indices.shape
+    held = int((torch.as_tensor(red.row_local_values) != 0).sum()) * FACTORED_LATENT
+    say(f"factored run F data ({smi}): IDENTITY user view over {n} rows x {k} slots, "
+        f"{red.num_entities} entities, built in {red_s!r} s; projection problem dimension "
+        f"{red.local_dim * FACTORED_LATENT}, {n * k * FACTORED_LATENT} slots a pass of which "
+        f"{held} held entries; schedule builds in run F {ts.tilings - tilings} "
+        f"(tilings {ts.tilings})")
+    for it in range(2):
+        fe_up, fr_up = updates[2 * it], updates[2 * it + 1]
+        end = updates[2 * it + 2][5] if it == 0 else readbacks
+        say(f"factored run F sweep {it + 1} ({smi}): FE fit {fe_up[2]!r} s, factored update "
+            f"{fr_up[2]!r} s = bank {bank_s[it]!r} s + projection fit {proj_s[it]!r} s; "
+            f"readbacks in the sweep {end - fe_up[5]}")
+    say(f"factored run F ({smi}): CD 2 sweeps {seconds!r} s, objective history {hist}; "
+        f"launches {launches}; readbacks {readbacks}; device memory peak {peak} bytes")
+    if ts.tilings != tilings:
+        fail("factored run F: the fixed effect's schedule missed the in-memory tier")
+    if launches["k1"] == 0:
+        fail("factored run F: the tiled fixed effect launched no K1")
+    if readbacks != 2:
+        fail(f"factored run F: {readbacks} readbacks over two CD sweeps, not 2")
+    if not all(np.isfinite(hist)) or any(b > a for a, b in zip(hist, hist[1:])):
+        fail(f"factored run F: the CD objective is not finite and non-increasing: {hist}")
+    model = result.model.models["per-user"]
+    got = fre.score(model)
+    want = factored_scores64(red, model.bank, model.projection)
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    say(f"factored run F scores vs float64 from bank, B and the rows: {err!r} of the "
+        f"max-abs (limit {FACTORED_SCORE_RTOL}); bank {tuple(model.bank.shape)}, "
+        f"B {tuple(model.projection.shape)}")
+    if not err <= FACTORED_SCORE_RTOL or not bool(torch.isfinite(got).all()):
+        fail("factored run F: the scores are off their float64 recomputation")
+    return launches
+
+
+def mf_data(seed, device):
+    """Run M's ratings (bench.py's ``_mf_config`` draws from the seed):
+    uniform entities, planted latent factors, noise 0.3; -> GameDataset on
+    ``device``."""
+    from photon_ml_tpu_torch.game import EntityIndex, GameDataset
+
+    rng = np.random.default_rng([seed, 9])
+    rows = rng.integers(0, MF_ROWS, size=MF_RATINGS).astype(np.int32)
+    cols = rng.integers(0, MF_COLS, size=MF_RATINGS).astype(np.int32)
+    row_true = rng.normal(0, 0.4, size=(MF_ROWS, MF_K)).astype(np.float32)
+    col_true = rng.normal(0, 0.4, size=(MF_COLS, MF_K)).astype(np.float32)
+    ratings = ((row_true[rows] * col_true[cols]).sum(1)
+               + 0.3 * rng.normal(size=MF_RATINGS)).astype(np.float32)
+    n = MF_RATINGS
+    return GameDataset(
+        uids=[""] * n, labels=ratings, offsets=np.zeros(n, np.float32),
+        weights=np.ones(n, np.float32), shards={},
+        entity_codes={"userId": rows, "itemId": cols},
+        entity_indexes={
+            "userId": EntityIndex.build("userId", [f"u{i:06d}" for i in range(MF_ROWS)]),
+            "itemId": EntityIndex.build("itemId", [f"i{i:05d}" for i in range(MF_COLS)]),
+        },
+        num_real_rows=n, device=torch.device(device),
+    )
+
+
+def mf_entity_check(ds, solve_codes, fixed_codes, partner, solved, control, sample):
+    """Each sampled entity's own objective (float64, from its definition:
+    sum_s (x_s . c - y_s)^2 / 2 + MF_L2 |c|^2 / 2, x_s the partner factors
+    of its ratings) at the card's factors ``solved`` and at ``control``,
+    over its minimum, the closed form c* = (X^T X + MF_L2 I)^-1 X^T y
+    solved in float64 on the CPU; -> the worst relative excess of each."""
+    lists = [np.nonzero(solve_codes == e)[0] for e in sample]
+    S = max(len(r) for r in lists)
+    E = len(sample)
+    X = np.zeros((E, S, MF_K))
+    y = np.zeros((E, S))
+    partner = partner.double().cpu().numpy()
+    for i, r in enumerate(lists):
+        X[i, :len(r)] = partner[fixed_codes[r]]
+        y[i, :len(r)] = ds.labels[r]
+    X, y = torch.as_tensor(X), torch.as_tensor(y)
+    Xt = X.transpose(1, 2)
+    gram = Xt @ X + MF_L2 * torch.eye(MF_K, dtype=torch.float64)
+    c_star = torch.linalg.solve(gram, (Xt @ y[..., None]))[..., 0]
+
+    def f(c):
+        r = (X * c[:, None, :]).sum(-1) - y
+        return 0.5 * (r * r).sum(-1) + 0.5 * MF_L2 * (c * c).sum(-1)
+
+    f_star = f(c_star)
+    pick = torch.as_tensor(sample).long()
+
+    def excess(factors):
+        return float(((f(factors.double().cpu()[pick]) - f_star) / f_star.abs()).max())
+
+    return excess(solved), excess(control)
+
+
+def mf_run_m(seed, smi, k1, device="cuda"):
+    """Run M: ``MatrixFactorizationCoordinate`` in ``CoordinateDescent`` at
+    MovieLens-20M entity counts, uninterrupted for two sweeps, then with a
+    ``TrainingCheckpointer`` and an installed ``PreemptionGuard``: a
+    SIGTERM to the process during sweep 1 stops the run after it, and a
+    new run over the same directory resumes and finishes sweep 2."""
+    from photon_ml_tpu_torch.game import (
+        CoordinateDescent,
+        MatrixFactorizationCoordinate,
+        RandomEffectOptimizationProblem,
+    )
+    from photon_ml_tpu_torch.ops.losses import LINEAR
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig,
+        OptimizerType,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_ml_tpu_torch.task import TaskType
+    from photon_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
+    from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
+
+    t0 = time.perf_counter()
+    ds = mf_data(seed, device)
+    say(f"mf run M data: {MF_RATINGS} ratings of {MF_ROWS} x {MF_COLS} entities, K = {MF_K}, "
+        f"made in {time.perf_counter() - t0!r} s")
+
+    def coord():
+        return MatrixFactorizationCoordinate(
+            name="mf", dataset=ds, row_effect_type="userId", col_effect_type="itemId",
+            num_latent_factors=MF_K,
+            problem=RandomEffectOptimizationProblem(
+                LINEAR,
+                OptimizerConfig(OptimizerType.LBFGS, max_iter=20, tolerance=1e-5, lbfgs_history=5),
+                RegularizationContext(RegularizationType.L2), reg_weight=MF_L2,
+            ),
+        )
+
+    def run(log, sweeps, **kw):
+        first = kw.pop("on_first_update", None)
+        c = TimedCoordinate(coord(), k1, log, first)
+        t0 = time.perf_counter()
+        result = CoordinateDescent({"mf": c}, ds, TaskType.LINEAR_REGRESSION, **kw).run(sweeps)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, c
+
+    full_log = []
+    full, full_s, _ = run(full_log, 2)
+    steps = [e[2] for e in full_log if e[0] == "update"]
+    say(f"mf run M uninterrupted ({smi}): CD 2 sweeps {full_s!r} s; ALS step cold "
+        f"(side structures built) {steps[0]!r} s, warm {steps[1]!r} s; objective history "
+        f"{full.objective_history}")
+    with tempfile.TemporaryDirectory(prefix="photon_mf_ckpt_") as ckdir:
+        guard = PreemptionGuard().install()
+        try:
+            log = []
+            stopped, stop_s, _ = run(
+                log, 2, checkpointer=TrainingCheckpointer(ckdir), preemption_guard=guard,
+                on_first_update=lambda: os.kill(os.getpid(), signal.SIGTERM),
+            )
+        finally:
+            guard.uninstall()
+        say(f"mf run M preempted ({smi}): SIGTERM in sweep 1; preempted {stopped.preempted}, "
+            f"{len(stopped.objective_history)} sweep(s), {stop_s!r} s; objective "
+            f"{stopped.objective_history}")
+        if not stopped.preempted or len(stopped.objective_history) != 1:
+            fail("mf run M: the SIGTERM did not stop the run after sweep 1")
+        ck = TrainingCheckpointer(ckdir)
+        if ck.latest_step() != 1:
+            fail(f"mf run M: latest checkpoint step {ck.latest_step()}, not 1")
+        log = []
+        resumed, resume_s, c = run(log, 2, checkpointer=ck)
+        restored = log[0][6]  # the model the resumed run's first update got
+        with np.load(os.path.join(ckdir, "1", "state.npz")) as z:
+            saved = {k: np.array(z[k]) for k in z.files}
+    sweep1 = stopped.model.models["mf"]
+    bitwise_restore = all(
+        np.array_equal(saved[f"mf/{name}"], getattr(restored, name).cpu().numpy())
+        and torch.equal(getattr(restored, name), getattr(sweep1, name))
+        for name in ("row_latent", "col_latent")
+    )
+    f_full, f_res = full.objective_history[-1], resumed.objective_history[-1]
+    rel = abs(f_res - f_full) / abs(f_full)
+    final, ref = resumed.model.models["mf"], full.model.models["mf"]
+    bitwise_final = all(
+        torch.equal(getattr(final, n), getattr(ref, n)) for n in ("row_latent", "col_latent")
+    )
+    say(f"mf run M resumed ({smi}): from step 1, {len(resumed.objective_history)} sweep, "
+        f"{resume_s!r} s (ALS step {[e[2] for e in log if e[0] == 'update']}); restored "
+        f"factors bitwise the checkpoint's: {bitwise_restore}; final objective {f_res!r} vs "
+        f"uninterrupted {f_full!r} (rel {rel!r}, limit {MF_OBJ_RTOL}); final factors bitwise "
+        f"the uninterrupted run's: {bitwise_final}")
+    if not bitwise_restore:
+        fail("mf run M: the restored sweep-1 factors are not the checkpoint's")
+    if not rel <= MF_OBJ_RTOL or resumed.preempted:
+        fail("mf run M: the resumed run's objective is off the uninterrupted run's")
+    # each sampled entity's optimality: rows were solved in sweep 2 against
+    # the sweep-1 column factors, columns against the final rows. The
+    # control, each side's sweep-1 factors in the same final problem, is a
+    # converged solve of the neighbouring problem and must read above the
+    # limit
+    rng = np.random.default_rng([seed, 10])
+    rows, cols = ds.entity_codes["userId"], ds.entity_codes["itemId"]
+    worst = {}
+    for side, solve, fixed, partner, solved, control, count in (
+        ("row", rows, cols, sweep1.col_latent, final.row_latent, sweep1.row_latent, MF_ROWS),
+        ("col", cols, rows, final.row_latent, final.col_latent, sweep1.col_latent, MF_COLS),
+    ):
+        sample = rng.choice(count, MF_SAMPLE, replace=False)
+        worst[side] = mf_entity_check(ds, solve, fixed, partner, solved, control, sample)
+    say(f"mf run M entities ({smi}): worst objective excess over the float64 closed-form "
+        f"optimum, {MF_SAMPLE} rows {worst['row'][0]!r}, {MF_SAMPLE} columns "
+        f"{worst['col'][0]!r} (limit {MF_ENTITY_RTOL}); control, the sweep-1 factors in the "
+        f"same problems: rows {worst['row'][1]!r}, columns {worst['col'][1]!r} (must exceed "
+        f"the limit)")
+    if not max(worst["row"][0], worst["col"][0]) <= MF_ENTITY_RTOL:
+        fail("mf run M: a sampled entity's factors are off its float64 optimum")
+    if not min(worst["row"][1], worst["col"][1]) > MF_ENTITY_RTOL:
+        fail("mf run M: the entity check's control passed it: the check cannot tell")
+
+
+def run_r(seed, smi, k1, k2, run_a, device_args=()):
+    """Run R: run A's argv with ``--checkpoint-dir`` and the fault plan
+    ``RUN_R_PLAN`` in a subprocess, which must die by SIGKILL with λ = 10
+    snapshotted; then the same argv without the plan through
+    ``glm_driver.main``: λ = 10 loads from its snapshot (bitwise, no K1
+    launch), λ = 1 warm-starts from its snapshotted means, both λs'
+    float64 objective within DRIVER_OBJ_RTOL of run A's and within the
+    intercept_spread limit of its coefficients; -> the resumed run's
+    launches."""
+    from photon_ml_tpu_torch.reliability import checkpoint as reliability_checkpoint
+
+    tmp = run_a["tmp"]
+    ckdir, out = f"{tmp}/ckpt-R", f"{tmp}/out-R"
+    argv = run_a["argv"] + ["--checkpoint-dir", ckdir, "--delete-output-dirs-if-exist", "true",
+                            *device_args]
+    cmd = [sys.executable, "-m", "photon_ml_tpu_torch.cli.glm_driver", *argv,
+           "--output-directory", out, "--fault-plan", RUN_R_PLAN]
+    t0 = time.perf_counter()
+    killed = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            capture_output=True, text=True, timeout=600)
+    killed_s = time.perf_counter() - t0
+    committed = sorted(f for f in os.listdir(ckdir) if f.endswith(".json") and f != "manifest.json")
+    log_tail = ""
+    if os.path.exists(f"{out}/photon.log"):
+        with open(f"{out}/photon.log") as f:
+            log_tail = " | ".join(line.strip() for line in f.readlines()[-3:])
+    say(f"run R killed ({smi}): rc {killed.returncode} after {killed_s!r} s (process start, "
+        f"preprocess, the λ = 10 fit and its snapshot); committed snapshots {committed}; "
+        f"its log ends: {log_tail}")
+    if killed.returncode != -signal.SIGKILL:
+        fail(f"run R: the killed run ended with rc {killed.returncode}, not by SIGKILL: "
+             f"{killed.stderr[-2000:]}")
+    if len(committed) != 1:
+        fail(f"run R: {len(committed)} committed snapshots before the kill, not λ = 10's")
+    with np.load(f"{ckdir}/{committed[0][:-len('.json')]}.npz") as z:
+        snap = {k: np.array(z[k]) for k in z.files}
+
+    # the resumed run, in this process: which λ loaded, at what K1 count
+    loads = []
+    load = reliability_checkpoint.GridCheckpointer.load
+
+    def counted_load(self, lam):
+        loads.append((lam, k1.launches))
+        out_ = load(self, lam)
+        loads.append((lam, k1.launches, out_ is not None))
+        return out_
+
+    reliability_checkpoint.GridCheckpointer.load = counted_load
+    try:
+        r = driver_run("R", argv, out, k1, k2, f"sequential, resumed, {smi}", keep_driver=True)
+    finally:
+        reliability_checkpoint.GridCheckpointer.load = load
+    driver = r["driver"]
+    (lam10_in, lam10_out, lam1_in) = loads[0], loads[1], loads[2]
+    launches_10 = lam1_in[1] - lam10_in[1]
+    m10 = driver.models[10.0].means.cpu().numpy()
+    bitwise = np.array_equal(m10, snap["model_means"])
+    batch = run_a["batch"]
+    warm = torch.as_tensor(snap["warm_means"], device=batch.labels.device)
+    f_warm, _ = objective64(batch, warm, 1.0)
+    first = float(driver.results[1.0].tracker.values[0])
+    warm_rel = abs(first - f_warm) / abs(f_warm)
+    f_zero, _ = objective64(batch, torch.zeros_like(warm), 1.0)
+    say(f"run R resumed ({smi}): λ = 10 loaded from its snapshot {lam10_out[2]}, bitwise the "
+        f"snapshotted model {bitwise}, K1 launches for it {launches_10}; λ = 1's first "
+        f"tracked value {first!r} vs the float64 objective at the snapshotted warm means "
+        f"{f_warm!r} (rel {warm_rel!r}; at zero {f_zero!r}); reliability block "
+        f"{json.dumps(r['metrics']['reliability'])}")
+    if not (lam10_out[0] == 10.0 and lam10_out[2] and bitwise and launches_10 == 0):
+        fail("run R: λ = 10 was not restored from its snapshot without a solve")
+    if lam1_in[0] != 1.0 or not warm_rel <= RUN_R_WARM_RTOL:
+        fail("run R: λ = 1 did not warm-start from the snapshotted means")
+    for lam in (10.0, 1.0):
+        m = driver.models[lam].means
+        f_r, _ = objective64(batch, m, lam)
+        rel = (f_r - run_a["objectives"][lam]) / abs(run_a["objectives"][lam])
+        ref = run_a["models"][lam]
+        spread = float((m - ref).abs().max() / ref.abs().max())
+        say(f"run R lambda={lam} vs run A ({smi}): objective {f_r!r} vs "
+            f"{run_a['objectives'][lam]!r} (rel {rel!r}, limit {DRIVER_OBJ_RTOL}); "
+            f"intercept_spread {spread!r} (limit {INTERCEPT_SPREAD_LIMIT})")
+        if not abs(rel) <= DRIVER_OBJ_RTOL:
+            fail(f"run R lambda={lam}: objective off run A's")
+        if not spread <= INTERCEPT_SPREAD_LIMIT:
+            fail(f"run R lambda={lam}: intercept_spread {spread!r} over {INTERCEPT_SPREAD_LIMIT}")
+    say(f"run R ({smi}): killed run {killed_s!r} s; resumed run {r['seconds']!r} s; run A "
+        f"{run_a['seconds']!r} s, stage timers {run_a['timers']}")
+    return {"k1": r["k1"], "k2": r["k2"]}
+
+
+def reliability_phase(seed, smi, k1, k2, game_ds, run_a, device="cuda", device_args=()):
+    """Phase 9: runs F (factored random effect), M (MF with a checkpoint
+    and a SIGTERM) and R (the GLM driver's kill -9 resume); -> K1's and
+    K2's launches in runs F and R."""
+    t0 = time.perf_counter()
+    launches_f = factored_run_f(game_ds, seed, smi, k1, k2)
+    say(f"factored run F: {time.perf_counter() - t0!r} s of host time ({smi})")
+    t0 = time.perf_counter()
+    mf_run_m(seed, smi, k1, device)
+    say(f"mf run M: {time.perf_counter() - t0!r} s of host time ({smi})")
+    t0 = time.perf_counter()
+    launches_r = run_r(seed, smi, k1, k2, run_a, device_args)
+    say(f"run R: {time.perf_counter() - t0!r} s of host time ({smi})")
+    return {"F": launches_f, "R": launches_r}
 
 
 def main() -> int:
@@ -2114,13 +2627,21 @@ def main() -> int:
 
     # -- 7. the GLM driver end to end -------------------------------------------
     t0 = time.perf_counter()
-    driver_launches = driver_phase(args.seed, smi, k1, k2)
+    driver_launches, run_a = driver_phase(args.seed, smi, k1, k2)
     say(f"driver phase: {time.perf_counter() - t0!r} s of host time ({smi})")
+    try:
+        # -- 8. GAME -------------------------------------------------------------
+        game_launches, game_k1, game_ds = game_phase(args.seed, smi, k1)
 
-    # -- 8. GAME -----------------------------------------------------------------
-    game_launches, game_k1 = game_phase(args.seed, smi, k1)
+        # -- 9. factored RE, MF, checkpoints and the kill -9 resume --------------
+        t0 = time.perf_counter()
+        phase9_launches = reliability_phase(args.seed, smi, k1, k2, game_ds, run_a)
+        say(f"phase 9: {time.perf_counter() - t0!r} s of host time ({smi})")
+        del game_ds
+    finally:
+        shutil.rmtree(run_a["tmp"], ignore_errors=True)
 
-    # -- 9. result lines --------------------------------------------------------
+    # -- 10. result lines -------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -2143,6 +2664,7 @@ def main() -> int:
         "driver_diagnose_launches": driver_launches["D"]["diagnose_k1"],
         "game_launches": game_launches,
         "game_shape": game_k1,
+        "phase9_launches": {run: n["k1"] for run, n in phase9_launches.items()},
     }, {
         "name": "grid_bilinear_pass",
         "route": "cuda",
@@ -2163,6 +2685,7 @@ def main() -> int:
         "max_rel_err": k2_err[1],
         **mesh_fields("k2", mesh_launches, cell, cell_errs),
         "driver_launches": {run: n["k2"] for run, n in driver_launches.items()},
+        "phase9_launches": {run: n["k2"] for run, n in phase9_launches.items()},
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

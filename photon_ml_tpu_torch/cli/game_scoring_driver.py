@@ -12,8 +12,10 @@ loadGameModelFromHDFS -> score -> saveScoresToHDFS -> evaluateScores) and
 cli/game/scoring/Params.scala (option names kept), ScoredItem.scala.
 
 ``--streaming`` waits for ROADMAP item 11, ``--obs-dir`` and
-``--profile-dir`` for item 15, ``--fault-plan`` for item 12. The port adds
-``--device`` (the card by default, ``cpu`` on request).
+``--profile-dir`` for item 15. ``--fault-plan`` installs a deterministic
+fault plan (``reliability/faults.py``), and ``metrics.json`` carries the
+reliability block. The port adds ``--device`` (the card by default,
+``cpu`` on request).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.ops import schedule_cache
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json
-from photon_ml_tpu_torch.reliability.retry import retry_stats
+from photon_ml_tpu_torch.reliability import install_plan, reliability_metrics
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.utils.date_range import expand_dated_paths
 from photon_ml_tpu_torch.utils.device import resolve_device
@@ -84,7 +86,6 @@ class GameScoringParams:
         for cond, what, item in (
             (self.streaming, "--streaming", "item 11"),
             (bool(self.stream_memory_budget), "--stream-memory-budget", "item 11"),
-            (self.fault_plan is not None, "--fault-plan", "item 12"),
             (self.obs_dir is not None, "--obs-dir", "item 15"),
             (self.profile_dir is not None, "--profile-dir", "item 15"),
         ):
@@ -155,6 +156,8 @@ class GameScoringDriver:
         params.validate()
         self.params = params
         self.device = resolve_device(params.device)
+        if params.fault_plan:
+            install_plan(params.fault_plan)
         prepare_output_dir(params.output_dir, delete_if_exists=params.delete_output_dir_if_exists)
         self.logger = logger or PhotonLogger(params.output_dir)
         self.timer = Timer()
@@ -216,7 +219,7 @@ class GameScoringDriver:
                 self._evaluate(dataset, scores)
             atomic_write_json(
                 os.path.join(p.output_dir, "metrics.json"),
-                {**self.metrics, "reliability": {"retries": retry_stats()}},
+                {**self.metrics, "reliability": reliability_metrics()},
             )
         self.logger.info("timers:\n%s", self.timer.summary())
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import os
 from dataclasses import dataclass, field
 from itertools import product
@@ -45,8 +46,11 @@ from photon_ml_tpu_torch.game.config import (
     RandomEffectDataConfiguration,
 )
 from photon_ml_tpu_torch.game.coordinate import (
+    FactoredRandomEffectCoordinate,
+    FactoredRandomEffectModel,
     FixedEffectCoordinate,
     RandomEffectCoordinate,
+    _latent_scores,
 )
 from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescent,
@@ -65,13 +69,20 @@ from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optim import common
 from photon_ml_tpu_torch.optim.config import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.optim.problem import create_glm_problem
+from photon_ml_tpu_torch.parallel import overlap
+from photon_ml_tpu_torch.reliability import (
+    ensure_run_manifest,
+    install_plan,
+    reliability_metrics,
+)
 from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json
-from photon_ml_tpu_torch.reliability.retry import retry_stats
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import resolve_grid_mode
+from photon_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from photon_ml_tpu_torch.utils.date_range import expand_dated_paths, resolve_date_range
 from photon_ml_tpu_torch.utils.device import resolve_device
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
+from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
 
 
 def parse_keyed_map(s: str) -> Dict[str, str]:
@@ -191,7 +202,7 @@ class GameTrainingParams:
     obs_dir: Optional[str] = None
     # persistent tile-schedule cache directory for tiled fixed effects
     tile_cache_dir: Optional[str] = None
-    # accepted: the port's driver has no overlap layer and always runs serial
+    # serial execution: no deferred readbacks or async writes
     no_overlap: bool = False
     streaming: bool = False
     stream_memory_budget: int = 0
@@ -219,8 +230,6 @@ class GameTrainingParams:
             if cond:
                 out.append(f"{what} (ROADMAP {item})")
 
-        need(bool(self.factored_re_configs),
-             "--factored-random-effect-optimization-configurations", "item 10")
         need(self.distributed == "feature", "--distributed feature", "item 13")
         need(self.model_shards is not None, "--model-shards", "item 13")
         need(self.entity_shards not in (None, 0), "--entity-shards", "item 13")
@@ -229,8 +238,6 @@ class GameTrainingParams:
             or self.process_id is not None,
             "--coordinator-address / --num-processes / --process-id", "item 13",
         )
-        need(self.checkpoint_dir is not None, "--checkpoint-dir", "item 12")
-        need(self.fault_plan is not None, "--fault-plan", "item 12")
         need(self.streaming, "--streaming", "item 11")
         need(bool(self.stream_memory_budget), "--stream-memory-budget", "item 11")
         need(self.retrain_from is not None, "--retrain-from", "item 15")
@@ -268,6 +275,11 @@ class GameTrainingParams:
         for name in self.random_effect_data_configs:
             if name not in self.random_effect_opt_configs:
                 raise ValueError(f"missing optimization config for {name}")
+        unknown = set(self.factored_re_configs) - set(self.random_effect_data_configs)
+        if unknown:
+            raise ValueError(
+                f"factored configurations name no random-effect coordinate: {sorted(unknown)}"
+            )
         if self.diagnostic_reservoir_rows < 1:
             raise ValueError("diagnostic-reservoir-rows must be >= 1")
         if self.diagnostic_reservoir_bytes < 1:
@@ -289,6 +301,10 @@ class GameTrainingDriver:
         params.validate()
         self.params = params
         self.device = resolve_device(params.device)
+        if params.no_overlap:
+            overlap.set_overlap(False)
+        if params.fault_plan:
+            install_plan(params.fault_plan)
         prepare_output_dir(params.output_dir, delete_if_exists=params.delete_output_dir_if_exists)
         self.logger = logger or PhotonLogger(params.output_dir)
         self.timer = Timer()
@@ -362,13 +378,29 @@ class GameTrainingDriver:
         loss = loss_for_task(p.task_type)
         for name in p.random_effect_data_configs:
             ocfg = opt_combo[name]
+            red = re_datasets[name]
             problem = RandomEffectOptimizationProblem(
                 loss, ocfg.optimizer_config, ocfg.regularization,
-                reg_weight=ocfg.reg_weight, compute_variances=p.compute_variance,
+                reg_weight=ocfg.reg_weight,
+                # a factored model is saved in the original space, where the
+                # latent-space Hdiag does not transform diagonally
+                compute_variances=p.compute_variance and name not in p.factored_re_configs,
             )
-            coords[name] = RandomEffectCoordinate(
-                name=name, dataset=dataset, re_dataset=re_datasets[name], problem=problem
-            )
+            if name in p.factored_re_configs:
+                fcfg = p.factored_re_configs[name]
+                coords[name] = FactoredRandomEffectCoordinate(
+                    name=name, dataset=dataset, re_dataset=red, problem=problem,
+                    projection_problem=create_glm_problem(
+                        p.task_type, red.local_dim * fcfg.latent_space_dimension,
+                        config=ocfg.optimizer_config, regularization=ocfg.regularization,
+                    ),
+                    config=fcfg,
+                    reg_weight_projection=ocfg.reg_weight,
+                )
+            else:
+                coords[name] = RandomEffectCoordinate(
+                    name=name, dataset=dataset, re_dataset=red, problem=problem
+                )
         return coords
 
     def _fe_grid_lambdas(self, combos) -> Optional[List[float]]:
@@ -383,6 +415,7 @@ class GameTrainingDriver:
             len(p.fixed_effect_data_configs) != 1
             or p.random_effect_data_configs
             or p.num_iterations != 1
+            or p.checkpoint_dir is not None
             or len(combos) <= 1
         ):
             return None
@@ -510,11 +543,13 @@ class GameTrainingDriver:
         for sub in game_model.models.values():
             if isinstance(sub, RandomEffectModel):
                 total = total + score_random_effect(sub.bank, self._re_view(sub, vdata))
+            elif isinstance(sub, FactoredRandomEffectModel):
+                total = total + _latent_scores(sub.bank, sub.projection, self._re_view(sub, vdata))
             else:
                 total = total + sub.score(vdata)
         return total
 
-    def _re_view(self, sub: RandomEffectModel, vdata: GameDataset):
+    def _re_view(self, sub, vdata: GameDataset):
         """Project validation rows into the model's entity-local spaces,
         matching entities by raw id (unseen entities score 0); cached per
         (model's RE dataset, validation set)."""
@@ -575,6 +610,46 @@ class GameTrainingDriver:
         cache[key] = (base, view)
         return view
 
+    # -- checkpoints -------------------------------------------------------------
+
+    def _run_manifest(self) -> Dict[str, object]:
+        """What a resumed run must share with the run that wrote the
+        checkpoints: inputs, shards, data configurations, the update
+        sequence and the feature-map source (it defines the coefficient
+        index space)."""
+        p = self.params
+        return {
+            "train_input_dirs": list(p.train_input_dirs),
+            "train_date_range": p.train_date_range,
+            "train_date_range_days_ago": p.train_date_range_days_ago,
+            "task_type": p.task_type.name,
+            "updating_sequence": list(p.updating_sequence or []),
+            "feature_shards": [repr(s) for s in p.feature_shards],
+            "fixed_effect_data_configs": {
+                k: repr(v) for k, v in sorted(p.fixed_effect_data_configs.items())
+            },
+            "random_effect_data_configs": {
+                k: repr(v) for k, v in sorted(p.random_effect_data_configs.items())
+            },
+            "offheap_indexmap_dir": p.offheap_indexmap_dir,
+            "feature_name_and_term_set_path": p.feature_name_and_term_set_path,
+        }
+
+    def _combo_checkpointer(self, combo) -> Optional[TrainingCheckpointer]:
+        """A TrainingCheckpointer for one combo under --checkpoint-dir, in
+        a directory keyed by the combo's content (a changed grid gets a
+        fresh directory, not another combo's weights), whose manifest
+        refuses a resume under another run configuration."""
+        p = self.params
+        if p.checkpoint_dir is None:
+            return None
+        fp = hashlib.sha1(
+            "|".join(f"{name}:{cfg.render()}" for name, cfg in sorted(combo.items())).encode()
+        ).hexdigest()[:12]
+        combo_dir = os.path.join(p.checkpoint_dir, f"combo-{fp}")
+        ensure_run_manifest(combo_dir, self._run_manifest(), kind="game-training")
+        return TrainingCheckpointer(combo_dir)
+
     # -- run ---------------------------------------------------------------------
 
     def run(self) -> None:
@@ -629,25 +704,49 @@ class GameTrainingDriver:
             order = sorted(
                 range(len(combos)), key=lambda i: -sum(c.reg_weight for c in combos[i].values())
             )
+            guard = PreemptionGuard().install() if p.checkpoint_dir is not None else None
             prev_model = None
-            for ci in order:
-                combo = combos[ci]
-                with self.timer.time(f"train-combo-{ci}"):
-                    coords = self._build_coordinates(dataset, re_datasets, combo)
-                    cd = CoordinateDescent(
-                        coords, dataset, p.task_type,
-                        update_sequence=p.updating_sequence,
-                        validation_fn=validation_fn,
-                        validation_metric=(
-                            self._evaluators[0].render() if validation_fn is not None else None
-                        ),
-                        validation_maximize=maximize,
-                        logger=self.logger,
-                    )
-                    result = cd.run(p.num_iterations, initial_model=prev_model)
-                    prev_model = result.model
-                self._consider(combo, result, ci, maximize)
+            try:
+                for ti, ci in enumerate(order):
+                    combo = combos[ci]
+                    if guard is not None and guard.requested:
+                        self.logger.warning(
+                            "preemption requested: not starting combo %d/%d",
+                            ti + 1, len(combos),
+                        )
+                        break
+                    with self.timer.time(f"train-combo-{ci}"):
+                        coords = self._build_coordinates(dataset, re_datasets, combo)
+                        cd = CoordinateDescent(
+                            coords, dataset, p.task_type,
+                            update_sequence=p.updating_sequence,
+                            validation_fn=validation_fn,
+                            validation_metric=(
+                                self._evaluators[0].render() if validation_fn is not None else None
+                            ),
+                            validation_maximize=maximize,
+                            logger=self.logger,
+                            checkpointer=self._combo_checkpointer(combo),
+                            preemption_guard=guard,
+                        )
+                        result = cd.run(p.num_iterations, initial_model=prev_model)
+                        prev_model = result.model
+                    self._consider(combo, result, ci, maximize)
+                    if result.preempted:
+                        self.logger.warning(
+                            "stopping combo sweep after preemption (combo %d/%d)",
+                            ti + 1, len(combos),
+                        )
+                        break
+            finally:
+                if guard is not None:
+                    guard.uninstall()
 
+        if self.best_result is None:
+            # preempted before any combo finished: the checkpoints carry
+            # the partial state; there is no coherent model to save
+            self.logger.warning("no configuration combo completed; skipping model save")
+            return
         best = self.best_result[0]
         if p.model_output_mode != "NONE":
             with self.timer.time("save-model"):
@@ -672,7 +771,7 @@ class GameTrainingDriver:
             "validation_history": best.validation_history,
             "best_metric": best.best_metric,
             "timers": self.timer.durations,
-            "reliability": {"retries": retry_stats()},
+            "reliability": reliability_metrics(),
         })
         self.logger.info("timers:\n%s", self.timer.summary())
 

@@ -20,7 +20,13 @@ the card by default (the driver raises without CUDA), ``cpu`` on request.
 Training goes through the tiled kernels on the card (``--kernel auto``): K1
 for the sequential λ-grid and the diagnostics' refits, K2 for the batched
 grid. ``--offheap-indexmap-dir`` reads a store that
-``cli/feature_indexing_driver.py`` built.
+``cli/feature_indexing_driver.py`` built. ``--checkpoint-dir`` snapshots
+every solved λ (``reliability.GridCheckpointer``): a rerun with the same
+arguments after a kill loads them and solves only the rest, and a SIGTERM
+stops the sweep at a λ boundary with the outputs withheld.
+``--fault-plan`` installs a deterministic fault plan
+(``reliability/faults.py``); ``metrics.json`` carries the reliability
+block.
 """
 
 from __future__ import annotations
@@ -61,8 +67,12 @@ from photon_ml_tpu_torch.ops.normalization import (
 )
 from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
 from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
+from photon_ml_tpu_torch.reliability import (
+    GridCheckpointer,
+    install_plan,
+    reliability_metrics,
+)
 from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json, atomic_writer
-from photon_ml_tpu_torch.reliability.retry import retry_stats
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import (
     grid_result_scalars,
@@ -79,6 +89,7 @@ from photon_ml_tpu_torch.utils.device import resolve_device
 from photon_ml_tpu_torch.utils.index_map import split_feature_key
 from photon_ml_tpu_torch.utils.native_index import load_offheap_index_map
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
+from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
 
 
 class DriverStage(enum.IntEnum):
@@ -166,7 +177,7 @@ class GLMParams:
     # persistent schedule cache (ops/schedule_cache.py); None falls back
     # to the PHOTON_TILE_CACHE_DIR env var; unset = off
     tile_cache_dir: Optional[str] = None
-    # accepted: the port has no host-device overlap layer to turn off
+    # accepted: the GLM path has no deferred readbacks or async writes
     no_overlap: bool = False
     diagnostic_reservoir_rows: int = 100_000
     diagnostic_reservoir_bytes: int = 256 << 20
@@ -210,8 +221,6 @@ class GLMParams:
             or self.process_id is not None,
             "--coordinator-address / --num-processes / --process-id", "item 13",
         )
-        need(self.checkpoint_dir is not None, "--checkpoint-dir", "item 12")
-        need(self.fault_plan is not None, "--fault-plan", "item 12")
         need(self.retrain_from is not None, "--retrain-from", "item 15")
         need(self.publish_registry is not None, "--publish-registry", "item 15")
         need(
@@ -301,6 +310,8 @@ class GLMDriver:
         # before anything touches the output directory: without CUDA and
         # without device="cpu" this raises
         self.device = resolve_device(params.device)
+        if params.fault_plan:
+            install_plan(params.fault_plan)
         # the output-dir guard precedes the logger, which opens photon.log
         # inside the output dir
         prepare_output_dir(
@@ -327,6 +338,8 @@ class GLMDriver:
         self._summary = None
         # tile-schedule cache counters captured after the train stage
         self._schedule_cache_stats: Dict[str, float] = {}
+        # a SIGTERM stopped the λ sweep (--checkpoint-dir): outputs withheld
+        self._preempted = False
 
     # -- stages ------------------------------------------------------------
 
@@ -398,14 +411,48 @@ class GLMDriver:
         )
         return paths
 
+    def _grid_checkpoint_setup(self):
+        """(GridCheckpointer, installed PreemptionGuard) for
+        --checkpoint-dir, or (None, None). The run manifest fingerprints
+        everything that shapes the λ iterate chain, so a resume under a
+        changed configuration fails loudly instead of mixing in foreign
+        snapshots."""
+        p = self.params
+        if p.checkpoint_dir is None:
+            return None, None
+        run_config = {
+            "train_dir": p.train_dir,
+            "train_date_range": p.train_date_range,
+            "train_date_range_days_ago": p.train_date_range_days_ago,
+            "task": p.task.name,
+            "optimizer": p.optimizer_type.value,
+            "regularization_type": p.regularization_type.value,
+            "regularization_weights": sorted(set(float(w) for w in p.regularization_weights)),
+            "elastic_net_alpha": p.elastic_net_alpha,
+            "max_num_iterations": p.max_num_iterations,
+            "tolerance": p.tolerance,
+            "normalization_type": p.normalization_type.value,
+            "intercept": p.add_intercept,
+            "kernel": p.kernel,
+            "grid_mode": p.grid_mode,
+            "streaming": p.streaming,
+            "constraint_string": p.constraint_string,
+        }
+        guard = PreemptionGuard().install()
+        return GridCheckpointer(p.checkpoint_dir, run_config), guard
+
     def train(self) -> None:
         p = self.params
         self.emitter.send(TrainingStartEvent(p.job_name))
+        grid_ckpt, guard = self._grid_checkpoint_setup()
         with self.timer.time("train"):
             data = self._data
             trainer = train_generalized_linear_model
+            extra = {"grid_checkpointer": grid_ckpt, "preemption_guard": guard}
             if self._resolved_grid_mode(data.num_features) == "batched":
                 trainer = train_grid_batched
+                # one solve has no λ boundary to stop at
+                extra.pop("preemption_guard")
                 self.logger.info(
                     "training a BATCHED %d-member lambda grid (one optimizer "
                     "loop over a [G, d] bank; no cross-lambda warm starts)",
@@ -429,8 +476,18 @@ class GLMDriver:
                 device=self.device,
                 track_models=p.validate_per_iteration,
                 tile_cache_dir=p.tile_cache_dir,
+                **extra,
             )
             self._log_results()
+        if guard is not None:
+            self._preempted = guard.requested
+            guard.uninstall()
+            if self._preempted:
+                self.logger.warning(
+                    "preemption requested: lambda sweep stopped at a lambda "
+                    "boundary (%d snapshot(s) on disk); rerun with the same "
+                    "args to resume", len(self.models),
+                )
         self._log_schedule_cache()
         self.emitter.send(TrainingFinishEvent(p.job_name))
         self._advance(DriverStage.TRAINED)
@@ -629,8 +686,8 @@ class GLMDriver:
             "best_lambda": self.best_lambda,
             "timers": self.timer.durations,
             "schedule_cache": self._schedule_cache_stats,
-            # retry and quarantine accounting of the schedule cache's seams
-            "reliability": {"retries": retry_stats()},
+            # every injected fault, retry and quarantined artifact, by seam
+            "reliability": reliability_metrics(),
         }
         atomic_write_json(os.path.join(out, "metrics.json"), payload)
 
@@ -638,6 +695,13 @@ class GLMDriver:
         p = self.params
         self.preprocess()
         self.train()
+        if self._preempted:
+            # the λ snapshots carry the partial sweep; outputs of a partial
+            # grid would pass for a whole one
+            self.logger.info("preempted: outputs withheld; resume to finish")
+            self.emitter.close()
+            self.logger.close()
+            return
         if p.validate_dir:
             self.validate()
         if p.diagnostic_mode != DiagnosticMode.NONE:
@@ -747,7 +811,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument(
         "--no-overlap", default="false",
-        help="accepted; the port has no host-device overlap layer to turn off",
+        help="accepted; the GLM path has no deferred readbacks or async writes to turn off",
     )
     ap.add_argument(
         "--grid-mode", default="auto", choices=["batched", "sequential", "auto"],
@@ -762,8 +826,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="byte budget for the batched grid's G x d bank and optimizer "
         "state; auto falls back to sequential above it (default 1 GiB)",
     )
-    ap.add_argument("--checkpoint-dir", default=None, help="not ported yet (ROADMAP item 12)")
-    ap.add_argument("--fault-plan", default=None, help="not ported yet (ROADMAP item 12)")
+    ap.add_argument(
+        "--checkpoint-dir", default=None,
+        help="per-lambda crash-safe snapshots: a rerun with the same args "
+        "loads the solved lambdas and resumes the sweep",
+    )
+    ap.add_argument(
+        "--fault-plan", default=None,
+        help="deterministic fault injection, e.g. ckpt_save:4:KILL "
+        "(seam:nth:error[:times]; also PHOTON_FAULT_PLAN)",
+    )
     ap.add_argument("--retrain-from", default=None, help="not ported yet (ROADMAP item 15)")
     ap.add_argument("--publish-registry", default=None,
                     help="not ported yet (ROADMAP item 15)")

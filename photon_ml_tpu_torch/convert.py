@@ -170,6 +170,8 @@ def game_model_from_reference(
     random_effects: Mapping[str, tuple],
     re_datasets: Mapping[str, object],
     *,
+    factored: Optional[Mapping[str, tuple]] = None,
+    matrix_factorizations: Optional[Mapping[str, tuple]] = None,
     device: DeviceLike = None,
 ):
     """A JAX ``GameModel`` carried across as numpy -> the port's
@@ -180,8 +182,19 @@ def game_model_from_reference(
     shard id, bank [E, D], variances [E, D] or None, projection [E, D],
     entity ids)}; ``re_datasets``: {name: the port's RandomEffectDataset}
     the bank is tied to, whose projection and entity order must be the
-    reference's (a mismatch raises: the bank would mean other features)."""
-    from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel, RandomEffectModel
+    reference's (a mismatch raises: the bank would mean other features).
+    ``factored``: {name: (random-effect type, feature shard id, latent bank
+    [E, L], projection matrix B [d, L])}, tied to ``re_datasets[name]``
+    (the IDENTITY-projected base view); ``matrix_factorizations``: {name:
+    (row effect type, column effect type, row factors [R, K], column
+    factors [C, K])}."""
+    from photon_ml_tpu_torch.game.coordinate import FactoredRandomEffectModel
+    from photon_ml_tpu_torch.game.model import (
+        FixedEffectModel,
+        GameModel,
+        MatrixFactorizationModel,
+        RandomEffectModel,
+    )
     from photon_ml_tpu_torch.models.glm import create_model
 
     dev = resolve_device(device)
@@ -195,5 +208,16 @@ def game_model_from_reference(
             raise ValueError(f"{name}: the port's dataset does not hold the reference's projection")
         models[name] = RandomEffectModel(
             _tensor(bank, dev), red, re_type, shard_id, _tensor(variances, dev)
+        )
+    for name, (re_type, shard_id, bank, projection) in (factored or {}).items():
+        red = re_datasets[name]
+        if np.shape(bank)[0] != red.num_entities or np.shape(projection)[0] != red.local_dim:
+            raise ValueError(f"{name}: the port's dataset does not match the factored model")
+        models[name] = FactoredRandomEffectModel(
+            _tensor(bank, dev), _tensor(projection, dev), red, re_type, shard_id
+        )
+    for name, (row_type, col_type, rows, cols) in (matrix_factorizations or {}).items():
+        models[name] = MatrixFactorizationModel(
+            row_type, col_type, _tensor(rows, dev), _tensor(cols, dev)
         )
     return GameModel(models, task)

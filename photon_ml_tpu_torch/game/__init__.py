@@ -1,8 +1,8 @@
 """GAME (Generalized Additive Mixed Effects) in memory on one device: multi-
-shard data, per-entity random effects, block coordinate descent, model
-files (port of ``photon_ml_tpu/game``). The factored random effect and
-matrix factorization training wait for ROADMAP item 10, the pod and mesh
-paths for item 13; their names raise with the item."""
+shard data, per-entity random effects, the factored random effect, matrix
+factorization, block coordinate descent, model files (port of
+``photon_ml_tpu/game``). The pod and mesh paths wait for ROADMAP item 13;
+their names raise with the item."""
 
 from photon_ml_tpu_torch.game.config import (
     FactoredRandomEffectConfiguration,

@@ -1,10 +1,13 @@
-"""GAME coordinates: the fixed effect and the random effect (port of the
-single-device parts of ``photon_ml_tpu/game/coordinate.py``).
+"""GAME coordinates: fixed effect, random effect, factored random effect
+and matrix factorization (port of the single-device parts of
+``photon_ml_tpu/game/coordinate.py``).
 
 Reference: photon-ml .../algorithm/Coordinate.scala:82 (score /
 initializeModel / updateModel / regTerm over its dataset),
 FixedEffectCoordinate.scala:137-164, RandomEffectCoordinate.scala:104-199,
-RandomEffectCoordinateInProjectedSpace.scala:30-140.
+RandomEffectCoordinateInProjectedSpace.scala:30-140,
+FactoredRandomEffectCoordinate.scala:99-289 (alternating latent-space RE
+solves and a fit of the shared projection matrix).
 
 The KeyValueScore residual currency is a row-aligned [n] tensor on the
 dataset's device; every ``updateModel(model, partialScore)`` folds the
@@ -15,8 +18,7 @@ schedules ``ensure_tiled`` builds once and reuses across sweeps because
 every sweep's batch shares the dataset's cached feature tensors.
 
 Not here yet, each raising with its ROADMAP item: the feature-sharded fixed
-effect and ``PodRandomEffectCoordinate`` (item 13), the factored random
-effect and matrix factorization (item 10, the next GAME slice).
+effect and ``PodRandomEffectCoordinate`` (item 13).
 """
 
 from __future__ import annotations
@@ -24,13 +26,21 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from photon_ml_tpu_torch.data.batch import SparseBatch
 from photon_ml_tpu_torch.data.sampler import down_sample
+from photon_ml_tpu_torch.game.config import (
+    FactoredRandomEffectConfiguration,
+    ProjectorType,
+    RandomEffectDataConfiguration,
+)
 from photon_ml_tpu_torch.game.data import GameDataset
 from photon_ml_tpu_torch.game.model import (
     DatumScoringModel,
     FixedEffectModel,
+    MatrixFactorizationModel,
     RandomEffectModel,
 )
 from photon_ml_tpu_torch.game.random_effect import (
@@ -38,7 +48,10 @@ from photon_ml_tpu_torch.game.random_effect import (
     device_row_view,
     score_random_effect,
 )
-from photon_ml_tpu_torch.game.random_effect_data import RandomEffectDataset
+from photon_ml_tpu_torch.game.random_effect_data import (
+    RandomEffectBucket,
+    RandomEffectDataset,
+)
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import create_model
 from photon_ml_tpu_torch.optim.common import OptResult
@@ -70,10 +83,6 @@ class Coordinate:
         """The reg term as a device scalar: the CD loop sums these into its
         one fetch per iteration."""
         raise NotImplementedError
-
-    def prepare(self, model: Optional[DatumScoringModel] = None) -> None:
-        """Stage this coordinate's next update (device uploads); idempotent.
-        Default: nothing."""
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -170,10 +179,6 @@ class FixedEffectCoordinate(Coordinate):
             term = term + l1 * w.abs().sum()
         return term
 
-    def prepare(self, model=None) -> None:
-        """Upload the shard's columns ahead of update_model."""
-        self.dataset.batch_for_shard(self.feature_shard_id)
-
 
 @dataclass
 class RandomEffectCoordinate(Coordinate):
@@ -221,10 +226,333 @@ class RandomEffectCoordinate(Coordinate):
     def regularization_term_device(self, model: RandomEffectModel) -> Tensor:
         return self.problem.regularization_term_device(model.bank)
 
-    def prepare(self, model=None) -> None:
-        """Upload the buckets and the row view the score pass reads."""
-        self.problem.prepare(model.bank if model is not None else self._zeros(), self.re_dataset)
-        device_row_view(self.re_dataset)
+
+def _latent_scores(bank: Tensor, projection: Tensor, re_dataset: RandomEffectDataset) -> Tensor:
+    """Row-aligned scores of a factored model: x_lat_i . bank[entity_i]
+    with x_lat_i = sum_s v_s B[ix_s]."""
+    codes, valid, ix, v = device_row_view(re_dataset)
+    x_lat = _latent_rows(projection, ix, v)
+    return torch.where(valid, (x_lat * bank[codes]).sum(dim=-1), 0.0)
+
+
+def _latent_rows(projection: Tensor, ix: Tensor, v: Tensor) -> Tensor:
+    """Every row projected into latent space: sum_s v_s B[ix_s] -> [n, L]
+    (the reference's einsum over a gather)."""
+    return torch.einsum("nk,nkl->nl", v.to(projection.dtype), projection[ix])
+
+
+@dataclass
+class FactoredRandomEffectCoordinate(Coordinate):
+    """Random effects in a learned latent projection: alternate (1)
+    per-entity solves in latent space and (2) a fit of the shared
+    projection matrix B [d, L] (FactoredRandomEffectCoordinate.scala:
+    99-289)."""
+
+    name: str
+    dataset: GameDataset
+    re_dataset: RandomEffectDataset  # IDENTITY-projected base view
+    problem: RandomEffectOptimizationProblem
+    projection_problem: GLMOptimizationProblem  # over flattened B
+    config: FactoredRandomEffectConfiguration
+    reg_weight_projection: float = 0.0
+    seed: int = 0
+
+    def initialize_model(self) -> "FactoredRandomEffectModel":
+        d = self.re_dataset.local_dim
+        L = self.config.latent_space_dimension
+        # the reference's numpy draw, so both packages start from one B
+        rng = np.random.default_rng(self.seed)
+        projection = rng.normal(0.0, 1.0 / np.sqrt(L), size=(d, L)).astype(np.float32)
+        dev = self.re_dataset.device
+        return FactoredRandomEffectModel(
+            bank=torch.zeros(self.re_dataset.num_entities, L, device=dev),
+            projection=torch.as_tensor(projection, device=dev),
+            re_dataset=self.re_dataset,
+            random_effect_type=self.re_dataset.config.random_effect_type,
+            feature_shard_id=self.re_dataset.config.feature_shard_id,
+        )
+
+    def update_model(self, model, residual=None):
+        offsets = self.dataset.row_tensors()[1]
+        if residual is not None:
+            offsets = offsets + residual
+        bank, projection = model.bank, model.projection
+        tracker = None
+        _, _, ix, v = device_row_view(self.re_dataset)
+        for _ in range(self.config.num_inner_iterations):
+            # (1) latent-space per-entity solves over re-projected buckets
+            x_lat = _latent_rows(projection, ix, v).cpu().numpy()
+            bank, tracker = self.problem.update_bank(
+                bank, _latent_view(self.re_dataset, x_lat),
+                residual_offsets=offsets, defer_tracker=True,
+            )
+            # (2) the projection fit: a GLM over vec(B) whose row features
+            # are outer(x_i, w_e(i)) flattened to d*L
+            projection = self._update_projection(bank, projection, offsets)
+        return replace(model, bank=bank, projection=projection), tracker
+
+    def projection_batch(self, bank: Tensor, offsets: Tensor) -> SparseBatch:
+        """The projection fit's rows: index j*L + l, value v_s * w_l."""
+        L = self.config.latent_space_dimension
+        codes, valid, ix, v = device_row_view(self.re_dataset)
+        w_rows = bank[codes]  # [n, L]
+        n, k = ix.shape
+        lanes = torch.arange(L, device=ix.device)
+        flat_ix = (ix[:, :, None] * L + lanes).reshape(n, k * L)
+        flat_v = (v.to(bank.dtype)[:, :, None] * w_rows[:, None, :]).reshape(n, k * L)
+        lab, _, w = self.dataset.row_tensors()
+        return SparseBatch(
+            indices=flat_ix.to(torch.int32),
+            values=torch.where(valid[:, None], flat_v, 0.0),
+            labels=lab, offsets=offsets, weights=w,
+        )
+
+    def _update_projection(self, bank: Tensor, projection: Tensor, offsets: Tensor) -> Tensor:
+        coefficients, _ = self.projection_problem.run(
+            self.projection_batch(bank, offsets),
+            initial=projection.reshape(-1),
+            reg_weight=self.reg_weight_projection,
+        )
+        return coefficients.means.reshape(projection.shape)
+
+    def score(self, model) -> Tensor:
+        return _latent_scores(model.bank, model.projection, self.re_dataset)
+
+    def regularization_term_device(self, model) -> Tensor:
+        # the bank only, as the reference counts it
+        return self.problem.regularization_term_device(model.bank)
+
+
+@dataclass
+class FactoredRandomEffectModel(DatumScoringModel):
+    """Latent bank [E, L] + shared projection [d, L]
+    (FactoredRandomEffectModel.scala:75)."""
+
+    bank: Tensor
+    projection: Tensor
+    re_dataset: RandomEffectDataset
+    random_effect_type: str
+    feature_shard_id: str
+
+    def score(self, dataset: GameDataset) -> Tensor:
+        return _latent_scores(self.bank, self.projection, self.re_dataset)
+
+
+def _latent_view(base: RandomEffectDataset, x_lat: np.ndarray) -> RandomEffectDataset:
+    """A RandomEffectDataset's rows re-projected into latent space: dense
+    identity-local features of width L, the same entity grouping and
+    buckets (built on the host as the reference builds them)."""
+    L = x_lat.shape[1]
+    n = base.row_local_indices.shape[0]
+    row_ix = np.tile(np.arange(L, dtype=np.int32)[None, :], (n, 1))
+    buckets = []
+    for b in base.buckets:
+        safe = np.maximum(b.row_index, 0)
+        bix = np.tile(
+            np.arange(L, dtype=np.int32)[None, None, :], (b.num_entities, b.capacity, 1)
+        )
+        bv = x_lat[safe].astype(np.float32)
+        bv = np.where((b.row_index >= 0)[:, :, None], bv, 0.0)
+        buckets.append(replace(b, indices=bix, values=bv, identity_indices=True))
+    return replace(
+        base,
+        local_dim=L,
+        projection=np.tile(np.arange(L, dtype=np.int32)[None, :], (base.num_entities, 1)),
+        row_local_indices=row_ix,
+        row_local_values=x_lat.astype(np.float32),
+        buckets=buckets,
+        random_projection=None,
+    )
+
+
+@dataclass
+class MatrixFactorizationCoordinate(Coordinate):
+    """MF block trained by alternating least squares on residuals: row
+    factors solve a K-dim GLM whose features are colLatent[col_i] (a
+    random-effect solve in disguise), then the columns symmetrically.
+    Photon ML scores external MF models (MatrixFactorizationModel.scala);
+    the JAX package trains them in-tree, and so does the port."""
+
+    name: str
+    dataset: GameDataset
+    row_effect_type: str
+    col_effect_type: str
+    num_latent_factors: int
+    problem: RandomEffectOptimizationProblem
+    num_inner_iterations: int = 1
+    seed: int = 0
+
+    def initialize_model(self) -> MatrixFactorizationModel:
+        # the reference's numpy draws, so both packages start alike
+        rng = np.random.default_rng(self.seed)
+        R = self.dataset.entity_indexes[self.row_effect_type].num_entities
+        C = self.dataset.entity_indexes[self.col_effect_type].num_entities
+        K = self.num_latent_factors
+        dev = self.dataset.device
+        return MatrixFactorizationModel(
+            self.row_effect_type,
+            self.col_effect_type,
+            torch.as_tensor(rng.normal(0, 0.1, size=(R, K)).astype(np.float32), device=dev),
+            torch.as_tensor(rng.normal(0, 0.1, size=(C, K)).astype(np.float32), device=dev),
+        )
+
+    def _side_structure(self, side: str, solve_codes, fixed_codes, num_solved):
+        """Static ALS half-step structure of one side: entity grouping,
+        bucket membership and per-bucket partner gather plans. It depends
+        only on the dataset's entity codes, so it is built once per side
+        and cached; per half-step only the latent values change, and those
+        are gathered on the device (:meth:`_als_side`)."""
+        cache = self.__dict__.setdefault("_als_structure_cache", {})
+        hit = cache.get(side)
+        if hit is not None:
+            return hit
+
+        K = self.num_latent_factors
+        dev = self.dataset.device
+        real = (self.dataset.weights > 0) & (solve_codes >= 0) & (fixed_codes >= 0)
+
+        # vectorized entity grouping: stable-sort the rows by entity, then
+        # scatter each cap class's grouped rows into its padded [E_b, S]
+        # block with one flat assignment
+        real_idx = np.nonzero(real)[0]
+        codes_real = solve_codes[real_idx].astype(np.int64)
+        order = np.argsort(codes_real, kind="stable")
+        sorted_rows = real_idx[order]
+        counts = np.bincount(codes_real, minlength=num_solved)
+        starts = np.cumsum(counts) - counts
+        caps = np.where(
+            counts > 0,
+            1 << np.ceil(np.log2(np.maximum(counts, 1))).astype(np.int64),
+            0,
+        )
+        # merge sparse cap classes upward: keep a class only when it holds
+        # >= 25% of the active entities (the largest is always kept; an
+        # entity never pads down), every other class pads up to the next
+        # kept one, and no entity pads more than 4x its own cap (a
+        # heavy-tailed count distribution would otherwise collapse the
+        # merge onto the largest class)
+        active = caps > 0
+        if active.any():
+            classes, class_counts = np.unique(caps[active], return_counts=True)
+            total_active = int(class_counts.sum())
+            kept = {
+                int(c) for c, cnt in zip(classes, class_counts)
+                if cnt >= 0.25 * total_active
+            }
+            kept.add(int(classes.max()))
+            for c in sorted((int(c) for c in classes), reverse=True):
+                target = min((k for k in kept if k >= c), default=None)
+                if target is None or target > 4 * c:
+                    kept.add(c)
+            kept = np.asarray(sorted(kept), np.int64)
+            caps[active] = kept[np.searchsorted(kept, caps[active])]
+        buckets = []
+        gather_plans = []  # (partner codes [E_b, S], ok [E_b, S]) on the device
+        for S in sorted(set(int(c) for c in caps if c > 0)):
+            members = np.nonzero(caps == S)[0]
+            E_b = len(members)
+            lens = counts[members]
+            total = int(lens.sum())
+            intra = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+            src = sorted_rows[np.repeat(starts[members], lens) + intra]
+            b_rows = np.full((E_b, S), -1, np.int32)
+            b_rows.flat[np.repeat(np.arange(E_b) * S, lens) + intra] = src
+            safe = np.maximum(b_rows, 0)
+            ok = b_rows >= 0
+            buckets.append(RandomEffectBucket(
+                entity_codes=members.astype(np.int32),
+                row_index=b_rows,
+                indices=np.tile(np.arange(K, dtype=np.int32)[None, None, :], (E_b, S, 1)),
+                # zero-width placeholder: every update passes
+                # values_override, and the override path never reads it
+                values=np.zeros((E_b, S, 0), np.float32),
+                labels=np.where(ok, self.dataset.labels[safe], 0.0),
+                offsets=np.where(ok, self.dataset.offsets[safe], 0.0),
+                weights=np.where(ok, self.dataset.weights[safe], 0.0),
+                identity_indices=True,
+            ))
+            gather_plans.append((
+                torch.as_tensor(np.where(ok, fixed_codes[safe], 0), device=dev).long(),
+                torch.as_tensor(ok, device=dev),
+            ))
+        view = RandomEffectDataset(
+            config=RandomEffectDataConfiguration(
+                random_effect_type="__mf__",
+                feature_shard_id="__latent__",
+                projector_type=ProjectorType.IDENTITY,
+            ),
+            num_entities=num_solved,
+            local_dim=K,
+            projection=np.tile(np.arange(K, dtype=np.int32)[None, :], (num_solved, 1)),
+            # zero-length row-level placeholders: update_bank never reads
+            # them (scores go through MatrixFactorizationModel.score)
+            row_local_indices=np.zeros((0, K), np.int32),
+            row_local_values=np.zeros((0, K), np.float32),
+            row_entity_codes=np.where(real, solve_codes, -1).astype(np.int32),
+            buckets=buckets,
+            num_active_rows=int(counts.sum()),
+            num_passive_rows=0,
+            device=dev,
+        )
+        cache[side] = (view, gather_plans)
+        return cache[side]
+
+    def _als_side(
+        self, side: str, solve_codes: np.ndarray, fixed_codes: np.ndarray,
+        fixed_latent: Tensor, bank: Tensor, offsets: Optional[Tensor], num_solved: int,
+    ) -> Tensor:
+        """One ALS half-step: the solved side's bank against the partner
+        side's factors, gathered on the device one bucket at a time (a
+        callable per bucket: only the bucket being solved holds its
+        gathered values)."""
+        view, gather_plans = self._side_structure(side, solve_codes, fixed_codes, num_solved)
+        K = fixed_latent.shape[1]
+
+        def gather(codes: Tensor, ok: Tensor):
+            def values() -> Tensor:
+                rows = fixed_latent.index_select(0, codes.reshape(-1)).view(*codes.shape, K)
+                return torch.where(ok[..., None], rows, 0.0)
+            return values
+
+        new_bank, _ = self.problem.update_bank(
+            bank, view, residual_offsets=offsets,
+            values_override=[gather(codes, ok) for codes, ok in gather_plans],
+        )
+        return new_bank
+
+    def update_model(self, model, residual=None):
+        rows = self.dataset.entity_codes[self.row_effect_type]
+        cols = self.dataset.entity_codes[self.col_effect_type]
+        R = self.dataset.entity_indexes[self.row_effect_type].num_entities
+        C = self.dataset.entity_indexes[self.col_effect_type].num_entities
+        row_latent, col_latent = model.row_latent, model.col_latent
+        # with no residual the buckets' own offsets are the dataset's, so
+        # no per-bucket gather of the offsets is needed
+        offsets = None
+        if residual is not None:
+            offsets = self.dataset.row_tensors()[1] + residual
+        if not self.__dict__.get("_als_prewarmed"):
+            row_view, _ = self._side_structure("row", rows, cols, R)
+            col_view, _ = self._side_structure("col", cols, rows, C)
+            self.problem.prewarm([
+                (row_latent, row_view, True, offsets is not None),
+                (col_latent, col_view, True, offsets is not None),
+            ])
+            self.__dict__["_als_prewarmed"] = True
+        for _ in range(self.num_inner_iterations):
+            row_latent = self._als_side("row", rows, cols, col_latent, row_latent, offsets, R)
+            col_latent = self._als_side("col", cols, rows, row_latent, col_latent, offsets, C)
+        return replace(model, row_latent=row_latent, col_latent=col_latent), None
+
+    def score(self, model: MatrixFactorizationModel) -> Tensor:
+        return model.score(self.dataset)
+
+    def regularization_term_device(self, model: MatrixFactorizationModel) -> Tensor:
+        _, l2 = self.problem.regularization.split(self.problem.reg_weight)
+        return 0.5 * l2 * (
+            (model.row_latent * model.row_latent).sum()
+            + (model.col_latent * model.col_latent).sum()
+        )
 
 
 def _waits(what: str, item: str):
@@ -237,5 +565,3 @@ def _waits(what: str, item: str):
 
 
 PodRandomEffectCoordinate = _waits("PodRandomEffectCoordinate", "item 13")
-FactoredRandomEffectCoordinate = _waits("FactoredRandomEffectCoordinate", "item 10")
-MatrixFactorizationCoordinate = _waits("MatrixFactorizationCoordinate", "item 10")

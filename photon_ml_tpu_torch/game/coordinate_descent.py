@@ -10,8 +10,13 @@ validation evaluator (:130-262). ``run(numIterations, gameModel)`` accepts
 a warm-start model (:82-87).
 
 The score algebra (KeyValueScore.scala:62-82) is row-aligned tensor
-arithmetic on the device; the objective comes back in one fetch per
-iteration. Checkpoints and the preemption guard wait for ROADMAP item 12.
+arithmetic on the device; the objective and every coordinate's deferred
+tracker come back in one batched readback per iteration
+(``parallel/overlap.py``). With a ``checkpointer`` every iteration's
+models are saved (off the critical path, drained before ``run`` returns)
+and a rerun resumes from the latest step; a ``preemption_guard`` stops the
+run at the next iteration boundary. The guard is read on this process
+alone: the collective agreement over processes waits for ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from photon_ml_tpu_torch.game.coordinate import Coordinate
 from photon_ml_tpu_torch.game.data import GameDataset
 from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.ops.losses import loss_for_task
-from photon_ml_tpu_torch.optim import common
+from photon_ml_tpu_torch.parallel import overlap
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger
 
@@ -40,7 +45,8 @@ class CoordinateDescentResult:
     validation_history: List[Dict[str, float]] = field(default_factory=list)
     best_model: Optional[GameModel] = None
     best_metric: Optional[float] = None
-    # a stop on a preemption signal (always False until ROADMAP item 12)
+    # True when the run stopped early on a preemption signal; the last
+    # completed iteration is checkpointed, so a restarted job resumes
     preempted: bool = False
 
 
@@ -58,14 +64,9 @@ class CoordinateDescent:
         validation_metric: Optional[str] = None,
         validation_maximize: bool = True,
         logger: Optional[PhotonLogger] = None,
-        checkpointer=None,
-        preemption_guard=None,
+        checkpointer=None,  # utils.checkpoint.TrainingCheckpointer
+        preemption_guard=None,  # utils.preemption.PreemptionGuard
     ):
-        if checkpointer is not None or preemption_guard is not None:
-            raise NotImplementedError(
-                "not ported yet: coordinate-descent checkpoints and the "
-                "preemption guard (ROADMAP item 12)"
-            )
         self.coordinates = coordinates
         self.dataset = dataset
         self.task = task
@@ -77,6 +78,14 @@ class CoordinateDescent:
         self.validation_metric = validation_metric
         self.validation_maximize = validation_maximize
         self.logger = logger or PhotonLogger()
+        self.checkpointer = checkpointer
+        self.preemption_guard = preemption_guard
+
+    def _preemption_agreed(self) -> bool:
+        """Whether to stop for preemption: the guard's flag on this
+        process (the any-process agreement of a multi-process run waits
+        for ROADMAP item 13)."""
+        return self.preemption_guard is not None and self.preemption_guard.requested
 
     def _objective_device(self, total_score: Tensor, models: Dict[str, object]) -> Tensor:
         """loss(sum of scores + offsets) + sum of reg terms
@@ -103,6 +112,16 @@ class CoordinateDescent:
                 models[name] = initial_model.get_model(name)
             else:
                 models[name] = coord.initialize_model()
+
+        start_iteration = 0
+        restored_meta = None
+        if self.checkpointer is not None:
+            latest = self.checkpointer.latest_step()
+            if latest is not None:
+                models = self.checkpointer.restore(latest, models)
+                start_iteration = latest
+                restored_meta = self.checkpointer.load_meta()
+                self.logger.info("resumed coordinate descent from checkpoint step %d", latest)
         for name in seq:
             scores[name] = self.coordinates[name].score(models[name])
 
@@ -111,8 +130,32 @@ class CoordinateDescent:
         validation_history: List[Dict[str, float]] = []
         best_model = None
         best_metric = None
+        best_step = None
+        preempted = False
 
-        for it in range(num_iterations):
+        if (
+            restored_meta is not None
+            and restored_meta.get("best_step")
+            and restored_meta.get("metric_name") == self.validation_metric
+        ):
+            # a resume keeps the original run's best iteration: its metric
+            # from the sidecar, its weights from that step while the
+            # checkpointer still keeps it; else it is judged anew
+            step = int(restored_meta["best_step"])
+            if step == start_iteration:
+                best_model = GameModel(dict(models), self.task)
+            elif step in self.checkpointer.available_steps():
+                best_model = GameModel(self.checkpointer.restore(step, models), self.task)
+            else:
+                self.logger.warning(
+                    "best iteration %d checkpoint was pruned; re-judging from "
+                    "the restored final model", step,
+                )
+            if best_model is not None:
+                best_metric = restored_meta.get("best_metric")
+                best_step = step
+
+        for it in range(start_iteration, num_iterations):
             # a fresh score sum once per iteration; inside the sweep each
             # coordinate's residual is total - own score and the total is
             # patched as it goes (the KeyValueScore `-` of the reference)
@@ -128,9 +171,23 @@ class CoordinateDescent:
                 total = residual + new_score if residual is not None else new_score
                 scores[name] = new_score
 
-            (objective,) = common.fetch(self._objective_device(total, models))
+            # the objective (loss + every reg term) and every coordinate's
+            # deferred tracker in ONE batched readback per iteration
+            objective_d = overlap.Deferred(self._objective_device(total, models), float)
+            overlap.fetch_all(
+                [objective_d]
+                + [getattr(trackers[name][-1], "deferred", None) for name in seq]
+            )
+            objective = objective_d.result()
             objective_history.append(objective)
             self.logger.info("coordinate descent iter %d: objective=%g", it + 1, objective)
+            if self.checkpointer is not None:
+                # the write leaves the critical path; drain_io() below is
+                # the barrier before any return
+                overlap.submit_io(
+                    self.checkpointer.save, it + 1, dict(models),
+                    artifact=f"checkpoint step {it + 1}",
+                )
 
             if self.validation_fn is not None:
                 game_model = GameModel({name: models[name] for name in seq}, self.task)
@@ -147,6 +204,47 @@ class CoordinateDescent:
                     if better:
                         best_metric = m
                         best_model = game_model
+                        best_step = it + 1
+
+            if self.checkpointer is not None:
+                overlap.submit_io(
+                    self.checkpointer.save_meta,
+                    {
+                        "best_step": best_step,
+                        "best_metric": best_metric,
+                        "metric_name": self.validation_metric,
+                    },
+                    artifact="checkpoint meta",
+                )
+
+            if self._preemption_agreed():
+                # iteration it + 1 is complete (and checkpointed above): stop
+                # at the safe boundary, flagged even after the last
+                # iteration so a caller sweeping a grid stops too
+                preempted = True
+                self.logger.warning(
+                    "preemption requested: stopping after iteration %d/%d",
+                    it + 1, num_iterations,
+                )
+                break
+
+        # every queued checkpoint write is on disk before the run returns
+        overlap.drain_io()
+
+        if (
+            self.validation_fn is not None
+            and not validation_history
+            and best_metric is None
+            and start_iteration >= num_iterations
+        ):
+            # a resume with nothing left to run and no best-iteration
+            # sidecar: judge the restored model, so the combo has a metric
+            game_model = GameModel({name: models[name] for name in seq}, self.task)
+            metrics = self.validation_fn(game_model)
+            validation_history.append(metrics)
+            if self.validation_metric is not None:
+                best_metric = metrics[self.validation_metric]
+                best_model = game_model
 
         final = GameModel({name: models[name] for name in seq}, self.task)
         return CoordinateDescentResult(
@@ -156,4 +254,5 @@ class CoordinateDescent:
             validation_history=validation_history,
             best_model=best_model if best_model is not None else final,
             best_metric=best_metric,
+            preempted=preempted,
         )

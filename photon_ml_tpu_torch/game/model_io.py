@@ -17,8 +17,9 @@ reference load here and vice versa (same schemas + layout).
 
 Port of ``photon_ml_tpu/game/model_io.py`` over the port's Avro codec
 (byte-identical to the JAX package's): for the same model the two packages
-write the same bytes. The factored random effect's save path comes with
-its coordinate (ROADMAP item 10).
+write the same bytes. A factored random effect is written as a plain
+random-effect model in the original space (``bank_latent @ B^T`` per
+entity), so the scoring driver reads it as one.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.game.coordinate import FactoredRandomEffectModel
 from photon_ml_tpu_torch.game.data import GameDataset
 from photon_ml_tpu_torch.game.model import (
     FixedEffectModel,
@@ -233,6 +235,41 @@ def save_game_model(
                     schemas.LATENT_FACTOR_AVRO,
                     records,
                 )
+        elif isinstance(sub, FactoredRandomEffectModel):
+            # a plain random-effect model in the original space:
+            # bank_global = bank_latent @ projection^T per entity
+            base = os.path.join(out_dir, RANDOM_EFFECT, name)
+            _write_lines(
+                os.path.join(base, ID_INFO),
+                [sub.random_effect_type, sub.feature_shard_id],
+            )
+            imap = dataset.shards[sub.feature_shard_id].index_map
+            eindex = dataset.entity_indexes[sub.random_effect_type]
+            bank_g = _host(sub.bank @ sub.projection.T)  # [E, d_local]
+            projection = sub.re_dataset.projection
+            records = []
+            for e in range(bank_g.shape[0]):
+                means = []
+                for local, g in enumerate(projection[e]):
+                    if g < 0 or local >= bank_g.shape[1]:
+                        continue
+                    v = float(bank_g[e, local])
+                    if v == 0.0:
+                        continue
+                    key = imap.get_feature_name(int(g))
+                    if key is None:
+                        continue
+                    nm, term = split_feature_key(key)
+                    means.append({"name": nm, "term": term, "value": v})
+                records.append({
+                    "modelId": eindex.ids[e], "modelClass": None,
+                    "means": means, "variances": None, "lossFunction": None,
+                })
+            write_container(
+                os.path.join(base, COEFFICIENTS, "part-00000.avro"),
+                schemas.BAYESIAN_LINEAR_MODEL_AVRO,
+                records,
+            )
         else:
             raise ValueError(f"cannot save model type {type(sub)} for {name}")
 

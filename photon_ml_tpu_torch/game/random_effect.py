@@ -26,7 +26,7 @@ The entity-sharded mesh, router and pod paths wait for ROADMAP item 13.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from photon_ml_tpu_torch.optim.config import (
 from photon_ml_tpu_torch.optim.lbfgs import minimize_lbfgs, minimize_owlqn
 from photon_ml_tpu_torch.optim.problem import _VARIANCE_EPSILON
 from photon_ml_tpu_torch.optim.tron import minimize_tron
+from photon_ml_tpu_torch.parallel.overlap import Deferred
 
 Tensor = torch.Tensor
 
@@ -68,26 +69,12 @@ class RandomEffectTracker:
     reason_counts: Dict[str, int]
 
 
-class Deferred:
-    """A value computed on first use, once (a device readback the caller
-    may batch with others)."""
-
-    def __init__(self, fn: Callable[[], object]):
-        self._fn = fn
-        self.done = False
-        self._value = None
-
-    def result(self):
-        if not self.done:
-            self._value = self._fn()
-            self.done = True
-        return self._value
-
-
 class LazyRandomEffectTracker:
     """RandomEffectTracker whose stats stay on the device until first use:
-    ``update_bank(..., defer_tracker=True)`` returns one of these, and the
-    first attribute read makes the one fetch."""
+    ``update_bank(..., defer_tracker=True)`` returns one of these. The CD
+    loop fetches its ``deferred`` with the objective in one batched
+    readback (``overlap.fetch_all``); otherwise the first attribute read
+    makes the one fetch."""
 
     __slots__ = ("deferred",)
 
@@ -381,34 +368,44 @@ class RandomEffectOptimizationProblem:
 
     # -- device staging ----------------------------------------------------------
 
-    def _bucket_device_args(self, bucket, device) -> Tuple[Tensor, ...]:
+    def _bucket_device_args(self, bucket, device, with_values: bool = True) -> Tuple[Tensor, ...]:
         """(indices, values, labels, weights, offsets, row index, entity
         codes) of a bucket on ``device``, uploaded once and kept on the
         bucket itself, so they die with it; indices are int64 for
-        gather / scatter."""
+        gather / scatter. ``with_values=False`` (the ``values_override``
+        path) uploads no values and gives None in their place: a caller
+        that always overrides them must not pin a dead copy."""
         cache = bucket.__dict__.setdefault("_device_args", {})
-        hit = cache.get(device)
+        key = (device, with_values)
+        hit = cache.get(key)
         if hit is None:
             def up(a, dtype=None):
                 t = torch.as_tensor(a, device=device)
                 return t if dtype is None else t.to(dtype)
 
             hit = (
-                up(bucket.indices, torch.int64), up(bucket.values),
+                up(bucket.indices, torch.int64),
+                up(bucket.values) if with_values else None,
                 up(bucket.labels), up(bucket.weights), up(bucket.offsets),
                 up(bucket.row_index, torch.int64),
                 up(bucket.entity_codes, torch.int64),
             )
-            cache[device] = hit
+            cache[key] = hit
         return hit
 
-    def prepare(self, bank: Tensor, dataset: RandomEffectDataset) -> None:
-        """Upload every bucket's static arrays ahead of an update;
-        idempotent. (The reference also compiles each bucket's program
-        here and folds same-shape buckets into one scan; a torch solve
-        compiles nothing, and the bucket loop dispatches each solve.)"""
-        for bucket in dataset.buckets:
-            self._bucket_device_args(bucket, bank.device)
+    def prewarm(self, specs) -> None:
+        """Check (bank, dataset, has_values_override,
+        has_residual_offsets) quadruples ahead of their first update. The
+        reference compiles every bucket's program of all of them here, in
+        one thread pool (the MF coordinate calls it before its first ALS
+        half-step); a torch solve has nothing to compile, so this only
+        checks that each bank matches its dataset."""
+        for bank, dataset, _, _ in specs:
+            if tuple(bank.shape) != (dataset.num_entities, dataset.local_dim):
+                raise ValueError(
+                    f"bank {tuple(bank.shape)} does not match the dataset's "
+                    f"[{dataset.num_entities}, {dataset.local_dim}]"
+                )
 
     # -- solves ------------------------------------------------------------------
 
@@ -444,8 +441,16 @@ class RandomEffectOptimizationProblem:
             )
         return res.coefficients, res.iterations, res.reason
 
-    def _bucket_inputs(self, bucket, bank: Tensor, residual_offsets: Optional[Tensor]):
-        ix, v, lab, w, off, rows, codes = self._bucket_device_args(bucket, bank.device)
+    def _bucket_inputs(self, bucket, bank: Tensor, residual_offsets: Optional[Tensor], values=None):
+        """A bucket's solve inputs in the bank's dtype; ``values`` (a
+        tensor, or a callable giving one) replaces its stored values."""
+        ix, v, lab, w, off, rows, codes = self._bucket_device_args(
+            bucket, bank.device, with_values=values is None
+        )
+        if values is not None:
+            # a callable is gathered only now, so at most one bucket's
+            # override values are alive at a time
+            v = values() if callable(values) else values
         if residual_offsets is not None:
             # the residual currency stays on the device: one gather per bucket
             off = torch.where(
@@ -459,6 +464,7 @@ class RandomEffectOptimizationProblem:
         bank: Tensor,  # [E, D]
         dataset: RandomEffectDataset,
         residual_offsets: Optional[Tensor] = None,  # [n] replaces offsets
+        values_override: Optional[Sequence] = None,
         with_variances: bool = False,
         defer_tracker: bool = False,
     ):
@@ -466,15 +472,24 @@ class RandomEffectOptimizationProblem:
         tracker), plus the per-entity variance bank [E, D] with
         ``with_variances`` (the Hdiag pass at the solved rows, same
         offsets). The caller's bank is not modified. With
-        ``defer_tracker`` the stats stay on the device until first read."""
+        ``defer_tracker`` the stats stay on the device until first read.
+
+        ``values_override``: per-bucket feature values on the device
+        (aligned with ``dataset.buckets``), or callables that give them,
+        in place of each bucket's stored values, which are then never
+        read: the MF ALS path gathers latent views every half-step while
+        the bucket structure stays cached."""
         l1, l2 = self.regularization.split(self.reg_weight)
         if residual_offsets is not None:
             residual_offsets = torch.as_tensor(residual_offsets, device=bank.device)
         bank = bank.clone()
         var_bank = torch.zeros_like(bank) if with_variances else None
         stats: List[Tuple[int, object, object]] = []
-        for bucket in dataset.buckets:
-            ix, v, lab, off, w, codes = self._bucket_inputs(bucket, bank, residual_offsets)
+        for bi, bucket in enumerate(dataset.buckets):
+            ix, v, lab, off, w, codes = self._bucket_inputs(
+                bucket, bank, residual_offsets,
+                None if values_override is None else values_override[bi],
+            )
             kind = self._bucket_kind(bucket, bank.shape[1])
             sl = bank.index_select(0, codes)
             new_sl, iters, reasons = self._solve(kind, sl, ix, v, lab, off, w, l1, l2)
@@ -484,7 +499,7 @@ class RandomEffectOptimizationProblem:
                 var_bank.index_copy_(0, codes, 1.0 / (hd + _VARIANCE_EPSILON))
             stats.append((bucket.num_entities, iters, reasons))
         if stats:
-            deferred = Deferred(lambda: _finalize(stats))
+            deferred = Deferred(stats, _finalize)
             tracker = LazyRandomEffectTracker(deferred) if defer_tracker else deferred.result()
         else:
             tracker = RandomEffectTracker(0, 0.0, 0, {})
@@ -530,19 +545,12 @@ class RandomEffectOptimizationProblem:
 
 
 def _finalize(stats) -> RandomEffectTracker:
-    """Per-bucket (entities, iterations, reasons) -> the tracker, in one
-    device-to-host copy for the tensors among them."""
-    tensors = [t for _, it, rs in stats for t in (it, rs) if torch.is_tensor(t)]
-    if tensors:
-        common.host_fetches += 1
-        host = iter(torch.cat([t.reshape(-1).cpu() for t in tensors]).split(
-            [t.numel() for t in tensors]
-        ))
+    """Per-bucket (entities, iterations, reasons), fetched to the host ->
+    the tracker."""
     total, it_sum, it_max = 0, 0, 0
     counts = np.zeros(_N_REASONS, np.int64)
     for n, it, rs in stats:
-        it = next(host).numpy() if torch.is_tensor(it) else np.asarray(it)
-        rs = next(host).numpy() if torch.is_tensor(rs) else np.asarray(rs)
+        it, rs = np.asarray(it), np.asarray(rs)
         total += n
         it_sum += int(it.sum())
         it_max = max(it_max, int(it.max()) if it.size else 0)

@@ -1,11 +1,13 @@
-"""Atomic write-rename for the artifacts the driver emits (port of
-``atomic_writer`` and ``atomic_write_json`` from
+"""Atomic write-rename for every artifact the drivers emit (port of
 ``photon_ml_tpu/reliability/artifacts.py``).
 
-A torn ``metrics.json`` or a half-written Avro file is worse than a
-missing one: the next stage reads garbage instead of failing cleanly. The
-bytes land in a same-directory temp file and ``os.replace`` publishes
-them, so readers see the old file or the whole new one, never a prefix.
+A torn ``metrics.json`` (killed mid-``json.dump``) or a half-written
+Avro part file is worse than a missing one: the next stage reads garbage
+instead of failing cleanly, and a resumed run trusts it. Every artifact
+write in the package goes through these helpers: the bytes land in a same-directory temp file and
+``os.replace`` publishes them — readers see the old file or the whole
+new one, never a prefix. Same-directory matters: ``os.replace`` is only
+atomic within a filesystem.
 """
 
 from __future__ import annotations
@@ -16,9 +18,18 @@ import tempfile
 from contextlib import contextmanager
 from typing import IO, Iterator
 
+__all__ = [
+    "atomic_writer",
+    "atomic_write_json",
+    "atomic_write_bytes",
+    "atomic_write_text",
+]
+
 
 @contextmanager
-def atomic_writer(path: str, mode: str = "w", **open_kwargs) -> Iterator[IO]:
+def atomic_writer(
+    path: str, mode: str = "w", **open_kwargs
+) -> Iterator[IO]:
     """Open a temp file next to ``path``; rename over it on clean exit,
     unlink the temp on error. ``mode`` is "w" or "wb"."""
     parent = os.path.dirname(os.path.abspath(path))
@@ -42,3 +53,13 @@ def atomic_writer(path: str, mode: str = "w", **open_kwargs) -> Iterator[IO]:
 def atomic_write_json(path: str, payload, *, indent: int = 2) -> None:
     with atomic_writer(path, "w") as f:
         json.dump(payload, f, indent=indent)
+
+
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    with atomic_writer(path, "wb") as f:
+        f.write(data)
+
+
+def atomic_write_text(path: str, text: str, encoding: str = "utf-8") -> None:
+    with atomic_writer(path, "w", encoding=encoding) as f:
+        f.write(text)

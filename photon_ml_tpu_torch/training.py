@@ -12,6 +12,10 @@
 - ``train_feature_sharded`` and ``train_grid_batched_feature_sharded``:
   the same two over a coefficient vector sharded by feature block on a
   (data, model) mesh (``parallel/distributed.py``).
+- ``grid_checkpointer=`` / ``preemption_guard=`` on the two single-card
+  trainers: per-λ crash-safe snapshots (``reliability.GridCheckpointer``)
+  and a stop at the λ boundary on SIGTERM. On a mesh they wait for ROADMAP
+  item 13.
 
 On a mesh every rank calls the trainer with the same arguments (the whole
 batch) and gets the same models.
@@ -23,6 +27,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.batch import SparseBatch
@@ -38,7 +43,7 @@ from photon_ml_tpu_torch.ops.tiled_sparse import (
     feature_shard_tiled_batch,
     tiled_batch_from_sparse,
 )
-from photon_ml_tpu_torch.optim.common import BoxConstraints, OptResult, fetch
+from photon_ml_tpu_torch.optim.common import BoxConstraints, OptResult, Tracker, fetch
 from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig,
     OptimizerType,
@@ -140,6 +145,84 @@ def _descending(regularization_weights: Sequence[float]) -> List[float]:
     return sorted(set(float(w) for w in regularization_weights), reverse=True)
 
 
+# -- λ-grid crash-safe snapshots (reliability.GridCheckpointer) ---------------
+#
+# One snapshot per completed λ: the warm-start means (the optimization
+# space's coefficients, which the next λ's solve starts from, so a resumed
+# sweep walks bitwise the same iterate chain), the exported model (original
+# space) and the OptResult arrays, under the JAX package's npz keys and
+# dtypes, so a snapshot loads in either package. A kill -9 in the middle of
+# a λ loses only that λ's solve.
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _snapshot_result_arrays(result: OptResult) -> Dict[str, np.ndarray]:
+    t = result.tracker
+    arrs = {
+        "coefficients": _host(result.coefficients),
+        "value": _host(result.value),
+        "grad_norm": _host(result.grad_norm),
+        "iterations": np.asarray(result.iterations, np.int32),
+        "reason": np.asarray(result.reason, np.int32),
+        "tracker_values": _host(t.values),
+        "tracker_grad_norms": _host(t.grad_norms),
+        "tracker_count": np.asarray(t.count, np.int32),
+    }
+    if t.coefs is not None:
+        arrs["tracker_coefs"] = _host(t.coefs)
+    return arrs
+
+
+def _result_from_snapshot(d: Dict[str, np.ndarray], device) -> OptResult:
+    def up(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    coefs = d.get("tracker_coefs")
+    return OptResult(
+        coefficients=up(d["coefficients"]),
+        value=up(d["value"]),
+        grad_norm=up(d["grad_norm"]),
+        iterations=int(d["iterations"]),
+        reason=int(d["reason"]),
+        tracker=Tracker(
+            values=up(d["tracker_values"]),
+            grad_norms=up(d["tracker_grad_norms"]),
+            count=int(d["tracker_count"]),
+            coefs=up(coefs) if coefs is not None else None,
+        ),
+    )
+
+
+def _model_from_snapshot(task: TaskType, snap, device) -> GeneralizedLinearModel:
+    var = snap.get("model_variances")
+    return GeneralizedLinearModel(task, Coefficients(
+        torch.as_tensor(snap["model_means"], device=device),
+        torch.as_tensor(var, device=device) if var is not None else None,
+    ))
+
+
+def _save_lambda_snapshot(checkpointer, lam: float, warm_means, model, result: OptResult) -> None:
+    variances = model.coefficients.variances
+    checkpointer.save(
+        lam,
+        warm_means=_host(warm_means),
+        model_means=_host(model.means),
+        model_variances=_host(variances) if variances is not None else None,
+        result_arrays=_snapshot_result_arrays(result),
+    )
+
+
+def _no_mesh_checkpoints(mesh, grid_checkpointer, preemption_guard=None) -> None:
+    if mesh is not None and (grid_checkpointer is not None or preemption_guard is not None):
+        raise NotImplementedError(
+            "not ported yet: λ snapshots and the preemption guard on a mesh "
+            "(ROADMAP item 13)"
+        )
+
+
 def train_generalized_linear_model(
     batch: Union[SparseBatch, TiledSparseBatch],
     task: TaskType,
@@ -162,6 +245,8 @@ def train_generalized_linear_model(
     mesh: Optional[ProcessMesh] = None,
     track_models: bool = False,
     tile_cache_dir: Optional[str] = None,
+    grid_checkpointer=None,
+    preemption_guard=None,
 ) -> Tuple[Models, Results]:
     """Train one model per regularization weight with warm starts.
 
@@ -190,7 +275,17 @@ def train_generalized_linear_model(
     (``ops/schedule_cache.py``) for tiling a SparseBatch here: a rerun over
     the same data loads the schedules instead of building them. None
     leaves an outer scope or ``PHOTON_TILE_CACHE_DIR`` in force.
+
+    ``grid_checkpointer`` (``reliability.GridCheckpointer``): per-λ
+    crash-safe snapshots. A completed λ loads instead of being solved
+    again, and the next λ warm-starts from the snapshotted means, so the
+    final models are bitwise what an uninterrupted run gives where the
+    fits repeat bitwise (on the CPU; K1's float atomics do not repeat).
+    ``preemption_guard``: a SIGTERM stops the sweep before the next λ's
+    solve (the λ boundary is the safe point); the solved λs are
+    snapshotted and returned.
     """
+    _no_mesh_checkpoints(mesh, grid_checkpointer, preemption_guard)
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
         regularization_type=regularization_type,
@@ -207,12 +302,27 @@ def train_generalized_linear_model(
     dev = batch.labels.device
     current = None if initial is None else torch.as_tensor(initial, device=dev)
     for lam in _descending(regularization_weights):
+        snap = grid_checkpointer.load(lam) if grid_checkpointer is not None else None
+        if snap is not None:
+            # solved by an earlier, interrupted run: restore instead of
+            # solving again; the snapshotted warm means keep the iterate
+            # chain of the λs still to solve bitwise the same
+            models[lam] = _model_from_snapshot(task, snap, dev)
+            results[lam] = _result_from_snapshot(snap["result"], dev)
+            if warm_start:
+                current = torch.as_tensor(snap["warm_means"], device=dev)
+            continue
+        if preemption_guard is not None and preemption_guard.requested:
+            # stop at the λ boundary; a rerun resumes the sweep here
+            break
         coefficients, result = problem.run(
             batch, initial=current, reg_weight=lam, mesh=mesh,
             track_models=track_models,
         )
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result
+        if grid_checkpointer is not None:
+            _save_lambda_snapshot(grid_checkpointer, lam, coefficients.means, models[lam], result)
         if warm_start:
             current = coefficients.means
     return models, results
@@ -298,6 +408,7 @@ def train_grid_batched(
     mesh: Optional[ProcessMesh] = None,
     track_models: bool = False,
     tile_cache_dir: Optional[str] = None,
+    grid_checkpointer=None,
 ) -> Tuple[Models, Results]:
     """Batched twin of :func:`train_generalized_linear_model`: the grid
     stacks into a [G, d] coefficient bank and one run of the optimizer
@@ -313,7 +424,22 @@ def train_grid_batched(
     device for :func:`grid_result_scalars`' one fetch. ``kernel``,
     ``device``, ``mesh``, ``track_models`` and ``tile_cache_dir`` as for
     the sequential trainer ("auto" is the tiled kernel on the card).
+
+    ``grid_checkpointer``: the unit of a snapshot is the completed grid
+    (one solve has no per-λ boundary inside it), so a rerun after the
+    solve loads every λ and solves nothing; else it solves the grid again.
     """
+    _no_mesh_checkpoints(mesh, grid_checkpointer)
+    weights_desc = _descending(regularization_weights)
+    dev = _fit_device(device, mesh)
+    if grid_checkpointer is not None and all(grid_checkpointer.has(lam) for lam in weights_desc):
+        models: Models = {}
+        results: Results = {}
+        for lam in weights_desc:
+            snap = grid_checkpointer.load(lam)
+            models[lam] = _model_from_snapshot(task, snap, dev)
+            results[lam] = _result_from_snapshot(snap["result"], dev)
+        return models, results
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
         regularization_type=regularization_type,
@@ -323,17 +449,20 @@ def train_grid_batched(
         intercept_index=intercept_index, kernel=kernel, device=device,
         mesh=mesh, tile_cache_dir=tile_cache_dir,
     )
-    weights_desc = _descending(regularization_weights)
     variances, result = problem.run_grid(
         batch, weights_desc, initial=initial, mesh=mesh, track_models=track_models
     )
-    models: Models = {}
-    results: Results = {}
+    models = {}
+    results = {}
     for i, lam in enumerate(weights_desc):
         var_i = variances[i] if variances is not None else None
         coefficients = Coefficients(result.coefficients[i], var_i)
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result.member(i)
+        if grid_checkpointer is not None:
+            _save_lambda_snapshot(
+                grid_checkpointer, lam, result.coefficients[i], models[lam], results[lam]
+            )
     return models, results
 
 

@@ -26,10 +26,12 @@ from photon_ml_tpu.optim.problem import create_glm_problem as ref_create_problem
 from photon_ml_tpu.task import TaskType as RefTask
 from photon_ml_tpu_torch.game import (
     CoordinateDescent,
+    FactoredRandomEffectConfiguration,
     FactoredRandomEffectCoordinate,
     FixedEffectCoordinate,
     MatrixFactorizationCoordinate,
     PodRandomEffectCoordinate,
+    ProjectorType,
     RandomEffectCoordinate,
     RandomEffectDataConfiguration,
     RandomEffectOptimizationProblem,
@@ -44,6 +46,8 @@ from photon_ml_tpu_torch.optim.config import (
 )
 from photon_ml_tpu_torch.optim.problem import create_glm_problem
 from photon_ml_tpu_torch.task import TaskType
+from photon_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
+from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
 from torch_game_cases import both_datasets, make_records
 from torch_parity import assert_close, assert_close_to_scale
 
@@ -197,18 +201,44 @@ def test_down_sampling_runs():
     assert result.objective_history != full.objective_history
 
 
-def test_update_sequence_and_unported_seams():
+def test_update_sequence_and_unported_seams(tmp_path):
     _, ds = _datasets()
     coords = _port_coords(ds)
     with pytest.raises(ValueError, match="unknown"):
         CoordinateDescent(coords, ds, TaskType.LOGISTIC_REGRESSION, update_sequence=["global", "x"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CoordinateDescent(coords, ds, TaskType.LOGISTIC_REGRESSION, checkpointer=object())
-    for cls, item in ((PodRandomEffectCoordinate, "item 13"),
-                      (FactoredRandomEffectCoordinate, "item 10"),
-                      (MatrixFactorizationCoordinate, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            cls(name="x")
+    # checkpoints and the preemption guard (ported): the run takes them
+    guard = PreemptionGuard()
+    guard.request()
+    result = CoordinateDescent(
+        coords, ds, TaskType.LOGISTIC_REGRESSION,
+        checkpointer=TrainingCheckpointer(str(tmp_path / "ck")), preemption_guard=guard,
+    ).run(2)
+    assert result.preempted and len(result.objective_history) == 1
+    # the factored random effect and MF (ported) take an update; the pod
+    # coordinate still waits for its item
+    opt = OptimizerConfig(max_iter=10)
+    l2 = RegularizationContext(RegularizationType.L2)
+    red = build_random_effect_dataset(
+        ds, RandomEffectDataConfiguration("userId", "userShard", projector_type=ProjectorType.IDENTITY),
+    )
+    factored = FactoredRandomEffectCoordinate(
+        name="x", dataset=ds, re_dataset=red,
+        problem=RandomEffectOptimizationProblem(LOGISTIC, opt, l2, reg_weight=1.0),
+        projection_problem=create_glm_problem(
+            TaskType.LOGISTIC_REGRESSION, red.local_dim * 2, config=opt, regularization=l2,
+        ),
+        config=FactoredRandomEffectConfiguration(2, 1), reg_weight_projection=1.0,
+    )
+    mf = MatrixFactorizationCoordinate(
+        name="x", dataset=ds, row_effect_type="userId", col_effect_type="itemId",
+        num_latent_factors=2,
+        problem=RandomEffectOptimizationProblem(LOGISTIC, opt, l2, reg_weight=1.0),
+    )
+    for coord in (factored, mf):
+        model, _ = coord.update_model(coord.initialize_model())
+        assert bool(torch.isfinite(coord.score(model)).all())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        PodRandomEffectCoordinate(name="x")
     with pytest.raises(NotImplementedError, match="item 13"):
         FixedEffectCoordinate(
             name="g", dataset=ds, problem=coords["global"].problem,

@@ -194,15 +194,15 @@ def test_pure_fixed_effect_grid_runs_batched(data, tmp_path):
 
 
 REFUSED = [
-    (["--factored-random-effect-optimization-configurations", "per-user:4,2"], "item 10"),
+    (["--factored-random-effect-optimization-configurations", "per-user:4,2"], None),
     (["--distributed", "feature"], "item 13"),
     (["--model-shards", "2"], "item 13"),
     (["--entity-shards", "2"], "item 13"),
     (["--coordinator-address", "localhost:1234"], "item 13"),
     (["--num-processes", "2"], "item 13"),
     (["--process-id", "0"], "item 13"),
-    (["--checkpoint-dir", "ck"], "item 12"),
-    (["--fault-plan", "spill_write:2:EIO"], "item 12"),
+    (["--checkpoint-dir", "ck"], None),
+    (["--fault-plan", "spill_write:2:EIO"], None),
     (["--streaming", "true"], "item 11"),
     (["--stream-memory-budget", "1000"], "item 11"),
     (["--retrain-from", "reg"], "item 15"),
@@ -215,6 +215,25 @@ REFUSED = [
 
 @pytest.mark.parametrize("extra,item", REFUSED, ids=[r[0][0] for r in REFUSED])
 def test_training_refuses_later_items(data, tmp_path, extra, item):
+    """An option of a later item is refused before touching the output; an
+    option whose item is ported (None) runs."""
+    if item is None:
+        from photon_ml_tpu_torch.reliability import install_plan
+
+        extra = [str(tmp_path / a) if a == "ck" else a for a in extra]
+        try:
+            port_training.main(_train_argv(data, tmp_path / "o", "BEST", extra) + ["--device", "cpu"])
+        finally:
+            install_plan(None)
+        metrics = json.load(open(tmp_path / "o" / "metrics.json"))
+        assert len(metrics["objective_history"]) == 2
+        if extra[0] == "--checkpoint-dir":
+            combos = sorted(os.listdir(tmp_path / "ck"))
+            assert len(combos) == 2  # one directory per combo of the grid
+            assert all(sorted(os.listdir(tmp_path / "ck" / c))[:2] == ["1", "2"] for c in combos)
+        elif extra[0] == "--fault-plan":
+            assert metrics["reliability"]["faults"]["plan"] == extra[1]
+        return
     with pytest.raises(NotImplementedError, match=item):
         port_training.main(_train_argv(data, tmp_path / "o", "BEST", extra) + ["--device", "cpu"])
     assert not (tmp_path / "o").exists()  # refused before touching the output
@@ -222,13 +241,28 @@ def test_training_refuses_later_items(data, tmp_path, extra, item):
 
 SCORING_REFUSED = [
     (["--streaming", "true"], "item 11"),
-    (["--fault-plan", "x:1:EIO"], "item 12"),
+    (["--fault-plan", "chunk_read:1:EIO"], None),
     (["--obs-dir", "obs"], "item 15"),
     (["--profile-dir", "prof"], "item 15"),
 ]
 
 
 @pytest.mark.parametrize("extra,item", SCORING_REFUSED, ids=[r[0][0] for r in SCORING_REFUSED])
-def test_scoring_refuses_later_items(data, tmp_path, extra, item):
+def test_scoring_refuses_later_items(data, tmp_path, ref_run, extra, item):
+    """A later item's option is refused; ``--fault-plan`` (ported) runs and
+    shows in the reliability block of metrics.json."""
+    if item is None:
+        from photon_ml_tpu_torch.reliability import install_plan
+
+        try:
+            port_scoring.main(
+                _score_argv(data, ref_run[1] / "best-model", tmp_path / "o") + extra
+                + ["--device", "cpu"]
+            )
+        finally:
+            install_plan(None)
+        metrics = json.load(open(tmp_path / "o" / "metrics.json"))
+        assert metrics["reliability"]["faults"]["plan"] == extra[1]
+        return
     with pytest.raises(NotImplementedError, match=item):
         port_scoring.main(_score_argv(data, tmp_path, tmp_path / "o") + extra + ["--device", "cpu"])

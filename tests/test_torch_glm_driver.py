@@ -184,8 +184,8 @@ UNPORTED = [
     (["--model-shards", "2"], "item 13"),
     (["--coordinator-address", "localhost:1234", "--num-processes", "2",
       "--process-id", "0"], "item 13"),
-    (["--checkpoint-dir", "/k"], "item 12"),
-    (["--fault-plan", "chunk_read:1:EIO"], "item 12"),
+    (["--checkpoint-dir", "ck"], None),
+    (["--fault-plan", "chunk_read:1:EIO"], None),
     (["--retrain-from", "/r"], "item 15"),
     (["--publish-registry", "/r"], "item 15"),
     (["--gate-max-auc-drop", "0.1"], "item 15"),
@@ -195,7 +195,29 @@ UNPORTED = [
 
 
 @pytest.mark.parametrize("extra,item", UNPORTED, ids=[u[0][0] for u in UNPORTED])
-def test_unported_options_raise_naming_their_item(tmp_path, extra, item):
+def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, item):
+    """An option of a path not ported yet raises naming its item; one whose
+    item is ported (None) runs: ``--checkpoint-dir`` snapshots every λ,
+    ``--fault-plan`` shows in the reliability block."""
+    if item is None:
+        from photon_ml_tpu_torch.reliability import install_plan
+
+        extra = [str(tmp_path / a) if a == "ck" else a for a in extra]
+        argv = ["--training-data-directory", fixtures["avro"][0], "--output-directory",
+                str(tmp_path / "out"), "--regularization-weights", "10,1",
+                "--grid-mode", "sequential", "--device", "cpu"] + extra
+        try:
+            glm_driver.main(argv)
+        finally:
+            install_plan(None)
+        metrics = json.load(open(tmp_path / "out" / "metrics.json"))
+        if extra[0] == "--checkpoint-dir":
+            names = sorted(os.listdir(tmp_path / "ck"))
+            assert "manifest.json" in names
+            assert len([n for n in names if n.startswith("lambda-") and n.endswith(".json")]) == 2
+        else:
+            assert metrics["reliability"]["faults"]["plan"] == extra[1]
+        return
     argv = ["--training-data-directory", "t", "--output-directory",
             str(tmp_path / "out"), "--device", "cpu"] + extra
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

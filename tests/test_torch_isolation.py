@@ -66,6 +66,9 @@ def test_fresh_interpreter_imports_no_jax():
         "game.random_effect", "game.model", "game.coordinate",
         "game.coordinate_descent", "game.model_io",
         "cli.game_training_driver", "cli.game_scoring_driver", "tools.fe_spread",
+        "reliability", "reliability.faults", "reliability.retry", "reliability.manifest",
+        "reliability.artifacts", "reliability.checkpoint", "utils.checkpoint",
+        "utils.preemption", "parallel.overlap",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]
