@@ -141,9 +141,30 @@ Phases, each printing its own lines:
    limit, and the reliability block of metrics.json. The card repeats no
    fit with an intercept bitwise (float atomics in K1), so the bitwise
    resume is the CPU tests' (``tests/test_torch_reliability.py``);
-10. a ``kernels`` JSON line (with each kernel's launches in the driver
-   runs, K1's in run D's diagnose stage, in the GAME runs and in runs F
-   and R), the nvidia-smi line, and the last line
+10. out-of-core training: run S, ``glm_driver.main`` with ``--streaming
+   true --stream-memory-budget 33554432`` over 2^18 x 64 x 2^20 rows
+   (phase 4's planted model) in 8 Avro part files written by worker
+   processes, with 2^16 validation rows: the L-BFGS grid [10, 1] with
+   variances, the intercept, streamed validation and a cold
+   ``--scan-cache-dir`` (5 chunks of 63,072 rows: 1 on the device tier,
+   4 spilled, all 5 in K1's tiled cache); each lambda's float64 objective
+   within 1e-4 of ``train_generalized_linear_model(kernel="tiled")`` on
+   the batch the port's Avro loader gives (a wrong model as the control,
+   the intercept_spread limit), the streamed AUC within 1e-3 of the
+   written model's exact AUC, one decode pass to fill the tiers; then a
+   direct ``StreamingGLMObjective``: value and gradient (and Hv, Hdiag)
+   against the in-memory tiled objective (1e-5, 1e-4 of the scale), K1
+   launches of 2 x tiled chunks per value+gradient, and the same with a
+   tiled cache of 2 chunks and 3 on the scatter overflow; K1 checked and
+   timed at the chunk shape beside its bound; then run S2, the same
+   files with the scan cache warm (every partition cached, the same map
+   and stats), TRON at lambda = 1 and ``--diagnostic-mode ALL`` over the
+   reservoir (every chapter, finite numbers). Printed: stage timers, tier
+   counts, spill bytes, host RSS growth in training against the staged
+   bytes, the device memory peak, host fetches per iteration;
+11. a ``kernels`` JSON line (with each kernel's launches in the driver
+   runs, K1's in run D's diagnose stage, in the GAME runs, in runs F and
+   R and in phase 10's runs), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -1383,7 +1404,7 @@ def game_densify_check(red, smi, device):
     return n_dup, err
 
 
-def game_k1_times(k1, tb, rng, smi):
+def game_k1_times(k1, tb, rng, smi, label="game"):
     """K1 against its plain version at the GAME fixed effect's shape, each
     output held to its own magnitude, |got - ref| <= 1e-6 + RTOL * mag with
     mag the plain pass over |values| and |source| (the intercept's output
@@ -1402,16 +1423,16 @@ def game_k1_times(k1, tb, rng, smi):
         abs_err = float(diff.max())
         rel_err = float((diff / mag.clamp_min(1e-30)).max())
         bad = int((diff > 1e-6 + RTOL * mag).sum())
-        say(f"k1_check game {name}: max_abs_err={abs_err!r} max error over the output's "
+        say(f"k1_check {label} {name}: max_abs_err={abs_err!r} max error over the output's "
             f"magnitude {rel_err!r}; outputs over 1e-6 + {RTOL!r} x magnitude: {bad}")
         if bad or not np.isfinite(abs_err):
-            fail(f"k1_check game {name}: {bad} outputs disagree with the plain version")
+            fail(f"k1_check {label} {name}: {bad} outputs disagree with the plain version")
         err = tuple(map(max, err, (abs_err, rel_err)))
     z_ms = time_ms(lambda: k1.bilinear_pass(tb.z_sched, w, tb.num_row_blocks, win))
     g_ms = time_ms(lambda: k1.bilinear_pass(tb.g_sched, c, tb.num_feat_blocks, win))
     z_bound, _, entries = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
     g_bound, _, _ = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim)
-    say(f"game K1 ({smi}): {entries} entries; z {z_ms!r} ms (bound {z_bound!r}), "
+    say(f"{label} K1 ({smi}): {entries} entries; z {z_ms!r} ms (bound {z_bound!r}), "
         f"g {g_ms!r} ms (bound {g_bound!r}); max_abs_err {err[0]!r}")
     return dict(z_ms=z_ms, g_ms=g_ms, z_bound_ms=z_bound, g_bound_ms=g_bound,
                 max_abs_err=err[0], max_rel_err=err[1], entries=entries)
@@ -2128,6 +2149,503 @@ def reliability_phase(seed, smi, k1, k2, game_ds, run_a, device="cuda", device_a
     return {"F": launches_f, "R": launches_r}
 
 
+# -- phase 10: out-of-core training -------------------------------------------
+
+STREAM_PARTS = 8  # Avro part files of run S's training rows (and 1 of validation)
+# run S's --stream-memory-budget: 33,554,432 B // 532 B a row (65 slots of
+# 8 B + 12 B) = 63,072 rows a chunk, so the 2^18 rows are 5 chunks: 1 on
+# the device tier (the budget holds one), 4 spilled, all 5 tiled
+STREAM_BUDGET = 33554432
+STREAM_TIERS = {"device": 1, "disk": 4, "tiled": 5, "overflow": 0}
+STREAM_TILED_KEEP = 2  # tiled chunks of the direct overflow objective
+STREAM_AUC_TOL = 1e-3  # streamed (4,096-bin) AUC vs the exact AUC
+STREAM_VALUE_RTOL = 1e-5  # streamed vs in-memory objective, relative
+STREAM_GRAD_RTOL = 1e-4  # of the gradient's (Hv's, Hdiag's) max-abs
+
+
+def stream_part(args):
+    """One Avro part file of run S's rows (runs in a worker process): phase
+    4's planted model, rows from a generator of the part's own."""
+    seed, path, kind, part, n = args
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    w_true = (np.random.default_rng([seed, 1]).normal(size=DIM) * 0.3).astype(np.float32)
+    idx, vals, labels = planted_data(
+        np.random.default_rng([seed, 10, kind == "train", part]), n, w_true
+    )
+    recs = [{
+        "uid": None, "label": float(labels[r]), "offset": None, "weight": None,
+        "features": [{"name": str(i), "term": "", "value": v}
+                     for i, v in zip(idx[r].tolist(), vals[r].tolist())],
+    } for r in range(n)]
+    write_container(path, schemas.TRAINING_EXAMPLE_AVRO, recs)
+    return n
+
+
+def rss_bytes():
+    """This process's resident set now (not its peak)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def stream_run(label, argv, out, k1, k2, smi, device_args=()):
+    """One ``glm_driver.main(argv)`` with ``--streaming true``, the launch
+    counts, the decode-pass count and the device memory peak set to 0 just
+    before it, and the host fetches, K1 launches and RSS read around its
+    train stage; -> its record."""
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.io import streaming
+    from photon_ml_tpu_torch.parallel import overlap
+
+    seen = {}
+    train = glm_driver.GLMDriver.train
+
+    def measured_train(driver):
+        seen.update(rss0=rss_bytes(), fetch0=overlap.readback_stats(), k1_0=k1.launches)
+        train(driver)
+        torch.cuda.synchronize()
+        seen.update(rss1=rss_bytes(), fetches=overlap.readback_stats() - seen["fetch0"],
+                    train_k1=k1.launches - seen["k1_0"])
+
+    glm_driver.GLMDriver.train = measured_train
+    k1.launches = 0
+    k2.launches = 0
+    streaming.decode_passes = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        driver = glm_driver.main(argv + ["--output-directory", out, *device_args])
+    finally:
+        glm_driver.GLMDriver.train = train
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = ["feature-index/index.json", "models/models.avro", "metrics.json"]
+    if "--validating-data-directory" in argv:
+        want.append("best-model/model.avro")
+    missing = [f for f in want if not os.path.exists(f"{out}/{f}")]
+    if missing:
+        fail(f"streamed run {label} wrote no {missing}")
+    with open(f"{out}/metrics.json") as f:
+        metrics = json.load(f)
+    st = metrics["streaming"]
+    stats = driver._stream[1]
+    staged = stats.num_rows * (stats.max_nnz * 8 + 12)
+    iters = sum(r.iterations for r in driver.results.values())
+    run = dict(driver=driver, out=out, metrics=metrics, seconds=seconds, k1=k1.launches,
+               k2=k2.launches, train_k1=seen["train_k1"], stats=stats,
+               decode_passes=streaming.decode_passes)
+    timers = " ".join(f"{k}={v!r}" for k, v in driver.timer.durations.items())
+    say(f"streamed run {label} ({smi}): {seconds!r} s; stage timers s: {timers}; K1 "
+        f"launches {k1.launches} ({seen['train_k1']} in training), K2 launches {k2.launches}; "
+        f"iterations {dict((k, r.iterations) for k, r in driver.results.items())}, stop "
+        f"reasons {dict((k, r.reason_name) for k, r in driver.results.items())}")
+    say(f"streamed run {label} tiers ({smi}): {stats.num_rows} rows x {stats.max_nnz} slots, "
+        f"{st['rows_per_chunk']} rows a chunk, tiers {st['tiers']}, spill bytes "
+        f"{st['spill_bytes']}, decode passes of the objective {st['decode_passes']} "
+        f"(all iter_chunks passes of the run {streaming.decode_passes}: the data checks, the "
+        f"fill, the reservoir and validation); scan cache {metrics.get('scan_cache')}")
+    say(f"streamed run {label} memory ({smi}): host RSS growth in training "
+        f"{seen['rss1'] - seen['rss0']} B against {staged} B of staged rows; peak RSS "
+        f"{st['peak_rss_bytes']} B; device memory peak {torch.cuda.max_memory_allocated()} B; "
+        f"host fetches in training {seen['fetches']} over {iters} iterations "
+        f"({seen['fetches'] / max(iters, 1)!r} per iteration)")
+    if st["decode_passes"] != 1:
+        fail(f"streamed run {label}: the objective decoded {st['decode_passes']} times")
+    if seen["train_k1"] == 0 or k2.launches:
+        fail(f"streamed run {label}: K1 never launched in training, or K2 launched")
+    return run
+
+
+def stream_objective_checks(k1, train_dir, fmt, imap, stats, batch, smi, seed, device="cuda"):
+    """A direct ``StreamingGLMObjective`` over run S's files on the card:
+    value and gradient (and Hv, Hdiag) against the in-memory tiled
+    objective on the loaded batch at one fixed w, K1's launches per
+    evaluation (2 x tiled chunks for value+gradient, 3 x for Hv, 2 x for
+    Hdiag) and no decode after the fill; then the same with a tiled cache
+    of STREAM_TILED_KEEP chunks and the rest on the scatter overflow. K1
+    checked and timed at the chunk shape. -> the chunk's K1 numbers."""
+    from photon_ml_tpu_torch.io.streaming import StreamingGLMObjective, sparse_row_bytes
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+    from photon_ml_tpu_torch.ops.losses import loss_for_task
+    from photon_ml_tpu_torch.task import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    loss = loss_for_task(task)
+    rng = np.random.default_rng([seed, 11])
+    dim = imap.size
+    w = torch.as_tensor((rng.normal(size=dim) * 0.05).astype(np.float32), device=device)
+    d = torch.as_tensor(rng.normal(size=dim).astype(np.float32), device=device)
+    tb = ts.tiled_batch_from_sparse(batch, dim, device=device)
+    tobj = ts.TiledGLMObjective(loss, dim)
+    ref = dict(
+        vg=tobj.value_and_gradient(w, tb, 1.0), hv=tobj.hessian_vector(w, d, tb, 1.0),
+        hd=tobj.hessian_diagonal(w, tb, 1.0),
+    )
+    del tb
+    rows = STREAM_BUDGET // sparse_row_bytes(stats.max_nnz)
+
+    def check(label, obj, expect_k1):
+        launches = {}
+        got = {}
+        seconds = {}
+        for name, fn in (("vg", lambda: obj.value_and_gradient(w, 1.0)),
+                         ("hv", lambda: obj.hessian_vector(w, d, 1.0)),
+                         ("hd", lambda: obj.hessian_diagonal(w, 1.0))):
+            k1.launches = 0
+            t0 = time.perf_counter()
+            got[name] = fn()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = k1.launches
+        v, g = got["vg"]
+        v_ref, g_ref = ref["vg"]
+        v_rel = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+        errs = {name: float((a - b).abs().max() / b.abs().max())
+                for name, a, b in (("gradient", g, g_ref), ("hv", got["hv"], ref["hv"]),
+                                   ("hdiag", got["hd"], ref["hd"]))}
+        tiers = obj.tier_counts
+        say(f"stream objective {label} ({smi}): tiers {tiers}; value {float(v)!r} vs "
+            f"{float(v_ref)!r} in memory, relative {v_rel!r}; max-abs errors over the "
+            f"scale {errs}; K1 launches per evaluation {launches} (expected {expect_k1}); "
+            f"decode passes {obj.decode_passes}; host seconds per evaluation (the tiers read, "
+            f"the passes run, synchronized) {seconds}")
+        if not v_rel <= STREAM_VALUE_RTOL or not all(e <= STREAM_GRAD_RTOL for e in errs.values()):
+            fail(f"stream objective {label}: off the in-memory tiled objective")
+        if launches != expect_k1 or obj.decode_passes != 1:
+            fail(f"stream objective {label}: K1 launches {launches} or decode passes "
+                 f"{obj.decode_passes} off")
+        return tiers, seconds
+
+    obj = StreamingGLMObjective([train_dir], fmt, imap, stats, task, rows_per_chunk=rows,
+                                cache_bytes=STREAM_BUDGET, kernel="tiled", device=device)
+    obj.value_and_gradient(w, 1.0)  # the fill pass (scatter over decoded chunks)
+    obj.value_and_gradient(w, 1.0)  # builds the tiled chunks
+    n = len(obj._tiled)
+    if obj.tier_counts != STREAM_TIERS:
+        fail(f"stream objective: tiers {obj.tier_counts}, expected {STREAM_TIERS}")
+    _, seconds = check("all tiled", obj, {"vg": 2 * n, "hv": 3 * n, "hd": 2 * n})
+    chunk = game_k1_times(k1, obj._tiled[0], rng, smi, label="stream chunk")
+    chunk.update(rows=rows, evaluation_s=seconds)
+    # the same tiers with a tiled cache that keeps STREAM_TILED_KEEP chunks
+    # (the schedules are built again from the tiers; nothing is decoded)
+    obj.tiled_cache_bytes = (
+        sum(obj.tiled_nbytes[:STREAM_TILED_KEEP]) + obj.tiled_nbytes[STREAM_TILED_KEEP] // 2
+    )
+    obj._tiled = None
+    k = STREAM_TILED_KEEP
+    tiers, _ = check("overflow", obj, {"vg": 2 * k, "hv": 3 * k, "hd": 2 * k})
+    if tiers["tiled"] != k or tiers["overflow"] != n - k:
+        fail(f"stream objective overflow: tiers {tiers}")
+    obj.close()
+    return chunk
+
+
+# run T: the streamed GAME drivers at run H's widths, the user shard
+# IDENTITY over each user's pool indices (d = 1,001: an IDENTITY bank over
+# the 2^20-wide user shard of run H would be 4,096 x 2^20 floats, with an
+# L-BFGS history beside it), 2^13 rows of 512 users each of training and
+# validation (run H's 2^16 of 4,096 cut: the script passed 900 s)
+STREAM_T_USERS = 512
+STREAM_T_PARTS = 4
+# 2 MiB: 912 B a staged row (72 + 40 slots of 8 B, 12 B and a code) ->
+# 2,299 rows a chunk, 4 chunks of the 2^13 rows; 5,376 B an entity of 16
+# rows -> 390 entities a segment, 2 segments of the 512 users
+STREAM_T_BUDGET = 2 << 20
+STREAM_T_OBJ_RTOL = 1e-3  # streamed vs in-memory CD objective, relative
+STREAM_T_AUC_TOL = 1e-3  # streamed vs in-memory scoring AUC
+
+
+def stream_game_part(args):
+    """One Avro part file of run T's rows (runs in a worker process): run
+    H's rows with each user feature named by its index in the user's pool
+    (the IDENTITY user shard), the user id in metadataMap."""
+    seed, path, kind, part, n_parts, n_users, dim = args
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    w_global, w_user = game_model(np.random.default_rng([seed, 5]), n_users, dim)
+    rng = np.random.default_rng([seed, 12, kind == "train", part])
+    if kind == "train":
+        users = np.repeat(np.arange(n_users), GAME_ROWS_PER_USER)
+    else:
+        users = rng.integers(0, n_users, size=n_users * GAME_ROWS_PER_USER)
+    users = np.array_split(users, n_parts)[part]
+    g_idx, g_val, _, u_val, labels, picks = game_rows(rng, users, w_global, w_user)
+    icept = dim - 1
+    recs = [{
+        "uid": f"{kind}-{part}-{r}", "label": float(labels[r]),
+        "features": [{"name": str(i), "term": "", "value": v}
+                     for i, v in zip(g_idx[r].tolist(), g_val[r].tolist()) if v != 0 and i != icept],
+        "userFeatures": [{"name": str(p), "term": "", "value": v}
+                         for p, v in zip(picks[r].tolist(), u_val[r, :GAME_USER_NNZ].tolist())],
+        "metadataMap": {"userId": f"user{users[r]:05d}"}, "weight": None, "offset": None,
+    } for r in range(len(users))]
+    schema = dict(schemas.TRAINING_EXAMPLE_AVRO)
+    schema["fields"] = list(schema["fields"]) + [GAME_H_SCHEMA_EXTRA]
+    write_container(path, schema, recs)
+    return len(recs)
+
+
+def stream_run_t(seed, smi, device_args=()):
+    """Run T: ``game_training_driver.main`` over the same Avro files in
+    memory, then with ``--streaming true`` and ``--checkpoint-dir``, then
+    ``game_scoring_driver.main`` over the validation files in memory and
+    with ``--streaming true`` on the streamed model. Fails unless the
+    streamed CD objective never rises and is within STREAM_T_OBJ_RTOL of
+    the in-memory run's, the checkpointer holds one step a CD iteration
+    whose restore is the final states bitwise, and the streamed scoring
+    AUC is within STREAM_T_AUC_TOL of the in-memory scoring's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from photon_ml_tpu_torch.cli import game_scoring_driver, game_training_driver
+    from photon_ml_tpu_torch.game.config import FeatureShardConfiguration
+    from photon_ml_tpu_torch.io.name_term_list import save_name_and_term_feature_sets
+    from photon_ml_tpu_torch.reliability import StreamingCDCheckpointer
+    from photon_ml_tpu_torch.utils.index_map import intercept_key
+
+    with tempfile.TemporaryDirectory(prefix="photon_stream_game_") as tmp:
+        t0 = time.perf_counter()
+        jobs = []
+        for kind in ("train", "validate"):
+            os.makedirs(f"{tmp}/{kind}")
+            for p in range(STREAM_T_PARTS):
+                jobs.append((seed, f"{tmp}/{kind}/part-{p:05d}.avro", kind, p,
+                             STREAM_T_PARTS, STREAM_T_USERS, DIM))
+        with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+            written = list(pool.map(stream_game_part, jobs))
+        say(f"streamed run T data: {sum(written[:STREAM_T_PARTS])} training and "
+            f"{sum(written[STREAM_T_PARTS:])} validation Avro records ({STREAM_T_USERS} users) "
+            f"written in {time.perf_counter() - t0!r} s")
+        shards = "globalShard:features|userShard:userFeatures"
+        argv = [
+            "--train-input-dirs", f"{tmp}/train", "--validate-input-dirs", f"{tmp}/validate",
+            "--feature-shard-id-to-feature-section-keys-map", shards,
+            "--fixed-effect-data-configurations", "global:globalShard,1",
+            "--fixed-effect-optimization-configurations", "global:50,1e-7,1,1,TRON,L2",
+            "--random-effect-data-configurations",
+            "per-user:userId,userShard,1,none,none,none,IDENTITY",
+            "--random-effect-optimization-configurations", "per-user:30,1e-5,1,1,LBFGS,L2",
+            "--num-iterations", "2", "--evaluator-types", "AUC", *device_args,
+        ]
+        runs = {}
+        for label, extra in (
+            ("in memory", ["--output-dir", f"{tmp}/mem", "--model-output-mode", "NONE"]),
+            ("streamed", ["--output-dir", f"{tmp}/stream", "--model-output-mode", "BEST",
+                          "--streaming", "true", "--stream-memory-budget",
+                          str(STREAM_T_BUDGET), "--checkpoint-dir", f"{tmp}/ck"]),
+        ):
+            t0 = time.perf_counter()
+            driver = game_training_driver.main(argv + extra)
+            seconds = time.perf_counter() - t0
+            with open(f"{extra[1]}/metrics.json") as f:
+                metrics = json.load(f)
+            runs[label] = (driver, metrics)
+            timers = " ".join(f"{k}={v!r}" for k, v in driver.timer.durations.items())
+            say(f"streamed run T {label} training driver ({smi}): {seconds!r} s; stage timers s: "
+                f"{timers}; objective history {metrics['objective_history']}; validation AUC "
+                f"{metrics['best_metric']!r}; streaming block {metrics.get('streaming')}")
+        mem, stream = runs["in memory"][1], runs["streamed"][1]
+        hist, ref = stream["objective_history"], mem["objective_history"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(hist, ref))
+        say(f"streamed run T ({smi}): CD objective gap to the in-memory run {gap!r} "
+            f"(limit {STREAM_T_OBJ_RTOL}); chunks {stream['streaming']['num_chunks']}")
+        if any(b > a for a, b in zip(hist, hist[1:])) or len(hist) != len(ref):
+            fail(f"streamed run T: the streamed CD objective rose or stopped early: {hist}")
+        if not gap <= STREAM_T_OBJ_RTOL:
+            fail("streamed run T: the streamed CD objective is off the in-memory run's")
+        if stream["streaming"]["num_chunks"] < 4:
+            fail(f"streamed run T: {stream['streaming']['num_chunks']} chunks, not >= 4")
+        # the checkpointer: one step a CD iteration, the last one's restore
+        # the final states bit for bit
+        (combo,) = [d for d in os.listdir(f"{tmp}/ck") if d.startswith("combo-")]
+        ck = StreamingCDCheckpointer(f"{tmp}/ck/{combo}/cd")
+        states, _, _ = ck.load(ck.latest_step())
+        final = runs["streamed"][0].best_result[0].models
+        bitwise = all(
+            np.array_equal(states[name], final[name].detach().cpu().numpy()) for name in final
+        )
+        segments = sorted(d for d in os.listdir(f"{tmp}/ck/{combo}/stage-train")
+                          if "__seg" in d)
+        say(f"streamed run T checkpoints ({smi}): steps {ck.steps()}, the last restore equals "
+            f"the final states bitwise: {bitwise}; RE segments {len(segments)}")
+        if ck.steps() != [1, 2] or not bitwise:
+            fail("streamed run T: the CD checkpoints are not one a step with a bitwise restore")
+        if len(segments) < 2:
+            fail(f"streamed run T: {len(segments)} RE segment(s), not >= 2")
+        # scoring: prebuilt feature maps from the in-memory run's index maps
+        maps = f"{tmp}/maps"
+        shard_cfgs = [FeatureShardConfiguration("globalShard", ["features"]),
+                      FeatureShardConfiguration("userShard", ["userFeatures"])]
+        ds = runs["in memory"][0]._train_dataset
+        save_name_and_term_feature_sets({
+            bag: [k for k, _ in ds.shards[cfg.shard_id].index_map.items() if k != intercept_key()]
+            for cfg in shard_cfgs for bag in cfg.feature_bags
+        }, maps)
+        del ds, runs
+        score_argv = [
+            "--input-data-dirs", f"{tmp}/validate", "--game-model-input-dir",
+            f"{tmp}/stream/best-model", "--feature-shard-id-to-feature-section-keys-map", shards,
+            "--evaluator-types", "AUC", "--feature-name-and-term-set-path", maps, *device_args,
+        ]
+        aucs = {}
+        for label, extra in (("in memory", ["--output-dir", f"{tmp}/score-mem"]),
+                             ("streamed", ["--output-dir", f"{tmp}/score-stream",
+                                           "--streaming", "true", "--rows-per-chunk", "4096"])):
+            t0 = time.perf_counter()
+            scorer = game_scoring_driver.main(score_argv + extra)
+            aucs[label] = scorer.metrics["AUC"]
+            timers = " ".join(f"{k}={v!r}" for k, v in scorer.timer.durations.items())
+            say(f"streamed run T {label} scoring driver ({smi}): {time.perf_counter() - t0!r} s; "
+                f"stage timers s: {timers}; AUC {aucs[label]!r}")
+        if not abs(aucs["streamed"] - aucs["in memory"]) <= STREAM_T_AUC_TOL or \
+                not aucs["streamed"] > 0.5:
+            fail("streamed run T: the streamed scoring AUC is off the in-memory scoring's")
+
+
+def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
+    """Phase 10: runs S and S2 and the direct objective checks over Avro
+    files written by worker processes; -> (K1's and K2's launches in each
+    run, the chunk's K1 numbers). ``device`` / ``device_args``: the CPU for
+    a rehearsal at a small size."""
+    import multiprocessing
+    import re
+    from concurrent.futures import ProcessPoolExecutor
+
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.io.input_format import AvroInputDataFormat
+    from photon_ml_tpu_torch.io.model_io import load_glm_models_avro
+    from photon_ml_tpu_torch.models.glm import compute_margins
+    from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
+    from photon_ml_tpu_torch.task import TaskType
+    from photon_ml_tpu_torch.training import train_generalized_linear_model
+    from photon_ml_tpu_torch.utils.index_map import IndexMap
+
+    with tempfile.TemporaryDirectory(prefix="photon_stream_phase_") as tmp:
+        t0 = time.perf_counter()
+        jobs = [(seed, f"{tmp}/train/part-{p:05d}.avro", "train", p, N_ROWS // STREAM_PARTS)
+                for p in range(STREAM_PARTS)]
+        jobs.append((seed, f"{tmp}/validate/part-00000.avro", "validate", 0, N_HELD_OUT))
+        for kind in ("train", "validate"):
+            os.makedirs(f"{tmp}/{kind}")
+        with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+            written = list(pool.map(stream_part, jobs))
+        say(f"stream data: {sum(written[:-1])} training rows in {STREAM_PARTS} Avro parts and "
+            f"{written[-1]} validation rows, written by {len(jobs)} worker processes in "
+            f"{time.perf_counter() - t0!r} s")
+        train_dir, val_dir = f"{tmp}/train", f"{tmp}/validate"
+        common = ["--training-data-directory", train_dir,
+                  "--streaming", "true", "--stream-memory-budget", str(STREAM_BUDGET),
+                  "--scan-cache-dir", f"{tmp}/scan-cache"]
+        s = stream_run("S", common + ["--validating-data-directory", val_dir,
+                                      "--regularization-weights", "10,1",
+                                      "--compute-variances", "true"],
+                       f"{tmp}/out-S", k1, k2, f"L-BFGS [10, 1], cold scan cache, {smi}", device_args)
+        if s["metrics"]["streaming"]["tiers"] != STREAM_TIERS:
+            fail(f"streamed run S: tiers {s['metrics']['streaming']['tiers']}, expected "
+                 f"{STREAM_TIERS}")
+        sc = s["metrics"]["scan_cache"]
+        if sc["scanned"] != STREAM_PARTS or sc["cached"]:
+            fail(f"streamed run S: the cold scan cache {sc}")
+
+        # the direct trainer on the batch the port's Avro loader gives
+        imap = IndexMap.load(f"{tmp}/out-S/feature-index/index.json")
+        fmt = AvroInputDataFormat()
+        t0 = time.perf_counter()
+        loaded = fmt.load(train_dir, index_map=imap, device=device)
+        batch = loaded.batch
+        say(f"stream load ({smi}): {N_ROWS} rows loaded in memory in "
+            f"{time.perf_counter() - t0!r} s")
+        d_models, d_results = train_generalized_linear_model(
+            batch, TaskType.LOGISTIC_REGRESSION, imap.size,
+            optimizer_type=OptimizerType.LBFGS, regularization_type=RegularizationType.L2,
+            regularization_weights=[10.0, 1.0], intercept_index=loaded.intercept_index,
+            kernel="tiled", device=device,
+        )
+        written_models = load_glm_models_avro(f"{tmp}/out-S/models/models.avro", imap,
+                                              device=device)
+        vdata = fmt.load(val_dir, index_map=imap, device=device)
+        for lam in (10.0, 1.0):
+            ref = d_models[lam].means
+            f_ref, g_ref = objective64(batch, ref, lam)
+            m = s["driver"].models[lam].means
+            f_s, g_s = objective64(batch, m, lam)
+            rel = (f_s - f_ref) / abs(f_ref)
+            spread = float((m - ref).abs().max() / ref.abs().max())
+            auc_file = s["metrics"]["validation"][str(lam)]["AUC"]
+            auc = float(area_under_roc_curve(
+                compute_margins(written_models[str(lam)].means, vdata.batch),
+                vdata.batch.labels, vdata.batch.weights))
+            say(f"streamed run S lambda={lam} vs the direct fit ({smi}): objective {f_s!r} vs "
+                f"{f_ref!r}, relative {rel!r}; gradient max-abs {g_s!r} ({g_ref!r} direct); "
+                f"intercept_spread {spread!r}; streamed AUC {auc_file!r}, exact AUC of the "
+                f"written model {auc!r}")
+            if not abs(rel) <= DRIVER_OBJ_RTOL:
+                fail(f"streamed run S lambda={lam}: objective off the direct fit's")
+            if not spread <= INTERCEPT_SPREAD_LIMIT:
+                fail(f"streamed run S lambda={lam}: intercept_spread {spread!r}")
+            if not abs(auc_file - auc) <= STREAM_AUC_TOL or not auc > 0.5:
+                fail(f"streamed run S lambda={lam}: the streamed AUC is off the exact one")
+            if s["driver"].models[lam].coefficients.variances is None:
+                fail(f"streamed run S lambda={lam}: no variances")
+        f_wrong, _ = objective64(batch, s["driver"].models[10.0].means, 1.0)
+        f_ref, _ = objective64(batch, d_models[1.0].means, 1.0)
+        rel = (f_wrong - f_ref) / abs(f_ref)
+        say(f"stream control ({smi}): run S's lambda=10 model at lambda=1, objective "
+            f"relative difference {rel!r}")
+        if abs(rel) <= DRIVER_OBJ_RTOL:
+            fail("the streamed objective check does not tell the lambda = 10 model apart")
+        f_s1 = objective64(batch, s["driver"].models[1.0].means, 1.0)[0]
+        del d_models, vdata, written_models
+        s["driver"] = None
+
+        chunk = stream_objective_checks(k1, train_dir, fmt, imap, s["stats"], batch, smi, seed,
+                                        device)
+        torch.cuda.empty_cache()
+
+        # S2 repeats neither S's validation nor its data checks (its
+        # chapters need no validation rows: a streamed run has none in
+        # memory, as in the JAX package)
+        s2 = stream_run("S2", common + ["--regularization-weights", "1", "--optimizer", "TRON",
+                                        "--diagnostic-mode", "ALL",
+                                        "--data-validation-type", "VALIDATE_DISABLED"],
+                        f"{tmp}/out-S2", k1, k2, f"TRON at 1, warm scan cache, reservoir, {smi}",
+                        device_args)
+        sc2 = s2["metrics"]["scan_cache"]
+        same_map = open(f"{tmp}/out-S/feature-index/index.json").read() == \
+            open(f"{tmp}/out-S2/feature-index/index.json").read()
+        say(f"streamed run S2 scan cache ({smi}): {sc2}; the same index map as S: {same_map}; "
+            f"the same stats: {s2['stats'] == s['stats']}")
+        if sc2["cached"] != STREAM_PARTS or sc2["scanned"] or not same_map \
+                or s2["stats"] != s["stats"]:
+            fail("streamed run S2: the warm scan cache did not serve every partition as S saw it")
+        f_tron = objective64(batch, s2["driver"].models[1.0].means, 1.0)[0]
+        rel = (f_tron - f_s1) / abs(f_s1)
+        del batch, loaded
+        with open(f"{tmp}/out-S2/model-diagnostics/report.txt") as f:
+            report = f.read()
+        chapters = [c for c in ("Model lambda=1.0", "Bootstrap analysis") if c in report]
+        bad = re.findall(r"\b(nan|inf)\b", report, re.IGNORECASE)
+        say(f"streamed run S2 ({smi}): TRON objective at lambda=1 {f_tron!r}, relative to run "
+            f"S's L-BFGS {rel!r}; report chapters {chapters}, non-finite numbers {len(bad)}; "
+            f"reservoir rows {s2['driver']._stream_sample.num_rows}")
+        if not abs(rel) <= DRIVER_OBJ_RTOL:
+            fail("streamed run S2: the TRON fit is off run S's objective at lambda = 1")
+        if len(chapters) != 2 or bad:
+            fail("streamed run S2: the diagnostics report lacks a chapter or holds non-finite numbers")
+        s2["driver"] = None
+    k1.launches = 0
+    k2.launches = 0
+    t0 = time.perf_counter()
+    stream_run_t(seed, smi, device_args)
+    say(f"streamed run T: {time.perf_counter() - t0!r} s of host time ({smi}); K1 launches "
+        f"{k1.launches} (the streamed fixed effect is the scatter partial, as in the JAX "
+        f"package), K2 launches {k2.launches}")
+    return ({"S": s["k1"], "S2": s2["k1"], "T": k1.launches},
+            {"S": s["k2"], "S2": s2["k2"], "T": k2.launches}, chunk)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2641,7 +3159,13 @@ def main() -> int:
     finally:
         shutil.rmtree(run_a["tmp"], ignore_errors=True)
 
-    # -- 10. result lines -------------------------------------------------------
+    # -- 10. out-of-core training ------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase10_k1, phase10_k2, stream_chunk = stream_phase(args.seed, smi, k1, k2)
+    say(f"phase 10: {time.perf_counter() - t0!r} s of host time ({smi})")
+
+    # -- 11. result lines -------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -2649,7 +3173,8 @@ def main() -> int:
         "source": "photon_ml_tpu_torch/ops/csrc/bilinear_pass.cu",
         "replaces": "photon_ml_tpu/ops/tiled_sparse.py:1294",
         "launches": launches,
-        "max_abs_err": max(small_err[0], ads_err[0], edge_err["k1"][0], game_k1["max_abs_err"]),
+        "max_abs_err": max(small_err[0], ads_err[0], edge_err["k1"][0], game_k1["max_abs_err"],
+                           stream_chunk["max_abs_err"]),
         "ms": k1_times["z_ms"] + k1_times["g_ms"],
         "plain_ms": k1_times["z_plain_ms"] + k1_times["g_plain_ms"],
         "bound_ms": z_bound + g_bound,
@@ -2665,6 +3190,8 @@ def main() -> int:
         "game_launches": game_launches,
         "game_shape": game_k1,
         "phase9_launches": {run: n["k1"] for run, n in phase9_launches.items()},
+        "phase10_launches": phase10_k1,
+        "stream_chunk": stream_chunk,
     }, {
         "name": "grid_bilinear_pass",
         "route": "cuda",
@@ -2686,6 +3213,7 @@ def main() -> int:
         **mesh_fields("k2", mesh_launches, cell, cell_errs),
         "driver_launches": {run: n["k2"] for run, n in driver_launches.items()},
         "phase9_launches": {run: n["k2"] for run, n in phase9_launches.items()},
+        "phase10_launches": phase10_k2,
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

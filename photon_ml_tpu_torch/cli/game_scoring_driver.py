@@ -1,6 +1,6 @@
 """GAME scoring driver: load a model directory -> score Avro data -> write
 ScoringResultAvro -> optional evaluation (port of
-``photon_ml_tpu/cli/game_scoring_driver.py``, the in-memory path).
+``photon_ml_tpu/cli/game_scoring_driver.py``).
 
     python -m photon_ml_tpu_torch.cli.game_scoring_driver \\
         --input-data-dirs DIR --game-model-input-dir MODEL --output-dir OUT \\
@@ -11,8 +11,10 @@ prepareFeatureMaps -> prepareGameDataSet(isResponseRequired=false) ->
 loadGameModelFromHDFS -> score -> saveScoresToHDFS -> evaluateScores) and
 cli/game/scoring/Params.scala (option names kept), ScoredItem.scala.
 
-``--streaming`` waits for ROADMAP item 11, ``--obs-dir`` and
-``--profile-dir`` for item 15. ``--fault-plan`` installs a deterministic
+``--streaming true`` scores one input file at a time in
+``--rows-per-chunk`` slices (with prebuilt feature maps: no chunk sees
+the whole vocabulary). ``--obs-dir`` and ``--profile-dir`` wait for
+ROADMAP item 15. ``--fault-plan`` installs a deterministic
 fault plan (``reliability/faults.py``), and ``metrics.json`` carries the
 reliability block. The port adds ``--device`` (the card by default,
 ``cpu`` on request).
@@ -42,6 +44,7 @@ from photon_ml_tpu_torch.game.model_io import _write_parts, load_game_model
 from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.ops import schedule_cache
 from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.parallel import overlap
 from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json
 from photon_ml_tpu_torch.reliability import install_plan, reliability_metrics
 from photon_ml_tpu_torch.task import TaskType
@@ -84,8 +87,6 @@ class GameScoringParams:
     def unported(self) -> List[str]:
         out = []
         for cond, what, item in (
-            (self.streaming, "--streaming", "item 11"),
-            (bool(self.stream_memory_budget), "--stream-memory-budget", "item 11"),
             (self.obs_dir is not None, "--obs-dir", "item 15"),
             (self.profile_dir is not None, "--profile-dir", "item 15"),
         ):
@@ -101,6 +102,25 @@ class GameScoringParams:
             )
         if not self.input_dirs:
             raise ValueError("input-data-dirs is required")
+        if self.stream_memory_budget and not self.streaming:
+            raise ValueError("stream-memory-budget requires --streaming true")
+        if self.streaming:
+            # every streaming misconfiguration the params show fails here,
+            # before the output directory is touched
+            if self.rows_per_chunk < 1:
+                raise ValueError("rows-per-chunk must be >= 1")
+            if not (self.offheap_indexmap_dir or self.feature_name_and_term_set_path):
+                raise ValueError(
+                    "streaming scoring requires prebuilt feature maps "
+                    "(--offheap-indexmap-dir or --feature-name-and-term-set-path): no "
+                    "single chunk sees the whole vocabulary"
+                )
+            for et in self.evaluator_types:
+                if et.is_sharded:
+                    raise ValueError(
+                        f"sharded evaluator {et.render()!r} needs global per-group data; "
+                        "use in-memory scoring"
+                    )
         if not self.game_model_input_dir:
             raise ValueError("game-model-input-dir is required")
         if not self.output_dir:
@@ -202,6 +222,11 @@ class GameScoringDriver:
             schedule_cache.cache_scope(p.tile_cache_dir)
             if p.tile_cache_dir is not None else contextlib.nullcontext()
         )
+        if p.streaming:
+            with scope:
+                self._run_streaming(model, sorted(id_types), index_maps, input_paths)
+            self.logger.info("timers:\n%s", self.timer.summary())
+            return
         with scope:
             with self.timer.time("load-data"):
                 dataset = build_game_dataset_from_files(
@@ -222,6 +247,87 @@ class GameScoringDriver:
                 {**self.metrics, "reliability": reliability_metrics()},
             )
         self.logger.info("timers:\n%s", self.timer.summary())
+
+    def _run_streaming(self, model, id_types, index_maps, input_paths) -> None:
+        """Chunked scoring: ONE input file loads at a time, then scores and
+        writes in ``rows_per_chunk`` row slices (one scores part file per
+        slice), so peak memory is one file's features (the reference
+        scores RDD partitions without collecting them, cli/game/scoring/
+        Driver.scala:171-204). The pointwise metrics take the scores of
+        every slice at the end."""
+        from photon_ml_tpu_torch.game.data import slice_game_dataset
+        from photon_ml_tpu_torch.game.streaming import game_row_bytes
+        from photon_ml_tpu_torch.io.avro_codec import write_container
+        from photon_ml_tpu_torch.io.paths import expand_input_paths
+        from photon_ml_tpu_torch.io.streaming import stream_budget_rows
+
+        p = self.params
+        if p.num_files != 1:
+            self.logger.warning(
+                "--num-files is ignored in streaming mode: one scores part file is "
+                "written per %d-row chunk", p.rows_per_chunk,
+            )
+        # sorted within each directory, in the caller's directory order:
+        # the in-memory path's global order
+        files = expand_input_paths(input_paths, lambda fn: fn.endswith(".avro"))
+        all_scores, all_labels, all_weights = [], [], []
+        n_rows = 0
+        part = 0
+        rows_per_chunk = p.rows_per_chunk
+        os.makedirs(os.path.join(p.output_dir, "scores"), exist_ok=True)
+        with self.timer.time("score-stream"):
+            for path in files:
+                try:
+                    ds_file = build_game_dataset_from_files(
+                        [path], p.feature_shards, id_types, index_maps=index_maps,
+                        is_response_required=p.has_response, row_offset=n_rows,
+                        device=self.device,
+                    )
+                except ValueError as e:
+                    if "empty GAME dataset" in str(e):
+                        continue  # a part file without records
+                    raise
+                if p.stream_memory_budget and n_rows == 0:
+                    # the training drivers' budget: the chunk's rows from
+                    # the scored row's staged bytes
+                    row_bytes = game_row_bytes(
+                        {sid: sd.indices.shape[1] for sid, sd in ds_file.shards.items()},
+                        len(id_types),
+                    )
+                    rows_per_chunk = min(rows_per_chunk, stream_budget_rows(
+                        p.stream_memory_budget, row_bytes, default_rows=rows_per_chunk,
+                    ))
+                    self.logger.info(
+                        "stream memory budget %d B -> %d rows/chunk",
+                        p.stream_memory_budget, rows_per_chunk,
+                    )
+                for a in range(0, ds_file.num_real_rows, rows_per_chunk):
+                    ds = slice_game_dataset(ds_file, a, a + rows_per_chunk)
+                    scores = model.score(ds, p.task_type) + ds.row_tensors()[1]
+                    host = overlap.device_get(scores)[: ds.num_real_rows]
+                    write_container(
+                        os.path.join(p.output_dir, "scores", f"part-{part:05d}.avro"),
+                        schemas.SCORING_RESULT_AVRO, self._score_records(ds, host),
+                    )
+                    part += 1
+                    n_rows += ds.num_real_rows
+                    if p.evaluator_types and p.has_response:
+                        all_scores.append(host)
+                        all_labels.append(np.asarray(ds.labels[: ds.num_real_rows]))
+                        all_weights.append(np.asarray(ds.weights[: ds.num_real_rows]))
+        if n_rows == 0:
+            raise ValueError("empty GAME dataset")  # as the in-memory path
+        self.logger.info("streamed %d rows in %d chunk(s) from %d file(s)", n_rows, part, len(files))
+        if p.evaluator_types and p.has_response:
+            with self.timer.time("evaluate"):
+                self._evaluate_pointwise(
+                    *(torch.as_tensor(np.concatenate(a), device=self.device)
+                      for a in (all_scores, all_labels, all_weights))
+                )
+            atomic_write_json(
+                os.path.join(p.output_dir, "metrics.json"),
+                {**self.metrics, "reliability": reliability_metrics()},
+            )
 
     def _score_records(self, dataset, scores: np.ndarray) -> _ScoreRecordRows:
         n = dataset.num_real_rows
@@ -248,20 +354,31 @@ class GameScoringDriver:
             self.params.num_files,
         )
 
+    def _evaluate_pointwise(self, scores: torch.Tensor, lab: torch.Tensor, w: torch.Tensor) -> None:
+        """The non-sharded evaluators over [n] scores (streamed scoring)."""
+        for et in self.params.evaluator_types:
+            self._record(et, self._pointwise_metric(et, scores, lab, w))
+
+    def _pointwise_metric(self, et, scores, lab, w) -> float:
+        loss = loss_for_task(self.params.task_type)
+        metric_in = loss.mean(scores) if et.name == "RMSE" else scores
+        return float(Evaluator(et).evaluate(metric_in, lab, w))
+
+    def _record(self, et, value: float) -> None:
+        self.metrics[et.render()] = value
+        self.logger.info("%s = %g", et.render(), value)
+
     def _evaluate(self, dataset, scores: torch.Tensor) -> None:
         p = self.params
         lab, _, w = dataset.row_tensors()
-        loss = loss_for_task(p.task_type)
         for et in p.evaluator_types:
             if et.is_sharded:
                 gids = torch.as_tensor(dataset.entity_codes[et.id_type], device=dataset.device)
                 ev = Evaluator(et, num_groups=dataset.entity_indexes[et.id_type].num_entities)
                 value = float(ev.evaluate(scores, lab, w, gids.long().clamp_min(0)))
             else:
-                metric_in = loss.mean(scores) if et.name == "RMSE" else scores
-                value = float(Evaluator(et).evaluate(metric_in, lab, w))
-            self.metrics[et.render()] = value
-            self.logger.info("%s = %g", et.render(), value)
+                value = self._pointwise_metric(et, scores, lab, w)
+            self._record(et, value)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:

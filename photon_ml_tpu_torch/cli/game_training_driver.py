@@ -19,7 +19,11 @@ paths not ported yet are refused by :meth:`GameTrainingParams.validate`
 with the ROADMAP item they wait for. The one option the port adds is
 ``--device``: the card by default (the driver raises without CUDA), ``cpu``
 on request. As in the reference, the fixed effect solves on the scatter
-objective.
+objective. ``--streaming true`` trains out of core
+(``game/streaming.py``): scan, stage to spilled chunks sized by
+``--stream-memory-budget``, streamed coordinate descent with streamed
+validation, under the reference's gates (IDENTITY projectors, no
+active-data cap, no factored coordinates, one process).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescent,
     CoordinateDescentResult,
 )
-from photon_ml_tpu_torch.game.data import GameDataset, build_game_dataset_from_files
+from photon_ml_tpu_torch.game.data import GameDataset, ShardData, build_game_dataset_from_files
 from photon_ml_tpu_torch.game.model import GameModel, RandomEffectModel
 from photon_ml_tpu_torch.game.model_io import save_game_model
 from photon_ml_tpu_torch.game.random_effect import (
@@ -64,6 +68,11 @@ from photon_ml_tpu_torch.game.random_effect import (
     score_random_effect,
 )
 from photon_ml_tpu_torch.game.random_effect_data import build_random_effect_dataset
+from photon_ml_tpu_torch.game.streaming import (
+    train_streaming_game,
+    validate_streaming_game_configs,
+)
+from photon_ml_tpu_torch.io.streaming import peak_rss_bytes
 from photon_ml_tpu_torch.ops import schedule_cache
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optim import common
@@ -238,8 +247,6 @@ class GameTrainingParams:
             or self.process_id is not None,
             "--coordinator-address / --num-processes / --process-id", "item 13",
         )
-        need(self.streaming, "--streaming", "item 11")
-        need(bool(self.stream_memory_budget), "--stream-memory-budget", "item 11")
         need(self.retrain_from is not None, "--retrain-from", "item 15")
         need(self.publish_registry is not None, "--publish-registry", "item 15")
         need(
@@ -290,6 +297,24 @@ class GameTrainingParams:
             )
         if self.grid_memory_budget < 1:
             raise ValueError("grid-memory-budget must be >= 1")
+        if self.stream_memory_budget and not self.streaming:
+            raise ValueError("stream-memory-budget requires --streaming true")
+        if self.streaming:
+            # the streaming layer's structural gates
+            unsupported = []
+            if self.factored_re_configs:
+                unsupported.append(
+                    "factored random effects (latent re-projection re-materializes "
+                    "every row per inner iteration)"
+                )
+            for et in self.evaluator_types:
+                if et.is_sharded:
+                    unsupported.append(f"the sharded evaluator {et.render()}")
+            if unsupported:
+                raise ValueError(
+                    "streaming GAME training does not support: " + ", ".join(unsupported)
+                )
+            validate_streaming_game_configs(self.random_effect_data_configs)
 
 
 class GameTrainingDriver:
@@ -660,7 +685,150 @@ class GameTrainingDriver:
             if p.tile_cache_dir is not None else contextlib.nullcontext()
         )
         with scope:
-            self._run()
+            if p.streaming:
+                self._run_streaming()
+            else:
+                self._run()
+
+    def _run_streaming(self) -> None:
+        """The out-of-core run: scan -> stage -> streamed CD per combo,
+        with streamed validation, the best model written through the
+        standard ``save_game_model`` layout (the scoring driver reads it
+        as it is) and metrics.json's streaming block."""
+        p = self.params
+        train_paths = self._expand_dated(
+            p.train_input_dirs, p.train_date_range, p.train_date_range_days_ago
+        )
+        validate_paths = None
+        if p.validate_input_dirs:
+            validate_paths = self._expand_dated(
+                p.validate_input_dirs, p.validate_date_range, p.validate_date_range_days_ago
+            )
+        combos = expand_config_grid({**p.fixed_effect_opt_configs, **p.random_effect_opt_configs})
+        self.logger.info(
+            "streaming GAME training: %d configuration combo(s), %d B memory budget",
+            len(combos), p.stream_memory_budget,
+        )
+        maximize = p.task_type == TaskType.LOGISTIC_REGRESSION
+        best = best_extras = best_ci = None
+        guard = PreemptionGuard().install() if p.checkpoint_dir is not None else None
+        preempted = False
+        try:
+            for ci, combo in enumerate(combos):
+                if guard is not None and guard.requested:
+                    self.logger.warning(
+                        "preemption requested: not starting combo %d/%d", ci + 1, len(combos)
+                    )
+                    preempted = True
+                    break
+                combo_ckpt_dir = None
+                if p.checkpoint_dir is not None:
+                    # keyed by the combo's content: a changed grid never
+                    # resumes foreign staged chunks or CD snapshots
+                    fp = hashlib.sha1(
+                        "|".join(f"{name}:{cfg.render()}"
+                                 for name, cfg in sorted(combo.items())).encode()
+                    ).hexdigest()[:12]
+                    combo_ckpt_dir = os.path.join(p.checkpoint_dir, f"combo-{fp}")
+                with self.timer.time(f"train-combo-{ci}"):
+                    result, extras = train_streaming_game(
+                        train_paths, p.feature_shards, p.fixed_effect_data_configs,
+                        p.random_effect_data_configs, combo, p.task_type,
+                        num_iterations=p.num_iterations,
+                        update_sequence=p.updating_sequence,
+                        memory_budget_bytes=p.stream_memory_budget,
+                        index_maps=self._offheap_index_maps(),
+                        validate_paths=validate_paths,
+                        evaluator_types=p.evaluator_types or None,
+                        compute_variance=p.compute_variance,
+                        diagnostic_reservoir_rows=p.diagnostic_reservoir_rows,
+                        diagnostic_reservoir_bytes=p.diagnostic_reservoir_bytes,
+                        logger=self.logger,
+                        checkpoint_dir=combo_ckpt_dir,
+                        preemption_guard=guard,
+                        device=self.device,
+                    )
+                self.results.append((combo, result, ci))
+                metric = result.best_metric
+                if metric is None:
+                    if best is None or (best.best_metric is None and ci < best_ci):
+                        best, best_extras, best_ci = result, extras, ci
+                        self.best_config = combo
+                elif (
+                    best is None
+                    or best.best_metric is None
+                    or (maximize and metric > best.best_metric)
+                    or (not maximize and metric < best.best_metric)
+                ):
+                    best, best_extras, best_ci = result, extras, ci
+                    self.best_config = combo
+                if result.preempted:
+                    self.logger.warning(
+                        "stopping streaming combo sweep after preemption (combo %d/%d)",
+                        ci + 1, len(combos),
+                    )
+                    preempted = True
+                    break
+        finally:
+            if guard is not None:
+                guard.uninstall()
+        if preempted:
+            self.logger.warning(
+                "preempted: publishing best-so-far; rerun with the same args to resume "
+                "the sweep from the checkpoints"
+            )
+        self.best_result = (best, best.best_metric if best else None)
+        if p.model_output_mode != "NONE" and best is not None:
+            # a shell dataset with only what save_game_model reads: the
+            # per-shard index maps and the entity indexes
+            shell = GameDataset(
+                uids=[],
+                labels=np.zeros(0, np.float32),
+                offsets=np.zeros(0, np.float32),
+                weights=np.zeros(0, np.float32),
+                shards={
+                    sid: ShardData(
+                        indices=np.zeros((0, 1), np.int32), values=np.zeros((0, 1), np.float32),
+                        index_map=imap, intercept_index=None,
+                    )
+                    for sid, imap in best_extras["index_maps"].items()
+                },
+                entity_codes={},
+                entity_indexes=best_extras["entity_indexes"],
+                num_real_rows=0,
+                device=self.device,
+            )
+            with self.timer.time("save-model"):
+                save_game_model(
+                    best.game_model, shell, os.path.join(p.output_dir, "best-model"),
+                    model_spec="\n".join(
+                        f"{name} -> {cfg.render()}" for name, cfg in self.best_config.items()
+                    ),
+                    num_re_output_files=p.num_output_files_for_random_effect_model,
+                )
+        sample = best_extras["diagnostics_sample"] if best_extras else None
+        diag = None
+        if sample is not None and len(sample["lab"]):
+            diag = {
+                "reservoir_rows": int(len(sample["lab"])),
+                "label_mean": float(np.mean(sample["lab"])),
+                "weight_sum": float(np.sum(sample["wgt"])),
+            }
+        atomic_write_json(os.path.join(p.output_dir, "metrics.json"), {
+            "objective_history": best.objective_history if best else [],
+            "validation_history": best.validation_history if best else [],
+            "best_metric": best.best_metric if best else None,
+            "timers": self.timer.durations,
+            "streaming": {
+                "memory_budget_bytes": p.stream_memory_budget,
+                "rows_per_chunk": best_extras["rows_per_chunk"] if best_extras else None,
+                "num_chunks": best_extras["store"].count if best_extras else None,
+                "peak_rss_bytes": peak_rss_bytes(),
+                "diagnostics": diag,
+            },
+            "reliability": reliability_metrics(),
+        })
+        self.logger.info("timers:\n%s", self.timer.summary())
 
     def _run(self) -> None:
         p = self.params

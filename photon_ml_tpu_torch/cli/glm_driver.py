@@ -15,8 +15,14 @@ validation).
 
 The parser accepts every option of the JAX package's driver. The options
 of paths not ported yet are rejected by :meth:`GLMParams.validate` with the
-ROADMAP item they wait for. The one option the port adds is ``--device``:
-the card by default (the driver raises without CUDA), ``cpu`` on request.
+ROADMAP item they wait for. ``--streaming true`` trains out of core
+(``io/streaming.py``): the preprocess stage scans the files in one pass
+(through the per-partition cache of ``--scan-cache-dir``), training reads
+fixed-shape chunks from the cache tiers that ``--stream-memory-budget``
+sizes (K1 over each chunk's schedules on the card), validation streams
+the validation files, and diagnostics run on a reservoir sample. The one
+option the port adds is ``--device``: the card by default (the driver
+raises without CUDA), ``cpu`` on request.
 Training goes through the tiled kernels on the card (``--kernel auto``): K1
 for the sequential λ-grid and the diagnostics' refits, K2 for the batched
 grid. ``--offheap-indexmap-dir`` reads a store that
@@ -55,7 +61,26 @@ from photon_ml_tpu_torch.events import (
 )
 from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.io.avro_codec import write_container
-from photon_ml_tpu_torch.io.input_format import LoadedData, create_input_format
+from photon_ml_tpu_torch.evaluation.streaming import (
+    finalize_metrics,
+    glm_streaming_metrics,
+    update_glm_metrics,
+)
+from photon_ml_tpu_torch.io.input_format import (
+    LoadedData,
+    create_input_format,
+    parse_constraint_string,
+)
+from photon_ml_tpu_torch.io.streaming import (
+    budgeted_rows,
+    iter_chunks,
+    peak_rss_bytes,
+    scan_stream,
+    scan_stream_with_summary,
+    sparse_row_bytes,
+    stream_budget_rows,
+    streaming_summary,
+)
 from photon_ml_tpu_torch.io.model_io import save_glm_models_avro, write_models_in_text
 from photon_ml_tpu_torch.models.glm import compute_margins, compute_means
 from photon_ml_tpu_torch.ops import schedule_cache
@@ -72,6 +97,7 @@ from photon_ml_tpu_torch.reliability import (
     install_plan,
     reliability_metrics,
 )
+from photon_ml_tpu_torch.registry import cached_scan_stream, cached_scan_stream_with_summary
 from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json, atomic_writer
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import (
@@ -80,13 +106,14 @@ from photon_ml_tpu_torch.training import (
     resolve_grid_mode,
     train_generalized_linear_model,
     train_grid_batched,
+    train_streaming_glm,
 )
 from photon_ml_tpu_torch.utils.date_range import (
     input_paths_within_date_range,
     resolve_date_range,
 )
 from photon_ml_tpu_torch.utils.device import resolve_device
-from photon_ml_tpu_torch.utils.index_map import split_feature_key
+from photon_ml_tpu_torch.utils.index_map import intercept_key, split_feature_key
 from photon_ml_tpu_torch.utils.native_index import load_offheap_index_map
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
 from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
@@ -211,9 +238,6 @@ class GLMParams:
             if cond:
                 out.append(f"{what} (ROADMAP {item})")
 
-        need(self.streaming, "--streaming", "item 11")
-        need(bool(self.stream_memory_budget), "--stream-memory-budget", "item 11")
-        need(self.scan_cache_dir is not None, "--scan-cache-dir", "item 11")
         need(self.distributed == "feature", "--distributed feature", "item 13")
         need(self.model_shards is not None, "--model-shards", "item 13")
         need(
@@ -270,6 +294,12 @@ class GLMParams:
                 f"unknown grid mode {self.grid_mode!r}; expected "
                 "batched | sequential | auto"
             )
+        if self.grid_mode == "batched" and self.streaming:
+            raise ValueError(
+                "--grid-mode batched is incompatible with --streaming: a "
+                "streamed objective reads its chunks on every evaluation; the "
+                "streaming path always runs the warm-started sequential grid"
+            )
         if self.grid_memory_budget < 1:
             raise ValueError("grid-memory-budget must be >= 1")
         if self.diagnostic_reservoir_rows < 1:
@@ -278,9 +308,29 @@ class GLMParams:
             raise ValueError("diagnostic-reservoir-bytes must be >= 1")
         if self.validate_per_iteration and not self.validate_dir:
             raise ValueError("validate-per-iteration requires a validating data directory")
+        if self.stream_memory_budget and not self.streaming:
+            raise ValueError("stream-memory-budget requires --streaming true")
+        if self.scan_cache_dir and not self.streaming:
+            raise ValueError(
+                "scan-cache-dir caches the streaming preprocess scan; it "
+                "requires --streaming true"
+            )
+        if self.scan_cache_dir and self.input_format.strip().upper() != "AVRO":
+            raise ValueError(
+                "scan-cache-dir requires the AVRO input format (the "
+                "per-partition moment partials use the Avro decoder)"
+            )
         # the range strings fail here, not mid-preprocess
         resolve_date_range(self.train_date_range, self.train_date_range_days_ago)
         resolve_date_range(self.validate_date_range, self.validate_date_range_days_ago)
+
+
+def budgeted_reservoir_rows(max_rows: int, budget_bytes: int, max_nnz: int) -> int:
+    """Rows of the streamed diagnostics' reservoir under a byte budget: the
+    sample is rows x max_nnz slots (8 B each, plus 12 B a row), so wide
+    rows scale the count down instead of allocating gigabytes on the
+    host."""
+    return budgeted_rows(max_rows, budget_bytes, sparse_row_bytes(max_nnz))
 
 
 def prepare_output_dir(path: str, *, delete_if_exists: bool, hint: str = "") -> None:
@@ -340,6 +390,13 @@ class GLMDriver:
         self._schedule_cache_stats: Dict[str, float] = {}
         # a SIGTERM stopped the λ sweep (--checkpoint-dir): outputs withheld
         self._preempted = False
+        # --streaming: (train paths, StreamStats), the diagnostics'
+        # reservoir sample, the scan cache's counters and the streamed
+        # objective's tier counters
+        self._stream = None
+        self._stream_sample = None
+        self._scan_cache_stats: Dict[str, int] = {}
+        self._stream_stats: Dict[str, object] = {}
 
     # -- stages ------------------------------------------------------------
 
@@ -376,6 +433,10 @@ class GLMDriver:
                     "offheap index map: %d features from %s",
                     prebuilt.size, p.offheap_indexmap_dir,
                 )
+            if p.streaming:
+                self._preprocess_streaming(fmt, train_paths, prebuilt)
+                self._advance(DriverStage.PREPROCESSED)
+                return
             data = fmt.load(
                 train_paths, index_map=prebuilt,
                 constraint_string=p.constraint_string, device=self.device,
@@ -398,6 +459,98 @@ class GLMDriver:
             if p.summarization_output_dir:
                 self._write_summary(p.summarization_output_dir)
         self._advance(DriverStage.PREPROCESSED)
+
+    def _preprocess_streaming(self, fmt, train_paths, prebuilt) -> None:
+        """The streamed preprocess: one bounded-memory scan (vocabulary,
+        staging shape and, when normalization, a summary output or
+        diagnostics need it, the colStats summary) with no full load; the
+        fused scan when no diagnostics reservoir is drawn, through the
+        per-partition cache with ``--scan-cache-dir``; then the data
+        checks, chunk by chunk."""
+        p = self.params
+        needs_summary = (
+            p.normalization_type != NormalizationType.NONE
+            or bool(p.summarization_output_dir)
+            or p.diagnostic_mode != DiagnosticMode.NONE
+        )
+        # the fused pass cannot draw the reservoir (it needs rows in the
+        # final index space): diagnostics take scan + streamed summary
+        use_fused = needs_summary and p.diagnostic_mode == DiagnosticMode.NONE and hasattr(
+            fmt, "stream_scan_with_summary"
+        )
+        fused_summary = None
+        if p.scan_cache_dir is not None:
+            if use_fused:
+                index_map, stats, fused_summary, cache_stats = cached_scan_stream_with_summary(
+                    train_paths, fmt, p.scan_cache_dir, index_map=prebuilt, device=self.device,
+                )
+            else:
+                index_map, stats, cache_stats = cached_scan_stream(
+                    train_paths, fmt, p.scan_cache_dir, index_map=prebuilt
+                )
+            self._scan_cache_stats = cache_stats.as_dict()
+            self.logger.info(
+                "scan cache: %d partition(s), %d cached, %d scanned, %d quarantined",
+                cache_stats.partitions, cache_stats.cached, cache_stats.scanned,
+                cache_stats.quarantined,
+            )
+        elif use_fused:
+            index_map, stats, fused_summary = scan_stream_with_summary(
+                train_paths, fmt, index_map=prebuilt, device=self.device
+            )
+        else:
+            index_map, stats = scan_stream(train_paths, fmt, index_map=prebuilt)
+        icept = index_map.get_index(intercept_key()) if p.add_intercept else -1
+        intercept_index = icept if icept >= 0 else None
+        self._data = LoadedData(
+            batch=None, index_map=index_map, num_features=index_map.size,
+            intercept_index=intercept_index,
+            constraints=parse_constraint_string(
+                p.constraint_string, index_map, index_map.size, intercept_index,
+                device=self.device,
+            ),
+        )
+        self._stream = (train_paths, stats)
+        self.logger.info(
+            "streaming scan: %d examples, %d features, max %d nnz/row",
+            stats.num_rows, index_map.size, stats.max_nnz,
+        )
+        if needs_summary:
+            if fused_summary is not None:
+                self._summary = fused_summary
+            else:
+                reservoir = 0
+                if p.diagnostic_mode != DiagnosticMode.NONE:
+                    reservoir = budgeted_reservoir_rows(
+                        p.diagnostic_reservoir_rows, p.diagnostic_reservoir_bytes,
+                        stats.max_nnz,
+                    )
+                    if reservoir < p.diagnostic_reservoir_rows:
+                        self.logger.info(
+                            "diagnostics reservoir scaled to %d rows (%d B budget at "
+                            "%d nnz/row)", reservoir, p.diagnostic_reservoir_bytes,
+                            stats.max_nnz,
+                        )
+                self._summary, self._stream_sample = streaming_summary(
+                    train_paths, fmt, index_map, stats, reservoir_rows=reservoir,
+                    device=self.device,
+                )
+            self._norm = build_normalization(
+                p.normalization_type,
+                mean=self._summary.mean,
+                std=self._summary.std,
+                max_magnitude=self._summary.max_magnitude,
+                intercept_index=intercept_index,
+            )
+            if p.summarization_output_dir:
+                self._write_summary(p.summarization_output_dir)
+        if p.data_validation_type != DataValidationType.VALIDATE_DISABLED:
+            # the in-memory path's checks, chunk by chunk
+            for chunk in iter_chunks(
+                train_paths, fmt, index_map, rows_per_chunk=65536,
+                nnz_width=stats.max_nnz, device=self.device,
+            ):
+                sanity_check_data(chunk, p.task, p.data_validation_type)
 
     def _dated_paths(self, base_dir, date_range, days_ago):
         """Expand a base dir to its daily paths when a date range is given
@@ -446,38 +599,10 @@ class GLMDriver:
         self.emitter.send(TrainingStartEvent(p.job_name))
         grid_ckpt, guard = self._grid_checkpoint_setup()
         with self.timer.time("train"):
-            data = self._data
-            trainer = train_generalized_linear_model
-            extra = {"grid_checkpointer": grid_ckpt, "preemption_guard": guard}
-            if self._resolved_grid_mode(data.num_features) == "batched":
-                trainer = train_grid_batched
-                # one solve has no λ boundary to stop at
-                extra.pop("preemption_guard")
-                self.logger.info(
-                    "training a BATCHED %d-member lambda grid (one optimizer "
-                    "loop over a [G, d] bank; no cross-lambda warm starts)",
-                    len(set(p.regularization_weights)),
-                )
-            self.models, self.results = trainer(
-                data.batch,
-                p.task,
-                data.num_features,
-                optimizer_type=p.optimizer_type,
-                regularization_type=p.regularization_type,
-                regularization_weights=p.regularization_weights,
-                elastic_net_alpha=p.elastic_net_alpha,
-                max_iter=p.max_num_iterations,
-                tolerance=p.tolerance,
-                normalization=self._norm,
-                compute_variances=p.compute_variances,
-                box=data.constraints,
-                intercept_index=data.intercept_index,
-                kernel=p.kernel,
-                device=self.device,
-                track_models=p.validate_per_iteration,
-                tile_cache_dir=p.tile_cache_dir,
-                **extra,
-            )
+            if p.streaming:
+                self._train_streaming(grid_ckpt, guard)
+            else:
+                self._train_in_memory(grid_ckpt, guard)
             self._log_results()
         if guard is not None:
             self._preempted = guard.requested
@@ -492,6 +617,94 @@ class GLMDriver:
         self.emitter.send(TrainingFinishEvent(p.job_name))
         self._advance(DriverStage.TRAINED)
 
+    def _train_in_memory(self, grid_ckpt, guard) -> None:
+        """The in-memory λ-grid: sequential (K1) or batched (K2)."""
+        p = self.params
+        data = self._data
+        trainer = train_generalized_linear_model
+        extra = {"grid_checkpointer": grid_ckpt, "preemption_guard": guard}
+        if self._resolved_grid_mode(data.num_features) == "batched":
+            trainer = train_grid_batched
+            # one solve has no λ boundary to stop at
+            extra.pop("preemption_guard")
+            self.logger.info(
+                "training a BATCHED %d-member lambda grid (one optimizer "
+                "loop over a [G, d] bank; no cross-lambda warm starts)",
+                len(set(p.regularization_weights)),
+            )
+        self.models, self.results = trainer(
+            data.batch,
+            p.task,
+            data.num_features,
+            optimizer_type=p.optimizer_type,
+            regularization_type=p.regularization_type,
+            regularization_weights=p.regularization_weights,
+            elastic_net_alpha=p.elastic_net_alpha,
+            max_iter=p.max_num_iterations,
+            tolerance=p.tolerance,
+            normalization=self._norm,
+            compute_variances=p.compute_variances,
+            box=data.constraints,
+            intercept_index=data.intercept_index,
+            kernel=p.kernel,
+            device=self.device,
+            track_models=p.validate_per_iteration,
+            tile_cache_dir=p.tile_cache_dir,
+            **extra,
+        )
+
+    def _train_streaming(self, grid_ckpt, guard) -> None:
+        """The out-of-core λ-grid (sequential, warm-started): chunk rows
+        and cache tiers from ``--stream-memory-budget``."""
+        p = self.params
+        train_paths, stats = self._stream
+        rows_per_chunk = stream_budget_rows(
+            p.stream_memory_budget, sparse_row_bytes(stats.max_nnz)
+        )
+        cache_bytes = p.stream_memory_budget if p.stream_memory_budget > 0 else 2 << 30
+        if p.stream_memory_budget:
+            self.logger.info(
+                "stream memory budget %d B -> %d rows/chunk, %d B cache tiers",
+                p.stream_memory_budget, rows_per_chunk, cache_bytes,
+            )
+        self.logger.info(
+            "training in streaming mode (%d rows per full-batch pass)", stats.num_rows
+        )
+        objectives = []
+        self.models, self.results, _ = train_streaming_glm(
+            train_paths,
+            p.task,
+            regularization_type=p.regularization_type,
+            regularization_weights=p.regularization_weights,
+            elastic_net_alpha=p.elastic_net_alpha,
+            max_iter=p.max_num_iterations,
+            tolerance=p.tolerance,
+            rows_per_chunk=rows_per_chunk,
+            cache_bytes=cache_bytes,
+            kernel=p.kernel,
+            optimizer_type=p.optimizer_type,
+            normalization=self._norm,
+            compute_variances=p.compute_variances,
+            box=self._data.constraints,
+            track_models=p.validate_per_iteration,
+            fmt=self._fmt,
+            index_map=self._data.index_map,
+            stats=stats,
+            tile_cache_dir=p.tile_cache_dir,
+            grid_checkpointer=grid_ckpt,
+            preemption_guard=guard,
+            device=self.device,
+            objective_out=objectives,
+        )
+        objective = objectives[0]
+        self._stream_stats = {
+            "rows_per_chunk": objective.rows_per_chunk,
+            "tiers": objective.tier_counts,
+            "spill_bytes": objective.spill_bytes,
+            "decode_passes": objective.decode_passes,
+        }
+        # the tiers hold device memory and scratch: released here
+        objective.close()
     def _resolved_grid_mode(self, dim: int) -> str:
         """Resolve --grid-mode for the in-memory training stage."""
         p = self.params
@@ -558,43 +771,89 @@ class GLMDriver:
             )
         return metrics
 
+    def _streamed_metrics_for(self, means, validate_paths, vstats) -> Dict[str, float]:
+        """One bounded pass over the validation stream for ONE model: the
+        driver's metric set through streaming accumulators
+        (``evaluation/streaming.py``)."""
+        loss = loss_for_task(self.params.task)
+        accs = glm_streaming_metrics(self.params.task, loss)
+        for chunk in iter_chunks(
+            validate_paths, self._fmt, self._data.index_map, rows_per_chunk=65536,
+            nnz_width=vstats.max_nnz, device=self.device,
+        ):
+            update_glm_metrics(
+                accs, loss, compute_margins(means, chunk), chunk.labels, chunk.weights
+            )
+        return finalize_metrics(accs)
+
+    def _validate_streaming(self, validate_paths) -> None:
+        """Streamed validation (Driver.scala:329-413 as one more pass):
+        per-λ metrics, the best model and the per-iteration metrics, each
+        one pass over the validation files, never loaded whole."""
+        p = self.params
+        _, vstats = scan_stream(validate_paths, self._fmt, index_map=self._data.index_map)
+        self.logger.info(
+            "streamed validation scan: %d examples, max %d nnz/row",
+            vstats.num_rows, vstats.max_nnz,
+        )
+        if p.data_validation_type != DataValidationType.VALIDATE_DISABLED:
+            for chunk in iter_chunks(
+                validate_paths, self._fmt, self._data.index_map, rows_per_chunk=65536,
+                nnz_width=vstats.max_nnz, device=self.device,
+            ):
+                sanity_check_data(chunk, p.task, p.data_validation_type)
+
+        def metrics_of(model):
+            return self._streamed_metrics_for(model.means, validate_paths, vstats)
+
+        if p.validate_per_iteration:
+            self._log_per_iteration(metrics_of)
+        self._select_best(metrics_of)
+
+    def _select_best(self, metrics_of) -> None:
+        """Each λ's metrics and the best model: by AUC for classification,
+        RMSE or the loss otherwise (ModelSelection.scala:36-63)."""
+        maximize = self.params.task == TaskType.LOGISTIC_REGRESSION
+        best = None
+        for lam, model in self.models.items():
+            metrics = metrics_of(model)
+            self.validation_metrics[lam] = metrics
+            key = "AUC" if maximize else ("RMSE" if "RMSE" in metrics else next(iter(metrics)))
+            score = metrics[key]
+            self.logger.info("lambda=%g validation %s", lam, metrics)
+            if (
+                best is None
+                or (maximize and score > best[2])
+                or (not maximize and score < best[2])
+            ):
+                best = (lam, model, score)
+        self.best_lambda, self.best_model, _ = best
+
     def validate(self) -> None:
         p = self.params
         with self.timer.time("validate"):
             validate_paths = self._dated_paths(
                 p.validate_dir, p.validate_date_range, p.validate_date_range_days_ago,
             )
+            if p.streaming:
+                self._validate_streaming(validate_paths)
+                self._advance(DriverStage.VALIDATED)
+                return
             vdata = self._fmt.load(
                 validate_paths, index_map=self._data.index_map, device=self.device
             )
             sanity_check_data(vdata.batch, p.task, p.data_validation_type)
             self._validation_data = vdata
+
+            def metrics_of(model):
+                return self._metrics_for(model, vdata.batch)
+
             if p.validate_per_iteration:
-                self._validate_per_iteration(vdata)
-            # select by AUC for classification, RMSE/loss otherwise
-            # (ModelSelection.scala:36-63)
-            maximize = p.task == TaskType.LOGISTIC_REGRESSION
-            best = None
-            for lam, model in self.models.items():
-                metrics = self._metrics_for(model, vdata.batch)
-                self.validation_metrics[lam] = metrics
-                key = (
-                    "AUC"
-                    if maximize
-                    else ("RMSE" if "RMSE" in metrics else next(iter(metrics)))
-                )
-                score = metrics[key]
-                self.logger.info("lambda=%g validation %s", lam, metrics)
-                if (
-                    best is None
-                    or (maximize and score > best[2])
-                    or (not maximize and score < best[2])
-                ):
-                    best = (lam, model, score)
-            self.best_lambda, self.best_model, _ = best
+                self._log_per_iteration(metrics_of)
+            self._select_best(metrics_of)
         self._advance(DriverStage.VALIDATED)
 
-    def _validate_per_iteration(self, vdata) -> None:
+    def _log_per_iteration(self, metrics_of) -> None:
         """Metrics of every (lambda, iteration) model
         (computeAndLogModelMetrics, Driver.scala:330-349)."""
         p = self.params
@@ -602,7 +861,7 @@ class GLMDriver:
             models = iteration_models(
                 result, p.task, self._norm, self._data.intercept_index
             )
-            per_iter = [self._metrics_for(m, vdata.batch) for m in models]
+            per_iter = [metrics_of(m) for m in models]
             self.per_iteration_metrics[lam] = per_iter
             msg = "\n".join(
                 f"Iteration: [{i:6d}] " + " ".join(
@@ -686,9 +945,20 @@ class GLMDriver:
             "best_lambda": self.best_lambda,
             "timers": self.timer.durations,
             "schedule_cache": self._schedule_cache_stats,
-            # every injected fault, retry and quarantined artifact, by seam
-            "reliability": reliability_metrics(),
         }
+        if self._scan_cache_stats:
+            # the "touched only new partitions" counters
+            payload["scan_cache"] = self._scan_cache_stats
+        if p.streaming:
+            # the out-of-core contract made observable: the budget against
+            # the host's measured high-water, and the tiers it filled
+            payload["streaming"] = {
+                "memory_budget_bytes": p.stream_memory_budget,
+                "peak_rss_bytes": peak_rss_bytes(),
+                **self._stream_stats,
+            }
+        # every injected fault, retry and quarantined artifact, by seam
+        payload["reliability"] = reliability_metrics()
         atomic_write_json(os.path.join(out, "metrics.json"), payload)
 
     def run(self) -> None:
@@ -791,10 +1061,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--model-shards", type=int, default=None,
                     help="not ported yet (ROADMAP item 13)")
-    ap.add_argument("--streaming", default="false",
-                    help="true is not ported yet (ROADMAP item 11)")
-    ap.add_argument("--stream-memory-budget", type=int, default=0,
-                    help="not ported yet (ROADMAP item 11)")
+    ap.add_argument(
+        "--streaming", default="false",
+        help="true: stream the training data from disk per evaluation "
+        "(bounded host memory for data larger than RAM; Avro or LibSVM)",
+    )
+    ap.add_argument(
+        "--stream-memory-budget", type=int, default=0,
+        help="host-memory byte budget of the streaming layer: fixes the "
+        "staged chunk's rows and the cache tiers; peak RSS is reported "
+        "against it in metrics.json. 0 = default sizing",
+    )
     ap.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP item 15)")
     ap.add_argument("--obs-dir", default=None, help="not ported yet (ROADMAP item 15)")
     ap.add_argument(
@@ -839,7 +1116,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--retrain-from", default=None, help="not ported yet (ROADMAP item 15)")
     ap.add_argument("--publish-registry", default=None,
                     help="not ported yet (ROADMAP item 15)")
-    ap.add_argument("--scan-cache-dir", default=None, help="not ported yet (ROADMAP item 11)")
+    ap.add_argument(
+        "--scan-cache-dir", default=None,
+        help="append-only per-partition scan/stats cache: the streaming "
+        "preprocess reads again ONLY partitions without an entry (counters "
+        "in metrics.json)",
+    )
     ap.add_argument("--gate-max-auc-drop", type=float, default=0.005)
     ap.add_argument("--gate-max-rmse-increase", type=float, default=0.01)
     ap.add_argument("--gate-max-coef-norm-ratio", type=float, default=10.0)

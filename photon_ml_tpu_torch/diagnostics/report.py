@@ -1,5 +1,5 @@
 """The driver's diagnose stage and its HTML report (port of
-``photon_ml_tpu/diagnostics/report.py``, the in-memory branch).
+``photon_ml_tpu/diagnostics/report.py``).
 
 Reference: photon-ml Driver.scala:525-552 (per-model diagnostics over the
 lambda grid) and :618-638 (the report written to
@@ -9,7 +9,11 @@ The bootstrap and fitting-curve refits train with the driver's kernel
 choice on the driver's device: on the card that is the tiled objective, so
 every refit runs K1. The batch is tiled once (through the driver's
 schedule cache) and each refit swaps only its row weights in. A refit that
-fails fails the run.
+fails fails the run. A streamed training set is never in memory: the
+row-level sections (calibration and Kendall without validation data,
+bootstrap, fitting curves) run on the reservoir sample that the streamed
+summary pass drew, the bounded-memory stand-in for the reference's
+RDD-wide diagnose passes.
 """
 
 from __future__ import annotations
@@ -43,17 +47,17 @@ from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import train_generalized_linear_model
 
 
-def _trainer(driver, lam: float):
+def _trainer(driver, lam: float, train_batch):
     """``train_fn(batch) -> model`` at ``lam`` for the refits: the driver's
     problem settings, kernel and device. A tiled kernel tiles the driver's
-    batch once; each refit hands the trainer that tiled batch with the
-    refit's row weights (padded to the tiled row space)."""
+    batch (``train_batch``) once; each refit hands the trainer that tiled
+    batch with the refit's row weights (padded to the tiled row space)."""
     p = driver.params
     data = driver._data
     tiled = None
     if resolve_kernel(p.kernel, driver.device) == "tiled":
         with cache_scope(p.tile_cache_dir):
-            tiled = ensure_tiled(data.batch, data.num_features, device=driver.device)
+            tiled = ensure_tiled(train_batch, data.num_features, device=driver.device)
 
     def train_fn(batch):
         if tiled is not None:
@@ -85,11 +89,11 @@ def run_glm_diagnostics(driver) -> None:
     p = driver.params
     data = driver._data
     summary = driver._summary
-    batch = data.batch
+    batch = data.batch if data.batch is not None else getattr(driver, "_stream_sample", None)
     if batch is None:
-        raise NotImplementedError(
-            "diagnostics over a streamed training set (the reservoir sample) "
-            "are not ported yet (ROADMAP item 11)"
+        raise ValueError(
+            "diagnostics need an in-memory batch or a streamed reservoir "
+            "sample; run preprocess() with a diagnostic mode set"
         )
     vdata = getattr(driver, "_validation_data", None)
     doc = Document(title=f"Photon ML diagnostics — {p.job_name}")
@@ -166,7 +170,7 @@ def run_glm_diagnostics(driver) -> None:
     best_lambda = (
         driver.best_lambda if driver.best_lambda is not None else sorted(driver.models)[0]
     )
-    train_fn = _trainer(driver, best_lambda)
+    train_fn = _trainer(driver, best_lambda, batch)
 
     def metrics_fn(model, b=None):
         return driver._metrics_for(model, b if b is not None else batch)

@@ -134,6 +134,24 @@ class BinaryEncoder:
         self.write_bytes(s.encode("utf-8"))
 
 
+def encode_long(n: int) -> bytes:
+    """The zigzag varint of ``n`` (what :meth:`BinaryEncoder.write_long`
+    writes)."""
+    n = (n << 1) ^ (n >> 63)
+    out = bytearray()
+    while (n & ~0x7F) != 0:
+        out.append(n & 0x7F | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+class EncodedArray(bytes):
+    """An array datum already in Avro binary form (its block and the closing
+    0), written as it is and taken as the array branch of a union: the bulk
+    path of wide arrays, the model writers' coefficient lists."""
+
+
 class BinaryDecoder:
     def __init__(self, buf: bytes, pos: int = 0):
         self.buf = buf
@@ -220,6 +238,9 @@ def write_datum(enc: BinaryEncoder, schema: SchemaType, datum: Any) -> None:
         enc.write_long(idx)
         write_datum(enc, schema[idx], datum)
     elif t == "array":
+        if isinstance(datum, EncodedArray):
+            enc.out.write(datum)
+            return
         items = list(datum)
         if items:
             enc.write_long(len(items))
@@ -263,6 +284,8 @@ def _pick_union_branch(union: list, datum: Any) -> int:
             return st in ("float", "double")
         if isinstance(datum, str):
             return st in ("string", "enum")
+        if isinstance(datum, EncodedArray):
+            return st == "array"
         if isinstance(datum, bytes):
             return st in ("bytes", "fixed")
         if isinstance(datum, dict):

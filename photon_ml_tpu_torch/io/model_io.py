@@ -11,14 +11,20 @@ lists, modelClass = the reference's GLM class names).
 
 from __future__ import annotations
 
+import itertools
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from photon_ml_tpu_torch.io import schemas
-from photon_ml_tpu_torch.io.avro_codec import read_container, write_container
+from photon_ml_tpu_torch.io.avro_codec import (
+    EncodedArray,
+    encode_long,
+    read_container,
+    write_container,
+)
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel, create_model
 from photon_ml_tpu_torch.reliability.artifacts import atomic_writer
@@ -64,28 +70,56 @@ def write_models_in_text(
             f.write("\n".join(lines) + "\n")
 
 
+# The last index map's encoded (name, term) prefixes, reused by the next
+# model over it (a λ-grid writes every model over one map); the entry
+# holds the map, so its id cannot be reused while the entry lives.
+_NTV_PREFIXES: Optional[tuple] = None
+
+
+def _ntv_prefixes(index_map, dim: int) -> Tuple[np.ndarray, List[bytes]]:
+    """(the indices below ``dim`` that have a feature key, each one's
+    NameTermValue name and term in Avro binary form)."""
+    global _NTV_PREFIXES
+    hit = _NTV_PREFIXES
+    if hit is not None and hit[0] is index_map and hit[1] == dim:
+        return hit[2], hit[3]
+    idx, prefixes = [], []
+    for i in range(dim):
+        key = index_map.get_feature_name(i)
+        if key is None:
+            continue
+        name, term = (x.encode("utf-8") for x in split_feature_key(key))
+        idx.append(i)
+        prefixes.append(encode_long(len(name)) + name + encode_long(len(term)) + term)
+    idx = np.asarray(idx, np.int64)
+    _NTV_PREFIXES = (index_map, dim, idx, prefixes)
+    return idx, prefixes
+
+
+def _ntv_array(values: np.ndarray, index_map) -> EncodedArray:
+    """A NameTermValue array of one value per keyed index, encoded in bulk:
+    the bytes the generic encoder writes for the list of records (one
+    block of n items, each name, term and little-endian double, then 0)."""
+    idx, prefixes = _ntv_prefixes(index_map, len(values))
+    if not len(idx):
+        return EncodedArray(encode_long(0))
+    packed = np.asarray(values, np.float64)[idx].astype("<f8").tobytes()
+    doubles = (packed[j:j + 8] for j in range(0, len(packed), 8))
+    body = b"".join(itertools.chain.from_iterable(zip(prefixes, doubles)))
+    return EncodedArray(encode_long(len(idx)) + body + encode_long(0))
+
+
 def model_to_bayesian_avro(
     model: GeneralizedLinearModel, model_id: str, index_map,
 ) -> dict:
     means = _host(model.coefficients.means)
     variances = model.coefficients.variances
     variances = None if variances is None else _host(variances)
-
-    def ntv_list(values: np.ndarray):
-        out = []
-        for i, v in enumerate(values):
-            key = index_map.get_feature_name(int(i))
-            if key is None:
-                continue
-            name, term = split_feature_key(key)
-            out.append({"name": name, "term": term, "value": float(v)})
-        return out
-
     return {
         "modelId": model_id,
         "modelClass": _MODEL_CLASS_BY_TASK[model.task],
-        "means": ntv_list(means),
-        "variances": None if variances is None else ntv_list(variances),
+        "means": _ntv_array(means, index_map),
+        "variances": None if variances is None else _ntv_array(variances, index_map),
         "lossFunction": None,
     }
 

@@ -414,10 +414,14 @@ class DecodedColumns:
         n = lib.pavro_strings(handle, ctypes.byref(blob_p), ctypes.byref(off_p))
         offs = np.ctypeslib.as_array(off_p, shape=(n + 1,)).copy() if n else np.zeros(1, np.uint64)
         blob = ctypes.string_at(blob_p, int(offs[-1])) if n else b""
-        self.strings: List[str] = [
-            blob[int(offs[i]):int(offs[i + 1])].decode("utf-8")
-            for i in range(n)
-        ]
+        text = blob.decode("utf-8")
+        o = offs.tolist()
+        if len(text) == len(blob):
+            # ASCII: byte offsets are character offsets, so the strings
+            # are slices of one decoded text
+            self.strings: List[str] = list(map(text.__getitem__, map(slice, o[:-1], o[1:])))
+        else:
+            self.strings = [blob[o[i]:o[i + 1]].decode("utf-8") for i in range(n)]
 
     def f64(self, field: str) -> np.ndarray:
         slot = self.plan.num_slots[field]

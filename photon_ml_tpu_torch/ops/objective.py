@@ -142,3 +142,25 @@ class GLMObjective:
         if self.norm.factor is not None:
             diag = diag * self.norm.factor**2
         return diag + per_member(l2_weight, coef)
+
+
+# -- the per-chunk partials of the streamed objectives (io/streaming.py):
+# each is the scatter objective at l2 = 0; the streamed objective sums them
+# over the chunks and adds the L2 term once.
+
+
+def partial_value_and_gradient(objective: GLMObjective, coef: Tensor, batch: SparseBatch):
+    """(value, gradient) of one chunk at l2 = 0."""
+    return objective.value_and_gradient(coef, batch, 0.0)
+
+
+def partial_hessian_vector(
+    objective: GLMObjective, coef: Tensor, direction: Tensor, batch: SparseBatch
+) -> Tensor:
+    """H(w) @ d of one chunk at l2 = 0 (a streamed TRON CG step)."""
+    return objective.hessian_vector(coef, direction, batch, 0.0)
+
+
+def partial_hessian_diagonal(objective: GLMObjective, coef: Tensor, batch: SparseBatch) -> Tensor:
+    """diag(H) of one chunk at l2 = 0 (the streamed variance pass)."""
+    return objective.hessian_diagonal(coef, batch, 0.0)

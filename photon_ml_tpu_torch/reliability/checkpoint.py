@@ -3,9 +3,8 @@ snapshots (GLM drivers) and per-iteration streaming-CD snapshots (GAME
 streaming driver). Port of ``photon_ml_tpu/reliability/checkpoint.py``
 over the same ``.npz`` files and JSON markers, so a snapshot either
 package writes loads in the other. The unified-mesh grid-bank snapshots
-wait for the entity-sharded GAME path (ROADMAP item 13), and the
-streaming checkpointer's first caller for the streamed GAME driver
-(item 11).
+wait for the entity-sharded GAME path (ROADMAP item 13); the streaming
+checkpointer's caller is ``game/streaming.py``.
 
 The TrainingCheckpointer (utils/checkpoint.py) covers the in-memory GAME
 CD loop; these two cover the λ-grid sweep, where a ``kill -9`` would lose

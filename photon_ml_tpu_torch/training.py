@@ -12,7 +12,10 @@
 - ``train_feature_sharded`` and ``train_grid_batched_feature_sharded``:
   the same two over a coefficient vector sharded by feature block on a
   (data, model) mesh (``parallel/distributed.py``).
-- ``grid_checkpointer=`` / ``preemption_guard=`` on the two single-card
+- ``train_streaming_glm``: the out-of-core fit over input files larger
+  than host RAM (``io/streaming.py``), warm-started over the λ-grid with
+  the host-driven optimizers.
+- ``grid_checkpointer=`` / ``preemption_guard=`` on the single-card
   trainers: per-λ crash-safe snapshots (``reliability.GridCheckpointer``)
   and a stop at the λ boundary on SIGTERM. On a mesh they wait for ROADMAP
   item 13.
@@ -722,3 +725,155 @@ def grid_result_scalars(results: Results) -> Dict[float, Tuple[int, float, int]]
         lam: (int(res.iterations), float(v), int(res.reason))
         for (lam, res), v in zip(items, values)
     }
+
+
+def train_streaming_glm(
+    paths,
+    task: TaskType,
+    *,
+    regularization_type: RegularizationType = RegularizationType.NONE,
+    regularization_weights: Sequence[float] = (0.0,),
+    elastic_net_alpha: Optional[float] = None,
+    max_iter: Optional[int] = None,
+    tolerance: Optional[float] = None,
+    history: int = 10,
+    rows_per_chunk: int = 65536,
+    cache_bytes: int = 2 << 30,
+    prefetch: bool = True,
+    kernel: str = "auto",
+    tile_params=None,
+    add_intercept: bool = True,
+    field_names: str = "TRAINING_EXAMPLE",
+    warm_start: bool = True,
+    optimizer_type: OptimizerType = OptimizerType.LBFGS,
+    normalization: Optional[NormalizationContext] = None,
+    compute_variances: bool = False,
+    box: Optional[BoxConstraints] = None,
+    track_models: bool = False,
+    fmt=None,
+    index_map=None,
+    stats=None,
+    tile_cache_dir: Optional[str] = None,
+    grid_checkpointer=None,
+    preemption_guard=None,
+    initial: Optional[Tensor] = None,
+    device: DeviceLike = None,
+    objective_out: Optional[list] = None,
+):
+    """Train a GLM over inputs LARGER than host RAM: every objective
+    evaluation reads fixed-shape chunks from the cache tiers of a
+    ``StreamingGLMObjective`` (the first one decodes the files and fills
+    them), so host memory holds one decoded file + one staged chunk. The
+    host-driven optimizers (``optim/host_lbfgs.py``, ``optim/host_tron.py``)
+    walk the in-memory path's iterates. The reference's analog is Spark's
+    MEMORY_AND_DISK persist under GLMSuite.readLabeledPointsFromAvro
+    (io/GLMSuite.scala:98-131).
+
+    L-BFGS; OWL-QN under L1 / elastic net with the intercept exempt; TRON
+    with one streamed Hv pass per CG step. ``fmt``: an Avro (default) or
+    LibSVM format of ``io/input_format.py``; ``index_map`` / ``stats`` from
+    the caller's scan skip the trainer's own. ``normalization``: models
+    come back in the original space; ``compute_variances``: 1 / (streamed
+    Hessian diagonal + eps). ``initial``: the first λ's starting point
+    (its dtype is the fit's). ``grid_checkpointer`` /
+    ``preemption_guard``: per-λ snapshots and a stop at the λ boundary, as
+    :func:`train_generalized_linear_model`. ``kernel`` and ``device`` as
+    there (``device`` also holds the chunk tiers; the disk tier spills
+    under ``$PHOTON_SPILL_DIR``, else the system temp directory).
+    ``objective_out``: a list the streamed objective is appended to, for
+    callers that read its counters. Single process: multi-process
+    streaming waits for ROADMAP item 13.
+
+    Returns ({lambda: model}, {lambda: OptResult}, index_map).
+    """
+    from photon_ml_tpu_torch.io.input_format import AvroInputDataFormat
+    from photon_ml_tpu_torch.io.streaming import StreamingGLMObjective, scan_stream
+    from photon_ml_tpu_torch.optim.host_lbfgs import minimize_lbfgs_host, minimize_owlqn_host
+    from photon_ml_tpu_torch.optim.host_tron import minimize_tron_host
+    from photon_ml_tpu_torch.utils.index_map import intercept_key
+
+    dev = resolve_device(device)
+    regularization = RegularizationContext(regularization_type, elastic_net_alpha)
+    use_tron = optimizer_type == OptimizerType.TRON
+    base = OptimizerConfig.default_for(optimizer_type)
+    max_iter = max_iter if max_iter is not None else base.max_iter
+    tolerance = tolerance if tolerance is not None else base.tolerance
+    validate_optimizer_choice(
+        OptimizerConfig(optimizer_type=optimizer_type), regularization,
+        loss_has_hessian=loss_for_task(task).has_hessian,
+    )
+    if fmt is None:
+        fmt = AvroInputDataFormat(add_intercept=add_intercept, field_names=field_names)
+    if index_map is None or stats is None:
+        index_map, stats = scan_stream(paths, fmt, index_map=index_map)
+    if normalization is not None:
+        normalization = normalization.to(dev)
+    if box is not None:
+        box = BoxConstraints(box.lower.to(dev), box.upper.to(dev))
+    objective = StreamingGLMObjective(
+        paths, fmt, index_map, stats, task, rows_per_chunk=rows_per_chunk,
+        cache_bytes=cache_bytes, prefetch=prefetch, kernel=kernel, tile_params=tile_params, norm=normalization,
+        tile_cache_dir=tile_cache_dir, device=dev,
+    )
+    if objective_out is not None:
+        objective_out.append(objective)
+    intercept_index = None
+    if fmt.add_intercept:
+        icept = index_map.get_index(intercept_key())
+        intercept_index = icept if icept >= 0 else None
+    l1_mask = None
+    if regularization.has_l1 and intercept_index is not None:
+        l1_mask = torch.ones(objective.dim, device=dev)
+        l1_mask[intercept_index] = 0.0
+    problem = create_glm_problem(task, objective.dim, intercept_index=intercept_index)
+
+    models: Models = {}
+    results: Results = {}
+    current = (
+        torch.as_tensor(initial, device=dev) if initial is not None
+        else torch.zeros(objective.dim, device=dev)
+    )
+    for lam in _descending(regularization_weights):
+        snap = grid_checkpointer.load(lam) if grid_checkpointer is not None else None
+        if snap is not None:
+            models[lam] = _model_from_snapshot(task, snap, dev)
+            results[lam] = _result_from_snapshot(snap["result"], dev)
+            if warm_start:
+                current = torch.as_tensor(snap["warm_means"], device=dev)
+            continue
+        if preemption_guard is not None and preemption_guard.requested:
+            break
+        l1, l2 = regularization.split(lam)
+
+        def vg(w, l2=l2):
+            return objective.value_and_gradient(w, l2)
+
+        if use_tron:
+            result = minimize_tron_host(
+                vg, lambda w, d, l2=l2: objective.hessian_vector(w, d, l2), current,
+                max_iter=max_iter, tol=tolerance, box=box,
+                track_coefficients=track_models,
+            )
+        elif l1:
+            result = minimize_owlqn_host(
+                vg, current, l1, max_iter=max_iter, tol=tolerance, history=history,
+                l1_mask=l1_mask, box=box, track_coefficients=track_models,
+            )
+        else:
+            result = minimize_lbfgs_host(
+                vg, current, max_iter=max_iter, tol=tolerance, history=history,
+                box=box, track_coefficients=track_models,
+            )
+        variances = None
+        if compute_variances:
+            hd = objective.hessian_diagonal(result.coefficients, l2)
+            variances = 1.0 / (hd + _VARIANCE_EPSILON)
+        models[lam] = problem.create_model(
+            Coefficients(result.coefficients, variances), normalization
+        )
+        results[lam] = result
+        if grid_checkpointer is not None:
+            _save_lambda_snapshot(grid_checkpointer, lam, result.coefficients, models[lam], result)
+        if warm_start:
+            current = result.coefficients
+    return models, results, index_map

@@ -12,9 +12,12 @@ the intercept uses ``("(INTERCEPT)", "")``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
 
 from photon_ml_tpu_torch.reliability.artifacts import atomic_writer
 
@@ -56,6 +59,12 @@ class IndexMap:
 
     def get_index(self, key: str, default: int = -1) -> int:
         return self._fwd.get(key, default)
+
+    def get_indices(self, keys: Sequence[str]) -> np.ndarray:
+        """int64 indices of ``keys`` (-1 where absent) in one pass."""
+        return np.fromiter(
+            map(self._fwd.get, keys, itertools.repeat(-1)), np.int64, count=len(keys)
+        )
 
     def get_feature_name(self, index: int) -> Optional[str]:
         if self._rev is None:

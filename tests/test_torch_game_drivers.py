@@ -203,8 +203,8 @@ REFUSED = [
     (["--process-id", "0"], "item 13"),
     (["--checkpoint-dir", "ck"], None),
     (["--fault-plan", "spill_write:2:EIO"], None),
-    (["--streaming", "true"], "item 11"),
-    (["--stream-memory-budget", "1000"], "item 11"),
+    (["--streaming", "true"], "IDENTITY projector"),
+    (["--stream-memory-budget", "1000"], "requires --streaming true"),
     (["--retrain-from", "reg"], "item 15"),
     (["--publish-registry", "reg"], "item 15"),
     (["--gate-max-auc-drop", "0.1"], "item 15"),
@@ -216,7 +216,10 @@ REFUSED = [
 @pytest.mark.parametrize("extra,item", REFUSED, ids=[r[0][0] for r in REFUSED])
 def test_training_refuses_later_items(data, tmp_path, extra, item):
     """An option of a later item is refused before touching the output; an
-    option whose item is ported (None) runs."""
+    option whose item is ported (None) runs; one whose item is ported but
+    that this configuration or another option rules out raises the
+    reference's ValueError (streaming takes IDENTITY projectors only; a
+    memory budget needs --streaming true), also before the output."""
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
@@ -234,13 +237,14 @@ def test_training_refuses_later_items(data, tmp_path, extra, item):
         elif extra[0] == "--fault-plan":
             assert metrics["reliability"]["faults"]["plan"] == extra[1]
         return
-    with pytest.raises(NotImplementedError, match=item):
+    error = NotImplementedError if item.startswith("item ") else ValueError
+    with pytest.raises(error, match=item):
         port_training.main(_train_argv(data, tmp_path / "o", "BEST", extra) + ["--device", "cpu"])
     assert not (tmp_path / "o").exists()  # refused before touching the output
 
 
 SCORING_REFUSED = [
-    (["--streaming", "true"], "item 11"),
+    (["--streaming", "true"], "requires prebuilt feature maps"),
     (["--fault-plan", "chunk_read:1:EIO"], None),
     (["--obs-dir", "obs"], "item 15"),
     (["--profile-dir", "prof"], "item 15"),
@@ -250,7 +254,8 @@ SCORING_REFUSED = [
 @pytest.mark.parametrize("extra,item", SCORING_REFUSED, ids=[r[0][0] for r in SCORING_REFUSED])
 def test_scoring_refuses_later_items(data, tmp_path, ref_run, extra, item):
     """A later item's option is refused; ``--fault-plan`` (ported) runs and
-    shows in the reliability block of metrics.json."""
+    shows in the reliability block of metrics.json; ``--streaming true``
+    without prebuilt feature maps raises the reference's ValueError."""
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
@@ -264,5 +269,6 @@ def test_scoring_refuses_later_items(data, tmp_path, ref_run, extra, item):
         metrics = json.load(open(tmp_path / "o" / "metrics.json"))
         assert metrics["reliability"]["faults"]["plan"] == extra[1]
         return
-    with pytest.raises(NotImplementedError, match=item):
+    error = NotImplementedError if item.startswith("item ") else ValueError
+    with pytest.raises(error, match=item):
         port_scoring.main(_score_argv(data, tmp_path, tmp_path / "o") + extra + ["--device", "cpu"])

@@ -177,9 +177,9 @@ def test_parser_takes_the_reference_options():
 
 
 UNPORTED = [
-    (["--streaming", "true"], "item 11"),
-    (["--stream-memory-budget", "1024"], "item 11"),
-    (["--scan-cache-dir", "/c"], "item 11"),
+    (["--streaming", "true"], None),
+    (["--stream-memory-budget", "1024"], "requires --streaming true"),
+    (["--scan-cache-dir", "/c"], "requires --streaming true"),
     (["--distributed", "feature"], "item 13"),
     (["--model-shards", "2"], "item 13"),
     (["--coordinator-address", "localhost:1234", "--num-processes", "2",
@@ -198,7 +198,9 @@ UNPORTED = [
 def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, item):
     """An option of a path not ported yet raises naming its item; one whose
     item is ported (None) runs: ``--checkpoint-dir`` snapshots every λ,
-    ``--fault-plan`` shows in the reliability block."""
+    ``--fault-plan`` shows in the reliability block, ``--streaming true``
+    writes the streaming block; one whose item is ported but that needs
+    another option raises the reference's ValueError."""
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
@@ -211,7 +213,10 @@ def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, ite
         finally:
             install_plan(None)
         metrics = json.load(open(tmp_path / "out" / "metrics.json"))
-        if extra[0] == "--checkpoint-dir":
+        if extra[0] == "--streaming":
+            assert metrics["streaming"]["decode_passes"] == 1
+            assert sorted(metrics["timers"]) == ["preprocess", "train"]
+        elif extra[0] == "--checkpoint-dir":
             names = sorted(os.listdir(tmp_path / "ck"))
             assert "manifest.json" in names
             assert len([n for n in names if n.startswith("lambda-") and n.endswith(".json")]) == 2
@@ -220,8 +225,12 @@ def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, ite
         return
     argv = ["--training-data-directory", "t", "--output-directory",
             str(tmp_path / "out"), "--device", "cpu"] + extra
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        glm_driver.main(argv)
+    if item.startswith("item "):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            glm_driver.main(argv)
+    else:
+        with pytest.raises(ValueError, match=item):
+            glm_driver.main(argv)
     assert not (tmp_path / "out").exists()
 
 

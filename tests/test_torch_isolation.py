@@ -69,6 +69,8 @@ def test_fresh_interpreter_imports_no_jax():
         "reliability", "reliability.faults", "reliability.retry", "reliability.manifest",
         "reliability.artifacts", "reliability.checkpoint", "utils.checkpoint",
         "utils.preemption", "parallel.overlap",
+        "io.streaming", "optim.host_lbfgs", "optim.host_tron", "evaluation.streaming",
+        "registry", "registry.stats_cache", "game.streaming",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]

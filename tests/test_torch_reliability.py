@@ -11,8 +11,9 @@ the same arguments gives model files BITWISE equal to an uninterrupted
 run's. It holds on the CPU; on the card K1's and K2's float atomics make
 two uninterrupted fits with an intercept differ (ROADMAP Queue 3).
 
-The reference's ``TestStageResume`` drives the streamed GAME stage pass,
-which the port does not have yet (ROADMAP item 11); it comes with it.
+The reference's ``TestStageResume`` and its streamed-GAME kill -9 cases
+are in ``tests/test_torch_streaming_game.py``, beside the streamed GAME
+path they drive.
 """
 
 import json
