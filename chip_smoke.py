@@ -8,7 +8,7 @@ Phases, each printing its own lines:
 
 1. device: the card's name and power limit (nvidia-smi), and the builds of
    the CUDA kernels K1 and K2 (nvcc, sm_90a, side by side) and of the
-   native schedule builder (g++);
+   native schedule builder and Avro decoder (g++);
 2. K1, the bilinear pass, and K2, its grid form over a [G, d] bank,
    against their plain PyTorch versions on the card: at a small shape
    (forced spills, ragged tiles; K2 for G = 1, 3, 4, 5, 7, 9), at the work
@@ -59,7 +59,7 @@ Phases, each printing its own lines:
    this checks the path and counts it; it measures no scaling;
 7. the GLM driver end to end through its CLI entry point,
    ``photon_ml_tpu_torch.cli.glm_driver.main(argv)``, over LibSVM files
-   the script writes (2^16 training rows in 4 files and 2^16 validation
+   the script writes (2^15 training rows in 4 files and 2^15 validation
    rows at the ads width, planted-model labels from the seed), with the
    intercept: run A, the warm-started sequential L-BFGS grid [10, 1] with
    variances (K1) and a cold ``--tile-cache-dir``; run B, the same with
@@ -109,10 +109,10 @@ Phases, each printing its own lines:
    beside the tiled run's are printed, not held: identical runs part by
    up to percents, ``photon_ml_tpu_torch/tools/fe_spread.py``);
    then run H, the GAME
-   drivers' CLI entry points, ``game_training_driver.main`` (2^16
-   training rows of 4,096 users at run G's widths, as Avro written in
+   drivers' CLI entry points, ``game_training_driver.main`` (2^14
+   training rows of 1,024 users at run G's widths, as Avro written in
    worker processes; FE lambda grid [10, 1], 2 iterations, AUC,
-   variances, BEST) and ``game_scoring_driver.main`` over the 2^16
+   variances, BEST) and ``game_scoring_driver.main`` over the 2^14
    validation rows: the output tree, a non-increasing objective, and the
    scoring AUC equal to the training driver's validation AUC within 1e-6;
 9. the factored random effect, MF and the reliability layer: run F, run
@@ -142,11 +142,11 @@ Phases, each printing its own lines:
    fit with an intercept bitwise (float atomics in K1), so the bitwise
    resume is the CPU tests' (``tests/test_torch_reliability.py``);
 10. out-of-core training: run S, ``glm_driver.main`` with ``--streaming
-   true --stream-memory-budget 33554432`` over 2^18 x 64 x 2^20 rows
+   true --stream-memory-budget 8388608`` over 2^16 x 64 x 2^20 rows
    (phase 4's planted model) in 8 Avro part files written by worker
-   processes, with 2^16 validation rows: the L-BFGS grid [10, 1] with
+   processes, with 2^14 validation rows: the L-BFGS grid [10, 1] with
    variances, the intercept, streamed validation and a cold
-   ``--scan-cache-dir`` (5 chunks of 63,072 rows: 1 on the device tier,
+   ``--scan-cache-dir`` (5 chunks of 15,768 rows: 1 on the device tier,
    4 spilled, all 5 in K1's tiled cache); each lambda's float64 objective
    within 1e-4 of ``train_generalized_linear_model(kernel="tiled")`` on
    the batch the port's Avro loader gives (a wrong model as the control,
@@ -156,13 +156,35 @@ Phases, each printing its own lines:
    against the in-memory tiled objective (1e-5, 1e-4 of the scale), K1
    launches of 2 x tiled chunks per value+gradient, and the same with a
    tiled cache of 2 chunks and 3 on the scatter overflow; K1 checked and
-   timed at the chunk shape beside its bound; then run S2, the same
+   timed at the chunk shape beside its bound, its plain version and one
+   torch.sparse CSR matvec of the chunk's X; then run S2, the same
    files with the scan cache warm (every partition cached, the same map
    and stats), TRON at lambda = 1 and ``--diagnostic-mode ALL`` over the
    reservoir (every chapter, finite numbers). Printed: stage timers, tier
    counts, spill bytes, host RSS growth in training against the staged
    bytes, the device memory peak, host fetches per iteration;
-11. a ``kernels`` JSON line (with each kernel's launches in the driver
+11. online serving (``photon_ml_tpu_torch.serving``): run V, the JAX
+   package's on-chip serving configuration (bench.py:1971-1976: a [2^20]
+   fixed effect with 64 features a request and 600,000 users x 1,000
+   with 32, from ``bank_from_arrays``, ~2.40 GB on the card, the native
+   row index), the ladder (1, 8, 64, 256) captured as CUDA graphs (one
+   capture a rung, none after), 2,000 requests closed-loop (every
+   dispatch shape 1) and 20,000 open-loop at concurrency 32 (p50, p99,
+   mean, QPS, dispatches, shape counts, occupancy, pad waste, one
+   readback a dispatch), the host costs of a dispatch apart from each
+   rung's replay on the card, a profiled open loop (device busy and idle
+   share), 4,096 served scores bitwise against the batch algebra at n =
+   4,096, and a generation 2 from the seed swapped in place in the middle
+   of an open loop (no capture, none lost, each score bitwise its
+   generation's); run W, inside run H's directory (phase 8):
+   ``serving_driver.main`` closed over run H's validation Avro (written
+   scores bitwise run H's ``game_scoring_driver`` scores, the AUC equal)
+   and open at concurrency 8 over those rows 4 times with a hot swap at
+   half the trace (both generations serve), then the
+   driver's front end (``--frontend-port 0``) in a subprocess: 400 of
+   the rows on 4 connections, status ops, a SIGTERM drain (every request
+   a named outcome, the scores bitwise, exit 0, no leaked connection);
+12. a ``kernels`` JSON line (with each kernel's launches in the driver
    runs, K1's in run D's diagnose stage, in the GAME runs, in runs F and
    R and in phase 10's runs), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -197,10 +219,13 @@ EDGE_GS = (1, 3, 4, 5, 7, 9)  # banks K2 is checked at: 1, 2 and 3+ tiles
 GRID_LAMBDAS = [10.0, 1.0, 0.1, 0.01]
 MESH_SHAPE = (2, 2)  # (data, model) ranks of the mesh phase
 MESH_TIMEOUT_S = 600.0
-# the driver phase's training rows: the ads shape's 2^18 rows took 250 s
-# of host time for runs A and B together on an H100 host (preprocess
-# 53-57 s a run), over the 4 minutes that cut them to 2^16; the width stays
-DRIVER_TRAIN_ROWS = 1 << 16
+# the driver phase's training and validation rows: the ads shape's 2^18
+# rows took 250 s of host time for runs A and B together on an H100 host
+# (preprocess 53-57 s a run), which cut them to 2^16; the script then
+# passed the 1,200 s limit with phase 11, which cut them to 2^15. The
+# width stays
+DRIVER_TRAIN_ROWS = 1 << 15
+DRIVER_HELD_OUT = 1 << 15
 DRIVER_PARTS = 4  # LibSVM part files of the training rows
 DRIVER_RTOL = 1e-4  # run C's model vs the direct trainer, of the max-abs
 # runs A and B (with the intercept) vs the direct fit: the objective at
@@ -729,14 +754,14 @@ def write_libsvm(path, idx, vals, labels):
 def driver_data(seed, tmp):
     """Planted-model logistic rows at the ads width from the seed, written
     as LibSVM files: DRIVER_TRAIN_ROWS training rows in DRIVER_PARTS part
-    files and N_HELD_OUT validation rows; -> (train dir, validation dir,
+    files and DRIVER_HELD_OUT validation rows; -> (train dir, validation dir,
     seconds to make and write them)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng([seed, 2])
     w_true = (rng.normal(size=DIM) * 0.3).astype(np.float32)
     dirs = []
     for name, n, parts in (
-        ("train", DRIVER_TRAIN_ROWS, DRIVER_PARTS), ("validate", N_HELD_OUT, 1)
+        ("train", DRIVER_TRAIN_ROWS, DRIVER_PARTS), ("validate", DRIVER_HELD_OUT, 1)
     ):
         idx, vals, labels = planted_data(rng, n, w_true)
         order = np.argsort(idx, axis=1, kind="stable")
@@ -856,7 +881,7 @@ def driver_runs(seed, smi, k1, k2, tmp):
 
     train_dir, val_dir, data_s = driver_data(seed, tmp)
     say(f"driver data: {DRIVER_TRAIN_ROWS} train rows in {DRIVER_PARTS} LibSVM "
-        f"files, {N_HELD_OUT} validation rows, {NNZ_PER_ROW} nnz per row, "
+        f"files, {DRIVER_HELD_OUT} validation rows, {NNZ_PER_ROW} nnz per row, "
         f"{DIM} features; made and written in {data_s:.2f} s")
     common = [
         "--training-data-directory", train_dir,
@@ -1177,8 +1202,10 @@ GAME_RE_GRAD_LIMIT = 2e-3
 # than once: three or more addends sum in another order, so the error is
 # held to 1e-6 of the sum of the addends' magnitudes
 GAME_DENSIFY_RTOL = 1e-6
-# Run H: the GAME drivers over Avro files at run G's widths
-GAME_H_USERS = 4096
+# Run H: the GAME drivers over Avro files at run G's widths; 1,024 users
+# (2^14 rows each of training and validation; 4,096 users took 237 s with
+# run W, and the script passed the 1,200 s limit)
+GAME_H_USERS = 1024
 GAME_H_PARTS = 4  # Avro part files each of training and validation rows
 GAME_H_AUC_TOL = 1e-6
 
@@ -1404,12 +1431,28 @@ def game_densify_check(red, smi, device):
     return n_dup, err
 
 
-def game_k1_times(k1, tb, rng, smi, label="game"):
+def sched_csr(sched, n_src):
+    """One pass's matrix as torch.sparse CSR (output x source): the
+    schedule's real entries, so ``csr @ src`` is the pass (the yardstick
+    the port never calls)."""
+    G, W = sched.num_steps, sched.window
+    v = sched.vals[:G].reshape(-1)
+    rows = (sched.step_out[:, None].long() * W + sched.out_pos[:G]).reshape(-1)
+    cols = (sched.step_in[:, None].long() * W + sched.in_pos[:G]).reshape(-1)
+    keep = v != 0
+    return torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]), v[keep], (sched.num_out_blocks * W, n_src)
+    ).coalesce().to_sparse_csr()
+
+
+def game_k1_times(k1, tb, rng, smi, label="game", library=False):
     """K1 against its plain version at the GAME fixed effect's shape, each
     output held to its own magnitude, |got - ref| <= 1e-6 + RTOL * mag with
     mag the plain pass over |values| and |source| (the intercept's output
     sums 1.6M terms of both signs, an ordinary feature's about 100); then
-    its device ms per z / g pass with their bounds; -> those numbers."""
+    its device ms per z / g pass with their bounds and, with ``library``,
+    the plain version's and one torch.sparse CSR matvec's; -> those
+    numbers."""
     win = tb.params.window
     w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device=tb.device)
     c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device=tb.device)
@@ -1432,10 +1475,22 @@ def game_k1_times(k1, tb, rng, smi, label="game"):
     g_ms = time_ms(lambda: k1.bilinear_pass(tb.g_sched, c, tb.num_feat_blocks, win))
     z_bound, _, entries = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
     g_bound, _, _ = pass_bound_ms(tb.g_sched, tb.num_rows, tb.dim)
+    out = dict(z_ms=z_ms, g_ms=g_ms, z_bound_ms=z_bound, g_bound_ms=g_bound,
+               max_abs_err=err[0], max_rel_err=err[1], entries=entries)
+    if library:
+        z_csr, g_csr = sched_csr(tb.z_sched, tb.dim), sched_csr(tb.g_sched, tb.num_rows)
+        out.update(
+            z_plain_ms=time_ms(lambda: k1.bilinear_pass_plain(tb.z_sched, w, tb.num_row_blocks, win)),
+            g_plain_ms=time_ms(lambda: k1.bilinear_pass_plain(tb.g_sched, c, tb.num_feat_blocks, win)),
+            z_library_ms=time_ms(lambda: z_csr @ w[:, None]),
+            g_library_ms=time_ms(lambda: g_csr @ c[:, None]),
+        )
+        del z_csr, g_csr
     say(f"{label} K1 ({smi}): {entries} entries; z {z_ms!r} ms (bound {z_bound!r}), "
-        f"g {g_ms!r} ms (bound {g_bound!r}); max_abs_err {err[0]!r}")
-    return dict(z_ms=z_ms, g_ms=g_ms, z_bound_ms=z_bound, g_bound_ms=g_bound,
-                max_abs_err=err[0], max_rel_err=err[1], entries=entries)
+        f"g {g_ms!r} ms (bound {g_bound!r}); max_abs_err {err[0]!r}" + "".join(
+            f"; {k} {out[k]!r}" for k in ("z_plain_ms", "g_plain_ms", "z_library_ms",
+                                          "g_library_ms") if k in out))
+    return out
 
 
 def game_objective_parity(ds, tb, log, smi):
@@ -1611,10 +1666,11 @@ def game_h_part(args):
     return len(recs)
 
 
-def game_run_h(seed, smi, k1, device_args=()):
+def game_run_h(seed, smi, k1, device_args=(), then=None):
     """Run H: ``game_training_driver.main`` and ``game_scoring_driver.main``
     over Avro files; -> K1's launches over both drivers (the driver's fixed
-    effect is the scatter objective, as in the JAX driver)."""
+    effect is the scatter objective, as in the JAX driver). ``then(tmp,
+    shards, scorer)`` runs inside run H's directory before it goes."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1687,18 +1743,20 @@ def game_run_h(seed, smi, k1, device_args=()):
             fail("game run H: the scoring driver wrote no scores")
         if not abs(auc - metrics["best_metric"]) <= GAME_H_AUC_TOL or not auc > 0.5:
             fail(f"game run H: scoring AUC {auc!r} is not the training driver's")
+        if then is not None:
+            then(tmp, shards, scorer)
     say(f"game run H ({smi}): K1 launches {k1.launches} (the driver's fixed effect is scatter)")
     return k1.launches
 
 
-def game_phase(seed, smi, k1):
-    """Phase 8: runs G and H; -> (K1's launches in each, K1 at run G's
-    shape, run G's GameDataset)."""
+def game_phase(seed, smi, k1, then=None):
+    """Phase 8: runs G and H (``then`` inside run H's directory); -> (K1's
+    launches in each, K1 at run G's shape, run G's GameDataset)."""
     t0 = time.perf_counter()
     launches_g, game_k1, ds = game_run_g(seed, smi, k1)
     say(f"game run G: {time.perf_counter() - t0!r} s of host time ({smi})")
     t0 = time.perf_counter()
-    launches_h = game_run_h(seed, smi, k1)
+    launches_h = game_run_h(seed, smi, k1, then=then)
     say(f"game run H: {time.perf_counter() - t0!r} s of host time ({smi})")
     return {"G": launches_g, "H": launches_h}, game_k1, ds
 
@@ -2152,10 +2210,13 @@ def reliability_phase(seed, smi, k1, k2, game_ds, run_a, device="cuda", device_a
 # -- phase 10: out-of-core training -------------------------------------------
 
 STREAM_PARTS = 8  # Avro part files of run S's training rows (and 1 of validation)
-# run S's --stream-memory-budget: 33,554,432 B // 532 B a row (65 slots of
-# 8 B + 12 B) = 63,072 rows a chunk, so the 2^18 rows are 5 chunks: 1 on
+# run S's rows: 2^16 training and 2^14 validation (2^18 and 2^16 took
+# 322 s for the phase, and the script passed the 1,200 s limit)
+STREAM_ROWS, STREAM_HELD_OUT = 1 << 16, 1 << 14
+# run S's --stream-memory-budget: 8,388,608 B // 532 B a row (65 slots of
+# 8 B + 12 B) = 15,768 rows a chunk, so the 2^16 rows are 5 chunks: 1 on
 # the device tier (the budget holds one), 4 spilled, all 5 tiled
-STREAM_BUDGET = 33554432
+STREAM_BUDGET = 8388608
 STREAM_TIERS = {"device": 1, "disk": 4, "tiled": 5, "overflow": 0}
 STREAM_TILED_KEEP = 2  # tiled chunks of the direct overflow objective
 STREAM_AUC_TOL = 1e-3  # streamed (4,096-bin) AUC vs the exact AUC
@@ -2325,7 +2386,7 @@ def stream_objective_checks(k1, train_dir, fmt, imap, stats, batch, smi, seed, d
     if obj.tier_counts != STREAM_TIERS:
         fail(f"stream objective: tiers {obj.tier_counts}, expected {STREAM_TIERS}")
     _, seconds = check("all tiled", obj, {"vg": 2 * n, "hv": 3 * n, "hd": 2 * n})
-    chunk = game_k1_times(k1, obj._tiled[0], rng, smi, label="stream chunk")
+    chunk = game_k1_times(k1, obj._tiled[0], rng, smi, label="stream chunk", library=True)
     chunk.update(rows=rows, evaluation_s=seconds)
     # the same tiers with a tiled cache that keeps STREAM_TILED_KEEP chunks
     # (the schedules are built again from the tiers; nothing is decoded)
@@ -2343,9 +2404,10 @@ def stream_objective_checks(k1, train_dir, fmt, imap, stats, batch, smi, seed, d
 
 # run T: the streamed GAME drivers at run H's widths, the user shard
 # IDENTITY over each user's pool indices (d = 1,001: an IDENTITY bank over
-# the 2^20-wide user shard of run H would be 4,096 x 2^20 floats, with an
+# the 2^20-wide user shard of run H would be 1,024 x 2^20 floats, with an
 # L-BFGS history beside it), 2^13 rows of 512 users each of training and
-# validation (run H's 2^16 of 4,096 cut: the script passed 900 s)
+# validation (cut from run H's 2^16 of 4,096 users when the script passed
+# 900 s)
 STREAM_T_USERS = 512
 STREAM_T_PARTS = 4
 # 2 MiB: 912 B a staged row (72 + 40 slots of 8 B, 12 B and a code) ->
@@ -2524,9 +2586,9 @@ def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
 
     with tempfile.TemporaryDirectory(prefix="photon_stream_phase_") as tmp:
         t0 = time.perf_counter()
-        jobs = [(seed, f"{tmp}/train/part-{p:05d}.avro", "train", p, N_ROWS // STREAM_PARTS)
+        jobs = [(seed, f"{tmp}/train/part-{p:05d}.avro", "train", p, STREAM_ROWS // STREAM_PARTS)
                 for p in range(STREAM_PARTS)]
-        jobs.append((seed, f"{tmp}/validate/part-00000.avro", "validate", 0, N_HELD_OUT))
+        jobs.append((seed, f"{tmp}/validate/part-00000.avro", "validate", 0, STREAM_HELD_OUT))
         for kind in ("train", "validate"):
             os.makedirs(f"{tmp}/{kind}")
         with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -2555,7 +2617,7 @@ def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
         t0 = time.perf_counter()
         loaded = fmt.load(train_dir, index_map=imap, device=device)
         batch = loaded.batch
-        say(f"stream load ({smi}): {N_ROWS} rows loaded in memory in "
+        say(f"stream load ({smi}): {STREAM_ROWS} rows loaded in memory in "
             f"{time.perf_counter() - t0!r} s")
         d_models, d_results = train_generalized_linear_model(
             batch, TaskType.LOGISTIC_REGRESSION, imap.size,
@@ -2646,6 +2708,494 @@ def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
             {"S": s["k2"], "S2": s2["k2"], "T": k2.launches}, chunk)
 
 
+# -- phase 11: online serving ---------------------------------------------------
+#
+# Run V: the JAX package's on-chip serving configuration (bench.py:1971-1976
+# _serving_config): a [2^20] fixed effect with 64 features a request and a
+# 600,000-user random effect of 1,000 features with 32 a request, both from
+# bank_from_arrays, ladder (1, 8, 64, 256), requests with raw entity ids;
+# 2,000 requests closed-loop and 20,000 open-loop at concurrency 32
+SERVE_FE_DIM, SERVE_FE_K = 1 << 20, 64
+SERVE_USERS, SERVE_RE_DIM, SERVE_RE_K = 600_000, 1000, 32
+SERVE_LADDER = (1, 8, 64, 256)
+SERVE_CLOSED, SERVE_OPEN, SERVE_CONCURRENCY = 2_000, 20_000, 32
+SERVE_PROFILED = 4_000  # a separate open loop under torch.profiler
+SERVE_SAMPLE = 4_096  # served scores held bitwise against the batch algebra
+SERVE_SWAP = 8_000  # the open loop a donated swap lands in the middle of
+# Run W: the serving driver over run H's files; the front end over a few
+# hundred of run H's validation rows on 4 connections
+SERVE_W_CONCURRENCY = 8
+# the open run's trace: run H's 16,384 validation rows 4 times. A swap
+# stages in ~3.4 s (the model load through the native decoder, an H100
+# host) while ~5,300 requests a second are served: the 32,768 after the
+# swap point at half take ~6 s, so generation 2 serves some
+SERVE_W_OPEN_REPEATS = 4
+SERVE_FRONTEND_REQUESTS, SERVE_FRONTEND_CONNECTIONS = 400, 4
+SERVE_FRONTEND_TIMEOUT_S = 300
+
+
+def serve_requests(rng, n):
+    """``n`` requests of run V's shape: random feature ids and values and a
+    raw user id each, as production traffic (the dispatch loop pays the
+    id -> row resolve)."""
+    from photon_ml_tpu_torch.serving import ScoreRequest
+
+    gi = rng.integers(0, SERVE_FE_DIM, size=(n, SERVE_FE_K)).astype(np.int32)
+    gv = rng.standard_normal((n, SERVE_FE_K), dtype=np.float32)
+    ui = rng.integers(0, SERVE_RE_DIM, size=(n, SERVE_RE_K)).astype(np.int32)
+    uv = rng.standard_normal((n, SERVE_RE_K), dtype=np.float32)
+    users = rng.integers(0, SERVE_USERS, size=n)
+    return [
+        ScoreRequest(
+            uid=str(i), indices={"g": gi[i], "u": ui[i]},
+            values={"g": gv[i], "u": uv[i]},
+            entity_ids={"userId": f"user{int(users[i])}"},
+        )
+        for i in range(n)
+    ]
+
+
+def serve_batch_algebra(bank, reqs):
+    """The port's batch scorer's algebra (``LoadedGameModel.score``: the
+    row functions of ``data.batch`` over one batch of n rows, coordinate
+    after coordinate, then the offsets) over ``reqs``; -> float32 [n] on
+    the host."""
+    from photon_ml_tpu_torch.data.batch import fe_row_scores, re_row_scores
+
+    dev = bank.device
+    col = lambda key, f: torch.as_tensor(np.stack([getattr(r, f)[key] for r in reqs]), device=dev)
+    codes = torch.as_tensor(
+        bank.entity_rows["userId"].rows_of([r.entity_ids["userId"] for r in reqs]), device=dev
+    )
+    offsets = torch.as_tensor(np.asarray([r.offset for r in reqs], np.float32), device=dev)
+    total = torch.zeros(len(reqs), device=dev)
+    total = total + fe_row_scores(bank.arrays["global"], col("g", "indices"), col("g", "values"))
+    total = total + re_row_scores(
+        bank.arrays["per-user"], codes, col("u", "indices"), col("u", "values"))
+    return (total + offsets).cpu().numpy()
+
+
+def serve_loop(batcher, reqs, concurrency, *, on_half=None):
+    """Closed-loop submitters over one shared iterator (one thread: the
+    closed loop); ``on_half`` runs once when half the requests completed.
+    -> (outcomes in request order, wall seconds)."""
+    import threading
+
+    out = [None] * len(reqs)
+    it = iter(range(len(reqs)))
+    lock = threading.Lock()
+    done = [0]
+    errors = []
+    fired = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = next(it, None)
+            if i is None:
+                return
+            try:
+                out[i] = batcher.score(reqs[i])
+            except BaseException as e:  # noqa: BLE001 - every request is accounted
+                errors.append(e)
+                return
+            with lock:
+                done[0] += 1
+                half = done[0] >= len(reqs) // 2
+            if on_half is not None and half and fired.acquire(blocking=False):
+                on_half()
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"serving loop: {len(errors)} request(s) failed: {errors[0]!r}")
+    return out, wall
+
+
+def serve_snapshot(label, snap, wall, smi, readbacks):
+    qps = snap["requests"] / wall
+    say(f"serving run V {label} ({smi}): {snap['requests']} requests in {wall!r} s, "
+        f"QPS {qps!r}; latency p50 {snap['latency_p50_ms']!r} ms, p99 "
+        f"{snap['latency_p99_ms']!r} ms, mean {snap['latency_mean_ms']!r} ms, max "
+        f"{snap['latency_max_ms']!r} ms; dispatches {snap['dispatches']}, readbacks {readbacks}, "
+        f"shape counts {snap['shape_counts']}, occupancy {snap['batch_occupancy_mean']!r}, "
+        f"pad waste {snap['pad_waste_frac']!r}, dispatch s mean {snap['device_s_mean']!r}, "
+        f"queue wait s mean {snap['queue_wait_s_mean']!r}")
+    if readbacks != snap["dispatches"]:
+        fail(f"serving run V {label}: {readbacks} readbacks for {snap['dispatches']} dispatches")
+    return dict(p50_ms=snap["latency_p50_ms"], p99_ms=snap["latency_p99_ms"],
+                mean_ms=snap["latency_mean_ms"], qps=qps, dispatches=snap["dispatches"],
+                shape_counts=snap["shape_counts"], occupancy=snap["batch_occupancy_mean"],
+                pad_waste=snap["pad_waste_frac"])
+
+
+def serve_host_costs(bank, programs, reqs, smi):
+    """The request path's host costs per dispatch, apart from the device:
+    the id -> row lookup (one ctypes call into the native store), the
+    padded numpy batch, and one dispatch end to end (pinned copies,
+    replay, readback); and each rung's replay on the card alone."""
+    from photon_ml_tpu_torch.parallel import overlap
+    from photon_ml_tpu_torch.serving import MicroBatcher
+    from photon_ml_tpu_torch.tools.device_timing import device_ms
+
+    index = bank.entity_rows["userId"]
+    batcher = MicroBatcher(lambda: bank, programs)
+    out = {}
+    try:
+        for B in SERVE_LADDER:
+            take = reqs[:B]
+            ids = [r.entity_ids["userId"] for r in take]
+            reps = 200
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                index.rows_of(ids)
+            lookup_us = (time.perf_counter() - t0) / reps * 1e6
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                batch, _ = batcher._assemble(take, bank, B)
+            assemble_us = (time.perf_counter() - t0) / reps * 1e6
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                overlap.device_get(programs.score(bank, batch))
+            dispatch_us = (time.perf_counter() - t0) / reps * 1e6
+            prog = programs.executable(bank.spec, B, arrays=bank.arrays)
+            replay_ms = device_ms(prog.graph.replay) if bank.device.type == "cuda" else None
+            out[B] = dict(lookup_us=lookup_us, assemble_us=assemble_us,
+                          dispatch_us=dispatch_us, replay_ms=replay_ms)
+            say(f"serving run V shape {B} ({smi}): id lookup {lookup_us!r} us, batch "
+                f"assembly {assemble_us!r} us, copies + replay + readback {dispatch_us!r} us "
+                f"a dispatch (host clock); the graph's replay {replay_ms!r} ms on the card")
+    finally:
+        batcher.close()
+    return out
+
+
+def serve_run_v(seed, smi, device="cuda"):
+    """Run V: the device bank at the JAX package's on-chip serving widths,
+    the CUDA-graph ladder, closed and open loops, a profiled open loop, the
+    bitwise check against the batch algebra, and a donated swap in the
+    middle of an open loop; -> its numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.parallel import overlap
+    from photon_ml_tpu_torch.serving import (
+        MicroBatcher,
+        ServingMetrics,
+        ServingModel,
+        ServingPrograms,
+        bank_from_arrays,
+    )
+
+    rng = np.random.default_rng([seed, 11])
+    ids = [f"user{i}" for i in range(SERVE_USERS)]
+
+    def generation_arrays():
+        w = rng.standard_normal(SERVE_FE_DIM, dtype=np.float32)
+        w *= 0.1
+        b = rng.standard_normal((SERVE_USERS, SERVE_RE_DIM), dtype=np.float32)
+        b *= 0.1
+        return w, b
+
+    def make_bank(w, b, device):
+        return bank_from_arrays(
+            fixed=[("global", "g", w)], random=[("per-user", "userId", "u", b, ids)],
+            shard_widths={"g": SERVE_FE_K, "u": SERVE_RE_K}, device=device,
+        )
+
+    w1, b1 = generation_arrays()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bank = make_bank(w1, b1, device)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    del w1, b1
+    spec = bank.spec
+    index = bank.entity_rows["userId"]
+    say(f"serving run V bank ({smi}): spec {spec}; {bank.device_bytes()} bytes on the card, "
+        f"staged in {stage_s!r} s; entity index {index.backend} over {index.num_entities} ids")
+    if index.backend != "native" or spec[1][4] != -(-SERVE_USERS // 256) * 256:
+        fail(f"serving run V: entity index {index.backend}, E_pad {spec[1][4]}")
+    programs = ServingPrograms(SERVE_LADDER)
+    t0 = time.perf_counter()
+    captured = programs.ensure_compiled(bank)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    say(f"serving run V warmup ({smi}): {captured} CUDA graphs captured in {warmup_s!r} s; "
+        f"programs {programs.stats()}")
+    if captured != len(SERVE_LADDER) or programs.stats()["compile_count"] != len(SERVE_LADDER):
+        fail(f"serving run V: {captured} captures for a ladder of {len(SERVE_LADDER)}")
+
+    result = dict(stage_s=stage_s, warmup_s=warmup_s, captures=captured,
+                  bank_bytes=bank.device_bytes())
+    # closed loop: one request in flight, every dispatch shape 1
+    reqs = serve_requests(rng, SERVE_CLOSED)
+    metrics = ServingMetrics()
+    overlap.reset_readback_stats()
+    with MicroBatcher(lambda: bank, programs, metrics) as batcher:
+        _, wall = serve_loop(batcher, reqs, 1)
+    result["closed"] = serve_snapshot("closed loop", metrics.snapshot(), wall, smi,
+                                      overlap.readback_stats())
+    if result["closed"]["shape_counts"] != {"1": SERVE_CLOSED}:
+        fail(f"serving run V closed loop: shapes {result['closed']['shape_counts']}")
+    # open loop: concurrent closed-loop submitters, continuous batching
+    reqs = serve_requests(rng, SERVE_OPEN)
+    metrics = ServingMetrics()
+    overlap.reset_readback_stats()
+    with MicroBatcher(lambda: bank, programs, metrics) as batcher:
+        outs, wall = serve_loop(batcher, reqs, SERVE_CONCURRENCY)
+    result["open"] = serve_snapshot("open loop", metrics.snapshot(), wall, smi,
+                                    overlap.readback_stats())
+    sample = reqs[:SERVE_SAMPLE]
+    served = np.asarray(outs[:SERVE_SAMPLE], np.float32)
+    algebra = serve_batch_algebra(bank, sample)
+    n_diff = int((served != algebra).sum())
+    say(f"serving run V bitwise: {SERVE_SAMPLE} served scores of the open loop against the "
+        f"batch algebra at n = {SERVE_SAMPLE}: {n_diff} differ; max abs diff "
+        f"{float(np.abs(served - algebra).max())!r}; finite {bool(np.isfinite(served).all())}")
+    if n_diff or not np.isfinite(served).all():
+        fail("serving run V: served scores differ from the batch algebra")
+    result["host_costs"] = serve_host_costs(bank, programs, reqs, smi)
+    # the open loop under the profiler: the card's busy time and idle share
+    reqs = serve_requests(rng, SERVE_PROFILED)
+    with MicroBatcher(lambda: bank, programs) as batcher:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = serve_loop(batcher, reqs, SERVE_CONCURRENCY)
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    result["profile"] = dict(requests=SERVE_PROFILED, host_s=wall, busy_s=busy,
+                             idle_share=1 - busy / wall)
+    say(f"serving run V profiled open loop ({smi}): {SERVE_PROFILED} requests in {wall!r} s "
+        f"host, {busy!r} s device busy, idle share {1 - busy / wall!r}; top: " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} x {e.key[:60]}"
+            for e in events[:5]))
+    if busy <= 0:
+        fail("serving run V: the profiler saw no device time")
+    # generation 2 from the seed, same spec: a donated swap mid open loop
+    w2, b2 = generation_arrays()
+    staged = make_bank(w2, b2, False)
+    sm = ServingModel(bank, programs)
+    reqs = serve_requests(rng, SERVE_SWAP)
+    ref1 = serve_batch_algebra(bank, reqs)
+    swap = {}
+
+    def flip():
+        t0 = time.perf_counter()
+        swap["result"] = sm.swap_to_bank(staged)
+        swap["s"] = time.perf_counter() - t0
+
+    metrics = ServingMetrics()
+    with MicroBatcher(sm.current, sm.programs, metrics) as batcher:
+        outs, wall = serve_loop(batcher, reqs, SERVE_CONCURRENCY, on_half=flip)
+    res = swap["result"]
+    ref2 = serve_batch_algebra(sm.current(), reqs)
+    gens = np.asarray([o.generation for o in outs])
+    got = np.asarray(outs, np.float32)
+    want = np.where(gens == 1, ref1, ref2)
+    moved = torch.equal(sm.current().arrays["per-user"][:SERVE_USERS],
+                        torch.as_tensor(b2, device=device)) and torch.equal(
+        sm.current().arrays["global"], torch.as_tensor(w2, device=device))
+    captures_after = programs.stats()["compile_count"] - len(SERVE_LADDER)
+    result["swap"] = dict(donated=res.donated, recompiled=res.recompiled_programs,
+                          flip_s=swap["s"], gen1=int((gens == 1).sum()), gen2=int((gens == 2).sum()),
+                          lost=len(reqs) - len(outs) + sum(o is None for o in outs))
+    say(f"serving run V donated swap ({smi}): {res}; flip {swap['s']!r} s under traffic; "
+        f"{result['swap']['gen1']} requests served by generation 1 and {result['swap']['gen2']} "
+        f"by generation 2, none lost; the bank bitwise generation 2's: {moved}; scores that "
+        f"differ from their generation's batch algebra: {int((got != want).sum())}; "
+        f"captures after warmup {captures_after}; dispatches {metrics.snapshot()['dispatches']}")
+    if not (res.ok and res.donated and res.recompiled_programs == 0 and moved):
+        fail(f"serving run V: the swap was not an in-place refresh without captures: {res}")
+    if result["swap"]["gen2"] == 0 or (got != want).any() or result["swap"]["lost"]:
+        fail("serving run V: scores after the flip are not generation 2's, or a request was lost")
+    if captures_after or programs.stats()["cold_dispatch_compiles"]:
+        fail(f"serving run V: {captures_after} captures after warmup")
+    result["captures_after_warmup"] = captures_after
+    result["peak_bytes"] = torch.cuda.max_memory_allocated()
+    say(f"serving run V device memory peak {result['peak_bytes']} bytes ({smi})")
+    del sm, staged, bank, programs
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_run_w(tmp, shards, scorer, smi, device_args=()):
+    """Run W, inside run H's directory: ``serving_driver.main`` closed over
+    the validation Avro (written scores and AUC against run H's
+    ``game_scoring_driver``), open at concurrency 8 with a hot swap to the
+    same model at half the trace, then the front end in a subprocess over
+    run H's validation rows on 4 connections and a SIGTERM drain."""
+    from photon_ml_tpu_torch.cli import serving_driver
+    from photon_ml_tpu_torch.io.avro_codec import read_avro_records
+
+    batch = {r["uid"]: r for r in read_avro_records(f"{tmp}/scores/scores")}
+    base = [
+        "--game-model-input-dir", f"{tmp}/out/best-model",
+        "--request-paths", f"{tmp}/validate",
+        "--feature-shard-id-to-feature-section-keys-map", shards,
+    ]
+    # the open run replays the validation rows SERVE_W_OPEN_REPEATS times
+    # and swaps at half, so the requests after the swap point outlast the
+    # swap's model load and staging and both generations serve
+    trace = ",".join([f"{tmp}/validate"] * SERVE_W_OPEN_REPEATS)
+    out = {}
+
+    def run(label, extra):
+        t0 = time.perf_counter()
+        driver = serving_driver.main(
+            base + ["--output-dir", f"{tmp}/serve-{label}", *extra, *device_args])
+        seconds = time.perf_counter() - t0
+        with open(f"{tmp}/serve-{label}/metrics.json") as f:
+            m = json.load(f)
+        served = {r["uid"]: r for r in read_avro_records(f"{tmp}/serve-{label}/scores")}
+        want = len(batch)
+        differ = [u for u in served if served[u] != batch.get(u)]
+        timers = " ".join(f"{k}={v!r}" for k, v in driver.timer.durations.items())
+        s = m["serving"]
+        say(f"serving run W {label} ({smi}): {seconds!r} s; stage timers s: {timers}; "
+            f"{s['requests']} requests, QPS {s['qps']!r}, p50 {s.get('latency_p50_ms')!r} ms, "
+            f"p99 {s.get('latency_p99_ms')!r} ms, dispatches {s['dispatches']}, readbacks "
+            f"{m['readbacks']}, shapes {s['shape_counts']}, programs {m['programs']}, swaps "
+            f"{m['swap_history']}; {len(served)} score records, {len(differ)} differ from run "
+            f"H's scoring driver; AUC {m.get('AUC')!r} against {scorer.metrics['AUC']!r}")
+        if differ or len(served) != want:
+            fail(f"serving run W {label}: written scores are not run H's ({len(differ)} differ)")
+        if m["readbacks"] != s["dispatches"] or m["programs"]["cold_dispatch_compiles"]:
+            fail(f"serving run W {label}: readbacks or captures off the contract")
+        if label == "closed" and m["AUC"] != scorer.metrics["AUC"]:
+            fail("serving run W closed: the AUC is not run H's")
+        if label == "open":
+            swaps = m["swap_history"]
+            if not (len(swaps) == 1 and swaps[0]["ok"] and swaps[0]["donated"]
+                    and swaps[0]["recompiled_programs"] == 0
+                    and set(s["generation_dispatches"]) == {"1", "2"}):
+                fail(f"serving run W open: the hot swap did not land: {swaps}")
+        out[label] = dict(seconds=seconds, qps=s["qps"], p50_ms=s.get("latency_p50_ms"),
+                          p99_ms=s.get("latency_p99_ms"), dispatches=s["dispatches"],
+                          timers=dict(driver.timer.durations))
+        return driver.serving_model.current().shard_widths
+
+    widths = run("closed", ["--mode", "closed", "--write-scores", "true",
+                            "--evaluator-types", "AUC"])
+    # the front end's process starts (loads the model, stages its bank)
+    # while the open run serves, for the script's time limit
+    out["frontend"] = serve_frontend(
+        tmp, shards, batch, widths, smi, device_args,
+        during=lambda: run("open", [
+            "--mode", "open", "--concurrency", str(SERVE_W_CONCURRENCY),
+            "--request-paths", trace, "--swap-model-dir", f"{tmp}/out/best-model",
+            "--swap-after-requests", str(SERVE_W_OPEN_REPEATS * len(batch) // 2)]),
+    )
+    return out
+
+
+def serve_frontend(tmp, shards, batch, widths, smi, device_args=(), during=None):
+    """``python -m photon_ml_tpu_torch.cli.serving_driver --frontend-port 0``
+    in a subprocess over prebuilt name-term lists of the rows it is sent
+    (``during()`` runs while it starts); 4 connections each send their
+    rows as JSON lines, then a status op; SIGTERM drains. Every request
+    must resolve to a named outcome, the ok scores bitwise run H's."""
+    import socket
+    import threading
+
+    from photon_ml_tpu_torch.io.avro_codec import read_avro_records
+    from photon_ml_tpu_torch.io.name_term_list import generate_name_and_term_lists
+
+    records = []
+    for r in read_avro_records(f"{tmp}/validate/part-00000.avro"):
+        records.append(r)
+        if len(records) == SERVE_FRONTEND_REQUESTS:
+            break
+    generate_name_and_term_lists(f"{tmp}/validate/part-00000.avro", ["features", "userFeatures"],
+                                 f"{tmp}/name-terms")
+    out_dir = f"{tmp}/serve-frontend"
+    cmd = [
+        sys.executable, "-m", "photon_ml_tpu_torch.cli.serving_driver",
+        "--game-model-input-dir", f"{tmp}/out/best-model", "--output-dir", out_dir,
+        "--feature-shard-id-to-feature-section-keys-map", shards,
+        "--feature-name-and-term-set-path", f"{tmp}/name-terms",
+        "--request-nnz-width", "|".join(f"{k}:{v}" for k, v in widths.items()),
+        "--frontend-port", "0", "--drain-timeout", "30", *device_args,
+    ]
+    t0, t0_wall = time.perf_counter(), time.time()
+    log_path = f"{tmp}/serve-frontend.log"
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=log_file, stderr=subprocess.STDOUT)
+
+    def log():
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    try:
+        if during is not None:
+            during()
+        while not os.path.isfile(f"{out_dir}/frontend.json"):
+            if proc.poll() is not None or time.perf_counter() - t0 > SERVE_FRONTEND_TIMEOUT_S:
+                fail(f"serving front end did not start: {log()}")
+            time.sleep(0.2)
+        start_s = os.path.getmtime(f"{out_dir}/frontend.json") - t0_wall
+        with open(f"{out_dir}/frontend.json") as f:
+            port = json.load(f)["port"]
+        responses, errors = [], []
+
+        def client(rows):
+            try:
+                with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+                    sock.sendall("".join(json.dumps(r) + "\n" for r in rows).encode())
+                    sock.sendall(b'{"op": "status"}\n')
+                    reader = sock.makefile("rb")
+                    got = [json.loads(reader.readline()) for _ in range(len(rows) + 1)]
+                responses.extend(got)
+            except (OSError, ValueError) as e:
+                errors.append(e)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(records[c::SERVE_FRONTEND_CONNECTIONS],))
+                   for c in range(SERVE_FRONTEND_CONNECTIONS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_FRONTEND_TIMEOUT_S)
+        serve_s = time.perf_counter() - t1
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=SERVE_FRONTEND_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    status = [r for r in responses if "uid" not in r]
+    scored = [r for r in responses if "uid" in r]
+    outcomes = {}
+    for r in scored:
+        outcomes[r["status"]] = outcomes.get(r["status"], 0) + 1
+    differ = [r["uid"] for r in scored if r["status"] == "ok"
+              and np.float32(r["score"]) != np.float32(batch[r["uid"]]["predictionScore"])]
+    with open(f"{out_dir}/metrics.json") as f:
+        m = json.load(f)
+    say(f"serving front end ({smi}): started in {start_s!r} s; {len(scored)} responses to "
+        f"{len(records)} requests on {SERVE_FRONTEND_CONNECTIONS} connections in {serve_s!r} s, "
+        f"outcomes {outcomes}, {len(differ)} scores differ from run H's; status "
+        f"ready={[s.get('ready') for s in status]} alive={[s.get('alive') for s in status]}; "
+        f"SIGTERM exit {proc.returncode}, drain {m.get('drain')}, interrupted "
+        f"{m.get('interrupted')}, leaked connections {m.get('leaked_connections')}, "
+        f"dispatches {m['serving']['dispatches']}, readbacks {m['readbacks']}")
+    if errors or len(scored) != len(records) or outcomes != {"ok": len(records)} or differ:
+        fail(f"serving front end: errors {errors[:1]}, outcomes {outcomes}, {len(differ)} "
+             f"scores differ; log: {log()}")
+    if proc.returncode != 0 or not m.get("interrupted") or m.get("leaked_connections"):
+        fail(f"serving front end: the SIGTERM drain failed: exit {proc.returncode}; {log()}")
+    if not all(s.get("ready") and s.get("alive") for s in status):
+        fail(f"serving front end: status ops {status}")
+    return dict(start_s=start_s, serve_s=serve_s, requests=len(records), outcomes=outcomes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2658,6 +3208,7 @@ def main() -> int:
 
     from photon_ml_tpu_torch.data.batch import sparse_batch_from_arrays
     from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.io import native_avro
     from photon_ml_tpu_torch.models.glm import compute_margins
     from photon_ml_tpu_torch.ops import losses
     from photon_ml_tpu_torch.ops import tiled_sparse as ts
@@ -2685,16 +3236,19 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     say(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    with ThreadPoolExecutor(3) as pool:  # two nvcc and one g++ side by side
+    with ThreadPoolExecutor(4) as pool:  # two nvcc and two g++ side by side
         f_k1 = pool.submit(k1.build_kernel)
         f_k2 = pool.submit(k2.build_kernel)
         f_native = pool.submit(ts._tile_lib)
+        f_avro = pool.submit(native_avro.available)
         k1_build_s = f_k1.result()
         k2_build_s = f_k2.result()
         native_ok = bool(f_native.result())
+        avro_ok = f_avro.result()
     say(f"build: bilinear_pass.cu {k1_build_s:.2f} s, grid_bilinear_pass.cu "
         f"{k2_build_s:.2f} s (in parallel); native schedule builder "
-        f"{'ok' if native_ok else 'unavailable (numpy builder)'}")
+        f"{'ok' if native_ok else 'unavailable (numpy builder)'}; native Avro decoder "
+        f"{'ok' if avro_ok else 'unavailable (Python codec)'}")
 
     rng = np.random.default_rng(args.seed)
 
@@ -3148,8 +3702,16 @@ def main() -> int:
     driver_launches, run_a = driver_phase(args.seed, smi, k1, k2)
     say(f"driver phase: {time.perf_counter() - t0!r} s of host time ({smi})")
     try:
-        # -- 8. GAME -------------------------------------------------------------
-        game_launches, game_k1, game_ds = game_phase(args.seed, smi, k1)
+        # -- 8. GAME, with phase 11's run W over run H's files ----------------------
+        serving = {}
+
+        def run_w(tmp, shards, scorer):
+            t0 = time.perf_counter()
+            serving["W"] = serve_run_w(tmp, shards, scorer, smi)
+            serving["W_s"] = time.perf_counter() - t0
+            say(f"phase 11 run W: {serving['W_s']!r} s of host time ({smi})")
+
+        game_launches, game_k1, game_ds = game_phase(args.seed, smi, k1, then=run_w)
 
         # -- 9. factored RE, MF, checkpoints and the kill -9 resume --------------
         t0 = time.perf_counter()
@@ -3165,7 +3727,14 @@ def main() -> int:
     phase10_k1, phase10_k2, stream_chunk = stream_phase(args.seed, smi, k1, k2)
     say(f"phase 10: {time.perf_counter() - t0!r} s of host time ({smi})")
 
-    # -- 11. result lines -------------------------------------------------------
+    # -- 11. online serving (run W ran inside run H's directory) -----------------
+    t0 = time.perf_counter()
+    serving["V"] = serve_run_v(args.seed, smi)
+    say(f"phase 11 run V: {time.perf_counter() - t0!r} s of host time ({smi}); phase 11 "
+        f"in all {time.perf_counter() - t0 + serving['W_s']!r} s")
+    say("serving: " + json.dumps(serving))
+
+    # -- 12. result lines -------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",

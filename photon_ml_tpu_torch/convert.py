@@ -221,3 +221,58 @@ def game_model_from_reference(
             row_type, col_type, _tensor(rows, dev), _tensor(cols, dev)
         )
     return GameModel(models, task)
+
+
+def serving_bank_from_reference(
+    spec: tuple,
+    arrays: Mapping[str, object],
+    entity_ids: Mapping[str, Sequence[str]],
+    shard_widths: Mapping[str, int],
+    *,
+    index_maps: Optional[Mapping[str, object]] = None,
+    generation: int = 1,
+    model_id: str = "",
+    native_index_threshold: Optional[int] = None,
+    device: DeviceLike = None,
+):
+    """A JAX ``serving.ModelBank`` carried across as numpy -> the port's
+    ``ModelBank``, row for row: ``spec`` is the reference's program
+    signature (kept as it is), ``arrays`` {coordinate: [d] or [E_pad, d]
+    array, or an MF's (rows [E_pad, K], cols [E_pad, K])}, ``entity_ids``
+    {id type: the reference row index's ids, in bank row order}.
+    ``index_maps`` (the port's, for ``request_from_record``) are
+    optional: a replayed trace needs none."""
+    from photon_ml_tpu_torch.serving.model_bank import (
+        EntityRowIndex,
+        ModelBank,
+        place_on_device,
+    )
+
+    dev = resolve_device(device)
+    host = {}
+    for entry in spec:
+        a = arrays[entry[1]]
+        if entry[0] == "mf":
+            shapes = ((entry[4], entry[6]), (entry[5], entry[6]))
+            host[entry[1]] = tuple(np.require(x, np.float32, ["C", "W"]) for x in a)
+        else:
+            shapes = ((entry[3],),) if entry[0] == "fe" else ((entry[4], entry[5]),)
+            host[entry[1]] = np.require(a, np.float32, ["C", "W"])
+        got = tuple(
+            np.shape(x) for x in (host[entry[1]] if entry[0] == "mf" else (host[entry[1]],))
+        )
+        if got != shapes:
+            raise ValueError(f"{entry[1]}: arrays {got} do not match the spec's {shapes}")
+    return ModelBank(
+        generation=generation,
+        spec=tuple(spec),
+        arrays=place_on_device(host, dev),
+        entity_rows={
+            t: EntityRowIndex(ids, native_threshold=native_index_threshold)
+            for t, ids in entity_ids.items()
+        },
+        index_maps=dict(index_maps or {}),
+        shard_widths={k: int(v) for k, v in shard_widths.items()},
+        model_id=model_id,
+        device=dev,
+    )

@@ -127,6 +127,49 @@ def sparse_dot(batch: SparseBatch, w_eff: Tensor) -> Tensor:
     return (batch.values * gathered.unflatten(-1, batch.indices.shape)).sum(dim=-1)
 
 
+def row_sum(x: Tensor) -> Tensor:
+    """Per-row sum over the last axis by an explicit pairwise tree: the
+    row is zero-padded to a power of two and halved by elementwise adds.
+    The order of the adds depends on the row's length only — not on the
+    number of rows, nor on how a device's reduction kernel lays out its
+    threads for that shape — so a row sums to the same bits in a batch of
+    1 or of 65,536, on the CPU or the card (``.sum(dim=-1)`` on the card
+    does not: its thread layout follows the batch's shape)."""
+    k = x.shape[-1]
+    width = 1 << max(k - 1, 0).bit_length()
+    if width != k:
+        x = torch.nn.functional.pad(x, (0, width - k))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def fe_row_scores(w: Tensor, indices: Tensor, values: Tensor) -> Tensor:
+    """A fixed effect's row scores ``sum_j values[i, j] * w[indices[i, j]]``
+    in :func:`row_sum`'s order: the GAME batch scorer's and the serving
+    programs' one function."""
+    gathered = w.index_select(-1, indices.reshape(-1)).unflatten(-1, indices.shape)
+    return row_sum(values * gathered)
+
+
+def re_row_scores(bank: Tensor, codes: Tensor, indices: Tensor, values: Tensor) -> Tensor:
+    """A random effect's row scores from its ``[E, d]`` bank: the ``[n,
+    k]`` gather ``bank[codes, indices]``, 0 where the entity code is -1."""
+    codes = codes.long()
+    score = row_sum(values * bank[codes.clamp_min(0)[:, None], indices.long()])
+    return torch.where(codes >= 0, score, 0.0)
+
+
+def mf_row_scores(row_latent: Tensor, col_latent: Tensor, rows: Tensor, cols: Tensor) -> Tensor:
+    """A matrix factorization's row scores, the latent dot product, 0
+    where either entity code is -1."""
+    rows, cols = rows.long(), cols.long()
+    r = row_latent[rows.clamp_min(0)]
+    c = col_latent[cols.clamp_min(0)]
+    return torch.where((rows >= 0) & (cols >= 0), row_sum(r * c), 0.0)
+
+
 def sparse_scatter_add(batch: SparseBatch, row_coef: Tensor, dim: int) -> Tensor:
     """sum_i row_coef[i] * x_i as a dense [dim] vector, or [G, dim] for a
     bank of row coefficients [G, n] (the reference's per-datum axpy,

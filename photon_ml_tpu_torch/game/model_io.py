@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.game.coordinate import FactoredRandomEffectModel
+from photon_ml_tpu_torch.data.batch import fe_row_scores, mf_row_scores, re_row_scores
 from photon_ml_tpu_torch.game.data import GameDataset
 from photon_ml_tpu_torch.game.model import (
     FixedEffectModel,
@@ -40,9 +41,7 @@ from photon_ml_tpu_torch.game.model import (
 )
 from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.io.avro_codec import read_avro_records, write_container
-from photon_ml_tpu_torch.io.model_io import model_to_bayesian_avro
-from photon_ml_tpu_torch.models.coefficients import Coefficients
-from photon_ml_tpu_torch.models.glm import create_model
+from photon_ml_tpu_torch.io.model_io import model_to_bayesian_avro, read_model_records
 from photon_ml_tpu_torch.reliability.artifacts import atomic_writer
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.utils.index_map import split_feature_key
@@ -295,7 +294,9 @@ class LoadedGameModel:
         )
 
     def score(self, dataset: GameDataset, task: TaskType) -> torch.Tensor:
-        """Row-aligned raw scores [n] on the dataset's device."""
+        """Row-aligned raw scores [n] on the dataset's device. Each row's
+        terms sum in ``data.batch.row_sum``'s fixed order, the serving
+        programs' too, so a served row is bitwise its batch score."""
         dev = dataset.device
         total = torch.zeros(dataset.num_rows, device=dev)
         fe_cache = self.__dict__.setdefault("_fe_weight_cache", {})
@@ -314,8 +315,8 @@ class LoadedGameModel:
                         w[i] = v
                 hit = (imap, torch.as_tensor(w, device=dev))
                 fe_cache[name] = hit
-            glm = create_model(task, Coefficients(hit[1]))
-            total = total + glm.score(dataset.batch_for_shard(shard_id))
+            batch = dataset.batch_for_shard(shard_id)
+            total = total + fe_row_scores(hit[1], batch.indices, batch.values)
         re_cache = self.__dict__.setdefault("_re_bank_cache", {})
         for name, (re_type, shard_id, per_entity) in self.random_effects.items():
             imap = dataset.shards[shard_id].index_map
@@ -339,13 +340,10 @@ class LoadedGameModel:
                 hit = (eindex, imap, torch.as_tensor(bank, device=dev))
                 re_cache[name] = hit
             bank = hit[2]
-            codes = torch.as_tensor(dataset.entity_codes[re_type], device=dev).long()
+            codes = torch.as_tensor(dataset.entity_codes[re_type], device=dev)
             batch = dataset.batch_for_shard(shard_id)
             # bank[codes[:, None], indices]: the [n, k] gather, not [n, D] rows
-            score = (
-                batch.values * bank[codes.clamp_min(0)[:, None], batch.indices.long()]
-            ).sum(dim=-1)
-            total = total + torch.where(codes >= 0, score, 0.0)
+            total = total + re_row_scores(bank, codes, batch.indices, batch.values)
         mf_cache = self.__dict__.setdefault("_mf_latent_cache", {})
         for name, (row_t, col_t, rows, cols) in self.matrix_factorizations.items():
             r_index = dataset.entity_indexes[row_t]
@@ -368,8 +366,11 @@ class LoadedGameModel:
                     torch.as_tensor(C, device=dev),
                 )
                 mf_cache[name] = hit
-            mf = MatrixFactorizationModel(row_t, col_t, hit[2], hit[3])
-            total = total + mf.score(dataset)
+            total = total + mf_row_scores(
+                hit[2], hit[3],
+                torch.as_tensor(dataset.entity_codes[row_t], device=dev),
+                torch.as_tensor(dataset.entity_codes[col_t], device=dev),
+            )
         return total
 
 
@@ -381,12 +382,9 @@ def load_game_model(model_dir: str) -> LoadedGameModel:
             base = os.path.join(fe_dir, name)
             with open(os.path.join(base, ID_INFO)) as f:
                 shard_id = f.read().split()[0]
-            recs = list(read_avro_records(os.path.join(base, COEFFICIENTS)))
-            means = {
-                f"{m['name']}\t{m['term']}": m["value"]
-                for m in recs[0]["means"]
-            }
-            out.fixed_effects[name] = (shard_id, means)
+            recs = list(read_model_records(os.path.join(base, COEFFICIENTS)))
+            keys, values = recs[0][2]
+            out.fixed_effects[name] = (shard_id, dict(zip(keys, values.tolist())))
     re_dir = os.path.join(model_dir, RANDOM_EFFECT)
     if os.path.isdir(re_dir):
         for name in sorted(os.listdir(re_dir)):
@@ -400,18 +398,13 @@ def load_game_model(model_dir: str) -> LoadedGameModel:
             # empty per-entity map (every entity scores 0 through this
             # coordinate) — the reference's own GameIntegTest/gameModel
             # fixture ships exactly this shape (id-info only).
-            recs = read_avro_records(coef_dir) if os.path.isdir(coef_dir) else ()
+            recs = read_model_records(coef_dir) if os.path.isdir(coef_dir) else ()
             per_entity_vars: Dict[str, Dict[str, float]] = {}
-            for rec in recs:
-                per_entity[rec["modelId"]] = {
-                    f"{m['name']}\t{m['term']}": m["value"]
-                    for m in rec["means"]
-                }
-                if rec.get("variances"):
-                    per_entity_vars[rec["modelId"]] = {
-                        f"{m['name']}\t{m['term']}": m["value"]
-                        for m in rec["variances"]
-                    }
+            for model_id, _, (keys, values), variances in recs:
+                per_entity[model_id] = dict(zip(keys, values.tolist()))
+                if variances is not None:
+                    keys, values = variances
+                    per_entity_vars[model_id] = dict(zip(keys, values.tolist()))
             out.random_effects[name] = (re_type, shard_id, per_entity)
             if per_entity_vars:
                 out.random_effect_variances[name] = per_entity_vars

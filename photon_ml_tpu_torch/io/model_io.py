@@ -13,18 +13,20 @@ from __future__ import annotations
 
 import itertools
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.io import schemas
+from photon_ml_tpu_torch.io import native_avro, schemas
 from photon_ml_tpu_torch.io.avro_codec import (
     EncodedArray,
     encode_long,
     read_container,
+    read_container_schema,
     write_container,
 )
+from photon_ml_tpu_torch.io.paths import expand_input_paths
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel, create_model
 from photon_ml_tpu_torch.reliability.artifacts import atomic_writer
@@ -124,6 +126,105 @@ def model_to_bayesian_avro(
     }
 
 
+# A coefficient list as read: (feature keys, name TAB term; float64 values)
+Coefficients64 = Tuple[List[str], np.ndarray]
+
+
+def _coefficient_pairs(ntvs) -> Optional[Coefficients64]:
+    """A decoded NameTermValue list as (keys, values); None if null or
+    empty."""
+    if not ntvs:
+        return None
+    return ([feature_key(m["name"], m["term"]) for m in ntvs],
+            np.asarray([m["value"] for m in ntvs], np.float64))
+
+
+def _decoded_models(path: str):
+    """One BayesianLinearModelAvro container through the native column
+    decoder (``native_avro``), or None where the decoder does not build or
+    the file's schema is not of that shape."""
+    if not native_avro.available():
+        return None
+    try:
+        schema = read_container_schema(path)
+        names = [f["name"] for f in schema.get("fields", [])]
+        if "modelId" not in names or "means" not in names:
+            return None
+        plan = native_avro.Plan(schema).compile(
+            string_fields=[f for f in ("modelId", "modelClass") if f in names],
+            bag_fields=[f for f in ("means", "variances") if f in names],
+        )
+        return native_avro.decode_columns(path, plan)
+    except (native_avro.PlanError, ValueError, OSError):
+        return None
+
+
+def read_model_records(
+    paths: Union[str, Sequence[str]],
+) -> Iterator[Tuple[str, Optional[str], Coefficients64, Optional[Coefficients64]]]:
+    """(modelId, modelClass, means, variances) of every
+    BayesianLinearModelAvro record in ``paths`` (files, or directories of
+    ``*.avro`` as ``read_avro_records`` expands them). A coefficient list
+    is (feature keys, float64 values) in file order; variances are
+    None where null or empty. A file goes through the native column
+    decoder where it builds, else through the Python codec; both give the
+    same keys and the same doubles."""
+    for path in expand_input_paths(paths, lambda fn: fn.endswith(".avro")):
+        cols = _decoded_models(path)
+        if cols is None:
+            _, records = read_container(path)
+            for r in records:
+                yield (r["modelId"], r.get("modelClass"),
+                       _coefficient_pairs(r["means"]) or ([], np.zeros(0)),
+                       _coefficient_pairs(r.get("variances")))
+            continue
+        strings = np.asarray(cols.strings + [None], dtype=object)  # id -1: null
+        ids = cols.str_ids("modelId")
+        classes = (cols.str_ids("modelClass") if "modelClass" in cols.plan.str_slots
+                   else np.full(cols.num_records, -1, np.int32))
+        bags = {field: cols.bag(field) for field in cols.plan.bag_slots}
+        n = cols.num_records
+        cols.close()
+
+        def pair(field, i):
+            if field not in bags:
+                return None
+            row_ptr, key_ids, values = bags[field]
+            a, b = int(row_ptr[i]), int(row_ptr[i + 1])
+            return (strings[key_ids[a:b]].tolist(), values[a:b]) if b > a else None
+
+        for i in range(n):
+            yield (strings[ids[i]], strings[classes[i]],
+                   pair("means", i) or ([], np.zeros(0)), pair("variances", i))
+
+
+def _dense(coefficients: Coefficients64, index_map, d: int, dev) -> torch.Tensor:
+    """A ``[d]`` float32 vector of the coefficients at their indices in
+    ``index_map``; keys it lacks or past ``d`` are dropped, and a repeated
+    key keeps its last value (a file-order loop's result)."""
+    keys, values = coefficients
+    out = np.zeros((d,), np.float32)
+    if keys:
+        many = getattr(index_map, "get_indices", None)
+        idx = (np.asarray(many(keys), np.int64) if many is not None
+               else np.asarray([index_map.get_index(k) for k in keys], np.int64))
+        keep = (idx >= 0) & (idx < d)
+        idx, values = idx[keep][::-1], values[keep][::-1]
+        idx, first = np.unique(idx, return_index=True)
+        out[idx] = values[first]
+    return torch.as_tensor(out, device=dev)
+
+
+def _model_of(model_class, means, variances, index_map, task, dim, device):
+    d = dim if dim is not None else index_map.size
+    dev = resolve_device(device)
+    if task is None:
+        task = _TASK_BY_MODEL_CLASS.get(model_class, TaskType.LINEAR_REGRESSION)
+    variances = None if variances is None else _dense(variances, index_map, d, dev)
+    return create_model(
+        task, Coefficients(_dense(means, index_map, d, dev), variances))
+
+
 def bayesian_avro_to_model(
     record: dict,
     index_map,
@@ -134,22 +235,11 @@ def bayesian_avro_to_model(
 ) -> Tuple[str, GeneralizedLinearModel]:
     """-> (modelId, model on ``device``). Unknown feature keys are dropped
     (the reference's behavior when loading with a narrower index map)."""
-    d = dim if dim is not None else index_map.size
-    dev = resolve_device(device)
-
-    def dense(ntvs) -> torch.Tensor:
-        out = np.zeros((d,), np.float32)
-        for ntv in ntvs:
-            i = index_map.get_index(feature_key(ntv["name"], ntv["term"]))
-            if 0 <= i < d:
-                out[i] = ntv["value"]
-        return torch.as_tensor(out, device=dev)
-
-    means = dense(record["means"])
-    variances = dense(record["variances"]) if record.get("variances") else None
-    if task is None:
-        task = _TASK_BY_MODEL_CLASS.get(record.get("modelClass"), TaskType.LINEAR_REGRESSION)
-    return record["modelId"], create_model(task, Coefficients(means, variances))
+    means = _coefficient_pairs(record["means"]) or ([], np.zeros(0))
+    model = _model_of(record.get("modelClass"), means,
+                      _coefficient_pairs(record.get("variances")), index_map, task,
+                      dim, device)
+    return record["modelId"], model
 
 
 def save_glm_models_avro(
@@ -172,9 +262,7 @@ def load_glm_models_avro(
 ) -> Dict[str, GeneralizedLinearModel]:
     """{modelId: model} from a BayesianLinearModelAvro container, the
     coefficients on ``device`` (default: the CUDA card)."""
-    _, it = read_container(path)
-    out = {}
-    for record in it:
-        model_id, model = bayesian_avro_to_model(record, index_map, task=task, device=device)
-        out[model_id] = model
-    return out
+    return {
+        model_id: _model_of(model_class, means, variances, index_map, task, None, device)
+        for model_id, model_class, means, variances in read_model_records(path)
+    }

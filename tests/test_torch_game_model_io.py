@@ -144,3 +144,28 @@ def test_a_mismatched_projection_is_refused():
                           None, red.projection + 1, list(range(red.num_entities)))},
             {"per-user": red}, device="cpu",
         )
+
+
+def test_native_and_python_readers_load_the_same_model(tmp_path, monkeypatch):
+    """``load_game_model`` over the native column decoder and over the
+    Python codec: the same coefficient and variance maps, key for key and
+    bit for bit (3 random-effect part files)."""
+    from photon_ml_tpu_torch.io import native_avro
+
+    if not native_avro.available():
+        pytest.skip("the native Avro decoder does not build here (g++, zlib)")
+    _, port_ds, _, port_model = _reference_model(True)
+    save_game_model(port_model, port_ds, str(tmp_path / "m"), num_re_output_files=3)
+    from photon_ml_tpu_torch.io.model_io import _decoded_models
+
+    for coordinate in ("fixed-effect/global", "random-effect/per-user"):
+        base = tmp_path / "m" / coordinate / "coefficients"
+        files = sorted(base.glob("*.avro"))
+        assert files and all(_decoded_models(str(f)) is not None for f in files)
+    native = load_game_model(str(tmp_path / "m"))
+    monkeypatch.setattr(native_avro, "available", lambda: False)
+    python = load_game_model(str(tmp_path / "m"))
+    assert native.fixed_effects == python.fixed_effects
+    assert native.random_effects == python.random_effects
+    assert native.random_effect_variances == python.random_effect_variances
+    assert native.random_effect_variances["per-user"]

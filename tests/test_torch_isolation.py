@@ -71,6 +71,10 @@ def test_fresh_interpreter_imports_no_jax():
         "utils.preemption", "parallel.overlap",
         "io.streaming", "optim.host_lbfgs", "optim.host_tron", "evaluation.streaming",
         "registry", "registry.stats_cache", "game.streaming",
+        "ownership", "obs", "obs.trace", "obs.flight_recorder",
+        "serving", "serving.admission", "serving.metrics", "serving.model_bank",
+        "serving.programs", "serving.batcher", "serving.swap", "serving.wire",
+        "serving.frontend", "cli.serving_driver",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]

@@ -113,3 +113,74 @@ def test_narrower_index_map_drops_unknown_keys(tmp_path):
     for lam in want:
         assert got[lam].task == TaskType.LINEAR_REGRESSION
         np.testing.assert_array_equal(got[lam].means.numpy(), np.asarray(want[lam].means))
+
+
+def _python_codec_only(monkeypatch):
+    """Make the model readers take the Python codec for every file."""
+    from photon_ml_tpu_torch.io import native_avro
+
+    monkeypatch.setattr(native_avro, "available", lambda: False)
+
+
+def test_native_reader_matches_the_python_codec(tmp_path, monkeypatch):
+    """``read_model_records`` through the native column decoder and through
+    the Python codec give the same ids, classes, keys and doubles, and
+    ``load_glm_models_avro`` the same models bitwise: a null or empty
+    variance list reads as None, an unknown key is dropped and a repeated
+    key keeps its last value."""
+    from photon_ml_tpu_torch.io import native_avro, schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    if not native_avro.available():
+        pytest.skip("the native Avro decoder does not build here (g++, zlib)")
+    rng = np.random.default_rng(4)
+
+    def ntvs(names):
+        return [{"name": n, "term": t, "value": float(v)}
+                for (n, t), v in zip(names, rng.normal(size=len(names)))]
+
+    known = [(f"f{i}", "t" if i % 3 else "") for i in range(D - 1)]
+    records = [
+        {"modelId": "10.0", "modelClass": model_io._MODEL_CLASS_BY_TASK[
+            TaskType.LOGISTIC_REGRESSION], "means": ntvs(known),
+         "variances": ntvs(known), "lossFunction": None},
+        {"modelId": "1.0", "modelClass": None,
+         "means": ntvs(known[:5] + [("unknown", "x"), known[2]] + known[5:]),
+         "variances": None, "lossFunction": None},
+        {"modelId": "0.1", "modelClass": model_io._MODEL_CLASS_BY_TASK[
+            TaskType.POISSON_REGRESSION], "means": [], "variances": [],
+         "lossFunction": None},
+    ]
+    path = str(tmp_path / "m.avro")
+    write_container(path, schemas.BAYESIAN_LINEAR_MODEL_AVRO, records)
+    index_map, _ = index_maps("vocabulary")
+
+    assert model_io._decoded_models(path) is not None  # the native decoder reads it
+    native = list(model_io.read_model_records(path))
+    models = model_io.load_glm_models_avro(path, index_map, device="cpu")
+    _python_codec_only(monkeypatch)
+    python = list(model_io.read_model_records(path))
+    want = model_io.load_glm_models_avro(path, index_map, device="cpu")
+
+    assert [r[:2] for r in native] == [r[:2] for r in python] == [
+        ("10.0", records[0]["modelClass"]), ("1.0", None), ("0.1", records[2]["modelClass"])]
+    for a, b in zip(native, python):
+        for x, y in zip(a[2:], b[2:]):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert x[0] == y[0]
+                assert x[1].dtype == y[1].dtype == np.float64
+                np.testing.assert_array_equal(x[1].view(np.int64), y[1].view(np.int64))
+    assert native[1][3] is None and native[2][3] is None and native[2][2][0] == []
+    assert sorted(models) == sorted(want) == ["0.1", "1.0", "10.0"]
+    for lam, m in models.items():
+        assert m.task == want[lam].task
+        assert torch.equal(m.means.view(torch.int32), want[lam].means.view(torch.int32))
+        v, w = m.coefficients.variances, want[lam].coefficients.variances
+        assert (v is None) == (w is None)
+        if v is not None:
+            assert torch.equal(v.view(torch.int32), w.view(torch.int32))
+    # the repeated key holds its last value, the unknown key is dropped
+    last = records[1]["means"][6]
+    i = index_map.get_index(feature_key(last["name"], last["term"]))
+    assert float(models["1.0"].means[i]) == np.float32(last["value"])
