@@ -59,7 +59,7 @@ Phases, each printing its own lines:
    this checks the path and counts it; it measures no scaling;
 7. the GLM driver end to end through its CLI entry point,
    ``photon_ml_tpu_torch.cli.glm_driver.main(argv)``, over LibSVM files
-   the script writes (2^15 training rows in 4 files and 2^15 validation
+   the script writes (2^14 training rows in 4 files and 2^14 validation
    rows at the ads width, planted-model labels from the seed), with the
    intercept: run A, the warm-started sequential L-BFGS grid [10, 1] with
    variances (K1) and a cold ``--tile-cache-dir``; run B, the same with
@@ -85,7 +85,10 @@ Phases, each printing its own lines:
    bootstrap and fitting refits through K1, and the objective within 1e-4
    of run A's. Then run C, run A with ``--intercept false`` and no
    validation, whose lambda = 1 model must be within 1e-4 of the direct
-   trainer's on that batch without its intercept column;
+   trainer's on that batch without its intercept column, with
+   ``--obs-dir`` (trace, flight and snapshot files, a span per lambda
+   solve) and ``--profile-dir`` (a ``torch.profiler`` trace listing each
+   of K1's launches by the kernel's name);
 8. GAME (``photon_ml_tpu_torch.game``): run G, the JAX package's config-4
    GLMix through the coordinate API on rows both coordinates share (100,000
    users x 16 rows; a global shard of 2^20 features, 64 a row and the
@@ -103,7 +106,8 @@ Phases, each printing its own lines:
    device memory peak, the tiled objective against the scatter objective
    at each sweep's fixed-effect coefficients (value 1e-5, gradient 1e-4),
    K1 against its plain version at that shape (each output within 1e-5
-   of its addends' magnitude) and its pass times, a profiled warm sweep
+   of its addends' magnitude) and its pass times beside its plain
+   version's and one torch.sparse CSR matvec's, a profiled warm sweep
    (device busy and idle share), and the same two sweeps with the fixed
    effect on the scatter objective (non-increasing; its CD objectives
    beside the tiled run's are printed, not held: identical runs part by
@@ -177,16 +181,41 @@ Phases, each printing its own lines:
    4,096, and a generation 2 from the seed swapped in place in the middle
    of an open loop (no capture, none lost, each score bitwise its
    generation's); run W, inside run H's directory (phase 8):
-   ``serving_driver.main`` closed over run H's validation Avro (written
-   scores bitwise run H's ``game_scoring_driver`` scores, the AUC equal)
-   and open at concurrency 8 over those rows 4 times with a hot swap at
-   half the trace (both generations serve), then the
+   ``serving_driver.main`` closed over run H's first validation part
+   (4,096 rows; written scores bitwise run H's ``game_scoring_driver``
+   scores, the AUC equal to the evaluator's over those scores) and open
+   at concurrency 8 over all the validation rows twice with a hot swap
+   after the first half of them (both generations serve), then the
    driver's front end (``--frontend-port 0``) in a subprocess: 400 of
    the rows on 4 connections, status ops, a SIGTERM drain (every request
    a named outcome, the scores bitwise, exit 0, no leaked connection);
-12. a ``kernels`` JSON line (with each kernel's launches in the driver
+12. the serving fleet (``serving/routing.py``, ``serving/shard_server.py``,
+   ``obs/``): run Y, the serving driver's fleet modes over run H's files
+   (kept from phase 8): two ``--shard-index`` driver processes on the card
+   (shard 0 with ``--obs-dir`` and ``--profile-dir``) and a router driver
+   process (``--wire binary --fleet-obs-dir --slo default
+   --swap-model-dir``) replaying run H's first validation part (4,096
+   rows) closed-loop: routed scores bitwise run W's single server, the
+   AUC equal, the two-step flip landed, the fleet trace verified and the
+   fleet books balanced, CUDA kernels in shard 0's profile, no CUDA
+   context in the router; then run X, the JAX package's
+   chip-class routing shapes (bench.py:2328-2340: 200,000 users x 256, a
+   2^18 fixed effect, 32 and 16 features a request, the shard ladder (1,
+   8, 64)): fleets of 1, 2 and 4 shard-server children of this script
+   (7 processes on the one card, each 1/N of the random-effect bank from
+   the seed), each flooded open-loop with 8,000 zipf(1.3) requests (4
+   payloads an entity) from 32 threads, then at N = 4 the fleet-wide
+   two-step swap under load and 2,000 cache-missing requests with child 3
+   SIGKILLed a quarter in: every routed score bitwise an in-process single
+   server's over the whole bank of its generation, degraded rows bitwise
+   their FE-only score plus the offset, outcomes conserved, no capture
+   after warmup in any child; aggregate QPS, router latency and fan-out
+   p50 / p99, cache hit rate and the router's host CPU a request per N,
+   and routed N = 1 against the single in-process server;
+13. a ``kernels`` JSON line (with each kernel's launches in the driver
    runs, K1's in run D's diagnose stage, in the GAME runs, in runs F and
-   R and in phase 10's runs), the nvidia-smi line, and the last line
+   R and in phase 10's runs; K1's at the GAME shape with its plain and
+   library times), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -222,10 +251,11 @@ MESH_TIMEOUT_S = 600.0
 # the driver phase's training and validation rows: the ads shape's 2^18
 # rows took 250 s of host time for runs A and B together on an H100 host
 # (preprocess 53-57 s a run), which cut them to 2^16; the script then
-# passed the 1,200 s limit with phase 11, which cut them to 2^15. The
-# width stays
-DRIVER_TRAIN_ROWS = 1 << 15
-DRIVER_HELD_OUT = 1 << 15
+# passed the 1,200 s limit with phase 11, which cut them to 2^15, and
+# phase 12 (the script at 1,025 s on a slow H100 host) to 2^14. The width
+# stays
+DRIVER_TRAIN_ROWS = 1 << 14
+DRIVER_HELD_OUT = 1 << 14
 DRIVER_PARTS = 4  # LibSVM part files of the training rows
 DRIVER_RTOL = 1e-4  # run C's model vs the direct trainer, of the max-abs
 # runs A and B (with the intercept) vs the direct fit: the objective at
@@ -842,6 +872,34 @@ def driver_run(label, argv, out, k1, k2, smi, outputs=DRIVER_OUTPUTS, keep_drive
     return run
 
 
+def driver_obs_check(obs_dir, prof_dir, k1_launches, smi):
+    """Run C's ``--obs-dir`` and ``--profile-dir``: the trace, flight and
+    snapshot files with a span per lambda solve, and a profiler trace
+    that lists K1's launches by the kernel's name. The session's tracing
+    and flight recorder are process-wide: reset after the check."""
+    from photon_ml_tpu_torch import obs
+
+    files = sorted(os.listdir(obs_dir))
+    with open(f"{obs_dir}/trace.json") as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    solves = sum(e["name"] == "glm.lambda_solve" for e in spans)
+    prof = [n for n in os.listdir(prof_dir) if n.endswith(".pt.trace.json")]
+    with open(f"{prof_dir}/{prof[0]}") as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    named = sum("bilinear_pass_kernel" in k and "grid_bilinear" not in k for k in kernels)
+    say(f"driver run C --obs-dir ({smi}): {files}, {len(spans)} spans, {solves} "
+        f"glm.lambda_solve; --profile-dir: {len(kernels)} CUDA kernel events, {named} named "
+        f"bilinear_pass_kernel against {k1_launches} K1 launches counted by its wrapper")
+    if files != ["flight.json", "metrics_snapshot.json", "trace.json"] or not solves:
+        fail(f"driver run C: --obs-dir wrote {files} with {solves} lambda spans")
+    if named != k1_launches:
+        fail(f"driver run C: the profile lists {named} bilinear_pass_kernel launches")
+    obs.set_tracing(False)
+    obs.reset_tracer()
+    obs.reset_flight_recorder()
+    obs.reset_default_registry()
+
+
 def driver_phase(seed, smi, k1, k2):
     """Phase 7 (:func:`driver_runs`) in a temp directory that outlives it
     for run R; removed here only if the phase fails."""
@@ -1015,12 +1073,14 @@ def driver_runs(seed, smi, k1, k2, tmp):
             and bool((batch.values[:, k + 1:] == 0.0).all())):
         fail("the loaded batch does not hold the intercept after each row's entries")
     runs["C"] = c = driver_run(
-        "C", common + ["--grid-mode", "sequential", "--intercept", "false"],
+        "C", common + ["--grid-mode", "sequential", "--intercept", "false",
+                       "--obs-dir", f"{tmp}/obs-C", "--profile-dir", f"{tmp}/prof-C"],
         f"{tmp}/out-C", k1, k2, f"sequential, no intercept, {smi}",
         outputs=[f for f in DRIVER_OUTPUTS if not f.startswith("best-model")],
     )
     if c["k1"] == 0:
         fail("driver run C never launched K1")
+    driver_obs_check(f"{tmp}/obs-C", f"{tmp}/prof-C", c["k1"], smi)
     bare = SparseBatch(
         batch.indices[:, :k].contiguous(), batch.values[:, :k].contiguous(),
         batch.labels, batch.offsets, batch.weights,
@@ -1600,7 +1660,7 @@ def game_run_g(seed, smi, k1, device="cuda"):
     tb = ts.ensure_tiled(ds.batch_for_shard("global"), DIM, device=device)
     if ts.tilings != 1:
         fail("game run G: the in-memory tier missed")
-    game_k1 = game_k1_times(k1, tb, np.random.default_rng([seed, 7]), smi)
+    game_k1 = game_k1_times(k1, tb, np.random.default_rng([seed, 7]), smi, library=True)
 
     # where a warm sweep's time goes (the tier hits: no schedule build)
     game_cd(ds, red, "tiled", k1, smi, "profiled", sweeps=1, initial_model=result.model,
@@ -2725,11 +2785,12 @@ SERVE_SWAP = 8_000  # the open loop a donated swap lands in the middle of
 # Run W: the serving driver over run H's files; the front end over a few
 # hundred of run H's validation rows on 4 connections
 SERVE_W_CONCURRENCY = 8
-# the open run's trace: run H's 16,384 validation rows 4 times. A swap
-# stages in ~3.4 s (the model load through the native decoder, an H100
-# host) while ~5,300 requests a second are served: the 32,768 after the
-# swap point at half take ~6 s, so generation 2 serves some
-SERVE_W_OPEN_REPEATS = 4
+# the open run's trace: run H's 16,384 validation rows twice (4 times until
+# phase 12 needed the time), the swap after the first 8,192. A swap stages
+# in ~3.4 s (the model load through the native decoder, an H100 host)
+# while ~5,300 requests a second are served: the 24,576 after the swap
+# point take ~5 s, so generation 2 serves some
+SERVE_W_OPEN_REPEATS = 2
 SERVE_FRONTEND_REQUESTS, SERVE_FRONTEND_CONNECTIONS = 400, 4
 SERVE_FRONTEND_TIMEOUT_S = 300
 
@@ -2775,17 +2836,16 @@ def serve_batch_algebra(bank, reqs):
     return (total + offsets).cpu().numpy()
 
 
-def serve_loop(batcher, reqs, concurrency, *, on_half=None):
-    """Closed-loop submitters over one shared iterator (one thread: the
-    closed loop); ``on_half`` runs once when half the requests completed.
-    -> (outcomes in request order, wall seconds)."""
+def route_flood(score, records, threads, *, at=None, then=None):
+    """``records`` through ``score`` from ``threads`` closed-loop
+    submitters; ``then()`` runs once when ``at`` requests completed.
+    -> (outcome or exception per record, wall s, process CPU s)."""
     import threading
 
-    out = [None] * len(reqs)
-    it = iter(range(len(reqs)))
+    out = [None] * len(records)
+    it = iter(range(len(records)))
     lock = threading.Lock()
     done = [0]
-    errors = []
     fired = threading.Lock()
 
     def worker():
@@ -2795,23 +2855,31 @@ def serve_loop(batcher, reqs, concurrency, *, on_half=None):
             if i is None:
                 return
             try:
-                out[i] = batcher.score(reqs[i])
-            except BaseException as e:  # noqa: BLE001 - every request is accounted
-                errors.append(e)
-                return
+                out[i] = score(records[i])
+            except Exception as e:  # noqa: BLE001 - a named refusal is an outcome
+                out[i] = e
             with lock:
                 done[0] += 1
-                half = done[0] >= len(reqs) // 2
-            if on_half is not None and half and fired.acquire(blocking=False):
-                on_half()
+                hit = at is not None and done[0] >= at
+            if hit and fired.acquire(blocking=False):
+                then()
 
-    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
-    t0 = time.perf_counter()
-    for t in threads:
+    ts = [threading.Thread(target=worker) for _ in range(threads)]
+    t0, c0 = time.perf_counter(), time.process_time()
+    for t in ts:
         t.start()
-    for t in threads:
+    for t in ts:
         t.join()
-    wall = time.perf_counter() - t0
+    return out, time.perf_counter() - t0, time.process_time() - c0
+
+
+def serve_loop(batcher, reqs, concurrency, *, on_half=None):
+    """Closed-loop submitters over one shared iterator (one thread: the
+    closed loop); ``on_half`` runs once when half the requests completed.
+    -> (outcomes in request order, wall seconds)."""
+    out, wall, _ = route_flood(batcher.score, reqs, concurrency,
+                               at=len(reqs) // 2 if on_half else None, then=on_half)
+    errors = [o for o in out if isinstance(o, BaseException)]
     if errors:
         fail(f"serving loop: {len(errors)} request(s) failed: {errors[0]!r}")
     return out, wall
@@ -3025,28 +3093,42 @@ def serve_run_v(seed, smi, device="cuda"):
     return result
 
 
-def serve_run_w(tmp, shards, scorer, smi, device_args=()):
+def serve_run_w(tmp, shards, smi, device_args=(), device="cuda"):
     """Run W, inside run H's directory: ``serving_driver.main`` closed over
-    the validation Avro (written scores and AUC against run H's
-    ``game_scoring_driver``), open at concurrency 8 with a hot swap to the
-    same model at half the trace, then the front end in a subprocess over
-    run H's validation rows on 4 connections and a SIGTERM drain."""
+    the first validation part (written scores and AUC against run H's
+    ``game_scoring_driver`` on those rows), open at concurrency 8 over all
+    validation rows with a hot swap to the same model, then the front end
+    in a subprocess over run H's validation rows on 4 connections and a
+    SIGTERM drain."""
     from photon_ml_tpu_torch.cli import serving_driver
+    from photon_ml_tpu_torch.evaluation.evaluator import Evaluator, EvaluatorType
     from photon_ml_tpu_torch.io.avro_codec import read_avro_records
 
     batch = {r["uid"]: r for r in read_avro_records(f"{tmp}/scores/scores")}
+    part0 = f"{tmp}/validate/part-00000.avro"
+    closed_uids = [r["uid"] for r in read_avro_records(part0)]
+
+    def batch_auc(uids):
+        """Run H's scores of ``uids`` through the evaluator the serving
+        driver uses, in the same order on the same device."""
+        col = lambda k: torch.as_tensor(  # noqa: E731
+            np.asarray([batch[u][k] for u in uids], np.float32), device=device)
+        return float(Evaluator(EvaluatorType.parse("AUC")).evaluate(
+            col("predictionScore"), col("label"), col("weight")))
+
     base = [
         "--game-model-input-dir", f"{tmp}/out/best-model",
         "--request-paths", f"{tmp}/validate",
         "--feature-shard-id-to-feature-section-keys-map", shards,
     ]
     # the open run replays the validation rows SERVE_W_OPEN_REPEATS times
-    # and swaps at half, so the requests after the swap point outlast the
-    # swap's model load and staging and both generations serve
+    # and swaps after half of them once, so the requests after the swap
+    # point outlast the swap's model load and staging and both generations
+    # serve
     trace = ",".join([f"{tmp}/validate"] * SERVE_W_OPEN_REPEATS)
     out = {}
 
-    def run(label, extra):
+    def run(label, extra, want):
         t0 = time.perf_counter()
         driver = serving_driver.main(
             base + ["--output-dir", f"{tmp}/serve-{label}", *extra, *device_args])
@@ -3054,7 +3136,6 @@ def serve_run_w(tmp, shards, scorer, smi, device_args=()):
         with open(f"{tmp}/serve-{label}/metrics.json") as f:
             m = json.load(f)
         served = {r["uid"]: r for r in read_avro_records(f"{tmp}/serve-{label}/scores")}
-        want = len(batch)
         differ = [u for u in served if served[u] != batch.get(u)]
         timers = " ".join(f"{k}={v!r}" for k, v in driver.timer.durations.items())
         s = m["serving"]
@@ -3063,13 +3144,14 @@ def serve_run_w(tmp, shards, scorer, smi, device_args=()):
             f"p99 {s.get('latency_p99_ms')!r} ms, dispatches {s['dispatches']}, readbacks "
             f"{m['readbacks']}, shapes {s['shape_counts']}, programs {m['programs']}, swaps "
             f"{m['swap_history']}; {len(served)} score records, {len(differ)} differ from run "
-            f"H's scoring driver; AUC {m.get('AUC')!r} against {scorer.metrics['AUC']!r}")
+            f"H's scoring driver; AUC {m.get('AUC')!r} against "
+            f"{batch_auc(list(served)) if label == 'closed' else None!r}")
         if differ or len(served) != want:
             fail(f"serving run W {label}: written scores are not run H's ({len(differ)} differ)")
         if m["readbacks"] != s["dispatches"] or m["programs"]["cold_dispatch_compiles"]:
             fail(f"serving run W {label}: readbacks or captures off the contract")
-        if label == "closed" and m["AUC"] != scorer.metrics["AUC"]:
-            fail("serving run W closed: the AUC is not run H's")
+        if label == "closed" and m["AUC"] != batch_auc(list(served)):
+            fail("serving run W closed: the AUC is not run H's on its rows")
         if label == "open":
             swaps = m["swap_history"]
             if not (len(swaps) == 1 and swaps[0]["ok"] and swaps[0]["donated"]
@@ -3081,8 +3163,11 @@ def serve_run_w(tmp, shards, scorer, smi, device_args=()):
                           timers=dict(driver.timer.durations))
         return driver.serving_model.current().shard_widths
 
+    # closed: the first validation part (4,096 rows; all 16,384 until
+    # phase 12 needed the time)
     widths = run("closed", ["--mode", "closed", "--write-scores", "true",
-                            "--evaluator-types", "AUC"])
+                            "--evaluator-types", "AUC", "--request-paths", part0],
+                 len(closed_uids))
     # the front end's process starts (loads the model, stages its bank)
     # while the open run serves, for the script's time limit
     out["frontend"] = serve_frontend(
@@ -3090,8 +3175,9 @@ def serve_run_w(tmp, shards, scorer, smi, device_args=()):
         during=lambda: run("open", [
             "--mode", "open", "--concurrency", str(SERVE_W_CONCURRENCY),
             "--request-paths", trace, "--swap-model-dir", f"{tmp}/out/best-model",
-            "--swap-after-requests", str(SERVE_W_OPEN_REPEATS * len(batch) // 2)]),
+            "--swap-after-requests", str(len(batch) // 2)], len(batch)),
     )
+    out["widths"] = widths
     return out
 
 
@@ -3196,7 +3282,537 @@ def serve_frontend(tmp, shards, batch, widths, smi, device_args=(), during=None)
     return dict(start_s=start_s, serve_s=serve_s, requests=len(records), outcomes=outcomes)
 
 
+# -- phase 12: the serving fleet ----------------------------------------------
+#
+# Run X: the JAX package's chip-class routing shapes (bench.py:2328-2340):
+# 200,000 users x 256, a 2^18 fixed effect, 32 and 16 features a request,
+# the shard ladder (1, 8, 64); fleets of N in {1, 2, 4} shard-server child
+# processes (this script under ROUTE_CHILD_FLAG), each holding 1/N of the
+# random-effect bank; per N an open-loop flood of 8,000 requests from 32
+# threads over a zipf(1.3) entity draw with 4 payloads an entity; at N = 4
+# a fleet-wide two-step swap under a flood of 2,000 and then a flood of
+# 2,000 cache-missing payloads during which one child is SIGKILLed
+ROUTE_SHAPES = {"E": 200_000, "d_g": 1 << 18, "d_u": 256, "k_g": 32, "k_u": 16}
+ROUTE_LADDER = (1, 8, 64)
+ROUTE_FLEETS = (1, 2, 4)
+ROUTE_FLOOD, ROUTE_THREADS, ROUTE_SWAP, ROUTE_KILL = 8_000, 32, 2_000, 2_000
+ROUTE_ZIPF, ROUTE_POOL, ROUTE_CACHE = 1.3, 4, 8192
+ROUTE_CHILD_FLAG = "--shard-routing-child"
+ROUTE_BOOT_TIMEOUT_S = 240
+# Run Y: the serving driver's fleet modes over run H's model files: two
+# --shard-index drivers and a router driver replaying run H's first
+# validation part (4,096 rows) closed-loop
+FLEET_Y_TIMEOUT_S = 300
+
+
+def route_ids(shapes):
+    return [f"user{i:06d}" for i in range(shapes["E"])]
+
+
+def route_bank(seed, generation, shapes, entity_shard=None, device="cuda"):
+    """Generation ``generation``'s bank from the seed (every process that
+    builds it gets the same bits), whole or one entity shard."""
+    from photon_ml_tpu_torch.serving import bank_from_arrays
+    from photon_ml_tpu_torch.utils.index_map import IndexMap
+
+    rng = np.random.default_rng([seed, 12, generation])
+    fe = rng.standard_normal(shapes["d_g"], dtype=np.float32) * np.float32(0.1)
+    re = rng.standard_normal((shapes["E"], shapes["d_u"]), dtype=np.float32) * np.float32(0.1)
+    return bank_from_arrays(
+        generation=generation,
+        fixed=[("global", "g", fe)],
+        random=[("per-user", "userId", "u", re, route_ids(shapes))],
+        shard_widths={"g": shapes["k_g"], "u": shapes["k_u"]},
+        index_maps={
+            "g": IndexMap({f"g{j}\t": j for j in range(shapes["d_g"])}),
+            "u": IndexMap({f"u{j}\t": j for j in range(shapes["d_u"])}),
+        },
+        entity_shard=entity_shard,
+        device=device,
+    )
+
+
+def route_shard_configs():
+    from photon_ml_tpu_torch.game.config import FeatureShardConfiguration
+
+    return [FeatureShardConfiguration("g", ["features"]),
+            FeatureShardConfiguration("u", ["userFeatures"])]
+
+
+def route_child(cfg_text):
+    """One shard-server child of run X: its 1/N slice of generation 1 on
+    the card, partial mode, the router's control plane (stage_swap builds
+    generation ``model_dir`` from the seed on the host), its port in
+    ``frontend.json``; SIGTERM drains and writes its program cache."""
+    import threading
+
+    from photon_ml_tpu_torch.reliability import atomic_write_json
+    from photon_ml_tpu_torch.serving import ServingModel, ServingPrograms, ShardServer
+
+    cfg = json.loads(cfg_text)
+    s, n, seed, shapes = cfg["shard"], cfg["count"], cfg["seed"], cfg["shapes"]
+    sm = ServingModel(route_bank(seed, 1, shapes, (s, n), cfg["device"]),
+                      ServingPrograms(ROUTE_LADDER), partial=True, entity_shard=(s, n))
+    srv = ShardServer(
+        sm, route_shard_configs(), (s, n), has_response=False,
+        stager=lambda obj: sm.prepare_swap_bank(
+            route_bank(seed, int(obj["model_dir"]), shapes, (s, n), device=False)),
+    ).start()
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_a: stop.set())
+    atomic_write_json(f"{cfg['out']}/frontend.json", {"port": srv.port, "pid": os.getpid()})
+    while not stop.wait(timeout=0.2):
+        pass
+    report = srv.close(drain_timeout_s=10.0)
+    atomic_write_json(f"{cfg['out']}/metrics.json", {
+        "programs": sm.programs.stats(), "serving": srv.metrics.snapshot(),
+        "drain": report.to_dict(), "generation": sm.generation,
+    })
+    return 0
+
+
+def route_record(key, shapes):
+    """The request of (entity, payload, variant): the same bits in every
+    process (crc32 of the key seeds it)."""
+    import zlib
+
+    e, j, variant = key
+    prng = np.random.default_rng(zlib.crc32(f"{e}:{j}:{variant}".encode()))
+    return {
+        "uid": f"q{e}-{j}-{variant}",
+        "metadataMap": {"userId": f"user{e:06d}"},
+        "features": [{"name": f"g{int(g)}", "term": "", "value": float(prng.standard_normal())}
+                     for g in prng.integers(0, shapes["d_g"], size=shapes["k_g"])],
+        "userFeatures": [{"name": f"u{int(u)}", "term": "", "value": float(prng.standard_normal())}
+                         for u in prng.integers(0, shapes["d_u"], size=shapes["k_u"])],
+        "offset": float(prng.standard_normal()) * 0.1,
+    }
+
+
+class RouteOracle:
+    """The single in-process server over the whole bank of one generation
+    (the ladder of the shards): each record's score, and its FE-only
+    score (the entity unknown) plus the offset."""
+
+    def __init__(self, seed, generation, device):
+        from photon_ml_tpu_torch.serving import MicroBatcher, ServingModel, ServingPrograms
+
+        self.model = ServingModel(route_bank(seed, generation, ROUTE_SHAPES, device=device),
+                                  ServingPrograms(ROUTE_LADDER))
+        self.batcher = MicroBatcher(self.model.current, self.model.programs)
+        self.shards = route_shard_configs()
+
+    def request(self, record, fe_only=False):
+        from photon_ml_tpu_torch.serving import request_from_record
+
+        if fe_only:
+            record = dict(record, metadataMap={"userId": "no-such-user"})
+        return request_from_record(record, self.model.current(), self.shards, has_response=False)
+
+    def score(self, record):
+        return self.batcher.score(self.request(record))
+
+    def scores(self, records, fe_only=False):
+        out = []
+        for i in range(0, len(records), 1024):  # inside the batcher's queue bound
+            futs = [self.batcher.submit(self.request(r, fe_only)) for r in records[i:i + 1024]]
+            out.extend(f.result() for f in futs)
+        return np.asarray(out, np.float32)
+
+    def close(self):
+        self.batcher.close()
+
+
+def route_spawn(seed, tmp, n_shards, log, device):
+    procs = []
+    for s in range(n_shards):
+        out = f"{tmp}/n{n_shards}-shard{s}"
+        os.makedirs(out)
+        cfg = json.dumps({"shard": s, "count": n_shards, "seed": seed, "out": out,
+                          "shapes": ROUTE_SHAPES, "device": device})
+        procs.append((out, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), ROUTE_CHILD_FLAG, cfg],
+            stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def route_ports(procs, t0):
+    ports = []
+    for out, p in procs:
+        while not os.path.isfile(f"{out}/frontend.json"):
+            if p.poll() is not None or time.perf_counter() - t0 > ROUTE_BOOT_TIMEOUT_S:
+                fail(f"fleet run X: shard child {out} did not start (exit {p.poll()})")
+            time.sleep(0.1)
+        with open(f"{out}/frontend.json") as f:
+            ports.append(json.load(f)["port"])
+    return ports
+
+
+def route_check(label, records, outs, oracles, fe_oracles, owner_dead=None):
+    """Every outcome a routed score bitwise its generation's single-server
+    score, or, degraded, its FE-only score plus the offset (only the dead
+    shard's entities may degrade); -> (outcome counts, generations)."""
+    from photon_ml_tpu_torch import ownership
+
+    counts, gens, bad = {}, {}, []
+    for rec, o in zip(records, outs):
+        if isinstance(o, BaseException):
+            key = f"error:{getattr(o, 'code', type(o).__name__)}"
+            counts[key] = counts.get(key, 0) + 1
+            continue
+        counts["degraded" if o.degraded else "ok"] = counts.get(
+            "degraded" if o.degraded else "ok", 0) + 1
+        gens[o.generation] = gens.get(o.generation, 0) + 1
+        uid = rec["uid"]
+        if o.degraded:
+            owner = ownership.owner_of(int(rec["metadataMap"]["userId"][4:]), 4)
+            if owner != owner_dead or np.float32(o) != fe_oracles[o.generation][uid]:
+                bad.append((uid, o.generation, float(o), "degraded"))
+        elif np.float32(o) != oracles[o.generation][uid]:
+            bad.append((uid, o.generation, float(o), float(oracles[o.generation][uid])))
+    if bad or any(k.startswith("error") for k in counts) or sum(counts.values()) != len(records):
+        fail(f"fleet run X {label}: {len(bad)} routed scores off their generation's "
+             f"single-server score (first {bad[:3]}), outcomes {counts}")
+    return counts, gens
+
+
+def fleet_x_spawn(seed, tmp, device="cuda"):
+    """Start every fleet's children of run X at once (they boot while the
+    caller works on); -> (children by fleet size, the start time)."""
+    t0 = time.perf_counter()
+    with open(f"{tmp}/children.log", "w") as log:
+        return {n: route_spawn(seed, tmp, n, log, device) for n in ROUTE_FLEETS}, t0
+
+
+def fleet_stop(fleets):
+    """SIGTERM every live child (each drains and writes its program
+    cache), then wait; a child that does not exit is killed."""
+    children = [p for procs in fleets.values() for _, p in procs]
+    for p in children:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in children:
+        try:
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def fleet_run_x(seed, smi, fleets, t0, device="cuda"):
+    """Run X over the children ``fleet_x_spawn`` started at ``t0``; -> its
+    numbers."""
+    from photon_ml_tpu_torch.obs.flight_recorder import FlightRecorder
+    from photon_ml_tpu_torch.serving import RoutingPolicy, ShardRouter
+
+    shapes = ROUTE_SHAPES
+    rng = np.random.default_rng([seed, 13])
+    draw = (rng.zipf(ROUTE_ZIPF, size=ROUTE_FLOOD + ROUTE_SWAP + ROUTE_KILL) - 1) % shapes["E"]
+
+    def records(part, variant):
+        return [route_record((int(e), int(e + i) % ROUTE_POOL, variant), shapes)
+                for i, e in enumerate(part)]
+
+    flood = records(draw[:ROUTE_FLOOD], 0)
+    swap_recs = records(draw[ROUTE_FLOOD:ROUTE_FLOOD + ROUTE_SWAP], 0)
+    # a disjoint payload universe: every kill-leg record misses the cache
+    kill_recs = records(draw[ROUTE_FLOOD + ROUTE_SWAP:], 1)
+    result = {}
+    try:
+        oracle1, oracle2 = RouteOracle(seed, 1, device), RouteOracle(seed, 2, device)
+        ports = {n: route_ports(procs, t0) for n, procs in fleets.items()}
+        boot_s = time.perf_counter() - t0
+        say(f"fleet run X ({smi}): {sum(map(len, fleets.values()))} shard children of "
+            f"{shapes['E']} users x {shapes['d_u']}, a fixed effect of {shapes['d_g']}, "
+            f"{shapes['k_g']} and {shapes['k_u']} features a request, ladder "
+            f"{ROUTE_LADDER}, ready {boot_s!r} s after their start")
+        # the single server over the whole bank: the router's own cost
+        # (routed N = 1 against it) and every record's oracle score
+        _, wall, cpu = route_flood(oracle1.score, flood, ROUTE_THREADS)
+        single = dict(qps=len(flood) / wall, wall_s=wall, host_us=cpu / len(flood) * 1e6)
+        uids = {r["uid"]: r for r in flood + swap_recs + kill_recs}
+        recs = list(uids.values())
+        oracles = {g: dict(zip(uids, o.scores(recs))) for g, o in ((1, oracle1), (2, oracle2))}
+        fe_oracles = {g: dict(zip(uids, o.scores(recs, fe_only=True)))
+                      for g, o in ((1, oracle1), (2, oracle2))}
+        differ = sum(oracles[1][u] != oracles[2][u] for u in uids)
+        say(f"fleet run X single in-process server ({smi}): {len(flood)} requests from "
+            f"{ROUTE_THREADS} threads in {wall!r} s, QPS {single['qps']!r}, host CPU "
+            f"{single['host_us']!r} us a request; {len(uids)} distinct records, "
+            f"{differ} of whose generation 1 and 2 scores differ")
+        if differ < len(uids) // 2:
+            fail("fleet run X: the two generations do not tell scores apart")
+        result["single"] = single
+        for n in ROUTE_FLEETS:
+            book = FlightRecorder(capacity=1 << 16)
+            router = ShardRouter(
+                [("127.0.0.1", pt) for pt in ports[n]],
+                entity_ids={"userId": route_ids(shapes)},
+                shard_configs=route_shard_configs(),
+                policy=RoutingPolicy(subrequest_timeout_s=5.0),
+                cache_entries=ROUTE_CACHE, recorder=book)
+            try:
+                info = router.connect()
+                route_flood(router.score_record, flood[:16], 4)  # the connections
+                router.metrics = type(router.metrics)()
+                router.cache = type(router.cache)(ROUTE_CACHE)
+                outs, wall, cpu = route_flood(router.score_record, flood, ROUTE_THREADS)
+                counts, gens = route_check(f"N={n}", flood, outs, oracles, fe_oracles)
+                snap, cache = router.metrics.snapshot(), router.cache.snapshot()
+                fan = np.asarray([o.fanout for o in outs])
+                row = dict(
+                    qps=len(flood) / wall, wall_s=wall, host_us=cpu / len(flood) * 1e6,
+                    p50_ms=snap.get("latency_p50_ms"), p99_ms=snap.get("latency_p99_ms"),
+                    fanout_p50=float(np.percentile(fan, 50)),
+                    fanout_p99=float(np.percentile(fan, 99)),
+                    fanout_mean=float(fan.mean()), subrequests=snap["subrequests"],
+                    hedges=snap["hedges"],
+                    cache_hit_rate=cache["hits"] / max(cache["hits"] + cache["misses"], 1),
+                    outcomes=counts, wire=info["wire"])
+                say(f"fleet run X N={n} ({smi}): {len(flood)} requests in {wall!r} s, "
+                    f"aggregate QPS {row['qps']!r}; router latency p50 {row['p50_ms']!r} ms "
+                    f"p99 {row['p99_ms']!r} ms; fan-out p50 {row['fanout_p50']!r} p99 "
+                    f"{row['fanout_p99']!r} mean {row['fanout_mean']!r}; cache hit rate "
+                    f"{row['cache_hit_rate']!r}; router host CPU {row['host_us']!r} us a "
+                    f"request; outcomes {counts}, every score bitwise the single server's")
+                if n == 1:
+                    say(f"fleet run X routed N=1 vs the single in-process server ({smi}): "
+                        f"QPS {row['qps']!r} vs {single['qps']!r}, host CPU "
+                        f"{row['host_us']!r} vs {single['host_us']!r} us a request")
+                if n == 4:
+                    row.update(fleet_x_swap_and_kill(
+                        router, fleets[4], swap_recs, kill_recs, oracles, fe_oracles, smi))
+                cons = book.check_conservation()
+                say(f"fleet run X N={n} conservation: {cons}")
+                if not cons["ok"]:
+                    fail(f"fleet run X N={n}: outcomes not conserved: {cons}")
+            finally:
+                router.close()
+            result[n] = row
+        oracle1.close()
+        oracle2.close()
+    finally:
+        fleet_stop(fleets)
+    for n, procs in fleets.items():
+        for out, p in procs:
+            if not os.path.isfile(f"{out}/metrics.json"):
+                if (n, out) != (4, procs[-1][0]):
+                    fail(f"fleet run X: {out} wrote no program cache at its drain")
+                continue  # the SIGKILLed child
+            with open(f"{out}/metrics.json") as f:
+                m = json.load(f)
+            after = m["programs"]["compile_count"] - len(ROUTE_LADDER)
+            say(f"fleet run X {os.path.basename(out)}: captures after warmup {after}, "
+                f"cold dispatch captures {m['programs']['cold_dispatch_compiles']}, "
+                f"dispatches {m['serving']['dispatches']}, generation {m['generation']}, "
+                f"exit {p.returncode}")
+            if after or m["programs"]["cold_dispatch_compiles"] or p.returncode:
+                fail(f"fleet run X: {out} captured after warmup or exited {p.returncode}")
+    return result
+
+
+def fleet_x_swap_and_kill(router, procs, swap_recs, kill_recs, oracles, fe_oracles, smi):
+    """At N = 4: the two-step flip to generation 2 under floods of
+    ``swap_recs`` that go on until it landed and one flood past it, then
+    a flood of cache-missing payloads during which child 3 is
+    SIGKILLed."""
+    import threading
+
+    swap = {}
+    landed = threading.Event()
+
+    def flip():
+        t0 = time.perf_counter()
+        swap["result"] = router.coordinate_swap("2")
+        swap["s"] = time.perf_counter() - t0
+        landed.set()
+
+    flipper = threading.Thread(target=flip)
+    recs, outs = [], []
+    t0 = time.perf_counter()
+    flipper.start()
+    while True:
+        after = landed.is_set()
+        o, _, _ = route_flood(router.score_record, swap_recs, ROUTE_THREADS)
+        recs += swap_recs
+        outs += o
+        if after:
+            break
+    wall = time.perf_counter() - t0
+    flipper.join()
+    counts, gens = route_check("swap", recs, outs, oracles, fe_oracles)
+    res = swap["result"]
+    say(f"fleet run X N=4 two-step swap under load ({smi}): {res}; {swap['s']!r} s while "
+        f"{len(recs)} requests were served in {wall!r} s; served by generation {gens}; every "
+        f"score bitwise its own generation's single-server score")
+    if not (res["ok"] and res["generation"] == 2 and router.generation == 2
+            and gens.get(1) and gens.get(2)):
+        fail(f"fleet run X: the fleet-wide swap did not land under load: {res}, {gens}")
+
+    def kill():
+        procs[-1][1].send_signal(signal.SIGKILL)
+
+    outs, wall, _ = route_flood(router.score_record, kill_recs, ROUTE_THREADS,
+                                at=len(kill_recs) // 4, then=kill)
+    procs[-1][1].wait(timeout=60)
+    counts, gens = route_check("kill", kill_recs, outs, oracles, fe_oracles, owner_dead=3)
+    health = [h.snapshot() for h in router.health]
+    say(f"fleet run X N=4 SIGKILL of shard 3 a quarter into {len(kill_recs)} cache-missing "
+        f"requests ({smi}): {wall!r} s, outcomes {counts}, generations {gens}; degraded rows "
+        f"bitwise their FE-only score plus the offset; shard 3 health {health[3]}")
+    if not counts.get("degraded"):
+        fail("fleet run X: no request degraded after the kill")
+    return dict(swap_s=swap["s"], swap_requests=len(recs), kill_outcomes=counts,
+                kill_wall_s=wall)
+
+
+def fleet_y_files(tmp):
+    """Copy what run Y reads out of run H's directory (the model, the
+    first validation part, run W's name-term lists and closed scores)
+    into a directory that outlives it; -> that directory."""
+    keep = tempfile.mkdtemp(prefix="photon_fleet_y_")
+    for part in ("out/best-model", "name-terms", "serve-closed/scores"):
+        shutil.copytree(f"{tmp}/{part}", f"{keep}/{part}")
+    os.makedirs(f"{keep}/validate")
+    shutil.copy(f"{tmp}/validate/part-00000.avro", f"{keep}/validate/")
+    return keep
+
+
+def fleet_run_y(tmp, shards, smi, widths, device_args=()):
+    """Run Y, over run H's files as ``fleet_y_files`` kept them: two ``--shard-index``
+    serving drivers (shard 0 with ``--obs-dir`` and ``--profile-dir``)
+    and a router driver (``--wire binary --fleet-obs-dir --slo default
+    --swap-model-dir``) replaying run H's first validation part
+    closed-loop in a process that must not create a CUDA context."""
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.io.avro_codec import read_avro_records
+
+    model = f"{tmp}/out/best-model"
+    common = ["--game-model-input-dir", model,
+              "--feature-shard-id-to-feature-section-keys-map", shards]
+    shard_args = common + [
+        "--feature-name-and-term-set-path", f"{tmp}/name-terms",
+        "--request-nnz-width", "|".join(f"{k}:{v}" for k, v in widths.items()),
+        # closed-loop traffic dispatches shape 1 only
+        "--ladder", "1,8", "--frontend-port", "0", "--shard-count", "2", *device_args]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for s in range(2):
+            extra = (["--obs-dir", f"{tmp}/fleet-obs-shard0",
+                      "--profile-dir", f"{tmp}/fleet-prof-shard0"] if s == 0 else [])
+            with open(f"{tmp}/fleet-shard{s}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "photon_ml_tpu_torch.cli.serving_driver",
+                     *shard_args, "--shard-index", str(s),
+                     "--output-dir", f"{tmp}/fleet-shard{s}", *extra],
+                    cwd=here, stdout=log, stderr=subprocess.STDOUT,
+                    env={**os.environ, "PHOTON_TRACE": "1"}))
+        ports = []
+        for s, p in enumerate(procs):
+            fj = f"{tmp}/fleet-shard{s}/frontend.json"
+            while not os.path.isfile(fj):
+                if p.poll() is not None or time.perf_counter() - t0 > FLEET_Y_TIMEOUT_S:
+                    with open(f"{tmp}/fleet-shard{s}.log") as f:
+                        fail(f"fleet run Y: shard driver {s} did not start: {f.read()[-3000:]}")
+                time.sleep(0.2)
+            with open(fj) as f:
+                meta = json.load(f)
+            ports.append(meta["port"])
+            if meta["shard"]["shard_index"] != s or not meta["shard"]["partial"]:
+                fail(f"fleet run Y: shard driver {s} published {meta['shard']}")
+        boot_s = time.perf_counter() - t0
+        rows = sum(1 for _ in read_avro_records(f"{tmp}/validate/part-00000.avro"))
+        code = ("import sys, torch\n"
+                "from photon_ml_tpu_torch.cli import serving_driver\n"
+                "serving_driver.main(sys.argv[1:])\n"
+                "print('cuda_initialized', torch.cuda.is_initialized())\n")
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", code, *common,
+             "--output-dir", f"{tmp}/fleet-router",
+             "--request-paths", f"{tmp}/validate/part-00000.avro", "--mode", "closed",
+             "--shard-servers", ",".join(f"127.0.0.1:{pt}" for pt in ports),
+             "--wire", "binary", "--fleet-obs-dir", f"{tmp}/fleet-obs",
+             "--obs-dir", f"{tmp}/fleet-obs-router", "--slo", "default",
+             "--swap-model-dir", model, "--swap-after-requests", str(rows // 2)],
+            cwd=here, capture_output=True, text=True, timeout=FLEET_Y_TIMEOUT_S)
+        route_s = time.perf_counter() - t1
+        if r.returncode != 0:
+            fail(f"fleet run Y: the router driver exited {r.returncode}: {r.stderr[-3000:]}")
+        t2 = time.perf_counter()
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        codes = [p.wait(timeout=FLEET_Y_TIMEOUT_S) for p in procs]
+        drain_s = time.perf_counter() - t2
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    with open(f"{tmp}/fleet-router/metrics.json") as f:
+        m = json.load(f)
+    routed = {x["uid"]: x for x in read_avro_records(f"{tmp}/fleet-router/scores")}
+    single = {x["uid"]: x for x in read_avro_records(f"{tmp}/serve-closed/scores")}
+    differ = [u for u in routed if routed[u]["predictionScore"] != single[u]["predictionScore"]]
+
+    def auc(recs):
+        s = torch.as_tensor([x["predictionScore"] for x in recs], dtype=torch.float32)
+        y = torch.as_tensor([x["label"] for x in recs], dtype=torch.float32)
+        w = torch.as_tensor([x["weight"] for x in recs], dtype=torch.float32)
+        return float(area_under_roc_curve(s, y, w))
+
+    auc_routed = auc(list(routed.values()))
+    auc_single = auc([single[u] for u in routed])
+    with open(f"{tmp}/fleet-obs/fleet_trace.json") as f:
+        verification = json.load(f)["otherData"]["verification"]
+    with open(f"{tmp}/fleet-obs/fleet_conservation.json") as f:
+        conservation = json.load(f)
+    prof = [n for n in os.listdir(f"{tmp}/fleet-prof-shard0") if n.endswith(".pt.trace.json")]
+    with open(f"{tmp}/fleet-prof-shard0/{prof[0]}") as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    shard_m = []
+    for s in range(2):
+        with open(f"{tmp}/fleet-shard{s}/metrics.json") as f:
+            shard_m.append(json.load(f))
+    cuda_line = r.stdout.strip().splitlines()[-1]
+    router_timers = " ".join(r.stderr.rpartition("timers:")[2].split())
+    say(f"fleet run Y ({smi}): 2 shard drivers up in {boot_s!r} s; the router driver "
+        f"routed {len(routed)} of {rows} rows closed-loop in {route_s!r} s (process "
+        f"included), outcomes {m['outcomes']}, wire {m['routing']['wire']}, swap "
+        f"{m['swap']}, generation {m['generation']}; {len(differ)} scores differ from run W's "
+        f"single server; AUC {auc_routed!r} vs {auc_single!r}; fleet trace verification "
+        f"{ {k: v for k, v in verification.items() if k != 'violations'} }; conservation ok "
+        f"{conservation['ok']}; slo alerts {m['slo']['alerts_active']}; shard 0's profile: "
+        f"{len(kernels)} CUDA kernel events; shard exits {codes}, cold captures "
+        f"{[x['programs']['cold_dispatch_compiles'] for x in shard_m]}, SIGTERM to exit "
+        f"{drain_s!r} s (shard 0 writes its profile); router {cuda_line}, its stage "
+        f"timers: {router_timers}")
+    if differ or len(routed) != rows or m["outcomes"] != {"ok": rows}:
+        fail(f"fleet run Y: routed scores are not run W's ({len(differ)} differ)")
+    if auc_routed != auc_single:
+        fail("fleet run Y: the AUC is not run W's")
+    if not (m["swap"] and m["swap"]["ok"] and m["generation"] == 2):
+        fail(f"fleet run Y: the router's two-step swap did not land: {m['swap']}")
+    if not (verification["ok"] and verification["router_subrequests"] and conservation["ok"]):
+        fail(f"fleet run Y: the fleet trace or the fleet books do not verify: "
+             f"{verification}, {conservation}")
+    if not kernels:
+        fail("fleet run Y: shard 0's profile holds no CUDA kernel event")
+    if codes != [0, 0] or any(x["programs"]["cold_dispatch_compiles"] for x in shard_m):
+        fail(f"fleet run Y: shard drivers exited {codes} or captured on the request path")
+    if cuda_line != "cuda_initialized False":
+        fail(f"fleet run Y: the router process created a CUDA context ({cuda_line})")
+    return dict(boot_s=boot_s, route_s=route_s, drain_s=drain_s, rows=rows,
+                kernel_events=len(kernels),
+                verification={k: v for k, v in verification.items() if k != "violations"})
+
+
 def main() -> int:
+    if sys.argv[1:2] == [ROUTE_CHILD_FLAG]:
+        return route_child(sys.argv[2])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3702,14 +4318,17 @@ def main() -> int:
     driver_launches, run_a = driver_phase(args.seed, smi, k1, k2)
     say(f"driver phase: {time.perf_counter() - t0!r} s of host time ({smi})")
     try:
-        # -- 8. GAME, with phase 11's run W over run H's files ----------------------
-        serving = {}
+        # -- 8. GAME, with phase 11's run W and phase 12's run Y over run H's files --
+        serving, fleet = {}, {}
 
         def run_w(tmp, shards, scorer):
             t0 = time.perf_counter()
-            serving["W"] = serve_run_w(tmp, shards, scorer, smi)
+            serving["W"] = serve_run_w(tmp, shards, smi)
             serving["W_s"] = time.perf_counter() - t0
             say(f"phase 11 run W: {serving['W_s']!r} s of host time ({smi})")
+            # phase 12's run Y goes over these files
+            fleet["dir"] = fleet_y_files(tmp)
+            fleet["shards"] = shards
 
         game_launches, game_k1, game_ds = game_phase(args.seed, smi, k1, then=run_w)
 
@@ -3734,7 +4353,27 @@ def main() -> int:
         f"in all {time.perf_counter() - t0 + serving['W_s']!r} s")
     say("serving: " + json.dumps(serving))
 
-    # -- 12. result lines -------------------------------------------------------
+    # -- 12. the serving fleet ----------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    y_dir = fleet.pop("dir")
+    try:
+        fleet["Y"] = fleet_run_y(y_dir, fleet.pop("shards"), smi, serving["W"]["widths"])
+    finally:
+        shutil.rmtree(y_dir, ignore_errors=True)
+    say(f"phase 12 run Y: {time.perf_counter() - t0!r} s of host time ({smi})")
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="photon_fleet_x_") as x_tmp:
+        x_fleets, x_t0 = fleet_x_spawn(args.seed, x_tmp)
+        try:
+            fleet["X"] = fleet_run_x(args.seed, smi, x_fleets, x_t0)
+        finally:
+            fleet_stop(x_fleets)
+    say(f"phase 12 run X: {time.perf_counter() - t1!r} s of host time ({smi})")
+    say(f"phase 12: {time.perf_counter() - t0!r} s of host time ({smi})")
+    say("fleet: " + json.dumps(fleet))
+
+    # -- 13. result lines -------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",

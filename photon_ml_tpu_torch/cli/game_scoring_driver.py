@@ -13,8 +13,9 @@ cli/game/scoring/Params.scala (option names kept), ScoredItem.scala.
 
 ``--streaming true`` scores one input file at a time in
 ``--rows-per-chunk`` slices (with prebuilt feature maps: no chunk sees
-the whole vocabulary). ``--obs-dir`` and ``--profile-dir`` wait for
-ROADMAP item 15. ``--fault-plan`` installs a deterministic
+the whole vocabulary). ``--obs-dir`` writes the scoring pass's trace,
+flight recorder and metrics snapshots; ``--profile-dir`` a
+``torch.profiler`` trace of the scoring pass. ``--fault-plan`` installs a deterministic
 fault plan (``reliability/faults.py``), and ``metrics.json`` carries the
 reliability block. The port adds ``--device`` (the card by default,
 ``cpu`` on request).
@@ -51,6 +52,7 @@ from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.utils.date_range import expand_dated_paths
 from photon_ml_tpu_torch.utils.device import resolve_device
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
+from photon_ml_tpu_torch.utils.profiling import profile_trace
 
 
 @dataclass
@@ -84,22 +86,7 @@ class GameScoringParams:
     # where scoring runs: None = the CUDA card (raises without one), "cpu"
     device: Optional[str] = None
 
-    def unported(self) -> List[str]:
-        out = []
-        for cond, what, item in (
-            (self.obs_dir is not None, "--obs-dir", "item 15"),
-            (self.profile_dir is not None, "--profile-dir", "item 15"),
-        ):
-            if cond:
-                out.append(f"{what} (ROADMAP {item})")
-        return out
-
     def validate(self):
-        unported = self.unported()
-        if unported:
-            raise NotImplementedError(
-                "not ported to photon_ml_tpu_torch yet: " + "; ".join(unported)
-            )
         if not self.input_dirs:
             raise ValueError("input-data-dirs is required")
         if self.stream_memory_budget and not self.streaming:
@@ -181,6 +168,9 @@ class GameScoringDriver:
         prepare_output_dir(params.output_dir, delete_if_exists=params.delete_output_dir_if_exists)
         self.logger = logger or PhotonLogger(params.output_dir)
         self.timer = Timer()
+        from photon_ml_tpu_torch.obs import ObsSession
+
+        self.obs = ObsSession(params.obs_dir, signal_dump=False)
         self.metrics: Dict[str, float] = {}
         self.scores: Optional[torch.Tensor] = None
 
@@ -225,6 +215,7 @@ class GameScoringDriver:
         if p.streaming:
             with scope:
                 self._run_streaming(model, sorted(id_types), index_maps, input_paths)
+            self.obs.finish()
             self.logger.info("timers:\n%s", self.timer.summary())
             return
         with scope:
@@ -234,7 +225,7 @@ class GameScoringDriver:
                     index_maps=index_maps, is_response_required=p.has_response,
                     device=self.device,
                 )
-            with self.timer.time("score"):
+            with self.timer.time("score"), profile_trace(p.profile_dir, self.device):
                 scores = model.score(dataset, p.task_type) + dataset.row_tensors()[1]
                 self.scores = scores
         with self.timer.time("write-scores"):
@@ -246,6 +237,7 @@ class GameScoringDriver:
                 os.path.join(p.output_dir, "metrics.json"),
                 {**self.metrics, "reliability": reliability_metrics()},
             )
+        self.obs.finish()
         self.logger.info("timers:\n%s", self.timer.summary())
 
     def _run_streaming(self, model, id_types, index_maps, input_paths) -> None:
@@ -275,7 +267,7 @@ class GameScoringDriver:
         part = 0
         rows_per_chunk = p.rows_per_chunk
         os.makedirs(os.path.join(p.output_dir, "scores"), exist_ok=True)
-        with self.timer.time("score-stream"):
+        with self.timer.time("score-stream"), profile_trace(p.profile_dir, self.device):
             for path in files:
                 try:
                     ds_file = build_game_dataset_from_files(
@@ -402,8 +394,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-files", type=int, default=1)
     ap.add_argument("--delete-output-dir-if-exists", default="false")
     ap.add_argument("--application-name", default=None)
-    ap.add_argument("--obs-dir", default=None)
-    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument(
+        "--obs-dir", default=None,
+        help="unified telemetry: span tracing + flight recorder; "
+        "trace.json / flight.json / metrics_snapshot.json land here",
+    )
+    ap.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace of the scoring pass here",
+    )
     ap.add_argument("--tile-cache-dir", default=None)
     ap.add_argument("--streaming", default="false")
     ap.add_argument("--rows-per-chunk", type=int, default=100_000)

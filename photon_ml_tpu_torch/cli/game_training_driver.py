@@ -72,7 +72,7 @@ from photon_ml_tpu_torch.game.streaming import (
     train_streaming_game,
     validate_streaming_game_configs,
 )
-from photon_ml_tpu_torch.io.streaming import peak_rss_bytes
+from photon_ml_tpu_torch.utils.profiling import peak_rss_bytes, profile_trace
 from photon_ml_tpu_torch.ops import schedule_cache
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optim import common
@@ -253,8 +253,6 @@ class GameTrainingParams:
             any(getattr(self, k) != v for k, v in _GATE_DEFAULTS.items()),
             "the --gate-* options", "item 15",
         )
-        need(self.obs_dir is not None, "--obs-dir", "item 15")
-        need(self.profile_dir is not None, "--profile-dir", "item 15")
         return out
 
     def validate(self) -> None:
@@ -332,6 +330,9 @@ class GameTrainingDriver:
             install_plan(params.fault_plan)
         prepare_output_dir(params.output_dir, delete_if_exists=params.delete_output_dir_if_exists)
         self.logger = logger or PhotonLogger(params.output_dir)
+        from photon_ml_tpu_torch.obs import ObsSession
+
+        self.obs = ObsSession(params.obs_dir, signal_dump=False)
         self.timer = Timer()
         self.results = []
         self.best_result = None
@@ -730,7 +731,9 @@ class GameTrainingDriver:
                                  for name, cfg in sorted(combo.items())).encode()
                     ).hexdigest()[:12]
                     combo_ckpt_dir = os.path.join(p.checkpoint_dir, f"combo-{fp}")
-                with self.timer.time(f"train-combo-{ci}"):
+                with self.timer.time(f"train-combo-{ci}"), profile_trace(
+                    p.profile_dir if ci == 0 else None, self.device
+                ):
                     result, extras = train_streaming_game(
                         train_paths, p.feature_shards, p.fixed_effect_data_configs,
                         p.random_effect_data_configs, combo, p.task_type,
@@ -827,6 +830,7 @@ class GameTrainingDriver:
                 "diagnostics": diag,
             },
             "reliability": reliability_metrics(),
+            **({"obs": self.obs.finish()} if self.obs.enabled else {}),
         })
         self.logger.info("timers:\n%s", self.timer.summary())
 
@@ -883,7 +887,11 @@ class GameTrainingDriver:
                             ti + 1, len(combos),
                         )
                         break
-                    with self.timer.time(f"train-combo-{ci}"):
+                    with self.timer.time(f"train-combo-{ci}"), profile_trace(
+                        # trace the FIRST combo trained (combos run in
+                        # warm-start order, not grid order)
+                        p.profile_dir if ti == 0 else None, self.device
+                    ):
                         coords = self._build_coordinates(dataset, re_datasets, combo)
                         cd = CoordinateDescent(
                             coords, dataset, p.task_type,
@@ -940,6 +948,7 @@ class GameTrainingDriver:
             "best_metric": best.best_metric,
             "timers": self.timer.durations,
             "reliability": reliability_metrics(),
+            **({"obs": self.obs.finish()} if self.obs.enabled else {}),
         })
         self.logger.info("timers:\n%s", self.timer.summary())
 
@@ -998,8 +1007,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gate-max-coef-norm-ratio", type=float, default=10.0)
     ap.add_argument("--gate-max-prediction-drift", type=float, default=None)
     ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--profile-dir", default=None)
-    ap.add_argument("--obs-dir", default=None)
+    ap.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace of the first training combo here",
+    )
+    ap.add_argument(
+        "--obs-dir", default=None,
+        help="unified telemetry: training-span tracing + flight "
+        "recorder; trace.json / flight.json / metrics_snapshot.json "
+        "land here atomically",
+    )
     ap.add_argument("--tile-cache-dir", default=None,
                     help="persistent tile-schedule cache directory")
     ap.add_argument("--no-overlap", default="false")

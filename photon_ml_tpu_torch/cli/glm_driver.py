@@ -74,7 +74,6 @@ from photon_ml_tpu_torch.io.input_format import (
 from photon_ml_tpu_torch.io.streaming import (
     budgeted_rows,
     iter_chunks,
-    peak_rss_bytes,
     scan_stream,
     scan_stream_with_summary,
     sparse_row_bytes,
@@ -117,6 +116,7 @@ from photon_ml_tpu_torch.utils.index_map import intercept_key, split_feature_key
 from photon_ml_tpu_torch.utils.native_index import load_offheap_index_map
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
 from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
+from photon_ml_tpu_torch.utils.profiling import peak_rss_bytes
 
 
 class DriverStage(enum.IntEnum):
@@ -199,7 +199,11 @@ class GLMParams:
     model_shards: Optional[int] = None
     streaming: bool = False
     stream_memory_budget: int = 0
+    # torch.profiler trace of the training stage into this directory
+    # (utils/profiling.py; conventionally <output-dir>/profile)
     profile_dir: Optional[str] = None
+    # --obs-dir: training-span tracing + flight recorder + metrics
+    # snapshots (trace.json, flight.json, metrics_snapshot.json)
     obs_dir: Optional[str] = None
     # persistent schedule cache (ops/schedule_cache.py); None falls back
     # to the PHOTON_TILE_CACHE_DIR env var; unset = off
@@ -251,8 +255,6 @@ class GLMParams:
             any(getattr(self, k) != v for k, v in _GATE_DEFAULTS.items()),
             "the --gate-* options", "item 15",
         )
-        need(self.obs_dir is not None, "--obs-dir", "item 15")
-        need(self.profile_dir is not None, "--profile-dir", "item 15")
         return out
 
     def validate(self) -> None:
@@ -373,6 +375,9 @@ class GLMDriver:
         self.emitter = emitter or EventEmitter()
         for name in params.event_listeners:
             self.emitter.register_by_name(name)
+        from photon_ml_tpu_torch.obs import ObsSession
+
+        self.obs = ObsSession(params.obs_dir, signal_dump=False)
         self.timer = Timer()
         self.stage = DriverStage.INIT
         self.stage_history: List[DriverStage] = []
@@ -598,7 +603,9 @@ class GLMDriver:
         p = self.params
         self.emitter.send(TrainingStartEvent(p.job_name))
         grid_ckpt, guard = self._grid_checkpoint_setup()
-        with self.timer.time("train"):
+        from photon_ml_tpu_torch.utils.profiling import profile_trace
+
+        with self.timer.time("train"), profile_trace(p.profile_dir, self.device):
             if p.streaming:
                 self._train_streaming(grid_ckpt, guard)
             else:
@@ -969,6 +976,7 @@ class GLMDriver:
             # the λ snapshots carry the partial sweep; outputs of a partial
             # grid would pass for a whole one
             self.logger.info("preempted: outputs withheld; resume to finish")
+            self.obs.finish(reason="preempted")
             self.emitter.close()
             self.logger.close()
             return
@@ -980,6 +988,7 @@ class GLMDriver:
             self._write_outputs()
         self.logger.info("stages: %s", [s.name for s in self.stage_history])
         self.logger.info("timers:\n%s", self.timer.summary())
+        self.obs.finish()
         self.emitter.close()
         self.logger.close()
 
@@ -1072,8 +1081,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "staged chunk's rows and the cache tiers; peak RSS is reported "
         "against it in metrics.json. 0 = default sizing",
     )
-    ap.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP item 15)")
-    ap.add_argument("--obs-dir", default=None, help="not ported yet (ROADMAP item 15)")
+    ap.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace of the training stage here "
+        "(Chrome trace-event JSON, the card's kernels included on CUDA)",
+    )
+    ap.add_argument(
+        "--obs-dir", default=None,
+        help="unified telemetry: training-span tracing + flight "
+        "recorder; trace.json (Chrome trace-event), flight.json and "
+        "metrics_snapshot.json land here atomically",
+    )
     ap.add_argument(
         "--tile-cache-dir", default=None,
         help="persistent content-addressed tile-schedule cache directory: "

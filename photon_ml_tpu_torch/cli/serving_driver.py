@@ -1,6 +1,6 @@
 """Online scoring driver: load a GAME model into a device-resident bank
 and serve score requests through the micro-batched request path (port
-of ``photon_ml_tpu/cli/serving_driver.py``, the single-server modes).
+of ``photon_ml_tpu/cli/serving_driver.py``).
 
     python -m photon_ml_tpu_torch.cli.serving_driver \\
         --game-model-input-dir MODEL --output-dir OUT \\
@@ -28,16 +28,33 @@ Two replay load modes:
 ``--swap-model-dir`` stages a second model generation and flips it
 after ``--swap-after-requests`` completions, under live traffic.
 
+Two fleet modes:
+
+- shard-server (``--shard-index S --shard-count N --frontend-port P``):
+  this process serves ONE entity shard in partial-score mode through the
+  front end, with the router's control ops (topology, stage/commit/abort
+  swap) attached; the topology rides ``frontend.json`` and every status
+  reply;
+- router (``--shard-servers host:port,...``): the trace replays through
+  the scatter/gather tier (:mod:`photon_ml_tpu_torch.serving.routing`)
+  instead of a local bank — no device bank, no programs, no CUDA
+  context; ``--swap-model-dir`` runs the fleet-wide two-step flip, and
+  ``--fleet-obs-dir`` stitches every member's trace ring into one fleet
+  trace.
+
 Lifecycle: SIGTERM (or Ctrl-C) anywhere stops admitting, drains the
 batcher within ``--drain-timeout`` (leftover futures fail with the
 named ``DRAIN_TIMEOUT`` outcome — never a hang), drains async IO, and
 writes metrics.json with an ``interrupted`` marker so a partial run
 still accounts for everything it did.
 
-The port adds ``--device`` (the card by default, ``cpu`` on request).
-The shard-server and router modes and the fleet collector wait for
-ROADMAP item 14; the registry watcher, ``--obs-dir``, ``--profile-dir``
-and the SLO engine for item 15: their options raise, naming the item.
+Telemetry: ``--obs-dir`` (tracing, the metrics registry's snapshots and
+the flight recorder), ``--profile-dir`` (a ``torch.profiler`` trace of
+the serve phase) and ``--slo`` (the burn-rate engine).
+
+The port adds ``--device`` (the card by default, ``cpu`` on request; a
+router takes none). The registry watcher and its rollback options wait
+for ROADMAP item 15: they raise, naming the item.
 """
 
 from __future__ import annotations
@@ -72,26 +89,12 @@ DEFAULT_LADDER_TEXT = "1,8,64,256"
 # ServingParams, the option, the ROADMAP item. Each defaults to None, so
 # giving one at all refuses the run.
 _UNPORTED = (
-    ("shard_index", "--shard-index", "item 14"),
-    ("shard_count", "--shard-count", "item 14"),
-    ("shard_servers", "--shard-servers", "item 14"),
-    ("hot_cache_entries", "--hot-cache-entries", "item 14"),
-    ("router_subrequest_timeout_ms", "--router-subrequest-timeout-ms", "item 14"),
-    ("router_hedge", "--router-hedge", "item 14"),
-    ("fleet_obs_dir", "--fleet-obs-dir", "item 14"),
-    ("fleet_poll_s", "--fleet-poll-s", "item 14"),
-    ("wire", "--wire", "item 14"),
     ("registry_dir", "--registry-dir", "item 15"),
     ("registry_poll_s", "--registry-poll-s", "item 15"),
     ("auto_rollback", "--auto-rollback", "item 15"),
     ("rollback_window", "--rollback-window", "item 15"),
     ("rollback_min_requests", "--rollback-min-requests", "item 15"),
     ("rollback_max_unhealthy", "--rollback-max-unhealthy", "item 15"),
-    ("obs_dir", "--obs-dir", "item 15"),
-    ("obs_snapshot_s", "--obs-snapshot-s", "item 15"),
-    ("profile_dir", "--profile-dir", "item 15"),
-    ("slo", "--slo", "item 15"),
-    ("slo_tick_s", "--slo-tick-s", "item 15"),
 )
 
 
@@ -153,29 +156,52 @@ class ServingParams:
     # every status response
     max_frame_bytes: Optional[int] = None
     # where the bank lives and the programs run: None = the CUDA card
-    # (raises without one), "cpu" on request
+    # (raises without one), "cpu" on request; a router takes none
     device: Optional[str] = None
-    # Options of paths not ported yet (_UNPORTED): None unless given.
+    # Shard-server mode: this replica serves ONE entity shard
+    # (--shard-index of --shard-count) in partial-score mode with the
+    # router control ops attached; topology is published in
+    # frontend.json and every status response. Router mode:
+    # --shard-servers host:port,... replays the trace through the
+    # scatter/gather tier instead of a local bank.
     shard_index: Optional[int] = None
     shard_count: Optional[int] = None
     shard_servers: Optional[str] = None
-    hot_cache_entries: Optional[int] = None
-    router_subrequest_timeout_ms: Optional[float] = None
-    router_hedge: Optional[bool] = None
+    hot_cache_entries: int = 4096
+    router_subrequest_timeout_ms: float = 2000.0
+    router_hedge: bool = True
+    # Telemetry plane: --obs-dir enables request tracing (Chrome
+    # trace-event JSON), the live metrics registry ({"op": "metrics"} +
+    # periodic atomic snapshots), and the flight recorder (auto-dumped on
+    # swap/rollback transitions + at drain).
+    obs_dir: Optional[str] = None
+    obs_snapshot_s: float = 5.0
+    # Device-timeline co-capture: a torch.profiler trace over the serve
+    # phase (replay, frontend and router modes), next to the host spans.
+    profile_dir: Optional[str] = None
+    # Router mode only: --fleet-obs-dir runs a live FleetCollector over
+    # the shard fleet (incremental {"op":"trace"} drains on fresh
+    # connections, NTP-style clock-skew normalization) and writes ONE
+    # merged fleet_trace.json + fleet_conservation.json at exit.
     fleet_obs_dir: Optional[str] = None
-    fleet_poll_s: Optional[float] = None
-    wire: Optional[str] = None  # the router's data-plane protocol
+    fleet_poll_s: float = 1.0
+    # Declarative SLOs with multi-window burn-rate alerting: inline
+    # JSON, @file, or "default". Alerts land on the flight-recorder ring
+    # and as registry gauges.
+    slo: Optional[str] = None
+    slo_tick_s: float = 1.0
+    # Router mode: the data-plane protocol — "binary" requires every
+    # shard to advertise photon-wire framing (mismatched fleets are
+    # refused at connect), "auto" negotiates binary when the whole fleet
+    # speaks it, "json" pins the JSON-lines plane.
+    wire: str = "auto"
+    # Options of paths not ported yet (_UNPORTED): None unless given.
     registry_dir: Optional[str] = None
     registry_poll_s: Optional[float] = None
     auto_rollback: Optional[bool] = None
     rollback_window: Optional[int] = None
     rollback_min_requests: Optional[int] = None
     rollback_max_unhealthy: Optional[float] = None
-    obs_dir: Optional[str] = None
-    obs_snapshot_s: Optional[float] = None
-    profile_dir: Optional[str] = None
-    slo: Optional[str] = None
-    slo_tick_s: Optional[float] = None
 
     @property
     def stdin_mode(self) -> bool:
@@ -184,6 +210,33 @@ class ServingParams:
     @property
     def frontend_mode(self) -> bool:
         return self.frontend_port is not None
+
+    @property
+    def shard_mode(self) -> bool:
+        return self.shard_index is not None or self.shard_count is not None
+
+    @property
+    def router_mode(self) -> bool:
+        return bool(self.shard_servers)
+
+    @property
+    def entity_shard(self):
+        return (
+            (self.shard_index, self.shard_count)
+            if self.shard_mode
+            else None
+        )
+
+    @property
+    def shard_addresses(self):
+        out = []
+        for part in (self.shard_servers or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            host, _, port = part.rpartition(":")
+            out.append((host or "127.0.0.1", int(port)))
+        return out
 
     def unported(self) -> List[str]:
         """The options set here whose paths the port lacks, each with the
@@ -200,8 +253,95 @@ class ServingParams:
             raise NotImplementedError(
                 "not ported to photon_ml_tpu_torch yet: " + "; ".join(unported)
             )
+        if self.fleet_obs_dir and not self.router_mode:
+            raise ValueError(
+                "--fleet-obs-dir is the router-side fleet collector; "
+                "it requires --shard-servers (router mode)"
+            )
+        if self.fleet_poll_s <= 0:
+            raise ValueError("fleet-poll-s must be > 0")
+        if self.wire not in ("json", "binary", "auto"):
+            raise ValueError(
+                f"--wire must be json|binary|auto, got {self.wire!r}"
+            )
         if self.max_frame_bytes is not None and self.max_frame_bytes <= 0:
             raise ValueError("--max-frame-bytes must be positive")
+        if self.slo_tick_s <= 0:
+            raise ValueError("slo-tick-s must be > 0")
+        if self.slo:
+            from photon_ml_tpu_torch.obs.slo import parse_slo_specs
+
+            # parse-time rejection: a typo'd spec must fail the launch,
+            # not silently alert on nothing
+            parse_slo_specs(self.slo)
+        if self.shard_mode:
+            if self.shard_index is None or self.shard_count is None:
+                raise ValueError(
+                    "--shard-index and --shard-count go together"
+                )
+            if not (
+                self.shard_count >= 1
+                and 0 <= self.shard_index < self.shard_count
+            ):
+                raise ValueError(
+                    f"need 0 <= shard-index < shard-count, got "
+                    f"{self.shard_index}/{self.shard_count}"
+                )
+            if not self.frontend_mode:
+                raise ValueError(
+                    "a shard-server serves the routing tier over TCP; "
+                    "--shard-index requires --frontend-port"
+                )
+            if self.swap_model_dir:
+                raise ValueError(
+                    "--swap-model-dir is incompatible with "
+                    "--shard-index: shard generations flip through the "
+                    "router's two-step stage/commit protocol"
+                )
+        if self.router_mode:
+            if self.shard_mode:
+                raise ValueError(
+                    "a process is a shard-server or a router, not both"
+                )
+            if self.frontend_mode:
+                raise ValueError(
+                    "router mode replays --request-paths through the "
+                    "fleet; it does not serve a frontend itself"
+                )
+            if self.device is not None:
+                raise ValueError(
+                    "router mode builds no device bank; --device is the "
+                    "shard-servers' option"
+                )
+            if not self.request_paths:
+                raise ValueError(
+                    "router mode needs --request-paths ('-' for stdin)"
+                )
+            if not self.shard_addresses:
+                raise ValueError(
+                    f"unparseable --shard-servers {self.shard_servers!r}"
+                )
+            if self.swap_model_dir and self.swap_after_requests < 1:
+                raise ValueError(
+                    "swap-model-dir requires --swap-after-requests >= 1"
+                )
+            if not self.game_model_input_dir:
+                raise ValueError(
+                    "router mode needs --game-model-input-dir (the "
+                    "router builds its entity->shard index from the "
+                    "model's entity universe)"
+                )
+            if not self.output_dir:
+                raise ValueError("output-dir is required")
+            if self.mode not in ("closed", "open"):
+                raise ValueError(
+                    f"mode must be closed|open, got {self.mode!r}"
+                )
+            if not self.feature_shards:
+                raise ValueError(
+                    "feature shard configuration is required"
+                )
+            return  # the bank/ladder rules below are shard-side
         if not self.game_model_input_dir:
             raise ValueError("game-model-input-dir is required")
         if not self.output_dir:
@@ -274,11 +414,25 @@ def _parse_widths(text: str, shard_ids: List[str]) -> Dict[str, int]:
     return out
 
 
+@dataclass
+class _RoutedRequest:
+    """Just enough of a ScoreRequest for the score-artifact writer and
+    the trace evaluators (router mode routes raw records; nothing else
+    needs assembling)."""
+
+    uid: str
+    label: Optional[float]
+    weight: float
+    metadata: Optional[Dict[str, str]]
+
+
 class ServingDriver:
     def __init__(self, params: ServingParams, logger=None):
         params.validate()
         self.params = params
-        self.device = resolve_device(params.device)
+        # a router builds no device bank: it never resolves (or creates a
+        # context on) a device
+        self.device = None if params.router_mode else resolve_device(params.device)
         if params.no_overlap:
             from photon_ml_tpu_torch.parallel import overlap
 
@@ -293,6 +447,16 @@ class ServingDriver:
         )
         self.logger = logger or PhotonLogger(params.output_dir)
         self.timer = Timer()
+        # --obs-dir: one session owns tracing + registry + flight
+        # recorder; the driver's own drain paths call finish() (signal
+        # dumps ride the drain protocol, not a second handler)
+        from photon_ml_tpu_torch.obs import ObsSession
+
+        self.obs = ObsSession(
+            params.obs_dir,
+            snapshot_period_s=params.obs_snapshot_s,
+            signal_dump=False,
+        )
         self.serving_model = None
         self.metrics = None
         self.results: List[float] = []
@@ -303,6 +467,53 @@ class ServingDriver:
         self._open_results: Dict[int, tuple] = {}
         self.drain_report = None
         self.interrupted = False
+        # fleet observability (--fleet-obs-dir / --slo)
+        self.slo_engine = None          # obs.slo.SLOEngine
+        self.fleet_collector = None     # obs.fleet.FleetCollector
+
+    # -- SLO engine (--slo) --------------------------------------------------
+
+    def _start_slo(self, *, router=None):
+        """Start the burn-rate engine over the process registry: bind
+        the live instruments (serving or router plane), register the
+        status view, run the tick thread. Alerts file onto the flight
+        ring and surface as slo_* gauges."""
+        p = self.params
+        if not p.slo:
+            return None
+        from photon_ml_tpu_torch.obs.flight_recorder import flight_recorder
+        from photon_ml_tpu_torch.obs.registry import default_registry
+        from photon_ml_tpu_torch.obs.slo import (
+            SLOEngine,
+            default_router_slos,
+            parse_slo_specs,
+        )
+
+        registry = self.obs.registry or default_registry()
+        if p.slo.strip() == "default" and router is not None:
+            specs = default_router_slos()
+        else:
+            specs = parse_slo_specs(p.slo)
+        if router is not None:
+            router.metrics.bind_registry(registry)
+        elif self.metrics is not None:
+            self.metrics.bind_registry(registry)
+        engine = SLOEngine(registry, specs, recorder=flight_recorder())
+        registry.register_view("slo", engine.status)
+        engine.start(period_s=p.slo_tick_s)
+        self.slo_engine = engine
+        self.logger.info(
+            "SLO engine: %d spec(s), tick %.2fs — %s",
+            len(specs), p.slo_tick_s,
+            ", ".join(s.name for s in specs),
+        )
+        return engine
+
+    def _finish_slo(self) -> Optional[Dict]:
+        if self.slo_engine is None:
+            return None
+        self.slo_engine.stop()
+        return self.slo_engine.status()
 
     # -- setup ---------------------------------------------------------------
 
@@ -399,21 +610,30 @@ class ServingDriver:
                 widths,
                 entity_pad_to=p.entity_pad_to,
                 model_id=p.model_id,
+                entity_shard=p.entity_shard,
                 device=self.device,
             )
         with self.timer.time("warmup-programs"):
             self.serving_model = ServingModel(
-                bank, ServingPrograms(tuple(p.ladder))
+                bank,
+                ServingPrograms(tuple(p.ladder)),
+                partial=p.shard_mode,
+                entity_shard=p.entity_shard,
             )
         self.logger.info(
             "bank generation %d staged: %d coordinate(s), %.1f MiB on "
-            "%s, ladder %s built (%d program(s))",
+            "%s, ladder %s built (%d program(s))%s",
             bank.generation,
             len(bank.spec),
             bank.device_bytes() / (1 << 20),
             self.device,
             tuple(p.ladder),
             self.serving_model.programs.stats()["compiled_programs"],
+            (
+                f", entity shard {p.shard_index}/{p.shard_count} "
+                "(partial-score mode)"
+                if p.shard_mode else ""
+            ),
         )
         if dataset is not None:
             with self.timer.time("assemble-requests"):
@@ -664,6 +884,9 @@ class ServingDriver:
             extra["outcomes"] = dict(sorted(outcomes.items()))
         if self.drain_report is not None:
             extra["drain"] = self.drain_report.to_dict()
+        slo_status = self._finish_slo()
+        if slo_status is not None:
+            extra["slo"] = slo_status
         return extra
 
     def run(self) -> None:
@@ -672,8 +895,13 @@ class ServingDriver:
 
         p = self.params
         self.logger.info("application: %s", p.application_name)
+        if p.router_mode:
+            self._run_router()
+            return
         requests = self._build()
         self.metrics = ServingMetrics()
+        self.obs.register_view("serving", self.metrics.snapshot)
+        self._start_slo()
         overlap.reset_readback_stats()
         batcher = MicroBatcher(
             self.serving_model.current,
@@ -693,11 +921,17 @@ class ServingDriver:
             self._stop_replay.set()
             raise KeyboardInterrupt(f"signal {signum}")
 
+        from photon_ml_tpu_torch.utils.profiling import profile_trace
+
         prev = self._install_signal_handlers(_interrupt)
         scored = []
         try:
             try:
-                with self.timer.time("serve"):
+                # --profile-dir: device timeline over the serve phase,
+                # co-captured with the host spans (--obs-dir trace.json)
+                with self.timer.time("serve"), profile_trace(
+                    p.profile_dir, self.device
+                ):
                     scored = (
                         self._replay_closed(batcher, requests)
                         if p.mode == "closed"
@@ -730,12 +964,344 @@ class ServingDriver:
                 self._write_scores(scored)
         eval_metrics = self._evaluate(scored)
         extra = self._metrics_extra(scored, eval_metrics)
+        obs_summary = self.obs.finish()
+        if obs_summary is not None:
+            extra["obs"] = obs_summary
         self.metrics.write(
             os.path.join(p.output_dir, "metrics.json"),
             extra=extra,
         )
         self.results = [s for _, outcome, s in scored if outcome == "ok"]
         self.logger.info("timers:\n%s", self.timer.summary())
+
+    # -- router mode (--shard-servers) ---------------------------------------
+
+    def _router_entity_ids(self, loaded) -> Dict[str, List[str]]:
+        """The router's only model state: each id type's FULL sorted
+        entity-id universe (position == code == the ownership rule's
+        input). No coefficients are ever loaded router-side."""
+        entity_ids: Dict[str, List[str]] = {}
+        for re_type, _sid, per_entity in loaded.random_effects.values():
+            ids = sorted(per_entity)
+            prev = entity_ids.get(re_type)
+            if prev is not None and prev != ids:
+                raise ValueError(
+                    f"random-effect coordinates disagree on the "
+                    f"{re_type!r} entity set"
+                )
+            entity_ids[re_type] = ids
+        for row_t, col_t, rows, cols in (
+            loaded.matrix_factorizations.values()
+        ):
+            for t, latent in ((row_t, rows), (col_t, cols)):
+                entity_ids.setdefault(t, sorted(latent))
+        return entity_ids
+
+    def _router_records(self):
+        p = self.params
+        if p.stdin_mode:
+            def stdin_records():
+                for line in sys.stdin:
+                    line = line.strip()
+                    if line:
+                        yield json.loads(line)
+
+            return stdin_records()
+        from photon_ml_tpu_torch.io.avro_codec import read_avro_records
+
+        out = []
+        for path in p.request_paths:
+            out.extend(read_avro_records(path))
+        return out
+
+    def _route_one(self, router, record) -> tuple:
+        from photon_ml_tpu_torch.serving import ServingError
+
+        p = self.params
+        try:
+            outcome = router.score_record(
+                record,
+                deadline_ms=record.get("deadline_ms",
+                                       p.default_deadline_ms),
+            )
+            return ("ok", outcome)
+        except ServingError as e:
+            return (f"error:{e.code}", None)
+
+    def _maybe_router_swap(
+        self, router, completed: int, swap_once: threading.Lock
+    ) -> None:
+        p = self.params
+        if (
+            p.swap_model_dir
+            and completed >= p.swap_after_requests
+            and swap_once.acquire(blocking=False)
+        ):
+            with self.timer.time("router-swap"):
+                res = router.coordinate_swap(p.swap_model_dir)
+            self._router_swap_result = res
+            self.logger.info(
+                "router-coordinated two-step swap after %d request(s): "
+                "%s", completed, res,
+            )
+
+    def _run_router(self) -> None:
+        """Replay the trace through the scatter/gather tier: the driver
+        is the THIN router — no device bank, no programs, just the
+        entity->shard index and the fleet connections. Bitwise vs the
+        single-server replay is the acceptance bar; a mid-replay
+        --swap-model-dir runs the two-step fleet flip."""
+        from photon_ml_tpu_torch.game.data import record_response
+        from photon_ml_tpu_torch.parallel import overlap
+        from photon_ml_tpu_torch.reliability import (
+            atomic_write_json,
+            reliability_metrics,
+        )
+        from photon_ml_tpu_torch.serving import (
+            RoutingPolicy,
+            ShardRouter,
+        )
+        from photon_ml_tpu_torch.serving.swap import load_model_artifact
+
+        p = self.params
+        with self.timer.time("load-model"):
+            loaded = load_model_artifact(p.game_model_input_dir)
+        router = ShardRouter(
+            p.shard_addresses,
+            entity_ids=self._router_entity_ids(loaded),
+            shard_configs=p.feature_shards,
+            policy=RoutingPolicy(
+                hedge=p.router_hedge,
+                subrequest_timeout_s=(
+                    p.router_subrequest_timeout_ms / 1e3
+                ),
+            ),
+            cache_entries=p.hot_cache_entries,
+            wire=p.wire,
+        )
+        with self.timer.time("connect-fleet"):
+            info = router.connect()
+        self.obs.register_view("routing", router.status)
+        self.logger.info(
+            "routing over %d shard-server(s), fleet generation %d, "
+            "%s wire", info["shards"], info["generation"], info["wire"],
+        )
+        self._start_slo(router=router)
+        if p.fleet_obs_dir:
+            os.makedirs(p.fleet_obs_dir, exist_ok=True)
+            from photon_ml_tpu_torch.obs.fleet import FleetCollector
+
+            # the live fleet collector: incremental {"op":"trace"}
+            # drains over fresh connections against every shard, plus
+            # the router's own local spans — one merged timeline
+            self.fleet_collector = FleetCollector(
+                [
+                    (f"shard{i}", h, pt)
+                    for i, (h, pt) in enumerate(p.shard_addresses)
+                ],
+                local_name="router",
+                poll_s=p.fleet_poll_s,
+            ).start()
+            self.logger.info(
+                "fleet collector polling %d shard(s) every %.2fs -> %s",
+                len(p.shard_addresses), p.fleet_poll_s, p.fleet_obs_dir,
+            )
+        self._router_swap_result = None
+        records = self._router_records()
+        swap_once = threading.Lock()
+        scored: List[tuple] = []
+        out_lock = threading.Lock()
+
+        def _interrupt(signum, frame):
+            self._stop_replay.set()
+            raise KeyboardInterrupt(f"signal {signum}")
+
+        from photon_ml_tpu_torch.utils.profiling import profile_trace
+
+        prev = self._install_signal_handlers(_interrupt)
+        try:
+            try:
+                with self.timer.time("serve"), profile_trace(p.profile_dir):
+                    if p.mode == "closed":
+                        for rec in records:
+                            if self._stop_replay.is_set():
+                                break
+                            outcome, score = self._route_one(router, rec)
+                            scored.append((rec, outcome, score))
+                            self._maybe_router_swap(
+                                router, len(scored), swap_once
+                            )
+                    else:
+                        it = iter(enumerate(records))
+                        it_lock = threading.Lock()
+                        results: Dict[int, tuple] = {}
+                        errors: List[BaseException] = []
+
+                        def worker():
+                            while not self._stop_replay.is_set():
+                                with it_lock:
+                                    try:
+                                        i, rec = next(it)
+                                    except StopIteration:
+                                        return
+                                try:
+                                    outcome, score = self._route_one(
+                                        router, rec
+                                    )
+                                except BaseException as e:
+                                    with out_lock:
+                                        errors.append(e)
+                                    return
+                                with out_lock:
+                                    results[i] = (rec, outcome, score)
+                                    n = len(results)
+                                self._maybe_router_swap(
+                                    router, n, swap_once
+                                )
+
+                        threads = [
+                            threading.Thread(
+                                target=worker,
+                                name=f"photon-router-load-{t}",
+                                daemon=True,
+                            )
+                            for t in range(p.concurrency)
+                        ]
+                        for t in threads:
+                            t.start()
+                        for t in threads:
+                            t.join()
+                        if errors:
+                            raise errors[0]
+                        scored = [results[i] for i in sorted(results)]
+            except KeyboardInterrupt:
+                self.interrupted = True
+                self._stop_replay.set()
+        finally:
+            self._restore_signal_handlers(prev)
+            router.close()
+            overlap.drain_io()
+        if not scored and not self.interrupted:
+            raise ValueError("empty request trace")
+        self.logger.info(
+            "routed %d request(s) in %s mode%s",
+            len(scored), p.mode,
+            " (interrupted)" if self.interrupted else "",
+        )
+        outcomes: Dict[str, int] = {}
+        for _rec, outcome, _s in scored:
+            outcomes[outcome] = outcomes.get(outcome, 0) + 1
+        if p.write_scores and scored:
+            id_types = sorted(router._indexes)
+
+            def shim(rec):
+                meta = {
+                    t: str(v) for t, v in (
+                        (t, rec.get(t) or (rec.get("metadataMap") or {})
+                         .get(t))
+                        for t in id_types
+                    ) if v is not None
+                }
+                return _RoutedRequest(
+                    uid=str(rec.get("uid") or ""),
+                    label=(
+                        record_response(rec, True)
+                        if p.has_response else None
+                    ),
+                    weight=(
+                        1.0 if rec.get("weight") is None
+                        else float(rec["weight"])
+                    ),
+                    metadata=meta or None,
+                )
+
+            with self.timer.time("write-scores"):
+                self._write_scores([
+                    (shim(rec), outcome, score)
+                    for rec, outcome, score in scored
+                ])
+        status = router.status()
+        degraded = sum(
+            1 for _r, o, s in scored
+            if o == "ok" and getattr(s, "degraded", False)
+        )
+        fleet_block = self._finish_fleet_obs()
+        slo_status = self._finish_slo()
+        obs_summary = self.obs.finish()
+        atomic_write_json(
+            os.path.join(p.output_dir, "metrics.json"),
+            {
+                "mode": "router",
+                **({"obs": obs_summary} if obs_summary else {}),
+                **({"fleet_obs": fleet_block} if fleet_block else {}),
+                **({"slo": slo_status} if slo_status else {}),
+                "interrupted": self.interrupted,
+                "outcomes": dict(sorted(outcomes.items())),
+                "degraded_responses": degraded,
+                "generation": router.generation,
+                "routing": status,
+                "swap": self._router_swap_result,
+                "shard_servers": [
+                    f"{h}:{pt}" for h, pt in p.shard_addresses
+                ],
+                "reliability": reliability_metrics(),
+            },
+        )
+        self.results = [
+            s for _r, outcome, s in scored if outcome == "ok"
+        ]
+        self.logger.info("timers:\n%s", self.timer.summary())
+
+    def _finish_fleet_obs(self) -> Optional[Dict]:
+        """Stop the collector (one final drain poll), fetch every
+        member's flight book, write fleet_trace.json +
+        fleet_conservation.json, and return the metrics.json block."""
+        if self.fleet_collector is None:
+            return None
+        from photon_ml_tpu_torch.obs.fleet import fleet_check_conservation
+        from photon_ml_tpu_torch.reliability import atomic_write_json
+
+        p = self.params
+        collector = self.fleet_collector
+        collector.stop()
+        flight = collector.collect_flight()
+        books = {
+            f"shard{i}": {
+                "conservation": (
+                    flight.get(f"shard{i}", {}).get("conservation") or {}
+                ),
+                "complete": bool(
+                    flight.get(f"shard{i}", {}).get("complete")
+                ),
+                "shard_indices": [i],
+            }
+            for i in range(len(p.shard_addresses))
+        }
+        router_book = (
+            flight.get("router", {}).get("conservation") or {}
+        )
+        conservation = fleet_check_conservation(router_book, books)
+        trace_path = os.path.join(p.fleet_obs_dir, "fleet_trace.json")
+        n_events = collector.export(
+            trace_path, extra={"conservation_ok": conservation["ok"]}
+        )
+        atomic_write_json(
+            os.path.join(p.fleet_obs_dir, "fleet_conservation.json"),
+            conservation,
+        )
+        self.logger.info(
+            "fleet obs: %d merged trace event(s) -> %s; conservation "
+            "%s", n_events, trace_path,
+            "OK" if conservation["ok"] else "VIOLATED",
+        )
+        return {
+            "fleet_obs_dir": p.fleet_obs_dir,
+            "fleet_trace_path": trace_path,
+            "trace_events": n_events,
+            "members": collector.member_status(),
+            "conservation": conservation,
+        }
+
 
     def _run_frontend(self, batcher) -> None:
         """Network-serving main loop: publish the bound port, serve
@@ -758,6 +1324,27 @@ class ServingDriver:
             if p.swap_model_dir
             else None
         )
+        extra_ops = None
+        status_extra = None
+        shard_block = None
+        if p.shard_mode:
+            from photon_ml_tpu_torch.serving import (
+                make_shard_ops,
+                shard_topology,
+            )
+
+            extra_ops = make_shard_ops(
+                self.serving_model,
+                p.entity_shard,
+                swap_kwargs={
+                    "entity_pad_to": p.entity_pad_to,
+                    "model_id": p.model_id,
+                },
+            )
+            status_extra = lambda: {  # noqa: E731
+                "shard": shard_topology(self.serving_model, p.entity_shard)
+            }
+            shard_block = shard_topology(self.serving_model, p.entity_shard)
         frontend = ServingFrontend(
             batcher,
             self.serving_model,
@@ -768,6 +1355,12 @@ class ServingDriver:
             has_response=p.has_response,
             max_frame_bytes=p.max_frame_bytes,
             on_completion=on_completion,
+            extra_ops=extra_ops,
+            status_extra=status_extra,
+            metrics_registry=self.obs.registry,
+            flight_dump_path=(
+                self.obs.flight_path if self.obs.enabled else None
+            ),
         )
         frontend.start()
         atomic_write_json(
@@ -776,10 +1369,13 @@ class ServingDriver:
                 "host": p.frontend_host,
                 "port": frontend.port,
                 "pid": os.getpid(),
-                # no registry watcher and no shard topology in the port
-                # yet (ROADMAP items 15 and 14): the keys stay, as null
+                # no registry watcher in the port yet (ROADMAP item 15):
+                # the key stays, as null
                 "registry": None,
-                "shard": None,
+                # shard topology (null off the routing tier): how the
+                # router — and any operator — discovers the fleet
+                # layout without out-of-band config
+                "shard": shard_block,
                 # the wire contract this frontend enforces: protocols
                 # spoken on the port (both, via first-byte sniffing)
                 # and the shared JSON-line/binary-frame cap
@@ -798,10 +1394,16 @@ class ServingDriver:
         prev = self._install_signal_handlers(
             lambda signum, frame: shutdown.set()
         )
+        from photon_ml_tpu_torch.utils.profiling import profile_trace
+
         try:
             try:
-                while not shutdown.wait(timeout=0.2):
-                    pass
+                # --profile-dir: the device timeline of everything the
+                # dispatcher runs while the frontend serves (the trace
+                # closes at SIGTERM, before the drain)
+                with profile_trace(p.profile_dir, self.device):
+                    while not shutdown.wait(timeout=0.2):
+                        pass
             except KeyboardInterrupt:
                 pass
             self.interrupted = True
@@ -823,6 +1425,9 @@ class ServingDriver:
             "frontend_completed": frontend.completed(),
             "leaked_connections": leaked,
         }
+        obs_summary = self.obs.finish(reason="drain")
+        if obs_summary is not None:
+            extra["obs"] = obs_summary
         self.metrics.write(
             os.path.join(p.output_dir, "metrics.json"),
             extra=extra,
@@ -915,6 +1520,87 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "own; enables load shedding under overload",
     )
     ap.add_argument(
+        "--shard-index", type=int, default=None,
+        help="serve ONE entity shard of the model (0-based) in "
+        "partial-score mode for the routing tier; requires "
+        "--shard-count and --frontend-port",
+    )
+    ap.add_argument(
+        "--shard-count", type=int, default=None,
+        help="total shard-servers in the fleet (the N of the "
+        "entity_code %% N ownership rule)",
+    )
+    ap.add_argument(
+        "--shard-servers", default=None,
+        help="router mode: comma-separated host:port shard-servers; "
+        "the trace replays through the scatter/gather tier instead of "
+        "a local bank (--swap-model-dir runs the two-step fleet flip)",
+    )
+    ap.add_argument(
+        "--hot-cache-entries", type=int, default=4096,
+        help="router hot-entity cache capacity (generation-keyed LRU "
+        "of partial scores; 0 disables)",
+    )
+    ap.add_argument(
+        "--router-subrequest-timeout-ms", type=float, default=2000.0,
+        help="per-shard sub-request budget for deadline-less requests",
+    )
+    ap.add_argument(
+        "--router-hedge", default="true",
+        help="hedge a slow shard once on a fresh connection inside the "
+        "remaining budget before shedding it (FE-only for its "
+        "entities)",
+    )
+    ap.add_argument(
+        "--obs-dir", default=None,
+        help="unified telemetry: enable request tracing + the live "
+        "metrics registry + the flight recorder; trace.json / "
+        "flight.json / metrics_snapshot.json land here atomically "
+        "(also exposed live via the {\"op\": \"metrics\"} and "
+        "{\"op\": \"flight\"} control ops)",
+    )
+    ap.add_argument(
+        "--obs-snapshot-s", type=float, default=5.0,
+        help="period of the --obs-dir metrics snapshot writer",
+    )
+    ap.add_argument(
+        "--profile-dir", default=None,
+        help="torch.profiler trace (Chrome trace-event JSON, the card's "
+        "kernels included on CUDA) over the serve phase (replay, "
+        "frontend and router modes) — co-captured with the --obs-dir "
+        "host spans",
+    )
+    ap.add_argument(
+        "--fleet-obs-dir", default=None,
+        help="router mode: run the live fleet collector (incremental "
+        "{\"op\": \"trace\"} drains over fresh connections, clock-skew "
+        "normalized) and write ONE merged fleet_trace.json + "
+        "fleet_conservation.json here at exit",
+    )
+    ap.add_argument(
+        "--fleet-poll-s", type=float, default=1.0,
+        help="fleet collector poll period",
+    )
+    ap.add_argument(
+        "--slo", default=None,
+        help="declarative SLOs with multi-window burn-rate alerting: "
+        "inline JSON (object or list of {name, objective, kind, "
+        "metric, ...}), @file, or 'default'; alerts land on the "
+        "flight-recorder ring and as slo_* registry gauges",
+    )
+    ap.add_argument(
+        "--slo-tick-s", type=float, default=1.0,
+        help="SLO engine evaluation period",
+    )
+    ap.add_argument(
+        "--wire", default="auto", choices=("json", "binary", "auto"),
+        help="router data-plane protocol: binary requires every shard "
+        "to advertise photon-wire framing (mismatches refused at "
+        "connect), auto negotiates it fleet-wide, json pins the "
+        "legacy JSON-lines plane; frontends always speak both via "
+        "first-byte sniffing",
+    )
+    ap.add_argument(
         "--max-frame-bytes", type=int, default=None,
         help="framing cap enforced identically for JSON line lengths "
         "and binary frame lengths (default: PHOTON_MAX_FRAME_BYTES "
@@ -978,6 +1664,20 @@ def params_from_args(argv=None) -> ServingParams:
         default_deadline_ms=ns.default_deadline_ms,
         max_frame_bytes=ns.max_frame_bytes,
         device=ns.device,
+        shard_index=ns.shard_index,
+        shard_count=ns.shard_count,
+        shard_servers=ns.shard_servers,
+        hot_cache_entries=ns.hot_cache_entries,
+        router_subrequest_timeout_ms=ns.router_subrequest_timeout_ms,
+        router_hedge=_bool(ns.router_hedge),
+        obs_dir=ns.obs_dir,
+        obs_snapshot_s=ns.obs_snapshot_s,
+        profile_dir=ns.profile_dir,
+        fleet_obs_dir=ns.fleet_obs_dir,
+        fleet_poll_s=ns.fleet_poll_s,
+        slo=ns.slo,
+        slo_tick_s=ns.slo_tick_s,
+        wire=ns.wire,
         **{name: getattr(ns, name) for name, _opt, _item in _UNPORTED},
     )
 

@@ -29,6 +29,8 @@ import torch
 from photon_ml_tpu_torch.game.coordinate import Coordinate
 from photon_ml_tpu_torch.game.data import GameDataset
 from photon_ml_tpu_torch.game.model import GameModel
+from photon_ml_tpu_torch.obs.trace import span as obs_span
+from photon_ml_tpu_torch.obs.trace import start_span
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.parallel import overlap
 from photon_ml_tpu_torch.task import TaskType
@@ -156,6 +158,9 @@ class CoordinateDescent:
                 best_step = step
 
         for it in range(start_iteration, num_iterations):
+            # one host span per CD iteration (with per-coordinate children)
+            # under --obs-dir; --profile-dir carries the device side
+            it_span = start_span("cd.iteration", iteration=it + 1)
             # a fresh score sum once per iteration; inside the sweep each
             # coordinate's residual is total - own score and the total is
             # patched as it goes (the KeyValueScore `-` of the reference)
@@ -165,9 +170,13 @@ class CoordinateDescent:
             for name in seq:
                 coord = self.coordinates[name]
                 residual = total - scores[name] if len(seq) > 1 else None
-                models[name], tracker = coord.update_model(models[name], residual)
-                trackers[name].append(tracker)
-                new_score = coord.score(models[name])
+                with obs_span(
+                    "cd.update", parent_id=it_span.span_id,
+                    trace_id=it_span.trace_id, coordinate=name,
+                ):
+                    models[name], tracker = coord.update_model(models[name], residual)
+                    trackers[name].append(tracker)
+                    new_score = coord.score(models[name])
                 total = residual + new_score if residual is not None else new_score
                 scores[name] = new_score
 
@@ -179,6 +188,7 @@ class CoordinateDescent:
                 + [getattr(trackers[name][-1], "deferred", None) for name in seq]
             )
             objective = objective_d.result()
+            it_span.end(objective=objective)
             objective_history.append(objective)
             self.logger.info("coordinate descent iter %d: objective=%g", it + 1, objective)
             if self.checkpointer is not None:

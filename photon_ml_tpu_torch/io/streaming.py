@@ -410,16 +410,6 @@ def sparse_row_bytes(nnz_width: int) -> int:
     return max(1, nnz_width) * 8 + 12
 
 
-def peak_rss_bytes() -> int:
-    """The process's peak resident set in bytes (``ru_maxrss``, KiB on
-    Linux): the streaming layer's reported host-memory ceiling."""
-    import resource
-    import sys
-
-    ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    return int(ru if sys.platform == "darwin" else ru * 1024)
-
-
 def budgeted_rows(max_rows: int, budget_bytes: int, bytes_per_row: int) -> int:
     """Rows of a bounded in-memory sample (the diagnostics reservoir)
     under a byte budget: wide rows scale the count down."""

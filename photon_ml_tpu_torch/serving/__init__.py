@@ -1,8 +1,7 @@
 """Online scoring service: the low-latency request path over
-device-resident GAME model banks (port of ``photon_ml_tpu/serving``,
-the single-server part).
+device-resident GAME model banks (port of ``photon_ml_tpu/serving``).
 
-Seven pieces, composed by ``cli/serving_driver.py``:
+Nine pieces, composed by ``cli/serving_driver.py``:
 
 - :mod:`photon_ml_tpu_torch.serving.model_bank` — fixed/random-effect
   coefficients as padded device tensors + O(1) host entity->row index;
@@ -23,11 +22,15 @@ Seven pieces, composed by ``cli/serving_driver.py``:
   generations (in place when the signature is unchanged) with
   quarantine + rollback on poisoned artifacts;
 - :mod:`photon_ml_tpu_torch.serving.metrics` — p50/p99 latency, QPS,
-  occupancy, shed/deadline/degraded/drain accounting for metrics.json.
-
-The shard server and the scatter/gather routing tier of the JAX package
-(``serving/shard_server.py``, ``serving/routing.py``) are not ported yet
-(ROADMAP item 14).
+  occupancy, shed/deadline/degraded/drain accounting for metrics.json;
+- :mod:`photon_ml_tpu_torch.serving.shard_server` — the same stack
+  serving ONE entity shard in partial-score mode, plus the router's
+  control plane (topology discovery, two-step generation flip);
+- :mod:`photon_ml_tpu_torch.serving.routing` — the scatter/gather tier
+  in front of a shard-server fleet: ownership-ruled fan-out, bitwise
+  f32 recomposition, per-shard degradation, the hot-entity cache. The
+  router is host-only numpy: it touches no tensor and creates no CUDA
+  context.
 """
 
 from photon_ml_tpu_torch.serving.admission import (  # noqa: F401
@@ -62,6 +65,20 @@ from photon_ml_tpu_torch.serving.programs import (  # noqa: F401
     RequestBatch,
     ServingPrograms,
     select_shape,
+)
+from photon_ml_tpu_torch.serving.routing import (  # noqa: F401
+    HotEntityCache,
+    RoutedScore,
+    RouterMetrics,
+    RoutingPolicy,
+    ShardHealth,
+    ShardRouter,
+    TcpShardTransport,
+)
+from photon_ml_tpu_torch.serving.shard_server import (  # noqa: F401
+    ShardServer,
+    make_shard_ops,
+    shard_topology,
 )
 from photon_ml_tpu_torch.serving.swap import (  # noqa: F401
     ServingModel,

@@ -121,9 +121,17 @@ def term_entries(spec):
     re-sums. MF entries list both id types and no feature shard (their
     term is a latent dot product). Order IS the contract: a router adds
     terms in exactly this sequence, which is the full program's
-    accumulation order."""
+    accumulation order. That holds only while every fixed-effect entry
+    precedes every per-entity one (the partial program sums the FE
+    prefix alone), so a spec that interleaves them is refused."""
     out = []
     for entry in spec:
+        if entry[0] == "fe" and out:
+            raise ValueError(
+                f"fixed-effect entry {entry[1]!r} follows a per-entity "
+                "entry: a routed FE-then-terms sum would not be the full "
+                "program's accumulation order"
+            )
         if entry[0] == "re":
             out.append(("re", entry[1], (entry[2],), entry[3]))
         elif entry[0] == "mf":

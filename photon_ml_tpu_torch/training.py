@@ -36,6 +36,7 @@ import torch
 from photon_ml_tpu_torch.data.batch import SparseBatch
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_ml_tpu_torch.obs.trace import span as obs_span
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import GLMObjective
@@ -318,10 +319,11 @@ def train_generalized_linear_model(
         if preemption_guard is not None and preemption_guard.requested:
             # stop at the λ boundary; a rerun resumes the sweep here
             break
-        coefficients, result = problem.run(
-            batch, initial=current, reg_weight=lam, mesh=mesh,
-            track_models=track_models,
-        )
+        with obs_span("glm.lambda_solve", reg_weight=lam):
+            coefficients, result = problem.run(
+                batch, initial=current, reg_weight=lam, mesh=mesh,
+                track_models=track_models,
+            )
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result
         if grid_checkpointer is not None:
@@ -452,9 +454,10 @@ def train_grid_batched(
         intercept_index=intercept_index, kernel=kernel, device=device,
         mesh=mesh, tile_cache_dir=tile_cache_dir,
     )
-    variances, result = problem.run_grid(
-        batch, weights_desc, initial=initial, mesh=mesh, track_models=track_models
-    )
+    with obs_span("glm.grid_solve", grid=len(weights_desc), batched=True):
+        variances, result = problem.run_grid(
+            batch, weights_desc, initial=initial, mesh=mesh, track_models=track_models
+        )
     models = {}
     results = {}
     for i, lam in enumerate(weights_desc):

@@ -208,8 +208,8 @@ REFUSED = [
     (["--retrain-from", "reg"], "item 15"),
     (["--publish-registry", "reg"], "item 15"),
     (["--gate-max-auc-drop", "0.1"], "item 15"),
-    (["--obs-dir", "obs"], "item 15"),
-    (["--profile-dir", "prof"], "item 15"),
+    (["--obs-dir", "obs"], None),
+    (["--profile-dir", "prof"], None),
 ]
 
 
@@ -223,7 +223,7 @@ def test_training_refuses_later_items(data, tmp_path, extra, item):
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
-        extra = [str(tmp_path / a) if a == "ck" else a for a in extra]
+        extra = [str(tmp_path / a) if a in ("ck", "obs", "prof") else a for a in extra]
         try:
             port_training.main(_train_argv(data, tmp_path / "o", "BEST", extra) + ["--device", "cpu"])
         finally:
@@ -236,6 +236,11 @@ def test_training_refuses_later_items(data, tmp_path, extra, item):
             assert all(sorted(os.listdir(tmp_path / "ck" / c))[:2] == ["1", "2"] for c in combos)
         elif extra[0] == "--fault-plan":
             assert metrics["reliability"]["faults"]["plan"] == extra[1]
+        elif extra[0] == "--obs-dir":
+            assert metrics["obs"]["trace_events"] > 0
+            assert os.path.exists(metrics["obs"]["flight_path"])
+        elif extra[0] == "--profile-dir":
+            assert [n for n in os.listdir(extra[1]) if n.endswith(".pt.trace.json")]
         return
     error = NotImplementedError if item.startswith("item ") else ValueError
     with pytest.raises(error, match=item):
@@ -246,19 +251,22 @@ def test_training_refuses_later_items(data, tmp_path, extra, item):
 SCORING_REFUSED = [
     (["--streaming", "true"], "requires prebuilt feature maps"),
     (["--fault-plan", "chunk_read:1:EIO"], None),
-    (["--obs-dir", "obs"], "item 15"),
-    (["--profile-dir", "prof"], "item 15"),
+    (["--obs-dir", "obs"], None),
+    (["--profile-dir", "prof"], None),
 ]
 
 
 @pytest.mark.parametrize("extra,item", SCORING_REFUSED, ids=[r[0][0] for r in SCORING_REFUSED])
 def test_scoring_refuses_later_items(data, tmp_path, ref_run, extra, item):
     """A later item's option is refused; ``--fault-plan`` (ported) runs and
-    shows in the reliability block of metrics.json; ``--streaming true``
-    without prebuilt feature maps raises the reference's ValueError."""
+    shows in the reliability block of metrics.json, ``--obs-dir`` writes
+    the trace, flight and snapshot files and ``--profile-dir`` a profiler
+    trace; ``--streaming true`` without prebuilt feature maps raises the
+    reference's ValueError."""
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
+        extra = [str(tmp_path / a) if a in ("obs", "prof") else a for a in extra]
         try:
             port_scoring.main(
                 _score_argv(data, ref_run[1] / "best-model", tmp_path / "o") + extra
@@ -266,8 +274,15 @@ def test_scoring_refuses_later_items(data, tmp_path, ref_run, extra, item):
             )
         finally:
             install_plan(None)
-        metrics = json.load(open(tmp_path / "o" / "metrics.json"))
-        assert metrics["reliability"]["faults"]["plan"] == extra[1]
+        if extra[0] == "--obs-dir":
+            assert sorted(os.listdir(extra[1])) == [
+                "flight.json", "metrics_snapshot.json", "trace.json"
+            ]
+        elif extra[0] == "--profile-dir":
+            assert [n for n in os.listdir(extra[1]) if n.endswith(".pt.trace.json")]
+        else:
+            metrics = json.load(open(tmp_path / "o" / "metrics.json"))
+            assert metrics["reliability"]["faults"]["plan"] == extra[1]
         return
     error = NotImplementedError if item.startswith("item ") else ValueError
     with pytest.raises(error, match=item):

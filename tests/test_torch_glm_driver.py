@@ -189,8 +189,8 @@ UNPORTED = [
     (["--retrain-from", "/r"], "item 15"),
     (["--publish-registry", "/r"], "item 15"),
     (["--gate-max-auc-drop", "0.1"], "item 15"),
-    (["--obs-dir", "/o"], "item 15"),
-    (["--profile-dir", "/p"], "item 15"),
+    (["--obs-dir", "obs"], None),
+    (["--profile-dir", "prof"], None),
 ]
 
 
@@ -199,12 +199,14 @@ def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, ite
     """An option of a path not ported yet raises naming its item; one whose
     item is ported (None) runs: ``--checkpoint-dir`` snapshots every λ,
     ``--fault-plan`` shows in the reliability block, ``--streaming true``
-    writes the streaming block; one whose item is ported but that needs
-    another option raises the reference's ValueError."""
+    writes the streaming block, ``--obs-dir`` the trace, flight and
+    snapshot files, ``--profile-dir`` a profiler trace; one whose item is
+    ported but that needs another option raises the reference's
+    ValueError."""
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
-        extra = [str(tmp_path / a) if a == "ck" else a for a in extra]
+        extra = [str(tmp_path / a) if a in ("ck", "obs", "prof") else a for a in extra]
         argv = ["--training-data-directory", fixtures["avro"][0], "--output-directory",
                 str(tmp_path / "out"), "--regularization-weights", "10,1",
                 "--grid-mode", "sequential", "--device", "cpu"] + extra
@@ -220,6 +222,12 @@ def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, ite
             names = sorted(os.listdir(tmp_path / "ck"))
             assert "manifest.json" in names
             assert len([n for n in names if n.startswith("lambda-") and n.endswith(".json")]) == 2
+        elif extra[0] == "--obs-dir":
+            assert sorted(os.listdir(tmp_path / "obs")) == [
+                "flight.json", "metrics_snapshot.json", "trace.json"
+            ]
+        elif extra[0] == "--profile-dir":
+            assert [n for n in os.listdir(tmp_path / "prof") if n.endswith(".pt.trace.json")]
         else:
             assert metrics["reliability"]["faults"]["plan"] == extra[1]
         return

@@ -75,6 +75,9 @@ def test_fresh_interpreter_imports_no_jax():
         "serving", "serving.admission", "serving.metrics", "serving.model_bank",
         "serving.programs", "serving.batcher", "serving.swap", "serving.wire",
         "serving.frontend", "cli.serving_driver",
+        "events", "obs.events", "obs.registry", "obs.slo", "obs.fleet",
+        "serving.routing", "serving.shard_server", "testing", "testing.interleave",
+        "utils.profiling",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]

@@ -8,7 +8,8 @@ program cache (LRU, single-flight warmup, nothing rebuilt after warmup or
 on an in-place swap), one readback a dispatch, admission, deadlines,
 drain, swap rollback and retries; the driver against the port's
 ``game_scoring_driver`` (bitwise) and the JAX package's serving driver
-(1e-6 of scale), and its unported options, each naming its ROADMAP item.
+(1e-6 of scale), and its unported options (the registry watcher's),
+each naming its ROADMAP item.
 """
 
 import json
@@ -1308,19 +1309,12 @@ class TestServingDriver:
             assert rec["predictionScore"] == batch[uid]["predictionScore"], uid
 
     @pytest.mark.parametrize("extra,item", [
-        (["--shard-index", "0", "--shard-count", "2"], "item 14"),
-        (["--shard-servers", "127.0.0.1:1"], "item 14"),
-        (["--hot-cache-entries", "8"], "item 14"),
-        (["--router-hedge", "false"], "item 14"),
-        (["--fleet-obs-dir", "x"], "item 14"),
-        (["--wire", "binary"], "item 14"),
         (["--registry-dir", "x"], "item 15"),
+        (["--registry-poll-s", "1"], "item 15"),
         (["--auto-rollback", "true"], "item 15"),
         (["--rollback-window", "8"], "item 15"),
-        (["--obs-dir", "x"], "item 15"),
-        (["--profile-dir", "x"], "item 15"),
-        (["--slo", "default"], "item 15"),
-        (["--slo-tick-s", "2"], "item 15"),
+        (["--rollback-min-requests", "4"], "item 15"),
+        (["--rollback-max-unhealthy", "0.5"], "item 15"),
     ])
     def test_unported_options_raise_naming_their_item(self, tmp_path, extra, item):
         from photon_ml_tpu_torch.cli import serving_driver

@@ -11,7 +11,6 @@ port's batch scorer directly; nothing here imports JAX."""
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -33,6 +32,7 @@ from photon_ml_tpu_torch.serving import (
 )
 from torch_serving_cases import (
     SHARDS,
+    Client,
     batch_reference_scores,
     make_bank,
     synth_model,
@@ -41,37 +41,6 @@ from torch_serving_cases import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-class Client:
-    """One JSON-lines client connection with bounded reads."""
-
-    def __init__(self, port, timeout=15.0):
-        self.sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
-        self.reader = self.sock.makefile("rb")
-
-    def send_line(self, obj_or_bytes):
-        data = (
-            obj_or_bytes
-            if isinstance(obj_or_bytes, bytes)
-            else (json.dumps(obj_or_bytes) + "\n").encode()
-        )
-        self.sock.sendall(data)
-
-    def recv(self):
-        line = self.reader.readline()
-        return json.loads(line) if line else None
-
-    def ask(self, obj):
-        self.send_line(obj)
-        return self.recv()
-
-    def close(self):
-        try:
-            self.reader.close()
-            self.sock.close()
-        except OSError:
-            pass
 
 
 def _dataset(recs, shards=SHARDS, re_types=("userId",)):

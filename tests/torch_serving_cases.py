@@ -5,6 +5,8 @@ JAX."""
 
 from __future__ import annotations
 
+import json
+import socket
 import time
 
 import numpy as np
@@ -98,3 +100,34 @@ def wait_until(cond, timeout=5.0):
             return True
         time.sleep(0.005)
     return False
+
+
+class Client:
+    """One JSON-lines client connection with bounded reads."""
+
+    def __init__(self, port, timeout=15.0):
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+        self.reader = self.sock.makefile("rb")
+
+    def send_line(self, obj_or_bytes):
+        data = (
+            obj_or_bytes
+            if isinstance(obj_or_bytes, bytes)
+            else (json.dumps(obj_or_bytes) + "\n").encode()
+        )
+        self.sock.sendall(data)
+
+    def recv(self):
+        line = self.reader.readline()
+        return json.loads(line) if line else None
+
+    def ask(self, obj):
+        self.send_line(obj)
+        return self.recv()
+
+    def close(self):
+        try:
+            self.reader.close()
+            self.sock.close()
+        except OSError:
+            pass
