@@ -146,11 +146,11 @@ Phases, each printing its own lines:
    fit with an intercept bitwise (float atomics in K1), so the bitwise
    resume is the CPU tests' (``tests/test_torch_reliability.py``);
 10. out-of-core training: run S, ``glm_driver.main`` with ``--streaming
-   true --stream-memory-budget 8388608`` over 2^16 x 64 x 2^20 rows
+   true --stream-memory-budget 4194304`` over 2^15 x 64 x 2^20 rows
    (phase 4's planted model) in 8 Avro part files written by worker
    processes, with 2^14 validation rows: the L-BFGS grid [10, 1] with
    variances, the intercept, streamed validation and a cold
-   ``--scan-cache-dir`` (5 chunks of 15,768 rows: 1 on the device tier,
+   ``--scan-cache-dir`` (5 chunks of 7,884 rows: 1 on the device tier,
    4 spilled, all 5 in K1's tiled cache); each lambda's float64 objective
    within 1e-4 of ``train_generalized_linear_model(kernel="tiled")`` on
    the batch the port's Avro loader gives (a wrong model as the control,
@@ -212,10 +212,37 @@ Phases, each printing its own lines:
    after warmup in any child; aggregate QPS, router latency and fan-out
    p50 / p99, cache hit rate and the router's host CPU a request per N,
    and routed N = 1 against the single in-process server;
-13. a ``kernels`` JSON line (with each kernel's launches in the driver
+13. the model registry and the determinism harness (``registry/``,
+   ``testing/determinism.py``): run L, the JAX package's retrain
+   configuration (bench.py:3572-3573: 8 Avro parts x 4,000 rows from a
+   planted model, d = 2,000, 12 nonzeros a row, 4,000 validation rows,
+   L-BFGS at lambda 1, 30 iterations), through the GLM driver streamed
+   with ``--scan-cache-dir --retrain-from R --publish-registry R``: L1
+   cold publishes generation 1; L2 after a 1% append scans one
+   partition, warm-starts bitwise from generation 1's coefficients and
+   publishes generation 2 (gates PASS, lineage [2, 1]); L3 after a
+   label-flipped flood as large as the base is refused with
+   AUC_REGRESSION (generations stay [1, 2], the refusal on record). Run
+   Q, the GAME loop behind a live server over run H's files (kept from
+   phase 8, whose training driver published generation 1 with
+   ``--publish-registry``): a serving driver process follows the
+   registry (``--registry-dir --registry-poll-s 0.3 --rollback-window 16
+   --rollback-min-requests 6 --rollback-max-unhealthy 0.5``) while a
+   client thread scores run H's first validation part closed-loop; the
+   GAME training driver retrains from generation 1 over the training
+   rows plus a part holding a new user (drift: the user at the prior
+   mean; gates PASS) and publishes generation 2, which the watcher
+   promotes under traffic; ``quarantine_re`` makes responses degraded
+   and the watcher rolls back on its own: every undegraded score bitwise
+   the batch score of the generation its response names, generation 2
+   quarantined, ``watcher_history`` ["swap", "rollback"], no leaked
+   connection, exit 0 on SIGTERM. Then the determinism matrix: the five
+   artifact classes twin-run byte-identical, the positive control
+   diverged;
+14. a ``kernels`` JSON line (with each kernel's launches in the driver
    runs, K1's in run D's diagnose stage, in the GAME runs, in runs F and
-   R and in phase 10's runs; K1's at the GAME shape with its plain and
-   library times), the nvidia-smi line, and the last line
+   R, in phase 10's runs and in run L's; K1's at the GAME shape with its
+   plain and library times), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA card, without the package beside it, or
@@ -1765,7 +1792,9 @@ def game_run_h(seed, smi, k1, device_args=(), then=None):
         ]
         k1.launches = 0
         t0 = time.perf_counter()
-        trainer = game_training_driver.main(train_argv + list(device_args))
+        # run Q's generation 1: this training driver publishes its best model
+        trainer = game_training_driver.main(
+            train_argv + ["--publish-registry", f"{tmp}/registry", *device_args])
         train_s = time.perf_counter() - t0
         timers = " ".join(f"{k}={v!r}" for k, v in trainer.timer.durations.items())
         with open(f"{tmp}/out/metrics.json") as f:
@@ -1773,7 +1802,11 @@ def game_run_h(seed, smi, k1, device_args=(), then=None):
         hist = metrics["objective_history"]
         say(f"game run H training driver ({smi}): {train_s!r} s; stage timers s: {timers}; "
             f"best combo {trainer.best_config['global'].render()}; validation AUC "
-            f"{metrics['best_metric']!r}; objective history {hist}")
+            f"{metrics['best_metric']!r}; objective history {hist}; registry "
+            f"{metrics['registry']}")
+        if metrics["registry"]["published_generation"] != 1:
+            fail(f"run Q1: run H's training driver did not publish generation 1: "
+                 f"{metrics['registry']}")
         if any(b > a for a, b in zip(hist, hist[1:])):
             fail(f"game run H: the CD objective rose: {hist}")
         want = [
@@ -2270,13 +2303,15 @@ def reliability_phase(seed, smi, k1, k2, game_ds, run_a, device="cuda", device_a
 # -- phase 10: out-of-core training -------------------------------------------
 
 STREAM_PARTS = 8  # Avro part files of run S's training rows (and 1 of validation)
-# run S's rows: 2^16 training and 2^14 validation (2^18 and 2^16 took
-# 322 s for the phase, and the script passed the 1,200 s limit)
-STREAM_ROWS, STREAM_HELD_OUT = 1 << 16, 1 << 14
-# run S's --stream-memory-budget: 8,388,608 B // 532 B a row (65 slots of
-# 8 B + 12 B) = 15,768 rows a chunk, so the 2^16 rows are 5 chunks: 1 on
-# the device tier (the budget holds one), 4 spilled, all 5 tiled
-STREAM_BUDGET = 8388608
+# run S's rows: 2^15 training and 2^14 validation (2^18 and 2^16 took
+# 322 s for the phase, and the script passed the 1,200 s limit; 2^16 until
+# phase 13 needed the time)
+STREAM_ROWS, STREAM_HELD_OUT = 1 << 15, 1 << 14
+# run S's --stream-memory-budget: 4,194,304 B // 532 B a row (65 slots of
+# 8 B + 12 B) = 7,884 rows a chunk, so the 2^15 rows are 5 chunks: 1 on
+# the device tier (the budget holds one), 4 spilled, all 5 tiled (the
+# budget halved with the rows keeps the tiers of 2^16 rows at 8,388,608 B)
+STREAM_BUDGET = 4194304
 STREAM_TIERS = {"device": 1, "disk": 4, "tiled": 5, "overflow": 0}
 STREAM_TILED_KEEP = 2  # tiled chunks of the direct overflow objective
 STREAM_AUC_TOL = 1e-3  # streamed (4,096-bin) AUC vs the exact AUC
@@ -3668,14 +3703,14 @@ def fleet_x_swap_and_kill(router, procs, swap_recs, kill_recs, oracles, fe_oracl
 
 
 def fleet_y_files(tmp):
-    """Copy what run Y reads out of run H's directory (the model, the
-    first validation part, run W's name-term lists and closed scores)
-    into a directory that outlives it; -> that directory."""
+    """Copy what runs Y and Q read out of run H's directory (the model,
+    its registry, the training and validation parts, run W's name-term
+    lists and closed scores) into a directory that outlives it; -> that
+    directory."""
     keep = tempfile.mkdtemp(prefix="photon_fleet_y_")
-    for part in ("out/best-model", "name-terms", "serve-closed/scores"):
+    for part in ("out/best-model", "name-terms", "serve-closed/scores", "registry", "train",
+                 "validate"):
         shutil.copytree(f"{tmp}/{part}", f"{keep}/{part}")
-    os.makedirs(f"{keep}/validate")
-    shutil.copy(f"{tmp}/validate/part-00000.avro", f"{keep}/validate/")
     return keep
 
 
@@ -3808,6 +3843,403 @@ def fleet_run_y(tmp, shards, smi, widths, device_args=()):
     return dict(boot_s=boot_s, route_s=route_s, drain_s=drain_s, rows=rows,
                 kernel_events=len(kernels),
                 verification={k: v for k, v in verification.items() if k != "violations"})
+
+
+# -- phase 13: the model registry, the retrain loop and the determinism harness --
+#
+# Run L: the JAX package's retrain configuration (bench.py:3572-3573): 8
+# Avro parts x 4,000 rows from a planted model, d = 2,000, 12 nonzeros a
+# row, a validation part of 4,000 rows, L-BFGS at lambda 1 for 30
+# iterations; then a 1% append (320 rows) and a label-flipped flood as
+# large as the base (8 parts x 4,000 rows). Nothing cut.
+RETRAIN_PARTS, RETRAIN_ROWS, RETRAIN_DIM, RETRAIN_NNZ = 8, 4000, 2000, 12
+RETRAIN_VAL_ROWS, RETRAIN_ITERS, RETRAIN_APPEND = 4000, 30, 320
+RETRAIN_FLOOD_AUC_DROP = 0.02  # the gate run L3 is refused by (test_retrain_drivers.py:151)
+# Run Q: run H's files and widths, a new user's part, the watcher's policy
+Q_NEW_USER_ROWS = 64
+Q_POLICY = ["--registry-poll-s", "0.3", "--rollback-window", "16",
+            "--rollback-min-requests", "6", "--rollback-max-unhealthy", "0.5"]
+Q_TIMEOUT_S = 180
+
+
+def retrain_part(args):
+    """One Avro part of run L's rows: the planted model of ``bench.py``'s
+    retrain configuration, rows from a generator of the part's own;
+    ``flip`` draws the labels from the negated model (the poisoned
+    flood)."""
+    seed, path, part, rows, flip, dim = args
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    w_true = np.random.default_rng([seed, 13]).normal(size=dim).astype(np.float32) * 0.3
+    rng = np.random.default_rng([seed, 14, part])
+    ix = rng.integers(0, dim, size=(rows, RETRAIN_NNZ))
+    vs = rng.normal(size=(rows, RETRAIN_NNZ)).astype(np.float32)
+    z = (w_true[ix] * vs).sum(axis=1) * (-1.0 if flip else 1.0)
+    y = rng.uniform(size=rows) < 1 / (1 + np.exp(-z))
+    recs = [{
+        "uid": f"{part}-{i}", "label": float(y[i]), "offset": 0.0, "weight": 1.0,
+        "features": [{"name": str(j), "term": "", "value": v}
+                     for j, v in zip(ix[i].tolist(), vs[i].tolist())],
+    } for i in range(rows)]
+    write_container(path, schemas.TRAINING_EXAMPLE_AVRO, recs)
+    return rows
+
+
+def retrain_run_l(seed, smi, k1, device_args=()):
+    """Run L: the GLM retrain loop (L1 cold, L2 after a 1% append, L3
+    after a label-flipped flood) through ``glm_driver.main`` streamed with
+    the scan cache, the warm start, the gates and the publish; -> K1's
+    launches in each run. The parts are written in this process (0.4 s
+    a part: cheaper than spawning workers that import torch)."""
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.registry import ModelRegistry, align_coefficients
+
+    with tempfile.TemporaryDirectory(prefix="photon_retrain_l_") as tmp:
+        t0 = time.perf_counter()
+        for d in ("train", "validate", "append", "flood"):
+            os.makedirs(f"{tmp}/{d}")
+        jobs = [(seed, f"{tmp}/train/part-{p:03d}.avro", p, RETRAIN_ROWS, False, RETRAIN_DIM)
+                for p in range(RETRAIN_PARTS)]
+        jobs.append((seed, f"{tmp}/validate/part-000.avro", 100, RETRAIN_VAL_ROWS, False,
+                     RETRAIN_DIM))
+        jobs.append((seed, f"{tmp}/append/part-{RETRAIN_PARTS:03d}.avro", 101, RETRAIN_APPEND,
+                     False, RETRAIN_DIM))
+        jobs += [(seed, f"{tmp}/flood/part-{RETRAIN_PARTS + 1 + p:03d}.avro", 200 + p,
+                  RETRAIN_ROWS, True, RETRAIN_DIM) for p in range(RETRAIN_PARTS)]
+        written = [retrain_part(job) for job in jobs]
+        say(f"retrain run L data: {sum(written[:RETRAIN_PARTS])} training rows in "
+            f"{RETRAIN_PARTS} Avro parts (d = {RETRAIN_DIM}, {RETRAIN_NNZ} nonzeros a row), "
+            f"{written[RETRAIN_PARTS]} validation rows, a {RETRAIN_APPEND}-row append and a "
+            f"{sum(written[RETRAIN_PARTS + 2:])}-row label-flipped flood, written in "
+            f"{time.perf_counter() - t0!r} s")
+        reg = f"{tmp}/registry"
+        base = [
+            "--training-data-directory", f"{tmp}/train",
+            "--validating-data-directory", f"{tmp}/validate",
+            "--regularization-weights", "1", "--num-iterations", str(RETRAIN_ITERS),
+            "--streaming", "true", "--scan-cache-dir", f"{tmp}/scan-cache",
+            "--retrain-from", reg, "--publish-registry", reg, *device_args,
+        ]
+        launches, drivers, metrics = {}, {}, {}
+        for label, extra in (("L1", []), ("L2", []),
+                             ("L3", ["--gate-max-auc-drop", str(RETRAIN_FLOOD_AUC_DROP)])):
+            if label == "L2":
+                shutil.move(f"{tmp}/append/part-{RETRAIN_PARTS:03d}.avro", f"{tmp}/train/")
+            if label == "L3":
+                for name in sorted(os.listdir(f"{tmp}/flood")):
+                    shutil.move(f"{tmp}/flood/{name}", f"{tmp}/train/")
+            k1.launches = 0
+            t0 = time.perf_counter()
+            driver = glm_driver.main(base + ["--output-directory", f"{tmp}/out-{label}", *extra])
+            seconds = time.perf_counter() - t0
+            launches[label] = k1.launches
+            with open(f"{tmp}/out-{label}/metrics.json") as f:
+                m = json.load(f)
+            drivers[label], metrics[label] = driver, m
+            r = m["registry"]
+            timers = " ".join(f"{k}={v!r}" for k, v in driver.timer.durations.items())
+            gates = r["gates"] or {}
+            say(f"retrain run {label} ({smi}): {seconds!r} s; stage timers s: {timers}; "
+                f"publish-registry stage {m['timers'].get('publish-registry')!r} s; K1 launches "
+                f"{launches[label]}; scan cache {m['scan_cache']}; iterations "
+                f"{[int(res.iterations) for res in driver.results.values()]}; parent "
+                f"{r['parent_generation']}, published {r['published_generation']}; drift "
+                f"{ {k: v for k, v in (r['drift'] or {}).items() if k != 'dropped_keys_sample'} }; "
+                f"gates {gates.get('verdict')} {gates.get('checks')}")
+            if launches[label] == 0:
+                fail(f"retrain run {label}: K1 never launched")
+        registry = ModelRegistry(reg)
+        r1, r2, r3 = (metrics[x]["registry"] for x in ("L1", "L2", "L3"))
+        if (r1["published_generation"], r1["parent_generation"]) != (1, None):
+            fail(f"retrain run L1 did not publish generation 1 cold: {r1}")
+        # the no-drift warm start is bitwise generation 1's coefficients
+        from photon_ml_tpu_torch.cli.glm_driver import _glm_artifact_means
+
+        d1, d2 = drivers["L1"], drivers["L2"]
+        aligned = align_coefficients(_glm_artifact_means(registry.generation(1).model_dir),
+                                     d2._data.index_map)
+        g1_means = d1.best_model.means.cpu().numpy()
+        same_map = dict(d1._data.index_map.items()) == dict(d2._data.index_map.items())
+        bitwise = same_map and np.array_equal(aligned, g1_means)
+        sc = metrics["L2"]["scan_cache"]
+        say(f"retrain run L2 warm start ({smi}): no drift {r2['drift']['no_drift']}, the aligned "
+            f"vector bitwise generation 1's coefficients {bitwise}; partitions scanned "
+            f"{sc['scanned']} of {sc['partitions']}; lineage {registry.lineage()}")
+        if not (sc["scanned"] == 1 and r2["drift"]["no_drift"] and bitwise):
+            fail("retrain run L2: the append was not scanned alone, or the warm start is not "
+                 "bitwise generation 1's coefficients")
+        if not (r2["gates"]["verdict"] == "PASS" and r2["published_generation"] == 2
+                and r2["parent_generation"] == 1 and registry.lineage() == [2, 1]):
+            fail(f"retrain run L2: not generation 2 with parent 1 under PASS: {r2}")
+        refused = registry.refused_candidates()
+        gens = [g.generation for g in registry.list_generations()]
+        say(f"retrain run L3 ({smi}): verdict {r3['gates']['verdict']}, generations {gens}, "
+            f"refusals {[x['gates']['verdict'] for x in refused]}")
+        if not (r3["gates"]["verdict"] == "AUC_REGRESSION" and r3["published_generation"] is None
+                and gens == [1, 2] and len(refused) == 1
+                and refused[0]["gates"]["verdict"] == "AUC_REGRESSION"):
+            fail(f"retrain run L3: the poisoned candidate was not refused: {r3}")
+    return launches
+
+
+def q_new_user_part(path, seed, n_users, dim):
+    """Run Q's appended part: rows of run H's shape for a user that
+    generation 1 never saw (run H's user 0's model, a new id)."""
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    w_global, w_user = game_model(np.random.default_rng([seed, 5]), n_users, dim)
+    rng = np.random.default_rng([seed, 15])
+    users = np.zeros(Q_NEW_USER_ROWS, np.int64)
+    g_idx, g_val, u_idx, u_val, labels, _ = game_rows(rng, users, w_global, w_user)
+    icept = dim - 1
+
+    def bag(idx, val):
+        return [{"name": str(i), "term": "", "value": v}
+                for i, v in zip(idx, val) if v != 0 and i != icept]
+
+    recs = [{
+        "uid": f"newuser-{r}", "label": float(labels[r]),
+        "features": bag(g_idx[r].tolist(), g_val[r].tolist()),
+        "userFeatures": bag(u_idx[r].tolist(), u_val[r].tolist()),
+        "metadataMap": {"userId": "user99999"}, "weight": None, "offset": None,
+    } for r in range(len(users))]
+    schema = dict(schemas.TRAINING_EXAMPLE_AVRO)
+    schema["fields"] = list(schema["fields"]) + [GAME_H_SCHEMA_EXTRA]
+    write_container(path, schema, recs)
+
+
+def q_client(port, records, stop, out):
+    """Run Q's client thread: one connection, closed loop over ``records``
+    round and round until ``stop``; -> (send time, receive time, receive
+    wall-clock time, response) into ``out``."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+        reader = sock.makefile("rb")
+        i = 0
+        while not stop.is_set():
+            rec = records[i % len(records)]
+            i += 1
+            t0 = time.perf_counter()
+            sock.sendall((json.dumps(rec) + "\n").encode())
+            resp = json.loads(reader.readline())
+            out.append((t0, time.perf_counter(), time.time(), resp))
+
+
+def q_ask(port, obj):
+    """One control op on a fresh connection."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+        sock.sendall((json.dumps(obj) + "\n").encode())
+        return json.loads(sock.makefile("rb").readline())
+
+
+def registry_q_server(y, shards, widths, device_args=()):
+    """Start run Q's ``serving_driver --registry-dir`` process over run H's
+    kept files (it boots while run L runs); -> (process, its wall-clock
+    start time)."""
+    cmd = [sys.executable, "-m", "photon_ml_tpu_torch.cli.serving_driver",
+           "--registry-dir", f"{y}/registry", "--output-dir", f"{y}/q-serve",
+           "--feature-shard-id-to-feature-section-keys-map", shards,
+           "--feature-name-and-term-set-path", f"{y}/name-terms",
+           "--request-nnz-width", "|".join(f"{k}:{v}" for k, v in widths.items()),
+           "--frontend-port", "0", "--ladder", "1,8", *Q_POLICY, *device_args]
+    t0_wall = time.time()
+    with open(f"{y}/q-serve.log", "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, t0_wall
+
+
+def registry_run_q(y, shards, smi, seed, server, device_args=()):
+    """Run Q over run H's files as ``fleet_y_files`` kept them (with the
+    registry whose generation 1 run H's training driver published): the
+    ``serving_driver --registry-dir`` process ``server`` started, a client
+    thread, the GAME retrain publishing generation 2, ``quarantine_re``
+    and the watcher's own rollback; -> its numbers. Stops the server."""
+    import threading
+
+    from photon_ml_tpu_torch.cli import game_scoring_driver, game_training_driver
+    from photon_ml_tpu_torch.io.avro_codec import read_avro_records
+    from photon_ml_tpu_torch.registry import ModelRegistry
+
+    proc, t0_wall = server
+    registry = ModelRegistry(f"{y}/registry")
+    records = list(read_avro_records(f"{y}/validate/part-00000.avro"))
+    os.makedirs(f"{y}/q-val0")
+    shutil.copy(f"{y}/validate/part-00000.avro", f"{y}/q-val0/")
+    batch = {1: {x["uid"]: x["predictionScore"]
+                 for x in read_avro_records(f"{y}/serve-closed/scores")}}
+    out_dir = f"{y}/q-serve"
+    log_path = f"{y}/q-serve.log"
+
+    def log():
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    responses, stop = [], threading.Event()
+    client = None
+    try:
+        if registry.lineage() != [1]:
+            fail(f"run Q: run H's registry holds {registry.lineage()}, not generation 1")
+        while not os.path.isfile(f"{out_dir}/frontend.json"):
+            if proc.poll() is not None or time.time() - t0_wall > Q_TIMEOUT_S:
+                fail(f"run Q: the serving driver did not start: {log()}")
+            time.sleep(0.2)
+        start_s = os.path.getmtime(f"{out_dir}/frontend.json") - t0_wall
+        with open(f"{out_dir}/frontend.json") as f:
+            meta = json.load(f)
+        if meta["registry"] != registry.root:
+            fail(f"run Q: frontend.json names registry {meta['registry']}")
+        port = meta["port"]
+        client = threading.Thread(target=q_client, args=(port, records, stop, responses))
+        client.start()
+
+        def wait_for(cond, what):
+            t = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t > Q_TIMEOUT_S or not client.is_alive():
+                    fail(f"run Q: {what} did not happen: {log()}")
+                time.sleep(0.05)
+
+        wait_for(lambda: len(responses) >= 200, "generation 1's first 200 responses")
+        # Q3: the GAME retrain from generation 1, with a new user appended;
+        # its gates hold out the first validation part (4,096 rows; run H
+        # validates on 16,384)
+        q_new_user_part(f"{y}/train/part-99999.avro", seed, GAME_H_USERS, DIM)
+        argv = [
+            "--train-input-dirs", f"{y}/train", "--validate-input-dirs", f"{y}/q-val0",
+            "--output-dir", f"{y}/q-retrain",
+            "--feature-shard-id-to-feature-section-keys-map", shards,
+            "--fixed-effect-data-configurations", "global:globalShard,1",
+            "--fixed-effect-optimization-configurations", "global:50,1e-7,1,1,LBFGS,L2",
+            "--random-effect-data-configurations",
+            "per-user:userId,userShard,1,none,none,none,INDEX_MAP",
+            "--random-effect-optimization-configurations", "per-user:30,1e-5,1,1,LBFGS,L2",
+            "--num-iterations", "2", "--evaluator-types", "AUC",
+            "--compute-variance", "true", "--model-output-mode", "BEST",
+            "--retrain-from", registry.root, "--publish-registry", registry.root,
+            "--gate-max-auc-drop", "0.02", *device_args,
+        ]
+        t1 = time.perf_counter()
+        trainer = game_training_driver.main(argv)
+        retrain_s = time.perf_counter() - t1
+        with open(f"{y}/q-retrain/metrics.json") as f:
+            rq = json.load(f)["registry"]
+        info = registry.generation(2)
+        publish_wall = os.path.getmtime(os.path.join(info.path, "COMMIT")) if info else time.time()
+        timers = " ".join(f"{k}={v!r}" for k, v in trainer.timer.durations.items())
+        drift = rq["drift"] or {}
+        say(f"registry run Q3 retrain ({smi}): {retrain_s!r} s under the client's traffic; "
+            f"stage timers s: {timers}; parent {rq['parent_generation']}, published "
+            f"{rq['published_generation']}; drift "
+            f"{ {c: {k: v for k, v in r.items() if k != 'dropped_keys_sample'} for c, r in drift.items()} }; "
+            f"gates {(rq['gates'] or {}).get('verdict')} {(rq['gates'] or {}).get('checks')}")
+        if not (rq["published_generation"] == 2 and rq["gates"]["verdict"] == "PASS"
+                and drift.get("per-user", {}).get("churned_entities_prior_init", 0) >= 1):
+            fail(f"run Q3: not generation 2 under PASS with the new user at the prior mean: {rq}")
+        wait_for(lambda: any(r["generation"] == 2 for *_, r in responses),
+                 "the watcher's promote of generation 2")
+        promote_s = next(w for _, _, w, r in responses if r["generation"] == 2) - publish_wall
+        n_before = len(responses)
+        wait_for(lambda: len(responses) >= n_before + 200, "200 responses of generation 2")
+        # Q4: degrade generation 2; the watcher rolls back on its own
+        q = q_ask(port, {"op": "quarantine_re", "re_type": "userId"})
+        if q.get("status") != "ok":
+            fail(f"run Q4: quarantine_re answered {q}")
+        wait_for(lambda: any(r["generation"] == 3 for *_, r in responses),
+                 "the watcher's rollback")
+        n_after = len(responses)
+        wait_for(lambda: len(responses) >= n_after + 200, "200 responses after the rollback")
+        status = q_ask(port, {"op": "status"})
+        stop.set()
+        client.join(timeout=60)
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=Q_TIMEOUT_S)
+    finally:
+        stop.set()
+        if client is not None:
+            client.join(timeout=60)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    # generation 2's batch scores: the port's scoring driver over the same rows
+    game_scoring_driver.main([
+        "--input-data-dirs", f"{y}/q-val0", "--game-model-input-dir",
+        f"{y}/registry/quarantine/g000002/model", "--output-dir", f"{y}/q-scores2",
+        "--feature-shard-id-to-feature-section-keys-map", shards, *device_args,
+    ])
+    batch[2] = {x["uid"]: x["predictionScore"]
+                for x in read_avro_records(f"{y}/q-scores2/scores")}
+    by_bank = {1: 1, 2: 2, 3: 1}  # bank generation -> registry generation
+    with open(f"{out_dir}/metrics.json") as f:
+        m = json.load(f)
+    bad = [r for *_, r in responses if r.get("status") != "ok"]
+    differ, degraded, counts = [], [], {}
+    for *_, r in responses:
+        if r.get("status") != "ok":
+            continue
+        counts[r["generation"]] = counts.get(r["generation"], 0) + 1
+        if r["degraded"]:
+            degraded.append(r)
+        elif np.float32(r["score"]) != np.float32(batch[by_bank[r["generation"]]][r["uid"]]):
+            differ.append(r["uid"])
+    t_deg = next(t for _, t, _, r in responses if r.get("degraded"))
+    t_back = next(t for _, t, _, r in responses if r["generation"] == 3)
+    gaps = {}
+    for a, b in ((1, 2), (2, 3)):
+        last_a = max(t for _, t, _, r in responses if r["generation"] == a)
+        first_b = min(t for _, t, _, r in responses if r["generation"] == b)
+        gaps[f"{a}->{b}"] = first_b - last_a
+    lat = np.array([(t1 - t0) * 1e3 for t0, t1, *_ in responses])
+    history = [h["action"] for h in m.get("registry", {}).get("watcher_history", [])]
+    quarantined = os.path.isdir(f"{y}/registry/quarantine/g000002")
+    out = dict(start_s=start_s, retrain_s=retrain_s, publish_to_gen2_s=promote_s,
+               degraded_to_gen1_s=t_back - t_deg, flip_gap_s=gaps, requests=len(responses),
+               by_bank_generation=counts, degraded=len(degraded),
+               p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+               watcher_history=history, exit=code,
+               leaked_connections=m.get("leaked_connections"))
+    say(f"registry run Q ({smi}): server up in {start_s!r} s; {len(responses)} responses, by "
+        f"bank generation {counts} (3 = generation 1 reloaded), {len(degraded)} degraded, "
+        f"{len(bad)} not ok, {len(differ)} undegraded scores differ from their generation's "
+        f"batch score; publish to the first generation-2 response {promote_s!r} s; first "
+        f"degraded response to generation 1 {t_back - t_deg!r} s; flip gaps s {gaps}; p50 / p99 "
+        f"{out['p50_ms']!r} / {out['p99_ms']!r} ms; status registry {status.get('registry')}; "
+        f"watcher history {history}; generation 2 quarantined {quarantined}; SIGTERM exit "
+        f"{code}, leaked connections {m.get('leaked_connections')}")
+    if bad or differ or not degraded or any(r["generation"] != 2 for r in degraded):
+        fail(f"run Q: {len(bad)} responses not ok, {len(differ)} scores differ, or degraded "
+             f"responses off generation 2; log: {log()}")
+    if history != ["swap", "rollback"] or not quarantined or registry.lineage() != [1]:
+        fail(f"run Q: the watcher did not promote then roll back: {history}, lineage "
+             f"{registry.lineage()}")
+    if code != 0 or m.get("leaked_connections") or set(counts) != {1, 2, 3}:
+        fail(f"run Q: exit {code}, leaked {m.get('leaked_connections')}, generations {counts}")
+    return out
+
+
+def determinism_matrix(smi):
+    """The twin-run matrix over the port's five artifact classes (each
+    child under two PYTHONHASHSEEDs and time zones, on no card) and the
+    positive control; -> its numbers."""
+    from photon_ml_tpu_torch.testing.determinism import run_matrix, twin_run
+
+    with tempfile.TemporaryDirectory(prefix="photon_determinism_") as tmp:
+        report = run_matrix(f"{tmp}/matrix")
+        control = twin_run("control_hash_order", base_dir=f"{tmp}/control")
+    classes = report["classes"]
+    say(f"determinism matrix ({smi}): "
+        + ", ".join(f"{n} {'identical' if c['identical'] else 'DIVERGED ' + str(c['divergence'])}"
+                    f" {c['runtime_s']!r} s" for n, c in sorted(classes.items()))
+        + f"; control diverged {not control.identical} ({control.divergence}); "
+        f"{report['runtime_s']!r} s in all")
+    if not report["ok"] or len(classes) != 5 or control.identical:
+        fail(f"determinism matrix: {report}, control identical {control.identical}")
+    return {n: c["runtime_s"] for n, c in classes.items()}
 
 
 def main() -> int:
@@ -4357,10 +4789,12 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     y_dir = fleet.pop("dir")
+    shards = fleet.pop("shards")
     try:
-        fleet["Y"] = fleet_run_y(y_dir, fleet.pop("shards"), smi, serving["W"]["widths"])
-    finally:
+        fleet["Y"] = fleet_run_y(y_dir, shards, smi, serving["W"]["widths"])
+    except BaseException:
         shutil.rmtree(y_dir, ignore_errors=True)
+        raise
     say(f"phase 12 run Y: {time.perf_counter() - t0!r} s of host time ({smi})")
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="photon_fleet_x_") as x_tmp:
@@ -4373,7 +4807,34 @@ def main() -> int:
     say(f"phase 12: {time.perf_counter() - t0!r} s of host time ({smi})")
     say("fleet: " + json.dumps(fleet))
 
-    # -- 13. result lines -------------------------------------------------------
+    # -- 13. the model registry, the retrain loop, the determinism harness --------
+    t0 = time.perf_counter()
+    registry = {}
+    try:
+        # run Q's server boots while run L runs
+        q_server = registry_q_server(y_dir, shards, serving["W"]["widths"])
+        try:
+            phase13_k1 = retrain_run_l(args.seed, smi, k1)
+            registry["L_s"] = time.perf_counter() - t0
+            say(f"phase 13 run L: {registry['L_s']!r} s of host time ({smi}), beside run Q's "
+                "server start")
+            t1 = time.perf_counter()
+            registry["Q"] = registry_run_q(y_dir, shards, smi, args.seed, q_server)
+            registry["Q_s"] = time.perf_counter() - t1
+        finally:
+            if q_server[0].poll() is None:
+                q_server[0].kill()
+                q_server[0].wait()
+        say(f"phase 13 run Q: {registry['Q_s']!r} s of host time ({smi})")
+    finally:
+        shutil.rmtree(y_dir, ignore_errors=True)
+    t1 = time.perf_counter()
+    registry["determinism"] = determinism_matrix(smi)
+    registry["determinism_s"] = time.perf_counter() - t1
+    say(f"phase 13: {time.perf_counter() - t0!r} s of host time ({smi})")
+    say("registry: " + json.dumps(registry))
+
+    # -- 14. result lines -------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -4399,6 +4860,7 @@ def main() -> int:
         "game_shape": game_k1,
         "phase9_launches": {run: n["k1"] for run, n in phase9_launches.items()},
         "phase10_launches": phase10_k1,
+        "phase13_launches": phase13_k1,
         "stream_chunk": stream_chunk,
     }, {
         "name": "grid_bilinear_pass",

@@ -24,6 +24,12 @@ objective. ``--streaming true`` trains out of core
 ``--stream-memory-budget``, streamed coordinate descent with streamed
 validation, under the reference's gates (IDENTITY projectors, no
 active-data cap, no factored coordinates, one process).
+``--retrain-from R`` warm-starts the fixed-effect vectors and the
+random-effect banks from the latest committed generation of the model
+registry ``R`` (``registry/warm_start.py``: by feature key, new entities
+at the prior mean); ``--publish-registry R`` publishes ``best-model`` as
+the next generation, gated against the parent on the validation data by
+the ``--gate-*`` thresholds.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescentResult,
 )
 from photon_ml_tpu_torch.game.data import GameDataset, ShardData, build_game_dataset_from_files
-from photon_ml_tpu_torch.game.model import GameModel, RandomEffectModel
+from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_tpu_torch.game.model_io import save_game_model
 from photon_ml_tpu_torch.game.random_effect import (
     RandomEffectOptimizationProblem,
@@ -156,15 +162,6 @@ def expand_config_grid(
     return [dict(zip(names, combo)) for combo in product(*alternatives)]
 
 
-# The gate options' defaults: any other value asks for the registry gates.
-_GATE_DEFAULTS = {
-    "gate_max_auc_drop": 0.005,
-    "gate_max_rmse_increase": 0.01,
-    "gate_max_coef_norm_ratio": 10.0,
-    "gate_max_prediction_drift": None,
-}
-
-
 @dataclass
 class GameTrainingParams:
     """Every field of the JAX package's driver, so that every option
@@ -221,6 +218,13 @@ class GameTrainingParams:
     grid_mode: str = "auto"
     grid_memory_budget: int = 1 << 30
     fault_plan: Optional[str] = None
+    # Continuous retraining (registry/): --retrain-from warm-starts the
+    # FE coefficient vectors AND the per-entity RE banks from the latest
+    # committed generation with drift-safe alignment (new vocab terms
+    # zero-init, removed terms dropped with accounting, churned entities
+    # prior-mean-initialized; bitwise pass-through when nothing
+    # drifted); --publish-registry publishes best-model as the next
+    # generation, gated against the parent on the validation data.
     retrain_from: Optional[str] = None
     publish_registry: Optional[str] = None
     gate_max_auc_drop: float = 0.005
@@ -246,12 +250,6 @@ class GameTrainingParams:
             self.coordinator_address is not None or self.num_processes is not None
             or self.process_id is not None,
             "--coordinator-address / --num-processes / --process-id", "item 13",
-        )
-        need(self.retrain_from is not None, "--retrain-from", "item 15")
-        need(self.publish_registry is not None, "--publish-registry", "item 15")
-        need(
-            any(getattr(self, k) != v for k, v in _GATE_DEFAULTS.items()),
-            "the --gate-* options", "item 15",
         )
         return out
 
@@ -313,6 +311,25 @@ class GameTrainingParams:
                     "streaming GAME training does not support: " + ", ".join(unsupported)
                 )
             validate_streaming_game_configs(self.random_effect_data_configs)
+        if self.retrain_from and self.streaming:
+            raise ValueError(
+                "--retrain-from does not support: --streaming (the out-of-core "
+                "CD builds its banks from disk segments; warm-starting them is "
+                "not wired yet)"
+            )
+        if self.retrain_from and self.publish_registry and not self.validate_input_dirs:
+            raise ValueError(
+                "validation-gated promotion (--retrain-from + "
+                "--publish-registry) requires validate-input-dirs: the "
+                "gates compare candidate vs parent on held-out data"
+            )
+        if self.publish_registry and self.model_output_mode == "NONE":
+            raise ValueError(
+                "--publish-registry publishes the saved best-model; "
+                "model-output-mode NONE writes none"
+            )
+        if self.gate_max_coef_norm_ratio <= 0:
+            raise ValueError("gate-max-coef-norm-ratio must be > 0")
 
 
 class GameTrainingDriver:
@@ -338,6 +355,12 @@ class GameTrainingDriver:
         self.best_result = None
         self.best_config = None
         self._evaluators: List[EvaluatorType] = []
+        # continuous retraining state (--retrain-from / --publish-registry)
+        self._parent_generation = None   # registry.GenerationInfo
+        self._parent_loaded = None       # game.model_io.LoadedGameModel
+        self._drift_reports = {}
+        self._published_generation = None
+        self._gate_report = None
 
     # -- data ------------------------------------------------------------------
 
@@ -442,6 +465,9 @@ class GameTrainingDriver:
             or p.random_effect_data_configs
             or p.num_iterations != 1
             or p.checkpoint_dir is not None
+            # the retrain warm start needs the sequential sweep's
+            # initial_model seam
+            or p.retrain_from is not None
             or len(combos) <= 1
         ):
             return None
@@ -635,6 +661,168 @@ class GameTrainingDriver:
         view.__dict__.pop("_device_rows", None)
         cache[key] = (base, view)
         return view
+
+    # -- continuous retraining (registry/) ---------------------------------------
+
+    def _load_parent(self) -> None:
+        """Resolve --retrain-from to the latest committed generation's
+        loaded GAME artifact (cold start when the registry is empty)."""
+        p = self.params
+        if not p.retrain_from:
+            return
+        from photon_ml_tpu_torch.game.model_io import load_game_model
+        from photon_ml_tpu_torch.registry import ModelRegistry
+
+        registry = ModelRegistry(p.retrain_from)
+        info = registry.latest()
+        if info is None:
+            self.logger.info(
+                "retrain-from registry %s has no committed generation; cold start",
+                p.retrain_from,
+            )
+            return
+        self._parent_generation = info
+        with self.timer.time("load-parent"):
+            self._parent_loaded = load_game_model(info.model_dir)
+        self.logger.info(
+            "retraining from generation %d (lineage %s, coordinates %s)",
+            info.generation, registry.lineage(info.generation),
+            self._parent_loaded.coordinate_names(),
+        )
+
+    def _warm_start_model(self, dataset, re_datasets):
+        """The initial GameModel for the first combo: parent FE vectors
+        and RE banks aligned to the NEW dataset (coordinates the parent
+        lacks fall back to zero-init inside CoordinateDescent.run)."""
+        if self._parent_loaded is None:
+            return None
+        from photon_ml_tpu_torch.registry import warm_start_game_model
+
+        model, reports = warm_start_game_model(
+            self._parent_loaded, dataset, re_datasets, self.params.task_type
+        )
+        self._drift_reports = reports
+        for name, rep in reports.items():
+            self.logger.info(
+                "warm-start %s: %d kept, %d new, %d dropped, %d entities kept, "
+                "%d churned (prior-mean), %d entities dropped%s",
+                name, rep.kept, rep.new_zero_init, rep.dropped, rep.kept_entities,
+                rep.churned_entities_prior_init, rep.dropped_entities,
+                "" if rep.no_drift else " [DRIFT]",
+            )
+        return model
+
+    def _model_norms(self, best_model):
+        """(candidate_norm, parent_norm): FE + RE coefficient L2 norms for
+        the coefficient-sanity gate, both sides over their own stored
+        coefficients (the candidate's squares in one fetch)."""
+        sq_terms = []
+        for sub in best_model.models.values():
+            if isinstance(sub, FixedEffectModel):
+                w = sub.model.means
+                sq_terms.append(torch.dot(w, w))
+            elif isinstance(sub, RandomEffectModel):
+                sq_terms.append((sub.bank * sub.bank).sum())
+        cand_sq = (
+            sum(float(x) for x in overlap.device_get(sq_terms)) if sq_terms else 0.0
+        )
+        par_sq = 0.0
+        for _name, (_sid, means) in self._parent_loaded.fixed_effects.items():
+            par_sq += sum(float(v) ** 2 for v in means.values())
+        for _name, (_rt, _sid, per_entity) in self._parent_loaded.random_effects.items():
+            for means in per_entity.values():
+                par_sq += sum(float(v) ** 2 for v in means.values())
+        return float(np.sqrt(cand_sq)), float(np.sqrt(par_sq))
+
+    def _run_gates(self, best_model, vdata):
+        """Candidate-vs-parent gates on the loaded validation dataset
+        (both models score the SAME rows; the parent resolves features and
+        entities by key, so drift costs it exactly its vanished terms)."""
+        from photon_ml_tpu_torch.registry import GateConfig, evaluate_gates
+
+        p = self.params
+        config = GateConfig(
+            max_auc_drop=p.gate_max_auc_drop,
+            max_rmse_increase=p.gate_max_rmse_increase,
+            max_coef_norm_ratio=p.gate_max_coef_norm_ratio,
+            max_prediction_drift=p.gate_max_prediction_drift,
+        )
+        labels, offsets, weights = vdata.row_tensors()
+        cand, par, labels, weights = overlap.device_get((
+            self._score_on(best_model, vdata) + offsets,
+            self._parent_loaded.score(vdata, p.task_type) + offsets,
+            labels,
+            weights,
+        ))
+        cand_norm, par_norm = self._model_norms(best_model)
+        report = evaluate_gates(
+            [(cand, par, labels, weights)], p.task_type, config=config,
+            candidate_norm=cand_norm, parent_norm=par_norm, device=self.device,
+        )
+        self._gate_report = report
+        self.logger.info(
+            "validation gates: %s %s", report.verdict,
+            {k: v.get("passed") for k, v in report.checks.items()},
+        )
+        return report
+
+    def _publish_to_registry(self, vdata) -> None:
+        """Publish the saved best-model directory as the next generation;
+        a failed gate records its named verdict (registry refusal +
+        metrics.json) and leaves the lineage unchanged."""
+        p = self.params
+        best = self.best_result[0] if self.best_result is not None else None
+        if best is None:
+            return
+        gate_report = None
+        if self._parent_loaded is not None and vdata is not None:
+            gate_report = self._run_gates(best.best_model, vdata)
+        from photon_ml_tpu_torch.registry import ModelRegistry, RefusedCandidate
+
+        registry = ModelRegistry(p.publish_registry)
+        extra = {"task": p.task_type.name}
+        if self._drift_reports:
+            extra["drift"] = {name: rep.as_dict() for name, rep in self._drift_reports.items()}
+        try:
+            info = registry.publish(
+                os.path.join(p.output_dir, "best-model"),
+                parent=(
+                    self._parent_generation.generation
+                    if self._parent_generation is not None else None
+                ),
+                data_ranges={
+                    "train_input_dirs": list(p.train_input_dirs),
+                    "train_date_range": p.train_date_range,
+                    "train_date_range_days_ago": p.train_date_range_days_ago,
+                },
+                gate_report=gate_report.as_dict() if gate_report is not None else None,
+                extra=extra,
+            )
+            self._published_generation = info.generation
+            self.logger.info(
+                "published generation %d (parent %s, signature %s)",
+                info.generation, info.parent, info.signature,
+            )
+        except RefusedCandidate as e:
+            self.logger.warning(
+                "candidate REFUSED by validation gate %s; generation lineage "
+                "unchanged (refusal recorded at %s)", e.verdict, e.refused_dir,
+            )
+
+    def _registry_metrics(self):
+        p = self.params
+        if not (p.retrain_from or p.publish_registry):
+            return None
+        return {
+            "retrain_from": p.retrain_from,
+            "parent_generation": (
+                self._parent_generation.generation
+                if self._parent_generation is not None else None
+            ),
+            "published_generation": self._published_generation,
+            "drift": {name: rep.as_dict() for name, rep in self._drift_reports.items()},
+            "gates": self._gate_report.as_dict() if self._gate_report is not None else None,
+        }
 
     # -- checkpoints -------------------------------------------------------------
 
@@ -852,6 +1040,9 @@ class GameTrainingDriver:
                 name: build_random_effect_dataset(dataset, cfg)
                 for name, cfg in p.random_effect_data_configs.items()
             }
+        self._load_parent()
+        warm_model = self._warm_start_model(dataset, re_datasets)
+        vdata = None
         validation_fn = None
         if p.validate_input_dirs:
             with self.timer.time("load-validate"):
@@ -877,7 +1068,10 @@ class GameTrainingDriver:
                 range(len(combos)), key=lambda i: -sum(c.reg_weight for c in combos[i].values())
             )
             guard = PreemptionGuard().install() if p.checkpoint_dir is not None else None
-            prev_model = None
+            # retrain warm start: the aligned parent model seeds the FIRST
+            # (most-regularized) combo as the cross-combo warm start seeds
+            # the rest
+            prev_model = warm_model
             try:
                 for ti, ci in enumerate(order):
                     combo = combos[ci]
@@ -942,12 +1136,17 @@ class GameTrainingDriver:
                             ),
                             num_re_output_files=p.num_output_files_for_random_effect_model,
                         )
+        if p.publish_registry:
+            with self.timer.time("publish-registry"):
+                self._publish_to_registry(vdata)
+        registry_block = self._registry_metrics()
         atomic_write_json(os.path.join(p.output_dir, "metrics.json"), {
             "objective_history": best.objective_history,
             "validation_history": best.validation_history,
             "best_metric": best.best_metric,
             "timers": self.timer.durations,
             "reliability": reliability_metrics(),
+            **({"registry": registry_block} if registry_block is not None else {}),
             **({"obs": self.obs.finish()} if self.obs.enabled else {}),
         })
         self.logger.info("timers:\n%s", self.timer.summary())
@@ -1000,12 +1199,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-shards", type=int, default=None)
     ap.add_argument("--entity-shards", type=int, default=None)
     ap.add_argument("--fault-plan", default=None)
-    ap.add_argument("--retrain-from", default=None)
-    ap.add_argument("--publish-registry", default=None)
+    ap.add_argument(
+        "--retrain-from", default=None,
+        help="model-registry directory: warm-start FE vectors and per-entity "
+        "RE banks from the latest committed generation with drift-safe "
+        "alignment (new terms zero-init, removed terms dropped with "
+        "accounting, churned entities prior-mean-init; bitwise pass-through "
+        "when nothing drifted)",
+    )
+    ap.add_argument(
+        "--publish-registry", default=None,
+        help="model-registry directory: publish best-model as the next "
+        "generation, gated against the parent on the validation data (a "
+        "failed gate records a named verdict; the candidate is never loadable)",
+    )
     ap.add_argument("--gate-max-auc-drop", type=float, default=0.005)
     ap.add_argument("--gate-max-rmse-increase", type=float, default=0.01)
     ap.add_argument("--gate-max-coef-norm-ratio", type=float, default=10.0)
-    ap.add_argument("--gate-max-prediction-drift", type=float, default=None)
+    ap.add_argument(
+        "--gate-max-prediction-drift", type=float, default=None,
+        help="mean |candidate - parent| holdout margin bound (default: gate off)",
+    )
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument(
         "--profile-dir", default=None,

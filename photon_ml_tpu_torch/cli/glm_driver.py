@@ -32,7 +32,12 @@ arguments after a kill loads them and solves only the rest, and a SIGTERM
 stops the sweep at a λ boundary with the outputs withheld.
 ``--fault-plan`` installs a deterministic fault plan
 (``reliability/faults.py``); ``metrics.json`` carries the reliability
-block.
+block. ``--retrain-from R`` warm-starts the first λ from the latest
+committed generation of the model registry ``R`` (``registry/``), aligned
+by feature key; ``--publish-registry R`` publishes the best model as the
+next generation, gated against that parent on the validation files by
+the ``--gate-*`` thresholds (a failed gate is recorded as a refusal and
+publishes nothing).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ import os
 import shutil
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from photon_ml_tpu_torch.data.stats import compute_summary
 from photon_ml_tpu_torch.data.validators import DataValidationType, sanity_check_data
@@ -138,15 +145,6 @@ class DiagnosticMode(enum.Enum):
         return cls(s.strip().upper())
 
 
-# The gate options' defaults: any other value asks for the registry gates.
-_GATE_DEFAULTS = {
-    "gate_max_auc_drop": 0.005,
-    "gate_max_rmse_increase": 0.01,
-    "gate_max_coef_norm_ratio": 10.0,
-    "gate_max_prediction_drift": None,
-}
-
-
 @dataclass
 class GLMParams:
     """The reference's Params bean (Params.scala), with every field of the
@@ -223,6 +221,15 @@ class GLMParams:
     process_id: Optional[int] = None
     checkpoint_dir: Optional[str] = None
     fault_plan: Optional[str] = None
+    # Continuous retraining (registry/): --retrain-from warm-starts the
+    # coefficient vector from the latest committed generation of a model
+    # registry with drift-safe alignment (new vocab terms zero-init,
+    # removed terms dropped with accounting — bitwise pass-through when
+    # nothing drifted); --publish-registry publishes the trained best
+    # model as the next generation, gated against the parent on the
+    # validating directory (AUC/RMSE non-regression, coefficient-norm
+    # sanity, optional prediction-drift bound). A failed gate records a
+    # named terminal verdict and the candidate is never loadable.
     retrain_from: Optional[str] = None
     publish_registry: Optional[str] = None
     gate_max_auc_drop: float = 0.005
@@ -248,12 +255,6 @@ class GLMParams:
             self.coordinator_address is not None or self.num_processes is not None
             or self.process_id is not None,
             "--coordinator-address / --num-processes / --process-id", "item 13",
-        )
-        need(self.retrain_from is not None, "--retrain-from", "item 15")
-        need(self.publish_registry is not None, "--publish-registry", "item 15")
-        need(
-            any(getattr(self, k) != v for k, v in _GATE_DEFAULTS.items()),
-            "the --gate-* options", "item 15",
         )
         return out
 
@@ -322,9 +323,35 @@ class GLMParams:
                 "scan-cache-dir requires the AVRO input format (the "
                 "per-partition moment partials use the Avro decoder)"
             )
+        if self.gate_max_coef_norm_ratio <= 0:
+            raise ValueError("gate-max-coef-norm-ratio must be > 0")
+        if self.retrain_from and self.publish_registry and not self.validate_dir:
+            raise ValueError(
+                "validation-gated promotion (--retrain-from + "
+                "--publish-registry) requires a validating data "
+                "directory: the gates compare candidate vs parent on a "
+                "held-out stream"
+            )
         # the range strings fail here, not mid-preprocess
         resolve_date_range(self.train_date_range, self.train_date_range_days_ago)
         resolve_date_range(self.validate_date_range, self.validate_date_range_days_ago)
+
+
+def _glm_artifact_means(model_dir: str) -> Dict[str, float]:
+    """The coefficient dict {feature key: value} of a published GLM
+    generation (``model.avro``, one best-model record) — the KEY-space
+    view drift-safe alignment consumes."""
+    from photon_ml_tpu_torch.io.avro_codec import read_container
+    from photon_ml_tpu_torch.utils.index_map import feature_key
+
+    path = os.path.join(model_dir, "model.avro")
+    _, records = read_container(path)
+    for record in records:
+        return {
+            feature_key(m["name"], m["term"]): float(m["value"])
+            for m in record["means"]
+        }
+    raise ValueError(f"no model record in {path}")
 
 
 def budgeted_reservoir_rows(max_rows: int, budget_bytes: int, max_nnz: int) -> int:
@@ -402,6 +429,12 @@ class GLMDriver:
         self._stream_sample = None
         self._scan_cache_stats: Dict[str, int] = {}
         self._stream_stats: Dict[str, object] = {}
+        # continuous retraining state (--retrain-from / --publish-registry)
+        self._parent_generation = None   # registry.GenerationInfo
+        self._parent_means: Optional[Dict[str, float]] = None
+        self._drift_report = None        # registry.DriftReport
+        self._published_generation: Optional[int] = None
+        self._gate_report = None
 
     # -- stages ------------------------------------------------------------
 
@@ -596,20 +629,30 @@ class GLMDriver:
             "streaming": p.streaming,
             "constraint_string": p.constraint_string,
         }
+        if p.retrain_from:
+            # the warm start changes the iterate chain: a resumed sweep
+            # must come from the SAME parent generation
+            run_config["retrain_parent_signature"] = (
+                self._parent_generation.signature
+                if self._parent_generation is not None
+                else None
+            )
         guard = PreemptionGuard().install()
         return GridCheckpointer(p.checkpoint_dir, run_config), guard
 
     def train(self) -> None:
         p = self.params
         self.emitter.send(TrainingStartEvent(p.job_name))
+        self._load_parent()
         grid_ckpt, guard = self._grid_checkpoint_setup()
         from photon_ml_tpu_torch.utils.profiling import profile_trace
 
         with self.timer.time("train"), profile_trace(p.profile_dir, self.device):
+            initial = self._retrain_initial()
             if p.streaming:
-                self._train_streaming(grid_ckpt, guard)
+                self._train_streaming(grid_ckpt, guard, initial)
             else:
-                self._train_in_memory(grid_ckpt, guard)
+                self._train_in_memory(grid_ckpt, guard, initial)
             self._log_results()
         if guard is not None:
             self._preempted = guard.requested
@@ -624,8 +667,9 @@ class GLMDriver:
         self.emitter.send(TrainingFinishEvent(p.job_name))
         self._advance(DriverStage.TRAINED)
 
-    def _train_in_memory(self, grid_ckpt, guard) -> None:
-        """The in-memory λ-grid: sequential (K1) or batched (K2)."""
+    def _train_in_memory(self, grid_ckpt, guard, initial) -> None:
+        """The in-memory λ-grid: sequential (K1) or batched (K2), from
+        ``initial`` (the retrain warm start) or zeros."""
         p = self.params
         data = self._data
         trainer = train_generalized_linear_model
@@ -657,10 +701,11 @@ class GLMDriver:
             device=self.device,
             track_models=p.validate_per_iteration,
             tile_cache_dir=p.tile_cache_dir,
+            initial=initial,
             **extra,
         )
 
-    def _train_streaming(self, grid_ckpt, guard) -> None:
+    def _train_streaming(self, grid_ckpt, guard, initial) -> None:
         """The out-of-core λ-grid (sequential, warm-started): chunk rows
         and cache tiers from ``--stream-memory-budget``."""
         p = self.params
@@ -700,6 +745,7 @@ class GLMDriver:
             tile_cache_dir=p.tile_cache_dir,
             grid_checkpointer=grid_ckpt,
             preemption_guard=guard,
+            initial=initial,
             device=self.device,
             objective_out=objectives,
         )
@@ -712,6 +758,7 @@ class GLMDriver:
         }
         # the tiers hold device memory and scratch: released here
         objective.close()
+
     def _resolved_grid_mode(self, dim: int) -> str:
         """Resolve --grid-mode for the in-memory training stage."""
         p = self.params
@@ -885,6 +932,167 @@ class GLMDriver:
             run_glm_diagnostics(self)
         self._advance(DriverStage.DIAGNOSED)
 
+    # -- continuous retraining (registry/) -----------------------------------
+
+    def _load_parent(self) -> None:
+        """Resolve --retrain-from to the latest committed generation and
+        its coefficient dict (by feature KEY — alignment never trusts
+        indices across vocabularies). A registry with no committed
+        generation is a cold start, not an error: the first cron tick of
+        a retrain loop trains from zeros and publishes generation 1."""
+        p = self.params
+        if not p.retrain_from:
+            return
+        from photon_ml_tpu_torch.registry import ModelRegistry
+
+        registry = ModelRegistry(p.retrain_from)
+        info = registry.latest()
+        if info is None:
+            self.logger.info(
+                "retrain-from registry %s has no committed generation; cold start",
+                p.retrain_from,
+            )
+            return
+        self._parent_generation = info
+        self._parent_means = _glm_artifact_means(info.model_dir)
+        self.logger.info(
+            "retraining from generation %d (lineage %s, %d parent coefficients, "
+            "gate verdict %s)",
+            info.generation, registry.lineage(info.generation),
+            len(self._parent_means), info.gate_verdict,
+        )
+
+    def _retrain_initial(self):
+        """The drift-safe warm-start vector in the CURRENT index space
+        (None when not retraining): new terms zero-init, removed terms
+        dropped with accounting, bitwise the parent when nothing drifted.
+        The report lands in metrics.json."""
+        if self._parent_means is None:
+            return None
+        from photon_ml_tpu_torch.registry import DriftReport, align_coefficients
+
+        report = DriftReport()
+        initial = align_coefficients(self._parent_means, self._data.index_map, report=report)
+        self._drift_report = report
+        self.logger.info(
+            "warm-start alignment: %d kept, %d new (zero-init), %d dropped%s",
+            report.kept, report.new_zero_init, report.dropped,
+            "" if report.no_drift else " [DRIFT]",
+        )
+        return initial
+
+    def _run_gates(self, candidate_model):
+        """Candidate-vs-parent gates on the validation data; returns the
+        GateReport whose verdict decides the publish. Both models score
+        the same rows on the driver's device, one fetch a chunk."""
+        import torch
+
+        from photon_ml_tpu_torch.parallel import overlap
+        from photon_ml_tpu_torch.registry import GateConfig, align_coefficients, evaluate_gates
+        from photon_ml_tpu_torch.registry.gates import glm_gate_chunks
+
+        p = self.params
+        config = GateConfig(
+            max_auc_drop=p.gate_max_auc_drop,
+            max_rmse_increase=p.gate_max_rmse_increase,
+            max_coef_norm_ratio=p.gate_max_coef_norm_ratio,
+            max_prediction_drift=p.gate_max_prediction_drift,
+        )
+        # the parent scored through TODAY's featurization: shared terms
+        # contribute identically, vanished terms contribute nothing
+        parent_vec = align_coefficients(self._parent_means, self._data.index_map)
+        candidate_means = candidate_model.means.detach().cpu().numpy()
+        if p.streaming:
+            validate_paths = self._dated_paths(
+                p.validate_dir, p.validate_date_range, p.validate_date_range_days_ago,
+            )
+            _, vstats = scan_stream(validate_paths, self._fmt, index_map=self._data.index_map)
+            chunks = glm_gate_chunks(
+                candidate_means, parent_vec, validate_paths, self._fmt,
+                self._data.index_map, vstats.max_nnz, device=self.device,
+            )
+        else:
+            batch = self._validation_data.batch
+            chunks = [overlap.device_get((
+                compute_margins(candidate_model.means, batch),
+                compute_margins(torch.as_tensor(parent_vec, device=self.device), batch),
+                batch.labels,
+                batch.weights,
+            ))]
+        report = evaluate_gates(
+            chunks, p.task, config=config,
+            candidate_norm=float(np.linalg.norm(candidate_means)),
+            parent_norm=float(np.linalg.norm(parent_vec)),
+            device=self.device,
+        )
+        self._gate_report = report
+        self.logger.info(
+            "validation gates: %s %s", report.verdict,
+            {k: v.get("passed") for k, v in report.checks.items()},
+        )
+        return report
+
+    def _publish_to_registry(self) -> None:
+        """Publish the trained model as the next generation. A failed gate
+        is an EXPECTED terminal outcome of the retrain loop: the refusal
+        (named verdict) is recorded in the registry and in metrics.json,
+        and the driver exits cleanly without a new generation."""
+        p = self.params
+        if self.best_model is not None:
+            lam, model = self.best_lambda, self.best_model
+        elif len(self.models) == 1:
+            lam, model = next(iter(self.models.items()))
+        else:
+            raise ValueError(
+                "publishing a multi-lambda grid requires a validating "
+                "directory to select the best model"
+            )
+        gate_report = None
+        if self._parent_generation is not None:
+            gate_report = self._run_gates(model)
+        candidate_dir = os.path.join(p.output_dir, "registry-candidate")
+        save_glm_models_avro(
+            {lam: model}, os.path.join(candidate_dir, "model.avro"), self._data.index_map
+        )
+        # the index map rides with the artifact so the NEXT retrain (and
+        # any scorer) aligns by key without this run's output tree
+        self._data.index_map.save(os.path.join(candidate_dir, "feature-index", "index.json"))
+        from photon_ml_tpu_torch.registry import ModelRegistry, RefusedCandidate
+
+        registry = ModelRegistry(p.publish_registry)
+        extra = {
+            "task": p.task.name,
+            "lambda": float(lam),
+            "num_features": int(self._data.num_features),
+        }
+        if self._drift_report is not None:
+            extra["drift"] = self._drift_report.as_dict()
+        try:
+            info = registry.publish(
+                candidate_dir,
+                parent=(
+                    self._parent_generation.generation
+                    if self._parent_generation is not None else None
+                ),
+                data_ranges={
+                    "train_dir": p.train_dir,
+                    "train_date_range": p.train_date_range,
+                    "train_date_range_days_ago": p.train_date_range_days_ago,
+                },
+                gate_report=gate_report.as_dict() if gate_report is not None else None,
+                extra=extra,
+            )
+            self._published_generation = info.generation
+            self.logger.info(
+                "published generation %d (parent %s, signature %s)",
+                info.generation, info.parent, info.signature,
+            )
+        except RefusedCandidate as e:
+            self.logger.warning(
+                "candidate REFUSED by validation gate %s; generation lineage "
+                "unchanged (refusal recorded at %s)", e.verdict, e.refused_dir,
+            )
+
     # -- outputs -----------------------------------------------------------
 
     def _write_summary(self, out_dir: str) -> None:
@@ -956,6 +1164,21 @@ class GLMDriver:
         if self._scan_cache_stats:
             # the "touched only new partitions" counters
             payload["scan_cache"] = self._scan_cache_stats
+        if p.retrain_from or p.publish_registry:
+            payload["registry"] = {
+                "retrain_from": p.retrain_from,
+                "parent_generation": (
+                    self._parent_generation.generation
+                    if self._parent_generation is not None else None
+                ),
+                "published_generation": self._published_generation,
+                "drift": (
+                    self._drift_report.as_dict() if self._drift_report is not None else None
+                ),
+                "gates": (
+                    self._gate_report.as_dict() if self._gate_report is not None else None
+                ),
+            }
         if p.streaming:
             # the out-of-core contract made observable: the budget against
             # the host's measured high-water, and the tiers it filled
@@ -984,6 +1207,11 @@ class GLMDriver:
             self.validate()
         if p.diagnostic_mode != DiagnosticMode.NONE:
             self.diagnose()
+        if p.publish_registry:
+            # gates + publish run BEFORE the outputs so the verdict and the
+            # published generation land in metrics.json
+            with self.timer.time("publish-registry"):
+                self._publish_to_registry()
         with self.timer.time("write"):
             self._write_outputs()
         self.logger.info("stages: %s", [s.name for s in self.stage_history])
@@ -1131,9 +1359,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="deterministic fault injection, e.g. ckpt_save:4:KILL "
         "(seam:nth:error[:times]; also PHOTON_FAULT_PLAN)",
     )
-    ap.add_argument("--retrain-from", default=None, help="not ported yet (ROADMAP item 15)")
-    ap.add_argument("--publish-registry", default=None,
-                    help="not ported yet (ROADMAP item 15)")
+    ap.add_argument(
+        "--retrain-from", default=None,
+        help="model-registry directory: warm-start the coefficients from the "
+        "latest committed generation with drift-safe alignment (new terms "
+        "zero-init, removed terms dropped with accounting; bitwise "
+        "pass-through when nothing drifted)",
+    )
+    ap.add_argument(
+        "--publish-registry", default=None,
+        help="model-registry directory: publish the trained best model as the "
+        "next generation, gated against the parent on the validating "
+        "directory when --retrain-from resolved one (a failed gate records a "
+        "named verdict; the candidate is never loadable)",
+    )
     ap.add_argument(
         "--scan-cache-dir", default=None,
         help="append-only per-partition scan/stats cache: the streaming "
@@ -1143,7 +1382,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gate-max-auc-drop", type=float, default=0.005)
     ap.add_argument("--gate-max-rmse-increase", type=float, default=0.01)
     ap.add_argument("--gate-max-coef-norm-ratio", type=float, default=10.0)
-    ap.add_argument("--gate-max-prediction-drift", type=float, default=None)
+    ap.add_argument(
+        "--gate-max-prediction-drift", type=float, default=None,
+        help="mean |candidate - parent| holdout margin bound (default: gate off)",
+    )
     ap.add_argument(
         "--device", default=None,
         help="where to train: the CUDA card by default (the driver raises "

@@ -52,9 +52,17 @@ Telemetry: ``--obs-dir`` (tracing, the metrics registry's snapshots and
 the flight recorder), ``--profile-dir`` (a ``torch.profiler`` trace of
 the serve phase) and ``--slo`` (the burn-rate engine).
 
+Continuous retraining: ``--registry-dir R --frontend-port P`` serves the
+latest committed generation of the model registry ``R`` and runs its
+watcher (``registry/watcher.py``) beside the front end: a newly
+published generation is hot-swapped in under traffic, and with
+``--auto-rollback`` (the default) a post-swap window of degraded, shed
+or failed responses past ``--rollback-max-unhealthy`` flips back to the
+parent generation, reloaded from its artifact, and quarantines the bad
+one. With ``--slo`` the window's judgment is the burn-rate alert state.
+
 The port adds ``--device`` (the card by default, ``cpu`` on request; a
-router takes none). The registry watcher and its rollback options wait
-for ROADMAP item 15: they raise, naming the item.
+router takes none).
 """
 
 from __future__ import annotations
@@ -84,19 +92,6 @@ from photon_ml_tpu_torch.utils.device import resolve_device
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
 
 DEFAULT_LADDER_TEXT = "1,8,64,256"
-
-# The options of the JAX driver whose paths the port lacks: the field of
-# ServingParams, the option, the ROADMAP item. Each defaults to None, so
-# giving one at all refuses the run.
-_UNPORTED = (
-    ("registry_dir", "--registry-dir", "item 15"),
-    ("registry_poll_s", "--registry-poll-s", "item 15"),
-    ("auto_rollback", "--auto-rollback", "item 15"),
-    ("rollback_window", "--rollback-window", "item 15"),
-    ("rollback_min_requests", "--rollback-min-requests", "item 15"),
-    ("rollback_max_unhealthy", "--rollback-max-unhealthy", "item 15"),
-)
-
 
 @dataclass
 class ServingParams:
@@ -195,13 +190,18 @@ class ServingParams:
     # refused at connect), "auto" negotiates binary when the whole fleet
     # speaks it, "json" pins the JSON-lines plane.
     wire: str = "auto"
-    # Options of paths not ported yet (_UNPORTED): None unless given.
+    # Continuous retraining (registry/): serve the latest committed
+    # generation of a model registry and hot-swap newly published ones
+    # under live traffic. --auto-rollback flips BACK to the parent
+    # generation (bitwise, reloaded from the registry artifact) and
+    # quarantines the bad one when the post-swap health window
+    # regresses (degraded/shed/error rate over the sliding window).
     registry_dir: Optional[str] = None
-    registry_poll_s: Optional[float] = None
-    auto_rollback: Optional[bool] = None
-    rollback_window: Optional[int] = None
-    rollback_min_requests: Optional[int] = None
-    rollback_max_unhealthy: Optional[float] = None
+    registry_poll_s: float = 2.0
+    auto_rollback: bool = True
+    rollback_window: int = 64
+    rollback_min_requests: int = 16
+    rollback_max_unhealthy: float = 0.5
 
     @property
     def stdin_mode(self) -> bool:
@@ -238,21 +238,7 @@ class ServingParams:
             out.append((host or "127.0.0.1", int(port)))
         return out
 
-    def unported(self) -> List[str]:
-        """The options set here whose paths the port lacks, each with the
-        ROADMAP item it waits for."""
-        return [
-            f"{opt} (ROADMAP {item})"
-            for name, opt, item in _UNPORTED
-            if getattr(self, name) is not None
-        ]
-
     def validate(self) -> None:
-        unported = self.unported()
-        if unported:
-            raise NotImplementedError(
-                "not ported to photon_ml_tpu_torch yet: " + "; ".join(unported)
-            )
         if self.fleet_obs_dir and not self.router_mode:
             raise ValueError(
                 "--fleet-obs-dir is the router-side fleet collector; "
@@ -292,6 +278,13 @@ class ServingParams:
                     "a shard-server serves the routing tier over TCP; "
                     "--shard-index requires --frontend-port"
                 )
+            if self.registry_dir:
+                raise ValueError(
+                    "--shard-index is incompatible with --registry-dir: "
+                    "a watcher-owned swap on one shard would desync the "
+                    "fleet's generations — the router coordinates swaps "
+                    "through the stage/commit ops"
+                )
             if self.swap_model_dir:
                 raise ValueError(
                     "--swap-model-dir is incompatible with "
@@ -307,6 +300,11 @@ class ServingParams:
                 raise ValueError(
                     "router mode replays --request-paths through the "
                     "fleet; it does not serve a frontend itself"
+                )
+            if self.registry_dir:
+                raise ValueError(
+                    "router mode coordinates fleet swaps itself; "
+                    "--registry-dir is the single-server watcher path"
                 )
             if self.device is not None:
                 raise ValueError(
@@ -342,8 +340,32 @@ class ServingParams:
                     "feature shard configuration is required"
                 )
             return  # the bank/ladder rules below are shard-side
-        if not self.game_model_input_dir:
-            raise ValueError("game-model-input-dir is required")
+        if not self.game_model_input_dir and not self.registry_dir:
+            raise ValueError(
+                "game-model-input-dir is required (or --registry-dir to "
+                "serve the latest committed registry generation)"
+            )
+        if self.game_model_input_dir and self.registry_dir:
+            raise ValueError(
+                "choose ONE model source: --game-model-input-dir or "
+                "--registry-dir"
+            )
+        if self.registry_dir and not self.frontend_mode:
+            raise ValueError(
+                "--registry-dir serves live traffic (the watcher swaps "
+                "generations under load); it requires --frontend-port"
+            )
+        if self.registry_dir and self.swap_model_dir:
+            raise ValueError(
+                "--swap-model-dir is the manual swap demonstration; "
+                "with --registry-dir the watcher owns swaps"
+            )
+        if self.registry_poll_s <= 0:
+            raise ValueError("registry-poll-s must be > 0")
+        if not 0 < self.rollback_max_unhealthy <= 1:
+            raise ValueError("rollback-max-unhealthy must be in (0, 1]")
+        if self.rollback_window < 1 or self.rollback_min_requests < 1:
+            raise ValueError("rollback window/min-requests must be >= 1")
         if not self.output_dir:
             raise ValueError("output-dir is required")
         if not self.request_paths and not self.frontend_mode:
@@ -470,6 +492,10 @@ class ServingDriver:
         # fleet observability (--fleet-obs-dir / --slo)
         self.slo_engine = None          # obs.slo.SLOEngine
         self.fleet_collector = None     # obs.fleet.FleetCollector
+        # continuous-retraining state (--registry-dir)
+        self.registry = None            # registry.ModelRegistry
+        self.registry_watcher = None    # registry.RegistryWatcher
+        self._registry_generation = None
 
     # -- SLO engine (--slo) --------------------------------------------------
 
@@ -553,8 +579,25 @@ class ServingDriver:
         from photon_ml_tpu_torch.serving.batcher import request_from_record
 
         p = self.params
+        model_dir = p.game_model_input_dir
+        if p.registry_dir:
+            from photon_ml_tpu_torch.registry import ModelRegistry
+
+            self.registry = ModelRegistry(p.registry_dir)
+            info = self.registry.latest()
+            if info is None:
+                raise ValueError(
+                    f"registry {p.registry_dir} has no committed "
+                    "generation to serve"
+                )
+            self._registry_generation = info
+            model_dir = info.model_dir
+            self.logger.info(
+                "serving registry generation %d (parent %s, gates %s)",
+                info.generation, info.parent, info.gate_verdict,
+            )
         with self.timer.time("load-model"):
-            loaded = load_model_artifact(p.game_model_input_dir)
+            loaded = load_model_artifact(model_dir)
         id_types = sorted(
             {re_t for re_t, _, _ in loaded.random_effects.values()}
             | {
@@ -887,6 +930,28 @@ class ServingDriver:
         slo_status = self._finish_slo()
         if slo_status is not None:
             extra["slo"] = slo_status
+        if self.registry_watcher is not None:
+            extra["registry"] = {
+                **self.registry_watcher.lineage(),
+                "watcher_history": [
+                    {
+                        "action": r.action,
+                        "registry_generation": r.registry_generation,
+                        "parent": r.parent,
+                        "ok": r.ok,
+                        "error": r.error,
+                    }
+                    for r in self.registry_watcher.history
+                ],
+            }
+        elif self.registry is not None:
+            extra["registry"] = {
+                "registry_path": self.registry.root,
+                "registry_generation": (
+                    self._registry_generation.generation
+                    if self._registry_generation is not None else None
+                ),
+            }
         return extra
 
     def run(self) -> None:
@@ -1324,6 +1389,46 @@ class ServingDriver:
             if p.swap_model_dir
             else None
         )
+        on_outcome = None
+        lineage_provider = None
+        rollback_handler = None
+        if self.registry is not None:
+            from photon_ml_tpu_torch.registry import (
+                RegistryWatcher,
+                RollbackPolicy,
+            )
+
+            self.registry_watcher = RegistryWatcher(
+                self.registry,
+                self.serving_model,
+                poll_s=p.registry_poll_s,
+                policy=RollbackPolicy(
+                    window=p.rollback_window,
+                    min_requests=p.rollback_min_requests,
+                    max_unhealthy_rate=p.rollback_max_unhealthy,
+                ),
+                auto_rollback=p.auto_rollback,
+                swap_kwargs={
+                    "entity_pad_to": p.entity_pad_to,
+                    "model_id": p.model_id,
+                },
+                logger=self.logger,
+                initial_generation=self._registry_generation,
+                # --slo: the post-swap health judgment consumes the
+                # burn-rate alert state instead of raw error fractions
+                burn_gate=(
+                    self.slo_engine.any_alert_active
+                    if self.slo_engine is not None
+                    else None
+                ),
+            ).start()
+            watcher = self.registry_watcher
+            on_outcome = (
+                lambda ok, degraded, failed:
+                watcher.observe_outcome(degraded=degraded, failed=failed)
+            )
+            lineage_provider = watcher.lineage
+            rollback_handler = watcher.rollback
         extra_ops = None
         status_extra = None
         shard_block = None
@@ -1355,6 +1460,9 @@ class ServingDriver:
             has_response=p.has_response,
             max_frame_bytes=p.max_frame_bytes,
             on_completion=on_completion,
+            on_outcome=on_outcome,
+            lineage_provider=lineage_provider,
+            rollback_handler=rollback_handler,
             extra_ops=extra_ops,
             status_extra=status_extra,
             metrics_registry=self.obs.registry,
@@ -1369,9 +1477,13 @@ class ServingDriver:
                 "host": p.frontend_host,
                 "port": frontend.port,
                 "pid": os.getpid(),
-                # no registry watcher in the port yet (ROADMAP item 15):
-                # the key stays, as null
-                "registry": None,
+                # the registry this replica follows (null when serving
+                # a fixed artifact): operators read it to publish to and
+                # poke the SAME lineage the service sees
+                "registry": (
+                    self.registry.root if self.registry is not None
+                    else None
+                ),
                 # shard topology (null off the routing tier): how the
                 # router — and any operator — discovers the fleet
                 # layout without out-of-band config
@@ -1408,11 +1520,17 @@ class ServingDriver:
                 pass
             self.interrupted = True
             with self.timer.time("drain"):
+                if self.registry_watcher is not None:
+                    # stop promoting before the drain: a swap staged
+                    # into a draining batcher would never serve
+                    self.registry_watcher.stop()
                 frontend.stop_accepting()
                 self.drain_report = batcher.drain(p.drain_timeout_s)
                 frontend.close()
         finally:
             self._restore_signal_handlers(prev)
+            if self.registry_watcher is not None:
+                self.registry_watcher.stop()
             batcher.close()
             overlap.drain_io()
         leaked = frontend.open_connections()
@@ -1438,7 +1556,8 @@ class ServingDriver:
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="photon-ml-tpu-torch serving")
     ap.add_argument("--game-model-input-dir", default=None,
-                    help="GAME model artifact to serve")
+                    help="GAME model artifact to serve (or --registry-dir to "
+                    "follow a model registry's committed generations)")
     ap.add_argument("--output-dir", required=True)
     ap.add_argument(
         "--request-paths", default=None,
@@ -1607,13 +1726,40 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "env, then 1 MiB); published in frontend.json and every "
         "status response",
     )
+    ap.add_argument(
+        "--registry-dir", default=None,
+        help="model-registry directory: serve its latest committed "
+        "generation and hot-swap newly published ones under live "
+        "traffic (requires --frontend-port; the registry path is "
+        "published to frontend.json)",
+    )
+    ap.add_argument(
+        "--registry-poll-s", type=float, default=2.0,
+        help="registry poll period for the generation watcher",
+    )
+    ap.add_argument(
+        "--auto-rollback", default="true",
+        help="roll back to the parent generation (bitwise) and "
+        "quarantine the bad one when the post-swap health window "
+        "regresses",
+    )
+    ap.add_argument(
+        "--rollback-window", type=int, default=64,
+        help="sliding window of post-swap completions judged for "
+        "auto-rollback",
+    )
+    ap.add_argument(
+        "--rollback-min-requests", type=int, default=16,
+        help="minimum post-swap completions before auto-rollback can "
+        "trigger",
+    )
+    ap.add_argument(
+        "--rollback-max-unhealthy", type=float, default=0.5,
+        help="auto-rollback when (degraded+shed+errors)/window exceeds "
+        "this rate",
+    )
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
-    # the JAX driver's options whose paths are not ported yet: accepted
-    # by name so that giving one refuses the run, naming its ROADMAP item
-    for _name, opt, item in _UNPORTED:
-        ap.add_argument(opt, default=None,
-                        help=f"not ported yet (ROADMAP {item}); raises")
     return ap
 
 
@@ -1678,7 +1824,12 @@ def params_from_args(argv=None) -> ServingParams:
         slo=ns.slo,
         slo_tick_s=ns.slo_tick_s,
         wire=ns.wire,
-        **{name: getattr(ns, name) for name, _opt, _item in _UNPORTED},
+        registry_dir=ns.registry_dir,
+        registry_poll_s=ns.registry_poll_s,
+        auto_rollback=_bool(ns.auto_rollback),
+        rollback_window=ns.rollback_window,
+        rollback_min_requests=ns.rollback_min_requests,
+        rollback_max_unhealthy=ns.rollback_max_unhealthy,
     )
 
 

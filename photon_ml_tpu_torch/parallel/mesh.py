@@ -132,6 +132,12 @@ def data_shard_sparse_batch(batch: SparseBatch, n_shards: int, index: int) -> Sp
 # ---------------------------------------------------------------------------
 
 
+# A rank that has not joined its process group this long after the spawn
+# is stuck (a spawn that imports torch takes seconds, tens on a loaded
+# host); the caller's own timeout counts from the join.
+START_TIMEOUT_S = 300.0
+
+
 def _to_host(obj):
     """Tensors -> numpy (recursively through lists, tuples and dicts), so a
     rank's result crosses the process boundary as plain pickled data."""
@@ -157,6 +163,8 @@ def _rank_main(
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         return
+    # joined: the caller's deadline for fn starts once every rank is here
+    results.put((rank, None, None))
     try:
         mesh = make_mesh(shape, axis_names, device=device, backend=backend)
         status = (rank, True, _to_host(fn(mesh, *args)))
@@ -183,8 +191,12 @@ def spawn_mesh(
     can import (a rank re-imports it).
 
     Raises when a rank raises (with its traceback), exits without a result,
-    or does not finish within ``timeout_s`` of the start; the other ranks
-    are then stopped. Nothing of a rank outlives the call."""
+    does not join its process group within ``START_TIMEOUT_S`` of the
+    spawn, or does not finish within ``timeout_s`` of the mesh's start
+    (the moment the last rank joined: spawning ranks that import torch
+    takes seconds, and many more on a loaded host, which must not eat
+    into ``fn``'s time); the other ranks are then stopped. Nothing of a
+    rank outlives the call."""
     resolve_device(device)  # no CUDA when asked for it: raise before spawning
     world_size = math.prod(int(s) for s in shape)
     ctx = mp.get_context("spawn")
@@ -196,12 +208,15 @@ def spawn_mesh(
             target=_rank_main, daemon=True,
             args=(
                 r, world_size, init_method, fn, tuple(shape), tuple(axis_names),
-                device, backend, tuple(args), timeout_s, results,
+                device, backend, tuple(args), max(timeout_s, START_TIMEOUT_S), results,
             ),
         )
         for r in range(world_size)
     ]
-    deadline = time.monotonic() + timeout_s
+    t_spawn = time.monotonic()
+    deadline = t_spawn + START_TIMEOUT_S
+    joined: set = set()
+    started_s = None  # seconds from the spawn to the last rank's join
     out: Dict[int, Any] = {}
     try:
         for p in procs:
@@ -209,9 +224,17 @@ def spawn_mesh(
         while len(out) < world_size:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
+                if started_s is None:
+                    missing = sorted(set(range(world_size)) - joined)
+                    raise TimeoutError(
+                        f"mesh ranks {missing} did not join the process group "
+                        f"within {START_TIMEOUT_S} s of the spawn"
+                    )
                 missing = sorted(set(range(world_size)) - set(out))
                 raise TimeoutError(
-                    f"mesh ranks {missing} did not finish within {timeout_s} s"
+                    f"mesh ranks {missing} did not finish within {timeout_s} s "
+                    f"of the mesh's start (every rank joined its process group "
+                    f"{started_s:.3f} s after the spawn)"
                 )
             try:
                 rank, ok, payload = results.get(timeout=min(remaining, 0.5))
@@ -222,6 +245,12 @@ def spawn_mesh(
                             f"mesh rank {r} exited with code {p.exitcode} "
                             "and no result"
                         ) from None
+                continue
+            if ok is None:  # a rank joined its process group
+                joined.add(rank)
+                if len(joined) == world_size:
+                    started_s = time.monotonic() - t_spawn
+                    deadline = time.monotonic() + timeout_s
                 continue
             if not ok:
                 raise RuntimeError(f"mesh rank {rank} failed:\n{payload}")

@@ -31,57 +31,46 @@ Nine pieces, composed by ``cli/serving_driver.py``:
   f32 recomposition, per-shard degradation, the hot-entity cache. The
   router is host-only numpy: it touches no tensor and creates no CUDA
   context.
+
+The names below load their module on first use, so that importing one
+host-only module of the package (``wire``, ``routing``) does not import
+torch.
 """
 
-from photon_ml_tpu_torch.serving.admission import (  # noqa: F401
-    AdmissionController,
-    BatcherClosed,
-    DeadlineExceeded,
-    DrainTimeout,
-    NoShardAvailable,
-    PartialScore,
-    RequestShed,
-    ScoreOutcome,
-    ServingError,
-)
-from photon_ml_tpu_torch.serving.batcher import (  # noqa: F401
-    DrainReport,
-    MicroBatcher,
-    ScoreRequest,
-    request_from_record,
-    requests_from_dataset,
-)
-from photon_ml_tpu_torch.serving.frontend import ServingFrontend  # noqa: F401
-from photon_ml_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
-from photon_ml_tpu_torch.serving.model_bank import (  # noqa: F401
-    DEFAULT_ENTITY_PAD,
-    EntityRowIndex,
-    ModelBank,
-    bank_from_arrays,
-    build_model_bank,
-)
-from photon_ml_tpu_torch.serving.programs import (  # noqa: F401
-    DEFAULT_LADDER,
-    RequestBatch,
-    ServingPrograms,
-    select_shape,
-)
-from photon_ml_tpu_torch.serving.routing import (  # noqa: F401
-    HotEntityCache,
-    RoutedScore,
-    RouterMetrics,
-    RoutingPolicy,
-    ShardHealth,
-    ShardRouter,
-    TcpShardTransport,
-)
-from photon_ml_tpu_torch.serving.shard_server import (  # noqa: F401
-    ShardServer,
-    make_shard_ops,
-    shard_topology,
-)
-from photon_ml_tpu_torch.serving.swap import (  # noqa: F401
-    ServingModel,
-    SwapResult,
-    load_model_artifact,
-)
+
+import importlib
+
+_EXPORTS = {
+    "admission": (
+        "AdmissionController", "BatcherClosed", "DeadlineExceeded", "DrainTimeout",
+        "NoShardAvailable", "PartialScore", "RequestShed", "ScoreOutcome", "ServingError",
+    ),
+    "batcher": (
+        "DrainReport", "MicroBatcher", "ScoreRequest", "request_from_record",
+        "requests_from_dataset",
+    ),
+    "frontend": ("ServingFrontend",),
+    "metrics": ("ServingMetrics",),
+    "model_bank": (
+        "DEFAULT_ENTITY_PAD", "EntityRowIndex", "ModelBank", "bank_from_arrays",
+        "build_model_bank",
+    ),
+    "programs": ("DEFAULT_LADDER", "RequestBatch", "ServingPrograms", "select_shape"),
+    "routing": (
+        "HotEntityCache", "RoutedScore", "RouterMetrics", "RoutingPolicy", "ShardHealth",
+        "ShardRouter", "TcpShardTransport",
+    ),
+    "shard_server": ("ShardServer", "make_shard_ops", "shard_topology"),
+    "swap": ("ServingModel", "SwapResult", "load_model_artifact"),
+}
+_MODULE_OF = {name: module for module, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_MODULE_OF)
+
+
+def __getattr__(name):
+    module = _MODULE_OF.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value

@@ -18,6 +18,7 @@ from photon_ml_tpu.io.avro_codec import read_avro_records, write_container
 from photon_ml_tpu_torch.cli import game_scoring_driver as port_scoring
 from photon_ml_tpu_torch.cli import game_training_driver as port_training
 from photon_ml_tpu_torch.game import load_game_model
+from photon_ml_tpu_torch.registry import ModelRegistry
 from torch_game_cases import make_records
 from torch_parity import assert_close, assert_close_to_scale
 
@@ -205,9 +206,11 @@ REFUSED = [
     (["--fault-plan", "spill_write:2:EIO"], None),
     (["--streaming", "true"], "IDENTITY projector"),
     (["--stream-memory-budget", "1000"], "requires --streaming true"),
-    (["--retrain-from", "reg"], "item 15"),
-    (["--publish-registry", "reg"], "item 15"),
-    (["--gate-max-auc-drop", "0.1"], "item 15"),
+    (["--retrain-from", "reg"], None),
+    (["--publish-registry", "reg"], None),
+    (["--gate-max-auc-drop", "0.1"], None),
+    (["--retrain-from", "reg", "--publish-registry", "reg", "--validate-input-dirs", ""],
+     "requires validate-input-dirs"),
     (["--obs-dir", "obs"], None),
     (["--profile-dir", "prof"], None),
 ]
@@ -219,11 +222,14 @@ def test_training_refuses_later_items(data, tmp_path, extra, item):
     option whose item is ported (None) runs; one whose item is ported but
     that this configuration or another option rules out raises the
     reference's ValueError (streaming takes IDENTITY projectors only; a
-    memory budget needs --streaming true), also before the output."""
+    memory budget needs --streaming true; gated promotion needs validation
+    data), also before the output. The registry options run: a retrain
+    from an empty registry is a cold start, a publish makes generation 1,
+    a gate threshold alone gates nothing."""
+    extra = [str(tmp_path / a) if a in ("ck", "obs", "prof", "reg") else a for a in extra]
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
-        extra = [str(tmp_path / a) if a in ("ck", "obs", "prof") else a for a in extra]
         try:
             port_training.main(_train_argv(data, tmp_path / "o", "BEST", extra) + ["--device", "cpu"])
         finally:
@@ -241,6 +247,14 @@ def test_training_refuses_later_items(data, tmp_path, extra, item):
             assert os.path.exists(metrics["obs"]["flight_path"])
         elif extra[0] == "--profile-dir":
             assert [n for n in os.listdir(extra[1]) if n.endswith(".pt.trace.json")]
+        elif extra[0] == "--retrain-from":
+            assert metrics["registry"]["parent_generation"] is None
+            assert metrics["registry"]["published_generation"] is None
+        elif extra[0] == "--publish-registry":
+            assert metrics["registry"]["published_generation"] == 1
+            assert [g.generation for g in ModelRegistry(extra[1]).list_generations()] == [1]
+        elif extra[0] == "--gate-max-auc-drop":
+            assert "registry" not in metrics
         return
     error = NotImplementedError if item.startswith("item ") else ValueError
     with pytest.raises(error, match=item):

@@ -186,9 +186,10 @@ UNPORTED = [
       "--process-id", "0"], "item 13"),
     (["--checkpoint-dir", "ck"], None),
     (["--fault-plan", "chunk_read:1:EIO"], None),
-    (["--retrain-from", "/r"], "item 15"),
-    (["--publish-registry", "/r"], "item 15"),
-    (["--gate-max-auc-drop", "0.1"], "item 15"),
+    (["--retrain-from", "reg"], None),
+    (["--publish-registry", "reg", "--regularization-weights", "1"], None),
+    (["--gate-max-auc-drop", "0.1"], None),
+    (["--retrain-from", "/r", "--publish-registry", "/r"], "requires a validating"),
     (["--obs-dir", "obs"], None),
     (["--profile-dir", "prof"], None),
 ]
@@ -200,13 +201,14 @@ def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, ite
     item is ported (None) runs: ``--checkpoint-dir`` snapshots every λ,
     ``--fault-plan`` shows in the reliability block, ``--streaming true``
     writes the streaming block, ``--obs-dir`` the trace, flight and
-    snapshot files, ``--profile-dir`` a profiler trace; one whose item is
-    ported but that needs another option raises the reference's
-    ValueError."""
+    snapshot files, ``--profile-dir`` a profiler trace, the registry
+    options their metrics block (a retrain from an empty registry is a
+    cold start, a publish makes generation 1); one whose item is ported
+    but that needs another option raises the reference's ValueError."""
     if item is None:
         from photon_ml_tpu_torch.reliability import install_plan
 
-        extra = [str(tmp_path / a) if a in ("ck", "obs", "prof") else a for a in extra]
+        extra = [str(tmp_path / a) if a in ("ck", "obs", "prof", "reg") else a for a in extra]
         argv = ["--training-data-directory", fixtures["avro"][0], "--output-directory",
                 str(tmp_path / "out"), "--regularization-weights", "10,1",
                 "--grid-mode", "sequential", "--device", "cpu"] + extra
@@ -228,6 +230,14 @@ def test_unported_options_raise_naming_their_item(tmp_path, fixtures, extra, ite
             ]
         elif extra[0] == "--profile-dir":
             assert [n for n in os.listdir(tmp_path / "prof") if n.endswith(".pt.trace.json")]
+        elif extra[0] == "--retrain-from":
+            assert metrics["registry"]["parent_generation"] is None
+            assert metrics["registry"]["drift"] is None
+        elif extra[0] == "--publish-registry":
+            assert metrics["registry"]["published_generation"] == 1
+            assert metrics["registry"]["gates"] is None
+        elif extra[0] == "--gate-max-auc-drop":
+            assert "registry" not in metrics
         else:
             assert metrics["reliability"]["faults"]["plan"] == extra[1]
         return

@@ -249,3 +249,111 @@ def test_drives_the_ports_batcher_shed_and_drain():
 
     explore(scenario, seeds=range(8), max_steps=500_000)
     assert total_sheds, "no schedule shed: the sweep exercised no accounting"
+
+
+class _FakeGen:
+    def __init__(self, generation, parent):
+        self.generation = generation
+        self.parent = parent
+        self.model_dir = f"m{generation}"
+
+
+class _FakeRegistry:
+    root = "<fake>"
+
+    def __init__(self, gens):
+        self._gens = {g.generation: g for g in gens}
+        self.quarantined = []
+
+    def latest(self):
+        live = [g for n, g in self._gens.items() if n not in self.quarantined]
+        return max(live, key=lambda g: g.generation) if live else None
+
+    def generation(self, n):
+        return self._gens.get(n)
+
+    def lineage(self, n):
+        out = []
+        while n is not None and n in self._gens:
+            out.append(n)
+            n = self._gens[n].parent
+        return out
+
+    def quarantine_generation(self, n, reason=""):
+        self.quarantined.append(n)
+        return f"quarantined-{n}"
+
+
+def test_stale_window_never_rolls_back_twice():
+    """``tests/test_interleave.py``'s double-rollback schedule on the
+    port's watcher, on the reference's 25 seeds: two feeders keep sending
+    unhealthy outcomes against a promoted generation 3 while the watcher
+    thread promotes and rolls back (a staging delay opens the preemption
+    window), and stragglers arrive after the rollback. Exactly one
+    rollback lands, 3 -> 2, and only generation 3 is quarantined: the
+    ``_lock`` / ``_swap_serial`` pair keeps a stale window from re-arming
+    the trigger."""
+    import time
+
+    from photon_ml_tpu_torch.registry.watcher import RegistryWatcher, RollbackPolicy
+
+    class FakeSwapModel:
+        def __init__(self):
+            self.swaps = []
+
+        def stage_and_swap(self, model_dir, **kw):
+            time.sleep(0.2)  # staging takes (virtual) time
+            self.swaps.append(model_dir)
+
+            class R:
+                ok = True
+                error = ""
+
+            return R()
+
+    def scenario(sched):
+        state = {}
+        with sched.patched():
+            registry = _FakeRegistry([_FakeGen(1, None), _FakeGen(2, 1), _FakeGen(3, 2)])
+            watcher = RegistryWatcher(
+                registry, FakeSwapModel(), poll_s=0.05,
+                policy=RollbackPolicy(window=8, min_requests=2, max_unhealthy_rate=0.4),
+            )
+            state["watcher"], state["registry"] = watcher, registry
+            watcher.start()
+
+            def rolled_back():
+                return any(r.action == "rollback" for r in watcher.history)
+
+            def feeder():
+                for _ in range(300):
+                    watcher.observe_outcome(degraded=True)
+                    time.sleep(0.01)
+                    if rolled_back():
+                        break
+                for _ in range(5):  # stragglers: the pre-fix re-arm window
+                    watcher.observe_outcome(degraded=True)
+                    time.sleep(0.01)
+
+            def stopper():
+                deadline = time.monotonic() + 60.0
+                while time.monotonic() < deadline and not rolled_back():
+                    time.sleep(0.05)
+                time.sleep(1.0)  # straggler window
+                watcher.stop(timeout_s=10.0)
+
+            sched.spawn(feeder, name="feeder-a")
+            sched.spawn(feeder, name="feeder-b")
+            sched.spawn(stopper, name="stopper")
+            sched.run()
+
+        def verify():
+            watcher, registry = state["watcher"], state["registry"]
+            rollbacks = [r for r in watcher.history if r.action == "rollback"]
+            assert len(rollbacks) == 1, [(r.action, r.registry_generation) for r in watcher.history]
+            assert rollbacks[0].registry_generation == 2
+            assert registry.quarantined == [3], registry.quarantined
+
+        return verify
+
+    explore(scenario, seeds=range(25))

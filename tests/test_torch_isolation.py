@@ -78,6 +78,8 @@ def test_fresh_interpreter_imports_no_jax():
         "events", "obs.events", "obs.registry", "obs.slo", "obs.fleet",
         "serving.routing", "serving.shard_server", "testing", "testing.interleave",
         "utils.profiling",
+        "registry.registry", "registry.gates", "registry.warm_start", "registry.watcher",
+        "testing.determinism", "testing.determinism_targets",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]

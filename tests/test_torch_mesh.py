@@ -5,6 +5,7 @@ layout of a SparseBatch. Which ranks see which groups is checked in
 """
 
 import os
+import re
 import time
 
 import numpy as np
@@ -49,10 +50,29 @@ def test_a_dead_rank_reaches_the_caller():
 
 
 def test_a_hanging_rank_times_out():
+    """Only the hanging rank is named, and the caller is freed within the
+    timeout (plus the ranks' teardown) of the mesh's start: the deadline
+    counts from the moment every rank joined, so a slow spawn on a loaded
+    host (ranks that import torch) cannot make rank 0 miss it."""
     t0 = time.monotonic()
-    with pytest.raises(TimeoutError, match=r"ranks \[1\]"):
+    with pytest.raises(TimeoutError, match=r"ranks \[1\] did not finish within 10.0 s") as e:
         spawn_mesh(_hanging_rank, (2,), device="cpu", timeout_s=10.0)
-    assert time.monotonic() - t0 < 30.0
+    started_s = float(re.search(r"group ([0-9.]+) s after the spawn", str(e.value)).group(1))
+    assert time.monotonic() - t0 - started_s < 30.0
+
+
+def _slow_joining_rank(mesh):
+    return mesh.rank
+
+
+def test_a_rank_that_never_joins_is_named(monkeypatch):
+    """The start has its own bound: a rank missing from the process group
+    fails the call naming it, with nothing left running."""
+    from photon_ml_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "START_TIMEOUT_S", 0.2)
+    with pytest.raises(TimeoutError, match=r"ranks \[0, 1, 2\] did not join"):
+        spawn_mesh(_slow_joining_rank, (3,), device="cpu", timeout_s=10.0)
 
 
 def test_make_mesh_needs_a_process_group():

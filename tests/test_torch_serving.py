@@ -8,8 +8,8 @@ program cache (LRU, single-flight warmup, nothing rebuilt after warmup or
 on an in-place swap), one readback a dispatch, admission, deadlines,
 drain, swap rollback and retries; the driver against the port's
 ``game_scoring_driver`` (bitwise) and the JAX package's serving driver
-(1e-6 of scale), and its unported options (the registry watcher's),
-each naming its ROADMAP item.
+(1e-6 of scale), and the registry watcher's options held to the
+reference's validation rules.
 """
 
 import json
@@ -1309,18 +1309,20 @@ class TestServingDriver:
             assert rec["predictionScore"] == batch[uid]["predictionScore"], uid
 
     @pytest.mark.parametrize("extra,item", [
-        (["--registry-dir", "x"], "item 15"),
-        (["--registry-poll-s", "1"], "item 15"),
-        (["--auto-rollback", "true"], "item 15"),
-        (["--rollback-window", "8"], "item 15"),
-        (["--rollback-min-requests", "4"], "item 15"),
-        (["--rollback-max-unhealthy", "0.5"], "item 15"),
+        (["--registry-dir", "x"], "choose ONE model source"),
+        (["--registry-poll-s", "0"], "registry-poll-s must be > 0"),
+        (["--auto-rollback", "true", "--registry-dir", "x"], "choose ONE model source"),
+        (["--rollback-window", "0"], "rollback window/min-requests must be >= 1"),
+        (["--rollback-min-requests", "0"], "rollback window/min-requests must be >= 1"),
+        (["--rollback-max-unhealthy", "1.5"], r"rollback-max-unhealthy must be in \(0, 1\]"),
     ])
     def test_unported_options_raise_naming_their_item(self, tmp_path, extra, item):
+        """The registry watcher's options are ported: each is held to the
+        reference's validation rules, refused before the output exists."""
         from photon_ml_tpu_torch.cli import serving_driver
 
         argv = _serve_argv(tmp_path, tmp_path / "m", tmp_path / "o", *extra)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        with pytest.raises(ValueError, match=item):
             serving_driver.main(argv + ["--device", "cpu"])
         assert not (tmp_path / "o").exists()
 

@@ -1,7 +1,7 @@
 """The port's serving driver in its fleet modes on the CPU:
 ``ServingParams.validate`` holds every shard, router, wire, fleet-obs
-and SLO rule of the JAX package's driver with the same messages (the
-registry watcher's options still raise, naming ROADMAP item 15); and one
+and SLO rule of the JAX package's driver with the same messages (a
+shard-server refuses the registry watcher, as the reference's does); and one
 end-to-end run: two ``--shard-index`` driver processes and a router
 driver process over the same Avro trace, whose routed scores are bitwise
 the single-server driver's, across the router's two-step flip, with the
@@ -123,9 +123,14 @@ class TestValidation:
             ])
 
     def test_registry_options_still_raise_naming_item_15(self):
-        port = ServingParams(**dict(BASE, feature_shards=SHARDS, registry_dir="r", **SHARD))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        """The registry options are ported (item 15 is done); on a
+        shard-server they are refused with the reference's message."""
+        port, ref = _both(registry_dir="r", **SHARD)
+        with pytest.raises(ValueError, match="incompatible with --registry-dir") as e:
             port.validate()
+        with pytest.raises(ValueError) as r:
+            ref.validate()
+        assert str(e.value) == str(r.value)
 
 
 # -- one end-to-end fleet of driver processes ----------------------------------
