@@ -70,12 +70,11 @@ Phases, each printing its own lines:
    and B's objective at each lambda (float64, by its definition) within
    1e-4 of ``train_generalized_linear_model(kernel="tiled")``'s on the
    batch the port's LibSVM loader gives, with a wrong model as the
-   control (two identical fits with the intercept part by percents in
-   their coefficients: float-atomic sums on an ill-conditioned path).
-   Each lambda's stop reason and gradient max-abs for A, B and the direct
-   fit: a fit that stops for another reason than convergence or its
-   budget with 10x the others' gradient fails, and so does a coefficient
-   spread (intercept_spread) over 5e-2 of their max-abs. Then run D over
+   control; the direct fit repeated on the same batch, sequential (K1)
+   and batched (K2), bitwise. Each lambda's stop reason and gradient
+   max-abs for A, B and the direct fit: a fit that stops for another
+   reason than convergence or its budget with 10x the others' gradient
+   fails. Then run D over
    run A's files: ``feature_indexing_driver.main`` builds the off-heap
    index store (checked against the files' keys and run A's index map),
    and ``glm_driver.main`` trains at lambda = 1 over it (K1) with
@@ -110,8 +109,9 @@ Phases, each printing its own lines:
    version's and one torch.sparse CSR matvec's, a profiled warm sweep
    (device busy and idle share), and the same two sweeps with the fixed
    effect on the scatter objective (non-increasing; its CD objectives
-   beside the tiled run's are printed, not held: identical runs part by
-   up to percents, ``photon_ml_tpu_torch/tools/fe_spread.py``);
+   beside the tiled run's are printed, a measurement: the two paths sum
+   in other orders); on either path a refit of sweep 2's fixed effect
+   from the start and residual it got is the run's, bitwise;
    then run H, the GAME
    drivers' CLI entry points, ``game_training_driver.main`` (2^14
    training rows of 1,024 users at run G's widths, as Avro written in
@@ -141,20 +141,19 @@ Phases, each printing its own lines:
    driver (SIGKILL) in lambda = 1's snapshot, in a subprocess, then the
    same argv through ``glm_driver.main``: lambda = 10 from its snapshot
    (bitwise, no K1 launch), lambda = 1 warm-started from the snapshotted
-   means, both objectives within 1e-4 of run A's and the intercept_spread
-   limit, and the reliability block of metrics.json. The card repeats no
-   fit with an intercept bitwise (float atomics in K1), so the bitwise
-   resume is the CPU tests' (``tests/test_torch_reliability.py``);
+   means, both lambdas' models bitwise run A's (the kill -9 resume is
+   bitwise on the card: K1, K2 and K3 add in a fixed order), and the
+   reliability block of metrics.json;
 10. out-of-core training: run S, ``glm_driver.main`` with ``--streaming
-   true --stream-memory-budget 4194304`` over 2^15 x 64 x 2^20 rows
+   true --stream-memory-budget 2097152`` over 2^14 x 64 x 2^20 rows
    (phase 4's planted model) in 8 Avro part files written by worker
-   processes, with 2^14 validation rows: the L-BFGS grid [10, 1] with
+   processes, with 2^13 validation rows: the L-BFGS grid [10, 1] with
    variances, the intercept, streamed validation and a cold
-   ``--scan-cache-dir`` (5 chunks of 7,884 rows: 1 on the device tier,
+   ``--scan-cache-dir`` (5 chunks of 3,942 rows: 1 on the device tier,
    4 spilled, all 5 in K1's tiled cache); each lambda's float64 objective
    within 1e-4 of ``train_generalized_linear_model(kernel="tiled")`` on
-   the batch the port's Avro loader gives (a wrong model as the control,
-   the intercept_spread limit), the streamed AUC within 1e-3 of the
+   the batch the port's Avro loader gives (a wrong model as the
+   control), the streamed AUC within 1e-3 of the
    written model's exact AUC, one decode pass to fill the tiers; then a
    direct ``StreamingGLMObjective``: value and gradient (and Hv, Hdiag)
    against the in-memory tiled objective (1e-5, 1e-4 of the scale), K1
@@ -239,11 +238,34 @@ Phases, each printing its own lines:
    connection, exit 0 on SIGTERM. Then the determinism matrix: the five
    artifact classes twin-run byte-identical, the positive control
    diverged;
-14. a ``kernels`` JSON line (with each kernel's launches in the driver
-   runs, K1's in run D's diagnose stage, in the GAME runs, in runs F and
-   R, in phase 10's runs and in run L's; K1's at the GAME shape with its
-   plain and library times), the nvidia-smi line, and the last line
-   ``{"ok": true, "device": {...}}``.
+14. several ranks (``parallel/multihost.py``, ``FixedEffectCoordinate(mesh=)``),
+   over run S's files while phase 10 holds them: run H's fixed effect
+   (its global shard at 2^20 features, 1,024 users x 16 rows, on the tiled
+   kernel) over a 2 x 1 and a 1 x 2 (data, model) mesh of gloo ranks on
+   the one card, spawned side by side (K1 on every rank's cell; two cold
+   fits bitwise, every rank's bits the same, each objective within 1e-4
+   of the single card's); beside them two runs of ``glm_driver
+   --streaming`` as 2 processes each (``--coordinator-address
+   --num-processes --process-id``, each process streaming its shard of
+   the files over an off-heap store built from them): the two runs'
+   models bitwise, the objective at lambda = 1 within 1e-4 of run S's;
+   two runs of the GLM driver in memory over 2 of run S's files as 2
+   processes each with ``--distributed feature --model-shards 2``: the
+   two runs' models bitwise, the objective within 1e-4 of the trainer's
+   single-card fit; and two runs of run H's GAME training driver as 2 processes each with
+   ``--distributed feature --model-shards 2`` over run H's files (the
+   fixed effect over the processes' 1 x 2 mesh): the two runs' CD
+   objective histories bitwise, within 1e-4 of run H's;
+15. a ``kernels`` JSON line (K1, K2 and K3, with each kernel's launches
+   in the driver runs, K1's in run D's diagnose stage, in the GAME runs,
+   in runs F and R, in phase 10's runs and in run L's; K1's at the GAME
+   shape with its plain and library times), the nvidia-smi line, and the
+   last line ``{"ok": true, "device": {...}}``.
+
+Every kernel check also launches K1 (z, g, g_sq), K2 and K3 twice on the
+same operands at the small, ads, mesh-cell, GAME and streamed-chunk
+shapes and fails unless the two give the same bits: the kernels add in a
+fixed order (``ops/csrc/bilinear_pass_core.cuh``).
 
 It exits non-zero without a CUDA card, without the package beside it, or
 when any check fails. It imports nothing of JAX.
@@ -269,7 +291,9 @@ F32_FLOPS_PER_S = 67e12
 
 N_ROWS, NNZ_PER_ROW, DIM = 1 << 18, 64, 1 << 20
 N_HELD_OUT = 1 << 16
-RTOL = 1e-5  # of the output's largest magnitude: f32 sums, another order
+# of the output's largest magnitude, or of each output's sum of its
+# addends' magnitudes (the pass checks): f32 sums, another order
+RTOL = 1e-5
 GRID_G = 4  # members of the bank K2 is checked and timed at, ads shape
 EDGE_GS = (1, 3, 4, 5, 7, 9)  # banks K2 is checked at: 1, 2 and 3+ tiles
 GRID_LAMBDAS = [10.0, 1.0, 0.1, 0.01]
@@ -286,17 +310,13 @@ DRIVER_HELD_OUT = 1 << 14
 DRIVER_PARTS = 4  # LibSVM part files of the training rows
 DRIVER_RTOL = 1e-4  # run C's model vs the direct trainer, of the max-abs
 # runs A and B (with the intercept) vs the direct fit: the objective at
-# each lambda, relative. The coefficients part by percents between two
-# identical fits (float-atomic sums, an ill-conditioned path); the value
-# does not. Fits stopping at a relative change of 1e-7 sit up to a few
-# 1e-6 above the optimum (the batched grid, without warm starts, the
-# furthest), and a model of the other lambda is percents off.
+# each lambda, relative. Their inputs differ (the driver's own load and
+# index map; run B a cold batched grid), so the coefficients are held by
+# the objective: fits stopping at a relative change of 1e-7 sit up to a
+# few 1e-6 above the optimum (the batched grid, without warm starts, the
+# furthest), and a model of the other lambda is percents off. Two fits of
+# the same inputs are held bitwise (the kernels add in a fixed order).
 DRIVER_OBJ_RTOL = 1e-4
-# runs A and B vs the direct fit, the coefficients' max-abs difference over
-# their max-abs: 2x the largest spread measured between two identical fits
-# with the intercept (2.4e-2, NVIDIA H100 80GB HBM3 at 700 W), a guard
-# against a regression rather than an agreement
-INTERCEPT_SPREAD_LIMIT = 5e-2
 # a fit that stops for another reason than convergence or its budget with
 # a gradient max-abs this many times the other fits' at its lambda fails
 GRADIENT_RATIO_LIMIT = 10.0
@@ -346,23 +366,46 @@ def pass_args(tb, w, c):
     )
 
 
-def check_close(what, got, ref, quiet=False):
+def check_close(what, got, ref, quiet=False, mag=None):
     """Normwise: max |got - ref| <= 1e-6 + RTOL * max |ref|, over the
-    finite elements, with NaN in the same places; -> (abs, rel)."""
+    finite elements, with NaN in the same places; with ``mag`` (the same
+    pass over |values| and |source|: each output's sum of its addends'
+    magnitudes) elementwise |got - ref| <= 1e-6 + RTOL * mag, the bound
+    of a sum taken in another order. -> (abs, rel to the scale)."""
     torch.cuda.synchronize()
     nan = torch.isnan(ref)
     if not torch.equal(torch.isnan(got), nan):
         fail(f"{what}: NaN in other places than in the plain version")
     if bool(nan.any()):
         got, ref = got[~nan], ref[~nan]
-    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+        mag = None if mag is None else mag[~nan]
+    diff = (got - ref).abs()
+    err = float(diff.max()) if ref.numel() else 0.0
     scale = float(ref.abs().max()) if ref.numel() else 0.0
     rel = err / max(scale, 1e-30)
+    if mag is None:
+        bad = not err <= 1e-6 + RTOL * scale
+        of = ""
+    else:
+        # where the plain version's padding carried a NaN into the
+        # magnitude, the normwise bound
+        mag = torch.where(torch.isnan(mag), torch.full_like(mag, scale), mag)
+        over = int((diff > 1e-6 + RTOL * mag).sum()) if ref.numel() else 0
+        bad = over > 0 or not np.isfinite(err)
+        of = f" outputs over 1e-6 + {RTOL!r} x their addends' magnitude={over}"
     if not quiet:
-        say(f"{what}: max_abs_err={err!r} max_rel_err={rel!r} scale={scale!r}")
-    if not np.isfinite(err) or err > 1e-6 + RTOL * scale:
-        fail(f"{what} disagrees: max_abs_err={err!r} scale={scale!r}")
+        say(f"{what}: max_abs_err={err!r} max_rel_err={rel!r} scale={scale!r}{of}")
+    if bad or not np.isfinite(err):
+        fail(f"{what} disagrees: max_abs_err={err!r} scale={scale!r}{of}")
     return err, rel
+
+
+def addend_magnitude(plain, sched, src, n_out, win, vals):
+    """A pass's output-wise sum of its addends' magnitudes: the plain
+    version over |values| and |source| (NaN kept where the source has
+    one)."""
+    v = (sched.vals if vals is None else vals).abs()
+    return plain(sched, src.abs(), n_out, win, vals=v)
 
 
 def compare_passes(k1, tb, rng, label):
@@ -375,7 +418,8 @@ def compare_passes(k1, tb, rng, label):
     for name, sched, src, n_out, vals in pass_args(tb, w, c):
         got = k1.bilinear_pass(sched, src, n_out, win, vals=vals)
         ref = k1.bilinear_pass_plain(sched, src, n_out, win, vals=vals)
-        err = check_close(f"k1_check {label} {name}", got, ref)
+        mag = addend_magnitude(k1.bilinear_pass_plain, sched, src, n_out, win, vals)
+        err = check_close(f"k1_check {label} {name}", got, ref, mag=mag)
         worst = tuple(map(max, worst, err))
     return worst
 
@@ -391,14 +435,15 @@ def compare_grid_passes(k1, k2, tb, rng, label, G, against_k1=False):
     for name, sched, src, n_out, vals in pass_args(tb, w, c):
         got = k2.grid_bilinear_pass(sched, src, n_out, win, vals=vals)
         ref = k2.grid_bilinear_pass_plain(sched, src, n_out, win, vals=vals)
-        err = check_close(f"k2_check {label} G={G} {name}", got, ref)
+        mag = addend_magnitude(k2.grid_bilinear_pass_plain, sched, src, n_out, win, vals)
+        err = check_close(f"k2_check {label} G={G} {name}", got, ref, mag=mag)
         worst = tuple(map(max, worst, err))
         if against_k1:
             per_member = torch.stack([
                 k1.bilinear_pass(sched, src[g], n_out, win, vals=vals)
                 for g in range(G)
             ])
-            err = check_close(f"k2_vs_k1 {label} G={G} {name}", got, per_member)
+            err = check_close(f"k2_vs_k1 {label} G={G} {name}", got, per_member, mag=mag)
             worst = tuple(map(max, worst, err))
     return worst
 
@@ -453,13 +498,17 @@ def edge_checks(k1, k2, seed):
                     if nan != "none" and not bool(torch.isnan(ref).any()):
                         fail(f"edge {name} {pname}: the NaN reached no output")
                     got = kernel_pass(G, sched, src, n_out, win, vals)
+                    mag = addend_magnitude(
+                        k1.bilinear_pass_plain if G is None else k2.grid_bilinear_pass_plain,
+                        sched, src, n_out, win, vals)
                     err = check_close(f"edge {name} {kernel} G={G} {pname} nan={nan}",
-                                      got, ref, quiet=True)
+                                      got, ref, quiet=True, mag=mag)
                     worst[kernel] = tuple(map(max, worst[kernel], err))
             say(f"edge_check {name} nan={nan}: window {win}, chunk "
                 f"{tb.params.chunk}, z steps {tb.z_sched.num_steps}, z plan "
                 f"{cfg.ctas} CTAs ({split} inside a step), K1 and K2 at G in "
-                f"{list(EDGE_GS)} on z, g, g_sq within {RTOL} of scale"
+                f"{list(EDGE_GS)} on z, g, g_sq within {RTOL} of each output's addends' "
+                f"magnitude"
                 + (" (against the real entries; the plain version has more "
                    "NaN)" if nan == "window_start" else ""))
 
@@ -489,7 +538,8 @@ def plan_fields(cfg, sched):
         members_per_cta=cfg.members_per_cta,
         entries_per_item=int(sched.step_sizes.sum()) / max(cfg.plan.num_items, 1),
         ctas_per_sm=cfg.ctas_per_sm, threads=cfg.threads, vec=cfg.vec,
-        shared_blocks=cfg.plan.zero_output,
+        shared_blocks=cfg.plan.num_shared, scratch_rows=cfg.plan.scratch_rows,
+        mode="staged" if cfg.mode == 0 else "gathered",
     )
 
 
@@ -500,7 +550,8 @@ def plan_line(what, plan, bound, ms):
         f"{plan['entries_per_item']:.0f} entries per item, "
         f"{plan['ctas_per_sm']} resident CTAs per SM of {plan['threads']} "
         f"threads, {'16' if plan['vec'] else '4'}-byte entry loads, "
-        f"{'some blocks shared' if plan['shared_blocks'] else 'one writer per block'}; "
+        f"{plan['mode']} windows, {plan['shared_blocks']} blocks shared by "
+        f"{plan['scratch_rows']} items (summed in a fixed order); "
         f"{ms!r} ms against a {bound!r} ms bound, share of bound {bound / ms!r}")
 
 
@@ -553,7 +604,8 @@ def spill_bound_ms(sched, members=1):
 
 def pass_errors(k1, k2, tb, rng, G):
     """K1 (z, g, g_sq) and K2 over a bank of G against their plain
-    versions on ``tb``; -> [(name, max abs error, scale)]."""
+    versions on ``tb``; -> [(name, max abs error, scale, outputs over
+    1e-6 + RTOL x their addends' magnitude)]."""
     win = tb.params.window
     out = []
     for label, kernel, plain, shape in (
@@ -565,8 +617,37 @@ def pass_errors(k1, k2, tb, rng, G):
         for name, sched, src, n_out, v in pass_args(tb, w, c):
             got = kernel(sched, src, n_out, win, vals=v)
             ref = plain(sched, src, n_out, win, vals=v)
-            out.append((f"{label} {name}", float((got - ref).abs().max()), float(ref.abs().max())))
+            diff = (got - ref).abs()
+            mag = addend_magnitude(plain, sched, src, n_out, win, v)
+            out.append((f"{label} {name}", float(diff.max()), float(ref.abs().max()),
+                        int((diff > 1e-6 + RTOL * mag).sum())))
     return out
+
+
+def repeat_checks(k1, k2, tb, rng, label, G=GRID_G, quiet=False):
+    """The fixed order of additions: K1 (z, g, g_sq), K2 over a bank of G
+    and K3 (the spill remainder, on a vector and on the bank), each
+    launched twice on the same operands, must give the same bits. Fails
+    otherwise; -> the number of pairs compared."""
+    win = tb.params.window
+    w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device=tb.device)
+    c = torch.as_tensor(rng.normal(size=(G, tb.num_rows)).astype(np.float32), device=tb.device)
+    pairs = 0
+    for name, sched, src, n_out, vals in pass_args(tb, w, c):
+        for kernel, run, x in (("K1", k1.bilinear_pass, src[0]), ("K2", k2.grid_bilinear_pass, src)):
+            first = run(sched, x, n_out, win, vals=vals)
+            again = run(sched, x, n_out, win, vals=vals)
+            spill_vals = None if vals is None else sched.spill_vals ** 2
+            spills = [sched.apply_spill(first.clone(), x, vals=spill_vals) for _ in range(2)]
+            if not torch.equal(first, again):
+                fail(f"repeat {label} {kernel} {name}: two launches gave other bits")
+            if not torch.equal(spills[0], spills[1]):
+                fail(f"repeat {label} K3 after {kernel} {name}: two calls gave other bits")
+            pairs += 2
+    if not quiet:
+        say(f"repeat {label}: K1 z/g/g_sq, K2 G={G} and K3 on a vector and on the bank, "
+            f"each bitwise on two launches ({pairs} pairs)")
+    return pairs
 
 
 def cell_times(k1, k2, tb, rows, feats, vals, rng):
@@ -672,6 +753,7 @@ def mesh_rank(mesh, seed, w_eval, cache_dir):
     )
     rng = np.random.default_rng([seed, 2, mesh.rank])
     out["checks"] = pass_errors(k1, k2, tb, rng, GRID_G)
+    out["repeat_pairs"] = repeat_checks(k1, k2, tb, rng, f"cell {mesh.coords}", quiet=True)
 
     # cell-shape times on rank 0 while the other ranks wait
     if mesh.rank == 0:
@@ -961,7 +1043,7 @@ def driver_runs(seed, smi, k1, k2, tmp):
     from photon_ml_tpu_torch.models.glm import compute_margins
     from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
     from photon_ml_tpu_torch.task import TaskType
-    from photon_ml_tpu_torch.training import train_generalized_linear_model
+    from photon_ml_tpu_torch.training import train_generalized_linear_model, train_grid_batched
     from photon_ml_tpu_torch.utils.index_map import IndexMap
 
     train_dir, val_dir, data_s = driver_data(seed, tmp)
@@ -977,12 +1059,16 @@ def driver_runs(seed, smi, k1, k2, tmp):
     validated = common + ["--validating-data-directory", val_dir]
     runs = {
         label: driver_run(label, argv + ["--grid-mode", mode], f"{tmp}/out-{label}",
-                          k1, k2, f"{mode}, {smi}")
+                          k1, k2, f"{mode}, {smi}", keep_driver=label == "A")
         for label, mode, argv in (
             ("A", "sequential", validated), ("B", "batched", validated),
         )
     }
     a, b = runs["A"], runs["B"]
+    # run A's models as it fitted them, for run R's bitwise resume
+    a_driver = a.pop("driver")
+    a_means = {lam: a_driver.models[lam].means.clone() for lam in (10.0, 1.0)}
+    del a_driver
     if a["k1"] == 0 or a["k2"]:
         fail(f"driver run A launched {a['k1']} K1 and {a['k2']} K2")
     if b["k2"] == 0:
@@ -1042,6 +1128,26 @@ def driver_runs(seed, smi, k1, k2, tmp):
         batch, TaskType.LOGISTIC_REGRESSION, direct.num_features,
         intercept_index=direct.intercept_index, **fit,
     )
+    # the fixed order of additions: the same fit with the intercept on the
+    # same batch, repeated, sequential (K1) and batched (K2), gives the
+    # same bits
+    again, _ = train_generalized_linear_model(
+        batch, TaskType.LOGISTIC_REGRESSION, direct.num_features,
+        intercept_index=direct.intercept_index, **fit,
+    )
+    grids = [train_grid_batched(
+        batch, TaskType.LOGISTIC_REGRESSION, direct.num_features,
+        intercept_index=direct.intercept_index, **fit,
+    )[0] for _ in range(2)]
+    for lam in (10.0, 1.0):
+        seq_same = torch.equal(again[lam].means, d_models[lam].means) and torch.equal(
+            again[lam].coefficients.variances, d_models[lam].coefficients.variances)
+        grid_same = torch.equal(grids[0][lam].means, grids[1][lam].means)
+        say(f"driver direct repeat lambda={lam} ({smi}): the sequential fit (K1) bitwise "
+            f"{seq_same}, the batched fit (K2) bitwise {grid_same}")
+        if not (seq_same and grid_same):
+            fail(f"driver direct lambda={lam}: a repeated fit with the intercept is not bitwise")
+    del again, grids
     _, g0 = objective64(batch, torch.zeros_like(d_models[1.0].means), 1.0)
     objectives = {}  # (run, lambda) -> objective
     for lam in (10.0, 1.0):
@@ -1054,6 +1160,9 @@ def driver_runs(seed, smi, k1, k2, tmp):
         # (no box: the projected gradient is the gradient)
         stops = {"direct": (d_results[lam].reason_name, g_ref)}
         for label, run in runs.items():
+            # other inputs than the direct fit's (the driver's own load and
+            # index map; run B a cold batched grid): held by the objective,
+            # the spread printed as a measurement
             m = run["models"][str(lam)].means
             f_run, g_run = objective64(batch, m, lam)
             rel = (f_run - f_ref) / abs(f_ref)
@@ -1063,14 +1172,10 @@ def driver_runs(seed, smi, k1, k2, tmp):
             say(f"driver run {label} lambda={lam} vs the direct fit ({smi}): "
                 f"objective {f_run!r}, relative difference {rel!r}; gradient "
                 f"max-abs {g_run!r}, stop reason {run['reasons'][lam]}; "
-                f"intercept_spread {spread!r} of the coefficients' max-abs "
-                f"(limit {INTERCEPT_SPREAD_LIMIT})")
+                f"intercept_spread {spread!r} of the coefficients' max-abs")
             if not abs(rel) <= DRIVER_OBJ_RTOL:
                 fail(f"driver run {label} lambda={lam}: objective off the "
                      "direct fit's")
-            if not spread <= INTERCEPT_SPREAD_LIMIT:
-                fail(f"driver run {label} lambda={lam}: intercept_spread {spread!r} "
-                     f"over {INTERCEPT_SPREAD_LIMIT}")
         for label, (reason, g) in stops.items():
             others = max(g_o for other, (_, g_o) in stops.items() if other != label)
             if reason not in DONE_REASONS and g > GRADIENT_RATIO_LIMIT * others:
@@ -1131,6 +1236,7 @@ def driver_runs(seed, smi, k1, k2, tmp):
     run_a = dict(
         tmp=tmp, argv=validated + ["--grid-mode", "sequential"], batch=a_batch,
         models={lam: a["models"][str(lam)].means for lam in (10.0, 1.0)},
+        means=a_means,
         objectives={lam: objectives["A", lam] for lam in (10.0, 1.0)},
         seconds=a["seconds"], timers=a["timers"],
     )
@@ -1276,10 +1382,9 @@ GAME_FN_RTOL = 1e-5
 GAME_GRAD_RTOL = 1e-4
 # run G, the CD objectives of the same two sweeps with the fixed effect on
 # the scatter objective are printed beside the tiled run's, as a
-# measurement: two identical runs of either end their 50-iteration cold
-# fixed-effect fit at points up to percents apart in objective (float
-# atomics steer L-BFGS; photon_ml_tpu_torch/tools/fe_spread.py), so the
-# two paths are held by GAME_FN_RTOL at each sweep's coefficients instead
+# measurement (two paths whose sums differ in order: held by GAME_FN_RTOL
+# at each sweep's coefficients); a refit of sweep 2's fixed effect from
+# the same start and residual is bitwise on either path
 GAME_RE_SAMPLE = 256  # entities whose gradient is checked in float64
 # max-abs of a sampled entity's float64 gradient: 5x the first measurement
 # (4.3e-4, NVIDIA H100 80GB HBM3 at 700 W); the gradient at a row solved
@@ -1376,7 +1481,7 @@ class TimedCoordinate:
         out = fn(*args)
         torch.cuda.synchronize()
         self.log.append((what, self.coord.name, time.perf_counter() - t0,
-                         self.k1.launches - k0, out, readbacks, args[0]))
+                         self.k1.launches - k0, out, readbacks, args[0], args[1:]))
         return out
 
     def update_model(self, model, residual=None):
@@ -1393,7 +1498,7 @@ def game_cd(ds, red, kernel, k1, smi, label, sweeps=2, initial_model=None, profi
     """CoordinateDescent.run(sweeps) over the fixed effect (``kernel``) and
     the user random effect, from ``initial_model``; with ``profile`` under
     torch.profiler, printing the device's busy time and idle share; ->
-    (result, per-step log, the RE coordinate)."""
+    (result, per-step log, the RE coordinate, the FE coordinate)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1459,7 +1564,7 @@ def game_cd(ds, red, kernel, k1, smi, label, sweeps=2, initial_model=None, profi
     say(f"game run G {label} ({smi}): CD {sweeps} sweeps {seconds!r} s; objective history {hist}")
     if not all(np.isfinite(hist)) or any(b > a for a, b in zip(hist, hist[1:])):
         fail(f"game run G {label}: the CD objective is not finite and non-increasing: {hist}")
-    return result, log, re
+    return result, log, re, fe
 
 
 def game_re_gradients(ds, red, bank, fe_score, sample):
@@ -1558,6 +1663,9 @@ def game_k1_times(k1, tb, rng, smi, label="game", library=False):
         if bad or not np.isfinite(abs_err):
             fail(f"k1_check {label} {name}: {bad} outputs disagree with the plain version")
         err = tuple(map(max, err, (abs_err, rel_err)))
+    from photon_ml_tpu_torch.ops.kernels import grid_bilinear_pass as k2
+
+    repeat_checks(k1, k2, tb, rng, label)
     z_ms = time_ms(lambda: k1.bilinear_pass(tb.z_sched, w, tb.num_row_blocks, win))
     g_ms = time_ms(lambda: k1.bilinear_pass(tb.g_sched, c, tb.num_feat_blocks, win))
     z_bound, _, entries = pass_bound_ms(tb.z_sched, tb.dim, tb.num_rows)
@@ -1601,6 +1709,24 @@ def game_objective_parity(ds, tb, log, smi):
             f"{float(vs)!r}, value gap {dv!r}, gradient gap {dg!r} of its max-abs")
         if not (dv <= GAME_FN_RTOL and dg <= GAME_GRAD_RTOL):
             fail(f"game run G: the tiled objective is off the scatter one at sweep {sweep}")
+
+
+def game_fe_refit(fe, log, label, smi):
+    """Refit sweep 2's fixed effect from the start and the residual it got
+    in the run: the coefficients must be the run's, bitwise; -> the refit's
+    seconds."""
+    fe_up = [e for e in log if e[0] == "update" and e[1] == "global"][1]
+    start, (residual,) = fe_up[6], fe_up[7]
+    t0 = time.perf_counter()
+    model, result = fe.update_model(start, residual)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    same = torch.equal(model.model.means, fe_up[4][0].model.means)
+    say(f"game run G {label} refit of sweep 2's fixed effect ({smi}): {seconds!r} s, "
+        f"{result.iterations} iterations; coefficients bitwise the run's {same}")
+    if not same:
+        fail(f"game run G: the {label} fixed effect's refit is not bitwise")
+    return seconds
 
 
 def game_data(seed, device):
@@ -1661,9 +1787,10 @@ def game_run_g(seed, smi, k1, device="cuda"):
     ts.tilings, ts.tiling_seconds = 0, 0.0
     k1.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    result, log, re = game_cd(ds, red, "tiled", k1, smi, "tiled")
+    result, log, re, fe = game_cd(ds, red, "tiled", k1, smi, "tiled")
     peak = torch.cuda.max_memory_allocated()
     game_launches = k1.launches
+    tiled_refit = game_fe_refit(fe, log, "tiled", smi)
     kinds = sorted({re.problem._bucket_kind(b, red.local_dim) for b in red.buckets})
     for it in range(2):
         steps = log[2 + 4 * it: 6 + 4 * it]  # after the two initial scores
@@ -1709,10 +1836,13 @@ def game_run_g(seed, smi, k1, device="cuda"):
 
     # the same two sweeps with the fixed effect on the scatter objective:
     # its objective non-increasing (game_cd), the gaps a measurement
-    scatter, _, _ = game_cd(ds, red, "scatter", k1, smi, "scatter")
+    scatter, s_log, _, s_fe = game_cd(ds, red, "scatter", k1, smi, "scatter")
+    game_fe_refit(s_fe, s_log, "scatter", smi)
     gaps = [abs(a - b) / abs(b) for a, b in zip(result.objective_history, scatter.objective_history)]
-    say(f"game run G ({smi}): tiled vs scatter CD objectives, relative gaps {gaps} "
-        f"(a measurement, not a check)")
+    say(f"game run G ({smi}): tiled vs scatter CD objectives, relative gaps {gaps}, "
+        f"the largest {max(gaps)!r} {'within' if max(gaps) <= 1e-4 else 'over'} 1e-4 "
+        f"(a measurement, not a check; neither path varies from run to run: the "
+        f"sweep-2 refits were bitwise, the tiled one {tiled_refit})")
     return game_launches, game_k1, ds
 
 
@@ -2199,10 +2329,8 @@ def run_r(seed, smi, k1, k2, run_a, device_args=()):
     ``RUN_R_PLAN`` in a subprocess, which must die by SIGKILL with λ = 10
     snapshotted; then the same argv without the plan through
     ``glm_driver.main``: λ = 10 loads from its snapshot (bitwise, no K1
-    launch), λ = 1 warm-starts from its snapshotted means, both λs'
-    float64 objective within DRIVER_OBJ_RTOL of run A's and within the
-    intercept_spread limit of its coefficients; -> the resumed run's
-    launches."""
+    launch), λ = 1 warm-starts from its snapshotted means, and both λs'
+    models are run A's bitwise; -> the resumed run's launches."""
     from photon_ml_tpu_torch.reliability import checkpoint as reliability_checkpoint
 
     tmp = run_a["tmp"]
@@ -2267,18 +2395,15 @@ def run_r(seed, smi, k1, k2, run_a, device_args=()):
     if lam1_in[0] != 1.0 or not warm_rel <= RUN_R_WARM_RTOL:
         fail("run R: λ = 1 did not warm-start from the snapshotted means")
     for lam in (10.0, 1.0):
+        # run A's argv, its inputs: the resumed sweep is run A's, bitwise
         m = driver.models[lam].means
         f_r, _ = objective64(batch, m, lam)
         rel = (f_r - run_a["objectives"][lam]) / abs(run_a["objectives"][lam])
-        ref = run_a["models"][lam]
-        spread = float((m - ref).abs().max() / ref.abs().max())
+        same = torch.equal(m, run_a["means"][lam])
         say(f"run R lambda={lam} vs run A ({smi}): objective {f_r!r} vs "
-            f"{run_a['objectives'][lam]!r} (rel {rel!r}, limit {DRIVER_OBJ_RTOL}); "
-            f"intercept_spread {spread!r} (limit {INTERCEPT_SPREAD_LIMIT})")
-        if not abs(rel) <= DRIVER_OBJ_RTOL:
-            fail(f"run R lambda={lam}: objective off run A's")
-        if not spread <= INTERCEPT_SPREAD_LIMIT:
-            fail(f"run R lambda={lam}: intercept_spread {spread!r} over {INTERCEPT_SPREAD_LIMIT}")
+            f"{run_a['objectives'][lam]!r} (rel {rel!r}); coefficients bitwise run A's {same}")
+        if not same:
+            fail(f"run R lambda={lam}: the resumed fit is not bitwise run A's")
     say(f"run R ({smi}): killed run {killed_s!r} s; resumed run {r['seconds']!r} s; run A "
         f"{run_a['seconds']!r} s, stage timers {run_a['timers']}")
     return {"k1": r["k1"], "k2": r["k2"]}
@@ -2303,15 +2428,16 @@ def reliability_phase(seed, smi, k1, k2, game_ds, run_a, device="cuda", device_a
 # -- phase 10: out-of-core training -------------------------------------------
 
 STREAM_PARTS = 8  # Avro part files of run S's training rows (and 1 of validation)
-# run S's rows: 2^15 training and 2^14 validation (2^18 and 2^16 took
+# run S's rows: 2^14 training and 2^13 validation (2^18 and 2^16 took
 # 322 s for the phase, and the script passed the 1,200 s limit; 2^16 until
-# phase 13 needed the time)
-STREAM_ROWS, STREAM_HELD_OUT = 1 << 15, 1 << 14
-# run S's --stream-memory-budget: 4,194,304 B // 532 B a row (65 slots of
-# 8 B + 12 B) = 7,884 rows a chunk, so the 2^15 rows are 5 chunks: 1 on
+# phase 13 needed the time, 2^15 until phase 14 did)
+STREAM_ROWS, STREAM_HELD_OUT = 1 << 14, 1 << 13
+# run S's --stream-memory-budget: 2,097,152 B // 532 B a row (65 slots of
+# 8 B + 12 B) = 3,942 rows a chunk, so the 2^14 rows are 5 chunks: 1 on
 # the device tier (the budget holds one), 4 spilled, all 5 tiled (the
-# budget halved with the rows keeps the tiers of 2^16 rows at 8,388,608 B)
-STREAM_BUDGET = 4194304
+# budget halved with the rows keeps the tiers of 2^15 rows at 4,194,304 B
+# and of 2^16 at 8,388,608 B)
+STREAM_BUDGET = 2097152
 STREAM_TIERS = {"device": 1, "disk": 4, "tiled": 5, "overflow": 0}
 STREAM_TILED_KEEP = 2  # tiled chunks of the direct overflow objective
 STREAM_AUC_TOL = 1e-3  # streamed (4,096-bin) AUC vs the exact AUC
@@ -2500,15 +2626,15 @@ def stream_objective_checks(k1, train_dir, fmt, imap, stats, batch, smi, seed, d
 # run T: the streamed GAME drivers at run H's widths, the user shard
 # IDENTITY over each user's pool indices (d = 1,001: an IDENTITY bank over
 # the 2^20-wide user shard of run H would be 1,024 x 2^20 floats, with an
-# L-BFGS history beside it), 2^13 rows of 512 users each of training and
+# L-BFGS history beside it), 2^12 rows of 256 users each of training and
 # validation (cut from run H's 2^16 of 4,096 users when the script passed
-# 900 s)
-STREAM_T_USERS = 512
+# 900 s, and from 2^13 of 512 when phase 14 came)
+STREAM_T_USERS = 256
 STREAM_T_PARTS = 4
-# 2 MiB: 912 B a staged row (72 + 40 slots of 8 B, 12 B and a code) ->
-# 2,299 rows a chunk, 4 chunks of the 2^13 rows; 5,376 B an entity of 16
-# rows -> 390 entities a segment, 2 segments of the 512 users
-STREAM_T_BUDGET = 2 << 20
+# 1 MiB: 912 B a staged row (72 + 40 slots of 8 B, 12 B and a code) ->
+# 1,149 rows a chunk, 4 chunks of the 2^12 rows; 5,376 B an entity of 16
+# rows -> 195 entities a segment, 2 segments of the 256 users
+STREAM_T_BUDGET = 1 << 20
 STREAM_T_OBJ_RTOL = 1e-3  # streamed vs in-memory CD objective, relative
 STREAM_T_AUC_TOL = 1e-3  # streamed vs in-memory scoring AUC
 
@@ -2661,11 +2787,13 @@ def stream_run_t(seed, smi, device_args=()):
             fail("streamed run T: the streamed scoring AUC is off the in-memory scoring's")
 
 
-def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
+def stream_phase(seed, smi, k1, k2, device="cuda", device_args=(), then=None):
     """Phase 10: runs S and S2 and the direct objective checks over Avro
     files written by worker processes; -> (K1's and K2's launches in each
     run, the chunk's K1 numbers). ``device`` / ``device_args``: the CPU for
-    a rehearsal at a small size."""
+    a rehearsal at a small size. ``then(train_dir, tmp, run S's index map,
+    the batch loaded with it, run S's float64 objective at lambda = 1)``
+    runs over run S's files before they go (phase 14)."""
     import multiprocessing
     import re
     from concurrent.futures import ProcessPoolExecutor
@@ -2738,10 +2866,11 @@ def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
                 f"{f_ref!r}, relative {rel!r}; gradient max-abs {g_s!r} ({g_ref!r} direct); "
                 f"intercept_spread {spread!r}; streamed AUC {auc_file!r}, exact AUC of the "
                 f"written model {auc!r}")
+            # another algorithm over the same rows (the host optimizer over
+            # streamed chunks against the in-memory fit): held by the
+            # objective, the spread printed as a measurement
             if not abs(rel) <= DRIVER_OBJ_RTOL:
                 fail(f"streamed run S lambda={lam}: objective off the direct fit's")
-            if not spread <= INTERCEPT_SPREAD_LIMIT:
-                fail(f"streamed run S lambda={lam}: intercept_spread {spread!r}")
             if not abs(auc_file - auc) <= STREAM_AUC_TOL or not auc > 0.5:
                 fail(f"streamed run S lambda={lam}: the streamed AUC is off the exact one")
             if s["driver"].models[lam].coefficients.variances is None:
@@ -2779,7 +2908,6 @@ def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
             fail("streamed run S2: the warm scan cache did not serve every partition as S saw it")
         f_tron = objective64(batch, s2["driver"].models[1.0].means, 1.0)[0]
         rel = (f_tron - f_s1) / abs(f_s1)
-        del batch, loaded
         with open(f"{tmp}/out-S2/model-diagnostics/report.txt") as f:
             report = f.read()
         chapters = [c for c in ("Model lambda=1.0", "Bootstrap analysis") if c in report]
@@ -2792,6 +2920,8 @@ def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
         if len(chapters) != 2 or bad:
             fail("streamed run S2: the diagnostics report lacks a chapter or holds non-finite numbers")
         s2["driver"] = None
+        if then is not None:
+            then(train_dir, tmp, imap, batch, f_s1)
     k1.launches = 0
     k2.launches = 0
     t0 = time.perf_counter()
@@ -2801,6 +2931,335 @@ def stream_phase(seed, smi, k1, k2, device="cuda", device_args=()):
         f"package), K2 launches {k2.launches}")
     return ({"S": s["k1"], "S2": s2["k1"], "T": k1.launches},
             {"S": s["k2"], "S2": s2["k2"], "T": k2.launches}, chunk)
+
+
+# -- phase 14: GAME's fixed effect over meshes, multi-process streaming ----------
+
+P14_MESHES = ((2, 1), (1, 2))  # (data, model) gloo ranks on the one card
+P14_TIMEOUT_S = 300
+
+
+def p14_game_rows(seed, device):
+    """Run H's global shard as a GameDataset on ``device``: GAME_H_USERS
+    users x GAME_ROWS_PER_USER rows at DIM features (64 a row and the
+    intercept; run H's model from the seed, its rows from another draw),
+    and a residual from the seed."""
+    from photon_ml_tpu_torch.game import GameDataset, ShardData
+    from photon_ml_tpu_torch.utils.index_map import IdentityIndexMap
+
+    w_global, w_user = game_model(np.random.default_rng([seed, 5]), GAME_H_USERS, DIM)
+    rng = np.random.default_rng([seed, 14])
+    users = np.repeat(np.arange(GAME_H_USERS), GAME_ROWS_PER_USER)
+    n = len(users)
+    g_idx, g_val, _, _, labels, _ = game_rows(rng, users, w_global, w_user)
+    ds = GameDataset(
+        uids=[""] * n, labels=labels, offsets=np.zeros(n, np.float32),
+        weights=np.ones(n, np.float32),
+        shards={"global": ShardData(g_idx, g_val, IdentityIndexMap(DIM - 1, add_intercept=True),
+                                    DIM - 1)},
+        entity_codes={}, entity_indexes={}, num_real_rows=n, device=torch.device(device),
+    )
+    residual = torch.as_tensor(rng.normal(scale=0.3, size=n).astype(np.float32), device=device)
+    return ds, residual
+
+
+def mesh_fe_rank(mesh, seed, device="cuda"):
+    """Phase 14, one rank (``mesh``) or the single card (None): the fixed
+    effect on the tiled kernel (K1 on the rank's cell) over run H's global
+    shard: two cold fits, then one with a residual, each with K1's count
+    at 0 just before it; -> [{coefficients, iterations, value, seconds,
+    K1 launches}]."""
+    from photon_ml_tpu_torch.game import FixedEffectCoordinate
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_ml_tpu_torch.optim.problem import create_glm_problem
+    from photon_ml_tpu_torch.task import TaskType
+
+    ds, residual = p14_game_rows(seed, device if mesh is None else mesh.device)
+    fe = FixedEffectCoordinate(
+        name="global", dataset=ds,
+        problem=create_glm_problem(
+            TaskType.LOGISTIC_REGRESSION, DIM, config=OptimizerConfig(max_iter=50),
+            regularization=RegularizationContext(RegularizationType.L2),
+            intercept_index=DIM - 1, kernel="tiled",
+        ),
+        feature_shard_id="global", reg_weight=1.0, mesh=mesh,
+    )
+    fe.prepare()
+    fits = []
+    for r in (None, None, residual):
+        k1.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, result = fe.update_model(None, r)
+        torch.cuda.synchronize()
+        fits.append(dict(
+            coef=model.model.means.cpu().numpy(), iterations=int(result.iterations),
+            value=float(result.value), seconds=time.perf_counter() - t0, k1=k1.launches,
+        ))
+    return fits
+
+
+def p14_meshes(seed, smi, device="cuda"):
+    """Phase 14's meshes: the fixed effect over a 2 x 1 and a 1 x 2 mesh
+    (spawned side by side), each rank's two cold fits bitwise and every
+    rank's bits the same, K1 launched on every rank, each fit's objective
+    within DRIVER_OBJ_RTOL of the single card's (the cells sum in another
+    order); -> per mesh its fits' seconds and launches."""
+    with ThreadPoolExecutor(len(P14_MESHES)) as pool:
+        futures = {
+            shape: pool.submit(spawn_mesh_checked, mesh_fe_rank, shape, (seed,), device)
+            for shape in P14_MESHES
+        }
+        single = mesh_fe_rank(None, seed, device)  # while the ranks start
+        ranks = {shape: f.result() for shape, f in futures.items()}
+    out = {}
+    for shape, runs in ranks.items():
+        first = runs[0]
+        repeat = np.array_equal(first[0]["coef"], first[1]["coef"])
+        agree = all(
+            np.array_equal(a["coef"], b["coef"]) and a["iterations"] == b["iterations"]
+            for r in runs[1:] for a, b in zip(first, r)
+        )
+        rels = [abs(f["value"] - s["value"]) / abs(s["value"])
+                for f, s in zip((first[0], first[2]), (single[0], single[2]))]
+        launches = [f["k1"] for r in runs for f in r]
+        say(f"phase 14 mesh {shape} ({smi}): fits {[f['seconds'] for f in first]} s, "
+            f"iterations {[f['iterations'] for f in first]} (single card "
+            f"{[f['iterations'] for f in single]}), K1 launches a rank and fit {launches}; "
+            f"two cold fits bitwise {repeat}, ranks bitwise {agree}; objective vs the single "
+            f"card cold / with a residual {rels}")
+        if not (repeat and agree):
+            fail(f"phase 14 mesh {shape}: the fits do not repeat bitwise on every rank")
+        if min(launches) == 0:
+            fail(f"phase 14 mesh {shape}: a rank's fit launched no K1")
+        if max(rels) > DRIVER_OBJ_RTOL:
+            fail(f"phase 14 mesh {shape}: the fit is off the single card's")
+        out["x".join(map(str, shape))] = dict(
+            seconds=[f["seconds"] for f in first], k1=launches)
+    return out
+
+
+def spawn_mesh_checked(fn, shape, args, device="cuda"):
+    """``spawn_mesh`` (on the card); a failure fails the script."""
+    from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, spawn_mesh
+
+    try:
+        return spawn_mesh(fn, shape, (DATA_AXIS, MODEL_AXIS), device=device, args=args,
+                          timeout_s=P14_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 14 mesh {shape}: {e}")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def p14_stream_start(train_dir, tmp, device_args=()):
+    """Phase 14: two runs of ``glm_driver --streaming`` as 2 processes each
+    (one a rank, gloo on the one card, ``--coordinator-address``) over run
+    S's files and an off-heap store built from them, the runs side by
+    side; -> (the processes, the output dirs)."""
+    from photon_ml_tpu_torch.cli import feature_indexing_driver
+
+    store = feature_indexing_driver.run_feature_indexing([train_dir], f"{tmp}/p14-store")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, outs = [], []
+    for run in range(2):
+        port, out = free_port(), f"{tmp}/p14-out-{run}"
+        outs.append(out)
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "photon_ml_tpu_torch.cli.glm_driver",
+                 "--training-data-directory", train_dir, "--streaming", "true",
+                 "--stream-memory-budget", str(STREAM_BUDGET), "--regularization-weights", "1",
+                 "--offheap-indexmap-dir", store, "--output-directory", out,
+                 "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", "2",
+                 "--process-id", str(rank), *device_args],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+    return procs, outs
+
+
+def p14_feature_start(train_dir, tmp, device_args=()):
+    """Phase 14: two runs of the GLM driver in memory over 2 of run S's 8
+    part files as 2 processes each, the coefficients over the processes'
+    1 x 2 (data, model) mesh (``--distributed feature --model-shards 2``);
+    -> (the processes, the output dirs, the training dir)."""
+    sub = f"{tmp}/p14-feature-train"
+    os.makedirs(sub)
+    for part in sorted(os.listdir(train_dir))[:2]:
+        shutil.copy(f"{train_dir}/{part}", sub)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, outs = [], []
+    for run in range(2):
+        port, out = free_port(), f"{tmp}/p14-feature-{run}"
+        outs.append(out)
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "photon_ml_tpu_torch.cli.glm_driver",
+                 "--training-data-directory", sub, "--regularization-weights", "1",
+                 "--distributed", "feature", "--model-shards", "2",
+                 "--output-directory", out,
+                 "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", "2",
+                 "--process-id", str(rank), *device_args],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+    return procs, outs, sub
+
+
+def p14_feature_finish(procs, outs, sub, smi, device="cuda"):
+    """Wait for phase 14's feature-sharded GLM driver processes: the two
+    runs' models bitwise equal, the objective at lambda = 1 within
+    DRIVER_OBJ_RTOL of the trainer's single-card fit on the rows the
+    port's loader gives (its own sums)."""
+    from photon_ml_tpu_torch.io.input_format import AvroInputDataFormat
+    from photon_ml_tpu_torch.io.model_io import load_glm_models_avro
+    from photon_ml_tpu_torch.optim.config import OptimizerType, RegularizationType
+    from photon_ml_tpu_torch.task import TaskType
+    from photon_ml_tpu_torch.training import train_generalized_linear_model
+    from photon_ml_tpu_torch.utils.index_map import IndexMap
+
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=P14_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("phase 14: a feature-sharded driver process did not end")
+        if p.returncode != 0:
+            fail(f"phase 14: a feature-sharded driver process ended with {p.returncode}: "
+                 f"{log[-3000:]}")
+    imap = IndexMap.load(f"{outs[0]}/feature-index/index.json")
+    means = [load_glm_models_avro(f"{o}/models/models.avro", imap, device=device)["1.0"].means
+             for o in outs]
+    loaded = AvroInputDataFormat().load([sub], index_map=imap, device=device)
+    direct, _ = train_generalized_linear_model(
+        loaded.batch, TaskType.LOGISTIC_REGRESSION, imap.size,
+        optimizer_type=OptimizerType.LBFGS, regularization_type=RegularizationType.L2,
+        regularization_weights=[1.0], intercept_index=loaded.intercept_index,
+        kernel="tiled", device=device,
+    )
+    f_mp, _ = objective64(loaded.batch, means[0], 1.0)
+    f_one, _ = objective64(loaded.batch, direct[1.0].means, 1.0)
+    rel = (f_mp - f_one) / abs(f_one)
+    same = torch.equal(means[0], means[1])
+    with open(f"{outs[0]}/metrics.json") as f:
+        timers = json.load(f)["timers"]
+    say(f"phase 14 feature-sharded GLM driver, 2 processes over a 1 x 2 mesh ({smi}): "
+        f"{loaded.batch.num_rows} rows x {imap.size} features, train {timers['train']!r} s; "
+        f"the two runs bitwise {same}; objective at lambda=1 {f_mp!r} vs the single card's "
+        f"{f_one!r} (rel {rel!r})")
+    if not same:
+        fail("phase 14: two feature-sharded multi-process driver runs are not bitwise")
+    if not abs(rel) <= DRIVER_OBJ_RTOL:
+        fail("phase 14: the feature-sharded driver fit is off the single card's")
+    return dict(train_s=timers["train"], rel=rel)
+
+
+def p14_stream_finish(procs, outs, imap, batch, f_s1, smi, device="cuda"):
+    """Wait for phase 14's driver processes; the two runs' models must be
+    bitwise equal and their objective at lambda = 1 within DRIVER_OBJ_RTOL
+    of run S's (one process, warm-started from lambda = 10)."""
+    from photon_ml_tpu_torch.io.model_io import load_glm_models_avro
+
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=P14_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("phase 14: a streamed driver process did not end")
+        if p.returncode != 0:
+            fail(f"phase 14: a streamed driver process ended with {p.returncode}: {log[-3000:]}")
+    means = [load_glm_models_avro(f"{o}/models/models.avro", imap, device=device)["1.0"].means
+             for o in outs]
+    with open(f"{outs[0]}/metrics.json") as f:
+        metrics = json.load(f)
+    f_mp, _ = objective64(batch, means[0], 1.0)
+    rel = (f_mp - f_s1) / abs(f_s1)
+    same = torch.equal(means[0], means[1])
+    say(f"phase 14 streamed driver, 2 processes ({smi}): train {metrics['timers']['train']!r} s, "
+        f"streaming {metrics['streaming']['tiers']} tiers in process 0; the two runs bitwise "
+        f"{same}; objective at lambda=1 {f_mp!r} vs run S's {f_s1!r} (rel {rel!r})")
+    if not same:
+        fail("phase 14: two multi-process streamed runs are not bitwise")
+    if not abs(rel) <= DRIVER_OBJ_RTOL:
+        fail("phase 14: the multi-process streamed fit is off run S's objective")
+    return dict(train_s=metrics["timers"]["train"], rel=rel)
+
+
+def p14_game_start(h_dir, shards, tmp, device_args=()):
+    """Phase 14: two runs of run H's GAME training driver (its argv but no
+    model output, over run H's files as ``fleet_y_files`` kept them) as 2
+    processes each, the
+    fixed effect over a 1 x 2 (data, model) mesh of the processes
+    (``--distributed feature --model-shards 2``), the random effect on
+    every rank; -> (the processes, the output dirs)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, outs = [], []
+    for run in range(2):
+        port, out = free_port(), f"{tmp}/p14-game-{run}"
+        outs.append(out)
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
+                 "--train-input-dirs", f"{h_dir}/train",
+                 "--validate-input-dirs", f"{h_dir}/validate", "--output-dir", out,
+                 "--feature-shard-id-to-feature-section-keys-map", shards,
+                 "--fixed-effect-data-configurations", "global:globalShard,1",
+                 "--fixed-effect-optimization-configurations",
+                 "global:50,1e-7,10,1,LBFGS,L2;50,1e-7,1,1,LBFGS,L2",
+                 "--random-effect-data-configurations",
+                 "per-user:userId,userShard,1,none,none,none,INDEX_MAP",
+                 "--random-effect-optimization-configurations", "per-user:30,1e-5,1,1,LBFGS,L2",
+                 "--num-iterations", "2", "--evaluator-types", "AUC",
+                 "--compute-variance", "true", "--model-output-mode", "NONE",
+                 "--distributed", "feature", "--model-shards", "2",
+                 "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", "2",
+                 "--process-id", str(rank), *device_args],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+    return procs, outs
+
+
+def p14_game_finish(procs, outs, h_history, smi):
+    """Wait for phase 14's GAME driver processes: the two runs' CD
+    objective histories bitwise equal, and within 1e-4 relative of run
+    H's single-process history (the mesh sums the fixed effect's partials
+    in another order)."""
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=P14_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("phase 14: a GAME driver process did not end")
+        if p.returncode != 0:
+            fail(f"phase 14: a GAME driver process ended with {p.returncode}: {log[-3000:]}")
+    runs = []
+    for o in outs:
+        with open(f"{o}/metrics.json") as f:
+            runs.append(json.load(f))
+    hist = [r["objective_history"] for r in runs]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist[0], h_history))
+    say(f"phase 14 GAME training driver, 2 processes, FE over a 1 x 2 mesh ({smi}): timers "
+        f"{ {k: round(v, 3) for k, v in runs[0]['timers'].items()} }; objective history "
+        f"{hist[0]}, the two runs bitwise {hist[0] == hist[1]}; vs run H's single process "
+        f"{h_history} (largest relative gap {rel!r})")
+    if hist[0] != hist[1]:
+        fail("phase 14: two multi-process GAME driver runs are not bitwise")
+    if not rel <= 1e-4:
+        fail("phase 14: the multi-process GAME driver run is off run H's")
+    return dict(timers=runs[0]["timers"], rel=rel)
 
 
 # -- phase 11: online serving ---------------------------------------------------
@@ -4352,6 +4811,8 @@ def main() -> int:
 
     # -- 2c. K1 and K2 against plain at the ads shape ---------------------------
     ads_err = compare_passes(k1, tb, rng, "ads")
+    repeat_checks(k1, k2, small, rng, "small")
+    repeat_checks(k1, k2, tb, rng, "ads")
     k2_errs.append(
         compare_grid_passes(k1, k2, tb, rng, "ads", GRID_G, against_k1=True)
     )
@@ -4428,9 +4889,16 @@ def main() -> int:
     # K3, the spill remainder, as the objective calls it (in place)
     z_out = torch.zeros(tb.num_rows, device="cuda")
     z_out_bank = torch.zeros(G, tb.num_rows, device="cuda")
+    sp = tb.z_sched
+    k3_got = sp.apply_spill(torch.zeros_like(z_out), w)
+    k3_ref = torch.zeros_like(z_out).index_add_(0, sp.spill_out, sp.spill_vals * w[sp.spill_in])
+    k3_err = check_close("k3_check ads z-pass spills", k3_got, k3_ref)
     k3_times = {
         "seq_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out, w)),
         "bank_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out_bank, w_bank)),
+        # the plain version: index_add_ in entry order (float atomics on the card)
+        "seq_plain_ms": time_ms(lambda: z_out.index_add_(
+            0, sp.spill_out, sp.spill_vals * w[sp.spill_in])),
     }
     k3_bound, k3_bytes, k3_spills = spill_bound_ms(tb.z_sched)
     k3b_bound, k3b_bytes, _ = spill_bound_ms(tb.z_sched, G)
@@ -4473,6 +4941,7 @@ def main() -> int:
     # -- 4. sequential path at full width ---------------------------------------
     k1.launches = 0
     k2.launches = 0
+    ts.spill_launches = 0
     common.host_fetches = 0
     t0 = time.perf_counter()
     models, results = train_generalized_linear_model(
@@ -4496,6 +4965,9 @@ def main() -> int:
     torch.cuda.synchronize()
     tron_s = time.perf_counter() - t0
     launches, fetches, seq_k2 = k1.launches, common.host_fetches, k2.launches
+    k3_launches = ts.spill_launches
+    if k3_launches == 0:
+        fail("the sequential path never called K3")
     say(f"sequential_path: lbfgs grid {lbfgs_s:.3f} s ({lbfgs_launches} K1 "
         f"launches, {lbfgs_fetches} host fetches, iterations "
         f"{[results[lam].iterations for lam in models]}); tron {tron_s:.3f} s "
@@ -4606,8 +5078,9 @@ def main() -> int:
         check_close(f"equivalence lambda={lam} gradient", g_bank[i], g_one)
 
     # information, gated loosely: each L-BFGS member against a cold
-    # sequential fit of its lambda (float atomics can move line-search
-    # branch points, so the two need not agree to rounding)
+    # sequential fit of its lambda (K2 and K1 sum in other orders, which
+    # can move line-search branch points, so the two need not agree to
+    # rounding)
     grid_results = grid_runs["lbfgs"]["results"]
     cold_s = 0.0
     for lam in GRID_LAMBDAS:
@@ -4669,11 +5142,13 @@ def main() -> int:
     cell_errs = {"k1": (0.0, 0.0), "k2": (0.0, 0.0)}
     for r in ranks:
         say(f"mesh rank {r['rank']} {r['coords']}: cell " + " ".join(
-            f"{k}={v!r}" for k, v in r["cell"].items()))
-        for name, err, scale in r["checks"]:
+            f"{k}={v!r}" for k, v in r["cell"].items())
+            + f"; K1, K2 and K3 bitwise on two launches ({r['repeat_pairs']} pairs)")
+        for name, err, scale, over in r["checks"]:
             say(f"mesh_check rank {r['rank']} {name}: max_abs_err={err!r} "
-                f"max_rel_err={err / max(scale, 1e-30)!r} scale={scale!r}")
-            if not np.isfinite(err) or err > 1e-6 + RTOL * scale:
+                f"max_rel_err={err / max(scale, 1e-30)!r} scale={scale!r}; outputs over "
+                f"1e-6 + {RTOL!r} x their addends' magnitude: {over}")
+            if not np.isfinite(err) or over:
                 fail(f"mesh rank {r['rank']}: {name} disagrees with its plain version")
             key = name[:2]
             cell_errs[key] = tuple(map(max, cell_errs[key], (err, err / max(scale, 1e-30))))
@@ -4758,9 +5233,12 @@ def main() -> int:
             serving["W"] = serve_run_w(tmp, shards, smi)
             serving["W_s"] = time.perf_counter() - t0
             say(f"phase 11 run W: {serving['W_s']!r} s of host time ({smi})")
-            # phase 12's run Y goes over these files
+            # phase 12's run Y goes over these files, phase 14's GAME
+            # driver too (beside run H's objective history)
             fleet["dir"] = fleet_y_files(tmp)
             fleet["shards"] = shards
+            with open(f"{tmp}/out/metrics.json") as f:
+                fleet["h_history"] = json.load(f)["objective_history"]
 
         game_launches, game_k1, game_ds = game_phase(args.seed, smi, k1, then=run_w)
 
@@ -4772,11 +5250,34 @@ def main() -> int:
     finally:
         shutil.rmtree(run_a["tmp"], ignore_errors=True)
 
-    # -- 10. out-of-core training ------------------------------------------------
+    # -- 10. out-of-core training, and 14 over run S's files --------------------
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    phase10_k1, phase10_k2, stream_chunk = stream_phase(args.seed, smi, k1, k2)
-    say(f"phase 10: {time.perf_counter() - t0!r} s of host time ({smi})")
+    phase14 = {}
+
+    def multiprocess_phase(train_dir, tmp, imap, batch, f_s1):
+        # -- 14. GAME's fixed effect over meshes, multi-process streaming --
+        t1 = time.perf_counter()
+        procs, outs = p14_stream_start(train_dir, tmp)
+        f_procs, f_outs, f_dir = p14_feature_start(train_dir, tmp)
+        g_procs, g_outs = p14_game_start(fleet["dir"], fleet["shards"], tmp)
+        try:
+            phase14["meshes"] = p14_meshes(args.seed, smi)
+        except BaseException:
+            for p in procs + f_procs + g_procs:
+                p.kill()
+            raise
+        phase14["stream"] = p14_stream_finish(procs, outs, imap, batch, f_s1, smi)
+        phase14["feature"] = p14_feature_finish(f_procs, f_outs, f_dir, smi)
+        phase14["game"] = p14_game_finish(g_procs, g_outs, fleet["h_history"], smi)
+        phase14["seconds"] = time.perf_counter() - t1
+        say(f"phase 14: {phase14['seconds']!r} s of host time ({smi})")
+
+    phase10_k1, phase10_k2, stream_chunk = stream_phase(
+        args.seed, smi, k1, k2, then=multiprocess_phase)
+    say(f"phase 10: {time.perf_counter() - t0 - phase14['seconds']!r} s of host time ({smi}) "
+        f"(phase 14's {phase14['seconds']!r} s apart)")
+    say("multiprocess: " + json.dumps(phase14))
 
     # -- 11. online serving (run W ran inside run H's directory) -----------------
     t0 = time.perf_counter()
@@ -4834,7 +5335,7 @@ def main() -> int:
     say(f"phase 13: {time.perf_counter() - t0!r} s of host time ({smi})")
     say("registry: " + json.dumps(registry))
 
-    # -- 14. result lines -------------------------------------------------------
+    # -- 15. result lines -------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -4884,6 +5385,24 @@ def main() -> int:
         "driver_launches": {run: n["k2"] for run, n in driver_launches.items()},
         "phase9_launches": {run: n["k2"] for run, n in phase9_launches.items()},
         "phase10_launches": phase10_k2,
+    }, {
+        "name": "apply_spill",
+        "route": "cuda",
+        "source": "photon_ml_tpu_torch/ops/csrc/bilinear_pass.cu",
+        "replaces": "photon_ml_tpu/ops/tiled_sparse.py:148",
+        "launches": k3_launches,
+        "max_abs_err": k3_err[0],
+        "ms": k3_times["seq_ms"],
+        "plain_ms": k3_times["seq_plain_ms"],
+        "bound_ms": k3_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "implementation": "spill_add_kernel: the spilled entries sorted by output "
+                          "once a schedule, each output's sum in entry order added "
+                          "once (an XLA scatter-add outside the Pallas kernel in "
+                          "the reference)",
+        "work": "the z-pass spill remainder at the ads shape",
+        "bank_ms": k3_times["bank_ms"], "bank_bound_ms": k3b_bound,
     }]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -47,6 +47,8 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.glm_driver import prepare_output_dir
+from photon_ml_tpu_torch.parallel import multihost
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from photon_ml_tpu_torch.evaluation.evaluator import Evaluator, EvaluatorType
 from photon_ml_tpu_torch.game.config import (
     FactoredRandomEffectConfiguration,
@@ -243,14 +245,7 @@ class GameTrainingParams:
             if cond:
                 out.append(f"{what} (ROADMAP {item})")
 
-        need(self.distributed == "feature", "--distributed feature", "item 13")
-        need(self.model_shards is not None, "--model-shards", "item 13")
         need(self.entity_shards not in (None, 0), "--entity-shards", "item 13")
-        need(
-            self.coordinator_address is not None or self.num_processes is not None
-            or self.process_id is not None,
-            "--coordinator-address / --num-processes / --process-id", "item 13",
-        )
         return out
 
     def validate(self) -> None:
@@ -303,6 +298,13 @@ class GameTrainingParams:
                     "factored random effects (latent re-projection re-materializes "
                     "every row per inner iteration)"
                 )
+            if self.distributed == "feature":
+                unsupported.append(
+                    "a feature-sharded fixed effect (use the GLM driver's "
+                    "--streaming --distributed feature for that composition)"
+                )
+            if self.coordinator_address is not None:
+                unsupported.append("multi-process training")
             for et in self.evaluator_types:
                 if et.is_sharded:
                     unsupported.append(f"the sharded evaluator {et.render()}")
@@ -341,12 +343,27 @@ class GameTrainingDriver:
         params.validate()
         self.params = params
         self.device = resolve_device(params.device)
+        # one process a rank: process 0 writes, every rank trains
+        multihost.initialize_multihost(
+            params.coordinator_address, params.num_processes, params.process_id,
+            device=params.device,
+        )
         if params.no_overlap:
             overlap.set_overlap(False)
         if params.fault_plan:
             install_plan(params.fault_plan)
-        prepare_output_dir(params.output_dir, delete_if_exists=params.delete_output_dir_if_exists)
-        self.logger = logger or PhotonLogger(params.output_dir)
+        if multihost.process_count() > 1:
+            multihost.prepare_output_dir(
+                params.output_dir, delete_if_exists=params.delete_output_dir_if_exists
+            )
+        else:
+            prepare_output_dir(
+                params.output_dir, delete_if_exists=params.delete_output_dir_if_exists
+            )
+        self.logger = logger or PhotonLogger(
+            params.output_dir if multihost.is_coordinator() else None
+        )
+        self._process_mesh = None
         from photon_ml_tpu_torch.obs import ObsSession
 
         self.obs = ObsSession(params.obs_dir, signal_dump=False)
@@ -404,8 +421,37 @@ class GameTrainingDriver:
 
     # -- coordinates -----------------------------------------------------------
 
+    def _fe_mesh(self):
+        """The fixed effect's mesh over the processes (made once; every rank
+        makes it in the same order): "feature" a (data, model) mesh with
+        ``--model-shards`` (default 2) on the model axis, "auto" a data
+        mesh; None with one process or "off", as the reference's
+        ``maybe_make_mesh`` gives none for one device. The random effects
+        stay replicated on every rank (their entity shards are ROADMAP
+        item 13)."""
+        p = self.params
+        n = multihost.process_count()
+        if p.distributed == "off" or n < 2:
+            return None
+        if self._process_mesh is None:
+            if p.distributed == "feature":
+                m = p.model_shards if p.model_shards is not None else 2
+                if n % m != 0:
+                    raise ValueError(
+                        f"model_shards={m} does not divide the {n} processes"
+                    )
+                shape, axes = (n // m, m), (DATA_AXIS, MODEL_AXIS)
+            else:
+                shape, axes = (n,), (DATA_AXIS,)
+            self._process_mesh = make_mesh(
+                shape, axes, device=self.device,
+                backend=multihost.backend_for(n, p.device),
+            )
+        return self._process_mesh
+
     def _build_coordinates(self, dataset: GameDataset, re_datasets, opt_combo):
         p = self.params
+        fe_mesh = self._fe_mesh()
         coords = {}
         for name, dcfg in p.fixed_effect_data_configs.items():
             ocfg = opt_combo[name]
@@ -423,6 +469,7 @@ class GameTrainingDriver:
                 feature_shard_id=dcfg.feature_shard_id,
                 reg_weight=ocfg.reg_weight,
                 down_sampling_rate=ocfg.down_sampling_rate,
+                mesh=fe_mesh,
             )
         loss = loss_for_task(p.task_type)
         for name in p.random_effect_data_configs:
@@ -1117,6 +1164,8 @@ class GameTrainingDriver:
             # the partial state; there is no coherent model to save
             self.logger.warning("no configuration combo completed; skipping model save")
             return
+        if not multihost.is_coordinator():
+            return  # every rank holds the same models; process 0 writes
         best = self.best_result[0]
         if p.model_output_mode != "NONE":
             with self.timer.time("save-model"):

@@ -1,6 +1,5 @@
 """GLM training driver: the end-to-end single-model pipeline and its CLI
-(port of ``photon_ml_tpu/cli/glm_driver.py``, the single-process,
-in-memory path on one card).
+(port of ``photon_ml_tpu/cli/glm_driver.py``).
 
     python -m photon_ml_tpu_torch.cli.glm_driver \\
         --training-data-directory DIR --output-directory OUT [options]
@@ -13,9 +12,13 @@ preprocess, 294-327 train, 329-413 validate (with per-iteration models),
 (the option names, kept verbatim) and Params.scala:200-222 (cross-field
 validation).
 
-The parser accepts every option of the JAX package's driver. The options
-of paths not ported yet are rejected by :meth:`GLMParams.validate` with the
-ROADMAP item they wait for. ``--streaming true`` trains out of core
+The parser accepts every option of the JAX package's driver and refuses
+what the reference's refuses. Several processes run one a rank
+(``--coordinator-address HOST:PORT --num-processes N --process-id I``,
+``parallel/multihost.py``): ``--distributed auto`` trains data-parallel,
+``--distributed feature`` over a (data, model) mesh of the processes
+(``--model-shards``), ``--streaming`` has each process stream its shard of
+the files; process 0 writes. ``--streaming true`` trains out of core
 (``io/streaming.py``): the preprocess stage scans the files in one pass
 (through the per-partition cache of ``--scan-cache-dir``), training reads
 fixed-shape chunks from the cache tiers that ``--stream-memory-budget``
@@ -85,6 +88,7 @@ from photon_ml_tpu_torch.io.streaming import (
     scan_stream_with_summary,
     sparse_row_bytes,
     stream_budget_rows,
+    shard_stream_files,
     streaming_summary,
 )
 from photon_ml_tpu_torch.io.model_io import save_glm_models_avro, write_models_in_text
@@ -112,6 +116,9 @@ from photon_ml_tpu_torch.training import (
     resolve_grid_mode,
     train_generalized_linear_model,
     train_grid_batched,
+    train_feature_sharded,
+    train_grid_batched_feature_sharded,
+    train_streaming_feature_sharded,
     train_streaming_glm,
 )
 from photon_ml_tpu_torch.utils.date_range import (
@@ -121,6 +128,8 @@ from photon_ml_tpu_torch.utils.date_range import (
 from photon_ml_tpu_torch.utils.device import resolve_device
 from photon_ml_tpu_torch.utils.index_map import intercept_key, split_feature_key
 from photon_ml_tpu_torch.utils.native_index import load_offheap_index_map
+from photon_ml_tpu_torch.parallel import multihost
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
 from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
 from photon_ml_tpu_torch.utils.profiling import peak_rss_bytes
@@ -249,13 +258,6 @@ class GLMParams:
             if cond:
                 out.append(f"{what} (ROADMAP {item})")
 
-        need(self.distributed == "feature", "--distributed feature", "item 13")
-        need(self.model_shards is not None, "--model-shards", "item 13")
-        need(
-            self.coordinator_address is not None or self.num_processes is not None
-            or self.process_id is not None,
-            "--coordinator-address / --num-processes / --process-id", "item 13",
-        )
         return out
 
     def validate(self) -> None:
@@ -297,6 +299,27 @@ class GLMParams:
                 f"unknown grid mode {self.grid_mode!r}; expected "
                 "batched | sequential | auto"
             )
+        if self.streaming:
+            # what the streamed path leaves out, in the reference's words
+            unsupported = []
+            if self.distributed == "feature":
+                if self.normalization_type != NormalizationType.NONE:
+                    unsupported.append(
+                        "normalization with streaming feature-sharded training "
+                        "(the shift/factor extras are not threaded through the "
+                        "per-chunk sharded programs)"
+                    )
+                if self.coordinator_address is not None:
+                    unsupported.append("multi-process streaming feature-sharded training")
+            if self.coordinator_address is not None and not self.offheap_indexmap_dir:
+                unsupported.append(
+                    "multi-process streaming without a prebuilt offheap index "
+                    "map (no single process sees the vocabulary)"
+                )
+            if unsupported:
+                raise ValueError(
+                    "streaming training does not support: " + ", ".join(unsupported)
+                )
         if self.grid_mode == "batched" and self.streaming:
             raise ValueError(
                 "--grid-mode batched is incompatible with --streaming: a "
@@ -331,6 +354,11 @@ class GLMParams:
                 "--publish-registry) requires a validating data "
                 "directory: the gates compare candidate vs parent on a "
                 "held-out stream"
+            )
+        if self.retrain_from and self.distributed == "feature":
+            raise ValueError(
+                "--retrain-from warm starts are not wired through the "
+                "feature-sharded trainers yet; use --distributed auto|off"
             )
         # the range strings fail here, not mid-preprocess
         resolve_date_range(self.train_date_range, self.train_date_range_days_ago)
@@ -389,16 +417,30 @@ class GLMDriver:
         # before anything touches the output directory: without CUDA and
         # without device="cpu" this raises
         self.device = resolve_device(params.device)
+        # one process a rank (a no-op without --coordinator-address): every
+        # rank trains, process 0 writes
+        multihost.initialize_multihost(
+            params.coordinator_address, params.num_processes, params.process_id,
+            device=params.device,
+        )
         if params.fault_plan:
             install_plan(params.fault_plan)
         # the output-dir guard precedes the logger, which opens photon.log
         # inside the output dir
-        prepare_output_dir(
+        guard_dir = (
+            multihost.prepare_output_dir if multihost.process_count() > 1
+            else prepare_output_dir
+        )
+        guard_dir(
             params.output_dir,
             delete_if_exists=params.delete_output_dirs_if_exist,
             hint="pass --delete-output-dirs-if-exist to overwrite",
         )
-        self.logger = logger or PhotonLogger(params.output_dir)
+        # every process logs; process 0's photon.log is the log of record
+        self.logger = logger or PhotonLogger(
+            params.output_dir if multihost.is_coordinator() else None
+        )
+        self._process_mesh = None
         self.emitter = emitter or EventEmitter()
         for name in params.event_listeners:
             self.emitter.register_by_name(name)
@@ -494,7 +536,7 @@ class GLMDriver:
                 max_magnitude=self._summary.max_magnitude,
                 intercept_index=data.intercept_index,
             )
-            if p.summarization_output_dir:
+            if p.summarization_output_dir and multihost.is_coordinator():
                 self._write_summary(p.summarization_output_dir)
         self._advance(DriverStage.PREPROCESSED)
 
@@ -513,7 +555,11 @@ class GLMDriver:
         )
         # the fused pass cannot draw the reservoir (it needs rows in the
         # final index space): diagnostics take scan + streamed summary
-        use_fused = needs_summary and p.diagnostic_mode == DiagnosticMode.NONE and hasattr(
+        multi = multihost.process_count() > 1
+        # several processes: the scan reads every file (the global
+        # vocabulary and staging shape), the summary and the checks each
+        # process's shard, the summary's moments summed in rank order
+        use_fused = not multi and needs_summary and p.diagnostic_mode == DiagnosticMode.NONE and hasattr(
             fmt, "stream_scan_with_summary"
         )
         fused_summary = None
@@ -570,7 +616,8 @@ class GLMDriver:
                             stats.max_nnz,
                         )
                 self._summary, self._stream_sample = streaming_summary(
-                    train_paths, fmt, index_map, stats, reservoir_rows=reservoir,
+                    shard_stream_files(train_paths, fmt) if multi else train_paths,
+                    fmt, index_map, stats, reservoir_rows=reservoir,
                     device=self.device,
                 )
             self._norm = build_normalization(
@@ -580,12 +627,14 @@ class GLMDriver:
                 max_magnitude=self._summary.max_magnitude,
                 intercept_index=intercept_index,
             )
-            if p.summarization_output_dir:
+            if p.summarization_output_dir and multihost.is_coordinator():
                 self._write_summary(p.summarization_output_dir)
         if p.data_validation_type != DataValidationType.VALIDATE_DISABLED:
-            # the in-memory path's checks, chunk by chunk
+            # the in-memory path's checks, chunk by chunk (each process
+            # checks its own shard)
             for chunk in iter_chunks(
-                train_paths, fmt, index_map, rows_per_chunk=65536,
+                shard_stream_files(train_paths, fmt) if multi else train_paths,
+                fmt, index_map, rows_per_chunk=65536,
                 nnz_width=stats.max_nnz, device=self.device,
             ):
                 sanity_check_data(chunk, p.task, p.data_validation_type)
@@ -638,7 +687,12 @@ class GLMDriver:
                 else None
             )
         guard = PreemptionGuard().install()
-        return GridCheckpointer(p.checkpoint_dir, run_config), guard
+        if not multihost.is_coordinator():
+            multihost.sync_processes()  # process 0 writes the manifest first
+        checkpointer = GridCheckpointer(p.checkpoint_dir, run_config)
+        if multihost.is_coordinator():
+            multihost.sync_processes()
+        return checkpointer, guard
 
     def train(self) -> None:
         p = self.params
@@ -672,8 +726,16 @@ class GLMDriver:
         ``initial`` (the retrain warm start) or zeros."""
         p = self.params
         data = self._data
+        mesh = self._mesh()
+        if p.distributed == "feature" and mesh is not None:
+            self._train_feature_sharded(mesh)
+            return
         trainer = train_generalized_linear_model
         extra = {"grid_checkpointer": grid_ckpt, "preemption_guard": guard}
+        if mesh is not None:
+            # the data-parallel fit: every rank its shard of the rows
+            extra["mesh"] = mesh
+            self.logger.info("training data-parallel over %d processes", mesh.world_size)
         if self._resolved_grid_mode(data.num_features) == "batched":
             trainer = train_grid_batched
             # one solve has no λ boundary to stop at
@@ -698,11 +760,66 @@ class GLMDriver:
             box=data.constraints,
             intercept_index=data.intercept_index,
             kernel=p.kernel,
-            device=self.device,
+            device=None if mesh is not None else self.device,
             track_models=p.validate_per_iteration,
             tile_cache_dir=p.tile_cache_dir,
             initial=initial,
             **extra,
+        )
+
+    def _mesh(self):
+        """The mesh over the processes, made once (every rank makes it in
+        the same order; the reference's ``maybe_make_mesh`` with processes
+        for devices): None with one process or "off"; "feature" a (data,
+        model) mesh with ``--model-shards`` (default 2) on the model axis;
+        "auto" a data mesh."""
+        p = self.params
+        n = multihost.process_count()
+        if p.distributed == "off" or n < 2:
+            return None
+        if self._process_mesh is None:
+            if p.distributed == "feature":
+                m = p.model_shards if p.model_shards is not None else 2
+                if n % m != 0:
+                    raise ValueError(f"model_shards={m} does not divide the {n} processes")
+                shape, axes = (n // m, m), (DATA_AXIS, MODEL_AXIS)
+            else:
+                shape, axes = (n,), (DATA_AXIS,)
+            self._process_mesh = make_mesh(
+                shape, axes, device=self.device,
+                backend=multihost.backend_for(n, p.device),
+            )
+        return self._process_mesh
+
+    def _train_feature_sharded(self, mesh) -> None:
+        """The in-memory λ-grid over a feature-sharded coefficient vector
+        (``--distributed feature``), warm-started or batched."""
+        p = self.params
+        data = self._data
+        batched = self._resolved_grid_mode(data.num_features) == "batched"
+        trainer = train_grid_batched_feature_sharded if batched else train_feature_sharded
+        self.logger.info(
+            "training feature-sharded over mesh %s%s", dict(zip(mesh.axis_names, mesh.shape)),
+            " with a BATCHED lambda grid" if batched else "",
+        )
+        self.models, self.results = trainer(
+            data.batch,
+            p.task,
+            data.num_features,
+            mesh=mesh,
+            regularization_type=p.regularization_type,
+            regularization_weights=p.regularization_weights,
+            elastic_net_alpha=p.elastic_net_alpha,
+            max_iter=p.max_num_iterations,
+            tolerance=p.tolerance,
+            normalization=self._norm,
+            compute_variances=p.compute_variances,
+            box=data.constraints,
+            intercept_index=data.intercept_index,
+            kernel=p.kernel,
+            optimizer_type=p.optimizer_type,
+            track_models=p.validate_per_iteration,
+            tile_cache_dir=p.tile_cache_dir,
         )
 
     def _train_streaming(self, grid_ckpt, guard, initial) -> None:
@@ -719,8 +836,33 @@ class GLMDriver:
                 "stream memory budget %d B -> %d rows/chunk, %d B cache tiers",
                 p.stream_memory_budget, rows_per_chunk, cache_bytes,
             )
+        # a plain streamed run over several processes needs no mesh: each
+        # streams its shard and the partials are summed in rank order
+        mesh = self._mesh() if p.distributed == "feature" else None
+        if mesh is not None:
+            self.logger.info(
+                "training in streaming FEATURE-SHARDED mode over mesh %s (%d rows "
+                "per full-batch pass)", dict(zip(mesh.axis_names, mesh.shape)),
+                stats.num_rows,
+            )
+            self.models, self.results, _ = train_streaming_feature_sharded(
+                train_paths, p.task, mesh=mesh,
+                regularization_type=p.regularization_type,
+                regularization_weights=p.regularization_weights,
+                elastic_net_alpha=p.elastic_net_alpha,
+                max_iter=p.max_num_iterations, tolerance=p.tolerance,
+                rows_per_chunk=rows_per_chunk, cache_bytes=cache_bytes,
+                sharded_cache_bytes=cache_bytes, optimizer_type=p.optimizer_type,
+                compute_variances=p.compute_variances, box=self._data.constraints,
+                track_models=p.validate_per_iteration, fmt=self._fmt,
+                index_map=self._data.index_map, stats=stats,
+                grid_checkpointer=grid_ckpt, preemption_guard=guard,
+            )
+            return
         self.logger.info(
-            "training in streaming mode (%d rows per full-batch pass)", stats.num_rows
+            "training in streaming mode (%d rows per full-batch pass%s)", stats.num_rows,
+            f"; this process streams its shard of {multihost.process_count()}"
+            if multihost.process_count() > 1 else "",
         )
         objectives = []
         self.models, self.results, _ = train_streaming_glm(
@@ -1203,6 +1345,13 @@ class GLMDriver:
             self.emitter.close()
             self.logger.close()
             return
+        if not multihost.is_coordinator():
+            # every rank holds the same models: process 0 validates and writes
+            self.logger.info("stages: %s", [st.name for st in self.stage_history])
+            self.obs.finish()
+            self.emitter.close()
+            self.logger.close()
+            return
         if p.validate_dir:
             self.validate()
         if p.diagnostic_mode != DiagnosticMode.NONE:
@@ -1293,11 +1442,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--distributed", default="auto", choices=["auto", "off", "feature"],
-        help="auto and off train on one card; feature is not ported yet "
-        "(ROADMAP item 13)",
+        help="over several processes: auto trains data-parallel, feature "
+        "shards the coefficients over a (data, model) mesh; off, or one "
+        "process: one card",
     )
     ap.add_argument("--model-shards", type=int, default=None,
-                    help="not ported yet (ROADMAP item 13)")
+                    help="model-axis size for --distributed feature (default 2)")
     ap.add_argument(
         "--streaming", default="false",
         help="true: stream the training data from disk per evaluation "
@@ -1329,7 +1479,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--diagnostic-reservoir-rows", type=int, default=100_000)
     ap.add_argument("--diagnostic-reservoir-bytes", type=int, default=256 << 20)
     ap.add_argument("--coordinator-address", default=None,
-                    help="not ported yet (ROADMAP item 13)")
+                    help="host:port (or tcp://host:port) where process 0 of a "
+                    "multi-process run listens; with --num-processes and "
+                    "--process-id, one process a rank")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument(

@@ -19,6 +19,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.ops import fixed_order
 from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -173,7 +174,11 @@ def mf_row_scores(row_latent: Tensor, col_latent: Tensor, rows: Tensor, cols: Te
 def sparse_scatter_add(batch: SparseBatch, row_coef: Tensor, dim: int) -> Tensor:
     """sum_i row_coef[i] * x_i as a dense [dim] vector, or [G, dim] for a
     bank of row coefficients [G, n] (the reference's per-datum axpy,
-    ValueAndGradientAggregator.scala:133-154)."""
+    ValueAndGradientAggregator.scala:133-154), summed in a fixed order
+    (``ops/fixed_order.py``)."""
     contrib = (batch.values * row_coef[..., None]).flatten(-2)
     out = row_coef.new_zeros(row_coef.shape[:-1] + (dim,))
-    return out.index_add_(-1, batch.indices.reshape(-1), contrib)
+    return fixed_order.index_add(
+        out, batch.indices.reshape(-1), contrib,
+        plan=fixed_order.cached_plan(batch.indices) if out.is_cuda else None,
+    )

@@ -17,8 +17,17 @@ objective: the scatter objective, or the tiled one (K1 on the card), whose
 schedules ``ensure_tiled`` builds once and reuses across sweeps because
 every sweep's batch shares the dataset's cached feature tensors.
 
-Not here yet, each raising with its ROADMAP item: the feature-sharded fixed
-effect and ``PodRandomEffectCoordinate`` (item 13).
+With a ``mesh`` (this rank's ``parallel.mesh.ProcessMesh``) the fixed
+effect solves over the ranks: a (data, model) mesh runs the
+feature-sharded fit of ``parallel/distributed.py`` on this rank's cell,
+built once and kept on the dataset (only the row vectors a sweep changes,
+the offsets and a down-sampling draw's weights, are cut to the cell anew);
+a mesh with only a data axis runs the data-parallel fit on this rank's
+rows. The coefficients come back whole on every rank, so scores and
+residuals stay replicated.
+
+Not here yet, raising with its ROADMAP item: ``PodRandomEffectCoordinate``
+(item 13).
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.batch import SparseBatch
-from photon_ml_tpu_torch.data.sampler import down_sample
+from photon_ml_tpu_torch.data.sampler import down_sample, down_sample_weights
 from photon_ml_tpu_torch.game.config import (
     FactoredRandomEffectConfiguration,
     ProjectorType,
@@ -55,7 +64,26 @@ from photon_ml_tpu_torch.game.random_effect_data import (
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import create_model
 from photon_ml_tpu_torch.optim.common import OptResult
-from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
+from photon_ml_tpu_torch.ops.tiled_sparse import (
+    FeatureShardedTiledBatch,
+    TiledGLMObjective,
+    TiledSparseBatch,
+    build_sharded_tiled_batch,
+    feature_shard_tiled_batch,
+)
+from photon_ml_tpu_torch.optim.config import OptimizerType
+from photon_ml_tpu_torch.optim.problem import _VARIANCE_EPSILON, GLMOptimizationProblem
+from photon_ml_tpu_torch.parallel.distributed import (
+    feature_shard_sparse_batch,
+    feature_sharded_extras,
+    feature_sharded_glm_fit,
+    feature_sharded_hessian_diagonal,
+)
+from photon_ml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    data_shard_sparse_batch,
+)
 
 Tensor = torch.Tensor
 
@@ -89,12 +117,22 @@ def _generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _cut_rows(rows: Tensor, start: int, length: int) -> Tensor:
+    """``rows[start:start + length]``, zero-padded to ``length`` (a data
+    shard's padded rows: weight 0, inert)."""
+    out = rows.new_zeros(length)
+    part = rows[start:start + length]
+    out[: part.shape[0]] = part
+    return out
+
+
 @dataclass
 class FixedEffectCoordinate(Coordinate):
-    """Global GLM block (FixedEffectCoordinate.scala:137-164). ``mesh``
-    (the data-parallel and feature-sharded fixed effect) waits for ROADMAP
-    item 13. ``sampler_seed`` seeds the down-sampling draw
-    (``down_sampling_rate < 1``), one ``torch.Generator`` per update."""
+    """Global GLM block (FixedEffectCoordinate.scala:137-164).
+    ``sampler_seed`` seeds the down-sampling draw (``down_sampling_rate <
+    1``), one ``torch.Generator`` per update. ``mesh``: this rank's
+    ProcessMesh (module note); every rank of it builds the coordinate with
+    the same dataset and calls ``update_model`` with the same arguments."""
 
     name: str
     dataset: GameDataset
@@ -104,12 +142,6 @@ class FixedEffectCoordinate(Coordinate):
     down_sampling_rate: float = 1.0
     sampler_seed: int = 0
     mesh: Optional[object] = None
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: the fixed effect over a mesh (ROADMAP item 13)"
-            )
 
     def initialize_model(self) -> FixedEffectModel:
         dim = self.dataset.shards[self.feature_shard_id].dim
@@ -125,7 +157,12 @@ class FixedEffectCoordinate(Coordinate):
             offsets = self.dataset.row_tensors()[1] + residual
         return self.dataset.batch_for_shard(self.feature_shard_id, offsets)
 
+    def _is_feature_sharded(self) -> bool:
+        return self.mesh is not None and MODEL_AXIS in self.mesh.axis_names
+
     def update_model(self, model, residual=None):
+        if self.mesh is not None:
+            return self._update_model_on_mesh(model, residual)
         batch = self._batch(residual)
         initial = model.model.means if model is not None else None
         if self.down_sampling_rate < 1.0:
@@ -142,12 +179,172 @@ class FixedEffectCoordinate(Coordinate):
             result,
         )
 
+    # -- over a mesh --------------------------------------------------------
+
+    def _rows(self, residual):
+        """The update's (offsets, weights) over every row: the residual
+        folded in, the down-sampling draw applied."""
+        labels, offsets, weights = self.dataset.row_tensors()
+        if residual is not None:
+            offsets = offsets + residual
+        if self.down_sampling_rate < 1.0:
+            weights = down_sample_weights(
+                _generator(weights.device, self.sampler_seed), labels, weights,
+                self.down_sampling_rate, self.problem.task,
+            )
+        return offsets, weights
+
+    def _mesh_state(self) -> dict:
+        """This rank's layout and fit builders, made once. The layout
+        depends on the shard, the mesh's shape and this rank's place in it
+        and the kernel, not on the optimizer, so it is kept on the dataset
+        (one entry a feature shard) and a grid of combos lays out once."""
+        state = self.__dict__.get("_mesh_state_cache")
+        if state is not None:
+            return state
+        mesh, problem = self.mesh, self.problem
+        dim = self.dataset.shards[self.feature_shard_id].dim
+        tiled = isinstance(problem.objective, TiledGLMObjective)
+        sharded = self._is_feature_sharded()
+        layouts = self.dataset.__dict__.setdefault("_fs_layout_cache", {})
+        key = (
+            self.feature_shard_id, tuple(mesh.shape), tuple(mesh.axis_names),
+            tuple(mesh.coords), tiled,
+        )
+        layout = layouts.get(key)
+        if layout is None:
+            base = self.dataset.batch_for_shard(self.feature_shard_id)
+            d_shards = mesh.size(DATA_AXIS)
+            d_index = mesh.index(DATA_AXIS)
+            if sharded:
+                build = feature_shard_tiled_batch if tiled else feature_shard_sparse_batch
+                cell, block_dim = build(
+                    base, dim, d_shards, mesh.size(MODEL_AXIS), d_index,
+                    mesh.index(MODEL_AXIS), device=mesh.device,
+                )
+            elif tiled:
+                cell = build_sharded_tiled_batch(
+                    base, dim, d_shards, d_index, device=mesh.device
+                )
+                block_dim = dim
+            else:
+                cell, block_dim = None, dim  # cut from the batch each update
+            for k in [k for k in layouts if k[0] == self.feature_shard_id]:
+                del layouts[k]
+            layout = layouts[key] = (cell, block_dim)
+        cell, block_dim = layout
+        state = dict(cell=cell, dim=dim)
+        if sharded:
+            use_owlqn = problem.regularization.has_l1
+            d_pad = mesh.size(MODEL_AXIS) * block_dim
+            extras_tail, l1_mask, with_norm = feature_sharded_extras(
+                dim, d_pad, normalization=problem.objective.norm, box=problem.box,
+                use_owlqn=use_owlqn, intercept_index=problem.intercept_index,
+                device=mesh.device,
+            )
+            use_tron = problem.config.optimizer_type == OptimizerType.TRON
+            state.update(
+                d_pad=d_pad, extras_tail=extras_tail, l1_mask=l1_mask,
+                norm_extras=extras_tail[:2] if with_norm else [],
+                fit=feature_sharded_glm_fit(
+                    problem.objective, mesh,
+                    optimizer="tron" if use_tron else ("owlqn" if use_owlqn else "lbfgs"),
+                    max_iter=problem.config.max_iter, tol=problem.config.tolerance,
+                    history=problem.config.lbfgs_history,
+                    max_cg=problem.config.tron_max_cg, with_norm=with_norm,
+                    with_box=problem.box is not None,
+                ),
+                hdiag=(
+                    feature_sharded_hessian_diagonal(
+                        problem.objective, mesh, with_norm=with_norm
+                    )
+                    if problem.compute_variances else None
+                ),
+            )
+        self.__dict__["_mesh_state_cache"] = state
+        return state
+
+    def _cell_rows(self, residual):
+        """This rank's cell with the update's row vectors."""
+        st = self._mesh_state()
+        offsets, weights = self._rows(residual)
+        cell, mesh = st["cell"], self.mesh
+        d_shards, d_index = mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)
+        if cell is None:  # the data-parallel scatter fit: this rank's rows
+            batch = self.dataset.batch_for_shard(self.feature_shard_id, offsets)
+            return data_shard_sparse_batch(
+                replace(batch, weights=weights), d_shards, d_index
+            )
+        if isinstance(cell, TiledSparseBatch):  # the data-parallel tiled fit
+            R = cell.num_rows
+            return replace(
+                cell, offsets=_cut_rows(offsets, d_index * R, R),
+                weights=_cut_rows(weights, d_index * R, R),
+            )
+        if isinstance(cell, FeatureShardedTiledBatch):
+            R = cell.meta.rows_per_shard
+            return replace(cell, cell=replace(
+                cell.cell, offsets=_cut_rows(offsets, d_index * R, R),
+                weights=_cut_rows(weights, d_index * R, R),
+            ))
+        n_loc = cell.batch.num_rows
+        return replace(cell, batch=replace(
+            cell.batch, offsets=_cut_rows(offsets, d_index * n_loc, n_loc),
+            weights=_cut_rows(weights, d_index * n_loc, n_loc),
+        ))
+
+    def _update_model_on_mesh(self, model, residual):
+        st = self._mesh_state()
+        cell = self._cell_rows(residual)
+        initial = model.model.means if model is not None else None
+        if not self._is_feature_sharded():  # the data-parallel solve
+            coefficients, result = self.problem.run(
+                cell, initial=initial, reg_weight=self.reg_weight, mesh=self.mesh
+            )
+        else:
+            dim = st["dim"]
+            w0 = torch.zeros(st["d_pad"], device=self.mesh.device)
+            if initial is not None:
+                w0[:dim] = initial
+            l1, l2 = self.problem.regularization.split(self.reg_weight)
+            extras = (
+                [l1, st["l1_mask"]] if st["l1_mask"] is not None else []
+            ) + st["extras_tail"]
+            result = st["fit"](w0, cell, l2, *extras)
+            variances = None
+            if st["hdiag"] is not None:
+                hd = st["hdiag"](result.coefficients, cell, l2, *st["norm_extras"])
+                variances = (1.0 / (hd + _VARIANCE_EPSILON))[:dim]
+            coefficients = Coefficients(result.coefficients[:dim], variances)
+            result = replace(result, coefficients=coefficients.means)
+        return (
+            FixedEffectModel(self.problem.create_model(coefficients), self.feature_shard_id),
+            result,
+        )
+
+    def prepare(self, model=None) -> None:
+        """Stage the solve's static inputs ahead of ``update_model``: this
+        rank's layout on a mesh, else the shard's device columns."""
+        if self.mesh is not None:
+            self._mesh_state()
+        else:
+            self.dataset.batch_for_shard(self.feature_shard_id)
+
     def update_model_grid(self, reg_weights):
         """Every grid weight in one solve over a [G, d] bank
         (``problem.run_grid``: K2 when the problem is tiled), cold starts
         per member; the down-sampling draw is λ-independent, so the whole
         grid solves against one sampled batch. -> [(FixedEffectModel,
         OptResult), ...] aligned with ``reg_weights``."""
+        if self.mesh is not None:
+            # the grid over a mesh solves member by member, cold, on the
+            # rank's cached layout
+            out = []
+            for w in reg_weights:
+                solver = replace(self, reg_weight=float(w))
+                solver.__dict__["_mesh_state_cache"] = self._mesh_state()
+                out.append(solver.update_model(None))
+            return out
         batch = self._batch(None)
         if self.down_sampling_rate < 1.0:
             batch = down_sample(

@@ -15,8 +15,8 @@ tracker come back in one batched readback per iteration
 (``parallel/overlap.py``). With a ``checkpointer`` every iteration's
 models are saved (off the critical path, drained before ``run`` returns)
 and a rerun resumes from the latest step; a ``preemption_guard`` stops the
-run at the next iteration boundary. The guard is read on this process
-alone: the collective agreement over processes waits for ROADMAP item 13.
+run at the next iteration boundary, agreed by every process of a
+multi-process run (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.obs.trace import span as obs_span
 from photon_ml_tpu_torch.obs.trace import start_span
 from photon_ml_tpu_torch.ops.losses import loss_for_task
-from photon_ml_tpu_torch.parallel import overlap
+from photon_ml_tpu_torch.parallel import multihost, overlap
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger
 
@@ -84,10 +84,14 @@ class CoordinateDescent:
         self.preemption_guard = preemption_guard
 
     def _preemption_agreed(self) -> bool:
-        """Whether to stop for preemption: the guard's flag on this
-        process (the any-process agreement of a multi-process run waits
-        for ROADMAP item 13)."""
-        return self.preemption_guard is not None and self.preemption_guard.requested
+        """Whether to stop for preemption, agreed across processes: a
+        SIGTERM may reach only some of them, and a process that stopped
+        alone would leave the others waiting in the next iteration's
+        collectives. Every process polls at the same iteration boundary;
+        any process's flag stops all (one process: its own flag)."""
+        if self.preemption_guard is None:
+            return False
+        return multihost.any_process(self.preemption_guard.requested)
 
     def _objective_device(self, total_score: Tensor, models: Dict[str, object]) -> Tensor:
         """loss(sum of scores + offsets) + sum of reg terms

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.game.random_effect_data import RandomEffectDataset
+from photon_ml_tpu_torch.ops import fixed_order
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.optim import common
 from photon_ml_tpu_torch.optim.common import (
@@ -107,9 +108,10 @@ class LazyRandomEffectTracker:
 def densify(ix: Tensor, v: Tensor, d_local: int) -> Tensor:
     """Each entity's sparse rows ``[E, S, k]`` as a dense ``X [E, S, D]``:
     an indexed scatter-add, so duplicate indices in a row sum and padding
-    (index 0, value 0) adds zero."""
+    (index 0, value 0) adds zero; in a fixed order on the card
+    (``ops/fixed_order.py``)."""
     E, S, _ = ix.shape
-    return v.new_zeros(E, S, d_local).scatter_add_(2, ix, v)
+    return fixed_order.scatter_add_rows(v.new_zeros(E, S, d_local), ix, v)
 
 
 def densify_compare(ix: Tensor, v: Tensor, d_local: int, chunk: int = 1024) -> Tensor:
@@ -141,7 +143,9 @@ def _sparse_objective(loss: PointwiseLoss, ix, v, lab, off, w, l2):
         return (v * torch.gather(c, 1, flat).view(E, S, k)).sum(dim=-1)
 
     def scatter(c_like, rows):
-        return torch.zeros_like(c_like).scatter_add_(1, flat, rows.reshape(E, S * k))
+        return fixed_order.scatter_add_rows(
+            torch.zeros_like(c_like), flat, rows.reshape(E, S * k)
+        )
 
     def vg(c):
         z = margins(c) + off

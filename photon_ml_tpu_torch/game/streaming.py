@@ -976,9 +976,14 @@ class StreamingCoordinateDescent:
         return coord.initialize_bank()
 
     def _preemption_agreed(self) -> bool:
-        """Single process: the local guard's flag (the multi-process
-        agreement waits for ROADMAP item 13)."""
-        return self.preemption_guard is not None and self.preemption_guard.requested
+        """Whether to stop for preemption, agreed across processes as
+        ``CoordinateDescent._preemption_agreed`` (streamed GAME runs in one
+        process, validated up front, so this is the guard's own flag)."""
+        if self.preemption_guard is None:
+            return False
+        from photon_ml_tpu_torch.parallel import multihost
+
+        return multihost.any_process(self.preemption_guard.requested)
 
     def _rescore(self, name, coord, state, scores) -> None:
         for i in range(self.store.count):

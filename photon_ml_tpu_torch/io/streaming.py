@@ -18,8 +18,14 @@ Threads: a worker thread only decodes and stages host arrays
 pinned memory with ``non_blocking=True``, so it queues on the consumer's
 stream in order with the kernels that read it.
 
-Out of scope here (ROADMAP item 13): multi-process streaming (file shards
-and the cross-host reductions) and the feature-sharded streamed objective.
+Several processes (``parallel/multihost.py``): each streams its shard of
+the input files (:func:`shard_stream_files`, split by content so every
+process agrees), and every evaluation's partials, like the summary's
+moments, are gathered and summed in rank order, so each process holds the
+same bits run after run. :class:`FeatureShardedStreamingObjective` streams
+every file on each rank of a (data, model) mesh and keeps only the rank's
+cell of each chunk: the reference's single process over a mesh of
+devices, with ranks for devices.
 """
 
 from __future__ import annotations
@@ -290,6 +296,25 @@ def _prefetched(source: Iterator, depth: int = 2) -> Iterator:
         stop.set()
 
 
+def shard_stream_files(paths, fmt) -> List[str]:
+    """This process's shard of the format's input files: the sorted list
+    (``fmt.stream_files``), split by content (``multihost.process_shard``)
+    so that every process agrees whatever order it listed them in. The
+    whole list single-process."""
+    from photon_ml_tpu_torch.parallel.multihost import process_count, process_shard
+
+    if process_count() <= 1:
+        return fmt.stream_files(paths)
+    return process_shard(fmt.stream_files(paths))
+
+
+def shard_avro_files(paths) -> List[str]:
+    """:func:`shard_stream_files` of the default Avro format."""
+    from photon_ml_tpu_torch.io.input_format import AvroInputDataFormat
+
+    return shard_stream_files(paths, AvroInputDataFormat())
+
+
 def streaming_summary(
     paths, fmt, index_map, stats: StreamStats, *, rows_per_chunk: int = 65536,
     reservoir_rows: int = 0, seed: int = 0, device: DeviceLike = None,
@@ -344,7 +369,26 @@ def streaming_summary(
                 for r, a in zip(res, host):
                     r[dst] = a[sel]
                 seen += n_real
-    if acc is None:
+    from photon_ml_tpu_torch.parallel import multihost
+
+    if multihost.process_count() > 1:
+        # each process scanned its file shard; one with no files joins with
+        # inert moments. Sums in rank order, so every process agrees.
+        if acc is None:
+            big = float("inf")
+            z = torch.zeros(dim, dtype=torch.float64, device=dev)
+            acc = [z.new_zeros(()), z, z, z, z, z - big, z + big]
+        gathered = multihost.allgather_objects([t.cpu() for t in acc])
+        acc = [t.to(dev) for t in gathered[0]]
+        for other in gathered[1:]:
+            other = [t.to(dev) for t in other]
+            for i in range(5):
+                acc[i] = acc[i] + other[i]
+            acc[5] = torch.maximum(acc[5], other[5])
+            acc[6] = torch.minimum(acc[6], other[6])
+        if float(acc[0]) == 0:
+            raise ValueError(f"no rows found under {paths!r} on any process")
+    elif acc is None:
         raise ValueError(f"no rows found under {paths!r}")
     summary = finalize_summary(*(t.float() for t in acc))
     sample = None
@@ -701,6 +745,14 @@ class StreamingGLMObjective:
 
     # -- the objective -----------------------------------------------------
 
+    @staticmethod
+    def _reduce_hosts(vec: torch.Tensor) -> torch.Tensor:
+        """The processes' partials summed in rank order (the
+        treeAggregate's combine); ``vec`` single-process."""
+        from photon_ml_tpu_torch.parallel.multihost import sum_in_rank_order
+
+        return sum_in_rank_order(vec)
+
     def value_and_gradient(self, w, l2_weight=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
         value = w.new_zeros(())
         grad = w.new_zeros(self.dim)
@@ -711,6 +763,8 @@ class StreamingGLMObjective:
         for batch in scattered:
             v, g = partial_value_and_gradient(self._objective, w, batch)
             value, grad = value + v, grad + g
+        packed = self._reduce_hosts(torch.cat([value[None], grad]))
+        value, grad = packed[0], packed[1:]
         value = value + 0.5 * l2_weight * torch.dot(w, w)
         return value, grad + l2_weight * w
 
@@ -723,7 +777,7 @@ class StreamingGLMObjective:
             hv = hv + self._tiled_objective.hessian_vector(w, direction, tb, 0.0)
         for batch in scattered:
             hv = hv + partial_hessian_vector(self._objective, w, direction, batch)
-        return hv + l2_weight * direction
+        return self._reduce_hosts(hv) + l2_weight * direction
 
     def hessian_diagonal(self, w, l2_weight=0.0) -> torch.Tensor:
         """Streamed Hessian diagonal (the variance pass)."""
@@ -733,7 +787,7 @@ class StreamingGLMObjective:
             diag = diag + self._tiled_objective.hessian_diagonal(w, tb, 0.0)
         for batch in scattered:
             diag = diag + partial_hessian_diagonal(self._objective, w, batch)
-        return diag + l2_weight
+        return self._reduce_hosts(diag) + l2_weight
 
     def close(self) -> None:
         """Drop the tiers and remove the spill directory."""
@@ -743,3 +797,150 @@ class StreamingGLMObjective:
         self._mem_cache = []
         self._tiled = None
         self._cached = False
+
+
+class FeatureShardedStreamingObjective:
+    """The streamed objective over a FEATURE-SHARDED coefficient vector on
+    a (data, model) mesh of ranks: a dataset larger than host memory and a
+    model larger than one card at once (the reference's
+    ``FeatureShardedStreamingObjective``, with ranks for its devices).
+
+    Every rank streams all the files through the staged-chunk tiers of a
+    :class:`StreamingGLMObjective` (the scatter kernel: the cells below do
+    the math) and cuts each chunk to its (data shard x feature block) cell
+    (``parallel.distributed.feature_shard_sparse_batch``), built once and
+    kept on the device up to ``sharded_cache_bytes``; chunks past that are
+    cut anew on every pass. An evaluation folds the cells chunk by chunk
+    with the block-local closures (their collectives over the model and
+    data groups), then gathers the blocks over the model group once: the
+    value and every vector come back whole ``[d_pad]`` and the same on
+    every rank, so the host optimizers run on each rank alike.
+
+    Scope (as the reference's): no normalization, the sparse layout.
+    """
+
+    def __init__(
+        self,
+        paths,
+        fmt,
+        index_map,
+        stats: StreamStats,
+        task,
+        mesh,
+        *,
+        rows_per_chunk: int = 65536,
+        cache_bytes: int = 2 << 30,
+        sharded_cache_bytes: int = 2 << 30,
+        prefetch: bool = True,
+        spill_dir: Optional[str] = None,
+    ):
+        from photon_ml_tpu_torch.ops.losses import loss_for_task
+        from photon_ml_tpu_torch.ops.normalization import identity_context
+        from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+        if MODEL_AXIS not in mesh.axis_names or DATA_AXIS not in mesh.axis_names:
+            raise ValueError(
+                "streaming feature-sharded training needs a (data, model) "
+                f"mesh, got axes {mesh.axis_names}"
+            )
+        self.mesh = mesh
+        self.data_shards = mesh.size(DATA_AXIS)
+        self.model_shards = mesh.size(MODEL_AXIS)
+        self._cell_at = (mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS))
+        self._groups = (mesh.groups[DATA_AXIS], mesh.groups[MODEL_AXIS])
+        self.dim = index_map.size
+        self.block_dim = -(-self.dim // self.model_shards)
+        self.d_pad = self.model_shards * self.block_dim
+        self._own = slice(
+            self._cell_at[1] * self.block_dim, (self._cell_at[1] + 1) * self.block_dim
+        )
+        self.sharded_cache_bytes = int(sharded_cache_bytes)
+        self._base = StreamingGLMObjective(
+            paths, fmt, index_map, stats, task, rows_per_chunk=rows_per_chunk,
+            cache_bytes=cache_bytes, prefetch=prefetch, spill_dir=spill_dir,
+            kernel="scatter", device=mesh.device,
+        )
+        self._loss = loss_for_task(task)
+        self._norm = identity_context()
+        self._cells: Optional[List[Optional[object]]] = None
+
+    def _cell(self, batch):
+        from photon_ml_tpu_torch.parallel.distributed import feature_shard_sparse_batch
+
+        cell, block_dim = feature_shard_sparse_batch(
+            batch, self.dim, self.data_shards, self.model_shards, *self._cell_at,
+            device=self.mesh.device,
+        )
+        assert block_dim == self.block_dim
+        return cell
+
+    def _sharded_chunks(self):
+        """This rank's cell of every chunk, in stream order; the first pass
+        builds them and keeps those that fit the budget."""
+        if self._cells is None:
+            built: List[Optional[object]] = []
+            budget = self.sharded_cache_bytes
+            for batch in self._base.chunks():
+                cell = self._cell(batch)
+                b = cell.batch
+                nbytes = sum(
+                    t.numel() * t.element_size()
+                    for t in (b.indices, b.values, b.labels, b.offsets, b.weights)
+                )
+                if nbytes <= budget:
+                    budget -= nbytes
+                    built.append(cell)
+                else:
+                    built.append(None)
+                yield cell
+            self._cells = built
+            return
+        for i, cell in enumerate(self._cells):
+            if cell is None:  # past the budget: cut from the tiers again
+                cell = self._cell(next(self._base.chunks(i)))
+            yield cell
+
+    def _gather(self, block):
+        from photon_ml_tpu_torch.optim.common import all_gather_last
+
+        return all_gather_last(block, self._groups[1])
+
+    def value_and_gradient(self, w, l2_weight=0.0):
+        from photon_ml_tpu_torch.parallel.distributed import block_local_vg
+
+        w_block = w[self._own].contiguous()
+        value = w.new_zeros(())
+        grad = w.new_zeros(self.block_dim)
+        for cell in self._sharded_chunks():
+            v, g = block_local_vg(self._loss, cell, *self._groups, 0.0, self._norm)(w_block)
+            value, grad = value + v, grad + g
+        value = value + 0.5 * l2_weight * torch.dot(w, w)
+        return value, self._gather(grad) + l2_weight * w
+
+    def hessian_vector(self, w, direction, l2_weight=0.0):
+        from photon_ml_tpu_torch.parallel.distributed import block_local_hvp_factory
+
+        w_block = w[self._own].contiguous()
+        d_block = direction[self._own].contiguous()
+        hv = w.new_zeros(self.block_dim)
+        for cell in self._sharded_chunks():
+            factory = block_local_hvp_factory(
+                self._loss, cell, *self._groups, 0.0, self._norm
+            )
+            hv = hv + factory(w_block)(d_block)
+        return self._gather(hv) + l2_weight * direction
+
+    def hessian_diagonal(self, w, l2_weight=0.0):
+        from photon_ml_tpu_torch.parallel.distributed import block_local_hdiag
+
+        w_block = w[self._own].contiguous()
+        diag = w.new_zeros(self.block_dim)
+        for cell in self._sharded_chunks():
+            diag = diag + block_local_hdiag(
+                self._loss, cell, *self._groups, 0.0, self._norm
+            )(w_block)
+        return self._gather(diag) + l2_weight
+
+    def close(self) -> None:
+        self._cells = None
+        self._base.close()

@@ -17,8 +17,8 @@
 // shape with G = 4 that is ~200 MB of schedule plus 4 * G * (n_src + n_out)
 // bytes of vectors, ~0.066 ms at the H100's 3.35 TB/s.
 //
-// The device code is K1's (bilinear_pass_core.cuh) for a tile of GT
-// members: launch grid (work items, member tiles); the accumulator holds
+// The device code is K1's (bilinear_pass_core.cuh), with its fixed order
+// of additions, for a tile of GT members: launch grid (work items, member tiles); the accumulator holds
 // the tile's output windows, [GT][W] f32 in shared memory, and each entry
 // is loaded once for the tile's members. The host cuts the bank into as
 // many tiles as still run in one wave (members_per_cta): the tiles' walks
@@ -48,7 +48,8 @@ grid_bilinear_pass_kernel(photon::Pass a) {
 }
 
 template <int V, int GT>
-int launch(const photon::Pass& a, int n_items, cudaStream_t stream, int* ctas) {
+int launch(const photon::Pass& a, int n_items, const int32_t* shared,
+           int n_shared, cudaStream_t stream, int* ctas) {
   static size_t done_smem = 0;  // configured once per shared-memory size
   static int done_ctas = 0;
   const size_t smem = static_cast<size_t>(a.window) * sizeof(float) * GT;
@@ -63,20 +64,26 @@ int launch(const photon::Pass& a, int n_items, cudaStream_t stream, int* ctas) {
   if (n_items > 0 && n_tiles > 0) {
     dim3 grid(n_items, n_tiles);
     grid_bilinear_pass_kernel<V, GT><<<grid, kThreads, smem, stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(photon::launch_reduce(
+        shared, n_shared, a.scratch, a.out, a.window, a.num_members, a.n_out,
+        stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int V>
-int by_tile(const photon::Pass& a, int n_items, cudaStream_t s, int* ctas) {
+int by_tile(const photon::Pass& a, int n_items, const int32_t* sh,
+            int n_sh, cudaStream_t s, int* ctas) {
   switch (a.gt) {
-    case 1: return launch<V, 1>(a, n_items, s, ctas);
-    case 2: return launch<V, 2>(a, n_items, s, ctas);
-    case 3: return launch<V, 3>(a, n_items, s, ctas);
-    case 4: return launch<V, 4>(a, n_items, s, ctas);
-    case 5: return launch<V, 5>(a, n_items, s, ctas);
-    case 6: return launch<V, 6>(a, n_items, s, ctas);
-    case 7: return launch<V, 7>(a, n_items, s, ctas);
+    case 1: return launch<V, 1>(a, n_items, sh, n_sh, s, ctas);
+    case 2: return launch<V, 2>(a, n_items, sh, n_sh, s, ctas);
+    case 3: return launch<V, 3>(a, n_items, sh, n_sh, s, ctas);
+    case 4: return launch<V, 4>(a, n_items, sh, n_sh, s, ctas);
+    case 5: return launch<V, 5>(a, n_items, sh, n_sh, s, ctas);
+    case 6: return launch<V, 6>(a, n_items, sh, n_sh, s, ctas);
+    case 7: return launch<V, 7>(a, n_items, sh, n_sh, s, ctas);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -85,10 +92,12 @@ int by_tile(const photon::Pass& a, int n_items, cudaStream_t s, int* ctas) {
 
 extern "C" {
 
-// gt_per_cta: members per CTA, 1..7.
+// gt_per_cta: members per CTA, 1..7. items, shared and scratch as for K1's
+// photon_bilinear_pass, with scratch [rows, num_members, window].
 // With n_items = 0 it launches nothing and only reports the kernel's
 // resident CTAs per SM in *ctas_per_sm.
 int photon_grid_bilinear_pass(const void* items, int n_items,
+                              const void* shared, int n_shared, void* scratch,
                               const void* step_in, const void* step_sizes,
                               const void* in_pos, const void* out_pos,
                               const void* vals, int L, const void* src,
@@ -110,12 +119,14 @@ int photon_grid_bilinear_pass(const void* items, int n_items,
   a.n_in = n_in;
   a.out = static_cast<float*>(out);
   a.n_out = n_out;
+  a.scratch = static_cast<float*>(scratch);
   a.window = window;
   a.num_members = num_members;
   a.gt = gt_per_cta;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? by_tile<4>(a, n_items, s, ctas_per_sm)
-             : by_tile<1>(a, n_items, s, ctas_per_sm);
+  const int32_t* sh = static_cast<const int32_t*>(shared);
+  return vec ? by_tile<4>(a, n_items, sh, n_shared, s, ctas_per_sm)
+             : by_tile<1>(a, n_items, sh, n_shared, s, ctas_per_sm);
 }
 
 const char* photon_grid_cuda_error_string(int code) {

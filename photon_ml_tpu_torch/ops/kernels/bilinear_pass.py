@@ -31,16 +31,25 @@ order reads it through L1 (:func:`default_mode`). On a CUDA tensor
 ``sm_90a`` at first use) or raises; only a CPU tensor takes the plain
 version. ``launches`` counts kernel launches.
 
-Tolerance: where several CTAs share an output block they add their windows
-with float atomics, so the order of additions changes from run to run;
-against the plain version the kernel agrees to f32 rounding (relative
-error ~1e-7 of the output's scale, checked at 1e-5).
+Determinism: the kernel adds in one fixed order. Each step's entries are
+sorted by output slot (``tiled_sparse.sort_steps_by_output``); a CTA sums
+each trip's runs of equal slots in a fixed tree and adds the run sums one
+step after another; items that share an output block store their windows
+in scratch rows (:func:`shared_items`), which a second kernel sums in item
+order. So the same schedule and source give the same bits on every launch
+and in every process. The order depends on the work plan, which depends on
+the CTA target (the card's SMs times resident CTAs), so bits are fixed per
+card model: a plan for another target (``launch_with``) cuts the items
+elsewhere and may round otherwise. Against the plain version (``index_add_``
+in entry order) the kernel agrees to f32 rounding (relative error ~1e-7 of
+the output's scale, checked at 1e-5).
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,6 +70,9 @@ MAX_SHARED_BYTES = 227 * 1024  # the H100's opt-in per CTA
 # first step), last step (inclusive), end entry (of the last step), and 1
 # when the item is its block's only writer.
 ITEM_COLUMNS = 6
+# The kernel's work items carry one more column: the item's scratch row
+# (-1 when it is its block's only writer).
+KERNEL_ITEM_COLUMNS = 7
 # Item boundaries inside a step fall on multiples of this many entries, so
 # the kernel's 16-byte entry loads stay aligned.
 ENTRY_ALIGN = 4
@@ -108,7 +120,8 @@ def plan_work(
     offsets rounded down to ``ENTRY_ALIGN`` within a step. A block with
     fewer steps than items splits its steps across CTAs. An item alone on
     its block writes the window with plain stores; items that share a
-    block add with atomics. A block of ``range(num_out_blocks)`` without
+    block store theirs into scratch rows that a second launch sums in item
+    order (:func:`shared_items`). A block of ``range(num_out_blocks)`` without
     steps gets an item without steps (last step = first step - 1), which
     writes its zero window, so every output element is written."""
     step_out = np.asarray(step_out)
@@ -145,16 +158,57 @@ def plan_work(
     return np.asarray(items, np.int32).reshape(-1, ITEM_COLUMNS)
 
 
+def shared_items(items: np.ndarray):
+    """The shared-item table of a plan: -> (rows [n_items] int32, shared
+    [n_shared, 3] int32). An item that shares its output block with others
+    stores its window into scratch row ``rows[i]`` (rows numbered in item
+    order; -1 for an item alone on its block); ``shared`` lists each block
+    with several items as (block, first row, rows), and the kernel's second
+    launch sums those rows in a fixed order into the block. ``plan_work``
+    emits a block's items one after another, so a block's rows are
+    consecutive."""
+    items = np.asarray(items).reshape(-1, ITEM_COLUMNS)
+    sole = items[:, 5] != 0
+    rows = np.where(sole, -1, np.cumsum(~sole) - 1).astype(np.int32)
+    shared = []
+    for i in np.flatnonzero(~sole).tolist():
+        block = int(items[i, 0])
+        if shared and shared[-1][0] == block and shared[-1][1] + shared[-1][2] == rows[i]:
+            shared[-1][2] += 1
+        else:
+            shared.append([block, int(rows[i]), 1])
+    return rows, np.asarray(shared, np.int32).reshape(-1, 3)
+
+
 @dataclass(frozen=True)
 class WorkPlan:
-    """A schedule's work table on its device, for one CTA target."""
+    """A schedule's work table on its device, for one CTA target: the items
+    with their scratch rows [n_items, KERNEL_ITEM_COLUMNS] and the shared
+    blocks [n_shared, 3] (:func:`shared_items`)."""
 
-    items: Tensor  # int32 [n_items, ITEM_COLUMNS]
-    zero_output: bool  # some block has several writers: zero, then add
+    items: Tensor  # int32 [n_items, KERNEL_ITEM_COLUMNS]
+    shared: Tensor  # int32 [n_shared, 3]
+    scratch_rows: int  # rows of the scratch windows the shared items store
 
     @property
     def num_items(self) -> int:
         return self.items.shape[0]
+
+    @property
+    def num_shared(self) -> int:
+        return self.shared.shape[0]
+
+
+def work_plan(items: np.ndarray, device) -> WorkPlan:
+    """A WorkPlan on ``device`` from :func:`plan_work`'s table."""
+    rows, shared = shared_items(items)
+    table = np.concatenate([np.asarray(items, np.int32).reshape(-1, ITEM_COLUMNS),
+                            rows[:, None]], axis=1)
+    return WorkPlan(
+        torch.as_tensor(np.ascontiguousarray(table), device=device),
+        torch.as_tensor(shared, device=device),
+        int(rows.max(initial=-1)) + 1,
+    )
 
 
 def make_plan(sched, target: int) -> WorkPlan:
@@ -169,10 +223,7 @@ def make_plan(sched, target: int) -> WorkPlan:
             sched.step_out.cpu().numpy(), sched.step_sizes.cpu().numpy(),
             target, sched.num_out_blocks, min_entries=max(1, sched.window // 4),
         )
-        plan = WorkPlan(
-            torch.as_tensor(items, device=sched.step_out.device),
-            zero_output=bool(len(items)) and not bool(items[:, 5].all()),
-        )
+        plan = work_plan(items, sched.step_out.device)
         sched.plans[int(target)] = plan
     return plan
 
@@ -303,8 +354,8 @@ def ctas_per_sm(window: int, vec: bool, mode: int) -> int:
         if window * 4 * (3 if mode == STAGED else 1) > MAX_SHARED_BYTES:
             raise ValueError(f"bilinear_pass: window {window} exceeds shared memory")
         n = ctypes.c_int()
-        _call(0, 0, None, None, None, None, None, 0, None, None, window,
-              int(vec), mode, n, None)
+        _call(0, 0, None, 0, None, None, None, None, None, None, 0, None,
+              None, window, int(vec), mode, n, None)
         _occupancy[key] = n.value
     return _occupancy[key]
 
@@ -362,17 +413,83 @@ def launch_with(
     operands :func:`launch` has checked; -> the output."""
     global launches
     n_out = num_out_blocks * window
-    alloc = torch.zeros if cfg.plan.zero_output else torch.empty
-    out = alloc(n_out, dtype=torch.float32, device=src.device)
+    out = torch.empty(n_out, dtype=torch.float32, device=src.device)
+    scratch = scratch_for(cfg.plan, 1, window, src.device)
     n = ctypes.c_int()
     _call(
-        cfg.plan.items.data_ptr(), cfg.plan.num_items, sched.step_in.data_ptr(),
+        cfg.plan.items.data_ptr(), cfg.plan.num_items,
+        cfg.plan.shared.data_ptr(), cfg.plan.num_shared, scratch.data_ptr(),
+        sched.step_in.data_ptr(),
         sched.step_sizes.data_ptr(), sched.in_pos.data_ptr(),
         sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
         src.data_ptr(), out.data_ptr(), window, int(cfg.vec), cfg.mode, n,
         torch.cuda.current_stream(src.device).cuda_stream,
     )
     launches += 1
+    return out
+
+
+def scratch_for(plan: WorkPlan, members: int, window: int, device) -> Tensor:
+    """The scratch windows of a plan's shared items, [rows, members, W]
+    (written in full by the pass before its reduction reads them)."""
+    return torch.empty(
+        max(plan.scratch_rows, 1) * members * window, dtype=torch.float32,
+        device=device,
+    )
+
+
+@dataclass(frozen=True)
+class SpillPlan:
+    """A schedule's spilled entries sorted by output (stably, once per
+    schedule) for K3's kernel: ``order`` sorts them, ``offsets`` [n_seg +
+    1] bound each output's run, ``slots`` are the outputs, ``in_pos`` and
+    ``vals`` the sorted entries' source coordinates (int32) and values,
+    on the device."""
+
+    order: Tensor
+    offsets: Tensor
+    slots: Tensor
+    in_pos: Tensor
+    vals: Tensor
+
+    @property
+    def num_segments(self) -> int:
+        return self.slots.shape[0]
+
+
+def spill_plan(spill_out: Tensor, spill_in: Tensor, spill_vals: Tensor) -> SpillPlan:
+    """The :class:`SpillPlan` of a schedule's spill arrays (the sort of
+    ``ops/fixed_order.segment_plan``, in the kernel's int32)."""
+    from photon_ml_tpu_torch.ops.fixed_order import segment_plan
+
+    seg = segment_plan(spill_out)
+    return SpillPlan(
+        seg.order, seg.offsets.to(torch.int32), seg.slots.to(torch.int32),
+        spill_in.index_select(0, seg.order).to(torch.int32).contiguous(),
+        spill_vals.index_select(0, seg.order).contiguous(),
+    )
+
+
+def spill_add(out: Tensor, src: Tensor, plan: SpillPlan, vals: Optional[Tensor] = None) -> Tensor:
+    """K3 on the card: ``out[..., spill_out] += vals * src[..., spill_in]``
+    in place, over the last axis of a vector or a bank, each output's
+    entries summed in entry order and added once. ``vals`` (in the
+    schedule's entry order) overrides the schedule's values."""
+    for name, t in (("out", out), ("src", src)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != plan.slots.device:
+            raise ValueError(f"spill_add: {name} must be a contiguous float32 tensor on "
+                             f"{plan.slots.device}")
+    members = 1 if out.dim() == 1 else out.shape[0]
+    v = plan.vals if vals is None else vals.index_select(0, plan.order).contiguous()
+    lib = _kernel_lib()
+    rc = lib.photon_spill_add(
+        plan.offsets.data_ptr(), plan.slots.data_ptr(), plan.in_pos.data_ptr(),
+        v.data_ptr(), src.data_ptr(), src.shape[-1], out.data_ptr(), out.shape[-1],
+        plan.num_segments, members, torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if rc != 0:
+        msg = lib.photon_cuda_error_string(rc).decode()
+        raise RuntimeError(f"spill_add launch failed: {msg} ({rc})")
     return out
 
 
@@ -389,10 +506,13 @@ def _declare(lib) -> None:
     i = ctypes.c_int
     lib.photon_bilinear_pass.restype = i
     lib.photon_bilinear_pass.argtypes = [
-        p, i, p, p, p, p, p, i, p, p, i, i, i, ctypes.POINTER(i), p,
+        p, i, p, i, p, p, p, p, p, p, i, p, p, i, i, i, ctypes.POINTER(i), p,
     ]
     lib.photon_cuda_error_string.restype = ctypes.c_char_p
     lib.photon_cuda_error_string.argtypes = [i]
+    i64 = ctypes.c_int64
+    lib.photon_spill_add.restype = i
+    lib.photon_spill_add.argtypes = [p, p, p, p, p, i64, p, i64, i, i, p]
 
 
 def _kernel_lib():

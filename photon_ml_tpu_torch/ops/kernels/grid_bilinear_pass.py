@@ -30,8 +30,10 @@ On a CUDA tensor :func:`grid_bilinear_pass` launches the kernel (built
 with ``nvcc`` for ``sm_90a`` at first use) or raises; only a CPU tensor
 takes the plain version. ``launches`` counts kernel launches.
 
-Tolerance: float atomics, as K1; against the plain version it agrees to
-f32 rounding (checked at 1e-5 of the output's scale).
+Determinism: K1's fixed order of additions (``bilinear_pass``'s note), for
+every member: the same schedule and bank give the same bits on every launch
+(fixed per card model). Against the plain version it agrees to f32 rounding
+(checked at 1e-5 of the output's scale).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
     check_cuda_operands,
     check_operands,
     make_plan,
+    scratch_for,
     sm_count,
     vector_loads,
 )
@@ -133,8 +136,8 @@ def ctas_per_sm(gt: int, window: int, vec: bool) -> int:
     key = (gt, window, bool(vec))
     if key not in _occupancy:
         n = ctypes.c_int()
-        _call(0, 0, None, None, None, None, None, 0, None, 0, None, 0, window,
-              gt, gt, int(vec), n, None)
+        _call(0, 0, None, 0, None, None, None, None, None, None, 0, None, 0,
+              None, 0, window, gt, gt, int(vec), n, None)
         _occupancy[key] = n.value
     return _occupancy[key]
 
@@ -186,11 +189,13 @@ def launch_with(
     G = src.shape[0]
     n_in = sched.num_in_blocks * window
     n_out = num_out_blocks * window
-    alloc = torch.zeros if cfg.plan.zero_output else torch.empty
-    out = alloc(G, n_out, dtype=torch.float32, device=src.device)
+    out = torch.empty(G, n_out, dtype=torch.float32, device=src.device)
+    scratch = scratch_for(cfg.plan, G, window, src.device)
     n = ctypes.c_int()
     _call(
-        cfg.plan.items.data_ptr(), cfg.plan.num_items, sched.step_in.data_ptr(),
+        cfg.plan.items.data_ptr(), cfg.plan.num_items,
+        cfg.plan.shared.data_ptr(), cfg.plan.num_shared, scratch.data_ptr(),
+        sched.step_in.data_ptr(),
         sched.step_sizes.data_ptr(), sched.in_pos.data_ptr(),
         sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
         src.data_ptr(), n_in, out.data_ptr(), n_out, window, G,
@@ -215,7 +220,7 @@ def _declare(lib) -> None:
     i64 = ctypes.c_int64
     lib.photon_grid_bilinear_pass.restype = i
     lib.photon_grid_bilinear_pass.argtypes = [
-        p, i, p, p, p, p, p, i, p, i64, p, i64, i, i, i, i,
+        p, i, p, i, p, p, p, p, p, p, i, p, i64, p, i64, i, i, i, i,
         ctypes.POINTER(i), p,
     ]
     lib.photon_grid_cuda_error_string.restype = ctypes.c_char_p

@@ -32,6 +32,7 @@ from photon_ml_tpu_torch.data.batch import (
     sparse_dot,
     sparse_scatter_add,
 )
+from photon_ml_tpu_torch.ops import fixed_order
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import (
     NormalizationContext,
@@ -127,9 +128,10 @@ class GLMObjective:
         c_i = weight_i l''_i, S2 = sum c x^2, S1 = sum c x, S0 = sum c."""
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d2(z, batch.labels)
-        diag = c.new_zeros(c.shape[:-1] + (self.dim,)).index_add_(
-            -1, batch.indices.reshape(-1),
+        diag = fixed_order.index_add(
+            c.new_zeros(c.shape[:-1] + (self.dim,)), batch.indices.reshape(-1),
             (batch.values**2 * c[..., None]).flatten(-2),
+            plan=fixed_order.cached_plan(batch.indices) if c.is_cuda else None,
         )
         if self.norm.shift is not None:
             s1 = sparse_scatter_add(batch, c, self.dim)

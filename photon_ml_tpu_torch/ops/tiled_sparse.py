@@ -58,6 +58,8 @@ from photon_ml_tpu_torch.ops import schedule_cache
 from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
     bilinear_pass,
     gathers_in_order,
+    spill_add,
+    spill_plan,
     step_sizes,
 )
 from photon_ml_tpu_torch.ops.kernels.grid_bilinear_pass import grid_bilinear_pass
@@ -111,6 +113,10 @@ class TileParams:
         return dataclasses.replace(self, chunk=c)
 
 
+# K3 launches on the CUDA path (a run sets it to 0 and reads it).
+spill_launches = 0
+
+
 @dataclass
 class _Schedule:
     """One pass's static schedule: steps of ``L`` entries sorted by output
@@ -148,11 +154,15 @@ class _Schedule:
     @classmethod
     def from_numpy(
         cls, arrays, *, window: int, num_out_blocks: int, num_in_blocks: int,
-        device,
+        device, companions=(),
     ) -> "_Schedule":
         """Nine schedule arrays (JAX package order) -> a checked schedule
-        on ``device``. K1 indexes shared memory and the source with these
-        arrays unchecked, so every index is validated here."""
+        on ``device``, each step's entries sorted by output slot
+        (:func:`sort_steps_by_output`: the order K1 and K2 add in). K1
+        indexes shared memory and the source with these arrays unchecked,
+        so every index is validated here. ``companions``: more ``[G8, L]``
+        entry arrays (the squared values) to sort with the entries; with
+        any, -> (schedule, [sorted companions])."""
         (
             step_out, step_in, step_init, o_pos, i_pos, sv,
             sp_out, sp_in, sp_vals,
@@ -167,7 +177,10 @@ class _Schedule:
             return _to_tensor(a, dtype, device)
 
         sizes = step_sizes(sv, step_out.shape[0])
-        return cls(
+        o_pos, i_pos, sv, *more = sort_steps_by_output(
+            sizes, window, o_pos, i_pos, sv, *companions
+        )
+        sched = cls(
             t(step_out, np.int32), t(step_in, np.int32),
             t(step_init, np.int32), t(o_pos, np.int32), t(i_pos, np.int32),
             t(sv, np.float32), t(sp_out, np.int32), t(sp_in, np.int32),
@@ -175,6 +188,7 @@ class _Schedule:
             window, num_out_blocks, num_in_blocks,
             gathers_in_order(i_pos, sizes),
         )
+        return (sched, more) if companions else sched
 
     def to(self, device) -> "_Schedule":
         """On ``device``; the schedule itself (with its cached work plans)
@@ -193,13 +207,60 @@ class _Schedule:
         """out_flat[spill_out] += spill_vals * src_flat[spill_in], in place
         (K3: the exact remainder completing K1's and K2's partial sums),
         over the last axis, so a bank [G, n] takes it row by row. ``vals``
-        overrides the values (the Hessian diagonal squares them)."""
+        overrides the values (the Hessian diagonal squares them). The sums
+        come in a fixed order: on the card K3's kernel
+        (``bilinear_pass.spill_add``) sums each output's spilled entries in
+        entry order and adds them once; on the CPU ``index_add_`` adds
+        them one by one in entry order."""
         if self.spill_vals.shape[0] == 0:
             return out_flat
-        v = self.spill_vals if vals is None else vals
-        return out_flat.index_add_(
-            -1, self.spill_out, v * src_flat.index_select(-1, self.spill_in)
-        )
+        global spill_launches
+        if not out_flat.is_cuda:
+            v = self.spill_vals if vals is None else vals
+            return out_flat.index_add_(
+                -1, self.spill_out, v * src_flat.index_select(-1, self.spill_in)
+            )
+        if "spill" not in self.plans:
+            self.plans["spill"] = spill_plan(self.spill_out, self.spill_in, self.spill_vals)
+        spill_launches += 1
+        return spill_add(out_flat, src_flat.contiguous(), self.plans["spill"], vals)
+
+
+def sort_steps_by_output(sizes: np.ndarray, window: int, *entries: np.ndarray):
+    """Each step's real entries (slot < ``sizes[s]``) in order of output
+    slot, stably, in every ``[G8, L]`` array of ``entries`` (the first is
+    ``out_pos``); padding slots stay at the steps' ends and padding rows as
+    they are. The function a schedule computes is unchanged, and so is the
+    plain version's order of additions into each output (entry order
+    within a slot). K1 and K2 rely on it: a trip's entries for one slot of
+    one step are adjacent, so the kernels sum them as one run. Arrays
+    already in that order (a z-pass over rows in order) come back as they
+    are."""
+    o_pos = np.asarray(entries[0])
+    S, L = sizes.shape[0], o_pos.shape[1]
+    if S == 0 or L == 0:
+        return [np.asarray(e) for e in entries]
+    # the padding key sorts after every slot; torch sorts and gathers the
+    # rows on every host core
+    key = torch.from_numpy(
+        o_pos[:S].astype(np.int16 if window < np.iinfo(np.int16).max else np.int32)
+    )
+    key[torch.arange(L)[None, :] >= torch.from_numpy(np.asarray(sizes))[:, None]] = window
+    if not bool((key[:, 1:] < key[:, :-1]).any()):
+        return [np.asarray(e) for e in entries]
+    order = torch.sort(key, dim=1, stable=True).indices
+    del key
+    out = []
+    for e in entries:
+        e = np.asarray(e)
+        sorted_e = np.empty_like(e)
+        rows = np.ascontiguousarray(e[:S])
+        if not rows.flags.writeable:  # a cached schedule's mapped arrays
+            rows = rows.copy()
+        sorted_e[:S] = torch.gather(torch.from_numpy(rows), 1, order).numpy()
+        sorted_e[S:] = e[S:]
+        out.append(sorted_e)
+    return out
 
 
 def _to_tensor(a, dtype, device) -> Tensor:
@@ -697,16 +758,20 @@ def tiled_batch_from_arrays(
     dev = resolve_device(device)
     win = meta.params.window
     n_rb, n_fb = meta.num_rows // win, meta.dim // win
-    z = _Schedule.from_numpy(
-        z_arrays, window=win, num_out_blocks=n_rb, num_in_blocks=n_fb,
-        device=dev,
-    )
-    g = _Schedule.from_numpy(
-        g_arrays, window=win, num_out_blocks=n_fb, num_in_blocks=n_rb,
-        device=dev,
-    )
-    if np.shape(g_vals_sq) != tuple(g.vals.shape):
+    if np.shape(g_vals_sq) != np.shape(g_arrays[5]):
         raise ValueError("g_vals_sq does not match the g-pass entries")
+    # both passes side by side (numpy's sorts release the GIL)
+    with ThreadPoolExecutor(2) as pool:
+        fz = pool.submit(
+            _Schedule.from_numpy, z_arrays, window=win, num_out_blocks=n_rb,
+            num_in_blocks=n_fb, device=dev,
+        )
+        fg = pool.submit(
+            _Schedule.from_numpy, g_arrays, window=win, num_out_blocks=n_fb,
+            num_in_blocks=n_rb, device=dev, companions=(np.asarray(g_vals_sq),),
+        )
+        z = fz.result()
+        g, (g_vals_sq,) = fg.result()
     if any(np.shape(a) != (meta.num_rows,) for a in (labels, offsets, weights)):
         raise ValueError("row arrays must be padded to the row windows")
     lab, off, wgt = (

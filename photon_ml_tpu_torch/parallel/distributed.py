@@ -39,6 +39,7 @@ from photon_ml_tpu_torch.data.batch import (
     sparse_dot,
     sparse_scatter_add,
 )
+from photon_ml_tpu_torch.ops import fixed_order
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import per_member, squared_norm
 from photon_ml_tpu_torch.optim.common import (
@@ -94,8 +95,10 @@ class FeatureShardedSparseBatch:
 
     def g_sq_pass(self, c: Tensor) -> Tensor:
         b = self.batch
-        return c.new_zeros(c.shape[:-1] + (self.block_dim,)).index_add_(
-            -1, b.indices.reshape(-1), (b.values**2 * c[..., None]).flatten(-2)
+        return fixed_order.index_add(
+            c.new_zeros(c.shape[:-1] + (self.block_dim,)), b.indices.reshape(-1),
+            (b.values**2 * c[..., None]).flatten(-2),
+            plan=fixed_order.cached_plan(b.indices) if c.is_cuda else None,
         )
 
 

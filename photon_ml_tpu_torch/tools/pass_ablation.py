@@ -16,8 +16,8 @@ configuration handed to the wrappers' ``launch_with``):
   gathers come in order: ``default_mode``; K2 always gathers);
 - ``plan_8_steps``: the earlier plan, 8 whole steps per CTA;
 - ``no_vec``: one entry per thread and trip instead of 4 (16-byte loads);
-- ``no_sole``: items alone on their block add with atomics into a zeroed
-  output instead of storing;
+- ``no_sole``: items alone on their block store into a scratch row that
+  the second launch sums, instead of storing into the output;
 - ``no_padding_skip``: every step walks all L slots (sizes = L);
 - K2: one tile of 4 members (each entry loaded once for the bank), tiles
   of 2 and of 1, instead of the wave rule (``members_per_cta``).
@@ -93,10 +93,11 @@ def k2_variant(k1, k2, sched, dev, *, gt=None, vec=None, target=None, sole=True)
 
 
 def no_sole(k1, plan):
-    """``plan`` with every item adding with atomics into a zeroed output."""
-    items = plan.items.clone()
+    """``plan`` with every item storing its window in a scratch row, each
+    block summed by the second launch (no item writes the output itself)."""
+    items = plan.items[:, : k1.ITEM_COLUMNS].cpu().numpy().copy()
     items[:, 5] = 0
-    return k1.WorkPlan(items, zero_output=True)
+    return k1.work_plan(items, plan.items.device)
 
 
 def main() -> int:

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from photon_ml_tpu_torch.data.batch import SparseBatch
 from photon_ml_tpu_torch.models.coefficients import Coefficients
@@ -61,6 +62,7 @@ from photon_ml_tpu_torch.optim.problem import (
     create_glm_problem,
     resolve_kernel,
 )
+from photon_ml_tpu_torch.parallel import multihost
 from photon_ml_tpu_torch.parallel.distributed import (
     feature_shard_sparse_batch,
     feature_sharded_extras,
@@ -219,12 +221,29 @@ def _save_lambda_snapshot(checkpointer, lam: float, warm_means, model, result: O
     )
 
 
-def _no_mesh_checkpoints(mesh, grid_checkpointer, preemption_guard=None) -> None:
-    if mesh is not None and (grid_checkpointer is not None or preemption_guard is not None):
-        raise NotImplementedError(
-            "not ported yet: λ snapshots and the preemption guard on a mesh "
-            "(ROADMAP item 13)"
-        )
+def _stop_requested(preemption_guard, mesh: Optional[ProcessMesh] = None) -> bool:
+    """Whether to stop the sweep at this λ boundary for a preemption:
+    agreed by every rank of ``mesh`` (a SIGTERM may reach only some;
+    ranks that stopped alone would leave the others waiting in a
+    collective), and by every process of a multi-process run."""
+    flag = preemption_guard is not None and preemption_guard.requested
+    if mesh is not None:
+        t = torch.tensor([float(flag)], device=_collective_device(mesh.world, mesh.device))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.world)
+        return bool(t.item())
+    return multihost.any_process(flag)
+
+
+def _collective_device(group, device) -> torch.device:
+    """Where a small collective's tensor lives for ``group``'s backend."""
+    return device if dist.get_backend(group) == "nccl" else torch.device("cpu")
+
+
+def _maybe_save_snapshot(checkpointer, lam, warm_means, model, result) -> None:
+    """A λ snapshot, written once: by process 0 (every rank of a mesh or a
+    multi-process run holds the same model)."""
+    if checkpointer is not None and multihost.is_coordinator():
+        _save_lambda_snapshot(checkpointer, lam, warm_means, model, result)
 
 
 def train_generalized_linear_model(
@@ -289,7 +308,6 @@ def train_generalized_linear_model(
     solve (the λ boundary is the safe point); the solved λs are
     snapshotted and returned.
     """
-    _no_mesh_checkpoints(mesh, grid_checkpointer, preemption_guard)
     problem, batch, normalization = _problem_on_device(
         batch, task, dim, optimizer_type=optimizer_type,
         regularization_type=regularization_type,
@@ -316,7 +334,7 @@ def train_generalized_linear_model(
             if warm_start:
                 current = torch.as_tensor(snap["warm_means"], device=dev)
             continue
-        if preemption_guard is not None and preemption_guard.requested:
+        if _stop_requested(preemption_guard, mesh):
             # stop at the λ boundary; a rerun resumes the sweep here
             break
         with obs_span("glm.lambda_solve", reg_weight=lam):
@@ -326,8 +344,7 @@ def train_generalized_linear_model(
             )
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result
-        if grid_checkpointer is not None:
-            _save_lambda_snapshot(grid_checkpointer, lam, coefficients.means, models[lam], result)
+        _maybe_save_snapshot(grid_checkpointer, lam, coefficients.means, models[lam], result)
         if warm_start:
             current = coefficients.means
     return models, results
@@ -434,7 +451,6 @@ def train_grid_batched(
     (one solve has no per-λ boundary inside it), so a rerun after the
     solve loads every λ and solves nothing; else it solves the grid again.
     """
-    _no_mesh_checkpoints(mesh, grid_checkpointer)
     weights_desc = _descending(regularization_weights)
     dev = _fit_device(device, mesh)
     if grid_checkpointer is not None and all(grid_checkpointer.has(lam) for lam in weights_desc):
@@ -465,10 +481,9 @@ def train_grid_batched(
         coefficients = Coefficients(result.coefficients[i], var_i)
         models[lam] = problem.create_model(coefficients, normalization)
         results[lam] = result.member(i)
-        if grid_checkpointer is not None:
-            _save_lambda_snapshot(
-                grid_checkpointer, lam, result.coefficients[i], models[lam], results[lam]
-            )
+        _maybe_save_snapshot(
+            grid_checkpointer, lam, result.coefficients[i], models[lam], results[lam]
+        )
     return models, results
 
 
@@ -784,13 +799,21 @@ def train_streaming_glm(
     there (``device`` also holds the chunk tiers; the disk tier spills
     under ``$PHOTON_SPILL_DIR``, else the system temp directory).
     ``objective_out``: a list the streamed objective is appended to, for
-    callers that read its counters. Single process: multi-process
-    streaming waits for ROADMAP item 13.
+    callers that read its counters. Several processes
+    (``parallel/multihost.py``): each streams its shard of the files
+    (``io.streaming.shard_stream_files``) and the partials of every
+    evaluation are summed over the processes in rank order; this needs
+    the prebuilt shared ``index_map``.
 
     Returns ({lambda: model}, {lambda: OptResult}, index_map).
     """
     from photon_ml_tpu_torch.io.input_format import AvroInputDataFormat
-    from photon_ml_tpu_torch.io.streaming import StreamingGLMObjective, scan_stream
+    from photon_ml_tpu_torch.io.streaming import (
+        StreamingGLMObjective,
+        StreamStats,
+        scan_stream,
+        shard_stream_files,
+    )
     from photon_ml_tpu_torch.optim.host_lbfgs import minimize_lbfgs_host, minimize_owlqn_host
     from photon_ml_tpu_torch.optim.host_tron import minimize_tron_host
     from photon_ml_tpu_torch.utils.index_map import intercept_key
@@ -807,7 +830,27 @@ def train_streaming_glm(
     )
     if fmt is None:
         fmt = AvroInputDataFormat(add_intercept=add_intercept, field_names=field_names)
-    if index_map is None or stats is None:
+    if multihost.process_count() > 1:
+        # each process streams its shard of the files; every evaluation's
+        # partials are summed over the processes in rank order
+        if index_map is None:
+            raise ValueError(
+                "multi-process streaming requires a prebuilt shared index map "
+                "(build one with the feature-indexing driver); no single "
+                "process sees the whole vocabulary"
+            )
+        paths = shard_stream_files(paths, fmt)
+        if stats is None:
+            # local stats -> global agreement (the staging width must match);
+            # a process without files joins with empty ones
+            local = scan_stream(paths, fmt, index_map=index_map)[1] if paths else None
+            counts = multihost.allgather_objects(
+                (0, 1) if local is None else (local.num_rows, local.max_nnz)
+            )
+            stats = StreamStats(
+                num_rows=sum(c[0] for c in counts), max_nnz=max(c[1] for c in counts)
+            )
+    elif index_map is None or stats is None:
         index_map, stats = scan_stream(paths, fmt, index_map=index_map)
     if normalization is not None:
         normalization = normalization.to(dev)
@@ -844,7 +887,7 @@ def train_streaming_glm(
             if warm_start:
                 current = torch.as_tensor(snap["warm_means"], device=dev)
             continue
-        if preemption_guard is not None and preemption_guard.requested:
+        if _stop_requested(preemption_guard):
             break
         l1, l2 = regularization.split(lam)
 
@@ -875,8 +918,143 @@ def train_streaming_glm(
             Coefficients(result.coefficients, variances), normalization
         )
         results[lam] = result
-        if grid_checkpointer is not None:
-            _save_lambda_snapshot(grid_checkpointer, lam, result.coefficients, models[lam], result)
+        _maybe_save_snapshot(grid_checkpointer, lam, result.coefficients, models[lam], result)
+        if warm_start:
+            current = result.coefficients
+    return models, results, index_map
+
+
+def train_streaming_feature_sharded(
+    paths,
+    task: TaskType,
+    *,
+    mesh: ProcessMesh,
+    regularization_type: RegularizationType = RegularizationType.NONE,
+    regularization_weights: Sequence[float] = (0.0,),
+    elastic_net_alpha: Optional[float] = None,
+    max_iter: Optional[int] = None,
+    tolerance: Optional[float] = None,
+    history: int = 10,
+    rows_per_chunk: int = 65536,
+    cache_bytes: int = 2 << 30,
+    sharded_cache_bytes: int = 2 << 30,
+    prefetch: bool = True,
+    add_intercept: bool = True,
+    field_names: str = "TRAINING_EXAMPLE",
+    warm_start: bool = True,
+    optimizer_type: OptimizerType = OptimizerType.LBFGS,
+    compute_variances: bool = False,
+    box: Optional[BoxConstraints] = None,
+    track_models: bool = False,
+    fmt=None,
+    index_map=None,
+    stats=None,
+    spill_dir=None,
+    grid_checkpointer=None,
+    preemption_guard=None,
+):
+    """The streamed GLM over a feature-sharded coefficient vector on a
+    (data, model) mesh of ranks (the reference's
+    ``train_streaming_feature_sharded``, ranks for its devices): every rank
+    calls it with the same arguments, streams every file and keeps its
+    cell of each chunk (``io.streaming.FeatureShardedStreamingObjective``);
+    the host-driven L-BFGS / OWL-QN / TRON walk the full ``[d_pad]``
+    vector on each rank alike, TRON with one streamed sharded Hv pass per
+    CG step. No normalization (as the reference's). ``grid_checkpointer``
+    / ``preemption_guard`` as for :func:`train_generalized_linear_model`,
+    the stop agreed by the ranks and the snapshots written by process 0.
+
+    Returns ({lambda: model}, {lambda: OptResult}, index_map), the same on
+    every rank."""
+    from photon_ml_tpu_torch.io.input_format import AvroInputDataFormat
+    from photon_ml_tpu_torch.io.streaming import FeatureShardedStreamingObjective, scan_stream
+    from photon_ml_tpu_torch.optim.host_lbfgs import minimize_lbfgs_host, minimize_owlqn_host
+    from photon_ml_tpu_torch.optim.host_tron import minimize_tron_host
+    from photon_ml_tpu_torch.utils.index_map import intercept_key
+
+    dev = mesh.device
+    regularization = RegularizationContext(regularization_type, elastic_net_alpha)
+    use_tron = optimizer_type == OptimizerType.TRON
+    base = OptimizerConfig.default_for(optimizer_type)
+    max_iter = max_iter if max_iter is not None else base.max_iter
+    tolerance = tolerance if tolerance is not None else base.tolerance
+    validate_optimizer_choice(
+        OptimizerConfig(optimizer_type=optimizer_type), regularization,
+        loss_has_hessian=loss_for_task(task).has_hessian,
+    )
+    if fmt is None:
+        fmt = AvroInputDataFormat(add_intercept=add_intercept, field_names=field_names)
+    if index_map is None or stats is None:
+        index_map, stats = scan_stream(paths, fmt, index_map=index_map)
+    objective = FeatureShardedStreamingObjective(
+        paths, fmt, index_map, stats, task, mesh, rows_per_chunk=rows_per_chunk,
+        cache_bytes=cache_bytes, sharded_cache_bytes=sharded_cache_bytes,
+        prefetch=prefetch, spill_dir=spill_dir,
+    )
+    dim, d_pad = objective.dim, objective.d_pad
+    intercept_index = None
+    if fmt.add_intercept:
+        icept = index_map.get_index(intercept_key())
+        intercept_index = icept if icept >= 0 else None
+    l1_mask = None
+    if regularization.has_l1:
+        # the padded tail is exempt (its gradient is 0 and it stays 0), and
+        # the intercept as on the replicated path
+        l1_mask = torch.zeros(d_pad, device=dev)
+        l1_mask[:dim] = 1.0
+        if intercept_index is not None:
+            l1_mask[intercept_index] = 0.0
+    if box is not None:
+        # padding coordinates are unbounded: the projection keeps them at 0
+        inf = torch.full((d_pad - dim,), float("inf"), device=dev)
+        box = BoxConstraints(
+            torch.cat([box.lower.to(dev), -inf]), torch.cat([box.upper.to(dev), inf])
+        )
+    problem = create_glm_problem(task, dim, intercept_index=intercept_index)
+
+    models: Models = {}
+    results: Results = {}
+    current = torch.zeros(d_pad, device=dev)
+    for lam in _descending(regularization_weights):
+        snap = grid_checkpointer.load(lam) if grid_checkpointer is not None else None
+        if snap is not None:
+            models[lam] = _model_from_snapshot(task, snap, dev)
+            results[lam] = _result_from_snapshot(snap["result"], dev)
+            if warm_start:
+                current = torch.as_tensor(snap["warm_means"], device=dev)
+            continue
+        if _stop_requested(preemption_guard, mesh):
+            break
+        l1, l2 = regularization.split(lam)
+
+        def vg(w, l2=l2):
+            return objective.value_and_gradient(w, l2)
+
+        if use_tron:
+            result = minimize_tron_host(
+                vg, lambda w, d, l2=l2: objective.hessian_vector(w, d, l2), current,
+                max_iter=max_iter, tol=tolerance, box=box,
+                track_coefficients=track_models,
+            )
+        elif l1:
+            result = minimize_owlqn_host(
+                vg, current, l1, max_iter=max_iter, tol=tolerance, history=history,
+                l1_mask=l1_mask, box=box, track_coefficients=track_models,
+            )
+        else:
+            result = minimize_lbfgs_host(
+                vg, current, max_iter=max_iter, tol=tolerance, history=history,
+                box=box, track_coefficients=track_models,
+            )
+        variances = None
+        if compute_variances:
+            hd = objective.hessian_diagonal(result.coefficients, l2)
+            variances = (1.0 / (hd + _VARIANCE_EPSILON))[:dim]
+        models[lam] = problem.create_model(
+            Coefficients(result.coefficients[:dim], variances)
+        )
+        results[lam] = _real_dims(result, dim)
+        _maybe_save_snapshot(grid_checkpointer, lam, result.coefficients, models[lam], results[lam])
         if warm_start:
             current = result.coefficients
     return models, results, index_map

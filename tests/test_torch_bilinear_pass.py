@@ -338,25 +338,34 @@ def test_step_sizes_from_both_builders(spill_cap, by_feature):
 
 @pytest.mark.parametrize("rows_sorted", [True, False])
 def test_gathers_in_order_follow_the_rows_order(rows_sorted):
-    """Entries keep the input's order within a tile: with rows in order the
-    g-pass reads its row window in order and the z-pass its feature
-    window at random; with rows shuffled both read at random."""
+    """Each step's entries are sorted by output slot (the kernels' order of
+    additions), the input's order kept within a slot. With random features
+    a z-pass reads its feature window at random and a g-pass its row
+    window at random too (a few rows a feature), whatever the rows' order;
+    where each row holds one feature that rises with the row (a diagonal),
+    both passes read their windows in order, in whatever order the rows
+    come (the sort by slot puts them in order)."""
     from photon_ml_tpu_torch.ops import tiled_sparse as ts
 
     rng = np.random.default_rng(5)
     n, d, nnz = 3000, 2000, 60000
     rows = np.sort(rng.integers(0, n, nnz)) if rows_sorted else rng.integers(0, n, nnz)
-    tb = ts.build_tiled_batch(
-        rows, rng.integers(0, d, nnz), rng.normal(size=nnz).astype(np.float32),
-        np.zeros(n, np.float32), np.zeros(n, np.float32), np.ones(n, np.float32),
-        d, params=ts.TileParams(s_hi=8, s_lo=32, chunk=128, spill_cap=0), device="cpu",
-    )
-    assert not tb.z_sched.ordered_gathers
-    assert tb.g_sched.ordered_gathers == rows_sorted
+    params = ts.TileParams(s_hi=8, s_lo=32, chunk=128, spill_cap=0)
+
+    def build(feats):
+        return ts.build_tiled_batch(
+            rows, feats, rng.normal(size=nnz).astype(np.float32),
+            np.zeros(n, np.float32), np.zeros(n, np.float32),
+            np.ones(n, np.float32), d, params=params, device="cpu",
+        )
+
+    tb = build(rng.integers(0, d, nnz))
+    assert not tb.z_sched.ordered_gathers and not tb.g_sched.ordered_gathers
     assert k1.default_mode(tb.z_sched) == k1.STAGED
-    assert k1.default_mode(tb.g_sched) == (
-        k1.GATHERED if rows_sorted else k1.STAGED
-    )
+    assert k1.default_mode(tb.g_sched) == k1.STAGED
+    diagonal = build(rows * (d - 1) // (n - 1))
+    assert diagonal.z_sched.ordered_gathers and diagonal.g_sched.ordered_gathers
+    assert k1.default_mode(diagonal.g_sched) == k1.GATHERED
     empty = np.zeros((8, 4), np.int32)
     assert not k1.gathers_in_order(empty, np.zeros(0, np.int32))
 
@@ -383,3 +392,154 @@ def test_unsupported_device_raises():
     src = torch.zeros(tb.dim, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         k1.bilinear_pass(tb.z_sched, src, tb.num_row_blocks, params.window)
+
+
+@pytest.mark.parametrize("target", [1, 3, 8, 40, 200])
+def test_shared_item_table(target):
+    """Each item that shares its output block gets a scratch row of its
+    own, numbered in item order; each such block is listed once with its
+    first row and row count, and its rows are its items, in order."""
+    items = k1.plan_work(STEP_OUT, STEP_SIZES, target, NUM_OUT_BLOCKS)
+    rows, shared = k1.shared_items(items)
+    sole = items[:, 5] == 1
+    assert np.all(rows[sole] == -1)
+    assert rows[~sole].tolist() == list(range(int((~sole).sum())))
+    writers = np.bincount(items[:, 0], minlength=NUM_OUT_BLOCKS)
+    assert sorted(shared[:, 0].tolist()) == np.flatnonzero(writers > 1).tolist()
+    for block, first, n in shared.tolist():
+        mine = np.flatnonzero(items[:, 0] == block)
+        assert rows[mine].tolist() == list(range(first, first + n))
+    plan = k1.work_plan(items, "cpu")
+    assert plan.items.shape == (len(items), k1.KERNEL_ITEM_COLUMNS)
+    assert plan.items[:, 6].tolist() == rows.tolist()
+    assert plan.scratch_rows == int((~sole).sum())
+
+
+def _emulate_fixed_order(items, sched, src, n_out, window, vals=None, trip=8):
+    """The kernel's order of additions in numpy (float32): each item walks
+    its entries ``trip`` at a time, sums each trip's runs of one (step,
+    slot) in entry order and adds the sums one step after another; a sole
+    item stores its window, and a shared block's windows are summed as
+    the second kernel sums them (8 interleaved partial sums in row order,
+    then those in order)."""
+    v = (sched.vals if vals is None else vals).numpy()
+    i_pos, o_pos = sched.in_pos.numpy(), sched.out_pos.numpy()
+    step_in, sizes = sched.step_in.numpy(), sched.step_sizes.numpy()
+    src = np.asarray(src, np.float32)
+    out = np.full(n_out * window, np.nan, np.float32)
+    rows, shared = k1.shared_items(items)
+    scratch = np.zeros((max(len(rows), 1), window), np.float32)
+    for (block, s0, p0, s1, p1, _), row in zip(items, rows):
+        entries = [
+            (s, e) for s in range(s0, s1 + 1)
+            for e in range(p0 if s == s0 else 0, p1 if s == s1 else sizes[s])
+        ]
+        acc = np.zeros(window, np.float32)
+        for t in range(0, len(entries), trip):
+            runs = {}
+            for s, e in entries[t:t + trip]:
+                x = np.float32(v[s, e] * src[step_in[s] * window + i_pos[s, e]])
+                key = (s, o_pos[s, e])
+                runs[key] = np.float32(runs.get(key, np.float32(0)) + x)
+            for (s, slot), x in sorted(runs.items()):
+                acc[slot] = np.float32(acc[slot] + x)
+        if row < 0:
+            out[block * window:(block + 1) * window] = acc
+        else:
+            scratch[row] = acc
+    for block, first, n in shared.tolist():
+        # reduce_shared: 8 interleaved partial sums in row order, then those
+        parts = np.zeros((8, window), np.float32)
+        for r in range(n):
+            parts[r % 8] = parts[r % 8] + scratch[first + r]
+        total = parts[0].copy()
+        for y in range(1, 8):
+            total = total + parts[y]
+        out[block * window:(block + 1) * window] = total
+    return out
+
+
+@pytest.mark.parametrize("target", [1, 5, 64])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fixed_order_plan(name, target):
+    """The fixed-order plan: every real entry is covered once, each step's
+    entries are sorted by output slot (their runs adjacent), and the
+    kernel's order of additions, emulated, writes every output once and
+    gives the plain version's and the reference kernel's pass; twice the
+    same bits."""
+    rng, params, ref_tb, tb = _problem(name)
+    win = params.window
+    c = rng.normal(size=tb.num_rows).astype(np.float32)
+    for sched in (tb.z_sched, tb.g_sched):
+        sizes = sched.step_sizes.numpy()
+        o_pos = sched.out_pos.numpy()
+        for s in range(sched.num_steps):
+            assert np.all(np.diff(o_pos[s, : sizes[s]]) >= 0)
+    sched, n_out = tb.g_sched, tb.num_feat_blocks
+    items = k1.plan_work(sched.step_out.numpy(), sched.step_sizes.numpy(), target, n_out)
+    for cover in _slot_cover(items, sched.step_sizes.numpy()):
+        assert np.all(cover == 1)
+    got = _emulate_fixed_order(items, sched, c, n_out, win)
+    assert not np.isnan(got).any()
+    assert np.array_equal(got, _emulate_fixed_order(items, sched, c, n_out, win))
+    plain = k1.bilinear_pass(sched, torch.as_tensor(c), n_out, win)
+    assert_close_to_scale(got, plain.numpy(), rtol=1e-5, atol=1e-6)
+    expected = _ref_pass(ref_tb.g_sched, c, n_out, params)
+    assert_close_to_scale(got, expected, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_versions_against_reference_auto(name, dtype):
+    """K1's and K2's plain versions, each with the sorted K3, against the
+    JAX package as its own CPU tests run it: float32 through
+    ``_bilinear_pass_auto`` in interpret mode, float64 (which the Pallas
+    interpreter does not take) through its XLA companion
+    ``_grid_bilinear_pass`` under ``jax.enable_x64``; float64 within 1e-12
+    and float32 within 1e-6 of the output's scale."""
+    import jax
+
+    from photon_ml_tpu.ops.tiled_sparse import _bilinear_pass_auto, _grid_bilinear_pass
+    from photon_ml_tpu_torch.ops.kernels import grid_bilinear_pass as k2
+
+    rng, params, ref_tb, tb = _problem(name)
+    win, n_out = params.window, tb.num_feat_blocks
+    wide = dtype == "float64"
+    tol = 1e-12 if wide else 1e-6
+    bank = rng.normal(size=(2, tb.num_rows)).astype(dtype)
+    sched = _wide(tb.g_sched) if wide else tb.g_sched
+    with jax.enable_x64(wide):
+        ref = ref_tb.g_sched
+        if wide:
+            ref = jax.tree_util.tree_map(
+                lambda a: a.astype(jnp.float64) if a.dtype == jnp.float32 else a, ref
+            )
+        x = jnp.asarray(bank)
+        if wide:
+            raw = _grid_bilinear_pass(
+                ref, x.reshape(2, -1, params.s_hi, params.s_lo), n_out, params
+            ).reshape(2, -1)
+        else:
+            raw = jnp.stack([
+                _bilinear_pass_auto(
+                    ref, x[g].reshape(-1, params.s_hi, params.s_lo), n_out, params,
+                    interpret=True, mxu="highest",
+                ).reshape(-1)
+                for g in range(2)
+            ])
+        expected = np.stack([np.asarray(ref.apply_spill(raw[g], x[g])) for g in range(2)])
+    src = torch.as_tensor(bank)
+    grid = sched.apply_spill(k2.grid_bilinear_pass(sched, src, n_out, win), src)
+    assert_close_to_scale(grid, expected, rtol=tol, atol=tol)
+    for g in range(2):
+        one = sched.apply_spill(k1.bilinear_pass(sched, src[g], n_out, win), src[g])
+        assert_close_to_scale(one, expected[g], rtol=tol, atol=tol)
+
+
+def _wide(sched):
+    """A schedule with float64 values (the float64 parity runs)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        sched, vals=sched.vals.double(), spill_vals=sched.spill_vals.double(), plans={}
+    )

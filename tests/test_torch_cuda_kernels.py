@@ -8,9 +8,13 @@ so it also runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerance: rtol 1e-5 of the output's largest magnitude plus atol 1e-6.
-The kernel sums with float atomics, so its order of additions differs
-from the plain version's (and from run to run). K2's checks bound each
+Tolerance: rtol 1e-5 of the output's largest magnitude plus atol 1e-6,
+and for the passes over the heavy column (K1's and K2's checks against
+their plain versions) 1e-5 of each output's addends' magnitude. The
+kernel sums in a fixed order of its own (a tree over each trip's runs,
+then the shared blocks' rows in a fixed order), which differs from the
+plain version's entry order and depends on the card's CTA target; it is
+the same on every launch, so two launches agree bitwise. K2's checks bound each
 element by rtol 1e-5 of its own sum of absolute terms (the same pass over
 |vals| and |src|) plus atol 1e-6: a heavy column sums tens of thousands of
 products, and the rounding of another order grows with that sum, not with
@@ -96,7 +100,12 @@ def test_bilinear_pass_matches_plain(cuda, name):
         got = k1.bilinear_pass(sched, src, n_out, win, vals=vals)
         torch.cuda.synchronize()
         assert k1.launches == before + 1
-        _close(got, k1.bilinear_pass_plain(sched, src, n_out, win, vals=vals))
+        # each output within 1e-5 of its addends' magnitude: the heavy
+        # column sums a tenth of the entries, whose rounding in another
+        # order grows with that sum (K2's checks hold it so too)
+        abs_vals = (sched.vals if vals is None else vals).abs()
+        abs_sum = k1.bilinear_pass_plain(sched, src.abs(), n_out, win, vals=abs_vals)
+        _close_per_term(got, k1.bilinear_pass_plain(sched, src, n_out, win, vals=vals), abs_sum)
 
 
 @pytest.mark.cuda
@@ -185,6 +194,53 @@ def test_grid_pass_matches_plain_and_k1(cuda, name, G):
             k1.bilinear_pass(sched, src[g], n_out, win, vals=vals) for g in range(G)
         ])
         _close_per_term(got, per_member, abs_sum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_passes_repeat_bitwise(cuda, name):
+    """K1 (z, g and squared g), K2 over a bank of 4 and K3 (the spill
+    remainder, on a vector and on the bank): two launches on the same
+    operands give the same bits, and K3 agrees with ``index_add_``."""
+    rng, tb, _ = _batch(name, cuda)
+    win = tb.params.window
+    w = torch.as_tensor(rng.normal(size=(4, tb.dim)).astype(np.float32), device=cuda)
+    c = torch.as_tensor(rng.normal(size=(4, tb.num_rows)).astype(np.float32), device=cuda)
+    for sched, src, n_out, vals in _passes(tb, w, c):
+        for run, x in ((k1.bilinear_pass, src[0]), (k2.grid_bilinear_pass, src)):
+            first = run(sched, x, n_out, win, vals=vals)
+            again = run(sched, x, n_out, win, vals=vals)
+            assert torch.equal(first, again)
+            spill_vals = sched.spill_vals if vals is None else sched.spill_vals ** 2
+            spills = [sched.apply_spill(first.clone(), x, vals=spill_vals) for _ in range(2)]
+            assert torch.equal(spills[0], spills[1])
+            plain = first.clone().index_add_(
+                -1, sched.spill_out, spill_vals * x.index_select(-1, sched.spill_in))
+            _close(spills[0], plain)
+
+
+@pytest.mark.cuda
+def test_fixed_order_index_add_repeats_bitwise(cuda):
+    """The scatter objective's fixed-order add: a heavy index (a third of
+    the sources on one output) gives the same bits twice, and each output
+    is within 1e-5 of its addends' magnitude of a float64 ``index_add_``
+    (the float32 one's atomics round the heavy sum differently each run)."""
+    from photon_ml_tpu_torch.ops import fixed_order
+
+    rng = np.random.default_rng(2)
+    index = torch.as_tensor(rng.integers(0, 5000, 300000), device=cuda)
+    index[:100000] = 7
+    src = torch.as_tensor(rng.normal(size=(3, 300000)).astype(np.float32), device=cuda)
+    runs = [
+        fixed_order.index_add(torch.zeros(3, 5000, device=cuda), index, src)
+        for _ in range(2)
+    ]
+    assert torch.equal(runs[0], runs[1])
+    exact = torch.zeros(3, 5000, device=cuda, dtype=torch.float64).index_add_(
+        -1, index, src.double())
+    magnitude = torch.zeros(3, 5000, device=cuda, dtype=torch.float64).index_add_(
+        -1, index, src.double().abs())
+    _close_per_term(runs[0].double(), exact, magnitude)
 
 
 EDGE_CASES = ["split_steps", "one_step_block", "odd_chunk", "heavy_row"]

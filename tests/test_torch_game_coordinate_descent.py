@@ -239,8 +239,9 @@ def test_update_sequence_and_unported_seams(tmp_path):
         assert bool(torch.isfinite(coord.score(model)).all())
     with pytest.raises(NotImplementedError, match="item 13"):
         PodRandomEffectCoordinate(name="x")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        FixedEffectCoordinate(
-            name="g", dataset=ds, problem=coords["global"].problem,
-            feature_shard_id="globalShard", mesh=object(),
-        )
+    # the fixed effect over a mesh is ported (tests/test_torch_game_mesh.py)
+    fe = FixedEffectCoordinate(
+        name="g", dataset=ds, problem=coords["global"].problem,
+        feature_shard_id="globalShard",
+    )
+    assert not fe._is_feature_sharded()

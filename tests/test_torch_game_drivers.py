@@ -196,12 +196,12 @@ def test_pure_fixed_effect_grid_runs_batched(data, tmp_path):
 
 REFUSED = [
     (["--factored-random-effect-optimization-configurations", "per-user:4,2"], None),
-    (["--distributed", "feature"], "item 13"),
-    (["--model-shards", "2"], "item 13"),
+    (["--distributed", "feature"], None),
+    (["--model-shards", "2"], None),
     (["--entity-shards", "2"], "item 13"),
-    (["--coordinator-address", "localhost:1234"], "item 13"),
-    (["--num-processes", "2"], "item 13"),
-    (["--process-id", "0"], "item 13"),
+    (["--coordinator-address", "localhost:1234"], "--num-processes"),
+    (["--num-processes", "2"], None),
+    (["--process-id", "0"], None),
     (["--checkpoint-dir", "ck"], None),
     (["--fault-plan", "spill_write:2:EIO"], None),
     (["--streaming", "true"], "IDENTITY projector"),

@@ -80,6 +80,7 @@ def test_fresh_interpreter_imports_no_jax():
         "utils.profiling",
         "registry.registry", "registry.gates", "registry.warm_start", "registry.watcher",
         "testing.determinism", "testing.determinism_targets",
+        "parallel.multihost", "ops.fixed_order",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]

@@ -454,12 +454,27 @@ class TestGridCheckpointWiring:
         assert float(results[0.1].tracker.values[0]) < float(np.log(2) * 400)
         assert not np.array_equal(_np(cold[0.1].means), _np(full[0.1].means))
 
-    def test_mesh_checkpoints_wait_for_item_13(self):
-        _, batch = _glm_batches()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            train_generalized_linear_model(
-                batch, TaskType.LOGISTIC_REGRESSION, DIM, grid_checkpointer=object(), mesh=object(),
-            )
+    def test_mesh_checkpoints_wait_for_item_13(self, tmp_path):
+        """λ snapshots on a mesh trainer (ported since): a 2-rank data
+        mesh writes each λ's snapshot once (process 0), every rank returns
+        the same bits, and a rerun over the snapshots restores them
+        bitwise without solving."""
+        from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, spawn_mesh
+        from photon_ml_tpu_torch.reliability.checkpoint import GridCheckpointer
+        from tests.torch_multiprocess_cases import mesh_checkpoint_fit
+
+        config = {"grid": [10.0, 1.0]}
+        ckpt = str(tmp_path / "grid")
+        GridCheckpointer(ckpt, config)  # the run manifest, before the ranks read it
+        first = spawn_mesh(mesh_checkpoint_fit, (2,), (DATA_AXIS,), device="cpu",
+                           args=(ckpt, config))
+        markers = sorted(f for f in os.listdir(ckpt) if f.endswith(".json") and f.startswith("lambda-"))
+        assert len(markers) == 2
+        again = spawn_mesh(mesh_checkpoint_fit, (2,), (DATA_AXIS,), device="cpu",
+                           args=(ckpt, config))
+        for lam in (10.0, 1.0):
+            assert np.array_equal(first[0][lam], first[1][lam])
+            assert np.array_equal(first[0][lam], again[1][lam])
 
 
 # ---------------------------------------------------------------------------

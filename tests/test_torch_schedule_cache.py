@@ -24,6 +24,7 @@ from photon_ml_tpu_torch.ops.tiled_sparse import (
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import train_generalized_linear_model, train_grid_batched
 
+from tests.test_torch_tiled_sparse import FIELDS, sorted_reference
 from tests.torch_parity import both_batches, random_rows
 
 D = 150
@@ -140,7 +141,11 @@ def test_reference_artifact_loads_in_the_port(tmp_path, fresh_stats):
         tb = tiled_batch_from_sparse(batch, D, params=TileParams(**PARAMS), device="cpu")
     s = schedule_cache.stats()
     assert (s.hits, s.builds) == (2, 0) and tb.builder == "cache"
-    want = [np.asarray(a) for sched in (ref_tb.z_sched, ref_tb.g_sched) for a in sched]
+    # entries sorted by output slot within each step, as the port holds them
+    want = [
+        sorted_reference(sched, tb.params.window)[name]
+        for sched in (ref_tb.z_sched, ref_tb.g_sched) for name in FIELDS
+    ]
     for got, ref in zip(_schedule_arrays(tb), want):
         np.testing.assert_array_equal(got, ref)
 
