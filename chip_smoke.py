@@ -145,11 +145,11 @@ Phases, each printing its own lines:
    bitwise on the card: K1, K2 and K3 add in a fixed order), and the
    reliability block of metrics.json;
 10. out-of-core training: run S, ``glm_driver.main`` with ``--streaming
-   true --stream-memory-budget 2097152`` over 2^14 x 64 x 2^20 rows
+   true --stream-memory-budget 1048576`` over 2^13 x 64 x 2^20 rows
    (phase 4's planted model) in 8 Avro part files written by worker
-   processes, with 2^13 validation rows: the L-BFGS grid [10, 1] with
+   processes, with 2^12 validation rows: the L-BFGS grid [10, 1] with
    variances, the intercept, streamed validation and a cold
-   ``--scan-cache-dir`` (5 chunks of 3,942 rows: 1 on the device tier,
+   ``--scan-cache-dir`` (5 chunks of 1,971 rows: 1 on the device tier,
    4 spilled, all 5 in K1's tiled cache); each lambda's float64 objective
    within 1e-4 of ``train_generalized_linear_model(kernel="tiled")`` on
    the batch the port's Avro loader gives (a wrong model as the
@@ -256,11 +256,43 @@ Phases, each printing its own lines:
    ``--distributed feature --model-shards 2`` over run H's files (the
    fixed effect over the processes' 1 x 2 mesh): the two runs' CD
    objective histories bitwise, within 1e-4 of run H's;
-15. a ``kernels`` JSON line (K1, K2 and K3, with each kernel's launches
+15. (after phase 12, before phase 13 adds a part to run H's training
+   files) the entity-sharded random effect (``game/pod.py``) and the
+   unified (grid x entity) mesh (``game/unified.py``), N entity shards as N gloo
+   ranks sharing the one card (a path check: it measures no scaling):
+   run P, run G's user random effect (100,000 users x 16 rows, INDEX_MAP,
+   buckets of 25,000) at its sweep-1 residual through
+   ``PodRandomEffectProblem`` on entity meshes of 1 rank (in process) and
+   of 2 and 4 ranks (spawned side by side, the inputs handed over in a
+   file): one update with variances and one score against the single
+   card's replicated ``update_bank`` and ``score_random_effect``
+   (bitwise at N = 1; within 2e-3 of their scale at N = 2 and 4, where a
+   rank's Newton blocks round otherwise, with the float64 gradient under
+   2e-3 at each sampled entity's row and at both rows of every entity
+   more than 1e-5 of scale off the replicated path, those rows within
+   the sum of their gradients' norms of each other, and both paths'
+   float64 banks at a tolerance of 1e-12 within 1e-5), two updates bitwise,
+   every rank's gathered bank the same bits, each rank's bytes its
+   shard's share, K1's launches counted in every rank; run E, run H's
+   files through the GAME training driver with ``--entity-shards 1`` in
+   this process (its objective history bitwise run H's) and
+   ``--entity-shards 2`` as 2 processes, twice: the two 2-process runs'
+   models bitwise, their histories within 1e-4 of run H's, the model's
+   scores through ``game_scoring_driver`` within 2e-3 of run H's (its
+   fixed effect runs data-parallel over the processes); the streamed
+   entity shards, run T's streamed
+   GAME through ``train_streaming_game(entity_mesh=)`` on 2 ranks twice
+   (bitwise, within 1e-4 of run T's objective) and run T's driver with
+   ``--streaming true --entity-shards 1``; run U, ``run_game_grid`` on a
+   (grid 2, entity 2) mesh of 4 ranks at the JAX package's configuration
+   (``bench.py:1537-1660``) against the per-member pod CD on the same
+   ranks, duplicate-lambda members bitwise, one readback a CD iteration;
+16. a ``kernels`` JSON line (K1, K2 and K3, with each kernel's launches
    in the driver runs, K1's in run D's diagnose stage, in the GAME runs,
-   in runs F and R, in phase 10's runs and in run L's; K1's at the GAME
-   shape with its plain and library times), the nvidia-smi line, and the
-   last line ``{"ok": true, "device": {...}}``.
+   in runs F and R, in phase 10's runs, in run L's and in phase 15's;
+   K1's at the GAME shape with its plain and library times; K3's library
+   time, ``index_add_``), the nvidia-smi line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every kernel check also launches K1 (z, g, g_sq), K2 and K3 twice on the
 same operands at the small, ads, mesh-cell, GAME and streamed-chunk
@@ -1567,32 +1599,44 @@ def game_cd(ds, red, kernel, k1, smi, label, sweeps=2, initial_model=None, profi
     return result, log, re, fe
 
 
-def game_re_gradients(ds, red, bank, fe_score, sample):
-    """Max-abs of each sampled entity's gradient at its bank row, in
-    float64 from its definition: sum_s w_s (sigmoid(z_s) - y_s) x_s + l2 c
-    with z_s = x_s . c + o_s, o_s the fixed effect's score (the residual
-    its last update saw), l2 = 1."""
+def game_re_gradient_rows(red, bank, fe_score, entities):
+    """Each entity's gradient at its bank row, in float64 from its
+    definition: sum_s w_s (sigmoid(z_s) - y_s) x_s + l2 c with z_s = x_s .
+    c + o_s, o_s the fixed effect's score (the residual its last update
+    saw), l2 = 1; -> (the entities' codes, [m, D] gradients), bucket by
+    bucket (padding rows have weight and values 0)."""
     dev = bank.device
-    where = {}
-    for bi, b in enumerate(red.buckets):
-        for pos, e in enumerate(b.entity_codes.tolist()):
-            where[e] = (bi, pos)
-    worst = 0.0
-    for e in sample.tolist():
-        bi, pos = where[e]
-        b = red.buckets[bi]
-        rows = torch.as_tensor(b.row_index[pos], device=dev).long()
-        ix = torch.as_tensor(b.indices[pos], device=dev).long()
-        v = torch.as_tensor(b.values[pos], device=dev).double()
-        y = torch.as_tensor(b.labels[pos], device=dev).double()
-        w = torch.as_tensor(b.weights[pos], device=dev).double()
+    want = torch.as_tensor(np.asarray(entities, dtype=np.int64), device=dev)
+    codes, grads = [], []
+    for b in red.buckets:
+        ecodes = torch.as_tensor(b.entity_codes, device=dev).long()
+        sel = torch.nonzero(torch.isin(ecodes, want)).flatten()
+        if sel.numel() == 0:
+            continue
+        m = sel.numel()
+        rows = torch.as_tensor(b.row_index, device=dev)[sel].long()
+        ix = torch.as_tensor(b.indices, device=dev)[sel].long()
+        v = torch.as_tensor(b.values, device=dev)[sel].double()
+        y = torch.as_tensor(b.labels, device=dev)[sel].double()
+        w = torch.as_tensor(b.weights, device=dev)[sel].double()
         off = torch.where(rows >= 0, fe_score[rows.clamp_min(0)].double(), 0.0)
-        c = bank[e].double()
-        z = (v * c[ix]).sum(-1) + off
+        c = bank[ecodes[sel]].double()
+        flat = ix.reshape(m, -1)
+        z = (v * torch.gather(c, 1, flat).reshape(v.shape)).sum(-1) + off
         r = w * (torch.sigmoid(z) - y)
-        g = torch.zeros_like(c).index_add_(0, ix.reshape(-1), (v * r[:, None]).reshape(-1)) + c
-        worst = max(worst, float(g.abs().max()))
-    return worst
+        g = torch.zeros_like(c).scatter_add_(1, flat, (v * r[..., None]).reshape(m, -1)) + c
+        codes.append(ecodes[sel])
+        grads.append(g)
+    if not codes:
+        return want[:0], torch.zeros(0, bank.shape[1], dtype=torch.float64, device=dev)
+    return torch.cat(codes), torch.cat(grads)
+
+
+def game_re_gradients(ds, red, bank, fe_score, sample):
+    """Max-abs of each sampled entity's float64 gradient at its bank row
+    (:func:`game_re_gradient_rows`)."""
+    _, g = game_re_gradient_rows(red, bank, fe_score, sample)
+    return float(g.abs().max()) if g.numel() else 0.0
 
 
 def game_densify_check(red, smi, device):
@@ -1809,6 +1853,9 @@ def game_run_g(seed, smi, k1, device="cuda"):
         fail(f"game run G: {ts.tilings} schedule builds over two sweeps, not 1")
     if game_launches == 0:
         fail("game run G: the tiled fixed effect launched no K1")
+    # run P (phase 15): the user random effect at sweep 1's residual
+    POD_INPUTS["red"] = red
+    POD_INPUTS["offsets"] = (ds.row_tensors()[1] + log[4][7][0]).cpu().numpy()
 
     # K1 at the shape this path gives it (an intercept column in every row)
     tb = ts.ensure_tiled(ds.batch_for_shard("global"), DIM, device=device)
@@ -2428,16 +2475,16 @@ def reliability_phase(seed, smi, k1, k2, game_ds, run_a, device="cuda", device_a
 # -- phase 10: out-of-core training -------------------------------------------
 
 STREAM_PARTS = 8  # Avro part files of run S's training rows (and 1 of validation)
-# run S's rows: 2^14 training and 2^13 validation (2^18 and 2^16 took
+# run S's rows: 2^13 training and 2^12 validation (2^18 and 2^16 took
 # 322 s for the phase, and the script passed the 1,200 s limit; 2^16 until
-# phase 13 needed the time, 2^15 until phase 14 did)
-STREAM_ROWS, STREAM_HELD_OUT = 1 << 14, 1 << 13
-# run S's --stream-memory-budget: 2,097,152 B // 532 B a row (65 slots of
-# 8 B + 12 B) = 3,942 rows a chunk, so the 2^14 rows are 5 chunks: 1 on
+# phase 13 needed the time, 2^15 until phase 14 did, 2^14 until phase 15)
+STREAM_ROWS, STREAM_HELD_OUT = 1 << 13, 1 << 12
+# run S's --stream-memory-budget: 1,048,576 B // 532 B a row (65 slots of
+# 8 B + 12 B) = 1,971 rows a chunk, so the 2^13 rows are 5 chunks: 1 on
 # the device tier (the budget holds one), 4 spilled, all 5 tiled (the
-# budget halved with the rows keeps the tiers of 2^15 rows at 4,194,304 B
-# and of 2^16 at 8,388,608 B)
-STREAM_BUDGET = 2097152
+# budget halved with the rows keeps the tiers of 2^14 rows at 2,097,152 B,
+# of 2^15 at 4,194,304 B and of 2^16 at 8,388,608 B)
+STREAM_BUDGET = 1048576
 STREAM_TIERS = {"device": 1, "disk": 4, "tiled": 5, "overflow": 0}
 STREAM_TILED_KEEP = 2  # tiled chunks of the direct overflow objective
 STREAM_AUC_TOL = 1e-3  # streamed (4,096-bin) AUC vs the exact AUC
@@ -2626,15 +2673,17 @@ def stream_objective_checks(k1, train_dir, fmt, imap, stats, batch, smi, seed, d
 # run T: the streamed GAME drivers at run H's widths, the user shard
 # IDENTITY over each user's pool indices (d = 1,001: an IDENTITY bank over
 # the 2^20-wide user shard of run H would be 1,024 x 2^20 floats, with an
-# L-BFGS history beside it), 2^12 rows of 256 users each of training and
+# L-BFGS history beside it), 2^11 rows of 128 users each of training and
 # validation (cut from run H's 2^16 of 4,096 users when the script passed
-# 900 s, and from 2^13 of 512 when phase 14 came)
-STREAM_T_USERS = 256
+# 900 s, from 2^13 of 512 when phase 14 came, from 2^12 of 256 when phase
+# 15 did)
+STREAM_T_USERS = 128
 STREAM_T_PARTS = 4
-# 1 MiB: 912 B a staged row (72 + 40 slots of 8 B, 12 B and a code) ->
-# 1,149 rows a chunk, 4 chunks of the 2^12 rows; 5,376 B an entity of 16
-# rows -> 195 entities a segment, 2 segments of the 256 users
-STREAM_T_BUDGET = 1 << 20
+# 512 KiB: 912 B a staged row (72 + 40 slots of 8 B, 12 B and a code) ->
+# 574 rows a chunk, 4 chunks of the 2^11 rows; 5,376 B an entity of 16
+# rows -> 97 entities a segment, 2 segments of the 128 users (the budget
+# halved with the rows keeps the chunks and segments of 2^12 rows at 1 MiB)
+STREAM_T_BUDGET = 1 << 19
 STREAM_T_OBJ_RTOL = 1e-3  # streamed vs in-memory CD objective, relative
 STREAM_T_AUC_TOL = 1e-3  # streamed vs in-memory scoring AUC
 
@@ -2731,6 +2780,10 @@ def stream_run_t(seed, smi, device_args=()):
                 f"{metrics['best_metric']!r}; streaming block {metrics.get('streaming')}")
         mem, stream = runs["in memory"][1], runs["streamed"][1]
         hist, ref = stream["objective_history"], mem["objective_history"]
+        # phase 15's streamed entity shards: run T's objectives and files
+        POD_INPUTS["t_history"] = hist
+        POD_INPUTS["t_train"] = shutil.copytree(
+            f"{tmp}/train", os.path.join(tempfile.mkdtemp(prefix="photon_pod_t_"), "train"))
         gap = max(abs(a - b) / abs(b) for a, b in zip(hist, ref))
         say(f"streamed run T ({smi}): CD objective gap to the in-memory run {gap!r} "
             f"(limit {STREAM_T_OBJ_RTOL}); chunks {stream['streaming']['num_chunks']}")
@@ -3260,6 +3313,749 @@ def p14_game_finish(procs, outs, h_history, smi):
     if not rel <= 1e-4:
         fail("phase 14: the multi-process GAME driver run is off run H's")
     return dict(timers=runs[0]["timers"], rel=rel)
+
+
+# -- phase 15: the entity-sharded random effect and the unified mesh -------------
+
+# N entity shards run as N gloo ranks sharing the one card (NCCL refuses
+# two ranks on one card): every line of this phase checks the path, the
+# layout and the parity, and counts bytes a rank; it measures no scaling
+POD_LABEL = "ranks share one card through gloo's host staging: a path check, no scaling"
+# what phase 8 and phase 10 leave for this phase: run G's user RE dataset
+# and its sweep-1 offsets (plus residual), run T's streamed CD objectives
+POD_INPUTS = {}
+POD_SHARDS = (2, 4)  # run P's spawned entity meshes, side by side
+# run P against the single card's replicated path, of their scale: at
+# N = 1 the blocks are the buckets and the result is bitwise. At N = 2
+# and 4 a rank's Newton blocks hold other entity counts than the buckets,
+# and the card's batched Gram products round otherwise at other batch
+# sizes, so a few entities stop one Newton step apart at the relative
+# function change of 1e-5 (the replicated update is bitwise in a spawned
+# 1-rank process too): the rows part by up to 5.2e-4 of their scale,
+# variances 7.2e-4, scores 6.2e-4 (NVIDIA H100 80GB HBM3 at 700 W). Held
+# to POD_ROW_RTOL, and held where they part: every row more than POD_RTOL
+# of scale from the replicated row has a float64 gradient within
+# GAME_RE_GRAD_LIMIT at both rows (a row solved against wrong offsets has
+# a gradient of order 1), and, the objective being 1-strongly convex (L2
+# weight 1), the two rows lie within the sum of their gradients' 2-norms
+# of each other: both are the same optimum within the stop. Float32 sets
+# that stop: within ~1e-3 of the optimum f - f* ~ |c - c*|^2 / 2 is below
+# a float32 ulp of f (~1e-6), so a tighter tolerance leaves the float32
+# rows as far apart (5.1e-4 of scale at 1e-9 on the card). The same
+# update in float64 at POD_TIGHT_TOL on both paths must agree within
+# POD_RTOL
+POD_RTOL = 1e-5
+POD_ROW_RTOL = 2e-3
+POD_TIGHT_TOL = 1e-12
+POD_E_RTOL = 1e-4  # run E and the streamed runs: objectives (relative), scores (of scale)
+# run E's scores at N = 2 are held to POD_ROW_RTOL: its fixed effect runs
+# data-parallel over the 2 processes (partials summed in another order,
+# as in phase 14, which holds only the objective), and the float32 fits
+# part by 3.3e-4 of the scores' scale; N = 1 is bitwise run H's
+POD_TIMEOUT_S = 300
+# run E's driver processes: the training driver's entry point, then K1's
+# launches in the process on a line of their own
+POD_E_MARK = "phase 15 K1 launches: "
+POD_E_CHILD = (
+    "import sys\n"
+    "from photon_ml_tpu_torch.cli import game_training_driver\n"
+    "from photon_ml_tpu_torch.ops.kernels import bilinear_pass\n"
+    "game_training_driver.main(sys.argv[1:])\n"
+    f"print({POD_E_MARK!r} + str(bilinear_pass.launches))\n"
+)
+# where phase 15 runs: the card (a CPU rehearsal sets "cpu" and
+# ["--device", "cpu"]; the spawned ranks take their mesh's device)
+POD_DEVICE = "cuda"
+POD_DEVICE_ARGS = []
+# run U: the JAX package's unified-mesh configuration (bench.py:1537-1660)
+UNIFIED_N, UNIFIED_E, UNIFIED_D, UNIFIED_K = 4096, 512, 16, 6
+UNIFIED_LAMBDAS = [0.1, 0.5, 1.0, 2.0]
+UNIFIED_DUPLICATES = [0.5, 0.5, 2.0, 2.0]
+UNIFIED_ITERS = 2
+# run U against the per-member pod CD: the objectives relative, the banks
+# of their scale. The grid folds its members into the solvers' batch, so a
+# lane's Newton products run at another batch size than the member's own
+# and round otherwise; at 5 iterations the RE rows are unconverged, and
+# parted by 2.8e-4 of their scale in a CPU rehearsal: Queue 3's 5e-4
+UNIFIED_OBJ_RTOL = 1e-5
+UNIFIED_ROW_RTOL = 5e-4
+
+
+def pod_problem(tolerance=1e-5):
+    """Run G's user random-effect problem (the dense Newton solver on its
+    buckets of 25,000)."""
+    from photon_ml_tpu_torch.game import RandomEffectOptimizationProblem
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig,
+        OptimizerType,
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    return RandomEffectOptimizationProblem(
+        LOGISTIC,
+        OptimizerConfig(OptimizerType.LBFGS, max_iter=30, tolerance=tolerance, lbfgs_history=5),
+        RegularizationContext(RegularizationType.L2), reg_weight=1.0,
+    )
+
+
+def pod_sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def scale_err(got, want) -> float:
+    """max |got - want| over want's max-abs."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def pod_run(mesh, red, offsets, save=None, tight=False):
+    """Two pod updates with variances and a score of run G's user random
+    effect on this rank, each between two synchronizations; -> seconds,
+    fetches, transport counts, bytes, a float64 gradient check on sampled
+    entities and a digest of the gathered bank (the same on every rank),
+    and the gathered bank, variances and scores (with ``tight`` also the
+    bank of one more update in float64 at POD_TIGHT_TOL): saved as
+    ``.npy`` under the prefix ``save`` by rank 0 (a spawned rank), else
+    returned."""
+    import dataclasses
+    import hashlib
+
+    from photon_ml_tpu_torch.game.pod import PodRandomEffectProblem, per_device_bytes
+    from photon_ml_tpu_torch.optim import common
+    from photon_ml_tpu_torch.parallel import shuffle
+
+    pod = PodRandomEffectProblem(pod_problem(), mesh)
+    pod_sync(mesh.device)
+    t0 = time.perf_counter()
+    pod.prepare(red)
+    view_s = time.perf_counter() - t0
+    out = {"update_s": [], "fetches": [], "transport": [], "view_s": view_s}
+    banks = []
+    for _ in range(2):
+        shuffle.reset_stats()
+        f0 = common.host_fetches
+        pod_sync(mesh.device)
+        t0 = time.perf_counter()
+        bank, tracker, var = pod.update_bank(pod.init_bank(red), red, offsets, with_variances=True)
+        pod_sync(mesh.device)
+        out["update_s"].append(time.perf_counter() - t0)
+        out["fetches"].append(common.host_fetches - f0)
+        out["transport"].append(dict(shuffle.stats))
+        banks.append(bank)
+    pod_sync(mesh.device)
+    t0 = time.perf_counter()
+    score = pod.score(banks[1], red)
+    pod_sync(mesh.device)
+    out["score_s"] = time.perf_counter() - t0
+    whole, whole_var = banks[1].to_global(), var.to_global()
+    out["repeat_bitwise"] = bool(torch.equal(banks[0].data, banks[1].data))
+    out["digest"] = hashlib.sha256(whole.cpu().numpy().tobytes()).hexdigest()
+    sample = np.random.default_rng(4).choice(red.num_entities, GAME_RE_SAMPLE, replace=False)
+    out["gradient"] = game_re_gradients(None, red, whole, offsets, sample)
+    out["finite"] = bool(torch.isfinite(whole).all() and torch.isfinite(score).all())
+    spec = banks[1].spec
+    out["bytes"] = per_device_bytes(banks[1], var)
+    out["share_bytes"] = 2 * spec.rows_per_shard * red.local_dim * 4
+    out["tracker"] = (tracker.num_entities, tracker.iterations_mean, tracker.iterations_max)
+    arrays = {"bank": whole, "var": whole_var, "score": score}
+    if tight:
+        pod.base.config = dataclasses.replace(pod.base.config, tolerance=POD_TIGHT_TOL)
+        arrays["tight"] = pod.update_bank(
+            pod.init_bank(red, dtype=torch.float64), red, offsets.double())[0].to_global()
+    if save is None:
+        out["arrays"] = arrays
+    elif mesh.rank == 0:
+        for name, t in arrays.items():
+            np.save(f"{save}-{name}.npy", t.cpu().numpy())
+    return out
+
+
+def pod_rank_p(mesh, path):
+    """Run P on one rank of an entity mesh: run G's inputs from the
+    phase's file, the pod run on this rank's shard (K1's launches in it
+    counted), rank 0's gathered results saved beside the file."""
+    import pickle
+
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+
+    with open(path, "rb") as f:
+        d = pickle.load(f)
+    red = d["red"]
+    red.device = mesh.device
+    k1.launches = 0
+    out = pod_run(mesh, red, torch.as_tensor(d["offsets"], device=mesh.device),
+                  save=f"{path}-n{mesh.size('entity')}", tight=True)
+    out["k1"] = k1.launches
+    out["rank"] = mesh.rank
+    return out
+
+
+def pod_moved_rows(red, offsets, bank, ref):
+    """The rows of ``bank`` more than POD_RTOL of scale from ``ref``'s,
+    checked at both rows: -> (how many, the largest float64 gradient
+    max-abs at either, the largest ratio of the rows' 2-norm distance to
+    the sum of their gradients' 2-norms: at most 1 for a 1-strongly convex
+    objective)."""
+    gap = (bank - ref).abs().amax(dim=1) / ref.abs().max().clamp_min(1e-30)
+    moved = torch.nonzero(gap > POD_RTOL).flatten()
+    if moved.numel() == 0:
+        return 0, 0.0, 0.0
+    codes, g = game_re_gradient_rows(red, bank, offsets, moved.cpu().numpy())
+    codes_r, g_r = game_re_gradient_rows(red, ref, offsets, moved.cpu().numpy())
+    if not torch.equal(codes, codes_r) or codes.numel() != moved.numel():
+        fail("phase 15 run P: the moved rows' entities were not all found in the buckets")
+    apart = (bank[codes] - ref[codes]).double().norm(dim=1)
+    ratio = apart / (g.norm(dim=1) + g_r.norm(dim=1)).clamp_min(1e-300)
+    return (int(moved.numel()), float(torch.maximum(g.abs().amax(), g_r.abs().amax())),
+            float(ratio.max()))
+
+
+def pod_run_p(seed, smi, tmp):
+    """Run P: run G's user random effect through PodRandomEffectProblem on
+    entity meshes of 1 rank (in process) and of 2 and 4 gloo ranks
+    (spawned side by side, the inputs handed over in a file), against the
+    single card's replicated update_bank and score_random_effect at the
+    same inputs."""
+    import pickle
+
+    from photon_ml_tpu_torch.game import score_random_effect
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.parallel.mesh import ENTITY_AXIS, entity_mesh, spawn_mesh
+
+    red, offsets = POD_INPUTS.pop("red"), POD_INPUTS.pop("offsets")
+
+    def drop_device_copies():
+        for b in red.buckets:
+            b.__dict__.pop("_device_args", None)
+            b.__dict__.pop("_mesh_args", None)
+        red.__dict__.pop("_device_rows", None)
+
+    drop_device_copies()
+    if POD_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    path = f"{tmp}/run_p.pkl"
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        pickle.dump({"red": red, "offsets": offsets}, f, protocol=5)
+    say(f"phase 15 run P: inputs written for the ranks in {time.perf_counter() - t0!r} s "
+        f"({os.path.getsize(path)} bytes)")
+    with ThreadPoolExecutor(len(POD_SHARDS)) as pool:
+        futures = {n: pool.submit(spawn_mesh, pod_rank_p, (n,), (ENTITY_AXIS,), device=POD_DEVICE,
+                                  args=(path,), timeout_s=POD_TIMEOUT_S) for n in POD_SHARDS}
+        off_d = torch.as_tensor(offsets, device=POD_DEVICE)
+        problem = pod_problem()
+        k1.launches = 0
+        pod_sync(POD_DEVICE)
+        t0 = time.perf_counter()
+        bank, tracker, var = problem.update_bank(
+            torch.zeros(red.num_entities, red.local_dim, device=POD_DEVICE), red, off_d,
+            with_variances=True)
+        score = score_random_effect(bank, red)
+        pod_sync(POD_DEVICE)
+        rep_s = time.perf_counter() - t0
+        ref = {"bank": bank, "var": var, "score": score}
+        zeros = torch.zeros(red.num_entities, red.local_dim, dtype=torch.float64,
+                            device=POD_DEVICE)
+        ref["tight"] = pod_problem(POD_TIGHT_TOL).update_bank(zeros, red, off_d.double())[0]
+        launches = {"replicated": k1.launches}
+        say(f"phase 15 run P replicated ({smi}): update with variances and score {rep_s!r} s, "
+            f"{red.num_entities} entities x D = {red.local_dim}, {len(red.buckets)} buckets, "
+            f"iterations mean {tracker.iterations_mean!r} max {tracker.iterations_max}")
+        drop_device_copies()
+        k1.launches = 0
+        one = pod_run(entity_mesh(1, device=POD_DEVICE), red, off_d)
+        one["k1"] = k1.launches
+        one["rank"] = 0
+        results = {1: one.pop("arrays")}
+        runs = {1: [one]}
+        for n, fut in futures.items():
+            try:
+                runs[n] = fut.result()
+            except (RuntimeError, TimeoutError) as e:
+                fail(f"phase 15 run P, {n} ranks: {e}")
+            results[n] = {name: torch.as_tensor(np.load(f"{path}-n{n}-{name}.npy"),
+                                                device=POD_DEVICE)
+                          for name in ("bank", "var", "score", "tight")}
+    replicated_bytes = 2 * red.num_entities * red.local_dim * 4
+    out = {}
+    for n, ranks in runs.items():
+        r0 = ranks[0]
+        launches[str(n)] = [r["k1"] for r in ranks]
+        r0["errors"] = {name: scale_err(results[n][name], ref[name])
+                        for name in ("bank", "var", "score")}
+        upd = [r["update_s"][1] for r in ranks]
+        moved = tight = None
+        if n > 1:
+            moved = pod_moved_rows(red, off_d, results[n]["bank"], ref["bank"])
+            tight = scale_err(results[n]["tight"], ref["tight"])
+        say(f"phase 15 run P N={n} ({smi}; {POD_LABEL}): update {r0['update_s']!r} s, score "
+            f"{r0['score_s']!r} s, view build {r0['view_s']!r} s, "
+            f"{red.num_entities / max(upd)!r} entities/s, host fetches per update "
+            f"{[r['fetches'][1] for r in ranks]}, transport {r0['transport'][1]}; errors vs the "
+            f"replicated path {r0['errors']} (limit {POD_RTOL if n == 1 else POD_ROW_RTOL}); "
+            f"float64 gradient max-abs over {GAME_RE_SAMPLE} sampled entities "
+            f"{max(r['gradient'] for r in ranks)!r} (limit {GAME_RE_GRAD_LIMIT}); bytes a rank "
+            f"{[r['bytes'] for r in ranks]} of the "
+            f"replicated {replicated_bytes} (share {r0['share_bytes']}); repeat bitwise "
+            f"{[r['repeat_bitwise'] for r in ranks]}; ranks' banks bitwise "
+            f"{len({r['digest'] for r in ranks}) == 1}; K1 launches a rank {launches[str(n)]}"
+            + (f"; rows more than {POD_RTOL} of scale from the replicated {moved[0]}: float64 "
+               f"gradient max-abs at either row {moved[1]!r} (limit {GAME_RE_GRAD_LIMIT}), "
+               f"largest distance over the sum of the gradients' 2-norms {moved[2]!r} (at most "
+               f"1); float64 banks at tolerance {POD_TIGHT_TOL} {tight!r} of scale apart "
+               f"(limit {POD_RTOL})" if n > 1 else ""))
+        if not all(r["repeat_bitwise"] for r in ranks):
+            fail(f"phase 15 run P N={n}: two updates are not bitwise")
+        if len({r["digest"] for r in ranks}) != 1:
+            fail(f"phase 15 run P N={n}: the ranks' gathered banks differ")
+        limit = POD_RTOL if n == 1 else POD_ROW_RTOL
+        if not all(r["finite"] for r in ranks) or max(r0["errors"].values()) > limit:
+            fail(f"phase 15 run P N={n}: off the replicated path: {r0['errors']}")
+        if n == 1 and max(r0["errors"].values()) != 0.0:
+            fail("phase 15 run P N=1: the single-shard pod is not bitwise the replicated path")
+        if not max(r["gradient"] for r in ranks) <= GAME_RE_GRAD_LIMIT:
+            fail(f"phase 15 run P N={n}: a sampled entity's gradient is "
+                 f"{max(r['gradient'] for r in ranks)!r}")
+        if any(r["bytes"] > r["share_bytes"] for r in ranks) or \
+                r0["share_bytes"] > -(-replicated_bytes // n) + 2 * red.local_dim * 4:
+            fail(f"phase 15 run P N={n}: a rank holds more than its shard's share")
+        if r0["tracker"][0] != red.num_entities:
+            fail(f"phase 15 run P N={n}: the tracker counts {r0['tracker'][0]} entities")
+        if moved is not None and not (moved[1] <= GAME_RE_GRAD_LIMIT and moved[2] <= 1.0):
+            fail(f"phase 15 run P N={n}: the rows off the replicated path are not both "
+                 f"optimal: {moved}")
+        if tight is not None and not tight <= POD_RTOL:
+            fail(f"phase 15 run P N={n}: the float64 solves at tolerance {POD_TIGHT_TOL} are "
+                 f"{tight!r} of scale apart")
+        out[n] = dict(update_s=upd, score_s=r0["score_s"], fetches=r0["fetches"][1],
+                      bytes=r0["bytes"], errors=r0["errors"], gradient=r0["gradient"],
+                      moved=moved, tight_bank_err=tight)
+    del ref, bank, var, score, off_d, red, results, zeros
+    if POD_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def pod_e_start(h_dir, shards, tmp):
+    """Run E's two runs of run H's training driver as 2 processes each with
+    ``--entity-shards 2``, started side by side; -> (processes, outputs)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, outs = [], []
+    for run in range(2):
+        port, out = free_port(), f"{tmp}/pod-e2-{run}"
+        outs.append(out)
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", POD_E_CHILD,
+                 *pod_e_argv(h_dir, shards, out), "--entity-shards", "2", *POD_DEVICE_ARGS,
+                 "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", "2",
+                 "--process-id", str(rank)],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+    return procs, outs
+
+
+def pod_e_argv(h_dir, shards, out, output_mode="BEST"):
+    """Run H's training argv over its kept files (no registry)."""
+    return [
+        "--train-input-dirs", f"{h_dir}/train", "--validate-input-dirs", f"{h_dir}/validate",
+        "--output-dir", out, "--feature-shard-id-to-feature-section-keys-map", shards,
+        "--fixed-effect-data-configurations", "global:globalShard,1",
+        "--fixed-effect-optimization-configurations",
+        "global:50,1e-7,10,1,LBFGS,L2;50,1e-7,1,1,LBFGS,L2",
+        "--random-effect-data-configurations",
+        "per-user:userId,userShard,1,none,none,none,INDEX_MAP",
+        "--random-effect-optimization-configurations", "per-user:30,1e-5,1,1,LBFGS,L2",
+        "--num-iterations", "2", "--evaluator-types", "AUC",
+        "--compute-variance", "true", "--model-output-mode", output_mode,
+    ]
+
+
+def pod_e_scores(h_dir, shards, model_dir, out):
+    """{uid: score} of ``model_dir`` over run H's validation files, through
+    ``game_scoring_driver``."""
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+
+    game_scoring_driver.main([
+        "--input-data-dirs", f"{h_dir}/validate", "--game-model-input-dir", model_dir,
+        "--output-dir", out, "--feature-shard-id-to-feature-section-keys-map", shards,
+        *POD_DEVICE_ARGS,
+    ])
+    return pod_score_file(f"{out}/scores")
+
+
+def pod_score_file(scores_dir):
+    """{uid: predictionScore} of a scoring driver's score files."""
+    from photon_ml_tpu_torch.io.avro_codec import read_avro_records
+
+    out = {}
+    for name in sorted(os.listdir(scores_dir)):
+        if name.endswith(".avro"):
+            for r in read_avro_records(f"{scores_dir}/{name}"):
+                out[r["uid"]] = r["predictionScore"]
+    return out
+
+
+def same_files(a, b) -> bool:
+    """Whether two directory trees hold the same files byte for byte."""
+    names = sorted(os.path.relpath(os.path.join(root, f), a)
+                   for root, _, files in os.walk(a) for f in files)
+    other = sorted(os.path.relpath(os.path.join(root, f), b)
+                   for root, _, files in os.walk(b) for f in files)
+    if names != other:
+        return False
+    for n in names:
+        with open(f"{a}/{n}", "rb") as fa, open(f"{b}/{n}", "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def pod_run_e(h_dir, shards, h_history, k1, smi, tmp, procs, outs):
+    """Run E: run H's files through the GAME training driver with
+    ``--entity-shards 1`` in this process, while the two 2-process runs
+    with ``--entity-shards 2`` go on; the models against run H's (the
+    files, and the scores through ``game_scoring_driver``); -> K1's
+    launches."""
+    from photon_ml_tpu_torch.cli import game_training_driver
+
+    k1.launches = 0
+    t0 = time.perf_counter()
+    driver = game_training_driver.main(
+        pod_e_argv(h_dir, shards, f"{tmp}/pod-e1", "NONE")
+        + ["--entity-shards", "1", *POD_DEVICE_ARGS])
+    e1_s = time.perf_counter() - t0
+    e1_k1 = k1.launches
+    e2_k1 = []
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=POD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("phase 15 run E: a driver process did not end")
+        if p.returncode != 0:
+            fail(f"phase 15 run E: a driver process ended with {p.returncode}: {log[-3000:]}")
+        counts = [int(line[len(POD_E_MARK):]) for line in log.splitlines()
+                  if line.startswith(POD_E_MARK)]
+        if len(counts) != 1:
+            fail(f"phase 15 run E: a driver process printed no K1 count: {log[-3000:]}")
+        e2_k1.append(counts[0])
+    hist = {"N=1": driver.best_result[0].objective_history}
+    for i, o in enumerate(outs):
+        with open(f"{o}/metrics.json") as f:
+            hist[f"N=2 run {i}"] = json.load(f)["objective_history"]
+    same = same_files(f"{outs[0]}/best-model", f"{outs[1]}/best-model")
+    h_scores = pod_score_file(f"{h_dir}/scores/scores")
+    got = pod_e_scores(h_dir, shards, f"{outs[0]}/best-model", f"{tmp}/pod-e-scores")
+    if sorted(got) != sorted(h_scores):
+        fail("phase 15 run E: the scores cover other rows than run H's")
+    uids = sorted(h_scores)
+    want = torch.tensor([h_scores[u] for u in uids], dtype=torch.float64)
+    errs = {"N=2": scale_err(torch.tensor([got[u] for u in uids], dtype=torch.float64), want)}
+    gaps = {label: max(abs(a - b) / abs(b) for a, b in zip(h, h_history))
+            for label, h in hist.items()}
+    say(f"phase 15 run E ({smi}; {POD_LABEL}): --entity-shards 1 in one process {e1_s!r} s "
+        f"(timers {driver.timer.durations}), K1 launches {e1_k1}, in each process of the two "
+        f"2-process runs {e2_k1}; objective histories {hist} against "
+        f"run H's {h_history}: largest relative gaps {gaps} (N = 1 must be 0: run H's fit "
+        f"itself); the two 2-process runs' model files bitwise {same}; the N = 2 "
+        f"model's scores vs run H's, of their scale: {errs['N=2']!r} (limit {POD_ROW_RTOL})")
+    if hist["N=2 run 0"] != hist["N=2 run 1"] or not same:
+        fail("phase 15 run E: the two 2-process runs are not bitwise")
+    if max(gaps.values()) > POD_E_RTOL or gaps["N=1"] != 0.0:
+        fail("phase 15 run E: an objective history is off run H's")
+    if errs["N=2"] > POD_ROW_RTOL:
+        fail("phase 15 run E: a model's scores are off run H's")
+    return dict(k1={"1": e1_k1, "2": e2_k1}, seconds=e1_s, gaps=gaps, score_errs=errs)
+
+
+def pod_t_params(train_dir):
+    """Run T's streamed training configuration, as its driver parses it."""
+    from photon_ml_tpu_torch.cli import game_training_driver
+
+    return game_training_driver.params_from_args([
+        "--train-input-dirs", train_dir, "--output-dir", "unused",
+        "--feature-shard-id-to-feature-section-keys-map",
+        "globalShard:features|userShard:userFeatures",
+        "--fixed-effect-data-configurations", "global:globalShard,1",
+        "--fixed-effect-optimization-configurations", "global:50,1e-7,1,1,TRON,L2",
+        "--random-effect-data-configurations",
+        "per-user:userId,userShard,1,none,none,none,IDENTITY",
+        "--random-effect-optimization-configurations", "per-user:30,1e-5,1,1,LBFGS,L2",
+        "--num-iterations", "2", "--streaming", "true",
+        "--stream-memory-budget", str(STREAM_T_BUDGET),
+    ])
+
+
+def pod_t_rank(mesh, train_dir, spill_root):
+    """Run T's streamed GAME through ``train_streaming_game(entity_mesh=)``
+    on this rank (its own spill directory); -> the objective history and a
+    digest of the model's banks."""
+    import hashlib
+
+    from photon_ml_tpu_torch.cli.game_training_driver import expand_config_grid
+    from photon_ml_tpu_torch.game.streaming import train_streaming_game
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+
+    k1.launches = 0
+    p = pod_t_params(train_dir)
+    (combo,) = expand_config_grid({**p.fixed_effect_opt_configs, **p.random_effect_opt_configs})
+    spill = f"{spill_root}/rank{mesh.rank}"
+    os.makedirs(spill, exist_ok=True)
+    t0 = time.perf_counter()
+    result, _ = train_streaming_game(
+        [train_dir], p.feature_shards, p.fixed_effect_data_configs,
+        p.random_effect_data_configs, combo, p.task_type, num_iterations=p.num_iterations,
+        memory_budget_bytes=p.stream_memory_budget, spill_dir=spill, entity_mesh=mesh,
+    )
+    seconds = time.perf_counter() - t0
+    gm = result.game_model
+    digest = hashlib.sha256(
+        gm.get_model("per-user").bank.cpu().numpy().tobytes()
+        + gm.get_model("global").model.means.cpu().numpy().tobytes()
+    ).hexdigest()
+    return dict(objective=result.objective_history, digest=digest, seconds=seconds,
+                k1=k1.launches)
+
+
+def pod_run_t(train_dir, futures, smi, tmp):
+    """The streamed entity shards: two spawned 2-rank runs (bitwise, and
+    within POD_E_RTOL of run T's streamed objective), and run T's driver
+    with ``--streaming true --entity-shards 1`` in this process."""
+    from photon_ml_tpu_torch.cli import game_training_driver
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+
+    t_hist = POD_INPUTS["t_history"]
+    k1.launches = 0
+    t0 = time.perf_counter()
+    argv = [
+        "--train-input-dirs", train_dir, "--output-dir", f"{tmp}/pod-t1",
+        "--feature-shard-id-to-feature-section-keys-map",
+        "globalShard:features|userShard:userFeatures",
+        "--fixed-effect-data-configurations", "global:globalShard,1",
+        "--fixed-effect-optimization-configurations", "global:50,1e-7,1,1,TRON,L2",
+        "--random-effect-data-configurations",
+        "per-user:userId,userShard,1,none,none,none,IDENTITY",
+        "--random-effect-optimization-configurations", "per-user:30,1e-5,1,1,LBFGS,L2",
+        "--num-iterations", "2", "--streaming", "true",
+        "--stream-memory-budget", str(STREAM_T_BUDGET), "--entity-shards", "1",
+        "--model-output-mode", "NONE", *POD_DEVICE_ARGS,
+    ]
+    driver = game_training_driver.main(argv)
+    one_s = time.perf_counter() - t0
+    one_k1 = k1.launches
+    one = driver.results[0][1].objective_history
+    runs = []
+    for fut in futures:
+        try:
+            runs.append(fut.result())
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 15 streamed entity shards: {e}")
+    flat = [r for ranks in runs for r in ranks]
+    gaps = {"N=1 driver": max(abs(a - b) / abs(b) for a, b in zip(one, t_hist)),
+            "N=2": max(abs(a - b) / abs(b) for a, b in zip(flat[0]["objective"], t_hist))}
+    say(f"phase 15 streamed entity shards ({smi}; {POD_LABEL}): 2 ranks {flat[0]['seconds']!r} s, "
+        f"objective {flat[0]['objective']}, the two runs and every rank bitwise "
+        f"{len({(str(r['objective']), r['digest']) for r in flat}) == 1}; the driver with "
+        f"--streaming --entity-shards 1 {one_s!r} s, objective {one}; against run T's streamed "
+        f"{t_hist}: largest relative gaps {gaps}; K1 launches in the driver {one_k1}, a rank "
+        f"of the two 2-rank runs {[r['k1'] for r in flat]}")
+    if len({(str(r["objective"]), r["digest"]) for r in flat}) != 1:
+        fail("phase 15 streamed entity shards: the runs or ranks are not bitwise")
+    if max(gaps.values()) > POD_E_RTOL:
+        fail("phase 15 streamed entity shards: off run T's objective")
+    return dict(gaps=gaps, seconds=flat[0]["seconds"], driver_s=one_s,
+                k1={"driver": one_k1, "2": [r["k1"] for r in flat]})
+
+
+def unified_data(seed, device):
+    """Run U's rows (the JAX package's unified-mesh configuration)."""
+    from photon_ml_tpu_torch.game import (
+        EntityIndex,
+        GameDataset,
+        ProjectorType,
+        RandomEffectDataConfiguration,
+        ShardData,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.utils.index_map import IndexMap, feature_key
+
+    rng = np.random.default_rng([seed, 15])
+    n, E, d, k = UNIFIED_N, UNIFIED_E, UNIFIED_D, UNIFIED_K
+    codes = rng.integers(0, E, size=n).astype(np.int32)
+    ix = rng.integers(0, d, size=(n, k)).astype(np.int32)
+    v = rng.normal(size=(n, k)).astype(np.float32)
+    lab = (rng.uniform(size=n) > 0.5).astype(np.float32)
+    off = (rng.normal(size=n) * 0.1).astype(np.float32)
+    imap = IndexMap.build((feature_key(f"f{i}", "") for i in range(d)), add_intercept=False)
+    ds = GameDataset(
+        uids=[str(i) for i in range(n)], labels=lab, offsets=off, weights=np.ones(n, np.float32),
+        shards={"s": ShardData(ix, v, imap, None)}, entity_codes={"user": codes},
+        entity_indexes={"user": EntityIndex.build("user", [f"e{i:06d}" for i in range(E)])},
+        num_real_rows=n, device=torch.device(device),
+    )
+    red = build_random_effect_dataset(ds, RandomEffectDataConfiguration(
+        random_effect_type="user", feature_shard_id="s", projector_type=ProjectorType.IDENTITY))
+    return ds, red
+
+
+def unified_problems(lam=1.0):
+    from photon_ml_tpu_torch.game import RandomEffectOptimizationProblem
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_ml_tpu_torch.optim.problem import create_glm_problem
+    from photon_ml_tpu_torch.task import TaskType
+
+    fe = create_glm_problem(TaskType.LOGISTIC_REGRESSION, UNIFIED_D, config=OptimizerConfig(max_iter=5))
+    re = RandomEffectOptimizationProblem(
+        LOGISTIC, OptimizerConfig(max_iter=5), RegularizationContext(RegularizationType.L2),
+        reg_weight=lam)
+    return fe, re
+
+
+def unified_rank(mesh, seed):
+    """Run U on one of 4 ranks: run_game_grid over the configuration's
+    λ-grid on the (grid 2, entity 2) mesh ``resolve_mesh`` lays over them,
+    then over a grid with duplicate members, then the per-member pod CD on
+    the same ranks (entity meshes of 2)."""
+    from photon_ml_tpu_torch.game import CoordinateDescent, FixedEffectCoordinate
+    from photon_ml_tpu_torch.game.coordinate import PodRandomEffectCoordinate
+    from photon_ml_tpu_torch.game.unified import run_game_grid
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.parallel.mesh import entity_mesh
+    from photon_ml_tpu_torch.parallel.unified_mesh import resolve_mesh
+    from photon_ml_tpu_torch.task import TaskType
+
+    k1.launches = 0
+    ds, red = unified_data(seed, mesh.device)
+    out = {}
+    for label, lams in (("grid", UNIFIED_LAMBDAS), ("duplicates", UNIFIED_DUPLICATES)):
+        plan = resolve_mesh(grid_size=len(lams), entity_shards=2, device=mesh.device)
+        fe, re = unified_problems()
+        pod_sync(mesh.device)
+        t0 = time.perf_counter()
+        res = run_game_grid(plan, ds, red, fe, re, lams, feature_shard_id="s",
+                            fe_reg_weight=0.1, num_iterations=UNIFIED_ITERS)
+        pod_sync(mesh.device)
+        out[label] = dict(
+            seconds=time.perf_counter() - t0, objective=res.objective_history,
+            readbacks=res.readbacks, bytes=res.re_bank.per_device_bytes(),
+            re=[res.re_bank.member_global(g) for g in range(len(lams))],
+            fe=res.fe_banks[: len(lams)],
+        )
+    pod_mesh = entity_mesh(2, device=mesh.device)
+    seq = []
+    t0 = time.perf_counter()
+    for lam in UNIFIED_LAMBDAS:
+        fe, re = unified_problems(lam)
+        coords = {
+            "fixed": FixedEffectCoordinate(name="fixed", dataset=ds, problem=fe,
+                                           feature_shard_id="s", reg_weight=0.1),
+            "per-user": PodRandomEffectCoordinate(name="per-user", dataset=ds, re_dataset=red,
+                                                  problem=re, mesh=pod_mesh),
+        }
+        r = CoordinateDescent(coords, ds, TaskType.LOGISTIC_REGRESSION).run(UNIFIED_ITERS)
+        seq.append(dict(objective=r.objective_history, re=r.model.get_model("per-user").bank,
+                        fe=r.model.get_model("fixed").model.means))
+    pod_sync(mesh.device)
+    seq_s = time.perf_counter() - t0
+    grid = out["grid"]
+    errs = [dict(
+        objective=max(abs(grid["objective"][it][g] - seq[g]["objective"][it])
+                      / abs(seq[g]["objective"][it]) for it in range(UNIFIED_ITERS)),
+        re=scale_err(grid["re"][g], seq[g]["re"]), fe=scale_err(grid["fe"][g], seq[g]["fe"]),
+    ) for g in range(len(UNIFIED_LAMBDAS))]
+    dup = out["duplicates"]
+    return dict(
+        rank=mesh.rank, grid_s=grid["seconds"], dup_s=dup["seconds"], seq_s=seq_s,
+        objective=grid["objective"], readbacks=(grid["readbacks"], dup["readbacks"]),
+        bytes=grid["bytes"], errors=errs,
+        duplicates_bitwise=bool(torch.equal(dup["re"][0], dup["re"][1])
+                                and torch.equal(dup["re"][2], dup["re"][3])
+                                and torch.equal(dup["fe"][0], dup["fe"][1])
+                                and torch.equal(dup["fe"][2], dup["fe"][3])),
+        digest=str([float(x.sum()) for x in grid["re"]] + [float(x.sum()) for x in grid["fe"]]),
+        finite=all(bool(torch.isfinite(x).all()) for x in grid["re"] + list(grid["fe"])),
+        k1=k1.launches,
+    )
+
+
+def pod_run_u(future, smi):
+    """Run U's results: run_game_grid against the per-member pod CD,
+    duplicate members bitwise, one readback a CD iteration."""
+    from photon_ml_tpu_torch.game.pod import EntityShardSpec
+
+    try:
+        ranks = future.result()
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 15 run U: {e}")
+    r0 = ranks[0]
+    worst = {k: max(e[k] for e in r0["errors"]) for k in ("objective", "re", "fe")}
+    share = 2 * EntityShardSpec(2, UNIFIED_E).rows_per_shard * UNIFIED_D * 4
+    say(f"phase 15 run U ({smi}; {POD_LABEL}): run_game_grid on a (grid 2, entity 2) mesh of 4 "
+        f"ranks, n = {UNIFIED_N}, E = {UNIFIED_E}, d = {UNIFIED_D}, k = {UNIFIED_K}, lambda "
+        f"{UNIFIED_LAMBDAS}, {UNIFIED_ITERS} iterations: {r0['grid_s']!r} s (duplicates grid "
+        f"{r0['dup_s']!r} s) against the per-member pod CD's {r0['seq_s']!r} s; objectives "
+        f"{r0['objective']}; largest gaps to the per-member pod CD {worst}; readbacks "
+        f"{r0['readbacks']}; duplicate members bitwise {[r['duplicates_bitwise'] for r in ranks]}; "
+        f"RE bank bytes a rank {[r['bytes'] for r in ranks]} (2 members' share {share}); K1 "
+        f"launches a rank {[r['k1'] for r in ranks]}")
+    if not all(r["finite"] for r in ranks) or len({r["digest"] for r in ranks}) != 1:
+        fail("phase 15 run U: non-finite results, or the ranks disagree")
+    if worst["objective"] > UNIFIED_OBJ_RTOL or max(worst["re"], worst["fe"]) > UNIFIED_ROW_RTOL:
+        fail("phase 15 run U: off the per-member pod CD")
+    if not all(r["duplicates_bitwise"] for r in ranks):
+        fail("phase 15 run U: duplicate-lambda members are not bitwise identical")
+    if any(r["readbacks"] != (UNIFIED_ITERS, UNIFIED_ITERS) for r in ranks):
+        fail("phase 15 run U: not one readback a CD iteration")
+    if any(r["bytes"] != share for r in ranks):
+        fail("phase 15 run U: a rank's bank block is not its share")
+    return dict(grid_s=r0["grid_s"], seq_s=r0["seq_s"], errors=worst,
+                k1=[r["k1"] for r in ranks])
+
+
+def pod_phase(seed, smi, k1, h_dir, shards, h_history):
+    """Phase 15 over run G's inputs, run H's files and run T's: runs P, E,
+    the streamed entity shards and U, the spawns side by side; -> K1's
+    launches in each run (in process, a spawned rank, a driver process)
+    and the runs' numbers."""
+    from photon_ml_tpu_torch.parallel.mesh import ENTITY_AXIS, GRID_AXIS, spawn_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="photon_pod_phase_") as tmp:
+        t0 = time.perf_counter()
+        e_procs, e_outs = pod_e_start(h_dir, shards, tmp)
+        t_dir = POD_INPUTS.pop("t_train")
+        try:
+            with ThreadPoolExecutor(3) as pool:
+                u_future = pool.submit(spawn_mesh, unified_rank, (2, 2), (GRID_AXIS, ENTITY_AXIS),
+                                       device=POD_DEVICE, args=(seed,), timeout_s=POD_TIMEOUT_S)
+                t_futures = [pool.submit(spawn_mesh, pod_t_rank, (2,), (ENTITY_AXIS,),
+                                         device=POD_DEVICE, args=(t_dir, f"{tmp}/t-spill-{i}"),
+                                         timeout_s=POD_TIMEOUT_S) for i in range(2)]
+                out["P"], p_k1 = pod_run_p(seed, smi, tmp)
+                out["E"] = pod_run_e(h_dir, shards, h_history, k1, smi, tmp, e_procs, e_outs)
+                out["T"] = pod_run_t(t_dir, t_futures, smi, tmp)
+                out["U"] = pod_run_u(u_future, smi)
+        finally:
+            for p in e_procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            shutil.rmtree(os.path.dirname(t_dir), ignore_errors=True)
+        out["seconds"] = time.perf_counter() - t0
+    say(f"phase 15: {out['seconds']!r} s of host time ({smi})")
+    launches = {"P": p_k1, "E": out["E"].pop("k1"), "T": out["T"].pop("k1"), "U": out["U"].pop("k1")}
+    say(f"phase 15 K1 launches (each run's counter at 0 just before it, read just after; "
+        f"spawned ranks and driver processes count their own): {json.dumps(launches)}")
+    return launches, out
 
 
 # -- phase 11: online serving ---------------------------------------------------
@@ -4162,13 +4958,13 @@ def fleet_x_swap_and_kill(router, procs, swap_recs, kill_recs, oracles, fe_oracl
 
 
 def fleet_y_files(tmp):
-    """Copy what runs Y and Q read out of run H's directory (the model,
+    """Copy what runs Y, Q and phase 15 read out of run H's directory (the model,
     its registry, the training and validation parts, run W's name-term
     lists and closed scores) into a directory that outlives it; -> that
     directory."""
     keep = tempfile.mkdtemp(prefix="photon_fleet_y_")
     for part in ("out/best-model", "name-terms", "serve-closed/scores", "registry", "train",
-                 "validate"):
+                 "validate", "scores"):
         shutil.copytree(f"{tmp}/{part}", f"{keep}/{part}")
     return keep
 
@@ -4896,7 +5692,9 @@ def main() -> int:
     k3_times = {
         "seq_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out, w)),
         "bank_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out_bank, w_bank)),
-        # the plain version: index_add_ in entry order (float atomics on the card)
+        # the plain version: index_add_ in entry order (float atomics on the
+        # card), which is also the one PyTorch call that computes the same
+        # function, so its time is the library's too
         "seq_plain_ms": time_ms(lambda: z_out.index_add_(
             0, sp.spill_out, sp.spill_vals * w[sp.spill_in])),
     }
@@ -5308,6 +6106,17 @@ def main() -> int:
     say(f"phase 12: {time.perf_counter() - t0!r} s of host time ({smi})")
     say("fleet: " + json.dumps(fleet))
 
+    # -- 15. the entity-sharded random effect and the unified mesh, over run
+    # G's inputs, run T's objectives and run H's files (before run Q adds a
+    # part to them) ------------------------------------------------------------
+    try:
+        torch.cuda.empty_cache()
+        phase15_k1, phase15 = pod_phase(args.seed, smi, k1, y_dir, shards, fleet["h_history"])
+        say("pod: " + json.dumps(phase15))
+    except BaseException:
+        shutil.rmtree(y_dir, ignore_errors=True)
+        raise
+
     # -- 13. the model registry, the retrain loop, the determinism harness --------
     t0 = time.perf_counter()
     registry = {}
@@ -5335,7 +6144,7 @@ def main() -> int:
     say(f"phase 13: {time.perf_counter() - t0!r} s of host time ({smi})")
     say("registry: " + json.dumps(registry))
 
-    # -- 15. result lines -------------------------------------------------------
+    # -- 16. result lines -------------------------------------------------------
     grid_k2 = sum(run["k2"] for run in grid_runs.values())
     kernels = [{
         "name": "bilinear_pass",
@@ -5362,6 +6171,7 @@ def main() -> int:
         "phase9_launches": {run: n["k1"] for run, n in phase9_launches.items()},
         "phase10_launches": phase10_k1,
         "phase13_launches": phase13_k1,
+        "phase15_launches": phase15_k1,
         "stream_chunk": stream_chunk,
     }, {
         "name": "grid_bilinear_pass",
@@ -5396,7 +6206,7 @@ def main() -> int:
         "plain_ms": k3_times["seq_plain_ms"],
         "bound_ms": k3_bound,
         "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": k3_times["seq_plain_ms"],
         "implementation": "spill_add_kernel: the spilled entries sorted by output "
                           "once a schedule, each output's sum in entry order added "
                           "once (an XLA scatter-add outside the Pallas kernel in "

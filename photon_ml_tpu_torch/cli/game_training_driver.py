@@ -14,9 +14,13 @@ Params.scala:199-426 (option names kept verbatim: ``train-input-dirs``,
 ``fixed-effect-data-configurations``, per-coordinate config maps in the
 ``coord1:cfg|coord2:cfg`` string DSL with grid expansion).
 
-The parser accepts every option of the JAX package's driver. Options of
-paths not ported yet are refused by :meth:`GameTrainingParams.validate`
-with the ROADMAP item they wait for. The one option the port adds is
+The parser accepts every option of the JAX package's driver, and every
+path behind them is ported. ``--entity-shards N`` shards each plain
+random effect's bank over an entity mesh of N processes by entity hash
+(``game/pod.py``; ``-1`` every process, one process and N = 1 the
+single-shard pod path); without it, over several processes the random
+effects split each bucket's entities over a data mesh of the ranks. The
+one option the port adds is
 ``--device``: the card by default (the driver raises without CUDA), ``cpu``
 on request. As in the reference, the fixed effect solves on the scatter
 objective. ``--streaming true`` trains out of core
@@ -48,7 +52,7 @@ import torch
 
 from photon_ml_tpu_torch.cli.glm_driver import prepare_output_dir
 from photon_ml_tpu_torch.parallel import multihost
-from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, entity_mesh, make_mesh
 from photon_ml_tpu_torch.evaluation.evaluator import Evaluator, EvaluatorType
 from photon_ml_tpu_torch.game.config import (
     FactoredRandomEffectConfiguration,
@@ -61,6 +65,7 @@ from photon_ml_tpu_torch.game.coordinate import (
     FactoredRandomEffectCoordinate,
     FactoredRandomEffectModel,
     FixedEffectCoordinate,
+    PodRandomEffectCoordinate,
     RandomEffectCoordinate,
     _latent_scores,
 )
@@ -94,7 +99,7 @@ from photon_ml_tpu_torch.reliability import (
 )
 from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json
 from photon_ml_tpu_torch.task import TaskType
-from photon_ml_tpu_torch.training import resolve_grid_mode
+from photon_ml_tpu_torch.training import resolve_entity_shards, resolve_grid_mode
 from photon_ml_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from photon_ml_tpu_torch.utils.date_range import expand_dated_paths, resolve_date_range
 from photon_ml_tpu_torch.utils.device import resolve_device
@@ -167,8 +172,7 @@ def expand_config_grid(
 @dataclass
 class GameTrainingParams:
     """Every field of the JAX package's driver, so that every option
-    parses; the fields of paths not ported yet must keep their defaults
-    (:meth:`validate`)."""
+    parses (:meth:`validate` holds them to the reference's rules)."""
 
     train_input_dirs: List[str] = field(default_factory=list)
     validate_input_dirs: Optional[List[str]] = None
@@ -238,15 +242,8 @@ class GameTrainingParams:
 
     def unported(self) -> List[str]:
         """The options set here whose paths the port lacks, each with the
-        ROADMAP item it waits for."""
-        out = []
-
-        def need(cond: bool, what: str, item: str) -> None:
-            if cond:
-                out.append(f"{what} (ROADMAP {item})")
-
-        need(self.entity_shards not in (None, 0), "--entity-shards", "item 13")
-        return out
+        ROADMAP item it waits for: none is left."""
+        return []
 
     def validate(self) -> None:
         unported = self.unported()
@@ -286,6 +283,23 @@ class GameTrainingParams:
             raise ValueError(
                 f"unknown grid mode {self.grid_mode!r}; expected batched | sequential | auto"
             )
+        if self.entity_shards is not None and self.entity_shards not in (0, -1) \
+                and self.entity_shards < 1:
+            raise ValueError(
+                f"entity-shards must be -1, 0 or >= 1, got {self.entity_shards}"
+            )
+        if self.entity_shards not in (None, 0):
+            if self.factored_re_configs:
+                raise ValueError(
+                    "--entity-shards supports plain random-effect "
+                    "coordinates only (factored REs re-project rows "
+                    "through a replicated latent view)"
+                )
+            if self.compute_variance and self.streaming:
+                raise ValueError(
+                    "--entity-shards with --streaming does not support "
+                    "--compute-variance yet"
+                )
         if self.grid_memory_budget < 1:
             raise ValueError("grid-memory-budget must be >= 1")
         if self.stream_memory_budget and not self.streaming:
@@ -313,12 +327,19 @@ class GameTrainingParams:
                     "streaming GAME training does not support: " + ", ".join(unsupported)
                 )
             validate_streaming_game_configs(self.random_effect_data_configs)
-        if self.retrain_from and self.streaming:
-            raise ValueError(
-                "--retrain-from does not support: --streaming (the out-of-core "
-                "CD builds its banks from disk segments; warm-starting them is "
-                "not wired yet)"
-            )
+        if self.retrain_from:
+            unsupported = []
+            if self.streaming:
+                unsupported.append(
+                    "--streaming (the out-of-core CD builds its banks from disk "
+                    "segments; warm-starting them is not wired yet)"
+                )
+            if self.entity_shards not in (None, 0):
+                unsupported.append(
+                    "--entity-shards (the pod coordinates own their sharded bank layout)"
+                )
+            if unsupported:
+                raise ValueError("--retrain-from does not support: " + ", ".join(unsupported))
         if self.retrain_from and self.publish_registry and not self.validate_input_dirs:
             raise ValueError(
                 "validation-gated promotion (--retrain-from + "
@@ -363,7 +384,7 @@ class GameTrainingDriver:
         self.logger = logger or PhotonLogger(
             params.output_dir if multihost.is_coordinator() else None
         )
-        self._process_mesh = None
+        self._process_meshes = None
         from photon_ml_tpu_torch.obs import ObsSession
 
         self.obs = ObsSession(params.obs_dir, signal_dump=False)
@@ -421,37 +442,61 @@ class GameTrainingDriver:
 
     # -- coordinates -----------------------------------------------------------
 
-    def _fe_mesh(self):
-        """The fixed effect's mesh over the processes (made once; every rank
-        makes it in the same order): "feature" a (data, model) mesh with
-        ``--model-shards`` (default 2) on the model axis, "auto" a data
-        mesh; None with one process or "off", as the reference's
-        ``maybe_make_mesh`` gives none for one device. The random effects
-        stay replicated on every rank (their entity shards are ROADMAP
-        item 13)."""
+    def _meshes(self) -> dict:
+        """The meshes over the processes, made once and in one order on
+        every rank: ``fe`` for the fixed effect, ``data`` for the
+        replicated random effects' mesh path, ``entity`` for the pod
+        coordinates (``--entity-shards``). Without entity shards, "feature"
+        gives the fixed effect a (data, model) mesh with ``--model-shards``
+        (default 2) on the model axis, "auto" a data mesh, and the random
+        effects a data mesh; None with one process or "off", as the
+        reference's ``maybe_make_mesh`` gives none for one device. A
+        PARTIAL entity mesh (N below the process count) restricts the
+        fixed effect's mesh to the pod's N ranks: each block of N ranks
+        runs the same program, and N = 1 means no fixed-effect mesh."""
+        if self._process_meshes is not None:
+            return self._process_meshes
         p = self.params
         n = multihost.process_count()
-        if p.distributed == "off" or n < 2:
-            return None
-        if self._process_mesh is None:
+        backend = multihost.backend_for(n, p.device)
+        n_ent = resolve_entity_shards(p.entity_shards)
+        pod = None
+        if n_ent is not None:
+            pod = entity_mesh(n_ent, device=self.device, backend=backend)
+        ranks = n if n_ent is None else n_ent
+        fe = data = None
+        if p.distributed != "off" and ranks >= 2:
             if p.distributed == "feature":
                 m = p.model_shards if p.model_shards is not None else 2
-                if n % m != 0:
-                    raise ValueError(
-                        f"model_shards={m} does not divide the {n} processes"
-                    )
-                shape, axes = (n // m, m), (DATA_AXIS, MODEL_AXIS)
-            else:
-                shape, axes = (n,), (DATA_AXIS,)
-            self._process_mesh = make_mesh(
-                shape, axes, device=self.device,
-                backend=multihost.backend_for(n, p.device),
-            )
-        return self._process_mesh
+                if ranks % m != 0:
+                    if n_ent is not None and ranks < n:
+                        raise ValueError(
+                            f"model_shards={m} does not divide the {ranks}-device "
+                            "entity mesh (--entity-shards restricts the fixed "
+                            "effect's (data, model) mesh to the pod device set)"
+                        )
+                    raise ValueError(f"model_shards={m} does not divide the {n} processes")
+                fe = make_mesh((ranks // m, m), (DATA_AXIS, MODEL_AXIS), device=self.device,
+                               backend=backend, replicas=True)
+            if pod is None:
+                data = make_mesh((ranks,), (DATA_AXIS,), device=self.device,
+                                 backend=backend, replicas=True)
+            if fe is None:
+                fe = data if data is not None else make_mesh(
+                    (ranks,), (DATA_AXIS,), device=self.device, backend=backend, replicas=True
+                )
+        self._process_meshes = {"fe": fe, "data": data, "entity": pod}
+        return self._process_meshes
+
+    def _entity_mesh(self):
+        """The pod-scale entity mesh (``--entity-shards``), or None for the
+        replicated random-effect banks."""
+        return self._meshes()["entity"]
 
     def _build_coordinates(self, dataset: GameDataset, re_datasets, opt_combo):
         p = self.params
-        fe_mesh = self._fe_mesh()
+        meshes = self._meshes()
+        fe_mesh, pod_mesh = meshes["fe"], meshes["entity"]
         coords = {}
         for name, dcfg in p.fixed_effect_data_configs.items():
             ocfg = opt_combo[name]
@@ -478,6 +523,8 @@ class GameTrainingDriver:
             problem = RandomEffectOptimizationProblem(
                 loss, ocfg.optimizer_config, ocfg.regularization,
                 reg_weight=ocfg.reg_weight,
+                # the pod layer owns placement on the entity-sharded path
+                mesh=None if pod_mesh is not None else meshes["data"],
                 # a factored model is saved in the original space, where the
                 # latent-space Hdiag does not transform diagonally
                 compute_variances=p.compute_variance and name not in p.factored_re_configs,
@@ -492,6 +539,10 @@ class GameTrainingDriver:
                     ),
                     config=fcfg,
                     reg_weight_projection=ocfg.reg_weight,
+                )
+            elif pod_mesh is not None:
+                coords[name] = PodRandomEffectCoordinate(
+                    name=name, dataset=dataset, re_dataset=red, problem=problem, mesh=pod_mesh,
                 )
             else:
                 coords[name] = RandomEffectCoordinate(
@@ -984,6 +1035,7 @@ class GameTrainingDriver:
                         logger=self.logger,
                         checkpoint_dir=combo_ckpt_dir,
                         preemption_guard=guard,
+                        entity_mesh=self._entity_mesh(),
                         device=self.device,
                     )
                 self.results.append((combo, result, ci))
@@ -1164,6 +1216,14 @@ class GameTrainingDriver:
             # the partial state; there is no coherent model to save
             self.logger.warning("no configuration combo completed; skipping model save")
             return
+        # a pod model's whole bank is an all-gather: every rank makes it
+        # here, before process 0 alone writes
+        for _, result, _ in self.results:
+            for model in (result.model, result.best_model):
+                for sub in model.models.values():
+                    if getattr(sub, "sharded_bank", None) is not None:
+                        sub.bank  # noqa: B018 - materializes the cached whole bank
+                        sub.variances  # noqa: B018
         if not multihost.is_coordinator():
             return  # every rank holds the same models; process 0 writes
         best = self.best_result[0]

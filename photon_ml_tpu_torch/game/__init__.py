@@ -1,8 +1,9 @@
-"""GAME (Generalized Additive Mixed Effects) in memory on one device: multi-
-shard data, per-entity random effects, the factored random effect, matrix
-factorization, block coordinate descent, model files (port of
-``photon_ml_tpu/game``). The pod and mesh paths wait for ROADMAP item 13;
-their names raise with the item."""
+"""GAME (Generalized Additive Mixed Effects): multi-shard data, per-entity
+random effects, the factored random effect, matrix factorization, block
+coordinate descent, model files (port of ``photon_ml_tpu/game``); the
+entity-sharded random effect over a mesh of ranks (``pod.py``, the
+routers of ``residual_routing.py``) and the unified (grid × entity) λ-grid
+trainer (``unified.py``)."""
 
 from photon_ml_tpu_torch.game.config import (
     FactoredRandomEffectConfiguration,
@@ -39,6 +40,12 @@ from photon_ml_tpu_torch.game.model import (
     MatrixFactorizationModel,
     RandomEffectModel,
 )
+from photon_ml_tpu_torch.game.pod import (
+    EntityShardSpec,
+    PodRandomEffectModel,
+    PodRandomEffectProblem,
+    ShardedREBank,
+)
 from photon_ml_tpu_torch.game.model_io import (
     LoadedGameModel,
     load_game_model,
@@ -70,6 +77,10 @@ __all__ = [
     "MatrixFactorizationCoordinate",
     "PodRandomEffectCoordinate",
     "RandomEffectCoordinate",
+    "EntityShardSpec",
+    "PodRandomEffectModel",
+    "PodRandomEffectProblem",
+    "ShardedREBank",
     "CoordinateDescent",
     "CoordinateDescentResult",
     "EntityIndex",

@@ -26,8 +26,9 @@ a mesh with only a data axis runs the data-parallel fit on this rank's
 rows. The coefficients come back whole on every rank, so scores and
 residuals stay replicated.
 
-Not here yet, raising with its ROADMAP item: ``PodRandomEffectCoordinate``
-(item 13).
+``PodRandomEffectCoordinate`` is the entity-sharded random effect
+(``game/pod.py``): its bank lives sharded over an ``entity`` mesh of ranks,
+and its residuals and scores ride the two-hop all-to-all.
 """
 
 from __future__ import annotations
@@ -752,13 +753,70 @@ class MatrixFactorizationCoordinate(Coordinate):
         )
 
 
-def _waits(what: str, item: str):
-    class _NotPorted(Coordinate):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(f"not ported yet: {what} (ROADMAP {item})")
+@dataclass
+class PodRandomEffectCoordinate(Coordinate):
+    """Entity-sharded random-effect block (pod-scale GAME, ``game/pod.py``):
+    the bank, variances and per-entity data shard over the ``entity`` mesh
+    axis by entity hash, each rank solves only its own entities, and the
+    residual currency rides a two-hop all-to-all (residuals in, scores
+    out). Model state is a PodRandomEffectModel whose whole ``bank``
+    materializes lazily (export and validation only). Every rank of the
+    mesh drives it together."""
 
-    _NotPorted.__name__ = what
-    return _NotPorted
+    name: str
+    dataset: GameDataset
+    re_dataset: RandomEffectDataset
+    problem: RandomEffectOptimizationProblem  # mesh-less base
+    mesh: object = None  # 1-D entity mesh (required)
 
+    def __post_init__(self):
+        from photon_ml_tpu_torch.game.pod import PodRandomEffectProblem
 
-PodRandomEffectCoordinate = _waits("PodRandomEffectCoordinate", "item 13")
+        if self.mesh is None:
+            raise ValueError("PodRandomEffectCoordinate requires an entity mesh")
+        self.pod = PodRandomEffectProblem(self.problem, self.mesh)
+
+    def _model(self, bank, variances=None):
+        from photon_ml_tpu_torch.game.pod import PodRandomEffectModel
+
+        return PodRandomEffectModel(
+            bank, self.re_dataset, self.re_dataset.config.random_effect_type,
+            self.re_dataset.config.feature_shard_id, variances_sharded=variances,
+        )
+
+    def initialize_model(self):
+        return self._model(self.pod.init_bank(self.re_dataset))
+
+    def update_model(self, model, residual=None):
+        offsets = self.dataset.row_tensors()[1]
+        if residual is not None:
+            offsets = offsets + residual  # stays on the device
+        bank = getattr(model, "sharded_bank", None)
+        if bank is None and model is not None:
+            bank = model.bank  # warm start from a whole model
+        variances = None
+        if self.problem.compute_variances:
+            bank, tracker, variances = self.pod.update_bank(
+                bank, self.re_dataset, residual_offsets=offsets,
+                with_variances=True, defer_tracker=True,
+            )
+        else:
+            bank, tracker = self.pod.update_bank(
+                bank, self.re_dataset, residual_offsets=offsets, defer_tracker=True,
+            )
+        return self._model(bank, variances), tracker
+
+    def score(self, model) -> Tensor:
+        bank = getattr(model, "sharded_bank", None)
+        if bank is None:
+            return score_random_effect(model.bank, self.re_dataset)
+        return self.pod.score(bank, self.re_dataset)
+
+    def regularization_term_device(self, model) -> Tensor:
+        bank = getattr(model, "sharded_bank", None)
+        if bank is None:
+            bank = model.bank
+        return self.pod.regularization_term_device(bank)
+
+    def prepare(self, model=None) -> None:
+        self.pod.prepare(self.re_dataset)

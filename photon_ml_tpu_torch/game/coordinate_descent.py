@@ -196,6 +196,11 @@ class CoordinateDescent:
             objective_history.append(objective)
             self.logger.info("coordinate descent iter %d: objective=%g", it + 1, objective)
             if self.checkpointer is not None:
+                # a sharded bank is gathered here, by every rank together,
+                # and not in the IO worker
+                for m in models.values():
+                    if getattr(m, "sharded_bank", None) is not None:
+                        m.bank  # noqa: B018 - materializes the cached whole bank
                 # the write leaves the critical path; drain_io() below is
                 # the barrier before any return
                 overlap.submit_io(

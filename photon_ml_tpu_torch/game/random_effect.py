@@ -20,7 +20,13 @@ answer to serialized scatters) and run on ``torch.bmm``. The dual-space
 Newton solver is a host loop over the whole bucket: one fetch per Newton
 iteration, converged entities frozen bit for bit.
 
-The entity-sharded mesh, router and pod paths wait for ROADMAP item 13.
+With a ``mesh`` (this rank's ``parallel.mesh.ProcessMesh``) the bank stays
+whole on every rank, and every bucket's entity axis is split over the
+mesh's first axis: a rank solves only its contiguous slice of each bucket
+(the reference's expert-parallel sharding, padded to ``n_dev * E_loc``),
+its offsets arrive through ``residual_routing.ResidualRouter``'s one
+all-to-all, and the solved rows come back to every rank by an all-gather
+in rank order. The hash-sharded bank is ``game/pod.py``.
 """
 
 from __future__ import annotations
@@ -56,7 +62,6 @@ from photon_ml_tpu_torch.parallel.overlap import Deferred
 Tensor = torch.Tensor
 
 _N_REASONS = max(CONVERGENCE_REASON_NAMES) + 1
-_MESH_ITEM = "the entity-sharded random effect (ROADMAP item 13)"
 
 
 @dataclass
@@ -132,12 +137,23 @@ def _bmv(A: Tensor, x: Tensor) -> Tensor:
     return torch.bmm(A, x[..., None])[..., 0]
 
 
+def _lanes(l2):
+    """``l2`` as (per-lane value, per-lane column): a float twice, or a
+    ``[E]`` tensor (one weight a lane, the unified grid's members folded
+    into the batch) and its ``[E, 1]`` column."""
+    if torch.is_tensor(l2):
+        return l2, l2[:, None]
+    return l2, l2
+
+
 def _sparse_objective(loss: PointwiseLoss, ix, v, lab, off, w, l2):
     """(vg, hvp, hdiag) of every entity of a bucket at once, over the
     bucket's sparse rows (the reference's ``entity_objective`` under
-    ``vmap``): margins by gather, gradients by scatter-add."""
+    ``vmap``): margins by gather, gradients by scatter-add. ``l2``: a
+    float, or one weight a lane (``[E]``)."""
     E, S, k = ix.shape
     flat = ix.reshape(E, S * k)
+    l2, l2c = _lanes(l2)
 
     def margins(c):
         return (v * torch.gather(c, 1, flat).view(E, S, k)).sum(dim=-1)
@@ -150,17 +166,17 @@ def _sparse_objective(loss: PointwiseLoss, ix, v, lab, off, w, l2):
     def vg(c):
         z = margins(c) + off
         val = (w * loss.value(z, lab)).sum(dim=-1) + 0.5 * l2 * (c * c).sum(dim=-1)
-        grad = scatter(c, v * (w * loss.d1(z, lab))[..., None]) + l2 * c
+        grad = scatter(c, v * (w * loss.d1(z, lab))[..., None]) + l2c * c
         return val, grad
 
     def hvp(c, d):
         z = margins(c) + off
         cd = w * loss.d2(z, lab) * margins(d)
-        return scatter(c, v * cd[..., None]) + l2 * d
+        return scatter(c, v * cd[..., None]) + l2c * d
 
     def hdiag(c):
         z = margins(c) + off
-        return scatter(c, (v * v) * (w * loss.d2(z, lab))[..., None]) + l2
+        return scatter(c, (v * v) * (w * loss.d2(z, lab))[..., None]) + l2c
 
     return vg, hvp, hdiag
 
@@ -168,15 +184,16 @@ def _sparse_objective(loss: PointwiseLoss, ix, v, lab, off, w, l2):
 def _dense_objective(loss: PointwiseLoss, X, lab, off, w, l2):
     """(vg, hvp) over dense per-entity blocks X [E, S, D]."""
     Xt = X.transpose(1, 2)
+    l2, l2c = _lanes(l2)
 
     def vg(c):
         z = _bmv(X, c) + off
         val = (w * loss.value(z, lab)).sum(dim=-1) + 0.5 * l2 * (c * c).sum(dim=-1)
-        return val, _bmv(Xt, w * loss.d1(z, lab)) + l2 * c
+        return val, _bmv(Xt, w * loss.d1(z, lab)) + l2c * c
 
     def hvp(c, d):
         z = _bmv(X, c) + off
-        return _bmv(Xt, w * loss.d2(z, lab) * _bmv(X, d)) + l2 * d
+        return _bmv(Xt, w * loss.d2(z, lab) * _bmv(X, d)) + l2c * d
 
     return vg, hvp
 
@@ -204,12 +221,13 @@ def newton_solve(
     E, S, _ = X.shape
     Xt = X.transpose(1, 2)
     G = torch.bmm(X, Xt)
+    l2, l2c = _lanes(l2)
 
     def value(c, z):
         return (w * loss.value(z, lab)).sum(dim=-1) + 0.5 * l2 * _dot(c, c)
 
     def grad_vec(z, c):
-        return _bmv(Xt, w * loss.d1(z, lab)) + l2 * c
+        return _bmv(Xt, w * loss.d1(z, lab)) + l2c * c
 
     c = bank
     z = _bmv(X, c) + off
@@ -226,13 +244,13 @@ def newton_solve(
         cd = w * loss.d1(z, lab)
         d2 = w * loss.d2(z, lab)
         zp = z - off
-        u = _bmv(G, cd) + l2 * zp  # = X g, no X pass
+        u = _bmv(G, cd) + l2c * zp  # = X g, no X pass
         dh = torch.sqrt(d2)
         rhs = dh * u
         x = torch.zeros_like(rhs)
         r, p, rs = rhs, rhs, _dot(rhs, rhs)
         for _ in range(S):
-            ap = l2 * p + dh * _bmv(G, dh * p)
+            ap = l2c * p + dh * _bmv(G, dh * p)
             alpha = rs / (_dot(p, ap) + 1e-30)
             x = x + alpha[:, None] * p
             r = r - alpha[:, None] * ap
@@ -241,8 +259,8 @@ def newton_solve(
             rs = rs2
         t = dh * x
         rr = cd - t
-        step = -_bmv(Xt, rr) / l2 - c  # = -H^-1 g, one X pass
-        z_step = -_bmv(G, rr) / l2 - zp  # = X step, dual space
+        step = -_bmv(Xt, rr) / l2c - c  # = -H^-1 g, one X pass
+        z_step = -_bmv(G, rr) / l2c - zp  # = X step, dual space
 
         cc = _dot(c, c)
         cs_n, ss_n = _dot(c, step), _dot(step, step)
@@ -312,8 +330,10 @@ class RandomEffectOptimizationProblem:
     ``layout``: "auto" densifies a bucket's ``[E, S, k]`` rows into
     ``[E, S, D]`` blocks when they fit ``dense_bytes_budget`` (and then
     takes the dual-space Newton solver when the problem allows it);
-    "sparse" / "dense" force a layout. ``mesh`` (the entity-sharded path)
-    waits for ROADMAP item 13."""
+    "sparse" / "dense" force a layout. ``mesh``: every bucket's entity
+    axis is split over the mesh's first axis (see the module docstring);
+    every rank of the mesh calls with the same arguments and gets the
+    same bank."""
 
     loss: PointwiseLoss
     config: OptimizerConfig
@@ -328,8 +348,10 @@ class RandomEffectOptimizationProblem:
     def __post_init__(self):
         if self.layout not in ("auto", "sparse", "dense"):
             raise ValueError(f"unknown layout {self.layout!r}")
-        if self.mesh is not None:
-            raise NotImplementedError(f"not ported yet: {_MESH_ITEM}")
+        if self.mesh is not None and not hasattr(self.mesh, "axis_names"):
+            raise TypeError(
+                f"mesh must be a parallel.mesh.ProcessMesh, got {type(self.mesh).__name__}"
+            )
 
     # -- solver selection ----------------------------------------------------
 
@@ -489,12 +511,18 @@ class RandomEffectOptimizationProblem:
         bank = bank.clone()
         var_bank = torch.zeros_like(bank) if with_variances else None
         stats: List[Tuple[int, object, object]] = []
+        routed, router = self._route_residuals(dataset, residual_offsets)
         for bi, bucket in enumerate(dataset.buckets):
-            ix, v, lab, off, w, codes = self._bucket_inputs(
-                bucket, bank, residual_offsets,
-                None if values_override is None else values_override[bi],
-            )
+            values = None if values_override is None else values_override[bi]
             kind = self._bucket_kind(bucket, bank.shape[1])
+            if self.mesh is not None:
+                stats.append(self._update_bucket_on_mesh(
+                    bi, bucket, kind, bank, var_bank, routed, router, values, l1, l2,
+                ))
+                continue
+            ix, v, lab, off, w, codes = self._bucket_inputs(
+                bucket, bank, residual_offsets, values,
+            )
             sl = bank.index_select(0, codes)
             new_sl, iters, reasons = self._solve(kind, sl, ix, v, lab, off, w, l1, l2)
             bank.index_copy_(0, codes, new_sl)
@@ -510,6 +538,103 @@ class RandomEffectOptimizationProblem:
         if with_variances:
             return bank, tracker, var_bank
         return bank, tracker
+
+    # -- over a mesh ----------------------------------------------------------
+
+    def _router_for(self, dataset: RandomEffectDataset):
+        """The dataset's ResidualRouter for this mesh, built once and kept
+        on the dataset (its tables are static per dataset and mesh)."""
+        from photon_ml_tpu_torch.game.residual_routing import ResidualRouter
+
+        cache = dataset.__dict__.setdefault("_residual_routers", {})
+        key = (id(self.mesh), self.mesh.rank)
+        hit = cache.get(key)
+        if hit is None or hit.mesh is not self.mesh:
+            hit = cache[key] = ResidualRouter(self.mesh, dataset)
+        return hit
+
+    def _route_residuals(self, dataset, residual_offsets):
+        """On a mesh, the residual offsets routed to this rank's bucket
+        slabs by one all-to-all -> (routed buffer, router); else
+        (None, None)."""
+        if self.mesh is None or residual_offsets is None or not dataset.buckets:
+            return None, None
+        router = self._router_for(dataset)
+        return router.route(residual_offsets), router
+
+    def _mesh_slice(self, bucket, device, with_values: bool):
+        """This rank's slice of a bucket's entities, padded to ``E_loc``
+        (zero data: a pad lane converges at iteration 0), uploaded once and
+        kept on the bucket -> (ix, v, lab, w, off, codes, real rows, start)."""
+        axis = self.mesh.axis_names[0]
+        n_dev, me = self.mesh.size(axis), self.mesh.index(axis)
+        cache = bucket.__dict__.setdefault("_mesh_args", {})
+        key = (device, n_dev, me, with_values)
+        hit = cache.get(key)
+        if hit is None:
+            E = bucket.num_entities
+            e_loc = -(-E // n_dev)
+            lo, hi = min(me * e_loc, E), min((me + 1) * e_loc, E)
+
+            def cut(a, dtype=None):
+                part = np.asarray(a[lo:hi])
+                pad = np.zeros((e_loc - part.shape[0],) + part.shape[1:], part.dtype)
+                t = torch.as_tensor(np.concatenate([part, pad]), device=device)
+                return t if dtype is None else t.to(dtype)
+
+            hit = (
+                cut(bucket.indices, torch.int64),
+                cut(bucket.values) if with_values else None,
+                cut(bucket.labels), cut(bucket.weights), cut(bucket.offsets),
+                torch.as_tensor(bucket.entity_codes[lo:hi], device=device).long(),
+                hi - lo, lo,
+            )
+            cache[key] = hit
+        return hit
+
+    def _update_bucket_on_mesh(self, bi, bucket, kind, bank, var_bank, routed, router,
+                               values, l1, l2):
+        """Solve this rank's slice of one bucket; every rank's solved rows
+        (and variances) come back by one all-gather in rank order and land
+        in the whole bank on every rank. -> the bucket's tracker stats."""
+        axis = self.mesh.axis_names[0]
+        n_dev = self.mesh.size(axis)
+        ix, v, lab, w, off, codes, n_mine, lo = self._mesh_slice(
+            bucket, bank.device, values is None
+        )
+        e_loc = ix.shape[0]
+        if values is not None:
+            v = values() if callable(values) else values
+            v = v[lo:lo + n_mine]
+            v = torch.cat([v, v.new_zeros((e_loc - n_mine,) + tuple(v.shape[1:]))])
+        if routed is not None:
+            off = router.bucket_slab(routed, bi, bucket.capacity)
+        dt = bank.dtype
+        v, lab, off, w = v.to(dt), lab.to(dt), off.to(dt), w.to(dt)
+        sl = bank.new_zeros(e_loc, bank.shape[1])
+        sl[:n_mine] = bank.index_select(0, codes)
+        new_sl, iters, reasons = self._solve(kind, sl, ix, v, lab, off, w, l1, l2)
+        parts = [new_sl]
+        if var_bank is not None:
+            hd = self._hdiag(new_sl, ix, v, lab, off, w, l2)
+            parts.append(1.0 / (hd + _VARIANCE_EPSILON))
+        ints = torch.stack([
+            torch.as_tensor(iters, device=bank.device).reshape(-1).to(torch.int64),
+            torch.as_tensor(reasons, device=bank.device).reshape(-1).to(torch.int64),
+        ])
+        from photon_ml_tpu_torch.parallel.shuffle import gather
+
+        E = bucket.num_entities
+        all_codes = torch.as_tensor(bucket.entity_codes, device=bank.device).long()
+        rows = gather(torch.cat(parts, dim=-1), self.mesh, axis).reshape(n_dev * e_loc, -1)[:E]
+        d = bank.shape[1]
+        bank.index_copy_(0, all_codes, rows[:, :d])
+        if var_bank is not None:
+            var_bank.index_copy_(0, all_codes, rows[:, d:])
+        ints = gather(ints, self.mesh, axis)  # [n_dev, 2, e_loc]
+        it_all = ints[:, 0].reshape(-1)[:E]
+        rs_all = ints[:, 1].reshape(-1)[:E]
+        return (E, it_all, rs_all)
 
     def _hdiag(self, sl, ix, v, lab, off, w, l2) -> Tensor:
         """Per-entity Hessian diagonals at bank rows ``sl``:
@@ -529,10 +654,35 @@ class RandomEffectOptimizationProblem:
         if residual_offsets is not None:
             residual_offsets = torch.as_tensor(residual_offsets, device=bank.device)
         variances = torch.zeros_like(bank)
+        if self.mesh is not None:
+            # the Hdiag pass of the mesh update, without its solve
+            return self._variances_on_mesh(bank, dataset, residual_offsets, variances, l2)
         for bucket in dataset.buckets:
             ix, v, lab, off, w, codes = self._bucket_inputs(bucket, bank, residual_offsets)
             hd = self._hdiag(bank.index_select(0, codes), ix, v, lab, off, w, l2)
             variances.index_copy_(0, codes, 1.0 / (hd + _VARIANCE_EPSILON))
+        return variances
+
+    def _variances_on_mesh(self, bank, dataset, residual_offsets, variances, l2):
+        from photon_ml_tpu_torch.parallel.shuffle import gather
+
+        axis = self.mesh.axis_names[0]
+        n_dev = self.mesh.size(axis)
+        routed, router = self._route_residuals(dataset, residual_offsets)
+        for bi, bucket in enumerate(dataset.buckets):
+            ix, v, lab, w, off, codes, n_mine, _ = self._mesh_slice(bucket, bank.device, True)
+            if routed is not None:
+                off = router.bucket_slab(routed, bi, bucket.capacity)
+            dt = bank.dtype
+            sl = bank.new_zeros(ix.shape[0], bank.shape[1])
+            sl[:n_mine] = bank.index_select(0, codes)
+            hd = self._hdiag(sl, ix, v.to(dt), lab.to(dt), off.to(dt), w.to(dt), l2)
+            E = bucket.num_entities
+            rows = gather(1.0 / (hd + _VARIANCE_EPSILON), self.mesh, axis)
+            variances.index_copy_(
+                0, torch.as_tensor(bucket.entity_codes, device=bank.device).long(),
+                rows.reshape(n_dev * ix.shape[0], -1)[:E],
+            )
         return variances
 
     def regularization_term(self, bank: Tensor) -> float:

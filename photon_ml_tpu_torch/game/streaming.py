@@ -24,8 +24,11 @@ Here, on one host:
 
 Host memory holds one staged chunk + one bucket segment + the models.
 Scope (validated up front): the IDENTITY projector, no active-data cap,
-plain (non-factored) coordinates, one process; the entity-sharded banks
-wait for ROADMAP item 13.
+plain (non-factored) coordinates. With an entity mesh
+(``train_streaming_game(entity_mesh=)``) each random-effect bank lives
+sharded over its ranks by entity hash (``game/pod.py``): every rank runs
+the same pipeline over the same files, stages and solves only its own
+hash shard of each segment, and the chunk scores are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -823,8 +826,21 @@ class StreamingRandomEffectCoordinate:
     config: RandomEffectDataConfiguration
     local_dim: int = 0  # IDENTITY projector: the shard dimension
     device: DeviceLike = None
+    mesh: object = None  # optional 1-D entity mesh (sharded banks)
 
     def __post_init__(self):
+        self._pod = None
+        if self.mesh is not None:
+            if self.problem.compute_variances:
+                raise ValueError(
+                    "streaming entity-sharded training does not support "
+                    "compute_variances yet; drop --entity-shards or the "
+                    "variance flag"
+                )
+            from photon_ml_tpu_torch.game.pod import PodRandomEffectProblem
+
+            self._pod = PodRandomEffectProblem(self.problem, self.mesh)
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         self._var_bank: Optional[Tensor] = None
 
@@ -832,7 +848,16 @@ class StreamingRandomEffectCoordinate:
     def num_entities(self) -> int:
         return self.spilled.num_entities
 
-    def initialize_bank(self) -> Tensor:
+    def _spec(self):
+        from photon_ml_tpu_torch.game.pod import EntityShardSpec
+
+        return EntityShardSpec(self._pod.num_shards, self.num_entities)
+
+    def initialize_bank(self):
+        if self._pod is not None:
+            from photon_ml_tpu_torch.game.pod import ShardedREBank
+
+            return ShardedREBank.zeros(self.mesh, self._spec(), self.local_dim)
         return torch.zeros(self.num_entities, self.local_dim, device=self.device)
 
     def _mini_dataset(self, codes: np.ndarray, arrays, offsets):
@@ -867,6 +892,8 @@ class StreamingRandomEffectCoordinate:
 
     def update(self, bank, residual: Optional[ScoreStore]):
         res_flat = residual.flat() if residual is not None else None
+        if self._pod is not None:
+            return self._update_sharded(bank, res_flat)
         tracker = None
         var_bank = None
         if self.problem.compute_variances:
@@ -889,13 +916,53 @@ class StreamingRandomEffectCoordinate:
             self._var_bank = var_bank
         return bank, tracker
 
+    def _coerce_sharded(self, bank):
+        from photon_ml_tpu_torch.game.pod import ShardedREBank
+
+        if isinstance(bank, ShardedREBank):
+            return bank
+        # a whole [E, d] bank (checkpoint restore / warm start): shard it
+        return ShardedREBank.from_global(self.mesh, self._spec(), bank)
+
+    def _update_sharded(self, bank, res_flat):
+        """Pod path: every segment solves as a cross-replica sharded step;
+        the residual fold stays a host gather against the on-disk score
+        store (the out-of-core contract), the solve and the bank never
+        leave their shards."""
+        from photon_ml_tpu_torch.game.random_effect_data import RandomEffectBucket
+
+        bank = self._coerce_sharded(bank)
+        stat_vecs = []
+        for codes, arrays in self.spilled.iter_segments():
+            off = arrays["off"]
+            if res_flat is not None:
+                rows = arrays["rows"]
+                off = (off + np.where(rows >= 0, res_flat[np.maximum(rows, 0)], 0.0)).astype(
+                    np.float32
+                )
+            bucket = RandomEffectBucket(
+                entity_codes=codes, row_index=arrays["rows"], indices=arrays["ix"],
+                values=arrays["v"], labels=arrays["lab"], offsets=off, weights=arrays["wgt"],
+            )
+            kind = self.problem._bucket_kind(bucket, self.local_dim)
+            bank, stat_vec = self._pod.update_segment(bank, codes, arrays, off, kind=kind)
+            stat_vecs.append(stat_vec)
+        tracker = self._pod.segment_tracker(stat_vecs, self.num_entities) if stat_vecs else None
+        return bank, tracker
+
     @property
     def variances(self) -> Optional[Tensor]:
         return self._var_bank
 
     def score_chunk(self, bank, chunk: Dict[str, np.ndarray]) -> Tensor:
-        dev = bank.device
         sid = self.config.feature_shard_id
+        if self._pod is not None:
+            codes = chunk[f"code__{self.config.random_effect_type}"]
+            return self._pod.score_chunk(
+                self._coerce_sharded(bank), codes, chunk[f"ix__{sid}"], chunk[f"v__{sid}"],
+                (codes >= 0) & (chunk["wgt"] > 0),
+            )
+        dev = bank.device
         codes = torch.from_numpy(chunk[f"code__{self.config.random_effect_type}"]).to(dev)
         valid = (codes >= 0) & (torch.from_numpy(chunk["wgt"]).to(dev) > 0)
         ix = torch.from_numpy(chunk[f"ix__{sid}"]).to(dev).long()
@@ -905,6 +972,8 @@ class StreamingRandomEffectCoordinate:
         return torch.where(valid, score, 0.0)
 
     def regularization_term(self, bank) -> float:
+        if self._pod is not None:
+            return self._pod.regularization_term(self._coerce_sharded(bank))
         return self.problem.regularization_term(bank)
 
 
@@ -1126,8 +1195,12 @@ class StreamingCoordinateDescent:
                     "lab": np.zeros((0, 1), np.float32),
                     "wgt": np.zeros((0, 1), np.float32),
                 }
+                state = states[name]
+                if hasattr(state, "to_global"):
+                    # the model files are whole by definition: one gather
+                    state = state.to_global()
                 models[name] = RandomEffectModel(
-                    states[name],
+                    state,
                     coord._mini_dataset(np.zeros(0, np.int32), empty, np.zeros((0, 1), np.float32)),
                     coord.config.random_effect_type,
                     coord.config.feature_shard_id,
@@ -1197,12 +1270,13 @@ def train_streaming_game(
     and 1 GiB segments. ``checkpoint_dir``: crash-safe resume of the
     whole pipeline (persistent stage stores, the RE fill flags, one CD
     snapshot an iteration); a restarted run with the same arguments gives
-    a bitwise-identical final model. ``entity_mesh`` waits for ROADMAP
-    item 13."""
+    a bitwise-identical final model. ``entity_mesh`` (this rank's 1-D
+    ``entity`` mesh, ``parallel.mesh.entity_mesh``): every random-effect
+    bank lives sharded over its ranks by entity hash, each rank staging
+    and solving only its own shard of each segment; every rank calls with
+    the same arguments (its own ``spill_dir``) and gets the same model."""
     if entity_mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: the streamed RE bank's entity shards (ROADMAP item 13)"
-        )
+        device = entity_mesh.device
     dev = resolve_device(device)
     logger = logger or PhotonLogger()
     validate_streaming_game_configs(re_data_configs)
@@ -1297,6 +1371,7 @@ def train_streaming_game(
             config=dcfg,
             local_dim=imaps[dcfg.feature_shard_id].size,
             device=dev,
+            mesh=entity_mesh,
         )
 
     validation_fn = None

@@ -49,6 +49,8 @@ from typing import Callable, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from photon_ml_tpu_torch.parallel.multihost import gather_in_rank_order
+
 Tensor = torch.Tensor
 
 NOT_CONVERGED = 0
@@ -110,10 +112,7 @@ def all_gather_last(t: Tensor, group) -> Tensor:
     group's rank order -> [..., n * k]; counted."""
     global collectives
     collectives += 1
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(list(gather_in_rank_order(t, group)), dim=-1)
 
 
 def fetch(*tensors: Tensor, mesh: Optional[MeshReductions] = None) -> List:

@@ -8,8 +8,15 @@ several devices through processes: here each rank is one process, and a
 one process group per axis (the ranks that share every other coordinate),
 so a ``psum`` over an axis becomes an all-reduce over that axis's group.
 
-Axis names are the reference's: ``"data"`` (examples) and ``"model"``
-(features, for coefficient vectors sharded by block).
+Axis names are the reference's: ``"data"`` (examples), ``"model"``
+(features, for coefficient vectors sharded by block), ``"entity"``
+(random-effect banks sharded by entity hash, ``game/pod.py``) and
+``"grid"`` (λ-grid members, ``game/unified.py``). A device of the
+reference is a rank here: its ``len(jax.devices())`` is the process
+count, and its mesh over the first N devices is a mesh over N ranks. Where
+N is below the process count, the ranks split into consecutive blocks of
+N, each its own mesh running the same program on the same inputs (the
+replicas of :func:`entity_mesh`).
 
 Backend: ``gloo``, explicitly, on the CPU and on the card alike (gloo
 takes CUDA tensors and stages them through the host). It lets several
@@ -40,6 +47,12 @@ from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+# Pod-scale GAME (game/pod.py): random-effect banks shard entities over
+# this axis by entity hash (code % n_shards); residuals ride all-to-alls.
+ENTITY_AXIS = "entity"
+# Unified-mesh λ-grid axis (parallel/unified_mesh.py): grid members shard
+# over it, so a (grid, entity) mesh trains G entity-sharded members at once.
+GRID_AXIS = "grid"
 
 
 @dataclass(frozen=True)
@@ -72,14 +85,17 @@ def make_mesh(
     *,
     device: DeviceLike = None,
     backend: str = "gloo",
+    replicas: bool = False,
 ) -> ProcessMesh:
     """This rank's :class:`ProcessMesh` over the already-initialized default
     process group (so ``torchrun`` works as it is). Every rank must call it
     with the same arguments: each creates every group, in one order.
 
     ``shape`` defaults to a 1-D mesh over every rank; its product must be
-    the world size. ``device=None`` means the card (raises without one);
-    on the card rank r takes ``cuda:(r % device_count)``."""
+    the world size, or with ``replicas`` divide it: the ranks then split
+    into consecutive blocks of ``prod(shape)``, each a mesh of its own
+    (``world`` is the block's group; a 1-rank block's groups are None). ``device=None`` means the card (raises without
+    one); on the card rank r takes ``cuda:(r % device_count)``."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized default process group")
     world_size = dist.get_world_size()
@@ -88,23 +104,68 @@ def make_mesh(
     axis_names = tuple(axis_names)
     if len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} does not match axes {axis_names}")
-    if math.prod(shape) != world_size:
+    size = math.prod(shape)
+    if size != world_size and not (replicas and world_size % size == 0):
         raise ValueError(f"mesh shape {shape} != world size {world_size}")
     dev = resolve_device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    grid = np.arange(world_size).reshape(shape)
-    coords = tuple(int(c) for c in np.argwhere(grid == rank)[0])
-    groups = {}
-    for a, name in enumerate(axis_names):
-        lines = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
-        for line in lines:
-            group = dist.new_group([int(r) for r in line], backend=backend)
-            if rank in line:
-                groups[name] = group
-    world = dist.new_group(list(range(world_size)), backend=backend)
+    base = (rank // size) * size
+    grid = np.arange(size).reshape(shape)
+    coords = tuple(int(c) for c in np.argwhere(grid == rank - base)[0])
+    groups: Dict[str, Any] = {name: None for name in axis_names}
+    world = None
+    # a 1-rank block of a larger world has no groups: a collective over
+    # None would span the world
+    if size > 1 or world_size == 1:
+        for first in range(0, world_size, size):
+            block = grid + first
+            for a, name in enumerate(axis_names):
+                lines = np.moveaxis(block, a, -1).reshape(-1, shape[a])
+                for line in lines:
+                    group = dist.new_group([int(r) for r in line], backend=backend)
+                    if rank in line:
+                        groups[name] = group
+            group = dist.new_group([int(r) for r in block.reshape(-1)], backend=backend)
+            if first == base:
+                world = group
     return ProcessMesh(shape, axis_names, rank, coords, groups, world, dev)
+
+
+def entity_mesh(
+    num_shards: Optional[int] = None,
+    *,
+    device: DeviceLike = None,
+    backend: str = "gloo",
+) -> ProcessMesh:
+    """1-D mesh over the ``entity`` axis for hash-sharded random-effect
+    banks (``game/pod.py``; the reference's ``entity_mesh``, ranks counted
+    as devices). ``num_shards`` defaults to every process; fewer shards
+    than processes make blocks of consecutive ranks, each an entity mesh
+    running the same program (so it must divide the process count). One
+    shard needs no process group."""
+    from photon_ml_tpu_torch.parallel import multihost
+
+    n = multihost.process_count()
+    if num_shards is None:
+        num_shards = n
+    if not 1 <= num_shards <= n:
+        raise ValueError(
+            f"entity shards {num_shards} out of range for {n} visible devices"
+        )
+    if n % num_shards:
+        raise ValueError(
+            f"entity shards {num_shards} do not divide the {n} processes: each "
+            "block of consecutive ranks is one entity mesh"
+        )
+    if not dist.is_initialized():
+        # one process, one shard: no process group, no collective
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return ProcessMesh((1,), (ENTITY_AXIS,), 0, (0,), {ENTITY_AXIS: None}, None, dev)
+    return make_mesh((num_shards,), (ENTITY_AXIS,), device=device, backend=backend, replicas=True)
 
 
 def data_shard_sparse_batch(batch: SparseBatch, n_shards: int, index: int) -> SparseBatch:

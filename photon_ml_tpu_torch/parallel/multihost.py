@@ -166,26 +166,30 @@ def allgather_objects(obj) -> list:
     return out
 
 
+def gather_in_rank_order(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's ``t`` (of ``group``, the world by default) stacked
+    in rank order -> ``[n, ...]``; ``t[None]`` single-process. The tensor
+    goes to the backend as it is (gloo stages a CUDA tensor itself)."""
+    if group is None and process_count() <= 1:
+        return t[None]
+    src = t.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.stack(parts)
+
+
 def sum_in_rank_order(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Every process's ``t`` summed in rank order (an all-gather, then
-    adds from rank 0 up), so the bits are the same in every process and in
-    every run, whatever order a backend's all-reduce would take; ``t``
-    itself single-process. Gathered through the host (gloo)."""
-    if process_count() <= 1 and group is None:
+    """Every process's ``t`` (of ``group``, the world by default) summed in
+    rank order (an all-gather, then adds from rank 0 up), so the bits are
+    the same in every process and in every run, whatever order a
+    backend's all-reduce would take; ``t`` itself single-process."""
+    if group is None and process_count() <= 1:
         return t
-    n = dist.get_world_size(group)
-    host = t.detach().to("cpu").contiguous()
-    parts = [torch.empty_like(host) for _ in range(n)]
-    if dist.get_backend(group) == "nccl":
-        dev = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(dev, t.contiguous(), group=group)
-        parts = [p.cpu() for p in dev]
-    else:
-        dist.all_gather(parts, host, group=group)
+    parts = gather_in_rank_order(t, group)
     total = parts[0]
     for part in parts[1:]:
         total = total + part
-    return total.to(t.device)
+    return total
 
 
 def any_process(flag: bool) -> bool:

@@ -2,9 +2,9 @@
 snapshots (GLM drivers) and per-iteration streaming-CD snapshots (GAME
 streaming driver). Port of ``photon_ml_tpu/reliability/checkpoint.py``
 over the same ``.npz`` files and JSON markers, so a snapshot either
-package writes loads in the other. The unified-mesh grid-bank snapshots
-wait for the entity-sharded GAME path (ROADMAP item 13); the streaming
-checkpointer's caller is ``game/streaming.py``.
+package writes loads in the other: the per-λ snapshots, the unified-mesh
+grid-bank snapshots (``game/unified.py``) and the streaming CD's (its
+caller is ``game/streaming.py``).
 
 The TrainingCheckpointer (utils/checkpoint.py) covers the in-memory GAME
 CD loop; these two cover the λ-grid sweep, where a ``kill -9`` would lose
@@ -132,6 +132,61 @@ class GridCheckpointer:
             },
         }
         return out
+
+
+    # -- unified-mesh grid banks (game/unified.py) ----------------------------
+    #
+    # The sharded λ-grid bank snapshots in its RAW [G_pad, rows, d]
+    # hash-placement layout (GridShardedREBank.snapshot); restore hands the
+    # loaded array to GridShardedREBank.restore, which keeps each rank's
+    # own block. The marker records the layout, so a snapshot cannot
+    # restore onto a different entity-shard count.
+
+    def _grid_base(self, name: str) -> str:
+        safe = "".join(c if c.isalnum() or c in "-_" else "_" for c in str(name))
+        return os.path.join(self.directory, f"grid-bank-{safe}")
+
+    def has_grid_bank(self, name: str) -> bool:
+        return _read_marker(self._grid_base(name) + ".json") is not None
+
+    def save_grid_bank(self, name: str, bank_snapshot: np.ndarray, layout: Dict[str, int]) -> None:
+        """Commit a GridShardedREBank.snapshot() array (the same tmp+rename
+        npz, then atomic-marker protocol as the per-λ snapshots)."""
+        base = self._grid_base(name)
+        _save_npz(base + ".npz", {"bank": np.asarray(bank_snapshot)})
+        io_call(
+            "ckpt_save", atomic_write_json, base + ".json",
+            {"name": str(name), "layout": {k: int(v) for k, v in layout.items()}},
+            detail=base + ".json",
+        )
+
+    def load_grid_bank(
+        self, name: str, expect_layout: Optional[Dict[str, int]] = None,
+    ) -> Optional[Tuple[np.ndarray, Dict[str, int]]]:
+        """(snapshot, layout) for a committed grid bank, or None. With
+        ``expect_layout``, a committed snapshot whose recorded layout
+        disagrees raises: hash-placed rows restored onto another shard
+        count would scramble entity ownership."""
+        base = self._grid_base(name)
+        marker = _read_marker(base + ".json")
+        if marker is None:
+            return None
+        layout = {k: int(v) for k, v in dict(marker.get("layout") or {}).items()}
+        if expect_layout is not None:
+            mismatched = {
+                k: (layout.get(k), int(v))
+                for k, v in expect_layout.items()
+                if layout.get(k) != int(v)
+            }
+            if mismatched:
+                raise ValueError(
+                    f"grid-bank snapshot {name!r} was written under a "
+                    f"different layout: {mismatched} (recorded vs "
+                    "expected); re-run with the original mesh shape or "
+                    "start fresh"
+                )
+        arrays = _load_npz(base + ".npz")
+        return arrays["bank"], layout
 
 
 class StreamingCDCheckpointer:

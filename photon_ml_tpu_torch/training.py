@@ -15,10 +15,13 @@
 - ``train_streaming_glm``: the out-of-core fit over input files larger
   than host RAM (``io/streaming.py``), warm-started over the λ-grid with
   the host-driven optimizers.
-- ``grid_checkpointer=`` / ``preemption_guard=`` on the single-card
-  trainers: per-λ crash-safe snapshots (``reliability.GridCheckpointer``)
-  and a stop at the λ boundary on SIGTERM. On a mesh they wait for ROADMAP
-  item 13.
+- ``grid_checkpointer=``: per-λ crash-safe snapshots
+  (``reliability.GridCheckpointer``, written once, by process 0) on the
+  sequential and batched trainers, on a data mesh too, and on both
+  streamed trainers; ``preemption_guard=``: a stop at the λ boundary on
+  SIGTERM, agreed by every rank, on the sequential and both streamed
+  trainers. The in-memory feature-sharded trainers take neither.
+- ``resolve_entity_shards``: the GAME driver's ``--entity-shards``.
 
 On a mesh every rank calls the trainer with the same arguments (the whole
 batch) and gets the same models.
@@ -361,15 +364,19 @@ def grid_bank_bytes(
     dim: int,
     optimizer_type: OptimizerType = OptimizerType.LBFGS,
     history: int = 10,
+    entity_shards: int = 1,
 ) -> int:
-    """Estimated bytes of the batched grid's [G, d] bank plus each
-    member's optimizer state: L-BFGS's [m, d] s/y buffers dominate; TRON
-    carries the CG vectors instead."""
+    """Estimated bytes per device of the batched grid's [G, d] bank plus
+    each member's optimizer state: L-BFGS's [m, d] s/y buffers dominate;
+    TRON carries the CG vectors instead. Under the unified mesh's
+    (grid, entity) placement the bank rows split over ``entity_shards``
+    ranks, so each holds ~1/N; 1 is the replicated figure."""
     if optimizer_type == OptimizerType.TRON:
         vectors_per_member = 12  # w, g + CG s/r/d/hd + trial w/g + slack
     else:
         vectors_per_member = 2 * history + 8
-    return int(num_weights) * vectors_per_member * int(dim) * 4
+    total = int(num_weights) * vectors_per_member * int(dim) * 4
+    return -(-total // max(1, int(entity_shards)))
 
 
 def resolve_grid_mode(
@@ -381,12 +388,14 @@ def resolve_grid_mode(
     history: int = 10,
     memory_budget_bytes: int = DEFAULT_GRID_MEMORY_BUDGET,
     streaming: bool = False,
+    entity_shards: int = 1,
 ) -> str:
     """Resolve ``--grid-mode {batched,sequential,auto}`` to a path.
     ``auto`` picks batched when the grid has more than one member, the
     data is in memory (not streaming) and the bank fits the budget
-    (:func:`grid_bank_bytes`); else sequential. An explicit ``batched``
-    with streaming input is a configuration error."""
+    (:func:`grid_bank_bytes`, per device: ``entity_shards`` splits it);
+    else sequential. An explicit ``batched`` with streaming input is a
+    configuration error."""
     if mode not in ("batched", "sequential", "auto"):
         raise ValueError(
             f"unknown grid mode {mode!r}; expected batched | sequential | auto"
@@ -405,8 +414,33 @@ def resolve_grid_mode(
         return "batched"
     if num_weights <= 1:
         return "sequential"
-    bank = grid_bank_bytes(num_weights, dim, optimizer_type, history)
+    bank = grid_bank_bytes(num_weights, dim, optimizer_type, history, entity_shards)
     return "batched" if bank <= memory_budget_bytes else "sequential"
+
+
+def resolve_entity_shards(
+    requested: Optional[int],
+    *,
+    num_devices: Optional[int] = None,
+) -> Optional[int]:
+    """Resolve the GAME driver's ``--entity-shards`` to an entity-mesh size
+    (pod-scale GAME, ``game/pod.py``), or None for the replicated banks.
+
+    ``None`` / ``0`` keeps the replicated default (entity sharding is
+    opt-in); ``-1`` means every device, a device being a process here
+    (each drives one); an explicit N must fit the device count. N == 1 is
+    the single-shard pod path, the parity baseline."""
+    if requested is None or requested == 0:
+        return None
+    n_dev = num_devices if num_devices is not None else multihost.process_count()
+    if requested == -1:
+        return n_dev
+    if not 1 <= requested <= n_dev:
+        raise ValueError(
+            f"--entity-shards {requested} out of range for {n_dev} "
+            "visible devices (use -1 for all devices, 0 to disable)"
+        )
+    return int(requested)
 
 
 def train_grid_batched(

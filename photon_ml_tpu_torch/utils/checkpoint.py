@@ -72,6 +72,14 @@ def restore_model(model, state: Dict[str, Any]):
     if isinstance(model, FixedEffectModel) and "means" in state:
         means = like(model.model.means, state["means"])
         return replace(model, model=replace(model.model, coefficients=Coefficients(means)))
+    sharded = getattr(model, "sharded_bank", None)
+    if sharded is not None and "bank" in state:
+        # a pod model restores whole; its coordinate shards it on the next
+        # update (reading the template's bank would be a collective)
+        return RandomEffectModel(
+            torch.as_tensor(np.asarray(state["bank"]), device=sharded.data.device),
+            model.re_dataset, model.random_effect_type, model.feature_shard_id,
+        )
     if isinstance(model, RandomEffectModel) and "bank" in state:
         return replace(model, bank=like(model.bank, state["bank"]))
     if isinstance(model, FactoredRandomEffectModel) and "projection" in state:

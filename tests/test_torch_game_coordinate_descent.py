@@ -214,8 +214,7 @@ def test_update_sequence_and_unported_seams(tmp_path):
         checkpointer=TrainingCheckpointer(str(tmp_path / "ck")), preemption_guard=guard,
     ).run(2)
     assert result.preempted and len(result.objective_history) == 1
-    # the factored random effect and MF (ported) take an update; the pod
-    # coordinate still waits for its item
+    # the factored random effect and MF (ported) take an update
     opt = OptimizerConfig(max_iter=10)
     l2 = RegularizationContext(RegularizationType.L2)
     red = build_random_effect_dataset(
@@ -237,8 +236,13 @@ def test_update_sequence_and_unported_seams(tmp_path):
     for coord in (factored, mf):
         model, _ = coord.update_model(coord.initialize_model())
         assert bool(torch.isfinite(coord.score(model)).all())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PodRandomEffectCoordinate(name="x")
+    # the pod coordinate is ported (tests/test_torch_pod_game.py); it needs
+    # an entity mesh
+    with pytest.raises(ValueError, match="requires an entity mesh"):
+        PodRandomEffectCoordinate(
+            name="x", dataset=ds, re_dataset=red,
+            problem=RandomEffectOptimizationProblem(LOGISTIC, opt, l2, reg_weight=1.0),
+        )
     # the fixed effect over a mesh is ported (tests/test_torch_game_mesh.py)
     fe = FixedEffectCoordinate(
         name="g", dataset=ds, problem=coords["global"].problem,

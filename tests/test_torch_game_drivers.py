@@ -198,7 +198,7 @@ REFUSED = [
     (["--factored-random-effect-optimization-configurations", "per-user:4,2"], None),
     (["--distributed", "feature"], None),
     (["--model-shards", "2"], None),
-    (["--entity-shards", "2"], "item 13"),
+    (["--entity-shards", "1"], None),
     (["--coordinator-address", "localhost:1234"], "--num-processes"),
     (["--num-processes", "2"], None),
     (["--process-id", "0"], None),

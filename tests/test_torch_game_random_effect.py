@@ -277,7 +277,15 @@ def test_dense_budget_sees_the_itemsize():
 
 
 def test_mesh_waits_for_its_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """The mesh path is ported (tests/test_torch_residual_routing.py): a
+    ProcessMesh is taken, anything else is refused."""
+    from photon_ml_tpu_torch.parallel.mesh import entity_mesh
+
+    with pytest.raises(TypeError, match="ProcessMesh"):
         RandomEffectOptimizationProblem(
             LOGISTIC, OptimizerConfig(), RegularizationContext(), mesh=object()
         )
+    mesh = entity_mesh(1, device="cpu")
+    assert RandomEffectOptimizationProblem(
+        LOGISTIC, OptimizerConfig(), RegularizationContext(), mesh=mesh
+    ).mesh is mesh

@@ -81,6 +81,8 @@ def test_fresh_interpreter_imports_no_jax():
         "registry.registry", "registry.gates", "registry.warm_start", "registry.watcher",
         "testing.determinism", "testing.determinism_targets",
         "parallel.multihost", "ops.fixed_order",
+        "parallel.mesh", "parallel.shuffle", "parallel.unified_mesh",
+        "game.residual_routing", "game.pod", "game.unified",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]

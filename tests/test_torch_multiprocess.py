@@ -301,8 +301,8 @@ REFUSALS = [
 
 @pytest.mark.parametrize("case", range(len(REFUSALS)))
 def test_driver_refusals_equal_reference(tmp_path, case):
-    """What each driver refuses, in the reference's words; and what only
-    the port still lacks (--entity-shards) names ROADMAP item 13."""
+    """What each driver refuses, in the reference's words; and the GAME
+    driver lacks no path any more (--entity-shards is ported)."""
     kind, extra = REFUSALS[case]
     if kind == "glm":
         from photon_ml_tpu.cli import glm_driver as ref
@@ -328,5 +328,4 @@ def test_driver_refusals_equal_reference(tmp_path, case):
     if kind == "game":
         port = game_driver.params_from_args(
             _train_argv(Path("t"), tmp_path / "o", "BEST", ["--entity-shards", "2"]))
-        with pytest.raises(NotImplementedError, match="item 13"):
-            port.validate()
+        assert port.unported() == []
