@@ -41,7 +41,11 @@ Phases, each printing its own lines:
    fit of its lambda, the batched L-BFGS grid's seconds against the
    warm-started sequential grid's over the same lambdas, in turns, and
    both grids under torch.profiler (``tools/profile_grid.py``: device
-   busy time and idle share);
+   busy time and idle share); then ``GLMOptimizationProblem.run_grid(
+   offsets_bank=)`` on the tiled objective at the mesh cell's shape
+   (2^17 rows x 2^19 features of the same data, nonzero offsets), G = 4:
+   a bank repeating the batch's offsets gives the plain ``run_grid``'s
+   bits, on K2 alone, and K2 on that batch against its plain version;
 6. the mesh path: a 2 x 2 (data, model) mesh of 4 spawned ranks on the
    card (gloo), each holding one cell of the same data: K1 and K2 against
    their plain versions on every cell, the cell-shape times (rank 0, the
@@ -111,7 +115,11 @@ Phases, each printing its own lines:
    effect on the scatter objective (non-increasing; its CD objectives
    beside the tiled run's are printed, a measurement: the two paths sum
    in other orders); on either path a refit of sweep 2's fixed effect
-   from the start and residual it got is the run's, bitwise;
+   from the start and residual it got is the run's, bitwise; and both
+   paths' refits of the tiled run's sweep-2 fixed effect (the same start
+   and residual) with a cap of 500 iterations, at the default tolerance
+   (printed) and stopping below float32's resolution of the objective
+   (tolerance 1e-10; the cap not reached): their objectives within 1e-4;
    then run H, the GAME
    drivers' CLI entry points, ``game_training_driver.main`` (2^14
    training rows of 1,024 users at run G's widths, as Avro written in
@@ -244,15 +252,28 @@ Phases, each printing its own lines:
    kernel) over a 2 x 1 and a 1 x 2 (data, model) mesh of gloo ranks on
    the one card, spawned side by side (K1 on every rank's cell; two cold
    fits bitwise, every rank's bits the same, each objective within 1e-4
-   of the single card's); beside them two runs of ``glm_driver
+   of the single card's), then on the same ranks the library surface:
+   on 2 x 1 both ranks tile run H's whole shard under one cold cache
+   directory (the same keys: rank 0 stores them, rank 1 waits, loads
+   and builds nothing; the schedules and K1's passes on them bitwise) and
+   ``data_parallel_fit_lbfgs`` (K1 on each rank's shard, the ranks
+   bitwise, within 1e-4 of the single card's fit); on 1 x 2
+   ``feature_sharded_tiled_fit`` and ``_tron`` bitwise
+   ``feature_sharded_glm_fit`` on the rank's cell, K1 counted a rank,
+   and the dense ``feature_sharded_fit`` at 2^16 x 2,048 float32
+   (512 MiB) twice, bitwise, within 1e-5 of the one-card dense fit's
+   scale; beside them two runs of ``glm_driver
    --streaming`` as 2 processes each (``--coordinator-address
    --num-processes --process-id``, each process streaming its shard of
    the files over an off-heap store built from them): the two runs'
    models bitwise, the objective at lambda = 1 within 1e-4 of run S's;
    two runs of the GLM driver in memory over 2 of run S's files as 2
-   processes each with ``--distributed feature --model-shards 2``: the
-   two runs' models bitwise, the objective within 1e-4 of the trainer's
-   single-card fit; and two runs of run H's GAME training driver as 2 processes each with
+   processes each with ``--distributed feature --model-shards 2`` over
+   one ``--tile-cache-dir``, the second starting when the first ends:
+   cold, the builds over the processes equal the schedule keys (two
+   cells of two passes), each stored once, none waited for; warm, no
+   build in either process; the two runs' models bitwise, the objective
+   within 1e-4 of the trainer's single-card fit; and two runs of run H's GAME training driver as 2 processes each with
    ``--distributed feature --model-shards 2`` over run H's files (the
    fixed effect over the processes' 1 x 2 mesh): the two runs' CD
    objective histories bitwise, within 1e-4 of run H's;
@@ -289,7 +310,8 @@ Phases, each printing its own lines:
    ranks, duplicate-lambda members bitwise, one readback a CD iteration;
 16. a ``kernels`` JSON line (K1, K2 and K3, with each kernel's launches
    in the driver runs, K1's in run D's diagnose stage, in the GAME runs,
-   in runs F and R, in phase 10's runs, in run L's and in phase 15's;
+   in runs F and R, in phase 10's runs, in run L's, in phase 15's and in
+   phase 14's surface checks; K2's in ``run_grid(offsets_bank=)``;
    K1's at the GAME shape with its plain and library times; K3's library
    time, ``index_add_``), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -306,6 +328,7 @@ when any check fails. It imports nothing of JAX.
 import argparse
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -478,6 +501,66 @@ def compare_grid_passes(k1, k2, tb, rng, label, G, against_k1=False):
             err = check_close(f"k2_vs_k1 {label} G={G} {name}", got, per_member, mag=mag)
             worst = tuple(map(max, worst, err))
     return worst
+
+
+# run_grid(offsets_bank=) at phase 6's cell shape: the ads rows' first 2^17
+# and their entries below feature 2^19
+OFFSETS_BANK_ROWS, OFFSETS_BANK_DIM = 1 << 17, 1 << 19
+
+
+def offsets_bank_check(idx, vals, labels, k1, k2, rng, smi, device="cuda"):
+    """``GLMOptimizationProblem.run_grid(offsets_bank=)`` on the tiled
+    objective at the mesh cell's shape over a bank of GRID_G: a bank whose
+    every row is the batch's offsets gives the plain ``run_grid``'s bits
+    (K2 launched, K1 not, in each), and K2 on this batch is held to its
+    plain version; -> (K2's launches with the bank, its error)."""
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_ml_tpu_torch.optim.problem import create_glm_problem
+    from photon_ml_tpu_torch.task import TaskType
+
+    t_check = time.perf_counter()
+    n, d = OFFSETS_BANK_ROWS, OFFSETS_BANK_DIM
+    rows = np.repeat(np.arange(n, dtype=np.int64), idx.shape[1])
+    feats, v = idx[:n].reshape(-1), vals[:n].reshape(-1)
+    keep = feats < d
+    offsets = (rng.normal(size=n) * 0.1).astype(np.float32)
+    tb = ts.build_tiled_batch(rows[keep], feats[keep], v[keep], labels[:n], offsets,
+                              np.ones(n, np.float32), d, device=device)
+    problem = create_glm_problem(
+        TaskType.LOGISTIC_REGRESSION, d, kernel="tiled",
+        config=OptimizerConfig(max_iter=10),
+        regularization=RegularizationContext(RegularizationType.L2),
+    )
+    runs = {}
+    for label, bank in (("plain", None), ("bank", tb.offsets.expand(GRID_G, -1).clone())):
+        k1.launches = k2.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, result = problem.run_grid(tb, GRID_LAMBDAS, offsets_bank=bank)
+        torch.cuda.synchronize()
+        runs[label] = dict(result=result, seconds=time.perf_counter() - t0,
+                           k1=k1.launches, k2=k2.launches)
+    a, b = runs["bank"]["result"], runs["plain"]["result"]
+    same = (torch.equal(a.coefficients, b.coefficients) and torch.equal(a.value, b.value)
+            and a.iterations == b.iterations)
+    say(f"run_grid offsets_bank at {n} x {d}, G = {GRID_G} ({smi}): "
+        f"{runs['bank']['seconds']!r} s with the bank vs {runs['plain']['seconds']!r} s "
+        f"plain, K2 launches {runs['bank']['k2']} / {runs['plain']['k2']}, K1 "
+        f"{runs['bank']['k1']} / {runs['plain']['k1']}, iterations {a.iterations}; "
+        f"bitwise the plain run_grid {same}")
+    if not same:
+        fail("run_grid with a bank repeating the batch's offsets is not the plain grid's bits")
+    if runs["bank"]["k2"] == 0 or runs["bank"]["k1"]:
+        fail("run_grid(offsets_bank=) did not run on K2 alone")
+    err = compare_grid_passes(k1, k2, tb, rng, "offsets bank cell", GRID_G)
+    say(f"run_grid offsets_bank check: {time.perf_counter() - t_check!r} s of host time "
+        f"({smi})")
+    return runs["bank"]["k2"], err
 
 
 def edge_checks(k1, k2, seed):
@@ -1773,6 +1856,51 @@ def game_fe_refit(fe, log, label, smi):
     return seconds
 
 
+# run G's sweep-2 fixed effect refit on both paths with a cap it does not
+# reach, stopping where an iteration moves the objective by under 1e-10 of
+# its start (below float32's resolution of it): their objectives within
+# this, relative (ROADMAP Queue 3). At the trainers' default tolerance,
+# 1e-7, one slow L-BFGS step stops a fit early: printed, a measurement.
+GAME_FE_CONVERGED_CAP = 500
+GAME_FE_CONVERGED_TOL = 1e-10
+GAME_FE_CONVERGED_RTOL = 1e-4
+
+
+def game_fe_converged(tiled_fe, scatter_fe, log, smi):
+    """Refit sweep 2's fixed effect of the tiled run from its start and
+    residual on the tiled (K1) and the scatter objective, capped at
+    GAME_FE_CONVERGED_CAP iterations, at the default tolerance and at
+    GAME_FE_CONVERGED_TOL: at the latter the two fits' objectives must
+    agree within GAME_FE_CONVERGED_RTOL (at the run's cap of 50 they
+    part), neither reaching the cap."""
+    import dataclasses
+
+    t_check = time.perf_counter()
+    fe_up = [e for e in log if e[0] == "update" and e[1] == "global"][1]
+    start, (residual,) = fe_up[6], fe_up[7]
+    for tol in (tiled_fe.problem.config.tolerance, GAME_FE_CONVERGED_TOL):
+        fits = {}
+        for label, fe in (("tiled", tiled_fe), ("scatter", scatter_fe)):
+            config = dataclasses.replace(
+                fe.problem.config, max_iter=GAME_FE_CONVERGED_CAP, tolerance=tol)
+            capped = dataclasses.replace(fe, problem=dataclasses.replace(fe.problem, config=config))
+            t0 = time.perf_counter()
+            _, result = capped.update_model(start, residual)
+            torch.cuda.synchronize()
+            fits[label] = dict(value=float(result.value), iterations=result.iterations,
+                               reason=result.reason_name, seconds=time.perf_counter() - t0)
+        gap = abs(fits["tiled"]["value"] - fits["scatter"]["value"]) / abs(fits["scatter"]["value"])
+        say(f"game run G sweep-2 fixed effect, cap {GAME_FE_CONVERGED_CAP}, tolerance {tol!r} "
+            f"({smi}): tiled {fits['tiled']}, scatter {fits['scatter']}; objectives {gap!r} "
+            f"apart" + (f" (limit {GAME_FE_CONVERGED_RTOL!r})" if tol == GAME_FE_CONVERGED_TOL
+                        else " (a measurement)"))
+    say(f"game run G converged refits: {time.perf_counter() - t_check!r} s of host time ({smi})")
+    # the loop ends on the converged pair
+    if not gap <= GAME_FE_CONVERGED_RTOL or any(
+            f["iterations"] >= GAME_FE_CONVERGED_CAP for f in fits.values()):
+        fail("game run G: the converged tiled and scatter fixed effects disagree")
+
+
 def game_data(seed, device):
     """Run G's rows as a GameDataset built from arrays (bench.py's
     ShardData), and its user random-effect dataset cut into buckets of
@@ -1885,6 +2013,7 @@ def game_run_g(seed, smi, k1, device="cuda"):
     # its objective non-increasing (game_cd), the gaps a measurement
     scatter, s_log, _, s_fe = game_cd(ds, red, "scatter", k1, smi, "scatter")
     game_fe_refit(s_fe, s_log, "scatter", smi)
+    game_fe_converged(fe, s_fe, log, smi)
     gaps = [abs(a - b) / abs(b) for a, b in zip(result.objective_history, scatter.objective_history)]
     say(f"game run G ({smi}): tiled vs scatter CD objectives, relative gaps {gaps}, "
         f"the largest {max(gaps)!r} {'within' if max(gaps) <= 1e-4 else 'over'} 1e-4 "
@@ -3057,33 +3186,194 @@ def mesh_fe_rank(mesh, seed, device="cuda"):
     return fits
 
 
+# the dense feature-sharded fit on the 1 x 2 mesh: 2^16 rows x 2,048
+# features of float32 (512 MiB in all, a block of 256 MiB a rank)
+P14_DENSE_ROWS, P14_DENSE_DIM = 1 << 16, 2048
+P14_DENSE_RTOL = 1e-5  # of the one-card fit's coefficients' max-abs
+P14_PUBLIC_ITERS = 20  # the public entry points' fits' budget (TRON: 5)
+
+
+def p14_dense_data(seed, device):
+    """The dense fit's rows, made on the card from the seed (the same bits
+    in every process): normal features, planted logistic labels."""
+    from photon_ml_tpu_torch.data.batch import DenseBatch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(P14_DENSE_ROWS, P14_DENSE_DIM, generator=gen, device=device)
+    w = torch.randn(P14_DENSE_DIM, generator=gen, device=device) / P14_DENSE_DIM**0.5
+    u = torch.rand(P14_DENSE_ROWS, generator=gen, device=device)
+    labels = (u < torch.sigmoid(x @ w)).float()
+    zeros = torch.zeros(P14_DENSE_ROWS, device=device)
+    return DenseBatch(x, labels, zeros, torch.ones_like(zeros))
+
+
+def p14_counted(fn):
+    """``fn()`` with K1's count at 0 just before it; -> (its result, K1
+    launches, seconds to a synchronised end)."""
+    from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+
+    k1.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, k1.launches, time.perf_counter() - t0
+
+
+def p14_fit_record(result, launches, seconds):
+    return dict(coef=result.coefficients.cpu().numpy(), value=float(result.value),
+                iterations=int(result.iterations), reason=result.reason_name,
+                k1=launches, seconds=seconds)
+
+
+def p14_same_key(ds, cache_dir, device):
+    """Every process tiles run H's whole global shard (one key a pass)
+    under one cold cache directory: process 0 stores, the others wait for
+    its artifacts; -> the cache counters, a digest of the schedules and
+    K1's z- and g-pass outputs on them (bitwise across the processes)."""
+    import hashlib
+
+    from photon_ml_tpu_torch.ops import schedule_cache
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+
+    schedule_cache.reset_stats()
+    with schedule_cache.cache_scope(cache_dir):
+        tb = ts.tiled_batch_from_sparse(ds.batch_for_shard("global"), DIM, device=device)
+    stats = schedule_cache.stats().as_dict()
+    digest = hashlib.blake2b(digest_size=16)
+    for sched in (tb.z_sched, tb.g_sched):
+        for t in (sched.step_out, sched.step_in, sched.step_init, sched.out_pos, sched.in_pos,
+                  sched.vals, sched.spill_out, sched.spill_in, sched.spill_vals):
+            digest.update(t.cpu().numpy().tobytes())
+    rng = np.random.default_rng(16)
+    w = torch.as_tensor(rng.normal(size=tb.dim).astype(np.float32), device=device)
+    c = torch.as_tensor(rng.normal(size=tb.num_rows).astype(np.float32), device=device)
+    (z, g), launches, _ = p14_counted(lambda: (ts.tiled_z_pass(tb, w), ts.tiled_g_pass(tb, c)))
+    return dict(stats=stats, digest=digest.hexdigest(), builder=tb.builder,
+                z=z.cpu().numpy(), g=g.cpu().numpy(), k1=launches)
+
+
+def p14_surface(mesh, ds, cache_dir, seed):
+    """The library surface's checks on one rank of phase 14's meshes: on the
+    2 x 1 mesh the schedule cache's roles over one key and
+    ``data_parallel_fit_lbfgs`` (K1 on each rank's shard); on the 1 x 2
+    mesh ``feature_sharded_tiled_fit`` and ``_tron`` against
+    ``feature_sharded_glm_fit`` on the rank's cell (K1), and the dense
+    ``feature_sharded_fit`` twice."""
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.parallel import distributed as fits
+    from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    t_surface = time.perf_counter()
+    batch = ds.batch_for_shard("global")
+    tiled = ts.TiledGLMObjective(LOGISTIC, DIM)
+    out = {}
+    if mesh.size(DATA_AXIS) > 1:
+        out["same_key"] = p14_same_key(ds, cache_dir, mesh.device)
+        fit = fits.data_parallel_fit_lbfgs(tiled, mesh, max_iter=P14_PUBLIC_ITERS)
+        out["data_parallel"] = p14_fit_record(*p14_counted(
+            lambda: fit(torch.zeros(DIM, device=mesh.device), batch, 1.0)))
+        out["seconds"] = time.perf_counter() - t_surface
+        return out
+    cell, block_dim = ts.feature_shard_tiled_batch(
+        batch, DIM, 1, mesh.size(MODEL_AXIS), 0, mesh.index(MODEL_AXIS), device=mesh.device,
+        builders=mesh.ranks_sharing((DATA_AXIS, MODEL_AXIS)),
+    )
+    w0 = torch.zeros(mesh.size(MODEL_AXIS) * block_dim, device=mesh.device)
+    for name, public, general in (
+        ("tiled_fit", fits.feature_sharded_tiled_fit(
+            tiled, mesh, cell.meta, max_iter=P14_PUBLIC_ITERS),
+         fits.feature_sharded_glm_fit(tiled, mesh, max_iter=P14_PUBLIC_ITERS)),
+        ("tiled_fit_tron", fits.feature_sharded_tiled_fit_tron(tiled, mesh, cell.meta, max_iter=5),
+         fits.feature_sharded_glm_fit(tiled, mesh, optimizer="tron", max_iter=5, tol=1e-5)),
+    ):
+        a = p14_fit_record(*p14_counted(lambda: public(w0, cell, 1.0)))
+        b = p14_fit_record(*p14_counted(lambda: general(w0, cell, 1.0)))
+        a["bitwise_general"] = bool(np.array_equal(a["coef"], b["coef"])
+                                    and a["value"] == b["value"]
+                                    and a["iterations"] == b["iterations"])
+        a["general_k1"] = b["k1"]
+        del a["coef"]
+        out[name] = a
+    dense = p14_dense_data(seed, mesh.device)
+    fit = fits.feature_sharded_fit(GLMObjective(LOGISTIC, P14_DENSE_DIM), mesh,
+                                   max_iter=P14_PUBLIC_ITERS)
+    runs = [p14_fit_record(*p14_counted(lambda: fit(
+        torch.zeros(P14_DENSE_DIM, device=mesh.device), dense.features, dense.labels,
+        dense.offsets, dense.weights, 1.0))) for _ in range(2)]
+    out["dense"] = dict(runs[0], repeat=bool(np.array_equal(runs[0]["coef"], runs[1]["coef"])))
+    out["seconds"] = time.perf_counter() - t_surface
+    return out
+
+
+def p14_rank(mesh, seed, cache_dir):
+    """One rank of phase 14's meshes: run H's fixed effect
+    (``mesh_fe_rank``), then the library surface's checks."""
+    ds, _ = p14_game_rows(seed, mesh.device)
+    return dict(fe=mesh_fe_rank(mesh, seed), surface=p14_surface(mesh, ds, cache_dir, seed))
+
+
+def p14_single(seed, device="cuda"):
+    """The single card's counterparts of phase 14's meshes: run H's fixed
+    effect, the data-parallel fit's problem on the whole shard, and the
+    dense fit."""
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.lbfgs import minimize_lbfgs
+    from photon_ml_tpu_torch.ops import tiled_sparse as ts
+
+    t_surface = time.perf_counter()
+    ds, _ = p14_game_rows(seed, device)
+    tiled = ts.TiledGLMObjective(LOGISTIC, DIM)
+    tb = ts.tiled_batch_from_sparse(ds.batch_for_shard("global"), DIM, device=device)
+    data_parallel = p14_fit_record(*p14_counted(lambda: minimize_lbfgs(
+        lambda w: tiled.value_and_gradient(w, tb, 1.0), torch.zeros(DIM, device=device),
+        max_iter=P14_PUBLIC_ITERS)))
+    dense = p14_dense_data(seed, device)
+    obj = GLMObjective(LOGISTIC, P14_DENSE_DIM)
+    dense_fit = p14_fit_record(*p14_counted(lambda: minimize_lbfgs(
+        lambda w: obj.value_and_gradient(w, dense, 1.0),
+        torch.zeros(P14_DENSE_DIM, device=device), max_iter=P14_PUBLIC_ITERS)))
+    del dense
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_surface
+    return dict(fe=mesh_fe_rank(None, seed, device), data_parallel=data_parallel,
+                dense=dense_fit, seconds=seconds)
+
+
 def p14_meshes(seed, smi, device="cuda"):
     """Phase 14's meshes: the fixed effect over a 2 x 1 and a 1 x 2 mesh
     (spawned side by side), each rank's two cold fits bitwise and every
     rank's bits the same, K1 launched on every rank, each fit's objective
     within DRIVER_OBJ_RTOL of the single card's (the cells sum in another
-    order); -> per mesh its fits' seconds and launches."""
-    with ThreadPoolExecutor(len(P14_MESHES)) as pool:
+    order); then the library surface's checks on the same ranks
+    (``p14_surface``, ``p14_surface_checks``); -> per mesh its fits'
+    seconds and launches, and the surface's numbers."""
+    with tempfile.TemporaryDirectory(prefix="photon_p14_cache_") as cache_dir, \
+            ThreadPoolExecutor(len(P14_MESHES)) as pool:
         futures = {
-            shape: pool.submit(spawn_mesh_checked, mesh_fe_rank, shape, (seed,), device)
+            shape: pool.submit(spawn_mesh_checked, p14_rank, shape, (seed, cache_dir), device)
             for shape in P14_MESHES
         }
-        single = mesh_fe_rank(None, seed, device)  # while the ranks start
+        single = p14_single(seed, device)  # while the ranks start
         ranks = {shape: f.result() for shape, f in futures.items()}
+        stored = len(os.listdir(f"{cache_dir}/v1")) if os.path.isdir(f"{cache_dir}/v1") else 0
     out = {}
     for shape, runs in ranks.items():
-        first = runs[0]
+        first = runs[0]["fe"]
         repeat = np.array_equal(first[0]["coef"], first[1]["coef"])
         agree = all(
             np.array_equal(a["coef"], b["coef"]) and a["iterations"] == b["iterations"]
-            for r in runs[1:] for a, b in zip(first, r)
+            for r in runs[1:] for a, b in zip(first, r["fe"])
         )
         rels = [abs(f["value"] - s["value"]) / abs(s["value"])
-                for f, s in zip((first[0], first[2]), (single[0], single[2]))]
-        launches = [f["k1"] for r in runs for f in r]
+                for f, s in zip((first[0], first[2]), (single["fe"][0], single["fe"][2]))]
+        launches = [f["k1"] for r in runs for f in r["fe"]]
         say(f"phase 14 mesh {shape} ({smi}): fits {[f['seconds'] for f in first]} s, "
             f"iterations {[f['iterations'] for f in first]} (single card "
-            f"{[f['iterations'] for f in single]}), K1 launches a rank and fit {launches}; "
+            f"{[f['iterations'] for f in single['fe']]}), K1 launches a rank and fit {launches}; "
             f"two cold fits bitwise {repeat}, ranks bitwise {agree}; objective vs the single "
             f"card cold / with a residual {rels}")
         if not (repeat and agree):
@@ -3094,6 +3384,78 @@ def p14_meshes(seed, smi, device="cuda"):
             fail(f"phase 14 mesh {shape}: the fit is off the single card's")
         out["x".join(map(str, shape))] = dict(
             seconds=[f["seconds"] for f in first], k1=launches)
+    out["surface"] = p14_surface_checks(
+        [r["surface"] for r in ranks[(2, 1)]], [r["surface"] for r in ranks[(1, 2)]],
+        single, stored, smi)
+    return out
+
+
+def p14_surface_checks(data_ranks, model_ranks, single, stored, smi):
+    """The library surface's checks on phase 14's ranks: (b) one key that
+    both ranks of the 2 x 1 mesh build: rank 0 stores it, rank 1 waits,
+    loads and builds nothing, their schedules and K1's passes on them
+    bitwise; ``data_parallel_fit_lbfgs`` the same bits on both ranks,
+    within DRIVER_OBJ_RTOL of the single card's fit, K1 on each rank;
+    (c) on the 1 x 2 mesh ``feature_sharded_tiled_fit`` and ``_tron``
+    bitwise ``feature_sharded_glm_fit`` with K1 on each rank, the dense
+    ``feature_sharded_fit`` repeating bitwise and within P14_DENSE_RTOL
+    of the one-card dense fit; -> the numbers."""
+    r0, r1 = (r["same_key"] for r in data_ranks)
+    s0, s1 = r0["stats"], r1["stats"]
+    same_bits = (r0["digest"] == r1["digest"] and np.array_equal(r0["z"], r1["z"])
+                 and np.array_equal(r0["g"], r1["g"]))
+    say(f"phase 14 cache roles, one key on 2 ranks ({smi}): rank 0 builds={s0['builds']} "
+        f"stores={s0['stores']} wait_s={s0['wait_s']!r}; rank 1 builds={s1['builds']} "
+        f"stores={s1['stores']} hits={s1['hits']} wait_s={s1['wait_s']!r} (its schedules "
+        f"by {r1['builder']}); artifacts stored {stored}; schedules and K1 z / g passes "
+        f"bitwise {same_bits} (K1 launches {r0['k1']} / {r1['k1']})")
+    if not (s0["builds"] == s0["stores"] == 2 and s1["builds"] == s1["stores"] == 0
+            and s1["hits"] == 2 and s1["wait_s"] > 0 and stored == 2):
+        fail("phase 14: the process that shares a key did not wait for its writer's artifacts")
+    if not same_bits or min(r0["k1"], r1["k1"]) == 0:
+        fail("phase 14: the loaded schedules or K1's passes on them are not the writer's bits")
+    dp = [r["data_parallel"] for r in data_ranks]
+    rel = abs(dp[0]["value"] - single["data_parallel"]["value"]) / abs(
+        single["data_parallel"]["value"])
+    say(f"phase 14 data_parallel_fit_lbfgs on 2 x 1 ({smi}): {dp[0]['seconds']!r} s, "
+        f"{dp[0]['iterations']} iterations ({dp[0]['reason']}), K1 launches a rank "
+        f"{[d['k1'] for d in dp]}; ranks bitwise {np.array_equal(dp[0]['coef'], dp[1]['coef'])}; "
+        f"objective vs the single card's {single['data_parallel']['value']!r} (rel {rel!r})")
+    if not np.array_equal(dp[0]["coef"], dp[1]["coef"]) or min(d["k1"] for d in dp) == 0:
+        fail("phase 14: data_parallel_fit_lbfgs differs between ranks or launched no K1")
+    if rel > DRIVER_OBJ_RTOL:
+        fail("phase 14: data_parallel_fit_lbfgs is off the single card's fit")
+    out = dict(cache=dict(rank0=s0, rank1=s1, stored=stored),
+               data_parallel=dict(k1=[d["k1"] for d in dp], rel=rel, seconds=dp[0]["seconds"]))
+    for name in ("tiled_fit", "tiled_fit_tron"):
+        runs = [r[name] for r in model_ranks]
+        say(f"phase 14 {name} on 1 x 2 ({smi}): {runs[0]['seconds']!r} s, "
+            f"{runs[0]['iterations']} iterations ({runs[0]['reason']}), K1 launches a rank "
+            f"{[r['k1'] for r in runs]} (feature_sharded_glm_fit {[r['general_k1'] for r in runs]}); "
+            f"bitwise feature_sharded_glm_fit on every rank "
+            f"{all(r['bitwise_general'] for r in runs)}")
+        if not all(r["bitwise_general"] for r in runs) or min(r["k1"] for r in runs) == 0:
+            fail(f"phase 14: {name} is not feature_sharded_glm_fit's bits, or launched no K1")
+        out[name] = dict(k1=[r["k1"] for r in runs], seconds=runs[0]["seconds"])
+    dense = [r["dense"] for r in model_ranks]
+    one = single["dense"]
+    err = float(np.abs(dense[0]["coef"] - one["coef"]).max() / np.abs(one["coef"]).max())
+    say(f"phase 14 dense feature_sharded_fit on 1 x 2, {P14_DENSE_ROWS} x {P14_DENSE_DIM} "
+        f"float32 ({smi}): {dense[0]['seconds']!r} s, {dense[0]['iterations']} iterations "
+        f"({dense[0]['reason']}; one card {one['iterations']}, {one['reason']}, "
+        f"{one['seconds']!r} s); repeats bitwise {[d['repeat'] for d in dense]}, ranks bitwise "
+        f"{np.array_equal(dense[0]['coef'], dense[1]['coef'])}; coefficients "
+        f"{err!r} of the one-card fit's max-abs off it")
+    if not (all(d["repeat"] for d in dense) and np.array_equal(dense[0]["coef"], dense[1]["coef"])):
+        fail("phase 14: the dense feature-sharded fit does not repeat bitwise")
+    if not err <= P14_DENSE_RTOL:
+        fail("phase 14: the dense feature-sharded fit is off the one-card fit")
+    out["dense"] = dict(err=err, seconds=dense[0]["seconds"], one_card_s=one["seconds"])
+    out["seconds"] = dict(ranks=[r["seconds"] for r in data_ranks + model_ranks],
+                          single=single["seconds"])
+    say(f"phase 14 surface checks ({smi}): {out['seconds']['ranks']} s of host time in "
+        f"the 2 x 1 and 1 x 2 ranks, {single['seconds']!r} s in this process, each beside "
+        "run H's fixed-effect fits")
     return out
 
 
@@ -3142,36 +3504,99 @@ def p14_stream_start(train_dir, tmp, device_args=()):
     return procs, outs
 
 
+def p14_feature_procs(sub, out, cache, device_args):
+    """One run of the GLM driver in memory as 2 processes over a 1 x 2
+    (data, model) mesh (``--distributed feature --model-shards 2``), its
+    schedules through the cache directory ``cache``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    return [subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.glm_driver",
+         "--training-data-directory", sub, "--regularization-weights", "1",
+         "--distributed", "feature", "--model-shards", "2",
+         "--output-directory", out, "--tile-cache-dir", cache,
+         "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(rank), *device_args],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for rank in range(2)]
+
+
+def p14_wait(procs, what):
+    """-> each process's output; fails on a timeout or an exit code."""
+    logs = []
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=P14_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"phase 14: a {what} driver process did not end")
+        if p.returncode != 0:
+            fail(f"phase 14: a {what} driver process ended with {p.returncode}: {log[-3000:]}")
+        logs.append(log)
+    return logs
+
+
 def p14_feature_start(train_dir, tmp, device_args=()):
     """Phase 14: two runs of the GLM driver in memory over 2 of run S's 8
     part files as 2 processes each, the coefficients over the processes'
-    1 x 2 (data, model) mesh (``--distributed feature --model-shards 2``);
-    -> (the processes, the output dirs, the training dir)."""
-    sub = f"{tmp}/p14-feature-train"
+    1 x 2 (data, model) mesh (``--distributed feature --model-shards 2``),
+    both over one ``--tile-cache-dir``: the first cold; the second, warm,
+    starts when the first ends (a thread waits for both) -> (the thread,
+    the runs' processes and logs, the output dirs, the training dir, the
+    cache dir)."""
+    import threading
+
+    sub, cache = f"{tmp}/p14-feature-train", f"{tmp}/p14-tile-cache"
     os.makedirs(sub)
     for part in sorted(os.listdir(train_dir))[:2]:
         shutil.copy(f"{train_dir}/{part}", sub)
-    here = os.path.dirname(os.path.abspath(__file__))
-    procs, outs = [], []
-    for run in range(2):
-        port, out = free_port(), f"{tmp}/p14-feature-{run}"
-        outs.append(out)
-        for rank in range(2):
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "photon_ml_tpu_torch.cli.glm_driver",
-                 "--training-data-directory", sub, "--regularization-weights", "1",
-                 "--distributed", "feature", "--model-shards", "2",
-                 "--output-directory", out,
-                 "--coordinator-address", f"127.0.0.1:{port}", "--num-processes", "2",
-                 "--process-id", str(rank), *device_args],
-                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            ))
-    return procs, outs, sub
+    outs = [f"{tmp}/p14-feature-{run}" for run in range(2)]
+    runs = {"cold": p14_feature_procs(sub, outs[0], cache, device_args)}
+
+    def warm_after_cold():
+        try:
+            runs["cold_logs"] = p14_wait(runs["cold"], "feature-sharded (cold cache)")
+            t0 = time.perf_counter()
+            runs["warm"] = p14_feature_procs(sub, outs[1], cache, device_args)
+            runs["warm_logs"] = p14_wait(runs["warm"], "feature-sharded (warm cache)")
+            runs["warm_s"] = time.perf_counter() - t0
+        except SystemExit:
+            return
+
+    chain = threading.Thread(target=warm_after_cold, daemon=True)
+    chain.start()
+    return chain, runs, outs, sub, cache
 
 
-def p14_feature_finish(procs, outs, sub, smi, device="cuda"):
-    """Wait for phase 14's feature-sharded GLM driver processes: the two
-    runs' models bitwise equal, the objective at lambda = 1 within
+def p14_feature_procs_all(runs):
+    return runs["cold"] + runs.get("warm", [])
+
+
+CACHE_LOG = re.compile(
+    r"tile-schedule cache: (\d+) hit\(s\), (\d+) miss\(es\), (\d+) build\(s\), "
+    r"(\d+) store\(s\) .*wait ([0-9.]+)s\)")
+
+
+def p14_cache_counters(logs, what):
+    """Each process's schedule-cache counters from its driver log line."""
+    out = []
+    for log in logs:
+        m = CACHE_LOG.search(log)
+        if m is None:
+            fail(f"phase 14: a {what} driver process logged no schedule-cache counters")
+        hits, misses, builds, stores = (int(v) for v in m.groups()[:4])
+        out.append(dict(hits=hits, misses=misses, builds=builds, stores=stores,
+                        wait_s=float(m.group(5))))
+    return out
+
+
+def p14_feature_finish(chain, runs, outs, sub, cache, smi, device="cuda"):
+    """Wait for phase 14's feature-sharded GLM driver processes: the cold
+    run's builds over its processes equal the number of schedule keys (two
+    cells of two passes), each key stored by one process and none waited
+    for; the warm run builds nothing in either process; the two runs'
+    models bitwise equal, the objective at lambda = 1 within
     DRIVER_OBJ_RTOL of the trainer's single-card fit on the rows the
     port's loader gives (its own sums)."""
     from photon_ml_tpu_torch.io.input_format import AvroInputDataFormat
@@ -3181,16 +3606,23 @@ def p14_feature_finish(procs, outs, sub, smi, device="cuda"):
     from photon_ml_tpu_torch.training import train_generalized_linear_model
     from photon_ml_tpu_torch.utils.index_map import IndexMap
 
-    for p in procs:
-        try:
-            log, _ = p.communicate(timeout=P14_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            fail("phase 14: a feature-sharded driver process did not end")
-        if p.returncode != 0:
-            fail(f"phase 14: a feature-sharded driver process ended with {p.returncode}: "
-                 f"{log[-3000:]}")
+    chain.join(timeout=2 * P14_TIMEOUT_S)
+    if "warm_logs" not in runs:
+        for q in p14_feature_procs_all(runs):
+            q.kill()
+        fail("phase 14: the feature-sharded driver runs did not end")
+    cold = p14_cache_counters(runs["cold_logs"], "feature-sharded (cold cache)")
+    warm = p14_cache_counters(runs["warm_logs"], "feature-sharded (warm cache)")
+    warm_s = runs["warm_s"]
+    keys = len(os.listdir(f"{cache}/v1"))
+    say(f"phase 14 feature-sharded GLM driver cache roles ({smi}): cold per process "
+        f"{cold}; warm per process {warm}; {keys} artifacts stored; the warm run "
+        f"{warm_s!r} s, started when the cold one ended")
+    if not (sum(c["builds"] for c in cold) == sum(c["stores"] for c in cold) == keys == 4
+            and all(c["wait_s"] == 0 for c in cold)):
+        fail("phase 14: the cold driver run's builds, stores and keys disagree")
+    if any(w["builds"] or w["stores"] or w["hits"] != 2 for w in warm):
+        fail("phase 14: the warm driver run built a schedule")
     imap = IndexMap.load(f"{outs[0]}/feature-index/index.json")
     means = [load_glm_models_avro(f"{o}/models/models.avro", imap, device=device)["1.0"].means
              for o in outs]
@@ -3207,15 +3639,18 @@ def p14_feature_finish(procs, outs, sub, smi, device="cuda"):
     same = torch.equal(means[0], means[1])
     with open(f"{outs[0]}/metrics.json") as f:
         timers = json.load(f)["timers"]
+    with open(f"{outs[1]}/metrics.json") as f:
+        warm_timers = json.load(f)["timers"]
     say(f"phase 14 feature-sharded GLM driver, 2 processes over a 1 x 2 mesh ({smi}): "
-        f"{loaded.batch.num_rows} rows x {imap.size} features, train {timers['train']!r} s; "
-        f"the two runs bitwise {same}; objective at lambda=1 {f_mp!r} vs the single card's "
-        f"{f_one!r} (rel {rel!r})")
+        f"{loaded.batch.num_rows} rows x {imap.size} features, train {timers['train']!r} s "
+        f"cold, {warm_timers['train']!r} s warm; the warm run bitwise the cold one {same}; "
+        f"objective at lambda=1 {f_mp!r} vs the single card's {f_one!r} (rel {rel!r})")
     if not same:
-        fail("phase 14: two feature-sharded multi-process driver runs are not bitwise")
+        fail("phase 14: the warm feature-sharded multi-process driver run is not the cold one's bits")
     if not abs(rel) <= DRIVER_OBJ_RTOL:
         fail("phase 14: the feature-sharded driver fit is off the single card's")
-    return dict(train_s=timers["train"], rel=rel)
+    return dict(train_s=timers["train"], warm_train_s=warm_timers["train"], rel=rel,
+                warm_s=warm_s, cache=dict(cold=cold, warm=warm, keys=keys))
 
 
 def p14_stream_finish(procs, outs, imap, batch, f_s1, smi, device="cuda"):
@@ -5919,6 +6354,9 @@ def main() -> int:
 
     profile_fits(tb, DIM, lbfgs_grid, say=say)
 
+    # the per-member offsets of run_grid on K2, at the mesh cell's shape
+    offsets_bank_k2, offsets_bank_err = offsets_bank_check(idx, vals, labels, k1, k2, rng, smi)
+
     # -- 6. the mesh path -------------------------------------------------------
     say(f"mesh: {MESH_SHAPE} (data, model) ranks on ONE card ({smi}); they "
         "time-slice its SMs and gloo stages every collective through the "
@@ -6057,16 +6495,16 @@ def main() -> int:
         # -- 14. GAME's fixed effect over meshes, multi-process streaming --
         t1 = time.perf_counter()
         procs, outs = p14_stream_start(train_dir, tmp)
-        f_procs, f_outs, f_dir = p14_feature_start(train_dir, tmp)
+        f_chain, f_runs, f_outs, f_dir, f_cache = p14_feature_start(train_dir, tmp)
         g_procs, g_outs = p14_game_start(fleet["dir"], fleet["shards"], tmp)
         try:
             phase14["meshes"] = p14_meshes(args.seed, smi)
         except BaseException:
-            for p in procs + f_procs + g_procs:
+            for p in procs + p14_feature_procs_all(f_runs) + g_procs:
                 p.kill()
             raise
         phase14["stream"] = p14_stream_finish(procs, outs, imap, batch, f_s1, smi)
-        phase14["feature"] = p14_feature_finish(f_procs, f_outs, f_dir, smi)
+        phase14["feature"] = p14_feature_finish(f_chain, f_runs, f_outs, f_dir, f_cache, smi)
         phase14["game"] = p14_game_finish(g_procs, g_outs, fleet["h_history"], smi)
         phase14["seconds"] = time.perf_counter() - t1
         say(f"phase 14: {phase14['seconds']!r} s of host time ({smi})")
@@ -6172,6 +6610,9 @@ def main() -> int:
         "phase10_launches": phase10_k1,
         "phase13_launches": phase13_k1,
         "phase15_launches": phase15_k1,
+        "phase14_surface_launches": {
+            k: v["k1"] for k, v in phase14["meshes"]["surface"].items() if "k1" in v
+        },
         "stream_chunk": stream_chunk,
     }, {
         "name": "grid_bilinear_pass",
@@ -6180,7 +6621,7 @@ def main() -> int:
         "replaces": "photon_ml_tpu/ops/tiled_sparse.py:1509",
         "launches": grid_k2,
         "G": G,
-        "max_abs_err": k2_err[0],
+        "max_abs_err": max(k2_err[0], offsets_bank_err[0]),
         "ms": k2_times["z_ms"] + k2_times["g_ms"],
         "plain_ms": k2_times["z_plain_ms"] + k2_times["g_plain_ms"],
         "bound_ms": zb_bound + gb_bound,
@@ -6195,6 +6636,8 @@ def main() -> int:
         "driver_launches": {run: n["k2"] for run, n in driver_launches.items()},
         "phase9_launches": {run: n["k2"] for run, n in phase9_launches.items()},
         "phase10_launches": phase10_k2,
+        "offsets_bank_launches": offsets_bank_k2,
+        "offsets_bank_max_abs_err": offsets_bank_err[0],
     }, {
         "name": "apply_spill",
         "route": "cuda",

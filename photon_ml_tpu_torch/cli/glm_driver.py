@@ -129,7 +129,7 @@ from photon_ml_tpu_torch.utils.device import resolve_device
 from photon_ml_tpu_torch.utils.index_map import intercept_key, split_feature_key
 from photon_ml_tpu_torch.utils.native_index import load_offheap_index_map
 from photon_ml_tpu_torch.parallel import multihost
-from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+from photon_ml_tpu_torch.parallel.mesh import maybe_make_mesh
 from photon_ml_tpu_torch.utils.logging_util import PhotonLogger, Timer
 from photon_ml_tpu_torch.utils.preemption import PreemptionGuard
 from photon_ml_tpu_torch.utils.profiling import peak_rss_bytes
@@ -769,25 +769,15 @@ class GLMDriver:
 
     def _mesh(self):
         """The mesh over the processes, made once (every rank makes it in
-        the same order; the reference's ``maybe_make_mesh`` with processes
-        for devices): None with one process or "off"; "feature" a (data,
-        model) mesh with ``--model-shards`` (default 2) on the model axis;
-        "auto" a data mesh."""
+        the same order): ``parallel.mesh.maybe_make_mesh``, None with one
+        process or "off"; "feature" a (data, model) mesh with
+        ``--model-shards`` (default 2) on the model axis; "auto" a data
+        mesh."""
         p = self.params
-        n = multihost.process_count()
-        if p.distributed == "off" or n < 2:
-            return None
         if self._process_mesh is None:
-            if p.distributed == "feature":
-                m = p.model_shards if p.model_shards is not None else 2
-                if n % m != 0:
-                    raise ValueError(f"model_shards={m} does not divide the {n} processes")
-                shape, axes = (n // m, m), (DATA_AXIS, MODEL_AXIS)
-            else:
-                shape, axes = (n,), (DATA_AXIS,)
-            self._process_mesh = make_mesh(
-                shape, axes, device=self.device,
-                backend=multihost.backend_for(n, p.device),
+            self._process_mesh = maybe_make_mesh(
+                p.distributed, p.model_shards, device=self.device,
+                backend=multihost.backend_for(multihost.process_count(), p.device),
             )
         return self._process_mesh
 
@@ -930,9 +920,10 @@ class GLMDriver:
         self._schedule_cache_stats = s.as_dict()
         self.emitter.send(ScheduleCacheEvent(stats=self._schedule_cache_stats))
         self.logger.info(
-            "tile-schedule cache: %d hit(s), %d miss(es), %d build(s) "
-            "(build %.2fs, load %.3fs, store %.2fs, hash %.2fs)",
-            s.hits, s.misses, s.builds, s.build_s, s.load_s, s.store_s, s.hash_s,
+            "tile-schedule cache: %d hit(s), %d miss(es), %d build(s), %d store(s) "
+            "(build %.2fs, load %.3fs, store %.2fs, hash %.2fs, wait %.2fs)",
+            s.hits, s.misses, s.builds, s.stores, s.build_s, s.load_s, s.store_s,
+            s.hash_s, s.wait_s,
         )
 
     def _log_results(self) -> None:

@@ -9,12 +9,16 @@ A batch is a padded gather-format block ("padded COO rows"):
 - ``values[n, k]`` float32: feature values per row, padded with 0.0
 - ``labels/offsets/weights[n]``: padded rows carry ``weight == 0``, which
   zeroes their contribution to loss, gradient, Hessian and metrics.
+
+A dense batch (small feature dimensions) is a plain ``[n, d]`` matrix
+whose products are matrix products (``torch.matmul``, as XLA's in the JAX
+package; with TF32 off they stay float32).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +58,34 @@ class SparseBatch:
                 self.weights,
             ))
         )
+
+
+@dataclass(frozen=True)
+class DenseBatch:
+    """Row i: features[i] . w."""
+
+    features: Tensor  # float [n, d]
+    labels: Tensor  # [n]
+    offsets: Tensor  # [n]
+    weights: Tensor  # [n]; 0 for padding rows
+
+    @property
+    def num_rows(self) -> int:
+        return self.features.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.features.device
+
+    def to(self, device) -> "DenseBatch":
+        return DenseBatch(
+            *(t.to(device) for t in (
+                self.features, self.labels, self.offsets, self.weights,
+            ))
+        )
+
+
+Batch = Union[SparseBatch, DenseBatch]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -100,6 +132,34 @@ def make_sparse_batch(
     return sparse_batch_from_arrays(indices, values, lab, off, wgt, device=dev)
 
 
+def make_dense_batch(
+    features: np.ndarray,
+    labels: Sequence[float],
+    offsets: Optional[Sequence[float]] = None,
+    weights: Optional[Sequence[float]] = None,
+    *,
+    pad_rows_to: int = 8,
+    dtype=np.float32,
+    device: DeviceLike = None,
+) -> DenseBatch:
+    """A DenseBatch with its rows zero-padded (weight 0) to a multiple of
+    ``pad_rows_to``, as the reference pads them."""
+    features = np.asarray(features, dtype=dtype)
+    n, d = features.shape
+    n_pad = max(_round_up(n, pad_rows_to), pad_rows_to)
+    f = np.zeros((n_pad, d), dtype=dtype)
+    f[:n] = features
+    lab = np.zeros((n_pad,), dtype=dtype)
+    lab[:n] = np.asarray(labels, dtype=dtype)
+    off = np.zeros((n_pad,), dtype=dtype)
+    if offsets is not None:
+        off[:n] = np.asarray(offsets, dtype=dtype)
+    wgt = np.zeros((n_pad,), dtype=dtype)
+    wgt[:n] = 1.0 if weights is None else np.asarray(weights, dtype=dtype)
+    dev = resolve_device(device)
+    return DenseBatch(*(torch.as_tensor(a, device=dev) for a in (f, lab, off, wgt)))
+
+
 def sparse_batch_from_arrays(
     indices: np.ndarray,
     values: np.ndarray,
@@ -126,6 +186,22 @@ def sparse_dot(batch: SparseBatch, w_eff: Tensor) -> Tensor:
     [G, n]."""
     gathered = w_eff.index_select(-1, batch.indices.reshape(-1))
     return (batch.values * gathered.unflatten(-1, batch.indices.shape)).sum(dim=-1)
+
+
+def dense_dot(batch: DenseBatch, w: Tensor) -> Tensor:
+    """``features . w``: w [d] -> [n], or a bank [G, d] -> [G, n]."""
+    if w.dim() == 1:
+        return torch.matmul(batch.features, w)
+    return torch.matmul(w, batch.features.T)
+
+
+def dense_weighted_sum(batch: DenseBatch, row_coef: Tensor, features=None) -> Tensor:
+    """``features^T . c``: c [n] -> [d], or [G, n] -> [G, d] (``features``
+    overrides the batch's, as the Hessian diagonal squares them)."""
+    f = batch.features if features is None else features
+    if row_coef.dim() == 1:
+        return torch.matmul(f.T, row_coef)
+    return torch.matmul(row_coef, f)
 
 
 def row_sum(x: Tensor) -> Tensor:

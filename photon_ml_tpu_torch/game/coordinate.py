@@ -218,14 +218,18 @@ class FixedEffectCoordinate(Coordinate):
             d_shards = mesh.size(DATA_AXIS)
             d_index = mesh.index(DATA_AXIS)
             if sharded:
-                build = feature_shard_tiled_batch if tiled else feature_shard_sparse_batch
-                cell, block_dim = build(
-                    base, dim, d_shards, mesh.size(MODEL_AXIS), d_index,
-                    mesh.index(MODEL_AXIS), device=mesh.device,
+                args = (base, dim, d_shards, mesh.size(MODEL_AXIS), d_index,
+                        mesh.index(MODEL_AXIS))
+                cell, block_dim = (
+                    feature_shard_tiled_batch(
+                        *args, device=mesh.device,
+                        builders=mesh.ranks_sharing((DATA_AXIS, MODEL_AXIS)),
+                    ) if tiled else feature_shard_sparse_batch(*args, device=mesh.device)
                 )
             elif tiled:
                 cell = build_sharded_tiled_batch(
-                    base, dim, d_shards, d_index, device=mesh.device
+                    base, dim, d_shards, d_index, device=mesh.device,
+                    builders=mesh.ranks_sharing((DATA_AXIS,)),
                 )
                 block_dim = dim
             else:

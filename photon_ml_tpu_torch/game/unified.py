@@ -33,7 +33,6 @@ lane, not an ``l1``).
 
 from __future__ import annotations
 
-import dataclasses
 import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
@@ -490,7 +489,7 @@ def run_game_grid(
     """λ-grid GAME coordinate descent over (fixed effect, entity-sharded
     random effect) for EVERY member of ``re_reg_weights`` at once: the FE
     solves batch through ``GLMOptimizationProblem.run_grid`` with each
-    member's own offsets, the RE updates and scores run the grid programs,
+    member's own offsets (``offsets_bank``), the RE updates and scores run the grid programs,
     and each CD iteration makes ONE batched readback (the ``[G]``
     objectives plus the RE tracker stats). Per member it is the pod CD
     loop: the same warm starts (each member from its own previous
@@ -532,8 +531,7 @@ def run_game_grid(
         # -- fixed effect: residual = total - own; one batched solve
         residual = total - fe_scores
         _, fe_result = fe_problem.run_grid(
-            dataclasses.replace(batch, offsets=base_off[None, :] + residual),
-            fe_weights, initial=fe_bank,
+            batch, fe_weights, initial=fe_bank, offsets_bank=base_off[None, :] + residual,
         )
         fe_bank = fe_result.coefficients
         fe_scores = _fe_scores(fe_bank, batch)

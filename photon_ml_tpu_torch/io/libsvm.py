@@ -9,9 +9,10 @@ input formats.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterable, Iterator, List, Optional, Tuple
 
 from photon_ml_tpu_torch.io.paths import expand_input_paths
+from photon_ml_tpu_torch.utils.index_map import feature_key
 
 Row = Tuple[List[int], List[float]]
 
@@ -49,3 +50,13 @@ def read_libsvm(
                 parsed = parse_libsvm_line(line, zero_based=zero_based)
                 if parsed is not None:
                     yield parsed
+
+
+def libsvm_feature_keys(
+    examples: Iterable[Tuple[float, List[Tuple[int, float]]]]
+) -> Iterator[str]:
+    """The feature key of every entry of the parsed rows, in order (the
+    vocabulary an IndexMap is built from)."""
+    for _, pairs in examples:
+        for idx, _ in pairs:
+            yield feature_key(str(idx))

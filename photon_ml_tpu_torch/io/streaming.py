@@ -685,7 +685,9 @@ class StreamingGLMObjective:
         partial."""
         from photon_ml_tpu_torch.ops import schedule_cache
         from photon_ml_tpu_torch.ops import tiled_sparse as ts
+        from photon_ml_tpu_torch.parallel import multihost
 
+        own = (multihost.process_index(),)
         params0 = self.tile_params or ts.TileParams()
         win = params0.window
         r_pad = ts._whole_windows(self.rows_per_chunk, win)
@@ -707,7 +709,8 @@ class StreamingGLMObjective:
                     schedule_cache.content_digest(rows, feats, vals)
                     if schedule_cache.resolve_cache_dir() is not None else None
                 )
-                kw = dict(params=meta.params, digest=digest)
+                # the chunks of this process's own files: it alone builds them
+                kw = dict(params=meta.params, digest=digest, builders=own)
                 fz = pool.submit(
                     ts._build_schedule, rows, feats, vals,
                     sort_by_feature_block=False, num_out_blocks=z_blocks, **kw,

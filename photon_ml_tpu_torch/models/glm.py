@@ -6,11 +6,11 @@ Reference: photon-ml .../supervised/model/GeneralizedLinearModel.scala
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
-from photon_ml_tpu_torch.data.batch import SparseBatch, sparse_dot
+from photon_ml_tpu_torch.data.batch import Batch, SparseBatch, dense_dot, sparse_dot
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.task import TaskType
@@ -18,17 +18,19 @@ from photon_ml_tpu_torch.task import TaskType
 Tensor = torch.Tensor
 
 
-def compute_scores(coef: Tensor, batch: SparseBatch) -> Tensor:
+def compute_scores(coef: Tensor, batch: Batch) -> Tensor:
     """Raw margins WITHOUT offsets: features . coef."""
-    return sparse_dot(batch, coef)
+    if isinstance(batch, SparseBatch):
+        return sparse_dot(batch, coef)
+    return dense_dot(batch, coef)
 
 
-def compute_margins(coef: Tensor, batch: SparseBatch) -> Tensor:
+def compute_margins(coef: Tensor, batch: Batch) -> Tensor:
     """Margins including offsets: features . coef + offset."""
     return compute_scores(coef, batch) + batch.offsets
 
 
-def compute_means(task: TaskType, coef: Tensor, batch: SparseBatch) -> Tensor:
+def compute_means(task: TaskType, coef: Tensor, batch: Batch) -> Tensor:
     """Mean response with offsets: sigmoid / identity / exp / raw margin."""
     return loss_for_task(task).mean(compute_margins(coef, batch))
 
@@ -42,19 +44,38 @@ class GeneralizedLinearModel:
     def means(self) -> Tensor:
         return self.coefficients.means
 
-    def score(self, batch: SparseBatch) -> Tensor:
+    def score(self, batch: Batch) -> Tensor:
         return compute_scores(self.means, batch)
 
-    def mean(self, batch: SparseBatch) -> Tensor:
+    def mean(self, batch: Batch) -> Tensor:
         return compute_means(self.task, self.means, batch)
 
-    def predict_class(self, batch: SparseBatch, threshold: float = 0.5) -> Tensor:
+    def update_coefficients(self, coefficients: Coefficients) -> "GeneralizedLinearModel":
+        return replace(self, coefficients=coefficients)
+
+    def predict_class(self, batch: Batch, threshold: float = 0.5) -> Tensor:
         """Binary 0/1 prediction; classification tasks only."""
         if not self.task.is_classification:
             raise ValueError(f"{self.task} is not a classification task")
         if self.task == TaskType.LOGISTIC_REGRESSION:
             return (self.mean(batch) > threshold).float()
         return (compute_margins(self.means, batch) > 0.0).float()
+
+
+def logistic_regression_model(coefficients: Coefficients) -> GeneralizedLinearModel:
+    return GeneralizedLinearModel(TaskType.LOGISTIC_REGRESSION, coefficients)
+
+
+def linear_regression_model(coefficients: Coefficients) -> GeneralizedLinearModel:
+    return GeneralizedLinearModel(TaskType.LINEAR_REGRESSION, coefficients)
+
+
+def poisson_regression_model(coefficients: Coefficients) -> GeneralizedLinearModel:
+    return GeneralizedLinearModel(TaskType.POISSON_REGRESSION, coefficients)
+
+
+def smoothed_hinge_svm_model(coefficients: Coefficients) -> GeneralizedLinearModel:
+    return GeneralizedLinearModel(TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM, coefficients)
 
 
 def create_model(task: TaskType, coefficients: Coefficients) -> GeneralizedLinearModel:

@@ -3,9 +3,10 @@
 Port of ``photon_ml_tpu/ops/objective.py`` (reference: photon-ml
 .../function/ValueAndGradientAggregator.scala:133-250,
 HessianVectorAggregator.scala:137-152, HessianDiagonalAggregator.scala).
-Margins gather with ``index_select`` and reductions scatter with
-``index_add_``. This is the port's ``kernel="scatter"`` path and a second
-oracle for the tiled objective.
+Over a SparseBatch margins gather with ``index_select`` and reductions
+scatter in a fixed order; this is the port's ``kernel="scatter"`` path
+and a second oracle for the tiled objective. Over a DenseBatch both are
+matrix products, as the reference's dense branches.
 
 Semantics match the reference: total = sum_i weight_i * loss_i (no 1/n),
 the L2 term lambda/2 * ||w||^2 is added once, L1 is not part of the
@@ -28,7 +29,10 @@ from typing import Optional, Tuple
 import torch
 
 from photon_ml_tpu_torch.data.batch import (
+    Batch,
     SparseBatch,
+    dense_dot,
+    dense_weighted_sum,
     sparse_dot,
     sparse_scatter_add,
 )
@@ -64,9 +68,16 @@ def sum_partials(group, *parts: Tensor, scalars: int = 0):
     return list(parts) if group is None else sum_over(group, *parts, scalars=scalars)
 
 
+def _dot(batch: Batch, w: Tensor) -> Tensor:
+    if isinstance(batch, SparseBatch):
+        return sparse_dot(batch, w)
+    return dense_dot(batch, w)
+
+
 @dataclass(frozen=True)
 class GLMObjective:
-    """A weighted GLM objective over a SparseBatch of dimension ``dim``.
+    """A weighted GLM objective over a SparseBatch or a DenseBatch of
+    dimension ``dim``.
 
     ``group``: a process group whose ranks each hold a shard of the rows
     (the data-parallel fit, the reference's ``with_axis``); every partial
@@ -77,26 +88,32 @@ class GLMObjective:
     norm: NormalizationContext = field(default_factory=identity_context)
     group: Optional[object] = None
 
-    def margins(self, coef: Tensor, batch: SparseBatch) -> Tensor:
+    def margins(self, coef: Tensor, batch: Batch) -> Tensor:
         """z_i = x_eff_i . w_eff + offset_i (normalized-space margin)."""
         w_eff = self.norm.effective_coefficients(coef)
-        raw = sparse_dot(batch, w_eff)
+        raw = _dot(batch, w_eff)
         return raw - self.norm.shift_dot(w_eff)[..., None] + batch.offsets
 
-    def value(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
+    def _weighted_feature_sum(self, batch: Batch, row_coef: Tensor) -> Tensor:
+        """sum_i row_coef[i] * x_i as a dense [dim] (or [G, dim]) vector."""
+        if isinstance(batch, SparseBatch):
+            return sparse_scatter_add(batch, row_coef, self.dim)
+        return dense_weighted_sum(batch, row_coef)
+
+    def value(self, coef: Tensor, batch: Batch, l2_weight=0.0) -> Tensor:
         z = self.margins(coef, batch)
         val = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
         (val,) = sum_partials(self.group, val, scalars=1)
         return val + 0.5 * l2_weight * squared_norm(coef)
 
     def value_and_gradient(
-        self, coef: Tensor, batch: SparseBatch, l2_weight=0.0
+        self, coef: Tensor, batch: Batch, l2_weight=0.0
     ) -> Tuple[Tensor, Tensor]:
         """grad = factor * (vectorSum - shift * prefactorSum) + lambda * w."""
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d1(z, batch.labels)
         value_sum = torch.sum(batch.weights * self.loss.value(z, batch.labels), dim=-1)
-        vector_sum = sparse_scatter_add(batch, c, self.dim)
+        vector_sum = self._weighted_feature_sum(batch, c)
         value_sum, prefactor_sum, vector_sum = sum_partials(
             self.group, value_sum, torch.sum(c, dim=-1), vector_sum, scalars=2
         )
@@ -104,37 +121,40 @@ class GLMObjective:
         value = value_sum + 0.5 * l2_weight * squared_norm(coef)
         return value, grad + per_member(l2_weight, coef) * coef
 
-    def gradient(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
+    def gradient(self, coef: Tensor, batch: Batch, l2_weight=0.0) -> Tensor:
         return self.value_and_gradient(coef, batch, l2_weight)[1]
 
     def hessian_vector(
-        self, coef: Tensor, direction: Tensor, batch: SparseBatch, l2_weight=0.0
+        self, coef: Tensor, direction: Tensor, batch: Batch, l2_weight=0.0
     ) -> Tensor:
         """H(w) @ d (HessianVectorAggregator.scala:137-152)."""
         d_eff = self.norm.effective_coefficients(direction)
         z = self.margins(coef, batch)
-        zd = sparse_dot(batch, d_eff) - self.norm.shift_dot(d_eff)[..., None]
+        zd = _dot(batch, d_eff) - self.norm.shift_dot(d_eff)[..., None]
         c = batch.weights * self.loss.d2(z, batch.labels) * zd
-        vector_sum = sparse_scatter_add(batch, c, self.dim)
+        vector_sum = self._weighted_feature_sum(batch, c)
         prefactor_sum, vector_sum = sum_partials(
             self.group, torch.sum(c, dim=-1), vector_sum, scalars=1
         )
         hv = self.norm.unshift_gradient(vector_sum, prefactor_sum)
         return hv + per_member(l2_weight, direction) * direction
 
-    def hessian_diagonal(self, coef: Tensor, batch: SparseBatch, l2_weight=0.0) -> Tensor:
+    def hessian_diagonal(self, coef: Tensor, batch: Batch, l2_weight=0.0) -> Tensor:
         """diag(H) for variances 1/(Hdiag + eps). With x_eff = (x - shift) *
         factor: diag_j = factor_j^2 (S2_j - 2 shift_j S1_j + shift_j^2 S0),
         c_i = weight_i l''_i, S2 = sum c x^2, S1 = sum c x, S0 = sum c."""
         z = self.margins(coef, batch)
         c = batch.weights * self.loss.d2(z, batch.labels)
-        diag = fixed_order.index_add(
-            c.new_zeros(c.shape[:-1] + (self.dim,)), batch.indices.reshape(-1),
-            (batch.values**2 * c[..., None]).flatten(-2),
-            plan=fixed_order.cached_plan(batch.indices) if c.is_cuda else None,
-        )
+        if isinstance(batch, SparseBatch):
+            diag = fixed_order.index_add(
+                c.new_zeros(c.shape[:-1] + (self.dim,)), batch.indices.reshape(-1),
+                (batch.values**2 * c[..., None]).flatten(-2),
+                plan=fixed_order.cached_plan(batch.indices) if c.is_cuda else None,
+            )
+        else:
+            diag = dense_weighted_sum(batch, c, batch.features**2)
         if self.norm.shift is not None:
-            s1 = sparse_scatter_add(batch, c, self.dim)
+            s1 = self._weighted_feature_sum(batch, c)
             s0, s1, diag = sum_partials(
                 self.group, torch.sum(c, dim=-1)[..., None], s1, diag
             )

@@ -20,16 +20,22 @@ and last 64 KiB of the file plus its size) recorded in meta.json. That
 catches truncation, header damage and version skew in O(1) IO; the
 content-addressed key already ties the artifact to its exact inputs.
 
-Several processes: every process stores what it builds. (In the JAX
-package only process 0 writes while the others wait for its artifacts,
-since every process builds the same global layout; a rank of the port's
-mesh builds only its own cell, under a key of its own.) Stores are atomic
-(temp dir + rename), so a reader never sees a half-written artifact and
-concurrent writers of one key race benignly.
+Several processes: every key is stored by exactly one process. In the
+JAX package every process builds the same global layout, so process 0
+writes and the others wait for its artifacts. A rank of the port's mesh
+builds only its own cell, whose key no other rank of the mesh computes, so
+the builder of a schedule names the processes that build the same one
+(``builders``: the ranks of other replica blocks holding the same cell;
+``None`` means every process, the JAX package's case). The lowest of them
+writes; the others wait for its artifact (``wait_and_load``), and on a
+timeout build locally without storing. A process that alone builds a key
+writes it and never waits. ``PHOTON_TILE_CACHE_WRITER=0|1`` forces the
+role. Stores are atomic (temp dir + rename), so a reader never sees a
+half-written artifact.
 
-The cache directory is the innermost ``cache_scope`` (the trainers'
-``tile_cache_dir``), else the ``PHOTON_TILE_CACHE_DIR`` env var; unset
-means OFF.
+Configuration precedence: ``cache_scope`` (innermost, the trainers'
+``tile_cache_dir``) > ``configure`` > the ``PHOTON_TILE_CACHE_DIR`` env
+var > off. Unset means OFF.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import os
 import shutil
 import threading
 import time
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import asdict, dataclass
@@ -62,6 +69,8 @@ logger = logging.getLogger(__name__)
 SCHEDULE_CACHE_VERSION = 1
 
 ENV_CACHE_DIR = "PHOTON_TILE_CACHE_DIR"
+ENV_WAIT_S = "PHOTON_TILE_CACHE_WAIT_S"
+ENV_WRITER = "PHOTON_TILE_CACHE_WRITER"
 
 SCHEDULE_ARRAY_NAMES = (
     "step_out", "step_in", "step_init", "out_pos", "in_pos", "vals",
@@ -72,15 +81,26 @@ _SPOT_BYTES = 64 * 1024
 
 # -- configuration -----------------------------------------------------------
 
+_configured: Optional[str] = None
+_configured_set = False
 _scoped: list = []  # innermost-last stack of explicit cache dirs
 _lock = threading.Lock()
+
+
+def configure(cache_dir: Optional[str]) -> None:
+    """Process-wide cache directory. ``configure(None)`` restores the
+    env-var default; ``configure("")`` disables the cache outright."""
+    global _configured, _configured_set
+    _configured = cache_dir
+    _configured_set = cache_dir is not None
 
 
 @contextmanager
 def cache_scope(cache_dir: Optional[str]):
     """Scoped override for library callers (the trainers) that thread an
     explicit ``tile_cache_dir`` argument. ``None`` is a
-    no-op passthrough (an outer scope or the env var still applies)."""
+    no-op passthrough (an outer scope, ``configure`` or the env var still
+    applies)."""
     if cache_dir is None:
         yield
         return
@@ -98,6 +118,8 @@ def resolve_cache_dir() -> Optional[str]:
     with _lock:
         if _scoped:
             return _scoped[-1] or None
+    if _configured_set:
+        return _configured or None
     return os.environ.get(ENV_CACHE_DIR) or None
 
 
@@ -116,9 +138,7 @@ class CacheStats:
     load_s: float = 0.0
     store_s: float = 0.0
     build_s: float = 0.0
-    # always 0 here (no process waits for another's artifact); kept so the
-    # stats have the JAX package's keys
-    wait_s: float = 0.0
+    wait_s: float = 0.0  # a non-writer polling for another process's artifact
 
     def as_dict(self) -> Dict[str, float]:
         return asdict(self)
@@ -216,6 +236,31 @@ def schedule_key(
         )
     )
     return hashlib.blake2b(canon.encode(), digest_size=16).hexdigest()
+
+
+# -- roles across processes --------------------------------------------------
+
+
+def is_cache_writer(builders: Optional[Sequence[int]] = None) -> bool:
+    """Whether this process stores the schedules it builds: the lowest of
+    ``builders`` (the processes that build the same key; ``None`` = every
+    process, so process 0). ``PHOTON_TILE_CACHE_WRITER=0|1`` overrides
+    (tests, external orchestration)."""
+    forced = os.environ.get(ENV_WRITER)
+    if forced is not None:
+        return forced.strip() not in ("0", "false", "no", "")
+    # multihost imports torch.distributed: only a cache user pays for it
+    from photon_ml_tpu_torch.parallel import multihost
+
+    me = multihost.process_index()
+    return me == (0 if builders is None else min(builders))
+
+
+def _wait_deadline_s() -> float:
+    try:
+        return float(os.environ.get(ENV_WAIT_S, "300"))
+    except ValueError:
+        return 300.0
 
 
 # -- disk artifacts ----------------------------------------------------------
@@ -377,3 +422,77 @@ def load_schedule(
         return None
     finally:
         _add_time("load_s", time.perf_counter() - t0)
+
+
+def wait_and_load(
+    cache_dir: str, key: str, timeout_s: Optional[float] = None
+) -> Optional[Tuple[np.ndarray, ...]]:
+    """A non-writer: poll for the writer's artifact until the deadline
+    (``PHOTON_TILE_CACHE_WAIT_S``, 300 s), then give up (the caller builds
+    locally, without storing). The store is atomic, so the first load
+    that finds ``meta.json`` is complete."""
+    deadline = time.monotonic() + (
+        timeout_s if timeout_s is not None else _wait_deadline_s()
+    )
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if os.path.isfile(os.path.join(_artifact_dir(cache_dir, key), "meta.json")):
+                return load_schedule(cache_dir, key)
+            if time.monotonic() >= deadline:
+                logger.warning(
+                    "timed out waiting for tile-schedule artifact %s; "
+                    "building locally", key,
+                )
+                return None
+            time.sleep(0.05)
+    finally:
+        _add_time("wait_s", time.perf_counter() - t0)
+
+
+# -- bounded in-memory LRU (the two tiers in front of the disk cache) --------
+
+
+class ScheduleLRU:
+    """Small bounded LRU for converted batches: a hit refreshes recency,
+    an insert evicts the LEAST recently used entry. One instance each for
+    the tiled and the sharded conversions (``ops/tiled_sparse.py``), so the
+    two cannot evict each other."""
+
+    def __init__(self, maxsize: int):
+        if maxsize < 1:
+            raise ValueError("maxsize must be >= 1")
+        self.maxsize = maxsize
+        self._d: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        with self._lock:
+            if key not in self._d:
+                return None
+            self._d.move_to_end(key)
+            return self._d[key]
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            if key in self._d:
+                self._d.move_to_end(key)
+            self._d[key] = value
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+
+    def pop(self, key) -> None:
+        with self._lock:
+            self._d.pop(key, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._d)
+
+    def keys(self):
+        with self._lock:
+            return list(self._d.keys())

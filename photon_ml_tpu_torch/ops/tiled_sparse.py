@@ -45,10 +45,9 @@ import os
 import subprocess
 import threading
 import time
-from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -562,24 +561,32 @@ def _build_schedule_numpy(
 def _build_schedule(
     rows, feats, vals, *, params: TileParams, sort_by_feature_block: bool,
     num_out_blocks: int, digest: Optional[str] = None,
+    builders: Optional[Sequence[int]] = None,
 ) -> Tuple[Tuple[np.ndarray, ...], str]:
     """-> (nine arrays, "native", "numpy" or "cache"). With the schedule
     cache on (``ops/schedule_cache.py``), a stored artifact is loaded in
-    place of the build, and a build is stored, as the JAX package's
-    ``_build_schedule_np`` does. ``digest``: the content digest of (rows,
-    feats, vals), when the caller has it (both passes of one batch share
-    it)."""
+    place of the build; on a miss a process that is not this key's writer
+    waits for the writer's artifact, and after a build only the writer
+    stores, as the JAX package's ``_build_schedule_np`` does. ``digest``:
+    the content digest of (rows, feats, vals), when the caller has it
+    (both passes of one batch share it). ``builders``: the processes that
+    build this same schedule (``schedule_cache.is_cache_writer``; None =
+    every process)."""
     kw = dict(
         params=params, sort_by_feature_block=sort_by_feature_block,
         num_out_blocks=num_out_blocks,
     )
     cache_dir = schedule_cache.resolve_cache_dir()
     key = None
+    writer = False
     if cache_dir is not None:
         if digest is None:
             digest = schedule_cache.content_digest(rows, feats, vals)
         key = schedule_cache.schedule_key(digest, **kw)
+        writer = schedule_cache.is_cache_writer(builders)
         cached = schedule_cache.load_schedule(cache_dir, key)
+        if cached is None and not writer:
+            cached = schedule_cache.wait_and_load(cache_dir, key)
         if cached is not None:
             return cached, "cache"
     t0 = time.perf_counter()
@@ -587,7 +594,7 @@ def _build_schedule(
     if arrays is None:
         arrays, builder = _build_schedule_numpy(rows, feats, vals, **kw), "numpy"
     schedule_cache.record_build_seconds(time.perf_counter() - t0)
-    if key is not None:
+    if writer:
         schedule_cache.store_schedule(cache_dir, key, arrays)
     return arrays, builder
 
@@ -718,11 +725,13 @@ def _padded_rows(total: int, *arrays) -> list:
 
 def _build_from_coo(
     rows, feats, vals, labels, offsets, weights, *, meta: TiledMeta, device,
+    builders: Optional[Sequence[int]] = None,
 ) -> TiledSparseBatch:
     """COO triples in the batch's own row and feature space (nonzero
     values) and row arrays padded to ``meta.num_rows`` -> TiledSparseBatch,
     with ``meta.params`` already resolved. The two passes build in parallel
-    threads (the native builder and numpy's sorts release the GIL)."""
+    threads (the native builder and numpy's sorts release the GIL).
+    ``builders`` as for :func:`_build_schedule`."""
     win = meta.params.window
     # both passes key off the same COO triple: hash it once, up front
     digest = (
@@ -733,12 +742,12 @@ def _build_from_coo(
         fz = pool.submit(
             _build_schedule, rows, feats, vals, params=meta.params,
             sort_by_feature_block=False, num_out_blocks=meta.num_rows // win,
-            digest=digest,
+            digest=digest, builders=builders,
         )
         fg = pool.submit(
             _build_schedule, rows, feats, vals, params=meta.params,
             sort_by_feature_block=True, num_out_blocks=meta.dim // win,
-            digest=digest,
+            digest=digest, builders=builders,
         )
         z_arrays, z_builder = fz.result()
         g_arrays, g_builder = fg.result()
@@ -817,26 +826,77 @@ def tiled_batch_from_sparse(
     )
 
 
-# The in-memory tier of ensure_tiled: a caller that wraps the SAME indices,
-# values and weights tensors in a fresh SparseBatch per call (the GAME
-# coordinate-descent pattern, where only the offsets change between
-# sweeps) reuses the schedules and re-pads only the row metadata. A hit
-# needs the same tensor objects (held here, so an id cannot be recycled
-# while its entry lives) at the same version counter: torch bumps
-# ``_version`` on every in-place edit of a tensor or of a view of it, so an
-# edited batch misses and is tiled anew. At most two entries, each pinning
-# a tiled batch on the device, as in the JAX package.
+# The in-memory tiers of ensure_tiled and ensure_tiled_sharded: a caller
+# that wraps the SAME indices, values and weights tensors in a fresh
+# SparseBatch per call (the GAME coordinate-descent pattern, where only the
+# offsets change between sweeps) reuses the schedules and re-pads only the
+# row metadata. A hit needs the same tensor objects (held here, so an id
+# cannot be recycled while its entry lives) at the same version counter:
+# torch bumps ``_version`` on every in-place edit of a tensor or of a view
+# of it, so an edited batch misses and is tiled anew. Two separate LRUs of
+# two entries each (one per conversion, as in the JAX package), each entry
+# pinning a tiled batch on the device.
 _TILED_CACHE_MAX = 2
-_tiled_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
-# conversions that built a tiled batch (misses of the in-memory tier) and
+_SHARDED_CACHE_MAX = 2
+_tiled_cache = schedule_cache.ScheduleLRU(_TILED_CACHE_MAX)
+_sharded_cache = schedule_cache.ScheduleLRU(_SHARDED_CACHE_MAX)
+# conversions that built a tiled batch (misses of the in-memory tiers) and
 # their host seconds; a run sets them to 0 and reads them
 tilings = 0
 tiling_seconds = 0.0
 
 
-def _pad_rows_on_device(t: Tensor, total: int) -> Tensor:
+def _pad_rows_on_device(t: Tensor, total: int, start: int = 0) -> Tensor:
+    """Rows ``[start, start + total)`` of ``t`` zero-padded (weight 0 =
+    inert) past its end."""
     out = torch.zeros(total, dtype=torch.float32, device=t.device)
-    out[: t.shape[0]] = t
+    part = t[start:start + total]
+    out[: part.shape[0]] = part
+    return out
+
+
+def _lookup(cache, batch, key_rest):
+    """The in-memory tier: -> (key, the held conversion or None). A stale
+    entry of the same tensors (edited since) is dropped."""
+    src = (batch.indices, batch.values, batch.weights)
+    held = tuple((id(t), t._version) for t in src)
+    key = (held,) + key_rest
+    hit = cache.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], src)):
+        return key, hit[1]
+    ids = [i for i, _ in held]
+    for k in cache.keys():
+        if k != key and [i for i, _ in k[0]] == ids:
+            cache.pop(k)  # the same tensors, edited since
+    return key, None
+
+
+def _with_rows(cached: TiledSparseBatch, batch, start: int) -> TiledSparseBatch:
+    """A held conversion with ``batch``'s labels, offsets and weights
+    (rows ``[start, start + num_rows)``) in its padded row space."""
+    rows, dev = cached.meta.num_rows, cached.device
+    return dataclasses.replace(
+        cached,
+        labels=_pad_rows_on_device(batch.labels.to(dev), rows, start),
+        offsets=_pad_rows_on_device(batch.offsets.to(dev), rows, start),
+        weights=_pad_rows_on_device(batch.weights.to(dev), rows, start),
+    )
+
+
+def _resolved_device(device: DeviceLike) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _convert(cache, key, batch, build) -> TiledSparseBatch:
+    global tilings, tiling_seconds
+    t0 = time.perf_counter()
+    out = build()
+    tilings += 1
+    tiling_seconds += time.perf_counter() - t0
+    cache.put(key, ((batch.indices, batch.values, batch.weights), out))
     return out
 
 
@@ -850,50 +910,71 @@ def ensure_tiled(
     conversion with its own labels and offsets; any other batch is tiled
     with ``tiled_batch_from_sparse``, whose schedules come from the
     schedule cache when one is configured."""
-    global tilings, tiling_seconds
     if isinstance(batch, TiledSparseBatch):
         return batch
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    src = (batch.indices, batch.values, batch.weights)
-    key = (tuple((id(t), t._version) for t in src), dim, params, dev)
-    hit = _tiled_cache.get(key)
-    if hit is not None and all(a is b for a, b in zip(hit[0], src)):
-        _tiled_cache.move_to_end(key)
-        cached = hit[1]
-        rows = cached.meta.num_rows
-        return dataclasses.replace(
-            cached,
-            labels=_pad_rows_on_device(batch.labels.to(cached.device), rows),
-            offsets=_pad_rows_on_device(batch.offsets.to(cached.device), rows),
-            weights=_pad_rows_on_device(batch.weights.to(cached.device), rows),
-        )
-    for k in [k for k, (held, _) in _tiled_cache.items()
-              if all(a is b for a, b in zip(held, src))]:
-        del _tiled_cache[k]  # the same tensors, edited since
-    t0 = time.perf_counter()
-    out = tiled_batch_from_sparse(
+    dev = _resolved_device(device)
+    key, cached = _lookup(_tiled_cache, batch, (dim, params, dev))
+    if cached is not None:
+        return _with_rows(cached, batch, 0)
+    return _convert(_tiled_cache, key, batch, lambda: tiled_batch_from_sparse(
         batch, dim, params=params or TileParams(), device=dev
+    ))
+
+
+def ensure_tiled_sharded(
+    batch, dim: int, mesh, axis: str = "data", *,
+    params: Optional[TileParams] = None,
+) -> TiledSparseBatch:
+    """Idempotent data-parallel tiled conversion on this rank of ``mesh``
+    (the JAX package's ``ensure_tiled_sharded``, the tiled analogue of
+    ``parallel.mesh.ensure_data_sharded``): a SparseBatch -> this rank's
+    shard of the ``axis``-sharded layout (:func:`build_sharded_tiled_batch`,
+    on ``mesh.device``); a TiledSparseBatch laid out for the axis's shard
+    count passes through, one laid out for another count is refused. A
+    SparseBatch sharing indices, values and weights with an earlier call
+    reuses its schedules; only the row metadata is re-padded. The
+    schedules' writer among the processes is the lowest rank holding the
+    same shard (``ProcessMesh.ranks_sharing``)."""
+    n = mesh.size(axis)
+    if isinstance(batch, TiledSparseBatch):
+        if batch.meta.data_shards != n:
+            raise ValueError(
+                f"TiledSparseBatch was laid out for {batch.meta.data_shards} "
+                f"data shard(s) but the mesh's {axis!r} axis has {n}; "
+                "rebuild from the SparseBatch with build_sharded_tiled_batch"
+            )
+        return batch if batch.device == mesh.device else batch.to(mesh.device)
+    index = mesh.index(axis)
+    key, cached = _lookup(
+        _sharded_cache, batch, (dim, n, index, axis, params, mesh.device)
     )
-    tilings += 1
-    tiling_seconds += time.perf_counter() - t0
-    _tiled_cache[key] = (src, out)
-    while len(_tiled_cache) > _TILED_CACHE_MAX:
-        _tiled_cache.popitem(last=False)
-    return out
+    if cached is not None:
+        return _with_rows(cached, batch, index * cached.meta.num_rows)
+    return _convert(_sharded_cache, key, batch, lambda: build_sharded_tiled_batch(
+        batch, dim, n, index, params=params or TileParams(), device=mesh.device,
+        builders=mesh.ranks_sharing((axis,)),
+    ))
+
+
+def _own_process() -> Tuple[int, ...]:
+    from photon_ml_tpu_torch.parallel import multihost
+
+    return (multihost.process_index(),)
 
 
 def build_sharded_tiled_batch(
     batch: SparseBatch, dim: int, n_shards: int, shard_index: int, *,
     params: TileParams = TileParams(), device: DeviceLike = None,
+    builders: Optional[Sequence[int]] = None,
 ) -> TiledSparseBatch:
     """Shard ``shard_index`` of the reference's data-parallel layout
     (``build_sharded_tiled_batch``): rows split into ``n_shards``
     contiguous ranges of ``R`` rows (whole windows), this range's
     schedules built in its local row space over every feature. ``params``
     resolve from the GLOBAL entry and tile counts, as the reference's do,
-    so every shard gets the chunk the reference gives it."""
+    so every shard gets the chunk the reference gives it. ``builders``:
+    the processes that build this same shard (the schedule cache's roles;
+    default this process alone)."""
     dev = resolve_device(device)
     rows, feats, vals = _sparse_coo(batch)
     win = params.window
@@ -907,7 +988,7 @@ def build_sharded_tiled_batch(
     return _build_from_coo(
         rows[mine] - shard_index * R, feats[mine], vals[mine], *row_arrays,
         meta=TiledMeta(params, R, d_pad, n, dim, data_shards=n_shards),
-        device=dev,
+        device=dev, builders=builders if builders is not None else _own_process(),
     )
 
 
@@ -990,6 +1071,7 @@ def feature_shard_tiled_batch(
     batch: SparseBatch, dim: int, data_shards: int, model_shards: int,
     data_index: int, model_index: int, *,
     params: TileParams = TileParams(), device: DeviceLike = None,
+    builders: Optional[Sequence[int]] = None,
 ) -> Tuple[FeatureShardedTiledBatch, int]:
     """SparseBatch -> (this rank's cell of the reference's
     ``feature_shard_tiled_batch`` layout, block_dim). Every rank calls it
@@ -1001,7 +1083,9 @@ def feature_shard_tiled_batch(
     the tile count of all cells, as the reference's do: a cell resolved
     from its own entries would get another chunk and so another
     schedule. The reference pads every cell's schedule to one shape for
-    ``shard_map``; a rank here holds only its own, unpadded."""
+    ``shard_map``; a rank here holds only its own, unpadded. ``builders``:
+    the processes that build this same cell (the schedule cache's roles;
+    default this process alone)."""
     dev = resolve_device(device)
     rows, feats, vals = _sparse_coo(batch)
     win = params.window
@@ -1020,7 +1104,7 @@ def feature_shard_tiled_batch(
     cell = _build_from_coo(
         rows[mine] - data_index * R, feats[mine] - model_index * block_dim,
         vals[mine], *row_arrays, meta=meta.cell_meta(data_index, model_index),
-        device=dev,
+        device=dev, builders=builders if builders is not None else _own_process(),
     )
     return FeatureShardedTiledBatch(meta, cell, data_index, model_index), block_dim
 

@@ -199,6 +199,12 @@ class BoxConstraints:
         return torch.clamp(w, self.lower, self.upper)
 
 
+def project_coefficients_to_hypercube(w: Tensor, box: Optional[BoxConstraints]) -> Tensor:
+    """``w`` clipped to ``box`` (OptimizationUtils'
+    projectCoefficientsToHypercube); unchanged without one."""
+    return w if box is None else box.project(w)
+
+
 @dataclass
 class Tracker:
     """Per-iteration trace: slot i holds the value and gradient norm of

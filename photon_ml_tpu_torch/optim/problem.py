@@ -34,6 +34,7 @@ from photon_ml_tpu_torch.ops.tiled_sparse import (
     TiledGLMObjective,
     TiledSparseBatch,
     ensure_tiled,
+    ensure_tiled_sharded,
 )
 from photon_ml_tpu_torch.optim.common import (
     BoxConstraints,
@@ -79,17 +80,23 @@ class GLMOptimizationProblem:
         return mask
 
     def _prepare(self, batch, mesh: Optional[ProcessMesh]):
-        """On a mesh ``batch`` is this rank's data shard: a SparseBatch of
-        its rows (``parallel.mesh.data_shard_sparse_batch``) or its
-        ``build_sharded_tiled_batch``."""
+        """The tiled objective's batch: a SparseBatch is tiled
+        (``ensure_tiled``, or on a mesh this rank's shard of the
+        data-parallel layout, ``ensure_tiled_sharded``; both reuse the
+        schedules of a batch converted before). On a mesh the scatter
+        objective's ``batch`` is this rank's data shard
+        (``parallel.mesh.data_shard_sparse_batch``)."""
         if isinstance(self.objective, TiledGLMObjective):
-            if isinstance(batch, SparseBatch) and mesh is None:
-                batch = ensure_tiled(batch, self.objective.dim, device=batch.device)
+            if isinstance(batch, SparseBatch):
+                batch = (
+                    ensure_tiled(batch, self.objective.dim, device=batch.device)
+                    if mesh is None
+                    else ensure_tiled_sharded(batch, self.objective.dim, mesh)
+                )
             if not isinstance(batch, TiledSparseBatch):
                 raise TypeError(
-                    "the tiled objective takes a TiledSparseBatch (on a mesh, "
-                    "this rank's build_sharded_tiled_batch), got "
-                    f"{type(batch).__name__}"
+                    "the tiled objective takes a SparseBatch or a "
+                    f"TiledSparseBatch, got {type(batch).__name__}"
                 )
             shards = 1 if mesh is None else mesh.size(DATA_AXIS)
             if batch.meta.data_shards != shards:
@@ -163,6 +170,7 @@ class GLMOptimizationProblem:
         initial: Optional[Tensor] = None,
         mesh: Optional[ProcessMesh] = None,
         track_models: bool = False,
+        offsets_bank: Optional[Tensor] = None,
     ) -> Tuple[Optional[Tensor], OptResult]:
         """Solve the whole λ grid at once over a [G, d] coefficient bank.
 
@@ -174,7 +182,13 @@ class GLMOptimizationProblem:
         trip do not grow with G. -> (variances bank [G, d] or None, the
         bank's OptResult, every field with a leading grid axis; a frozen
         member's tracked slots stop changing). ``mesh`` and
-        ``track_models`` as for :meth:`run`."""
+        ``track_models`` as for :meth:`run`.
+
+        ``offsets_bank`` ([G, n]) gives each member its OWN row offsets
+        (``batch.offsets`` is ignored): the unified-mesh GAME trainer's
+        per-member residual currency. Columns short of the padded row
+        count (on a mesh, of every shard's rows) are zero-extended; on a
+        mesh each rank takes its shard's columns."""
         batch = self._prepare(batch, mesh)
         device = batch.labels.device
         splits = [self.regularization.split(float(w)) for w in reg_weights]
@@ -186,6 +200,10 @@ class GLMOptimizationProblem:
         else:
             w0 = torch.as_tensor(initial, dtype=torch.float32, device=device)
             w0 = w0.expand(shape).contiguous()
+        if offsets_bank is not None:
+            batch = dataclasses.replace(
+                batch, offsets=_member_offsets(offsets_bank, batch, len(splits), mesh)
+            )
         result, variances = self._solve(
             batch, w0, l1_vec, l2_vec, mesh, track_models
         )
@@ -227,6 +245,23 @@ class GLMOptimizationProblem:
                 )
             coefficients = Coefficients(means, coefficients.variances)
         return create_model(self.task, coefficients)
+
+
+def _member_offsets(offsets_bank, batch, members: int, mesh: Optional[ProcessMesh]) -> Tensor:
+    """``[G, n]`` offsets -> this batch's ``[G, rows]`` (zero-extended to the
+    padded rows of every shard, then this rank's shard's columns)."""
+    rows = batch.labels.shape[0]
+    shards, index = (1, 0) if mesh is None else (mesh.size(DATA_AXIS), mesh.index(DATA_AXIS))
+    off = torch.as_tensor(offsets_bank, dtype=batch.offsets.dtype, device=batch.labels.device)
+    if off.dim() != 2 or off.shape[0] != members:
+        raise ValueError(
+            f"offsets_bank must be [{members}, n] (a row per member), got {tuple(off.shape)}"
+        )
+    total = shards * rows
+    if off.shape[1] > total:
+        raise ValueError(f"offsets_bank has {off.shape[1]} columns for {total} rows")
+    off = torch.nn.functional.pad(off, (0, total - off.shape[1]))
+    return off[:, index * rows:(index + 1) * rows].contiguous()
 
 
 def resolve_kernel(kernel: str, device: DeviceLike = None) -> str:

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,7 @@ from photon_ml_tpu_torch.optim.common import (
 from photon_ml_tpu_torch.optim.lbfgs import minimize_lbfgs, minimize_owlqn
 from photon_ml_tpu_torch.optim.tron import minimize_tron
 from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, ProcessMesh
+from photon_ml_tpu_torch.parallel.multihost import sum_in_rank_order
 from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -247,9 +248,9 @@ def block_local_hdiag(
 # ---------------------------------------------------------------------------
 
 
-def _own_block(mesh: ProcessMesh, cell) -> slice:
+def _own_block(mesh: ProcessMesh, cell, data_axis=DATA_AXIS, model_axis=MODEL_AXIS) -> slice:
     """This rank's slots of the full vector; the cell must be this rank's."""
-    d, m = mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS)
+    d, m = mesh.index(data_axis), mesh.index(model_axis)
     if (cell.data_index, cell.model_index) != (d, m):
         raise ValueError(
             f"cell ({cell.data_index}, {cell.model_index}) given to the rank "
@@ -278,13 +279,13 @@ def _unpack_extras(extras, own: slice, *, owlqn: bool, with_norm: bool, with_box
     return l1, l1_mask, norm, box
 
 
-def _groups(mesh: ProcessMesh):
-    if DATA_AXIS not in mesh.axis_names or MODEL_AXIS not in mesh.axis_names:
+def _groups(mesh: ProcessMesh, data_axis=DATA_AXIS, model_axis=MODEL_AXIS):
+    if data_axis not in mesh.axis_names or model_axis not in mesh.axis_names:
         raise ValueError(
             f"feature-sharded fits need a (data, model) mesh, got axes "
             f"{mesh.axis_names}"
         )
-    return mesh.groups[DATA_AXIS], mesh.groups[MODEL_AXIS]
+    return mesh.groups[data_axis], mesh.groups[model_axis]
 
 
 def feature_sharded_glm_fit(
@@ -292,6 +293,8 @@ def feature_sharded_glm_fit(
     mesh: ProcessMesh,
     *,
     optimizer: str = "lbfgs",  # "lbfgs" | "owlqn" | "tron"
+    data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS,
     max_iter: int = 50,
     tol: float = 1e-7,
     history: int = 10,
@@ -312,18 +315,19 @@ def feature_sharded_glm_fit(
     (``with_norm``), ``lower, upper`` (``with_box``), vectors full
     ``[d_pad]``. The result's coefficients are the full vector (or bank),
     gathered over the model group: identical on every rank, as the
-    reference's global output. ``track_models``: each rank's optimizer
+    reference's global output. ``data_axis`` / ``model_axis`` name the
+    mesh's axes. ``track_models``: each rank's optimizer
     tracks its own block of every iterate (``[cap, block_dim]``, no
     collective per trip), and the fit gathers the blocks over the model
     group once, at its end, into the result's ``tracker.coefs``."""
     if optimizer not in ("lbfgs", "owlqn", "tron"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     loss = objective.loss
-    data_group, model_group = _groups(mesh)
+    data_group, model_group = _groups(mesh, data_axis, model_axis)
     reductions = MeshReductions(model=model_group, world=mesh.world)
 
     def fit(w0: Tensor, cell, l2, *extras) -> OptResult:
-        own = _own_block(mesh, cell)
+        own = _own_block(mesh, cell, data_axis, model_axis)
         l1, l1_mask, norm, box = _unpack_extras(
             extras, own, owlqn=optimizer == "owlqn", with_norm=with_norm,
             with_box=with_box,
@@ -421,3 +425,286 @@ def feature_sharded_extras(
         if intercept_index is not None:
             l1_mask[intercept_index] = 0.0
     return extras_tail, l1_mask, with_norm
+
+
+# ---------------------------------------------------------------------------
+# The reference's public entry points, per rank
+# ---------------------------------------------------------------------------
+#
+# Each returns the function the reference's returns, called on every rank
+# of the mesh with the same arguments: the whole batch (each rank cuts its
+# own shard) or, on the feature-sharded sparse and tiled layouts, this
+# rank's cell. Results are the reference's global outputs, the same on
+# every rank.
+
+
+def _data_parallel(objective, mesh: ProcessMesh, data_axis: str):
+    """-> (the objective summing its partials over the data group, the
+    batch -> this rank's shard)."""
+    from photon_ml_tpu_torch.ops.tiled_sparse import TiledGLMObjective, ensure_tiled_sharded
+    from photon_ml_tpu_torch.parallel.mesh import ensure_data_sharded
+
+    obj = dataclasses.replace(objective, group=mesh.groups[data_axis])
+    if isinstance(objective, TiledGLMObjective):
+        return obj, lambda batch: ensure_tiled_sharded(batch, obj.dim, mesh, data_axis)
+    return obj, lambda batch: ensure_data_sharded(batch, mesh, data_axis)
+
+
+def data_parallel_value_and_grad(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+) -> Callable:
+    """``vg(w, batch, l2) -> (value, grad)``: the batch's rows sharded over
+    ``data_axis`` (this rank's shard cut here, idempotently), the
+    coefficients replicated, one sum of the partials over the data group
+    an evaluation (the reference's treeAggregate)."""
+    obj, shard = _data_parallel(objective, mesh, data_axis)
+
+    def vg(w: Tensor, batch, l2):
+        return obj.value_and_gradient(w, shard(batch), l2)
+
+    return vg
+
+
+def data_parallel_fit_lbfgs(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    max_iter: int = 100, tol: float = 1e-7, history: int = 10,
+) -> Callable[..., OptResult]:
+    """``fit(w0, batch, l2) -> OptResult``: L-BFGS over the data-parallel
+    objective of :func:`data_parallel_value_and_grad`; every rank follows
+    world rank 0's control flags and returns the same result."""
+    obj, shard = _data_parallel(objective, mesh, data_axis)
+    reductions = MeshReductions(model=None, world=mesh.world)
+
+    def fit(w0: Tensor, batch, l2) -> OptResult:
+        part = shard(batch)
+        return minimize_lbfgs(
+            lambda w: obj.value_and_gradient(w, part, l2), w0,
+            max_iter=max_iter, tol=tol, history=history, mesh=reductions,
+        )
+
+    return fit
+
+
+def _rank_order_sums(group, *parts: Tensor, scalars: int = 0) -> List[Tensor]:
+    """Each part summed over ``group`` in rank order
+    (``multihost.sum_in_rank_order``, one gather for all of them), so the
+    bits repeat from run to run; as they are on a one-rank axis."""
+    if group is None:
+        return list(parts)
+    cols = [p[..., None] for p in parts[:scalars]] + list(parts[scalars:])
+    flat = sum_in_rank_order(torch.cat(cols, dim=-1), group)
+    out = flat.split([c.shape[-1] for c in cols], dim=-1)
+    return [o[..., 0] for o in out[:scalars]] + list(out[scalars:])
+
+
+def _dense_cell(mesh: ProcessMesh, features, labels, offsets, weights, data_axis, model_axis):
+    """The whole dense arrays -> (this rank's ``[n_loc, d / M]`` block, its
+    rows' DenseBatch, its slots of the full vector)."""
+    from photon_ml_tpu_torch.data.batch import DenseBatch
+    from photon_ml_tpu_torch.parallel.mesh import ensure_data_sharded
+
+    shards = mesh.size(model_axis)
+    d = features.shape[1]
+    if d % shards:
+        raise ValueError(
+            f"{d} features do not divide the {shards} shards of the "
+            f"{model_axis!r} axis"
+        )
+    rows = ensure_data_sharded(DenseBatch(features, labels, offsets, weights), mesh, data_axis)
+    b, m = d // shards, mesh.index(model_axis)
+    own = slice(m * b, (m + 1) * b)
+    return rows.features[:, own].contiguous(), rows, own
+
+
+def _dense_block_vg(loss, x_block, rows, l2, data_group, model_group):
+    """(value, block gradient) of a coefficient block over a dense cell:
+    partial margins ``x_block @ w_block`` summed over the model group, the
+    block's gradient ``x_block^T c`` over the data group."""
+
+    def vg(w_block: Tensor):
+        w_sq, z = _rank_order_sums(
+            model_group, torch.dot(w_block, w_block), torch.matmul(x_block, w_block),
+            scalars=1,
+        )
+        z = z + rows.offsets
+        c = rows.weights * loss.d1(z, rows.labels)
+        value, grad = _rank_order_sums(
+            data_group, torch.sum(rows.weights * loss.value(z, rows.labels)),
+            torch.matmul(x_block.T, c), scalars=1,
+        )
+        return value + 0.5 * l2 * w_sq, grad + l2 * w_block
+
+    return vg
+
+
+def feature_sharded_value_and_grad(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS,
+) -> Callable:
+    """``vg(w, features, labels, offsets, weights, l2) -> (value, grad)``
+    over DENSE feature blocks: rank (d, m) holds rows of data shard d and
+    columns of block m (the feature count must divide the model axis);
+    ``w`` and the returned gradient are the full vectors."""
+    loss = objective.loss
+    data_group, model_group = _groups(mesh, data_axis, model_axis)
+
+    def vg(w: Tensor, features, labels, offsets, weights, l2):
+        x_block, rows, own = _dense_cell(
+            mesh, features, labels, offsets, weights, data_axis, model_axis
+        )
+        value, grad = _dense_block_vg(loss, x_block, rows, l2, data_group, model_group)(
+            w[own].contiguous()
+        )
+        return value, all_gather_last(grad, model_group)
+
+    return vg
+
+
+def feature_sharded_fit(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS, max_iter: int = 50, tol: float = 1e-7,
+    history: int = 10,
+) -> Callable[..., OptResult]:
+    """``fit(w0, features, labels, offsets, weights, l2) -> OptResult``:
+    L-BFGS over a coefficient vector sharded over the model axis, on the
+    dense layout of :func:`feature_sharded_value_and_grad`. Each rank keeps
+    its block's optimizer state; the result's coefficients are the full
+    vector, the same on every rank."""
+    loss = objective.loss
+    data_group, model_group = _groups(mesh, data_axis, model_axis)
+    reductions = MeshReductions(model=model_group, world=mesh.world)
+
+    def fit(w0: Tensor, features, labels, offsets, weights, l2) -> OptResult:
+        x_block, rows, own = _dense_cell(
+            mesh, features, labels, offsets, weights, data_axis, model_axis
+        )
+        result = minimize_lbfgs(
+            _dense_block_vg(loss, x_block, rows, l2, data_group, model_group),
+            w0[own].contiguous(), max_iter=max_iter, tol=tol, history=history,
+            mesh=reductions,
+        )
+        return dataclasses.replace(
+            result, coefficients=all_gather_last(result.coefficients, model_group)
+        )
+
+    return fit
+
+
+def feature_sharded_sparse_value_and_grad(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS,
+) -> Callable:
+    """``vg(w, cell, l2) -> (value, grad)`` over this rank's cell of the
+    sparse layout (:func:`feature_shard_sparse_batch`; a tiled cell runs
+    K1): ``w`` and the gradient are the full vectors."""
+    data_group, model_group = _groups(mesh, data_axis, model_axis)
+
+    def vg(w: Tensor, cell, l2):
+        own = _own_block(mesh, cell, data_axis, model_axis)
+        value, grad = block_local_vg(
+            objective.loss, cell, data_group, model_group, l2, NormalizationContext()
+        )(w[..., own].contiguous())
+        return value, all_gather_last(grad, model_group)
+
+    return vg
+
+
+def feature_sharded_sparse_hessian_vector(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS,
+) -> Callable[..., Tensor]:
+    """``hv(w, d, cell, l2) -> H(w) d`` as the full vector, over this rank's
+    cell (the streamed feature-sharded TRON's per-chunk building block)."""
+    data_group, model_group = _groups(mesh, data_axis, model_axis)
+
+    def hv(w: Tensor, d: Tensor, cell, l2) -> Tensor:
+        own = _own_block(mesh, cell, data_axis, model_axis)
+        factory = block_local_hvp_factory(
+            objective.loss, cell, data_group, model_group, l2, NormalizationContext()
+        )
+        return all_gather_last(
+            factory(w[..., own].contiguous())(d[..., own].contiguous()), model_group
+        )
+
+    return hv
+
+
+def feature_sharded_sparse_fit(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS, max_iter: int = 50, tol: float = 1e-7,
+    history: int = 10,
+) -> Callable[..., OptResult]:
+    """L-BFGS, ``fit(w0, cell, l2)``: :func:`feature_sharded_glm_fit` with
+    the reference's defaults for this entry point."""
+    return feature_sharded_glm_fit(
+        objective, mesh, optimizer="lbfgs", data_axis=data_axis,
+        model_axis=model_axis, max_iter=max_iter, tol=tol, history=history,
+    )
+
+
+def feature_sharded_sparse_fit_tron(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS, max_iter: int = 15, tol: float = 1e-5,
+    max_cg: int = 20,
+) -> Callable[..., OptResult]:
+    """TRON, ``fit(w0, cell, l2)``: :func:`feature_sharded_glm_fit` with the
+    reference's defaults for this entry point (L2 or none)."""
+    return feature_sharded_glm_fit(
+        objective, mesh, optimizer="tron", data_axis=data_axis,
+        model_axis=model_axis, max_iter=max_iter, tol=tol, max_cg=max_cg,
+    )
+
+
+def feature_sharded_sparse_fit_owlqn(
+    objective, mesh: ProcessMesh, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS, max_iter: int = 50, tol: float = 1e-7,
+    history: int = 10,
+) -> Callable[..., OptResult]:
+    """OWL-QN, ``fit(w0, cell, l2, l1, l1_mask)`` (``l1_mask`` the full
+    ``[d_pad]`` 0/1 vector): :func:`feature_sharded_glm_fit` with the
+    reference's defaults for this entry point."""
+    return feature_sharded_glm_fit(
+        objective, mesh, optimizer="owlqn", data_axis=data_axis,
+        model_axis=model_axis, max_iter=max_iter, tol=tol, history=history,
+    )
+
+
+def _checked_tiled_fit(fit, meta):
+    """``fit`` refusing a cell of another layout than ``meta``."""
+
+    def checked(w0: Tensor, cell, l2, *extras) -> OptResult:
+        if cell.meta != meta:
+            raise ValueError("the cell's layout is not the one the fit was built for")
+        return fit(w0, cell, l2, *extras)
+
+    return checked
+
+
+def feature_sharded_tiled_fit(
+    objective, mesh: ProcessMesh, meta, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS, max_iter: int = 50, tol: float = 1e-7,
+    history: int = 10, owlqn: bool = False,
+) -> Callable[..., OptResult]:
+    """L-BFGS (or OWL-QN with ``owlqn``), ``fit(w0, cell, l2[, l1,
+    l1_mask])`` over this rank's cell of the tiled layout
+    (``feature_shard_tiled_batch``, whose ``meta`` is given): K1 on the
+    cell. :func:`feature_sharded_glm_fit` with the reference's defaults."""
+    return _checked_tiled_fit(feature_sharded_glm_fit(
+        objective, mesh, optimizer="owlqn" if owlqn else "lbfgs",
+        data_axis=data_axis, model_axis=model_axis, max_iter=max_iter, tol=tol,
+        history=history,
+    ), meta)
+
+
+def feature_sharded_tiled_fit_tron(
+    objective, mesh: ProcessMesh, meta, *, data_axis: str = DATA_AXIS,
+    model_axis: str = MODEL_AXIS, max_iter: int = 15, tol: float = 1e-5,
+    max_cg: int = 20,
+) -> Callable[..., OptResult]:
+    """TRON, ``fit(w0, cell, l2)`` over this rank's tiled cell (K1 on every
+    z- and g-pass of each CG step): :func:`feature_sharded_glm_fit` with
+    the reference's defaults."""
+    return _checked_tiled_fit(feature_sharded_glm_fit(
+        objective, mesh, optimizer="tron", data_axis=data_axis,
+        model_axis=model_axis, max_iter=max_iter, tol=tol, max_cg=max_cg,
+    ), meta)

@@ -26,6 +26,7 @@ for a machine with several cards.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import queue as queue_mod
@@ -42,7 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from photon_ml_tpu_torch.data.batch import SparseBatch
+from photon_ml_tpu_torch.data.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
@@ -77,6 +78,19 @@ class ProcessMesh:
 
     def index(self, axis: str) -> int:
         return self.coords[self.axis_names.index(axis)]
+
+    def ranks_sharing(self, axes: Sequence[str]) -> Tuple[int, ...]:
+        """The world ranks, in every replica block, whose coordinates along
+        ``axes`` are this rank's: the processes that hold the same shard of
+        an ``axes``-sharded layout (the schedule cache's builders of it)."""
+        size = self.world_size
+        grid = np.arange(size).reshape(self.shape)
+        local = grid[tuple(
+            c if name in axes else slice(None)
+            for c, name in zip(self.coords, self.axis_names)
+        )].reshape(-1)
+        blocks = dist.get_world_size() // size if dist.is_initialized() else 1
+        return tuple(sorted(int(b * size + r) for b in range(blocks) for r in local))
 
 
 def make_mesh(
@@ -168,24 +182,148 @@ def entity_mesh(
     return make_mesh((num_shards,), (ENTITY_AXIS,), device=device, backend=backend, replicas=True)
 
 
-def data_shard_sparse_batch(batch: SparseBatch, n_shards: int, index: int) -> SparseBatch:
+@dataclass(frozen=True)
+class Placement:
+    """Where this rank holds a tensor of a mesh layout (the reference's
+    ``NamedSharding`` in rank terms): on ``device``, rows split over
+    ``axis`` into ``shards`` contiguous blocks of which it holds block
+    ``index``; ``axis`` None is a replicated tensor (the whole of it)."""
+
+    device: torch.device
+    axis: Optional[str]
+    shards: int
+    index: int
+
+
+def data_sharding(mesh: ProcessMesh, axis: str = DATA_AXIS) -> Placement:
+    """Leading-axis (example) sharding over ``axis``, on this rank."""
+    return Placement(mesh.device, axis, mesh.size(axis), mesh.index(axis))
+
+
+def replicated(mesh: ProcessMesh) -> Placement:
+    return Placement(mesh.device, None, 1, 0)
+
+
+def _map_tensors(fn, tree):
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_tensors(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init
+        })
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def replicate(tree, mesh: ProcessMesh):
+    """Every tensor of ``tree`` (through dataclasses, dicts, lists and
+    tuples) on this rank's device, whole."""
+    return _map_tensors(lambda t: t.to(mesh.device), tree)
+
+
+_ROW_FIELDS = {
+    SparseBatch: ("indices", "values", "labels", "offsets", "weights"),
+    DenseBatch: ("features", "labels", "offsets", "weights"),
+}
+
+
+def _row_fields(batch):
+    fields = _ROW_FIELDS.get(type(batch))
+    if fields is None:
+        raise TypeError(f"cannot row-pad {type(batch).__name__}")
+    return fields
+
+
+def pad_batch_rows(batch, multiple: int):
+    """A Sparse or Dense batch with its rows zero-padded (weight 0, inert in
+    every objective) up to a multiple of ``multiple``; the batch itself
+    when its rows already are one."""
+    fields = _row_fields(batch)
+    n = batch.labels.shape[0]
+    n_pad = ((n + multiple - 1) // multiple) * multiple
+    if n_pad == n:
+        return batch
+    return type(batch)(*(
+        torch.cat([t, t.new_zeros((n_pad - n,) + t.shape[1:])])
+        for t in (getattr(batch, f) for f in fields)
+    ))
+
+
+def _shard_rows(batch, n_shards: int, index: int):
     """Rows ``[index * n_loc, (index + 1) * n_loc)`` of ``batch`` with its
-    rows padded (weight 0) to a multiple of ``n_shards``: shard ``index``
-    of the reference's ``ensure_data_sharded`` layout."""
-    n = batch.num_rows
-    n_loc = -(-n // n_shards)
-    lo, hi = index * n_loc, min((index + 1) * n_loc, n)
+    rows padded (weight 0) to a multiple of ``n_shards``."""
+    padded = pad_batch_rows(batch, n_shards)
+    n_loc = padded.labels.shape[0] // n_shards
+    rows = slice(index * n_loc, (index + 1) * n_loc)
+    return type(batch)(*(getattr(padded, f)[rows] for f in _row_fields(batch)))
 
-    def rows(t: torch.Tensor) -> torch.Tensor:
-        part = t[lo:hi]
-        missing = n_loc - part.shape[0]
-        if missing:
-            part = torch.cat([part, part.new_zeros((missing,) + part.shape[1:])])
-        return part
 
-    return SparseBatch(*(rows(t) for t in (
-        batch.indices, batch.values, batch.labels, batch.offsets, batch.weights,
-    )))
+def shard_batch(batch, mesh: ProcessMesh, axis: str = DATA_AXIS):
+    """This rank's rows of ``batch`` sharded over ``axis``, on its device:
+    block ``mesh.index(axis)`` of ``mesh.size(axis)`` contiguous blocks.
+    The row count must divide the axis (pad first, as the reference
+    asks)."""
+    placement = data_sharding(mesh, axis)
+    n = batch.labels.shape[0]
+    if n % placement.shards:
+        raise ValueError(
+            f"{n} rows do not divide the {placement.shards} shards of the "
+            f"{axis!r} axis; pad them first (pad_batch_rows)"
+        )
+    out = _shard_rows(batch, placement.shards, placement.index).to(placement.device)
+    # marks the shard for ensure_data_sharded (a frozen dataclass takes a
+    # non-field attribute)
+    object.__setattr__(out, "_placement", placement)
+    return out
+
+
+def ensure_data_sharded(batch, mesh: ProcessMesh, axis: str = DATA_AXIS):
+    """Idempotent pad + shard: the batch unchanged when it already is this
+    rank's ``axis`` shard on this mesh (so a λ-grid loop cuts the rows
+    once), else :func:`shard_batch` of it padded to the axis."""
+    if getattr(batch, "_placement", None) == data_sharding(mesh, axis):
+        return batch
+    return shard_batch(pad_batch_rows(batch, mesh.size(axis)), mesh, axis)
+
+
+def data_shard_sparse_batch(batch: SparseBatch, n_shards: int, index: int) -> SparseBatch:
+    """Shard ``index`` of the reference's ``ensure_data_sharded`` layout of
+    ``batch`` over ``n_shards`` (on the batch's device)."""
+    return _shard_rows(batch, n_shards, index)
+
+
+def maybe_make_mesh(
+    distributed: str, model_shards: Optional[int] = None, *,
+    device: DeviceLike = None, backend: str = "gloo",
+) -> Optional[ProcessMesh]:
+    """The drivers' mesh policy (the reference's ``maybe_make_mesh``, with
+    the processes for its devices). "auto" -> a 1-D data mesh over every
+    process when there is more than one, else None; "off" -> None;
+    "feature" -> a (data, model) mesh for feature-sharded coefficients
+    (model axis ``model_shards``, default 2; data axis the rest). Every
+    process must call it, in the same order."""
+    if distributed not in ("auto", "off", "feature"):
+        raise ValueError(
+            f"unknown distributed mode {distributed!r}; "
+            "expected auto | off | feature"
+        )
+    from photon_ml_tpu_torch.parallel import multihost
+
+    n = multihost.process_count()
+    if distributed == "off" or n < 2:
+        return None
+    if distributed == "feature":
+        m = model_shards if model_shards is not None else 2
+        if n % m != 0:
+            raise ValueError(
+                f"model_shards={m} does not divide the {n} visible devices"
+            )
+        return make_mesh((n // m, m), (DATA_AXIS, MODEL_AXIS), device=device, backend=backend)
+    return make_mesh(device=device, backend=backend)
 
 
 # ---------------------------------------------------------------------------

@@ -123,7 +123,10 @@ def _problem_on_device(
             with cache_scope(tile_cache_dir):
                 batch = (
                     tiled_batch_from_sparse(batch, dim, device=dev) if shard is None
-                    else build_sharded_tiled_batch(batch, dim, *shard, device=dev)
+                    else build_sharded_tiled_batch(
+                        batch, dim, *shard, device=dev,
+                        builders=mesh.ranks_sharing((DATA_AXIS,)),
+                    )
                 )
         elif not isinstance(batch, TiledSparseBatch):
             raise TypeError(
@@ -578,13 +581,15 @@ def _feature_sharded_problem(
     base = OptimizerConfig.default_for(optimizer_type)
     dev = mesh.device
     kernel = resolve_kernel(kernel, dev)
-    layout = feature_shard_tiled_batch if kernel == "tiled" else feature_shard_sparse_batch
-    # a tiled cell's schedules go through the schedule cache under this
-    # rank's own key (its cell's entries), as the JAX package keys them
+    args = (batch, dim, mesh.size(DATA_AXIS), mesh.size(MODEL_AXIS),
+            mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS))
+    # a tiled cell's schedules go through the schedule cache under its own
+    # key (its cell's entries), written by the lowest rank holding the cell
     with cache_scope(tile_cache_dir):
-        cell, block_dim = layout(
-            batch, dim, mesh.size(DATA_AXIS), mesh.size(MODEL_AXIS),
-            mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS), device=dev,
+        cell, block_dim = (
+            feature_shard_tiled_batch(
+                *args, device=dev, builders=mesh.ranks_sharing((DATA_AXIS, MODEL_AXIS)),
+            ) if kernel == "tiled" else feature_shard_sparse_batch(*args, device=dev)
         )
     d_pad = mesh.size(MODEL_AXIS) * block_dim
     if normalization is not None:

@@ -83,6 +83,10 @@ def test_fresh_interpreter_imports_no_jax():
         "parallel.multihost", "ops.fixed_order",
         "parallel.mesh", "parallel.shuffle", "parallel.unified_mesh",
         "game.residual_routing", "game.pod", "game.unified",
+        "parallel", "parallel.distributed", "models", "models.glm",
+        "models.coefficients", "optim", "optim.common", "optim.problem", "io",
+        "io.libsvm", "evaluation", "data.batch", "ops.objective",
+        "ops.schedule_cache", "ops.tiled_sparse",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]

@@ -50,7 +50,7 @@ from photon_ml_tpu.task import TaskType as RefTask
 from photon_ml_tpu_torch.game.pod import EntityShardSpec, ShardedREBank, entity_shard_of
 from photon_ml_tpu_torch.parallel.mesh import ENTITY_AXIS, entity_mesh, spawn_mesh
 from test_torch_residual_routing import ref_re
-from torch_parity import assert_close_to_scale
+from torch_parity import assert_close_to_scale, clear_reference_pod_programs
 from torch_pod_cases import (
     pod_cd,
     pod_suite,
@@ -64,6 +64,13 @@ RESIDUAL = residual_for(ARRS)
 VAR_RTOL = {"LBFGS": 1e-4, "TRON": 1e-3}
 # the reg term sums the squared rows: TRON's row envelope moves it ~1e-5
 REG_RTOL = {"LBFGS": 1e-5, "TRON": 1e-4}
+
+
+@pytest.fixture(autouse=True)
+def fresh_reference_programs():
+    """Each test's reference results come from programs built for its own
+    problems (``clear_reference_pod_programs``)."""
+    clear_reference_pod_programs()
 
 
 @pytest.fixture(scope="module")

@@ -41,7 +41,7 @@ from photon_ml_tpu_torch.parallel.unified_mesh import plan_mesh
 from photon_ml_tpu_torch.reliability.checkpoint import GridCheckpointer
 from photon_ml_tpu_torch.training import grid_bank_bytes, resolve_grid_mode
 from test_torch_residual_routing import ref_re
-from torch_parity import assert_close_to_scale
+from torch_parity import assert_close_to_scale, clear_reference_pod_programs
 from torch_pod_cases import grid_bank_round_trip, unified_arrays, unified_grid
 
 LAMBDAS = [0.1, 0.5, 0.5, 2.0]  # a duplicate member on purpose
@@ -90,6 +90,13 @@ def test_grid_bank_bytes_and_mode_take_entity_shards():
 
 def _ref_plan(grid):
     return ref_resolve_mesh(jax.devices()[:4], grid_size=grid, entity_shards=2)
+
+
+@pytest.fixture(autouse=True)
+def fresh_reference_programs():
+    """Each test's reference results come from programs built for its own
+    problems (``torch_parity.clear_reference_pod_programs``)."""
+    clear_reference_pod_programs()
 
 
 @pytest.fixture(scope="module")

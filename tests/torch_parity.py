@@ -94,3 +94,14 @@ def training_examples(seed, n=60, d=12):
             "offset": None if i % 4 == 0 else float(rng.normal()),
         })
     return recs
+
+
+def clear_reference_pod_programs():
+    """Drop the JAX package's compiled entity-sharded programs. Its
+    ``game/pod.py`` caches them by (mesh, solver kind) and not by the
+    problem's optimizer settings, so a program another test built for
+    another configuration on a mesh of the same shape (in the same
+    process: a pytest worker runs many files) would answer for this one."""
+    from photon_ml_tpu.game import pod
+
+    pod._PROGRAM_CACHE.clear()
