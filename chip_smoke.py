@@ -3,11 +3,17 @@
 NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --time-re-update CHECKOUT [CHECKOUT ...]
+
+The second form only times run P's replicated random-effect update in
+each checkout in turn, each with its own package (e.g. parent, change,
+change, parent, with the parent unpacked by ``git archive``), then the
+kernel's products at run G's first bucket where the checkout has it.
 
 Phases, each printing its own lines:
 
 1. device: the card's name and power limit (nvidia-smi), and the builds of
-   the CUDA kernels K1 and K2 (nvcc, sm_90a, side by side) and of the
+   the CUDA kernels K1, K2 and K4 (nvcc, sm_90a, side by side) and of the
    native schedule builder and Avro decoder (g++);
 2. K1, the bilinear pass, and K2, its grid form over a [G, d] bank,
    against their plain PyTorch versions on the card: at a small shape
@@ -31,7 +37,11 @@ Phases, each printing its own lines:
 4. the sequential path at full width on planted-model logistic data: the
    warm-started L-BFGS lambda-grid [10, 1] with variances and a TRON fit
    through ``train_generalized_linear_model(kernel="tiled")``, then scores
-   and AUC, with K1's launches over exactly that run;
+   and AUC, with K1's launches over exactly that run, and K4's (the
+   optimizers' member-wise dots and norms); then K4's row_dot and
+   row_norm at the bank's shape [2, 2^20] (two partial launches and a
+   CTA's reduction), bitwise their row_sum forms, within 1e-5 of .sum's
+   and vector_norm's scale, timed beside them and torch.linalg.vecdot;
 5. the batched grid path at full width on the same data, through
    ``train_grid_batched(kernel="tiled")``: L-BFGS over [10, 1, 0.1, 0.01]
    with variances, TRON over [10, 1] and OWL-QN elastic net over [1, 0.1],
@@ -63,7 +73,7 @@ Phases, each printing its own lines:
    this checks the path and counts it; it measures no scaling;
 7. the GLM driver end to end through its CLI entry point,
    ``photon_ml_tpu_torch.cli.glm_driver.main(argv)``, over LibSVM files
-   the script writes (2^14 training rows in 4 files and 2^14 validation
+   the script writes (2^13 training rows in 4 files and 2^13 validation
    rows at the ads width, planted-model labels from the seed), with the
    intercept: run A, the warm-started sequential L-BFGS grid [10, 1] with
    variances (K1) and a cold ``--tile-cache-dir``; run B, the same with
@@ -105,7 +115,19 @@ Phases, each printing its own lines:
    and K1 launches, one schedule build over both sweeps (the in-memory
    ``ensure_tiled`` tier), the RE tracker, a non-increasing objective,
    the float64 gradient of 256 sampled entities under its limit, the
-   scatter densification against compare-and-reduce on one bucket, the
+   scatter densification against compare-and-reduce on one bucket, K4
+   (the per-entity products in row_sum's order) on the first bucket as
+   the Newton solver calls it (the Gram, X c, X^T r, G r, and the row
+   dots and norms of [E, S] values and [E, D] rows), each bitwise its
+   row_sum form and within 1e-5 of its plain version's scale (torch.bmm,
+   .sum, vector_norm), timed beside it, the library call and its bound,
+   K4's launches over the two sweeps by wrapper (each at least one), the
+   bucket witness (the first bucket cut to 8,192 entities solved whole
+   and as padded blocks of 4,130 and 2,777 by the dense Newton solver,
+   dense L-BFGS and TRON: the shared entities' rows, iterations and
+   reasons bitwise; the first 512 entities' card rows against a float64
+   solve on the host, each entity's float64 objective within the
+   solver's tolerance of |f(0)| of the float64 row's), the
    device memory peak, the tiled objective against the scatter objective
    at each sweep's fixed-effect coefficients (value 1e-5, gradient 1e-4),
    K1 against its plain version at that shape (each output within 1e-5
@@ -121,10 +143,10 @@ Phases, each printing its own lines:
    (printed) and stopping below float32's resolution of the objective
    (tolerance 1e-10; the cap not reached): their objectives within 1e-4;
    then run H, the GAME
-   drivers' CLI entry points, ``game_training_driver.main`` (2^14
-   training rows of 1,024 users at run G's widths, as Avro written in
+   drivers' CLI entry points, ``game_training_driver.main`` (2^13
+   training rows of 512 users at run G's widths, as Avro written in
    worker processes; FE lambda grid [10, 1], 2 iterations, AUC,
-   variances, BEST) and ``game_scoring_driver.main`` over the 2^14
+   variances, BEST) and ``game_scoring_driver.main`` over the 2^13
    validation rows: the output tree, a non-increasing objective, and the
    scoring AUC equal to the training driver's validation AUC within 1e-6;
 9. the factored random effect, MF and the reliability layer: run F, run
@@ -189,7 +211,7 @@ Phases, each printing its own lines:
    of an open loop (no capture, none lost, each score bitwise its
    generation's); run W, inside run H's directory (phase 8):
    ``serving_driver.main`` closed over run H's first validation part
-   (4,096 rows; written scores bitwise run H's ``game_scoring_driver``
+   (2,048 rows; written scores bitwise run H's ``game_scoring_driver``
    scores, the AUC equal to the evaluator's over those scores) and open
    at concurrency 8 over all the validation rows twice with a hot swap
    after the first half of them (both generations serve), then the
@@ -201,7 +223,7 @@ Phases, each printing its own lines:
    (kept from phase 8): two ``--shard-index`` driver processes on the card
    (shard 0 with ``--obs-dir`` and ``--profile-dir``) and a router driver
    process (``--wire binary --fleet-obs-dir --slo default
-   --swap-model-dir``) replaying run H's first validation part (4,096
+   --swap-model-dir``) replaying run H's first validation part (2,048
    rows) closed-loop: routed scores bitwise run W's single server, the
    AUC equal, the two-step flip landed, the fleet trace verified and the
    fleet books balanced, CUDA kernels in shard 0's profile, no CUDA
@@ -210,7 +232,7 @@ Phases, each printing its own lines:
    2^18 fixed effect, 32 and 16 features a request, the shard ladder (1,
    8, 64)): fleets of 1, 2 and 4 shard-server children of this script
    (7 processes on the one card, each 1/N of the random-effect bank from
-   the seed), each flooded open-loop with 8,000 zipf(1.3) requests (4
+   the seed), each flooded open-loop with 4,000 zipf(1.3) requests (4
    payloads an entity) from 32 threads, then at N = 4 the fleet-wide
    two-step swap under load and 2,000 cache-missing requests with child 3
    SIGKILLed a quarter in: every routed score bitwise an in-process single
@@ -248,7 +270,7 @@ Phases, each printing its own lines:
    diverged;
 14. several ranks (``parallel/multihost.py``, ``FixedEffectCoordinate(mesh=)``),
    over run S's files while phase 10 holds them: run H's fixed effect
-   (its global shard at 2^20 features, 1,024 users x 16 rows, on the tiled
+   (its global shard at 2^20 features, 512 users x 16 rows, on the tiled
    kernel) over a 2 x 1 and a 1 x 2 (data, model) mesh of gloo ranks on
    the one card, spawned side by side (K1 on every rank's cell; two cold
    fits bitwise, every rank's bits the same, each objective within 1e-4
@@ -286,20 +308,20 @@ Phases, each printing its own lines:
    ``PodRandomEffectProblem`` on entity meshes of 1 rank (in process) and
    of 2 and 4 ranks (spawned side by side, the inputs handed over in a
    file): one update with variances and one score against the single
-   card's replicated ``update_bank`` and ``score_random_effect``
-   (bitwise at N = 1; within 2e-3 of their scale at N = 2 and 4, where a
-   rank's Newton blocks round otherwise, with the float64 gradient under
-   2e-3 at each sampled entity's row and at both rows of every entity
-   more than 1e-5 of scale off the replicated path, those rows within
-   the sum of their gradients' norms of each other, and both paths'
-   float64 banks at a tolerance of 1e-12 within 1e-5), two updates bitwise,
-   every rank's gathered bank the same bits, each rank's bytes its
-   shard's share, K1's launches counted in every rank; run E, run H's
+   card's replicated ``update_bank`` and ``score_random_effect`` (rows,
+   variances and scores within 1e-5 of their scale at N = 1, 2 and 4,
+   bitwise at N = 1, the trackers equal: K4 gives an entity the same
+   arithmetic in a shard's block as in its bucket; whether N = 2 and 4
+   were bitwise is printed; the float64 gradient under 2e-3 at each
+   sampled entity's row, and both paths' float64 banks at a tolerance of
+   1e-12 within 1e-5), two updates bitwise, every rank's gathered bank the
+   same bits, each rank's bytes its shard's share, K1's and K4's launches
+   counted in every rank; run E, run H's
    files through the GAME training driver with ``--entity-shards 1`` in
    this process (its objective history bitwise run H's) and
    ``--entity-shards 2`` as 2 processes, twice: the two 2-process runs'
    models bitwise, their histories within 1e-4 of run H's, the model's
-   scores through ``game_scoring_driver`` within 2e-3 of run H's (its
+   scores through ``game_scoring_driver`` within 1e-4 of run H's (its
    fixed effect runs data-parallel over the processes); the streamed
    entity shards, run T's streamed
    GAME through ``train_streaming_game(entity_mesh=)`` on 2 ranks twice
@@ -308,12 +330,17 @@ Phases, each printing its own lines:
    (grid 2, entity 2) mesh of 4 ranks at the JAX package's configuration
    (``bench.py:1537-1660``) against the per-member pod CD on the same
    ranks, duplicate-lambda members bitwise, one readback a CD iteration;
-16. a ``kernels`` JSON line (K1, K2 and K3, with each kernel's launches
+16. a ``kernels`` JSON line (K1, K2, K3 and K4, with each kernel's launches
    in the driver runs, K1's in run D's diagnose stage, in the GAME runs,
    in runs F and R, in phase 10's runs, in run L's, in phase 15's and in
    phase 14's surface checks; K2's in ``run_grid(offsets_bank=)``;
    K1's at the GAME shape with its plain and library times; K3's library
-   time, ``index_add_``), the nvidia-smi line, and the last line
+   time, ``index_add_``; K4 as three entries, one per wrapper: the Gram
+   and the matvecs with their launches in run G and times at its bucket
+   (library time ``torch.bmm``'s), the Gram's with phase 15's launches and
+   the bucket witness; row_dot with its launches on the sequential path
+   and times at its bank (library time ``torch.linalg.vecdot``'s), run
+   G's launches and shapes beside), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every kernel check also launches K1 (z, g, g_sq), K2 and K3 twice on the
@@ -358,10 +385,12 @@ MESH_TIMEOUT_S = 600.0
 # rows took 250 s of host time for runs A and B together on an H100 host
 # (preprocess 53-57 s a run), which cut them to 2^16; the script then
 # passed the 1,200 s limit with phase 11, which cut them to 2^15, and
-# phase 12 (the script at 1,025 s on a slow H100 host) to 2^14. The width
-# stays
-DRIVER_TRAIN_ROWS = 1 << 14
-DRIVER_HELD_OUT = 1 << 14
+# phase 12 (the script at 1,025 s on a slow H100 host) to 2^14, and the
+# script at 867.9 s (a 1.4x slower host would pass the limit) to 2^13: the
+# model writes (most of a run) scale with the features the rows touch. The
+# width stays
+DRIVER_TRAIN_ROWS = 1 << 13
+DRIVER_HELD_OUT = 1 << 13
 DRIVER_PARTS = 4  # LibSVM part files of the training rows
 DRIVER_RTOL = 1e-4  # run C's model vs the direct trainer, of the max-abs
 # runs A and B (with the intercept) vs the direct fit: the objective at
@@ -1509,10 +1538,11 @@ GAME_RE_GRAD_LIMIT = 2e-3
 # than once: three or more addends sum in another order, so the error is
 # held to 1e-6 of the sum of the addends' magnitudes
 GAME_DENSIFY_RTOL = 1e-6
-# Run H: the GAME drivers over Avro files at run G's widths; 1,024 users
-# (2^14 rows each of training and validation; 4,096 users took 237 s with
-# run W, and the script passed the 1,200 s limit)
-GAME_H_USERS = 1024
+# Run H: the GAME drivers over Avro files at run G's widths; 512 users
+# (2^13 rows each of training and validation; 4,096 users took 237 s with
+# run W, and the script passed the 1,200 s limit; 1,024 users 95.4 s with
+# run W, cut with the script at 867.9 s)
+GAME_H_USERS = 512
 GAME_H_PARTS = 4  # Avro part files each of training and validation rows
 GAME_H_AUC_TOL = 1e-6
 
@@ -1750,6 +1780,222 @@ def game_densify_check(red, smi, device):
     return n_dup, err
 
 
+# K4 (the per-entity products) at run G's first bucket, and the bucket
+# witness: what its order buys on the card
+K4_RESULTS = {}
+K4_RTOL = 1e-5  # K4 vs its plain version (torch.bmm, .sum, vector_norm), of the output's scale
+WITNESS_ENTITIES = 8192  # run G's first bucket, cut to this many entities
+WITNESS_F64_ENTITIES = 512  # of them, solved in float64 on the host too
+
+
+def product_bound_ms(E, I, J, K, reads):
+    """Least time for ``E * I * J`` outputs of ``K`` products each, with
+    ``reads`` input floats read once and the outputs written once: the
+    larger of bytes over HBM bandwidth and the products' multiplies and
+    adds over the f32 peak (-> ms, 'bytes' or 'operations')."""
+    byte_s = 4 * (reads + E * I * J) / HBM_BYTES_PER_S
+    op_s = 2 * E * I * J * K / F32_FLOPS_PER_S
+    return 1e3 * max(byte_s, op_s), "bytes" if byte_s >= op_s else "operations"
+
+
+def k4_checks(label, calls, smi):
+    """Each of ``calls`` (name -> (kernel, plain version, ``*_ordered``
+    form, library call, (bound ms, bound by))): bitwise its ordered form
+    (row_sum's order, on the card), within K4_RTOL of its plain version's
+    scale, then timed beside the plain version and the library call. ->
+    the kernels line's fields (the calls' times summed), each call's own
+    under ``calls``."""
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ordered_bitwise": True, "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "calls": {}}
+    bound_by = set()
+    for name, (kern, plain, ordered, library, (bound, by)) in calls.items():
+        got, want = kern(), plain()
+        same = bool(torch.equal(got, ordered()))
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        if not same:
+            fail(f"K4 {label} {name}: the kernel's bits are not row_sum's order's")
+        if not rel <= K4_RTOL:
+            fail(f"K4 {label} {name}: {rel!r} of scale off its plain version")
+        ms, plain_ms, library_ms = time_ms(kern), time_ms(plain), time_ms(library)
+        out["calls"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                  bound_ms=bound, bound_by=by, max_abs_err=err)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_rel_err"] = max(out["max_rel_err"], rel)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                       ("bound_ms", bound)):
+            out[key] += v
+        bound_by.add(by)
+    out["bound_by"] = "operations" if bound_by == {"operations"} else "bytes"
+    say(f"k4 {label} ({smi}): " + "; ".join(
+        f"{n} {v['ms']!r} ms (plain {v['plain_ms']!r} ms, library {v['library_ms']!r} ms, "
+        f"bound {v['bound_ms']!r} ms by {v['bound_by']}, max abs err {v['max_abs_err']!r})"
+        for n, v in out["calls"].items()) + "; every output bitwise row_sum's order")
+    return out
+
+
+def row_dot_calls(rng, shapes, device):
+    """K4's row_dot and row_norm checks at each ``[n, k]`` of ``shapes``
+    (normal operands from ``rng``): the plain versions are ``.sum`` and
+    ``vector_norm``, the library calls ``torch.linalg.vecdot`` and
+    ``vector_norm``."""
+    from photon_ml_tpu_torch.ops.kernels import entity_products as k4
+
+    calls = {}
+    for n, k in shapes:
+        a, b = (torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=device)
+                for _ in range(2))
+        calls[f"dot_{n}x{k}"] = (
+            lambda a=a, b=b: k4.row_dot(a, b), lambda a=a, b=b: k4.row_dot_plain(a, b),
+            lambda a=a, b=b: k4.row_dot_ordered(a, b),
+            lambda a=a, b=b: torch.linalg.vecdot(a, b), product_bound_ms(n, 1, 1, k, 2 * n * k))
+        calls[f"norm_{n}x{k}"] = (
+            lambda a=a: k4.row_norm(a), lambda a=a: k4.row_norm_plain(a),
+            lambda a=a: torch.sqrt(k4.row_dot_ordered(a, a)),
+            lambda a=a: torch.linalg.vector_norm(a, dim=-1), product_bound_ms(n, 1, 1, k, n * k))
+    return calls
+
+
+def game_products_check(red, smi, device):
+    """K4 at run G's first bucket, as the Newton solver calls it: the Gram
+    X X^T, X c, X^T r (a strided view) and G v, and the row dots and norms
+    of the per-entity values ([E, S]) and coefficients ([E, D]); each
+    checked and timed by ``k4_checks`` (the library call of the Gram and
+    the matvecs is torch.bmm, which is also their plain version). -> per
+    wrapper (gram, bmv, row_dot), the kernels line's fields."""
+    from photon_ml_tpu_torch.game.random_effect import densify
+    from photon_ml_tpu_torch.ops.kernels import entity_products as k4
+
+    b = red.buckets[0]
+    ix = torch.as_tensor(b.indices, device=device).long()
+    X = densify(ix, torch.as_tensor(b.values, device=device), red.local_dim)
+    E, S, D = X.shape
+    rng = np.random.default_rng(16)
+    c = torch.as_tensor(rng.normal(size=(E, D)).astype(np.float32), device=device)
+    r = torch.as_tensor(rng.normal(size=(E, S)).astype(np.float32), device=device)
+    Xt = X.transpose(1, 2)
+    G = k4.gram(X)
+    out = {"gram": k4_checks(f"run G bucket {E} x {S} x {D} gram", {
+        "gram": (lambda: k4.gram(X), lambda: k4.gram_plain(X), lambda: k4.gram_ordered(X),
+                 lambda: k4.gram_plain(X), product_bound_ms(E, S, S, D, E * S * D)),
+    }, smi), "bmv": k4_checks(f"run G bucket {E} x {S} x {D} bmv", {
+        "X_c": (lambda: k4.bmv(X, c), lambda: k4.bmv_plain(X, c),
+                lambda: k4.bmv_ordered(X, c), lambda: k4.bmv_plain(X, c),
+                product_bound_ms(E, S, 1, D, E * S * D + E * D)),
+        "Xt_r": (lambda: k4.bmv(Xt, r), lambda: k4.bmv_plain(Xt, r),
+                 lambda: k4.bmv_ordered(Xt, r), lambda: k4.bmv_plain(Xt, r),
+                 product_bound_ms(E, D, 1, S, E * S * D + E * S)),
+        "G_r": (lambda: k4.bmv(G, r), lambda: k4.bmv_plain(G, r),
+                lambda: k4.bmv_ordered(G, r), lambda: k4.bmv_plain(G, r),
+                product_bound_ms(E, S, 1, S, E * S * S + E * S)),
+    }, smi), "row_dot": k4_checks(f"run G bucket {E} x {S} x {D} row_dot",
+                                  row_dot_calls(rng, ((E, S), (E, D)), device), smi)}
+    for v in out.values():
+        v["shape"] = [E, S, D]
+    del X, G
+    return out
+
+
+def witness_against_float64(problem, kind, rows, start, ix, v, lab, off, w):
+    """The card's float32 rows of a bucket's first WITNESS_F64_ENTITIES
+    entities against the same solve in float64 on the host: -> (the
+    largest (f(card row) - f(float64 row)) / |f(start)| of an entity's
+    float64 objective f, the rows' error of the float64 rows' scale). The
+    solver stops when an iteration changes f by tol |f(start)| or less, so
+    a float32 row is held to that gap; by strong convexity (l2 = 1) it
+    bounds the row's error by sqrt(2 tol |f(start)|)."""
+    from photon_ml_tpu_torch.game.random_effect import densify
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+
+    h = min(WITNESS_F64_ENTITIES, rows.shape[0])
+    host = [t[:h].cpu() for t in (ix, v, lab, off, w)]
+    ix64, v64, lab64, off64, w64 = host[:1] + [t.double() for t in host[1:]]
+    start64 = start[:h].cpu().double()
+    c64, _, _ = problem._solve(kind, start64, ix64, v64, lab64, off64, w64, 0.0, 1.0)
+    X = densify(ix64, v64, start64.shape[1])
+
+    def f(c):
+        z = torch.bmm(X, c[..., None])[..., 0] + off64
+        return (w64 * LOGISTIC.value(z, lab64)).sum(-1) + 0.5 * (c * c).sum(-1)
+
+    card = rows[:h].cpu().double()
+    gap = float(((f(card) - f(c64)) / f(start64).abs()).max())
+    return gap, scale_err(card, c64)
+
+
+def game_bucket_witness(red, offsets, smi, device):
+    """Run G's first bucket, cut to WITNESS_ENTITIES, solved whole and as
+    padded sub-blocks of other entity counts (the pod's block layout:
+    every other entity padded to 4,130, every third to 2,777) by the dense
+    Newton solver, dense L-BFGS and TRON, at the given row-aligned
+    offsets: the shared entities' rows, iterations and stop reasons must
+    be bitwise equal. -> per solver, the entities and the spread of their
+    iterations."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.optim.config import OptimizerType
+
+    b = red.buckets[0]
+    n = min(WITNESS_ENTITIES, b.num_entities)
+    dev = torch.device(device)
+
+    def up(a, dtype=None):
+        t = torch.as_tensor(np.asarray(a[:n]), device=dev)
+        return t if dtype is None else t.to(dtype)
+
+    rows = torch.as_tensor(np.asarray(b.row_index[:n]), device=dev).long()
+    off_all = torch.as_tensor(offsets, device=dev)
+    off = torch.where(rows >= 0, off_all[rows.clamp_min(0)], 0.0)
+    ix, v = up(b.indices, torch.int64), up(b.values, torch.float32)
+    lab, w = up(b.labels, torch.float32), up(b.weights, torch.float32)
+    start = torch.zeros(n, red.local_dim, device=dev)
+    base = pod_problem()
+    tron = dataclasses.replace(
+        base, config=dataclasses.replace(base.config, optimizer_type=OptimizerType.TRON))
+    out = {}
+    for label, problem, kind in (("newton", base, "newton"), ("lbfgs", base, "dense"),
+                                 ("tron", tron, "dense")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole, it, rs = problem._solve(kind, start, ix, v, lab, off, w, 0.0, 1.0)
+        it = torch.as_tensor(it, device=dev)
+        rs = torch.as_tensor(rs, device=dev)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        f64_gap, f64_row = witness_against_float64(problem, kind, whole, start, ix, v, lab, off, w)
+        if not f64_gap <= problem.config.tolerance:
+            fail(f"bucket witness {label}: an entity's float64 objective at its card row is "
+                 f"{f64_gap!r} of its objective at zero over the float64 solve's")
+        for pick, width in ((torch.arange(0, n, 2, device=dev), 4130),
+                            (torch.arange(1, n, 3, device=dev), 2777)):
+            m = pick.numel()
+
+            def block(t):
+                blk = t.new_zeros((width,) + tuple(t.shape[1:]))
+                blk[:m] = t[pick]
+                return blk
+
+            got, git, grs = problem._solve(kind, block(start), block(ix), block(v), block(lab),
+                                           block(off), block(w), 0.0, 1.0)
+            git = torch.as_tensor(git, device=dev)[:m]
+            grs = torch.as_tensor(grs, device=dev)[:m]
+            if not (torch.equal(got[:m], whole[pick]) and torch.equal(git, it[pick])
+                    and torch.equal(grs, rs[pick])):
+                fail(f"bucket witness {label}: a block of {width} gives its {m} entities "
+                     "other bits than the whole bucket")
+        out[label] = dict(entities=n, whole_s=whole_s, iterations_min=int(it.min()),
+                          iterations_max=int(it.max()), f64_entities=WITNESS_F64_ENTITIES,
+                          f64_objective_gap=f64_gap, f64_row_err=f64_row)
+    say(f"bucket witness ({smi}): run G's first bucket cut to {n} entities, solved whole and as "
+        f"blocks of 4130 (every other entity) and 2777 (every third): rows, iterations and "
+        f"reasons bitwise for " + ", ".join(
+            f"{k} ({v['whole_s']!r} s whole, iterations {v['iterations_min']}-"
+            f"{v['iterations_max']}; against float64 on the host over the first "
+            f"{v['f64_entities']} entities: objective gap {v['f64_objective_gap']!r} of |f0|, "
+            f"rows {v['f64_row_err']!r} of scale)" for k, v in out.items()))
+    return out
+
+
 def sched_csr(sched, n_src):
     """One pass's matrix as torch.sparse CSR (output x source): the
     schedule's real entries, so ``csr @ src`` is the pass (the yardstick
@@ -1956,12 +2202,19 @@ def game_run_g(seed, smi, k1, device="cuda"):
     ds, red = game_data(seed, device)
 
     # the tiled fixed effect (K1): two sweeps, one schedule build
+    from photon_ml_tpu_torch.ops.kernels import entity_products as k4
+
     ts.tilings, ts.tiling_seconds = 0, 0.0
     k1.launches = 0
+    k4.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     result, log, re, fe = game_cd(ds, red, "tiled", k1, smi, "tiled")
     peak = torch.cuda.max_memory_allocated()
     game_launches = k1.launches
+    K4_RESULTS["game_launches"] = dict(k4.launches_by)
+    idle = [kind for kind, n in k4.launches_by.items() if n == 0]
+    if idle and torch.device(device).type == "cuda":
+        fail(f"game run G: the random effect launched no K4 {idle}")
     tiled_refit = game_fe_refit(fe, log, "tiled", smi)
     kinds = sorted({re.problem._bucket_kind(b, red.local_dim) for b in red.buckets})
     for it in range(2):
@@ -2005,6 +2258,8 @@ def game_run_g(seed, smi, k1, device="cuda"):
     if not grad <= GAME_RE_GRAD_LIMIT:
         fail(f"game run G: a sampled entity's gradient is {grad!r}")
     game_densify_check(red, smi, device)
+    K4_RESULTS["check"] = game_products_check(red, smi, device)
+    K4_RESULTS["witness"] = game_bucket_witness(red, POD_INPUTS["offsets"], smi, device)
 
     # the tiled objective against the scatter objective at each sweep's FE
     game_objective_parity(ds, tb, log, smi)
@@ -3760,33 +4015,24 @@ POD_LABEL = "ranks share one card through gloo's host staging: a path check, no 
 # and its sweep-1 offsets (plus residual), run T's streamed CD objectives
 POD_INPUTS = {}
 POD_SHARDS = (2, 4)  # run P's spawned entity meshes, side by side
-# run P against the single card's replicated path, of their scale: at
-# N = 1 the blocks are the buckets and the result is bitwise. At N = 2
-# and 4 a rank's Newton blocks hold other entity counts than the buckets,
-# and the card's batched Gram products round otherwise at other batch
-# sizes, so a few entities stop one Newton step apart at the relative
-# function change of 1e-5 (the replicated update is bitwise in a spawned
-# 1-rank process too): the rows part by up to 5.2e-4 of their scale,
-# variances 7.2e-4, scores 6.2e-4 (NVIDIA H100 80GB HBM3 at 700 W). Held
-# to POD_ROW_RTOL, and held where they part: every row more than POD_RTOL
-# of scale from the replicated row has a float64 gradient within
-# GAME_RE_GRAD_LIMIT at both rows (a row solved against wrong offsets has
-# a gradient of order 1), and, the objective being 1-strongly convex (L2
-# weight 1), the two rows lie within the sum of their gradients' 2-norms
-# of each other: both are the same optimum within the stop. Float32 sets
-# that stop: within ~1e-3 of the optimum f - f* ~ |c - c*|^2 / 2 is below
-# a float32 ulp of f (~1e-6), so a tighter tolerance leaves the float32
-# rows as far apart (5.1e-4 of scale at 1e-9 on the card). The same
-# update in float64 at POD_TIGHT_TOL on both paths must agree within
-# POD_RTOL
+# run P against the single card's replicated path, of their scale. A
+# rank's blocks hold other entity counts than the buckets (a shard's
+# entities, padded to the widest shard), and every per-entity product and
+# sum of the solvers adds in row_sum's order on the card (K4), which
+# depends on the row's length alone: each entity's arithmetic is the same
+# in a bucket and in a block, so the rows, variances and scores are held
+# to POD_RTOL at every N and the trackers must be equal (the result line
+# says whether they were bitwise). The same update in float64 at
+# POD_TIGHT_TOL on both paths must agree within POD_RTOL
 POD_RTOL = 1e-5
-POD_ROW_RTOL = 2e-3
 POD_TIGHT_TOL = 1e-12
-POD_E_RTOL = 1e-4  # run E and the streamed runs: objectives (relative), scores (of scale)
-# run E's scores at N = 2 are held to POD_ROW_RTOL: its fixed effect runs
-# data-parallel over the 2 processes (partials summed in another order,
-# as in phase 14, which holds only the objective), and the float32 fits
-# part by 3.3e-4 of the scores' scale; N = 1 is bitwise run H's
+# run E and the streamed runs: objectives (relative), scores (of scale).
+# Run E's N = 2 scores are not bitwise run H's: its fixed effect runs
+# data-parallel over the 2 processes (partials summed in rank order, as
+# in phase 14). They parted by 3.3e-4 of scale while the random effect's
+# blocks also rounded by their shape (held to 2e-3 then), by
+# 2.2e-5 since K4 (NVIDIA H100 80GB HBM3, 700 W); N = 1 is bitwise run H's
+POD_E_RTOL = 1e-4
 POD_TIMEOUT_S = 300
 # run E's driver processes: the training driver's entry point, then K1's
 # launches in the process on a line of their own
@@ -3893,7 +4139,7 @@ def pod_run(mesh, red, offsets, save=None, tight=False):
     spec = banks[1].spec
     out["bytes"] = per_device_bytes(banks[1], var)
     out["share_bytes"] = 2 * spec.rows_per_shard * red.local_dim * 4
-    out["tracker"] = (tracker.num_entities, tracker.iterations_mean, tracker.iterations_max)
+    out["tracker"] = tracker_key(tracker)
     arrays = {"bank": whole, "var": whole_var, "score": score}
     if tight:
         pod.base.config = dataclasses.replace(pod.base.config, tolerance=POD_TIGHT_TOL)
@@ -3907,6 +4153,12 @@ def pod_run(mesh, red, offsets, save=None, tight=False):
     return out
 
 
+def tracker_key(tracker):
+    """A RandomEffectTracker as a comparable tuple."""
+    return (tracker.num_entities, tracker.iterations_mean, tracker.iterations_max,
+            sorted(tracker.reason_counts.items()))
+
+
 def pod_rank_p(mesh, path):
     """Run P on one rank of an entity mesh: run G's inputs from the
     phase's file, the pod run on this rank's shard (K1's launches in it
@@ -3914,37 +4166,20 @@ def pod_rank_p(mesh, path):
     import pickle
 
     from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.ops.kernels import entity_products as k4
 
     with open(path, "rb") as f:
         d = pickle.load(f)
     red = d["red"]
     red.device = mesh.device
     k1.launches = 0
+    k4.launches = 0
     out = pod_run(mesh, red, torch.as_tensor(d["offsets"], device=mesh.device),
                   save=f"{path}-n{mesh.size('entity')}", tight=True)
     out["k1"] = k1.launches
+    out["k4"] = k4.launches
     out["rank"] = mesh.rank
     return out
-
-
-def pod_moved_rows(red, offsets, bank, ref):
-    """The rows of ``bank`` more than POD_RTOL of scale from ``ref``'s,
-    checked at both rows: -> (how many, the largest float64 gradient
-    max-abs at either, the largest ratio of the rows' 2-norm distance to
-    the sum of their gradients' 2-norms: at most 1 for a 1-strongly convex
-    objective)."""
-    gap = (bank - ref).abs().amax(dim=1) / ref.abs().max().clamp_min(1e-30)
-    moved = torch.nonzero(gap > POD_RTOL).flatten()
-    if moved.numel() == 0:
-        return 0, 0.0, 0.0
-    codes, g = game_re_gradient_rows(red, bank, offsets, moved.cpu().numpy())
-    codes_r, g_r = game_re_gradient_rows(red, ref, offsets, moved.cpu().numpy())
-    if not torch.equal(codes, codes_r) or codes.numel() != moved.numel():
-        fail("phase 15 run P: the moved rows' entities were not all found in the buckets")
-    apart = (bank[codes] - ref[codes]).double().norm(dim=1)
-    ratio = apart / (g.norm(dim=1) + g_r.norm(dim=1)).clamp_min(1e-300)
-    return (int(moved.numel()), float(torch.maximum(g.abs().amax(), g_r.abs().amax())),
-            float(ratio.max()))
 
 
 def pod_run_p(seed, smi, tmp):
@@ -3957,6 +4192,7 @@ def pod_run_p(seed, smi, tmp):
 
     from photon_ml_tpu_torch.game import score_random_effect
     from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.ops.kernels import entity_products as k4
     from photon_ml_tpu_torch.parallel.mesh import ENTITY_AXIS, entity_mesh, spawn_mesh
 
     red, offsets = POD_INPUTS.pop("red"), POD_INPUTS.pop("offsets")
@@ -3982,6 +4218,7 @@ def pod_run_p(seed, smi, tmp):
         off_d = torch.as_tensor(offsets, device=POD_DEVICE)
         problem = pod_problem()
         k1.launches = 0
+        k4.launches = 0
         pod_sync(POD_DEVICE)
         t0 = time.perf_counter()
         bank, tracker, var = problem.update_bank(
@@ -3995,13 +4232,16 @@ def pod_run_p(seed, smi, tmp):
                             device=POD_DEVICE)
         ref["tight"] = pod_problem(POD_TIGHT_TOL).update_bank(zeros, red, off_d.double())[0]
         launches = {"replicated": k1.launches}
+        k4_launches = {"replicated": k4.launches}
         say(f"phase 15 run P replicated ({smi}): update with variances and score {rep_s!r} s, "
             f"{red.num_entities} entities x D = {red.local_dim}, {len(red.buckets)} buckets, "
             f"iterations mean {tracker.iterations_mean!r} max {tracker.iterations_max}")
         drop_device_copies()
         k1.launches = 0
+        k4.launches = 0
         one = pod_run(entity_mesh(1, device=POD_DEVICE), red, off_d)
         one["k1"] = k1.launches
+        one["k4"] = k4.launches
         one["rank"] = 0
         results = {1: one.pop("arrays")}
         runs = {1: [one]}
@@ -4015,41 +4255,44 @@ def pod_run_p(seed, smi, tmp):
                           for name in ("bank", "var", "score", "tight")}
     replicated_bytes = 2 * red.num_entities * red.local_dim * 4
     out = {}
+    rep_tracker = tracker_key(tracker)
     for n, ranks in runs.items():
         r0 = ranks[0]
         launches[str(n)] = [r["k1"] for r in ranks]
+        k4_launches[str(n)] = [r["k4"] for r in ranks]
         r0["errors"] = {name: scale_err(results[n][name], ref[name])
                         for name in ("bank", "var", "score")}
+        bitwise = all(torch.equal(results[n][name], ref[name]) for name in ("bank", "var", "score"))
         upd = [r["update_s"][1] for r in ranks]
-        moved = tight = None
-        if n > 1:
-            moved = pod_moved_rows(red, off_d, results[n]["bank"], ref["bank"])
-            tight = scale_err(results[n]["tight"], ref["tight"])
+        tight = scale_err(results[n]["tight"], ref["tight"]) if n > 1 else None
         say(f"phase 15 run P N={n} ({smi}; {POD_LABEL}): update {r0['update_s']!r} s, score "
             f"{r0['score_s']!r} s, view build {r0['view_s']!r} s, "
             f"{red.num_entities / max(upd)!r} entities/s, host fetches per update "
             f"{[r['fetches'][1] for r in ranks]}, transport {r0['transport'][1]}; errors vs the "
-            f"replicated path {r0['errors']} (limit {POD_RTOL if n == 1 else POD_ROW_RTOL}); "
+            f"replicated path {r0['errors']} (limit {POD_RTOL}), bitwise {bitwise}; trackers "
+            f"equal {r0['tracker'] == rep_tracker} ({r0['tracker']}); "
             f"float64 gradient max-abs over {GAME_RE_SAMPLE} sampled entities "
             f"{max(r['gradient'] for r in ranks)!r} (limit {GAME_RE_GRAD_LIMIT}); bytes a rank "
             f"{[r['bytes'] for r in ranks]} of the "
             f"replicated {replicated_bytes} (share {r0['share_bytes']}); repeat bitwise "
             f"{[r['repeat_bitwise'] for r in ranks]}; ranks' banks bitwise "
-            f"{len({r['digest'] for r in ranks}) == 1}; K1 launches a rank {launches[str(n)]}"
-            + (f"; rows more than {POD_RTOL} of scale from the replicated {moved[0]}: float64 "
-               f"gradient max-abs at either row {moved[1]!r} (limit {GAME_RE_GRAD_LIMIT}), "
-               f"largest distance over the sum of the gradients' 2-norms {moved[2]!r} (at most "
-               f"1); float64 banks at tolerance {POD_TIGHT_TOL} {tight!r} of scale apart "
+            f"{len({r['digest'] for r in ranks}) == 1}; K1 launches a rank {launches[str(n)]}, "
+            f"K4 {k4_launches[str(n)]}"
+            + (f"; float64 banks at tolerance {POD_TIGHT_TOL} {tight!r} of scale apart "
                f"(limit {POD_RTOL})" if n > 1 else ""))
         if not all(r["repeat_bitwise"] for r in ranks):
             fail(f"phase 15 run P N={n}: two updates are not bitwise")
         if len({r["digest"] for r in ranks}) != 1:
             fail(f"phase 15 run P N={n}: the ranks' gathered banks differ")
-        limit = POD_RTOL if n == 1 else POD_ROW_RTOL
-        if not all(r["finite"] for r in ranks) or max(r0["errors"].values()) > limit:
+        if not all(r["finite"] for r in ranks) or max(r0["errors"].values()) > POD_RTOL:
             fail(f"phase 15 run P N={n}: off the replicated path: {r0['errors']}")
-        if n == 1 and max(r0["errors"].values()) != 0.0:
+        if r0["tracker"] != rep_tracker:
+            fail(f"phase 15 run P N={n}: the tracker {r0['tracker']} is not the replicated "
+                 f"path's {rep_tracker}")
+        if n == 1 and not bitwise:
             fail("phase 15 run P N=1: the single-shard pod is not bitwise the replicated path")
+        if POD_DEVICE == "cuda" and not all(k4_launches[str(n)]):
+            fail(f"phase 15 run P N={n}: a rank launched no K4: {k4_launches[str(n)]}")
         if not max(r["gradient"] for r in ranks) <= GAME_RE_GRAD_LIMIT:
             fail(f"phase 15 run P N={n}: a sampled entity's gradient is "
                  f"{max(r['gradient'] for r in ranks)!r}")
@@ -4058,15 +4301,14 @@ def pod_run_p(seed, smi, tmp):
             fail(f"phase 15 run P N={n}: a rank holds more than its shard's share")
         if r0["tracker"][0] != red.num_entities:
             fail(f"phase 15 run P N={n}: the tracker counts {r0['tracker'][0]} entities")
-        if moved is not None and not (moved[1] <= GAME_RE_GRAD_LIMIT and moved[2] <= 1.0):
-            fail(f"phase 15 run P N={n}: the rows off the replicated path are not both "
-                 f"optimal: {moved}")
         if tight is not None and not tight <= POD_RTOL:
             fail(f"phase 15 run P N={n}: the float64 solves at tolerance {POD_TIGHT_TOL} are "
                  f"{tight!r} of scale apart")
         out[n] = dict(update_s=upd, score_s=r0["score_s"], fetches=r0["fetches"][1],
-                      bytes=r0["bytes"], errors=r0["errors"], gradient=r0["gradient"],
-                      moved=moved, tight_bank_err=tight)
+                      bytes=r0["bytes"], errors=r0["errors"], bitwise=bitwise,
+                      gradient=r0["gradient"], tight_bank_err=tight)
+    out["replicated_s"] = rep_s
+    K4_RESULTS["phase15_launches"] = k4_launches
     del ref, bank, var, score, off_d, red, results, zeros
     if POD_DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -4197,12 +4439,12 @@ def pod_run_e(h_dir, shards, h_history, k1, smi, tmp, procs, outs):
         f"2-process runs {e2_k1}; objective histories {hist} against "
         f"run H's {h_history}: largest relative gaps {gaps} (N = 1 must be 0: run H's fit "
         f"itself); the two 2-process runs' model files bitwise {same}; the N = 2 "
-        f"model's scores vs run H's, of their scale: {errs['N=2']!r} (limit {POD_ROW_RTOL})")
+        f"model's scores vs run H's, of their scale: {errs['N=2']!r} (limit {POD_E_RTOL})")
     if hist["N=2 run 0"] != hist["N=2 run 1"] or not same:
         fail("phase 15 run E: the two 2-process runs are not bitwise")
     if max(gaps.values()) > POD_E_RTOL or gaps["N=1"] != 0.0:
         fail("phase 15 run E: an objective history is off run H's")
-    if errs["N=2"] > POD_ROW_RTOL:
+    if errs["N=2"] > POD_E_RTOL:
         fail("phase 15 run E: a model's scores are off run H's")
     return dict(k1={"1": e1_k1, "2": e2_k1}, seconds=e1_s, gaps=gaps, score_errs=errs)
 
@@ -4510,12 +4752,12 @@ SERVE_SWAP = 8_000  # the open loop a donated swap lands in the middle of
 # Run W: the serving driver over run H's files; the front end over a few
 # hundred of run H's validation rows on 4 connections
 SERVE_W_CONCURRENCY = 8
-# the open run's trace: run H's 16,384 validation rows twice (4 times until
-# phase 12 needed the time), the swap after the first 8,192. A swap stages
-# in ~3.4 s (the model load through the native decoder, an H100 host)
-# while ~5,300 requests a second are served: the 24,576 after the swap
-# point take ~5 s, so generation 2 serves some
-SERVE_W_OPEN_REPEATS = 2
+# the open run's trace: run H's 8,192 validation rows 4 times (its 16,384
+# twice until run H was cut), the swap after the first 4,096. A swap
+# stages in ~3.4 s (the model load through the native decoder, an H100
+# host) while ~5,300 requests a second are served: the 28,672 after the
+# swap point take ~5 s, so generation 2 serves some
+SERVE_W_OPEN_REPEATS = 4
 SERVE_FRONTEND_REQUESTS, SERVE_FRONTEND_CONNECTIONS = 400, 4
 SERVE_FRONTEND_TIMEOUT_S = 300
 
@@ -4888,7 +5130,7 @@ def serve_run_w(tmp, shards, smi, device_args=(), device="cuda"):
                           timers=dict(driver.timer.durations))
         return driver.serving_model.current().shard_widths
 
-    # closed: the first validation part (4,096 rows; all 16,384 until
+    # closed: the first validation part (2,048 rows; all of them until
     # phase 12 needed the time)
     widths = run("closed", ["--mode", "closed", "--write-scores", "true",
                             "--evaluator-types", "AUC", "--request-paths", part0],
@@ -5013,20 +5255,21 @@ def serve_frontend(tmp, shards, batch, widths, smi, device_args=(), during=None)
 # 200,000 users x 256, a 2^18 fixed effect, 32 and 16 features a request,
 # the shard ladder (1, 8, 64); fleets of N in {1, 2, 4} shard-server child
 # processes (this script under ROUTE_CHILD_FLAG), each holding 1/N of the
-# random-effect bank; per N an open-loop flood of 8,000 requests from 32
+# random-effect bank; per N an open-loop flood of 4,000 requests (8,000
+# until the script reached 867.9 s) from 32
 # threads over a zipf(1.3) entity draw with 4 payloads an entity; at N = 4
 # a fleet-wide two-step swap under a flood of 2,000 and then a flood of
 # 2,000 cache-missing payloads during which one child is SIGKILLed
 ROUTE_SHAPES = {"E": 200_000, "d_g": 1 << 18, "d_u": 256, "k_g": 32, "k_u": 16}
 ROUTE_LADDER = (1, 8, 64)
 ROUTE_FLEETS = (1, 2, 4)
-ROUTE_FLOOD, ROUTE_THREADS, ROUTE_SWAP, ROUTE_KILL = 8_000, 32, 2_000, 2_000
+ROUTE_FLOOD, ROUTE_THREADS, ROUTE_SWAP, ROUTE_KILL = 4_000, 32, 2_000, 2_000
 ROUTE_ZIPF, ROUTE_POOL, ROUTE_CACHE = 1.3, 4, 8192
 ROUTE_CHILD_FLAG = "--shard-routing-child"
 ROUTE_BOOT_TIMEOUT_S = 240
 # Run Y: the serving driver's fleet modes over run H's model files: two
 # --shard-index drivers and a router driver replaying run H's first
-# validation part (4,096 rows) closed-loop
+# validation part (2,048 rows) closed-loop
 FLEET_Y_TIMEOUT_S = 300
 
 
@@ -5797,8 +6040,8 @@ def registry_run_q(y, shards, smi, seed, server, device_args=()):
 
         wait_for(lambda: len(responses) >= 200, "generation 1's first 200 responses")
         # Q3: the GAME retrain from generation 1, with a new user appended;
-        # its gates hold out the first validation part (4,096 rows; run H
-        # validates on 16,384)
+        # its gates hold out the first validation part (2,048 rows; run H
+        # validates on 8,192)
         q_new_user_part(f"{y}/train/part-99999.avro", seed, GAME_H_USERS, DIM)
         argv = [
             "--train-input-dirs", f"{y}/train", "--validate-input-dirs", f"{y}/q-val0",
@@ -5932,17 +6175,145 @@ def determinism_matrix(smi):
     return {n: c["runtime_s"] for n, c in classes.items()}
 
 
+def k4_entries(row_dot_launches):
+    """The kernels line's K4 entries, one per wrapper: the Gram and the
+    matvecs with their launches over run G and their times at its first
+    bucket; row_dot (row_norm with it) with its launches over the
+    sequential path and its times at that path's bank, its run G shapes
+    under ``game_calls``."""
+    check, game = K4_RESULTS["check"], K4_RESULTS["game_launches"]
+    shape = check["gram"]["shape"]
+
+    def entry(name, kernel, replaces, port_only, launches, fields, work, **extra):
+        return {
+            "name": name, "route": "cuda",
+            "source": "photon_ml_tpu_torch/ops/csrc/entity_products.cu", "kernel": kernel,
+            "replaces": replaces, "port_only": port_only, "launches": launches,
+            **{k: fields[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "max_rel_err",
+                                      "ordered_bitwise", "calls")},
+            "work": work, **extra,
+        }
+
+    return [
+        entry("entity_products.gram", "gram_kernel", "photon_ml_tpu/game/random_effect.py:271",
+              "the JAX package's XLA product X_e @ X_e.T; no Pallas kernel", game["gram"],
+              check["gram"], f"one Gram X X^T at run G's first bucket {shape}",
+              phase15_launches=K4_RESULTS["phase15_launches"],
+              bucket_witness=K4_RESULTS["witness"]),
+        entry("entity_products.bmv", "tree_dot_kernel", "photon_ml_tpu/game/random_effect.py:288",
+              "the JAX package's XLA matvecs X_e @ c, X_e.T @ r and G @ v (:222-337); no "
+              "Pallas kernel", game["bmv"], check["bmv"],
+              f"X c, X^T r and G r at run G's first bucket {shape}"),
+        entry("entity_products.row_dot", "tree_dot_kernel",
+              "photon_ml_tpu/game/random_effect.py:274",
+              "the JAX package's sums and vdots (the per-entity values at :274, the bank "
+              "optimizers' member-wise dots and norms); no Pallas kernel", row_dot_launches,
+              K4_RESULTS["row_dot_bank"],
+              f"row_dot and row_norm over the sequential path's bank [2, {DIM}]",
+              game_launches=game["row_dot"], game_calls=check["row_dot"]["calls"],
+              game_max_rel_err=check["row_dot"]["max_rel_err"]),
+    ]
+
+
+RE_UPDATE_CHILD_FLAG = "--re-update-child"
+RE_UPDATE_REPEATS = 3  # timed calls a checkout, after one warm-up
+
+
+def re_update_child(checkout, seed) -> int:
+    """One checkout's side of ``--time-re-update``: its package (first on
+    ``sys.path``) runs what run P times on the replicated path, on run G's
+    user random-effect dataset (``game_data``: 100,000 users in buckets of
+    25,000, the dense Newton solver) with a residual of normal(0, 0.3)
+    noise from the seed as offsets: ``update_bank(..., with_variances=True)``
+    from a zero bank, then ``score_random_effect``, on the host clock
+    between two ``torch.cuda.synchronize()``; one warm-up, then
+    RE_UPDATE_REPEATS timed calls, each with the Newton iterations' mean
+    and max and the per-entity products kernel's launches where the
+    checkout has it, and then that kernel's checks and times at the first
+    bucket. It calls only entry points that every checkout since the
+    entity-sharded bank has."""
+    sys.path.insert(0, os.path.abspath(checkout))
+    import photon_ml_tpu_torch
+    from photon_ml_tpu_torch.game import score_random_effect
+
+    try:
+        from photon_ml_tpu_torch.ops.kernels import entity_products as k4
+    except ImportError:
+        k4 = None
+    if k4 is not None:
+        from photon_ml_tpu_torch.ops.kernels.cuda_build import build_logs
+
+        k4.build_kernel()
+        # ptxas -v of each kernel: registers, shared memory, spills
+        print(build_logs.get("entity_products.cu", ""), flush=True)
+    _, red = game_data(seed, "cuda")
+    rng = np.random.default_rng([seed, 16])
+    # run G's rows have zero offsets; the residual is the seed's noise
+    residual = rng.normal(size=red.row_entity_codes.shape[0]).astype(np.float32) * 0.3
+    off = torch.as_tensor(residual, device="cuda")
+    problem = pod_problem()
+    print(f"re_update: {photon_ml_tpu_torch.__file__}; {red.num_entities} entities x "
+          f"D = {red.local_dim} in {len(red.buckets)} buckets of "
+          f"{[b.num_entities for b in red.buckets]} x {red.buckets[0].capacity} rows", flush=True)
+    for i in range(RE_UPDATE_REPEATS + 1):
+        if k4 is not None:
+            k4.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank, tracker, _ = problem.update_bank(
+            torch.zeros(red.num_entities, red.local_dim, device="cuda"), red, off,
+            with_variances=True)
+        score_random_effect(bank, red)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"re_update {'warm-up' if i == 0 else 'call ' + str(i)}: {sec!r} s, "
+              f"iterations mean {tracker.iterations_mean!r} max {tracker.iterations_max}, "
+              f"K4 launches {'n/a' if k4 is None else k4.launches}", flush=True)
+    if k4 is not None:
+        # the kernel's products at the first bucket, beside torch.bmm
+        game_products_check(red, "this card", "cuda")
+    return 0
+
+
+def time_re_update(checkouts, seed) -> int:
+    """``--time-re-update``: run P's replicated random-effect update timed
+    in each checkout in turn (``re_update_child``, one process each; give
+    parent, change, change, parent to compare two), then the card's name
+    and power limit."""
+    for checkout in checkouts:
+        rc = subprocess.call([sys.executable, os.path.abspath(__file__), RE_UPDATE_CHILD_FLAG,
+                              checkout, str(seed)])
+        if rc != 0:
+            print(f"chip_smoke: the update in {checkout} exited {rc}", file=sys.stderr)
+            return rc
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(f"re_update card: {out.stdout.strip()}")
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == [ROUTE_CHILD_FLAG]:
         return route_child(sys.argv[2])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    ap.add_argument("--time-re-update", nargs="+", metavar="CHECKOUT",
+                    help="only time run P's replicated random-effect update in each "
+                         "checkout in turn (e.g. parent, change, change, parent)")
+    if sys.argv[1:2] == [RE_UPDATE_CHILD_FLAG]:
+        args = None
+    else:
+        args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 2
+    if args is None:
+        return re_update_child(sys.argv[2], int(sys.argv[3]))
+    if args.time_re_update:
+        return time_re_update(args.time_re_update, args.seed)
 
     from photon_ml_tpu_torch.data.batch import sparse_batch_from_arrays
     from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
@@ -5951,6 +6322,7 @@ def main() -> int:
     from photon_ml_tpu_torch.ops import losses
     from photon_ml_tpu_torch.ops import tiled_sparse as ts
     from photon_ml_tpu_torch.ops.kernels import bilinear_pass as k1
+    from photon_ml_tpu_torch.ops.kernels import entity_products as k4
     from photon_ml_tpu_torch.ops.kernels import grid_bilinear_pass as k2
     from photon_ml_tpu_torch.ops.objective import GLMObjective
     from photon_ml_tpu_torch.optim import common
@@ -5974,17 +6346,20 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     say(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    with ThreadPoolExecutor(4) as pool:  # two nvcc and two g++ side by side
+    with ThreadPoolExecutor(5) as pool:  # three nvcc and two g++ side by side
         f_k1 = pool.submit(k1.build_kernel)
         f_k2 = pool.submit(k2.build_kernel)
+        f_k4 = pool.submit(k4.build_kernel)
         f_native = pool.submit(ts._tile_lib)
         f_avro = pool.submit(native_avro.available)
         k1_build_s = f_k1.result()
         k2_build_s = f_k2.result()
+        k4_build_s = f_k4.result()
         native_ok = bool(f_native.result())
         avro_ok = f_avro.result()
     say(f"build: bilinear_pass.cu {k1_build_s:.2f} s, grid_bilinear_pass.cu "
-        f"{k2_build_s:.2f} s (in parallel); native schedule builder "
+        f"{k2_build_s:.2f} s, entity_products.cu {k4_build_s:.2f} s (in parallel); "
+        f"native schedule builder "
         f"{'ok' if native_ok else 'unavailable (numpy builder)'}; native Avro decoder "
         f"{'ok' if avro_ok else 'unavailable (Python codec)'}")
 
@@ -6174,6 +6549,7 @@ def main() -> int:
     # -- 4. sequential path at full width ---------------------------------------
     k1.launches = 0
     k2.launches = 0
+    k4.reset_launches()
     ts.spill_launches = 0
     common.host_fetches = 0
     t0 = time.perf_counter()
@@ -6198,6 +6574,14 @@ def main() -> int:
     torch.cuda.synchronize()
     tron_s = time.perf_counter() - t0
     launches, fetches, seq_k2 = k1.launches, common.host_fetches, k2.launches
+    k4_launches = k4.launches_by["row_dot"]
+    if k4_launches == 0:
+        fail("the sequential path never called K4 (the optimizers' member-wise dots)")
+    # K4's row_dot and row_norm at the bank's shape: the lambda grid's two
+    # members over DIM features
+    K4_RESULTS["row_dot_bank"] = k4_checks(
+        f"sequential path bank [2, {DIM}] row_dot",
+        row_dot_calls(np.random.default_rng([args.seed, 16]), ((2, DIM),), "cuda"), smi)
     k3_launches = ts.spill_launches
     if k3_launches == 0:
         fail("the sequential path never called K3")
@@ -6656,7 +7040,7 @@ def main() -> int:
                           "the reference)",
         "work": "the z-pass spill remainder at the ads shape",
         "bank_ms": k3_times["bank_ms"], "bank_bound_ms": k3b_bound,
-    }]
+    }] + k4_entries(k4_launches)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

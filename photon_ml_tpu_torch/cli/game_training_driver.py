@@ -699,7 +699,7 @@ class GameTrainingDriver:
                 total = total + sub.score(vdata)
         return total
 
-    def _re_view(self, sub, vdata: GameDataset):
+    def _re_view(self, sub, vdata: GameDataset):  # photon: entropy(id-keyed validation-view memo; identity-checked, in-memory only)
         """Project validation rows into the model's entity-local spaces,
         matching entities by raw id (unseen entities score 0); cached per
         (model's RE dataset, validation set)."""

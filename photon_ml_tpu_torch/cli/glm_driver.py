@@ -1134,6 +1134,7 @@ class GLMDriver:
         # the parent scored through TODAY's featurization: shared terms
         # contribute identically, vanished terms contribute nothing
         parent_vec = align_coefficients(self._parent_means, self._data.index_map)
+        # photon: allow(hidden-host-sync) — the gates read the candidate's means once, after the fit; this scope's gate metrics go through overlap.device_get
         candidate_means = candidate_model.means.detach().cpu().numpy()
         if p.streaming:
             validate_paths = self._dated_paths(

@@ -43,6 +43,7 @@ from photon_ml_tpu_torch.diagnostics.reporting import (
 from photon_ml_tpu_torch.ops.schedule_cache import cache_scope
 from photon_ml_tpu_torch.ops.tiled_sparse import ensure_tiled
 from photon_ml_tpu_torch.optim.problem import resolve_kernel
+from photon_ml_tpu_torch.parallel import overlap
 from photon_ml_tpu_torch.task import TaskType
 from photon_ml_tpu_torch.training import train_generalized_linear_model
 
@@ -103,11 +104,11 @@ def run_glm_diagnostics(driver) -> None:
         return key.replace("\t", " / ") if key else str(i)
 
     # -- per-lambda model diagnostics -------------------------------------
+    # the feature summary's moments, fetched once through the counted seam
+    mean, variance = overlap.device_get((summary.mean, summary.variance))
     for lam, model in driver.models.items():
         chapter = Chapter(title=f"Model lambda={lam}")
-        imp = feature_importance_diagnostic(
-            model, summary.mean.cpu().numpy(), summary.variance.cpu().numpy()
-        )
+        imp = feature_importance_diagnostic(model, mean, variance)
         chapter.sections.append(
             Section(
                 "Feature importance",

@@ -51,6 +51,7 @@ from photon_ml_tpu_torch.game.random_effect import (
 )
 from photon_ml_tpu_torch.game.random_effect_data import RandomEffectDataset
 from photon_ml_tpu_torch.game.residual_routing import PodResidualRouter, rank_within
+from photon_ml_tpu_torch.ops.kernels import entity_products
 from photon_ml_tpu_torch.optim.common import CONVERGENCE_REASON_NAMES
 from photon_ml_tpu_torch.optim.problem import _VARIANCE_EPSILON
 from photon_ml_tpu_torch.parallel import overlap
@@ -351,7 +352,7 @@ def _gather_rows(bank_l: Tensor, lrow: Tensor, valid: Tensor) -> Tensor:
 def _score_slots(bank_l: Tensor, slot_lrow, slot_ix, slot_v, slot_valid) -> Tensor:
     """This rank's slot scores against its local bank rows."""
     w_rows = bank_l.index_select(0, slot_lrow.clamp_max(bank_l.shape[0] - 1))
-    s = (slot_v.to(bank_l.dtype) * torch.gather(w_rows, 1, slot_ix)).sum(dim=-1)
+    s = entity_products.row_dot(slot_v.to(bank_l.dtype), torch.gather(w_rows, 1, slot_ix))
     return torch.where(slot_valid, s, 0.0)
 
 
@@ -395,7 +396,7 @@ class PodRandomEffectProblem:
         return ShardedREBank.zeros(self.mesh, self.spec_for(dataset), dataset.local_dim,
                                    dtype=dtype, axis=self.axis)
 
-    def pod_view(self, dataset: RandomEffectDataset) -> _PodView:
+    def pod_view(self, dataset: RandomEffectDataset) -> _PodView:  # photon: entropy(id-keyed view memo; weakref-pinned, in-memory only)
         """The sharded view, built once per dataset (kept while it lives)."""
         key = id(dataset)
         hit = self._views.get(key)
@@ -551,7 +552,7 @@ class PodRandomEffectProblem:
         w_rows = bank.data.index_select(0, torch.where(mine, lrow, 0))
         ix = torch.as_tensor(np.asarray(ix), device=dev).long()
         v = torch.as_tensor(np.asarray(v), device=dev).to(bank.data.dtype)
-        s = (v * torch.gather(w_rows, 1, ix)).sum(dim=-1)
+        s = entity_products.row_dot(v, torch.gather(w_rows, 1, ix))
         s = torch.where(mine, s, 0.0)
         return sum_in_rank_order(s, self.mesh.groups[self.axis]) if n_dev > 1 else s
 

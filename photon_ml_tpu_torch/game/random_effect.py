@@ -16,9 +16,18 @@ trial for the whole bucket. The per-entity objective is batched: a
 ``gather`` for the margins, a ``scatter_add_`` for the gradient. The dense
 layouts densify each entity's rows into ``X [E, S, D]`` by an indexed
 ``scatter_add_`` (the reference's compare-and-reduce ``_densify``, a TPU
-answer to serialized scatters) and run on ``torch.bmm``. The dual-space
-Newton solver is a host loop over the whole bucket: one fetch per Newton
-iteration, converged entities frozen bit for bit.
+answer to serialized scatters). The dual-space Newton solver is a host
+loop over the whole bucket: one fetch per Newton iteration, converged
+entities frozen bit for bit.
+
+Every per-entity product and sum (the Gram, the batched matvecs, the
+values, margins and norms, and the optimizers' member-wise dots) goes
+through ``ops/kernels/entity_products.py``: on the card a kernel that
+adds in ``data/batch.py`` ``row_sum``'s order, on the CPU PyTorch's own
+operators. Either way an entity's row, iterations and stop reason depend
+on its own data alone, not on how many entities share its bucket or the
+padding beside it, so a shard block of the hash-sharded bank
+(``game/pod.py``) solves each entity to the bits of its bucket.
 
 With a ``mesh`` (this rank's ``parallel.mesh.ProcessMesh``) the bank stays
 whole on every rank, and every bucket's entity axis is split over the
@@ -39,6 +48,7 @@ import torch
 
 from photon_ml_tpu_torch.game.random_effect_data import RandomEffectDataset
 from photon_ml_tpu_torch.ops import fixed_order
+from photon_ml_tpu_torch.ops.kernels import entity_products
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.optim import common
 from photon_ml_tpu_torch.optim.common import (
@@ -133,8 +143,9 @@ def densify_compare(ix: Tensor, v: Tensor, d_local: int, chunk: int = 1024) -> T
 
 
 def _bmv(A: Tensor, x: Tensor) -> Tensor:
-    """Batched matrix-vector product [E, m, n] x [E, n] -> [E, m]."""
-    return torch.bmm(A, x[..., None])[..., 0]
+    """Batched matrix-vector product [E, m, n] x [E, n] -> [E, m], per
+    entity in a fixed order (module note)."""
+    return entity_products.bmv(A, x)
 
 
 def _lanes(l2):
@@ -156,7 +167,7 @@ def _sparse_objective(loss: PointwiseLoss, ix, v, lab, off, w, l2):
     l2, l2c = _lanes(l2)
 
     def margins(c):
-        return (v * torch.gather(c, 1, flat).view(E, S, k)).sum(dim=-1)
+        return _dot(v, torch.gather(c, 1, flat).view(E, S, k))
 
     def scatter(c_like, rows):
         return fixed_order.scatter_add_rows(
@@ -165,7 +176,7 @@ def _sparse_objective(loss: PointwiseLoss, ix, v, lab, off, w, l2):
 
     def vg(c):
         z = margins(c) + off
-        val = (w * loss.value(z, lab)).sum(dim=-1) + 0.5 * l2 * (c * c).sum(dim=-1)
+        val = _dot(w, loss.value(z, lab)) + 0.5 * l2 * _dot(c, c)
         grad = scatter(c, v * (w * loss.d1(z, lab))[..., None]) + l2c * c
         return val, grad
 
@@ -188,7 +199,7 @@ def _dense_objective(loss: PointwiseLoss, X, lab, off, w, l2):
 
     def vg(c):
         z = _bmv(X, c) + off
-        val = (w * loss.value(z, lab)).sum(dim=-1) + 0.5 * l2 * (c * c).sum(dim=-1)
+        val = _dot(w, loss.value(z, lab)) + 0.5 * l2 * _dot(c, c)
         return val, _bmv(Xt, w * loss.d1(z, lab)) + l2c * c
 
     def hvp(c, d):
@@ -199,7 +210,8 @@ def _dense_objective(loss: PointwiseLoss, X, lab, off, w, l2):
 
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
-    return (a * b).sum(dim=-1)
+    """Per-entity inner product over the last axis, in a fixed order."""
+    return entity_products.row_dot(a, b)
 
 
 def newton_solve(
@@ -220,11 +232,11 @@ def newton_solve(
     converged entities frozen. -> (coefficients, iterations, reasons)."""
     E, S, _ = X.shape
     Xt = X.transpose(1, 2)
-    G = torch.bmm(X, Xt)
+    G = entity_products.gram(X)
     l2, l2c = _lanes(l2)
 
     def value(c, z):
-        return (w * loss.value(z, lab)).sum(dim=-1) + 0.5 * l2 * _dot(c, c)
+        return _dot(w, loss.value(z, lab)) + 0.5 * l2 * _dot(c, c)
 
     def grad_vec(z, c):
         return _bmv(Xt, w * loss.d1(z, lab)) + l2c * c
@@ -233,7 +245,7 @@ def newton_solve(
     z = _bmv(X, c) + off
     f0 = value(c, z)
     g = grad_vec(z, c)
-    g0_norm = torch.linalg.vector_norm(g, dim=-1)
+    g0_norm = entity_products.row_norm(g)
     f = f0
     reason = torch.where(g0_norm == 0.0, GRADIENT_WITHIN_TOLERANCE, NOT_CONVERGED)
     it = torch.zeros(E, dtype=torch.int64, device=X.device)
@@ -283,7 +295,7 @@ def newton_solve(
             a = 2.0 ** -(j if newton else j - 8)
             z_j = z + a * (z_step if newton else z_step_c)
             cs, ss = (cs_n, ss_n) if newton else (cs_c, ss_c)
-            f_j = (w * loss.value(z_j, lab)).sum(dim=-1) + 0.5 * l2 * (
+            f_j = _dot(w, loss.value(z_j, lab)) + 0.5 * l2 * (
                 cc + 2.0 * a * cs + a * a * ss
             )
             f_min = f_j if f_min is None else torch.where(
@@ -305,7 +317,7 @@ def newton_solve(
         f2 = torch.where(moved, f_t, f)
         it2 = it + 1
         g2 = grad_vec(z2, c2)
-        g_norm = torch.linalg.vector_norm(g2, dim=-1)
+        g_norm = entity_products.row_norm(g2)
         code = torch.where(
             moved,
             check_convergence(it2, f, f2, g_norm, f0, g0_norm, max_iter=max_iter, tol=tol),
@@ -541,7 +553,7 @@ class RandomEffectOptimizationProblem:
 
     # -- over a mesh ----------------------------------------------------------
 
-    def _router_for(self, dataset: RandomEffectDataset):
+    def _router_for(self, dataset: RandomEffectDataset):  # photon: entropy(id(mesh)-keyed router memo; identity-checked, in-memory only)
         """The dataset's ResidualRouter for this mesh, built once and kept
         on the dataset (its tables are static per dataset and mesh)."""
         from photon_ml_tpu_torch.game.residual_routing import ResidualRouter
@@ -744,7 +756,8 @@ def score_random_effect(bank: Tensor, dataset: RandomEffectDataset) -> Tensor:
     data have zero coefficients, RandomEffectCoordinate.scala:178-199).
     The bank is gathered as ``bank[codes[:, None], ix]`` ([n, k]), the
     same result as the reference's ``[n, D]`` row gather without
-    materializing it."""
+    materializing it, and each row sums in the fixed order (module
+    note), as the pod's owners score their slots."""
     codes, valid, ix, v = device_row_view(dataset)
-    score = (v.to(bank.dtype) * bank[codes[:, None], ix]).sum(dim=-1)
+    score = _dot(v.to(bank.dtype), bank[codes[:, None], ix])
     return torch.where(valid, score, 0.0)

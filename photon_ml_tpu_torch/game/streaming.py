@@ -65,6 +65,7 @@ from photon_ml_tpu_torch.io.streaming import (
     stream_budget_rows,
     unregister_spill_dir,
 )
+from photon_ml_tpu_torch.ops.kernels import entity_products
 from photon_ml_tpu_torch.ops.objective import (
     GLMObjective,
     partial_hessian_diagonal,
@@ -968,7 +969,8 @@ class StreamingRandomEffectCoordinate:
         ix = torch.from_numpy(chunk[f"ix__{sid}"]).to(dev).long()
         v = torch.from_numpy(chunk[f"v__{sid}"]).to(dev)
         rows = bank.index_select(0, codes.clamp_min(0).long())
-        score = (v * torch.gather(rows, 1, ix)).sum(dim=-1)
+        # the pod's score_chunk's order of additions
+        score = entity_products.row_dot(v, torch.gather(rows, 1, ix))
         return torch.where(valid, score, 0.0)
 
     def regularization_term(self, bank) -> float:

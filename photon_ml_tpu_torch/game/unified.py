@@ -271,7 +271,7 @@ class UnifiedGridREProblem:
             dataset.local_dim, dtype=dtype,
         )
 
-    def pod_view(self, dataset) -> _PodView:
+    def pod_view(self, dataset) -> _PodView:  # photon: entropy(id-keyed view memo; weakref-pinned, in-memory only)
         key = id(dataset)
         hit = self._views.get(key)
         if hit is not None and hit[0]() is dataset:

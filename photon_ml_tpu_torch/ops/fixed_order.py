@@ -55,7 +55,7 @@ _PLANS_MAX = 16
 _plans: dict = {}
 
 
-def cached_plan(index: Tensor, width: Optional[int] = None) -> SegmentPlan:
+def cached_plan(index: Tensor, width: Optional[int] = None) -> SegmentPlan:  # photon: entropy(id-keyed plan memo; weakref- and version-checked, never serialized)
     """:func:`segment_plan` of ``index``, made once while the tensor lives
     unedited; with ``width``, of a row-wise scatter's flat output
     coordinates (row * width + index, rows along the last axis)."""

@@ -67,6 +67,7 @@ from photon_ml_tpu_torch.ops.normalization import (
     identity_context,
 )
 from photon_ml_tpu_torch.ops.objective import per_member, squared_norm, sum_partials
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS
 from photon_ml_tpu_torch.utils.device import DeviceLike, build_dir, resolve_device
 
 Tensor = torch.Tensor
@@ -855,7 +856,7 @@ def _pad_rows_on_device(t: Tensor, total: int, start: int = 0) -> Tensor:
     return out
 
 
-def _lookup(cache, batch, key_rest):
+def _lookup(cache, batch, key_rest):  # photon: entropy(id-keyed tiling memo; identity-checked, never serialized)
     """The in-memory tier: -> (key, the held conversion or None). A stale
     entry of the same tensors (edited since) is dropped."""
     src = (batch.indices, batch.values, batch.weights)
@@ -922,7 +923,7 @@ def ensure_tiled(
 
 
 def ensure_tiled_sharded(
-    batch, dim: int, mesh, axis: str = "data", *,
+    batch, dim: int, mesh, axis: str = DATA_AXIS, *,
     params: Optional[TileParams] = None,
 ) -> TiledSparseBatch:
     """Idempotent data-parallel tiled conversion on this rank of ``mesh``

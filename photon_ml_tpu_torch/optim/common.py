@@ -49,6 +49,7 @@ from typing import Callable, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from photon_ml_tpu_torch.ops.kernels import entity_products
 from photon_ml_tpu_torch.parallel.multihost import gather_in_rank_order
 
 Tensor = torch.Tensor
@@ -140,8 +141,10 @@ def _sharded(mesh: Optional[MeshReductions]) -> bool:
 
 def dot(a: Tensor, b: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:
     """Member-wise inner product of two banks [G, d] -> [G] (over every
-    feature block on a sharded mesh)."""
-    out = (a * b).sum(dim=-1)
+    feature block on a sharded mesh), each member in ``row_sum``'s order
+    of additions (``ops/kernels/entity_products.py``): a member's bits do
+    not depend on how many members share the bank."""
+    out = entity_products.row_dot(a, b)
     return all_reduce(out, mesh.model) if _sharded(mesh) else out
 
 
@@ -150,20 +153,21 @@ def dots(*pairs, mesh: Optional[MeshReductions] = None) -> List[Tensor]:
     all-reduce."""
     if not _sharded(mesh):
         return [dot(a, b) for a, b in pairs]
-    parts = torch.stack([(a * b).sum(dim=-1) for a, b in pairs])
+    parts = torch.stack([entity_products.row_dot(a, b) for a, b in pairs])
     return list(all_reduce(parts, mesh.model).unbind(0))
 
 
 def norm(a: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:
     """Member-wise Euclidean norm [G, d] -> [G]."""
     if not _sharded(mesh):
-        return torch.linalg.vector_norm(a, dim=-1)
+        return entity_products.row_norm(a)
     return torch.sqrt(torch.clamp_min(dot(a, a, mesh), 0.0))
 
 
 def feature_sum(a: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:
-    """Member-wise sum over the feature axis [G, d] -> [G]."""
-    out = a.sum(dim=-1)
+    """Member-wise sum over the feature axis [G, d] -> [G], in
+    ``row_sum``'s order."""
+    out = entity_products.row_dot(a)
     return all_reduce(out, mesh.model) if _sharded(mesh) else out
 
 

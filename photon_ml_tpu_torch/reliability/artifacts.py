@@ -45,8 +45,8 @@ def atomic_writer(
     except BaseException:
         try:
             os.unlink(tmp)
-        except OSError:
-            pass  # best effort; the original exception re-raises below
+        except OSError:  # photon: allow(PL006) — best-effort tmp cleanup on the error path; the original exception re-raises below
+            pass
         raise
 
 

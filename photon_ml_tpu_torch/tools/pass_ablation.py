@@ -207,10 +207,11 @@ def main() -> int:
                 fn = lambda s=s, cfg=cfg: k2.launch_with(cfg, s, bank, n_blocks, win, s.vals)
                 record(shape, "k2", pass_name, variant, fn, s, n_src, n_out, G, cfg)
     if args.json:
+        from photon_ml_tpu_torch.reliability.artifacts import atomic_write_json
+
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump({"device": smi, "package": photon_ml_tpu_torch.__file__,
-                       "rows": rows, "ptxas": logs}, f, indent=1)
+        atomic_write_json(args.json, {"device": smi, "package": photon_ml_tpu_torch.__file__,
+                                      "rows": rows, "ptxas": logs}, indent=1)
     print(smi)
     return 0
 

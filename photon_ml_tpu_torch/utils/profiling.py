@@ -15,7 +15,7 @@ from contextlib import contextmanager, nullcontext
 from typing import Dict, Optional
 
 
-def profile_path(profile_dir: str) -> str:
+def profile_path(profile_dir: str) -> str:  # photon: entropy(pid-named trace file; one trace a process by design, as torch.profiler names it)
     """The Chrome trace this process's ``profile_trace`` writes."""
     return os.path.join(profile_dir, f"{os.getpid()}.pt.trace.json")
 

@@ -437,3 +437,72 @@ def test_feature_sharded_fits_on_card_match_cpu(cuda):
                 want_value, want_iterations = cpu[0][name]["fits"][lam]
                 assert iterations == want_iterations
                 np.testing.assert_allclose(value, want_value, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4, the per-entity products in row_sum's order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_entity_products_give_row_sums_bits(cuda, dtype):
+    """K4's Gram, matvecs (X, X^T as a view, G) and row dots are bitwise
+    their ``*_ordered`` forms (row_sum of the products, on the CPU), and
+    within rounding of the plain versions; every launch plan (a warp or
+    less, a CTA, partial launches of a long row) at once."""
+    from photon_ml_tpu_torch.ops.kernels import entity_products as ep
+
+    ep.build_kernel()
+    rng = np.random.default_rng(11)
+    X = torch.as_tensor(rng.normal(size=(37, 19, 45)), dtype=dtype)
+    c = torch.as_tensor(rng.normal(size=(37, 45)), dtype=dtype)
+    r = torch.as_tensor(rng.normal(size=(37, 19)), dtype=dtype)
+    Xd, cd, rd = X.to(cuda), c.to(cuda), r.to(cuda)
+    G = ep.gram(Xd)
+    assert torch.equal(G.cpu(), ep.gram_ordered(X))
+    assert torch.equal(ep.bmv(Xd, cd).cpu(), ep.bmv_ordered(X, c))
+    assert torch.equal(ep.bmv(Xd.transpose(1, 2), rd).cpu(), ep.bmv_ordered(X.transpose(1, 2), r))
+    assert torch.equal(ep.bmv(G, rd).cpu(), ep.bmv_ordered(ep.gram_ordered(X), r))
+    torch.testing.assert_close(G, ep.gram_plain(Xd), rtol=1e-5, atol=1e-5)
+    # the Gram kernel at run G's entity shape (f64: past 48 KB of shared
+    # memory) and, past a warp's row, the general kernel
+    for shape in ((8, 16, 437), (3, 5, 600)):
+        Xs = torch.as_tensor(rng.normal(size=shape), dtype=dtype)
+        assert (ep.gram_plan(shape[1], shape[2], Xs.element_size()) is None) == (shape[2] > 512)
+        assert torch.equal(ep.gram(Xs.to(cuda)).cpu(), ep.gram_ordered(Xs))
+    for k in (1, 3, 32, 600, 20_000, 300_000):
+        a = torch.as_tensor(rng.normal(size=(5, k)), dtype=dtype)
+        b = torch.as_tensor(rng.normal(size=(5, k)), dtype=dtype)
+        assert torch.equal(ep.row_dot(a.to(cuda), b.to(cuda)).cpu(), ep.row_dot_ordered(a, b))
+        assert torch.equal(ep.row_dot(a.to(cuda)).cpu(), ep.row_dot_ordered(a))
+    with pytest.raises(ValueError):
+        ep.row_dot(Xd.to(torch.float16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["newton", "dense_lbfgs", "dense_tron", "sparse_lbfgs"])
+def test_entity_solves_on_card_bitwise_in_any_block(cuda, case):
+    """On the card, a bucket solved whole and as padded sub-blocks of other
+    entity counts gives its shared entities the same rows, iterations and
+    stop reasons, bit for bit (``tests/test_torch_entity_order.py`` holds
+    the same on the CPU)."""
+    import test_torch_entity_order as order
+
+    from photon_ml_tpu_torch.ops.kernels import entity_products as ep
+
+    kind, opt = order.SOLVES[case]
+    problem = order._problem(opt)
+    ix, v, lab, off, w = (t.to(cuda) for t in order._bucket(7, torch.float32))
+    start = torch.zeros(order.E, order.D, device=cuda)
+    ep.launches = 0
+    rows, iters, reasons = problem._solve(kind, start, ix, v, lab, off, w, 0.0, 1.0)
+    assert ep.launches > 0
+    iters, reasons = order._as_list(iters), order._as_list(reasons)
+    for pick, width in ((list(range(0, order.E, 2)), 23), (list(range(1, order.E, 3)), 14)):
+        sub = [order._block(t, pick, width) for t in (start, ix, v, lab, off, w)]
+        got, it, rs = problem._solve(kind, sub[0], *sub[1:], 0.0, 1.0)
+        n = len(pick)
+        assert torch.equal(got[:n], rows[pick])
+        assert order._as_list(it)[:n] == [iters[p] for p in pick]
+        assert order._as_list(rs)[:n] == [reasons[p] for p in pick]

@@ -86,10 +86,42 @@ def test_fresh_interpreter_imports_no_jax():
         "parallel", "parallel.distributed", "models", "models.glm",
         "models.coefficients", "optim", "optim.common", "optim.problem", "io",
         "io.libsvm", "evaluation", "data.batch", "ops.objective",
-        "ops.schedule_cache", "ops.tiled_sparse",
+        "ops.schedule_cache", "ops.tiled_sparse", "ops.kernels.entity_products",
+        "lint", "lint.core", "lint.baseline", "lint.cli", "lint.__main__",
+        "lint.determinism", "lint.rules", "lint.rules.host_sync", "lint.rules.spill",
+        "lint.rules.io_drain", "lint.rules.reliability", "lint.rules.request_path",
+        "lint.rules.shared_state", "lint.rules.lock_order", "lint.rules.atomicity",
+        "lint.rules.artifact_order", "lint.rules.entropy", "lint.rules.float_order",
+        "lint.rules.wire_contract",
     ):
         assert f"photon_ml_tpu_torch.{module}" in out
     assert not [m for m in out if _forbidden(m)]
+
+
+def test_lint_imports_only_the_stdlib():
+    """The port's analyzer (``photon_ml_tpu_torch/lint/``) imports the
+    standard library and itself: no torch, no jax, nothing of the JAX
+    package, so it runs wherever the sources are."""
+    lint_dir = os.path.join(PKG, "lint")
+    seen = set()
+    for root, _, files in os.walk(lint_dir):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            tree = ast.parse(open(os.path.join(root, f)).read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module]
+                else:
+                    continue
+                for name in names:
+                    seen.add(name)
+                    top = name.split(".")[0]
+                    assert top in sys.stdlib_module_names or name.startswith(
+                        "photon_ml_tpu_torch.lint"), f"{f} imports {name}"
+    assert "ast" in seen and "tokenize" in seen
 
 
 _BLOCKER = (

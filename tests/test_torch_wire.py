@@ -120,7 +120,9 @@ class TestBytesMatchTheReference:
             assert getattr(wire, name) == getattr(ref_wire, name), name
 
 
-FUZZ = {
+# malformed payloads, keyed by every MSG_* type of the port's wire module
+# (the port's PL018 checks the keys against the module's inventory)
+WIRE_FUZZ_CORPUS = {
     wire.MSG_JSON: [b"{", b"[1, 2]", b"\xff\xfe\x00"],
     wire.MSG_SCORE_REQUEST: [
         struct.pack("<I", 999) + b"{}",
@@ -133,6 +135,50 @@ FUZZ = {
         _hdr({}), _hdr({"spans": [{}]}), _hdr({"spans": [1]}, b"\x00" * 16),
     ],
 }
+FUZZ = WIRE_FUZZ_CORPUS
+
+
+class TestWireFuzzCorpus:
+    """The WIRE_FUZZ_CORPUS contract, runtime half (after the reference's
+    ``tests/test_wire.py``): the port's PL018 proves the corpus keys track
+    wire.py's MSG_* inventory; these prove every payload is refused by
+    both packages' codecs alike, bare and through their framing."""
+
+    def test_corpus_covers_every_message_type(self):
+        inventory = {
+            v for k, v in vars(wire).items() if k.startswith("MSG_") and isinstance(v, int)
+        }
+        assert set(WIRE_FUZZ_CORPUS) == inventory
+        assert len(inventory) == sum(1 for k in vars(wire) if k.startswith("MSG_"))
+        ref_inventory = {
+            v for k, v in vars(ref_wire).items() if k.startswith("MSG_") and isinstance(v, int)
+        }
+        assert inventory == ref_inventory
+
+    def test_every_payload_is_the_same_refusal_in_both_codecs(self):
+        for mtype, payloads in WIRE_FUZZ_CORPUS.items():
+            assert payloads, f"empty corpus list for 0x{mtype:02x}"
+            for payload in payloads:
+                with pytest.raises(wire.WireError) as ours:
+                    wire.decode_message(mtype, payload)
+                with pytest.raises(ref_wire.WireError) as theirs:
+                    ref_wire.decode_message(mtype, payload)
+                assert (ours.value.kind, str(ours.value)) == (theirs.value.kind, str(theirs.value))
+
+    def test_corpus_payloads_survive_framing_then_refuse(self):
+        for mtype, payloads in WIRE_FUZZ_CORPUS.items():
+            for payload in payloads:
+                buf, ref_buf = bytearray(), bytearray()
+                wire.append_frame(buf, mtype, payload)
+                ref_wire.append_frame(ref_buf, mtype, payload)
+                assert bytes(buf) == bytes(ref_buf)
+                for codec in (wire, ref_wire):
+                    frames = codec.FrameDecoder().feed(bytes(buf))
+                    assert len(frames) == 1
+                    got_type, got_payload = frames[0]
+                    assert (got_type, bytes(got_payload)) == (mtype, payload)
+                    with pytest.raises(codec.WireError):
+                        codec.decode_message(got_type, got_payload)
 
 
 class TestRefusals:
