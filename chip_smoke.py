@@ -30,22 +30,30 @@ Phases, each printing its own lines:
    sleep, so they are the card's and not the wrappers'): K1 beside its
    plain version and one torch.sparse CSR matvec of the same X; K2 at
    G = 4 beside its plain version, the CSR product with the bank (SpMM)
-   and 4 launches of K1; K3, the spill remainder (index_add_), for a
-   vector and for the bank; each with its bound, and each pass's launch
+   and 4 launches of K1; K3, the spill remainder, folded into K1 and K2:
+   each ads pass with and without its spill, in turns, and the time the
+   fold adds, beside ``index_add_`` of the spilled products, for a vector
+   and for the bank (the fused passes bitwise the unfused launch followed
+   by ``spill_ordered`` at the small and ads shapes, and within RTOL of
+   ``index_add_``); each with its bound, and each pass's launch
    plan (CTAs, entries per work item, resident CTAs per SM) and share of
    its bound. The CSR calls are yardsticks the port never makes;
 4. the sequential path at full width on planted-model logistic data: the
    warm-started L-BFGS lambda-grid [10, 1] with variances and a TRON fit
    through ``train_generalized_linear_model(kernel="tiled")``, then scores
-   and AUC, with K1's launches over exactly that run, and K4's (the
-   optimizers' member-wise dots and norms); then K4's row_dot and
-   row_norm at the bank's shape [2, 2^20] (two partial launches and a
-   CTA's reduction), bitwise their row_sum forms, within 1e-5 of .sum's
-   and vector_norm's scale, timed beside them and torch.linalg.vecdot;
+   and AUC, with K1's launches over exactly that run, the passes that
+   carried the spill remainder (K1's launches that folded it in),
+   and K4's row launches (the optimizers' member-wise dots and norms);
+   then K4's row_dot, row_norm and row_dots (four pairs) at the bank's
+   shape [2, 2^20] (one launch each: a row's CTAs merged by tickets),
+   bitwise their row_sum forms, within 1e-5 of .sum's and vector_norm's
+   scale, timed beside them and torch.linalg.vecdot / vector_norm;
 5. the batched grid path at full width on the same data, through
    ``train_grid_batched(kernel="tiled")``: L-BFGS over [10, 1, 0.1, 0.01]
    with variances, TRON over [10, 1] and OWL-QN elastic net over [1, 0.1],
-   with K2's and K1's launches and the host fetches over exactly each run;
+   with K2's, K1's and K4's row launches and the host fetches over
+   exactly each run, and K4's row kernel checked and timed at the grid's
+   bank [4, 2^20] as in phase 4;
    then the bank objective against K1's objective at every L-BFGS
    member's final point, each L-BFGS member against a cold sequential
    fit of its lambda, the batched L-BFGS grid's seconds against the
@@ -334,19 +342,23 @@ Phases, each printing its own lines:
    in the driver runs, K1's in run D's diagnose stage, in the GAME runs,
    in runs F and R, in phase 10's runs, in run L's, in phase 15's and in
    phase 14's surface checks; K2's in ``run_grid(offsets_bank=)``;
-   K1's at the GAME shape with its plain and library times; K3's library
-   time, ``index_add_``; K4 as three entries, one per wrapper: the Gram
+   K1's at the GAME shape with its plain and library times; K3 folded
+   into K1/K2: the passes that carried it, the
+   time the fold adds to a pass, its library time (``index_add_``); K4
+   as three entries, one per wrapper: the Gram
    and the matvecs with their launches in run G and times at its bucket
    (library time ``torch.bmm``'s), the Gram's with phase 15's launches and
-   the bucket witness; row_dot with its launches on the sequential path
-   and times at its bank (library time ``torch.linalg.vecdot``'s), run
-   G's launches and shapes beside), the nvidia-smi line, and the last line
+   the bucket witness; row_dot (row_norm and row_dots with it) with its
+   launches on the sequential path and times at its bank (library time
+   ``torch.linalg.vecdot``'s), the batched path's and run G's launches
+   and shapes beside), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Every kernel check also launches K1 (z, g, g_sq), K2 and K3 twice on the
-same operands at the small, ads, mesh-cell, GAME and streamed-chunk
-shapes and fails unless the two give the same bits: the kernels add in a
-fixed order (``ops/csrc/bilinear_pass_core.cuh``).
+Every kernel check also launches K1 (z, g, g_sq) and K2, each with the
+spill remainder folded in, twice on the same operands at the small, ads,
+mesh-cell, GAME and streamed-chunk shapes and fails unless the two give
+the same bits: the kernels add in a fixed order
+(``ops/csrc/bilinear_pass_core.cuh``).
 
 It exits non-zero without a CUDA card, without the package beside it, or
 when any check fails. It imports nothing of JAX.
@@ -726,8 +738,9 @@ def pass_bound_ms(sched, n_src, n_out, members=1):
     output written once, over the HBM rate; or 2 flops per entry and
     member over the f32 rate, whichever is larger. Entries are the slots
     of the G steps that hold a value (the data's values are normal draws,
-    never 0); padding slots and spilled entries (added by ``apply_spill``,
-    not K1 or K2) do no work of the kernel's function."""
+    never 0); padding slots do no work of the kernel's function, and the
+    spilled entries (K3, folded into the pass, bounded and timed apart by
+    ``spill_bound_ms``) are not counted."""
     entries = int(torch.count_nonzero(sched.vals[: sched.num_steps]))
     nbytes = 12 * entries + 4 * members * (n_src + n_out)
     bound = max(
@@ -737,12 +750,13 @@ def pass_bound_ms(sched, n_src, n_out, members=1):
 
 
 def spill_bound_ms(sched, members=1):
-    """Least time for K3: each spilled entry's (out, in, val) read once,
-    its source element read once and its output element read and written
+    """Least time for K3, the spill remainder folded into a pass: each
+    spilled entry's (out, in, val) read once and its source element read
     once per member, over the HBM rate (its 2 flops per entry and member
-    bound it far less)."""
+    bound it far less); the output element is the pass's, read by no one
+    and written once by the pass either way."""
     spills = int(torch.count_nonzero(sched.spill_vals))
-    nbytes = 12 * spills + 12 * members * spills
+    nbytes = 12 * spills + 4 * members * spills
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, spills
 
 
@@ -769,29 +783,68 @@ def pass_errors(k1, k2, tb, rng, G):
 
 
 def repeat_checks(k1, k2, tb, rng, label, G=GRID_G, quiet=False):
-    """The fixed order of additions: K1 (z, g, g_sq), K2 over a bank of G
-    and K3 (the spill remainder, on a vector and on the bank), each
-    launched twice on the same operands, must give the same bits. Fails
-    otherwise; -> the number of pairs compared."""
+    """The fixed order of additions: K1 (z, g, g_sq) and K2 over a bank of
+    G, each with its spill remainder folded in (K3, as the objective runs
+    them), launched twice on the same operands, must give the same bits.
+    Fails otherwise; -> the number of pairs compared."""
     win = tb.params.window
     w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device=tb.device)
     c = torch.as_tensor(rng.normal(size=(G, tb.num_rows)).astype(np.float32), device=tb.device)
     pairs = 0
     for name, sched, src, n_out, vals in pass_args(tb, w, c):
+        spill_vals = None if vals is None else sched.spill_vals ** 2
         for kernel, run, x in (("K1", k1.bilinear_pass, src[0]), ("K2", k2.grid_bilinear_pass, src)):
-            first = run(sched, x, n_out, win, vals=vals)
-            again = run(sched, x, n_out, win, vals=vals)
-            spill_vals = None if vals is None else sched.spill_vals ** 2
-            spills = [sched.apply_spill(first.clone(), x, vals=spill_vals) for _ in range(2)]
+            first, again = (run(sched, x, n_out, win, vals=vals, spill=True, spill_vals=spill_vals)
+                            for _ in range(2))
             if not torch.equal(first, again):
                 fail(f"repeat {label} {kernel} {name}: two launches gave other bits")
-            if not torch.equal(spills[0], spills[1]):
-                fail(f"repeat {label} K3 after {kernel} {name}: two calls gave other bits")
-            pairs += 2
+            pairs += 1
     if not quiet:
-        say(f"repeat {label}: K1 z/g/g_sq, K2 G={G} and K3 on a vector and on the bank, "
-            f"each bitwise on two launches ({pairs} pairs)")
+        say(f"repeat {label}: K1 z/g/g_sq and K2 G={G}, the spill folded in (K3), each "
+            f"bitwise on two launches ({pairs} pairs)")
     return pairs
+
+
+def fold_checks(k1, k2, tb, rng, label, G=GRID_G):
+    """K3 folded into K1 and K2: the z, g and g_sq passes with their spill
+    are bitwise the same launch without it followed by ``spill_ordered``
+    (the fold's plain form: each slot's spilled products fused-multiply-
+    added in entry order, then added once), and within RTOL of each output's addends'
+    magnitude of ``index_add_`` of the spilled products after it, for K1
+    and K2 over a bank of G. Fails otherwise; -> the worst (abs, rel)
+    error against ``index_add_``."""
+    win = tb.params.window
+    cuda = torch.device("cuda")
+    w = torch.as_tensor(rng.normal(size=(G, tb.dim)).astype(np.float32), device=cuda)
+    c = torch.as_tensor(rng.normal(size=(G, tb.num_rows)).astype(np.float32), device=cuda)
+    worst, slots = (0.0, 0.0), 0
+    for name, sched, src, n_out, vals in pass_args(tb, w, c):
+        v = sched.vals if vals is None else vals
+        sv = sched.spill_vals if vals is None else sched.spill_vals ** 2
+        spill = k1.spill_operands(sched, sv)
+        if spill is None:
+            fail(f"fold {label} {name}: the schedule has no spill")
+        slots = max(slots, spill[0].num_segments)
+        for kernel, mod, x, cfg in (
+            ("K1", k1, src[0], k1.launch_config(sched, v, cuda)),
+            ("K2", k2, src, k2.launch_config(sched, v, cuda, G)),
+        ):
+            fused = mod.launch_with(cfg, sched, x, n_out, win, v, spill)
+            unfused = mod.launch_with(cfg, sched, x, n_out, win, v)
+            if not torch.equal(fused, k1.spill_ordered(unfused.clone(), x, *spill)):
+                fail(f"fold {label} {kernel} {name}: the fused pass is not the unfused pass "
+                     "followed by spill_ordered, bit for bit")
+            products = sv * x.index_select(-1, sched.spill_in)
+            # the addends: the unfused pass's output and the spilled products
+            mag = unfused.abs().index_add_(-1, sched.spill_out, products.abs())
+            plain = unfused.index_add_(-1, sched.spill_out, products)
+            err = check_close(f"fold {label} {kernel} {name} vs index_add_", fused, plain,
+                              quiet=True, mag=mag)
+            worst = tuple(map(max, worst, err))
+    say(f"fold {label}: K1 and K2 G={G} z/g/g_sq with the spill folded in ({slots} spilled "
+        f"slots at most) bitwise the unfused launch + spill_ordered; against index_add_ "
+        f"max abs err {worst[0]!r}, rel {worst[1]!r}")
+    return worst
 
 
 def cell_times(k1, k2, tb, rows, feats, vals, rng):
@@ -1835,16 +1888,21 @@ def k4_checks(label, calls, smi):
 
 
 def row_dot_calls(rng, shapes, device):
-    """K4's row_dot and row_norm checks at each ``[n, k]`` of ``shapes``
-    (normal operands from ``rng``): the plain versions are ``.sum`` and
-    ``vector_norm``, the library calls ``torch.linalg.vecdot`` and
-    ``vector_norm``."""
+    """K4's row kernel checks at each ``[n, k]`` of ``shapes`` (normal
+    operands from ``rng``): row_dot, row_norm (its operand read once) and
+    row_dots of TRON's four pairs over three banks, ``(x, y), (x, x), (z,
+    x), (z, z)``, in one launch. The plain versions are ``.sum``,
+    ``vector_norm`` and a stack of ``.sum``s; the library calls
+    ``torch.linalg.vecdot``, ``vector_norm`` and one ``vecdot`` of the
+    pairs stacked beforehand."""
     from photon_ml_tpu_torch.ops.kernels import entity_products as k4
 
     calls = {}
     for n, k in shapes:
-        a, b = (torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=device)
-                for _ in range(2))
+        a, b, z = (torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=device)
+                   for _ in range(3))
+        if not hasattr(k4, "row_dots"):  # a checkout before the row kernel
+            z = None
         calls[f"dot_{n}x{k}"] = (
             lambda a=a, b=b: k4.row_dot(a, b), lambda a=a, b=b: k4.row_dot_plain(a, b),
             lambda a=a, b=b: k4.row_dot_ordered(a, b),
@@ -1853,6 +1911,16 @@ def row_dot_calls(rng, shapes, device):
             lambda a=a: k4.row_norm(a), lambda a=a: k4.row_norm_plain(a),
             lambda a=a: torch.sqrt(k4.row_dot_ordered(a, a)),
             lambda a=a: torch.linalg.vector_norm(a, dim=-1), product_bound_ms(n, 1, 1, k, n * k))
+        if z is None:
+            continue
+        pairs = [(a, b), (a, a), (z, a), (z, z)]
+        left, right = (torch.stack(t) for t in zip(*pairs))
+        calls[f"dots4_{n}x{k}"] = (
+            lambda p=pairs: k4.row_dots(p),
+            lambda p=pairs: torch.stack([k4.row_dot_plain(x, y) for x, y in p]),
+            lambda p=pairs: torch.stack([k4.row_dot_ordered(x, y) for x, y in p]),
+            lambda x=left, y=right: torch.linalg.vecdot(x, y),
+            product_bound_ms(4 * n, 1, 1, k, 3 * n * k))
     return calls
 
 
@@ -2212,6 +2280,8 @@ def game_run_g(seed, smi, k1, device="cuda"):
     peak = torch.cuda.max_memory_allocated()
     game_launches = k1.launches
     K4_RESULTS["game_launches"] = dict(k4.launches_by)
+    say(f"game run G K4 launches over both sweeps ({smi}): row_dot "
+        f"{k4.launches_by['row_dot']}, by wrapper {dict(k4.launches_by)}")
     idle = [kind for kind, n in k4.launches_by.items() if n == 0]
     if idle and torch.device(device).type == "cuda":
         fail(f"game run G: the random effect launched no K4 {idle}")
@@ -6175,12 +6245,13 @@ def determinism_matrix(smi):
     return {n: c["runtime_s"] for n, c in classes.items()}
 
 
-def k4_entries(row_dot_launches):
+def k4_entries(row_dot_launches, grid_row_dot):
     """The kernels line's K4 entries, one per wrapper: the Gram and the
     matvecs with their launches over run G and their times at its first
-    bucket; row_dot (row_norm with it) with its launches over the
-    sequential path and its times at that path's bank, its run G shapes
-    under ``game_calls``."""
+    bucket; row_dot (row_norm and row_dots with it) with its launches over
+    the sequential path and its times at that path's bank, the batched
+    path's launches and bank under ``grid_*``, its run G shapes under
+    ``game_calls``."""
     check, game = K4_RESULTS["check"], K4_RESULTS["game_launches"]
     shape = check["gram"]["shape"]
 
@@ -6205,12 +6276,13 @@ def k4_entries(row_dot_launches):
               "the JAX package's XLA matvecs X_e @ c, X_e.T @ r and G @ v (:222-337); no "
               "Pallas kernel", game["bmv"], check["bmv"],
               f"X c, X^T r and G r at run G's first bucket {shape}"),
-        entry("entity_products.row_dot", "tree_dot_kernel",
+        entry("entity_products.row_dot", "row_dot_kernel",
               "photon_ml_tpu/game/random_effect.py:274",
               "the JAX package's sums and vdots (the per-entity values at :274, the bank "
               "optimizers' member-wise dots and norms); no Pallas kernel", row_dot_launches,
               K4_RESULTS["row_dot_bank"],
-              f"row_dot and row_norm over the sequential path's bank [2, {DIM}]",
+              f"row_dot, row_norm and row_dots over the sequential path's bank [2, {DIM}]",
+              grid_launches=grid_row_dot, grid_calls=K4_RESULTS["row_dot_grid_bank"]["calls"],
               game_launches=game["row_dot"], game_calls=check["row_dot"]["calls"],
               game_max_rel_err=check["row_dot"]["max_rel_err"]),
     ]
@@ -6231,8 +6303,9 @@ def re_update_child(checkout, seed) -> int:
     RE_UPDATE_REPEATS timed calls, each with the Newton iterations' mean
     and max and the per-entity products kernel's launches where the
     checkout has it, and then that kernel's checks and times at the first
-    bucket. It calls only entry points that every checkout since the
-    entity-sharded bank has."""
+    bucket and its row dots and norms at the banks of phases 4 and 5 (the
+    four-pair ``row_dots`` where the checkout has it). It calls only entry
+    points that every checkout since the entity-sharded bank has."""
     sys.path.insert(0, os.path.abspath(checkout))
     import photon_ml_tpu_torch
     from photon_ml_tpu_torch.game import score_random_effect
@@ -6271,8 +6344,11 @@ def re_update_child(checkout, seed) -> int:
               f"iterations mean {tracker.iterations_mean!r} max {tracker.iterations_max}, "
               f"K4 launches {'n/a' if k4 is None else k4.launches}", flush=True)
     if k4 is not None:
-        # the kernel's products at the first bucket, beside torch.bmm
+        # the kernel's products at the first bucket, beside torch.bmm, and
+        # its row dots and norms at the sequential and batched paths' banks
         game_products_check(red, "this card", "cuda")
+        k4_checks(f"banks [2, {DIM}] and [{GRID_G}, {DIM}] row_dot", row_dot_calls(
+            rng, ((2, DIM), (GRID_G, DIM)), "cuda"), "this card")
     return 0
 
 
@@ -6419,6 +6495,8 @@ def main() -> int:
     ads_err = compare_passes(k1, tb, rng, "ads")
     repeat_checks(k1, k2, small, rng, "small")
     repeat_checks(k1, k2, tb, rng, "ads")
+    k3_err = tuple(map(max, fold_checks(k1, k2, small, rng, "small"),
+                       fold_checks(k1, k2, tb, rng, "ads")))
     k2_errs.append(
         compare_grid_passes(k1, k2, tb, rng, "ads", GRID_G, against_k1=True)
     )
@@ -6492,29 +6570,43 @@ def main() -> int:
     ):
         plan_line(f"plan ads {key}", ads_plans[key], bound, ms)
 
-    # K3, the spill remainder, as the objective calls it (in place)
+    # K3, the spill remainder, folded into K1 and K2: each pass with and
+    # without it, in turns, beside index_add_ of the spilled products (the
+    # plain version's call on the card, and the one PyTorch call for the
+    # same function, so its time is the library's too)
+    spill_w = tb.z_sched.spill_vals * w[tb.z_sched.spill_in]
+    spill_c = tb.g_sched.spill_vals * c[tb.g_sched.spill_in]
     z_out = torch.zeros(tb.num_rows, device="cuda")
-    z_out_bank = torch.zeros(G, tb.num_rows, device="cuda")
-    sp = tb.z_sched
-    k3_got = sp.apply_spill(torch.zeros_like(z_out), w)
-    k3_ref = torch.zeros_like(z_out).index_add_(0, sp.spill_out, sp.spill_vals * w[sp.spill_in])
-    k3_err = check_close("k3_check ads z-pass spills", k3_got, k3_ref)
-    k3_times = {
-        "seq_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out, w)),
-        "bank_ms": time_ms(lambda: tb.z_sched.apply_spill(z_out_bank, w_bank)),
-        # the plain version: index_add_ in entry order (float atomics on the
-        # card), which is also the one PyTorch call that computes the same
-        # function, so its time is the library's too
-        "seq_plain_ms": time_ms(lambda: z_out.index_add_(
-            0, sp.spill_out, sp.spill_vals * w[sp.spill_in])),
-    }
+    g_out = torch.zeros(tb.dim, device="cuda")
+    k3_times = {}
+    for name, fn in (
+        ("z_ms", lambda: k1.bilinear_pass(*z_args)),
+        ("z_fused_ms", lambda: k1.bilinear_pass(*z_args, spill=True)),
+        ("z_fused_ms_again", lambda: k1.bilinear_pass(*z_args, spill=True)),
+        ("z_ms_again", lambda: k1.bilinear_pass(*z_args)),
+        ("g_ms", lambda: k1.bilinear_pass(*g_args)),
+        ("g_fused_ms", lambda: k1.bilinear_pass(*g_args, spill=True)),
+        ("g_fused_ms_again", lambda: k1.bilinear_pass(*g_args, spill=True)),
+        ("g_ms_again", lambda: k1.bilinear_pass(*g_args)),
+        ("bank_z_ms", lambda: k2.grid_bilinear_pass(*zb_args)),
+        ("bank_z_fused_ms", lambda: k2.grid_bilinear_pass(*zb_args, spill=True)),
+        ("bank_g_ms", lambda: k2.grid_bilinear_pass(*gb_args)),
+        ("bank_g_fused_ms", lambda: k2.grid_bilinear_pass(*gb_args, spill=True)),
+        ("z_index_add_ms", lambda: z_out.index_add_(0, tb.z_sched.spill_out, spill_w)),
+        ("g_index_add_ms", lambda: g_out.index_add_(0, tb.g_sched.spill_out, spill_c)),
+    ):
+        k3_times[name] = time_ms(fn)
+    k3_added = {p: (k3_times[f"{p}_fused_ms"] + k3_times[f"{p}_fused_ms_again"]
+                    - k3_times[f"{p}_ms"] - k3_times[f"{p}_ms_again"]) / 2 for p in ("z", "g")}
     k3_bound, k3_bytes, k3_spills = spill_bound_ms(tb.z_sched)
+    k3g_bound, _, k3g_spills = spill_bound_ms(tb.g_sched)
     k3b_bound, k3b_bytes, _ = spill_bound_ms(tb.z_sched, G)
-    say(f"k3_times z-pass spills ({smi}): spills={k3_spills} "
+    say(f"k3_times folded into K1/K2 ({smi}): z spills={k3_spills} g spills={k3g_spills} "
         + " ".join(f"{k}={v!r}" for k, v in k3_times.items())
-        + f" seq_bound_ms={k3_bound!r} bank_bound_ms={k3b_bound!r} "
-        f"seq_bytes={k3_bytes} bank_bytes={k3b_bytes}")
-    del w_bank, c_bank, z_out, z_out_bank
+        + f" z_added_ms={k3_added['z']!r} g_added_ms={k3_added['g']!r}"
+        f" z_bound_ms={k3_bound!r} g_bound_ms={k3g_bound!r} bank_z_bound_ms={k3b_bound!r}"
+        f" z_bytes={k3_bytes} bank_z_bytes={k3b_bytes}")
+    del w_bank, c_bank, z_out, g_out, spill_w, spill_c
 
     def member_checks(label, model, result, variances_expected):
         """Fail unless the objective fell, coefficients, scores and
@@ -6550,7 +6642,7 @@ def main() -> int:
     k1.launches = 0
     k2.launches = 0
     k4.reset_launches()
-    ts.spill_launches = 0
+    k1.spill_launches = k2.spill_launches = 0
     common.host_fetches = 0
     t0 = time.perf_counter()
     models, results = train_generalized_linear_model(
@@ -6575,16 +6667,18 @@ def main() -> int:
     tron_s = time.perf_counter() - t0
     launches, fetches, seq_k2 = k1.launches, common.host_fetches, k2.launches
     k4_launches = k4.launches_by["row_dot"]
+    k3_launches = k1.spill_launches + k2.spill_launches
     if k4_launches == 0:
         fail("the sequential path never called K4 (the optimizers' member-wise dots)")
-    # K4's row_dot and row_norm at the bank's shape: the lambda grid's two
-    # members over DIM features
+    if k3_launches == 0:
+        fail("the sequential path carried no spill remainder (K3) in its passes")
+    say(f"sequential_path K4 row_dot launches {k4_launches} (all K4 {k4.launches}); passes "
+        f"carrying the spill remainder (K3 folded into K1) {k3_launches}")
+    # K4's row kernel at the bank's shape: the lambda grid's two members
+    # over DIM features
     K4_RESULTS["row_dot_bank"] = k4_checks(
         f"sequential path bank [2, {DIM}] row_dot",
         row_dot_calls(np.random.default_rng([args.seed, 16]), ((2, DIM),), "cuda"), smi)
-    k3_launches = ts.spill_launches
-    if k3_launches == 0:
-        fail("the sequential path never called K3")
     say(f"sequential_path: lbfgs grid {lbfgs_s:.3f} s ({lbfgs_launches} K1 "
         f"launches, {lbfgs_fetches} host fetches, iterations "
         f"{[results[lam].iterations for lam in models]}); tron {tron_s:.3f} s "
@@ -6624,15 +6718,23 @@ def main() -> int:
 
     def counted(fn):
         """Run ``fn`` with every count at 0; -> (its result, host seconds
-        to a synchronised end, K1 launches, K2 launches, host fetches)."""
+        to a synchronised end, K1 launches, K2 launches, host fetches); K4's
+        row launches and the passes that carried the spill remainder land
+        in ``grid_counts``."""
         k1.launches = 0
         k2.launches = 0
+        k4.reset_launches()
+        k1.spill_launches = k2.spill_launches = 0
         common.host_fetches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        grid_counts.update(row_dot=k4.launches_by["row_dot"],
+                           spill=k1.spill_launches + k2.spill_launches)
         return (out, time.perf_counter() - t0, k1.launches, k2.launches,
                 common.host_fetches)
+
+    grid_counts = {}
 
     grid_runs = {}
     for label, kw in (
@@ -6655,11 +6757,13 @@ def main() -> int:
         )
         run = dict(
             seconds=seconds, k1=n_k1, k2=n_k2, fetches=n_fetch,
-            models=g_models, results=g_results,
+            models=g_models, results=g_results, k4_row_dot=grid_counts["row_dot"],
+            k3_folded=grid_counts["spill"],
         )
         grid_runs[label] = run
         say(f"grid_path {label}: {seconds:.3f} s, {run['k2']} K2 launches, "
-            f"{run['k1']} K1 launches, {run['fetches']} host fetches; "
+            f"{run['k1']} K1 launches, {run['fetches']} host fetches, K4 row_dot launches "
+            f"{run['k4_row_dot']}, passes carrying the spill {run['k3_folded']}; "
             "members " + ", ".join(
                 f"lambda={lam}: {r.iterations} it {r.reason_name}"
                 for lam, r in g_results.items()
@@ -6673,6 +6777,12 @@ def main() -> int:
                 f"grid {label} lambda={lam}", g_models[lam], g_results[lam],
                 "compute_variances" in kw,
             )
+    grid_row_dot = sum(run["k4_row_dot"] for run in grid_runs.values())
+    say(f"grid_path K4 row_dot launches {grid_row_dot} over the three grids")
+    # K4's row kernel at the batched grid's bank: four members over DIM
+    K4_RESULTS["row_dot_grid_bank"] = k4_checks(
+        f"batched path bank [{GRID_G}, {DIM}] row_dot",
+        row_dot_calls(np.random.default_rng([args.seed, 17]), ((GRID_G, DIM),), "cuda"), smi)
     owl_means = grid_runs["owlqn"]["models"][1.0].coefficients.means
     owl_zeros = int((owl_means == 0.0).sum())
     say(f"grid owlqn lambda=1.0: {owl_zeros} exact zeros of {DIM}")
@@ -6763,7 +6873,8 @@ def main() -> int:
     for r in ranks:
         say(f"mesh rank {r['rank']} {r['coords']}: cell " + " ".join(
             f"{k}={v!r}" for k, v in r["cell"].items())
-            + f"; K1, K2 and K3 bitwise on two launches ({r['repeat_pairs']} pairs)")
+            + f"; K1 and K2, the spill folded in, bitwise on two launches "
+            f"({r['repeat_pairs']} pairs)")
         for name, err, scale, over in r["checks"]:
             say(f"mesh_check rank {r['rank']} {name}: max_abs_err={err!r} "
                 f"max_rel_err={err / max(scale, 1e-30)!r} scale={scale!r}; outputs over "
@@ -7025,22 +7136,30 @@ def main() -> int:
     }, {
         "name": "apply_spill",
         "route": "cuda",
-        "source": "photon_ml_tpu_torch/ops/csrc/bilinear_pass.cu",
+        "source": "photon_ml_tpu_torch/ops/csrc/bilinear_pass_core.cuh",
         "replaces": "photon_ml_tpu/ops/tiled_sparse.py:148",
         "launches": k3_launches,
         "max_abs_err": k3_err[0],
-        "ms": k3_times["seq_ms"],
-        "plain_ms": k3_times["seq_plain_ms"],
+        "max_rel_err": k3_err[1],
+        "ms": k3_added["z"],
+        "plain_ms": k3_times["z_index_add_ms"],
         "bound_ms": k3_bound,
         "bound_by": "bytes",
-        "library_ms": k3_times["seq_plain_ms"],
-        "implementation": "spill_add_kernel: the spilled entries sorted by output "
-                          "once a schedule, each output's sum in entry order added "
-                          "once (an XLA scatter-add outside the Pallas kernel in "
-                          "the reference)",
+        "library_ms": k3_times["z_index_add_ms"],
+        "implementation": "folded into K1/K2: each output's spill slot (the spilled "
+                          "entries sorted by output once a schedule, found through the "
+                          "plan's slot map) summed in entry order and added where the "
+                          "pass writes the element once; no launch of its own (an XLA scatter-add outside the "
+                          "Pallas kernel in the reference). launches: the sequential "
+                          "path's K1 passes that carried it; ms (g_added_ms): the time "
+                          "the fold adds to the ads z-pass (g-pass); z_ms, g_ms: "
+                          "the passes without it",
         "work": "the z-pass spill remainder at the ads shape",
-        "bank_ms": k3_times["bank_ms"], "bank_bound_ms": k3b_bound,
-    }] + k4_entries(k4_launches)
+        "g_added_ms": k3_added["g"], "g_bound_ms": k3g_bound,
+        "g_library_ms": k3_times["g_index_add_ms"], "bank_z_bound_ms": k3b_bound,
+        "grid_launches": {label: run["k3_folded"] for label, run in grid_runs.items()},
+        **k3_times,
+    }] + k4_entries(k4_launches, grid_row_dot)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

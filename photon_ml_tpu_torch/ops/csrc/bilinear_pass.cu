@@ -20,6 +20,10 @@
 // out_pos, val) and does one multiply-add; at the ads shape (16.7M
 // entries per pass) that is ~200 MB, ~60 us at the H100's 3.35 TB/s.
 //
+// The spill remainder (K3 in the JAX package: the tile tails its steps
+// leave out, an XLA scatter-add after the Pallas kernel) is added in the
+// same launch, where each output element is written once.
+//
 // The device code is bilinear_pass_core.cuh (shared with K2, which is the
 // same core for a tile of members); its note says what the design does
 // about the bound. The TPU kernel's one-hot compares, bf16 hi/lo split,
@@ -64,8 +68,7 @@ int launch(const photon::Pass& a, int n_items, const int32_t* shared,
     bilinear_pass_kernel<V, MODE><<<n_items, kThreads, smem, stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(photon::launch_reduce(
-        shared, n_shared, a.scratch, a.out, a.window, 1, 0, stream));
+    return static_cast<int>(photon::launch_reduce(a, shared, n_shared, stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -87,8 +90,10 @@ extern "C" {
 // mode: STAGED or GATHERED (a photon::Mode; STAGED needs window % 4 == 0).
 // items: [n_items, 7] (the plan's, with each item's scratch row); shared:
 // [n_shared, 3] (block, first scratch row, rows); scratch: [rows, window]
-// (may be null when n_shared = 0). Launches the pass, then, when n_shared >
-// 0, the reduction of the shared blocks, on one stream.
+// (may be null when n_shared = 0). spill_map, spill_offsets, spill_in and
+// spill_vals: the spill remainder by output slot (bilinear_pass.SpillPlan;
+// spill_map null: none), added to the pass's output. Launches the pass, then, when n_shared > 0, the
+// reduction of the shared blocks, on one stream.
 // With n_items = 0 it launches nothing and only reports the kernel's resident CTAs per SM in
 // *ctas_per_sm.
 int photon_bilinear_pass(const void* items, int n_items, const void* shared,
@@ -96,7 +101,10 @@ int photon_bilinear_pass(const void* items, int n_items, const void* shared,
                          const void* step_sizes, const void* in_pos,
                          const void* out_pos, const void* vals, int L,
                          const void* src, void* out, int window, int vec,
-                         int mode, int* ctas_per_sm, void* stream) {
+                         int mode, const void* spill_map,
+                         const void* spill_offsets, const void* spill_in,
+                         const void* spill_vals,
+                         int* ctas_per_sm, void* stream) {
   if (mode == STAGED && window % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -116,42 +124,14 @@ int photon_bilinear_pass(const void* items, int n_items, const void* shared,
   a.window = window;
   a.num_members = 1;
   a.gt = 1;
+  a.spill_map = static_cast<const int32_t*>(spill_map);
+  a.spill_offsets = static_cast<const int32_t*>(spill_offsets);
+  a.spill_in = static_cast<const int32_t*>(spill_in);
+  a.spill_vals = static_cast<const float*>(spill_vals);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* sh = static_cast<const int32_t*>(shared);
   return vec ? by_mode<4>(a, n_items, sh, n_shared, mode, s, ctas_per_sm)
              : by_mode<1>(a, n_items, sh, n_shared, mode, s, ctas_per_sm);
-}
-
-// K3, the spill remainder, in a fixed order: for each of the n_seg
-// outputs (slots) of a bank of num_members rows, the sum of its spilled
-// entries vals[k] * src[in_pos[k]] over k in [offsets[i], offsets[i + 1])
-// in entry order, then one add to the output (no two threads share an
-// output). The host sorts the entries by output once per schedule.
-__global__ void spill_add_kernel(const int32_t* offsets, const int32_t* slots,
-                                 const int32_t* in_pos, const float* vals,
-                                 const float* src, int64_t n_in, float* out,
-                                 int64_t n_out, int n_seg) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_seg) return;
-  const float* src_g = src + static_cast<int64_t>(blockIdx.y) * n_in;
-  float sum = 0.f;
-  for (int k = offsets[i]; k < offsets[i + 1]; ++k) {
-    sum += vals[k] * __ldg(src_g + in_pos[k]);
-  }
-  out[static_cast<int64_t>(blockIdx.y) * n_out + slots[i]] += sum;
-}
-
-int photon_spill_add(const void* offsets, const void* slots, const void* in_pos,
-                     const void* vals, const void* src, int64_t n_in, void* out,
-                     int64_t n_out, int n_seg, int num_members, void* stream) {
-  if (n_seg <= 0 || num_members <= 0) return 0;
-  constexpr int kSpillThreads = 256;
-  dim3 grid((n_seg + kSpillThreads - 1) / kSpillThreads, num_members);
-  spill_add_kernel<<<grid, kSpillThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(offsets), static_cast<const int32_t*>(slots),
-      static_cast<const int32_t*>(in_pos), static_cast<const float*>(vals),
-      static_cast<const float*>(src), n_in, static_cast<float*>(out), n_out, n_seg);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* photon_cuda_error_string(int code) {

@@ -58,6 +58,18 @@
 //   (eight interleaved partial sums in row order, then those in order)
 //   and writes the block once. So every output element is written exactly
 //   once, as in the Pallas kernel, and the output needs no zeroing.
+// - The spill remainder (the tile tails the schedule leaves out of its
+//   steps, sorted by output slot once a schedule: bilinear_pass.SpillPlan)
+//   is added where each output element is written once, each column's
+//   slot read from the plan's map: an item alone on its block adds its
+//   block's spill sums into the accumulator before its store (one thread a
+//   column), reduce_shared adds a shared block's to its total (read while
+//   the rows are summed). A slot's sum starts at 0 and
+//   takes each spilled product in entry order by a fused multiply-add
+//   (__fmaf_rn: product and add rounded once together, the bits of the
+//   separate remainder kernel this fold replaced), then one add to the
+//   slot (__fadd_rn); bilinear_pass.spill_ordered repeats it in plain
+//   PyTorch. Slots without a spill are stored as they are.
 // - K2 reads an entry once for all GT members of its tile; the host picks
 //   the tiles (grid_bilinear_pass.members_per_cta).
 // - Determinism: the order of every addition is a function of the
@@ -99,7 +111,49 @@ struct Pass {
   int window;
   int num_members;
   int gt;  // members per CTA (the last tile may hold fewer)
+  // the spill remainder by output slot (spill_map null: none)
+  const int32_t* spill_map;      // [num_out_blocks * W] each output's slot, or -1
+  const int32_t* spill_offsets;  // [slots + 1] each slot's first entry
+  const int32_t* spill_in;       // [entries] flat input coordinate
+  const float* spill_vals;       // [entries]
 };
+
+// The spill sums of slot i for members g0 .. g0 + gt - 1: from 0, each of
+// its entries' products fused-multiply-added in entry order.
+template <int GT>
+__device__ __forceinline__ void spill_sums(const Pass& a, int i, int g0, int gt,
+                                           float (&sum)[GT]) {
+#pragma unroll
+  for (int j = 0; j < GT; ++j) sum[j] = 0.f;
+  const int end = __ldg(a.spill_offsets + i + 1);
+  for (int k = __ldg(a.spill_offsets + i); k < end; ++k) {
+    const float v = __ldg(a.spill_vals + k);
+    const float* src = a.src + static_cast<int64_t>(g0) * a.n_in + __ldg(a.spill_in + k);
+#pragma unroll
+    for (int j = 0; j < GT; ++j) {
+      if (j < gt) sum[j] = __fmaf_rn(v, __ldg(src + static_cast<int64_t>(j) * a.n_in), sum[j]);
+    }
+  }
+}
+
+// Add output block `block`'s spill sums into the tile's windows in shared
+// memory, one thread a column (its slot from the plan's map).
+template <int GT>
+__device__ __forceinline__ void add_block_spill(const Pass& a, float* acc, int block,
+                                                int g0, int gt, int threads) {
+  const int W = a.window;
+  const int32_t* map = a.spill_map + static_cast<int64_t>(block) * W;
+  for (int i = threadIdx.x; i < W; i += threads) {
+    const int slot = __ldg(map + i);
+    if (slot < 0) continue;
+    float sum[GT];
+    spill_sums<GT>(a, slot, g0, gt, sum);
+#pragma unroll
+    for (int j = 0; j < GT; ++j) {
+      if (j < gt) acc[j * W + i] = __fadd_rn(acc[j * W + i], sum[j]);
+    }
+  }
+}
 
 __device__ __forceinline__ int4 load_stream_v4(const int32_t* p) {
   int4 r;
@@ -429,7 +483,8 @@ __device__ __forceinline__ void walk_gathered(const Pass& a, float* acc,
 }
 
 // Write the tile's windows with plain stores: to the output where the item
-// is its block's only writer (row < 0), else to the item's scratch row.
+// is its block's only writer (row < 0; its spill sums are in acc by then),
+// else to the item's scratch row.
 __device__ __forceinline__ void flush(const Pass& a, const float* acc,
                                       int block, int row, int g0, int gt,
                                       int W, bool quads, int threads) {
@@ -458,18 +513,23 @@ __device__ __forceinline__ void flush(const Pass& a, const float* acc,
 constexpr int kReduceCols = 32;
 constexpr int kReduceLanes = 8;
 
-__global__ void reduce_shared(const int32_t* shared, const float* scratch,
-                              float* out, int W, int num_members,
-                              int64_t n_out) {
+// Then the block's spill sum, where its slot has one, is added to the
+// total before the single write.
+__global__ void reduce_shared(const int32_t* shared, Pass a) {
   __shared__ float part[kReduceLanes][kReduceCols];
+  const int W = a.window;
   const int i = blockIdx.x * kReduceCols + threadIdx.x;
   const int32_t* t = shared + kSharedColumns * blockIdx.y;
   const int g = blockIdx.z;
+  // the column's spill slot, read while the rows are summed
+  const int spill = threadIdx.y == 0 && i < W && a.spill_map != nullptr
+                        ? __ldg(a.spill_map + static_cast<int64_t>(t[0]) * W + i)
+                        : -1;
   float sum = 0.f;
   if (i < W) {
     const float* row =
-        scratch + (static_cast<int64_t>(t[1]) * num_members + g) * W + i;
-    const int64_t stride = static_cast<int64_t>(num_members) * W;
+        a.scratch + (static_cast<int64_t>(t[1]) * a.num_members + g) * W + i;
+    const int64_t stride = static_cast<int64_t>(a.num_members) * W;
     for (int r = threadIdx.y; r < t[2]; r += kReduceLanes) {
       sum += row[r * stride];
     }
@@ -480,21 +540,23 @@ __global__ void reduce_shared(const int32_t* shared, const float* scratch,
     float total = part[0][threadIdx.x];
 #pragma unroll
     for (int y = 1; y < kReduceLanes; ++y) total += part[y][threadIdx.x];
-    out[static_cast<int64_t>(g) * n_out + static_cast<int64_t>(t[0]) * W + i] = total;
+    if (spill >= 0) {
+      float add[1];
+      spill_sums<1>(a, spill, g, 1, add);
+      total = __fadd_rn(total, add[0]);
+    }
+    a.out[static_cast<int64_t>(g) * a.n_out + static_cast<int64_t>(t[0]) * W + i] = total;
   }
 }
 
 // Launch reduce_shared over the plan's n_shared shared blocks (none: no
 // launch).
-__host__ inline cudaError_t launch_reduce(const int32_t* shared, int n_shared,
-                                          const float* scratch, float* out,
-                                          int W, int num_members,
-                                          int64_t n_out, cudaStream_t stream) {
+__host__ inline cudaError_t launch_reduce(const Pass& a, const int32_t* shared,
+                                          int n_shared, cudaStream_t stream) {
   if (n_shared <= 0) return cudaSuccess;
-  dim3 grid((W + kReduceCols - 1) / kReduceCols, n_shared, num_members);
+  dim3 grid((a.window + kReduceCols - 1) / kReduceCols, n_shared, a.num_members);
   dim3 block(kReduceCols, kReduceLanes);
-  reduce_shared<<<grid, block, 0, stream>>>(shared, scratch, out, W,
-                                            num_members, n_out);
+  reduce_shared<<<grid, block, 0, stream>>>(shared, a);
   return cudaGetLastError();
 }
 
@@ -546,6 +608,10 @@ __device__ __forceinline__ void run_item(const Pass& a) {
     }
   }
   __syncthreads();
+  if (row < 0 && a.spill_map != nullptr) {
+    add_block_spill<GT>(a, acc, block, g0, gt, THREADS);
+    __syncthreads();
+  }
   flush(a, acc, block, row, g0, gt, W, quads, THREADS);
 }
 

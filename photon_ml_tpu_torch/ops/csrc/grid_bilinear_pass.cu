@@ -66,9 +66,7 @@ int launch(const photon::Pass& a, int n_items, const int32_t* shared,
     grid_bilinear_pass_kernel<V, GT><<<grid, kThreads, smem, stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(photon::launch_reduce(
-        shared, n_shared, a.scratch, a.out, a.window, a.num_members, a.n_out,
-        stream));
+    return static_cast<int>(photon::launch_reduce(a, shared, n_shared, stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -92,8 +90,9 @@ int by_tile(const photon::Pass& a, int n_items, const int32_t* sh,
 
 extern "C" {
 
-// gt_per_cta: members per CTA, 1..7. items, shared and scratch as for K1's
-// photon_bilinear_pass, with scratch [rows, num_members, window].
+// gt_per_cta: members per CTA, 1..7. items, shared, scratch and the spill
+// arrays as for K1's photon_bilinear_pass, with scratch [rows, num_members,
+// window]; every member's spill sums are added to its output.
 // With n_items = 0 it launches nothing and only reports the kernel's
 // resident CTAs per SM in *ctas_per_sm.
 int photon_grid_bilinear_pass(const void* items, int n_items,
@@ -103,7 +102,10 @@ int photon_grid_bilinear_pass(const void* items, int n_items,
                               const void* vals, int L, const void* src,
                               int64_t n_in, void* out, int64_t n_out,
                               int window, int num_members, int gt_per_cta,
-                              int vec, int* ctas_per_sm, void* stream) {
+                              int vec, const void* spill_map,
+                              const void* spill_offsets, const void* spill_in,
+                              const void* spill_vals,
+                              int* ctas_per_sm, void* stream) {
   if (gt_per_cta < 1 || gt_per_cta > kMaxGT) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -123,6 +125,10 @@ int photon_grid_bilinear_pass(const void* items, int n_items,
   a.window = window;
   a.num_members = num_members;
   a.gt = gt_per_cta;
+  a.spill_map = static_cast<const int32_t*>(spill_map);
+  a.spill_offsets = static_cast<const int32_t*>(spill_offsets);
+  a.spill_in = static_cast<const int32_t*>(spill_in);
+  a.spill_vals = static_cast<const float*>(spill_vals);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* sh = static_cast<const int32_t*>(shared);
   return vec ? by_tile<4>(a, n_items, sh, n_shared, s, ctas_per_sm)

@@ -11,8 +11,13 @@ Hessian-diagonal g-pass over squared values:
 
 over the ``S`` steps of a schedule (entry rows past ``S`` are padding) and
 the ``L`` entries of each step, with ``W`` the window. ``src`` and the
-result are flat padded vectors. The spill remainder is not part of it
-(``_Schedule.apply_spill`` adds it after).
+result are flat padded vectors. With ``spill=True`` the pass also adds the
+schedule's spill remainder (the tile tails its steps leave out; the JAX
+package's ``_Schedule.apply_spill``, an XLA scatter-add after its Pallas
+kernel): on the card in the same launch, where each output element is
+written once, each slot's spilled products fused-multiply-added in entry
+order and the sum added once (:class:`SpillPlan`, :func:`spill_ordered`);
+on the CPU by ``_Schedule.apply_spill`` after the plain version.
 
 What bounds it on the H100: bytes. Each entry is read once as 12 bytes
 (``in_pos``, ``out_pos``, ``val``): ~200 MB per pass at the ads shape
@@ -29,7 +34,8 @@ window copies each window into shared memory; one whose gathers come in
 order reads it through L1 (:func:`default_mode`). On a CUDA tensor
 :func:`bilinear_pass` launches the kernel (built with ``nvcc`` for
 ``sm_90a`` at first use) or raises; only a CPU tensor takes the plain
-version. ``launches`` counts kernel launches.
+version. ``launches`` counts kernel launches, ``spill_launches`` those that
+folded a spill remainder in.
 
 Determinism: the kernel adds in one fixed order. Each step's entries are
 sorted by output slot (``tiled_sparse.sort_steps_by_output``); a CTA sums
@@ -49,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,8 +67,10 @@ from photon_ml_tpu_torch.ops.kernels.cuda_build import (
 
 Tensor = torch.Tensor
 
-# Kernel launches on the CUDA path (a run sets it to 0 and reads it).
+# Kernel launches on the CUDA path, and those of them that folded a
+# spill remainder in (a run sets them to 0 and reads them).
 launches = 0
+spill_launches = 0
 
 MAX_SHARED_BYTES = 227 * 1024  # the H100's opt-in per CTA
 
@@ -303,14 +311,17 @@ def sm_count(device: torch.device) -> int:
 
 
 def bilinear_pass(
-    sched, src: Tensor, num_out_blocks: int, window: int, vals: Tensor = None
+    sched, src: Tensor, num_out_blocks: int, window: int, vals: Tensor = None,
+    spill: bool = False, spill_vals: Tensor = None,
 ) -> Tensor:
     """Apply a schedule to the flat ``src``; -> flat [num_out_blocks * W].
 
     ``sched`` is a ``_Schedule`` of ``ops/tiled_sparse.py``; ``vals``
     overrides its entry values (the Hessian diagonal squares them).
-    ``src``, ``num_out_blocks`` and ``window`` must be those the schedule's
-    indices were checked against: the kernel reads and adds unchecked."""
+    ``spill``: add the schedule's spill remainder too, ``spill_vals``
+    overriding its values (in the schedule's spill order). ``src``,
+    ``num_out_blocks`` and ``window`` must be those the schedule's indices
+    were checked against: the kernel reads and adds unchecked."""
     v = check_operands("bilinear_pass", sched, num_out_blocks, window, vals)
     if src.dim() != 1 or src.shape[0] != sched.num_in_blocks * window:
         raise ValueError(
@@ -318,10 +329,12 @@ def bilinear_pass(
             f"{window}], got {tuple(src.shape)}"
         )
     if src.device.type == "cpu":
-        return bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
+        out = bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
+        return sched.apply_spill(out, src, vals=spill_vals) if spill else out
     if src.device.type != "cuda":
         raise ValueError(f"bilinear_pass: unsupported device {src.device}")
-    return launch(sched, src, num_out_blocks, window, v)
+    return launch(sched, src, num_out_blocks, window, v,
+                  spill_operands(sched, spill_vals) if spill else None)
 
 
 # Threads per CTA of K1 (the kernel's kThreads).
@@ -355,7 +368,7 @@ def ctas_per_sm(window: int, vec: bool, mode: int) -> int:
             raise ValueError(f"bilinear_pass: window {window} exceeds shared memory")
         n = ctypes.c_int()
         _call(0, 0, None, 0, None, None, None, None, None, None, 0, None,
-              None, window, int(vec), mode, n, None)
+              None, window, int(vec), mode, *spill_pointers(None), n, None)
         _occupancy[key] = n.value
     return _occupancy[key]
 
@@ -397,21 +410,24 @@ def launch_config(sched, v: Tensor, device: torch.device) -> LaunchConfig:
 
 
 def launch(
-    sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+    sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor, spill=None
 ) -> Tensor:
-    """The CUDA launch behind :func:`bilinear_pass`."""
+    """The CUDA launch behind :func:`bilinear_pass`; ``spill``:
+    :func:`spill_operands`' (plan, values), or None."""
     check_cuda_operands("bilinear_pass", sched, v, src)
     cfg = launch_config(sched, v, src.device)
-    return launch_with(cfg, sched, src, num_out_blocks, window, v)
+    return launch_with(cfg, sched, src, num_out_blocks, window, v, spill)
 
 
 def launch_with(
-    cfg: LaunchConfig, sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+    cfg: LaunchConfig, sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor,
+    spill=None,
 ) -> Tensor:
     """Launch K1 over ``sched`` as ``cfg`` says (:func:`launch` passes
     :func:`launch_config`'s; ``tools/pass_ablation.py`` times others) on
-    operands :func:`launch` has checked; -> the output."""
-    global launches
+    operands :func:`launch` has checked, the spill remainder folded in
+    where ``spill`` (:func:`spill_operands`) is given; -> the output."""
+    global launches, spill_launches
     n_out = num_out_blocks * window
     out = torch.empty(n_out, dtype=torch.float32, device=src.device)
     scratch = scratch_for(cfg.plan, 1, window, src.device)
@@ -422,10 +438,11 @@ def launch_with(
         sched.step_in.data_ptr(),
         sched.step_sizes.data_ptr(), sched.in_pos.data_ptr(),
         sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
-        src.data_ptr(), out.data_ptr(), window, int(cfg.vec), cfg.mode, n,
-        torch.cuda.current_stream(src.device).cuda_stream,
+        src.data_ptr(), out.data_ptr(), window, int(cfg.vec), cfg.mode,
+        *spill_pointers(spill), n, torch.cuda.current_stream(src.device).cuda_stream,
     )
     launches += 1
+    spill_launches += spill is not None
     return out
 
 
@@ -441,14 +458,17 @@ def scratch_for(plan: WorkPlan, members: int, window: int, device) -> Tensor:
 @dataclass(frozen=True)
 class SpillPlan:
     """A schedule's spilled entries sorted by output (stably, once per
-    schedule) for K3's kernel: ``order`` sorts them, ``offsets`` [n_seg +
-    1] bound each output's run, ``slots`` are the outputs, ``in_pos`` and
-    ``vals`` the sorted entries' source coordinates (int32) and values,
-    on the device."""
+    schedule), as K1 and K2 fold them into a pass: ``order`` sorts them,
+    ``offsets`` [n_slots + 1] bound each output slot's run, ``slots`` are
+    the slots (flat output coordinates, ascending), ``map`` gives each
+    output element its slot or -1 (the kernels read each column's, one
+    thread a column), ``in_pos`` and ``vals`` the sorted entries' source
+    coordinates and values; int32 and on the device."""
 
     order: Tensor
     offsets: Tensor
     slots: Tensor
+    map: Tensor
     in_pos: Tensor
     vals: Tensor
 
@@ -457,39 +477,110 @@ class SpillPlan:
         return self.slots.shape[0]
 
 
-def spill_plan(spill_out: Tensor, spill_in: Tensor, spill_vals: Tensor) -> SpillPlan:
+def spill_plan(
+    spill_out: Tensor, spill_in: Tensor, spill_vals: Tensor, window: int, num_out_blocks: int
+) -> SpillPlan:
     """The :class:`SpillPlan` of a schedule's spill arrays (the sort of
-    ``ops/fixed_order.segment_plan``, in the kernel's int32)."""
+    ``ops/fixed_order.segment_plan``, in the kernels' int32), its map over
+    ``num_out_blocks`` windows of ``window``."""
     from photon_ml_tpu_torch.ops.fixed_order import segment_plan
 
     seg = segment_plan(spill_out)
+    slot_map = torch.full((num_out_blocks * window,), -1, dtype=torch.int32,
+                          device=spill_out.device)
+    slot_map[seg.slots] = torch.arange(seg.slots.shape[0], dtype=torch.int32,
+                                       device=spill_out.device)
     return SpillPlan(
-        seg.order, seg.offsets.to(torch.int32), seg.slots.to(torch.int32),
+        seg.order, seg.offsets.to(torch.int32), seg.slots.to(torch.int32), slot_map,
         spill_in.index_select(0, seg.order).to(torch.int32).contiguous(),
         spill_vals.index_select(0, seg.order).contiguous(),
     )
 
 
-def spill_add(out: Tensor, src: Tensor, plan: SpillPlan, vals: Optional[Tensor] = None) -> Tensor:
-    """K3 on the card: ``out[..., spill_out] += vals * src[..., spill_in]``
-    in place, over the last axis of a vector or a bank, each output's
-    entries summed in entry order and added once. ``vals`` (in the
-    schedule's entry order) overrides the schedule's values."""
-    for name, t in (("out", out), ("src", src)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != plan.slots.device:
-            raise ValueError(f"spill_add: {name} must be a contiguous float32 tensor on "
-                             f"{plan.slots.device}")
-    members = 1 if out.dim() == 1 else out.shape[0]
-    v = plan.vals if vals is None else vals.index_select(0, plan.order).contiguous()
-    lib = _kernel_lib()
-    rc = lib.photon_spill_add(
-        plan.offsets.data_ptr(), plan.slots.data_ptr(), plan.in_pos.data_ptr(),
-        v.data_ptr(), src.data_ptr(), src.shape[-1], out.data_ptr(), out.shape[-1],
-        plan.num_segments, members, torch.cuda.current_stream(out.device).cuda_stream,
-    )
-    if rc != 0:
-        msg = lib.photon_cuda_error_string(rc).decode()
-        raise RuntimeError(f"spill_add launch failed: {msg} ({rc})")
+def spill_operands(sched, spill_vals: Optional[Tensor] = None) -> Optional[Tuple[SpillPlan, Tensor]]:
+    """What a pass over ``sched`` hands its kernel to fold the spill
+    remainder in: (the schedule's :class:`SpillPlan`, made once and cached
+    in ``sched.plans``, the values in its order: ``spill_vals`` sorted by
+    it where given), or None for a schedule without spills."""
+    if sched.spill_vals.shape[0] == 0:
+        return None
+    plan = sched.plans.get("spill")
+    if plan is None:
+        plan = sched.plans["spill"] = spill_plan(
+            sched.spill_out, sched.spill_in, sched.spill_vals, sched.window,
+            sched.num_out_blocks)
+    if spill_vals is None:
+        return plan, plan.vals
+    return plan, spill_vals.index_select(0, plan.order).contiguous()
+
+
+def spill_pointers(spill) -> Tuple:
+    """The kernels' four spill operands (the slot map, entry offsets,
+    source coordinates, values) of :func:`spill_operands`' pair, or four
+    nulls."""
+    if spill is None:
+        return (None,) * 4
+    plan, vals = spill
+    if vals.dtype != torch.float32 or vals.shape != plan.in_pos.shape:
+        raise ValueError("bilinear_pass: spill values must be float32, one a spilled entry")
+    return (plan.map.data_ptr(), plan.offsets.data_ptr(), plan.in_pos.data_ptr(),
+            vals.data_ptr())
+
+
+def fma_rn(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """``a * b + c`` of float32 tensors rounded once, as the card's
+    ``__fmaf_rn``, in plain PyTorch: the product is exact in float64, the
+    float64 sum's rounding error comes from Knuth's two-sum, and a float64
+    sum that lands on a point halfway between two float32 numbers (the only
+    place where rounding twice can differ from once) is rounded to the side
+    where the exact sum lies."""
+    p = a.double() * b.double()
+    s = c.double()
+    r = p + s
+    z = r - p
+    err = (p - (r - z)) + (s - z)
+    f = r.float()
+    above = f.double() > r
+    lo = torch.where(above, torch.nextafter(f, torch.full_like(f, -float("inf"))), f)
+    hi = torch.where(above, f, torch.nextafter(f, torch.full_like(f, float("inf"))))
+    tie = (err != 0) & (r == (lo.double() + hi.double()) * 0.5)
+    return torch.where(tie, torch.where(err > 0, hi, lo), f)
+
+
+def spill_ordered(out: Tensor, src: Tensor, plan: SpillPlan, vals: Optional[Tensor] = None) -> Tensor:
+    """The spill remainder in the kernels' order, in plain PyTorch, in
+    place over the last axis of a vector or a bank: each slot's sum starts
+    at 0 and takes each spilled entry's ``vals * src[in_pos]`` in entry
+    order by a fused multiply-add (:func:`fma_rn`), then is added to the
+    slot once; slots without a spill are left as they are. A pass with its
+    spill folded in gives the bits of the same pass without it followed by
+    this. ``vals``: values in the plan's order (default its own). The
+    slots' run lengths come to the host in one counted fetch; the sums then
+    advance one entry of every run still open at a time, longest runs
+    first."""
+    from photon_ml_tpu_torch.parallel.overlap import device_get
+
+    if plan.in_pos.shape[0] == 0:
+        return out
+    (offsets,) = device_get([plan.offsets])
+    runs = np.diff(offsets.astype(np.int64))
+    order = np.argsort(-runs, kind="stable")  # longest first
+    by_length = np.sort(runs)
+    open_runs = [len(runs) - int(np.searchsorted(by_length, j, side="right"))
+                 for j in range(int(by_length[-1]))]  # runs longer than j
+    first = offsets[:-1][order]
+    take = torch.as_tensor(np.concatenate([first[:n] + j for j, n in enumerate(open_runs)]),
+                           device=out.device)
+    v = (plan.vals if vals is None else vals).index_select(0, take)
+    x = src.index_select(-1, plan.in_pos.index_select(0, take))
+    v = v.expand(x.shape)
+    sums = x.new_zeros(x.shape[:-1] + (len(runs),))
+    at = 0
+    for n in open_runs:
+        sums[..., :n] = fma_rn(v[..., at:at + n], x[..., at:at + n], sums[..., :n])
+        at += n
+    slots = plan.slots.long()[torch.as_tensor(order, device=out.device)]
+    out[..., slots] = out[..., slots] + sums
     return out
 
 
@@ -506,13 +597,11 @@ def _declare(lib) -> None:
     i = ctypes.c_int
     lib.photon_bilinear_pass.restype = i
     lib.photon_bilinear_pass.argtypes = [
-        p, i, p, i, p, p, p, p, p, p, i, p, p, i, i, i, ctypes.POINTER(i), p,
+        p, i, p, i, p, p, p, p, p, p, i, p, p, i, i, i, p, p, p, p,
+        ctypes.POINTER(i), p,
     ]
     lib.photon_cuda_error_string.restype = ctypes.c_char_p
     lib.photon_cuda_error_string.argtypes = [i]
-    i64 = ctypes.c_int64
-    lib.photon_spill_add.restype = i
-    lib.photon_spill_add.argtypes = [p, p, p, p, p, i64, p, i64, i, i, p]
 
 
 def _kernel_lib():

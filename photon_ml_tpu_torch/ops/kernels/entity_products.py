@@ -13,7 +13,10 @@ alone (``csrc/entity_products.cu`` says how):
 
 - :func:`row_dot` ``(a, b)``: ``row_sum(a * b)`` over the last axis (``b``
   may be None: ``row_sum(a)``); the optimizers' member-wise dots, norms and
-  sums, the per-entity objective values and margins, the RE scores;
+  sums, the per-entity objective values and margins, the RE scores; with
+  :func:`row_norm` (``sqrt`` of ``row_sum(a * a)``, reading ``a`` once) and
+  :func:`row_dots` (up to 8 pairs of one shape) by a kernel of its own, one
+  launch a call at any row length (:func:`row_plan`);
 - :func:`bmv` ``(A, x)``: ``A [E, m, n] @ x [E, n] -> [E, m]`` for any
   strides of ``A`` (``X``, ``X^T`` as a view, ``G``);
 - :func:`gram` ``(X)``: ``X X^T`` ``[E, S, S]``, by a kernel of its own
@@ -30,10 +33,10 @@ results, and the port's tolerances against the JAX package, as they were.
 The kernel's order itself is ``row_sum``'s, written out in plain PyTorch
 as the ``*_ordered`` functions: the kernel gives their bits (each product
 rounded once, the same tree of adds; ``chip_smoke.py`` holds it to them on
-the card, and the tests hold :func:`launch_plan`'s tree to ``row_sum`` on
-the CPU). ``launches`` counts kernel launches, and ``launches_by`` the
-same launches by wrapper (``gram``, ``bmv``, ``row_dot``; :func:`row_norm`
-counts as ``row_dot``).
+the card, and the tests hold :func:`launch_plan`'s and :func:`row_plan`'s
+trees to ``row_sum`` on the CPU). ``launches`` counts kernel launches, and
+``launches_by`` the same launches by wrapper (``gram``, ``bmv``,
+``row_dot``; :func:`row_norm` and :func:`row_dots` count as ``row_dot``).
 
 What bounds it on the H100: bytes (PERF.md has the measured times beside
 the bound).
@@ -43,7 +46,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from collections import OrderedDict
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -66,6 +70,14 @@ _GROUP_ROWS = _LEAVES * 1024  # widest padded row one CTA serves
 _GRAM_SMEM = 200 * 1024  # most shared memory the Gram kernel stages
 _PLAIN_CHUNK = 1 << 22  # products a plain Gram materializes at once
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+ROW_THREADS = 256  # threads per CTA of the row kernel (its kRowThreads)
+ROW_WARPS = ROW_THREADS // 32
+ROW_FANIN = ROW_WARPS * _LEAVES  # a long row's items merged per ticket (its kFanin)
+MAX_PAIRS = 8  # pairs one row launch takes (its kMaxPairs)
+# what a row launch reduces (the kernel's RowMode): a's sum, a * b's, and
+# the sqrt of a * a's
+SUM, DOT, NORM = 0, 1, 2
+_ROW_SCRATCH_SHAPES = 16  # long-row scratch shapes kept on each device
 
 
 def padded_width(k: int) -> int:
@@ -95,6 +107,38 @@ def launch_plan(k: int) -> Tuple[Tuple[int, int, bool], ...]:
     p = max(1, w // _LEAVES)
     plan.append((p, w // p, False))
     return tuple(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def row_plan(k: int, v: int) -> Tuple[int, int, int]:
+    """The row kernel's plan for rows of ``k`` read ``v`` elements at a
+    time: (leaves per thread M, log2 of a row's threads lu, log2 of a
+    row's CTAs lc). A short row (lc = 0) is ``2^lu <= ROW_THREADS``
+    threads' of one CTA: thread u owns positions ``v u + j + v 2^lu m`` (j
+    < v, m < M) of the padded width ``W = v 2^lu M``. A long row is ``C =
+    2^lc`` CTAs' of ``ROW_WARPS`` warps: CTA c's lane l owns residues ``q
+    = 32 v c + v l + j`` of ``P = 32 v C``, warp w their leaves ``q + P (w
+    + 8 s)`` (s < M), so ``W = 8 P M``; the tickets merge the CTAs'
+    partials. Every plan follows ``row_sum``'s tree, so it changes the
+    time and never the bits."""
+    leaves = padded_width(k) // v
+    m = min(_LEAVES, leaves)
+    lu = (leaves // m).bit_length() - 1
+    cta = ROW_THREADS.bit_length() - 1
+    return (m, lu, 0) if lu <= cta else (m, cta, lu - cta)
+
+
+def row_vector(k: int, operands: Sequence[Tensor]) -> int:
+    """Elements a thread of the row kernel loads at once: 16 bytes (4 in
+    float32, 2 in float64) where every operand allows it (each row
+    16-byte aligned, its elements adjacent, ``k`` a multiple), else 1."""
+    v = 16 // operands[0].element_size()
+    if k == 0 or k % v:
+        return 1
+    for t in operands:
+        if t.stride(1) != 1 or t.stride(0) % v or t.data_ptr() % 16:
+            return 1
+    return v
 
 
 def gram_plan(s: int, d: int, itemsize: int) -> Optional[Tuple[int, int]]:
@@ -161,16 +205,31 @@ def row_dot(a: Tensor, b: Optional[Tensor] = None) -> Tensor:
         return row_dot_plain(a, b)
     if b is not None and a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
-    lead = a.shape[:-1]
-    a2, b2 = _rows(a), None if b is None else _rows(b)
-    return _launch("row_dot", a2, b2, *row_dot_args(a2, b2)).reshape(lead)
+    pair = (_rows(a), None if b is None else _rows(b))
+    return _row_launch([pair], SUM if b is None else DOT)[0].reshape(a.shape[:-1])
 
 
 def row_norm(a: Tensor) -> Tensor:
-    """Euclidean norm over the last axis: ``sqrt`` of :func:`row_dot`."""
+    """Euclidean norm over the last axis: on the card the ``sqrt`` of
+    ``row_sum(a * a)``, ``a`` read once."""
     if a.device.type == "cpu":
         return row_norm_plain(a)
-    return torch.sqrt(row_dot(a, a))
+    return _row_launch([(_rows(a), None)], NORM)[0].reshape(a.shape[:-1])
+
+
+def row_dots(pairs: Sequence[Tuple[Tensor, Tensor]]) -> Tensor:
+    """:func:`row_dot` of each pair, stacked: ``[len(pairs), ...]``. On
+    the card the pairs of one shape share a launch (up to ``MAX_PAIRS`` a
+    launch), each member's bits those of its own :func:`row_dot`."""
+    shape = pairs[0][0].shape
+    if pairs[0][0].device.type == "cpu":
+        return torch.stack([row_dot(a, b) for a, b in pairs])
+    if any(a.shape != shape or b.shape != shape for a, b in pairs):
+        return torch.stack([row_dot(a, b) for a, b in pairs])
+    rows = [(_rows(a), _rows(b)) for a, b in pairs]
+    parts = [_row_launch(rows[i:i + MAX_PAIRS], DOT) for i in range(0, len(rows), MAX_PAIRS)]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out.reshape((len(pairs),) + shape[:-1])
 
 
 def bmv(A: Tensor, x: Tensor) -> Tensor:
@@ -200,11 +259,6 @@ def gram(X: Tensor) -> Tensor:
 
 # The kernel's operands for each function: (E, I, J, K, a's strides, b's
 # strides), a's and b's strides over (e, i, j, k) in elements.
-
-
-def row_dot_args(a: Tensor, b: Optional[Tensor]):
-    return (a.shape[0], 1, 1, a.shape[1], (a.stride(0), 0, 0, a.stride(1)),
-            None if b is None else (b.stride(0), 0, 0, b.stride(1)))
 
 
 def bmv_args(A: Tensor, x: Tensor):
@@ -264,6 +318,77 @@ def _launch_gram(X: Tensor, p: int, m: int) -> Tensor:
     return out
 
 
+def _row_launch(pairs, mode: int) -> Tensor:
+    """The row kernel over ``pairs`` of ``[R, K]`` rows on the card; ->
+    ``[len(pairs), R]``."""
+    for a, b in pairs:
+        _check(a, b)
+    return run_rows(_row_call, pairs, mode)
+
+
+def run_rows(call, pairs, mode: int) -> Tensor:
+    """One launch of the row kernel over ``pairs`` (at most ``MAX_PAIRS``
+    of one ``[R, K]`` shape) through ``call`` (the kernel's C entry point,
+    or a test's emulation of it): ``call(pairs, out, mode, v, plan)`` with
+    ``v`` from :func:`row_vector` and ``plan`` from :func:`row_plan`,
+    counted under ``row_dot``. -> ``[len(pairs), R]``."""
+    global launches
+    a0 = pairs[0][0]
+    R, K = a0.shape
+    out = torch.empty(len(pairs), R, dtype=a0.dtype, device=a0.device)
+    if R == 0:
+        return out
+    operands = [t for pair in pairs for t in pair if t is not None]
+    v = row_vector(K, operands)
+    call(pairs, out, mode, v, row_plan(K, v))
+    launches += 1
+    launches_by["row_dot"] += 1
+    return out
+
+
+_row_scratch: "OrderedDict" = OrderedDict()
+
+
+def row_scratch(device, dtype, rows: int, partials: int, ctas: int) -> Tuple[Tensor, Tensor]:
+    """A long row's partials ``[rows, partials]`` and tickets ``[rows,
+    ctas]`` (int32, zero: the kernel's last CTA of each group resets its
+    ticket), made once per shape and kept (the last few shapes a
+    device), so a launch allocates nothing."""
+    key = (str(device), dtype, rows, partials, ctas)
+    hit = _row_scratch.get(key)
+    if hit is None:
+        hit = (torch.empty(rows * partials, dtype=dtype, device=device),
+               torch.zeros(rows * ctas, dtype=torch.int32, device=device))
+        _row_scratch[key] = hit
+        while len(_row_scratch) > _ROW_SCRATCH_SHAPES:
+            _row_scratch.popitem(last=False)
+    else:
+        _row_scratch.move_to_end(key)
+    return hit
+
+
+def _row_call(pairs, out, mode, v, plan) -> None:
+    """The row kernel's C entry point for :func:`run_rows`."""
+    lib = _kernel_lib()
+    m, lu, lc = plan
+    R, K = pairs[0][0].shape
+    scratch = tickets = None
+    if lc:
+        scratch, tickets = row_scratch(
+            out.device, out.dtype, len(pairs) * R, (32 * v) << lc, 1 << lc)
+    table = []
+    for a, b in pairs:
+        bb = a if b is None else b
+        table += [a.data_ptr(), bb.data_ptr(), a.stride(0), a.stride(1), bb.stride(0),
+                  bb.stride(1)]
+    _raise_on(lib, lib.photon_row_dots(
+        _DTYPES[out.dtype], v, len(pairs), (ctypes.c_int64 * len(table))(*table),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), R, K, mode, m, lu, lc,
+        torch.cuda.current_stream(out.device).cuda_stream,
+    ))
+
+
 def _launch(kind, a, b, E, I, J, K, sa, sb) -> Tensor:
     """The general kernel over the ``E * I * J`` outputs on the card, its
     launches counted under ``kind``; -> ``[E * I * J]``."""
@@ -314,6 +439,8 @@ def _declare(lib) -> None:
     lib.photon_entity_products.argtypes = [i, p, p, p] + [i64] * 12 + [i, i, i, p]
     lib.photon_entity_gram.restype = i
     lib.photon_entity_gram.argtypes = [i, p, p] + [i64] * 6 + [i, i, p]
+    lib.photon_row_dots.restype = i
+    lib.photon_row_dots.argtypes = [i, i, i, p, p, p, p, i64, i64, i, i, i, i, p]
     lib.photon_entity_products_error_string.restype = ctypes.c_char_p
     lib.photon_entity_products_error_string.argtypes = [i]
 

@@ -11,8 +11,10 @@ once, over one shared schedule:
 
 ``src`` is a ``[G, num_in_blocks * W]`` bank and the result a
 ``[G, num_out_blocks * W]`` bank. Only the source carries the member axis:
-the schedule and the values are the same for every member. The spill
-remainder is not part of it (``_Schedule.apply_spill`` adds it after).
+the schedule and the values are the same for every member. With
+``spill=True`` each member's spill remainder is added too, as K1 adds it
+(on the card in the same launch, the spill read once for a tile of
+members).
 
 What bounds it on the H100: bytes. The schedule (12 bytes per entry) is
 the dominant traffic: at the ads shape with G = 4 the least traffic is
@@ -28,7 +30,8 @@ as the card holds at once.
 
 On a CUDA tensor :func:`grid_bilinear_pass` launches the kernel (built
 with ``nvcc`` for ``sm_90a`` at first use) or raises; only a CPU tensor
-takes the plain version. ``launches`` counts kernel launches.
+takes the plain version. ``launches`` counts kernel launches,
+``spill_launches`` those that folded a spill remainder in.
 
 Determinism: K1's fixed order of additions (``bilinear_pass``'s note), for
 every member: the same schedule and bank give the same bits on every launch
@@ -51,6 +54,8 @@ from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
     make_plan,
     scratch_for,
     sm_count,
+    spill_operands,
+    spill_pointers,
     vector_loads,
 )
 from photon_ml_tpu_torch.ops.kernels.cuda_build import (
@@ -60,8 +65,10 @@ from photon_ml_tpu_torch.ops.kernels.cuda_build import (
 
 Tensor = torch.Tensor
 
-# Kernel launches on the CUDA path (a run sets it to 0 and reads it).
+# Kernel launches on the CUDA path, and those of them that folded a
+# spill remainder in (a run sets them to 0 and reads them).
 launches = 0
+spill_launches = 0
 
 # Members one CTA serves, at most (the kernel's instantiations, 1..7).
 MAX_MEMBERS_PER_CTA = 7
@@ -103,13 +110,15 @@ def grid_bilinear_pass_plain(
 
 
 def grid_bilinear_pass(
-    sched, src: Tensor, num_out_blocks: int, window: int, vals: Tensor = None
+    sched, src: Tensor, num_out_blocks: int, window: int, vals: Tensor = None,
+    spill: bool = False, spill_vals: Tensor = None,
 ) -> Tensor:
     """Apply a schedule to every row of the bank ``src`` [G, n_in * W];
     -> [G, num_out_blocks * W].
 
-    ``sched``, ``vals``, ``num_out_blocks`` and ``window`` as for K1's
-    ``bilinear_pass``; the kernel reads and adds unchecked."""
+    ``sched``, ``vals``, ``spill``, ``spill_vals``, ``num_out_blocks`` and
+    ``window`` as for K1's ``bilinear_pass``; the kernel reads and adds
+    unchecked."""
     v = check_operands("grid_bilinear_pass", sched, num_out_blocks, window, vals)
     n_in = sched.num_in_blocks * window
     if src.dim() != 2 or src.shape[0] < 1 or src.shape[1] != n_in:
@@ -118,10 +127,12 @@ def grid_bilinear_pass(
             f"{sched.num_in_blocks} * {window}], got {tuple(src.shape)}"
         )
     if src.device.type == "cpu":
-        return grid_bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
+        out = grid_bilinear_pass_plain(sched, src, num_out_blocks, window, vals)
+        return sched.apply_spill(out, src, vals=spill_vals) if spill else out
     if src.device.type != "cuda":
         raise ValueError(f"grid_bilinear_pass: unsupported device {src.device}")
-    return launch(sched, src, num_out_blocks, window, v)
+    return launch(sched, src, num_out_blocks, window, v,
+                  spill_operands(sched, spill_vals) if spill else None)
 
 
 # Threads per CTA of K2 (the kernel's kThreads).
@@ -137,7 +148,7 @@ def ctas_per_sm(gt: int, window: int, vec: bool) -> int:
     if key not in _occupancy:
         n = ctypes.c_int()
         _call(0, 0, None, 0, None, None, None, None, None, None, 0, None, 0,
-              None, 0, window, gt, gt, int(vec), n, None)
+              None, 0, window, gt, gt, int(vec), *spill_pointers(None), n, None)
         _occupancy[key] = n.value
     return _occupancy[key]
 
@@ -171,21 +182,24 @@ def tile_config(
 
 
 def launch(
-    sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+    sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor, spill=None
 ) -> Tensor:
-    """The CUDA launch behind :func:`grid_bilinear_pass`."""
+    """The CUDA launch behind :func:`grid_bilinear_pass`; ``spill`` as for
+    K1's ``launch``."""
     check_cuda_operands("grid_bilinear_pass", sched, v, src)
     cfg = launch_config(sched, v, src.device, src.shape[0])
-    return launch_with(cfg, sched, src, num_out_blocks, window, v)
+    return launch_with(cfg, sched, src, num_out_blocks, window, v, spill)
 
 
 def launch_with(
-    cfg: LaunchConfig, sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor
+    cfg: LaunchConfig, sched, src: Tensor, num_out_blocks: int, window: int, v: Tensor,
+    spill=None,
 ) -> Tensor:
     """Launch K2 over ``sched`` as ``cfg`` says (:func:`launch` passes
     :func:`launch_config`'s; ``tools/pass_ablation.py`` times others) on
-    operands :func:`launch` has checked; -> the output bank."""
-    global launches
+    operands :func:`launch` has checked, the spill remainder folded in
+    where ``spill`` is given; -> the output bank."""
+    global launches, spill_launches
     G = src.shape[0]
     n_in = sched.num_in_blocks * window
     n_out = num_out_blocks * window
@@ -199,10 +213,11 @@ def launch_with(
         sched.step_sizes.data_ptr(), sched.in_pos.data_ptr(),
         sched.out_pos.data_ptr(), v.data_ptr(), sched.in_pos.shape[1],
         src.data_ptr(), n_in, out.data_ptr(), n_out, window, G,
-        cfg.members_per_cta, int(cfg.vec), n,
+        cfg.members_per_cta, int(cfg.vec), *spill_pointers(spill), n,
         torch.cuda.current_stream(src.device).cuda_stream,
     )
     launches += 1
+    spill_launches += spill is not None
     return out
 
 
@@ -221,7 +236,7 @@ def _declare(lib) -> None:
     lib.photon_grid_bilinear_pass.restype = i
     lib.photon_grid_bilinear_pass.argtypes = [
         p, i, p, i, p, p, p, p, p, p, i, p, i64, p, i64, i, i, i, i,
-        ctypes.POINTER(i), p,
+        p, p, p, p, ctypes.POINTER(i), p,
     ]
     lib.photon_grid_cuda_error_string.restype = ctypes.c_char_p
     lib.photon_grid_cuda_error_string.argtypes = [i]

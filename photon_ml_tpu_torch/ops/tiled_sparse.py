@@ -19,8 +19,10 @@ the schedule once for the whole bank; only the source is batched, never
 the schedule or its values (the reference's ``custom_vmap`` rule,
 ``photon_ml_tpu/ops/tiled_sparse.py:1583-1601``).
 
-Tile tails too small for a step are "spilled" to an exact ``index_add_``
-remainder (``_Schedule.apply_spill``).
+Tile tails too small for a step are "spilled" to an exact remainder,
+which every pass adds to its output: on the card K1 and K2 fold it into the
+same launch (``bilinear_pass.SpillPlan``); on the CPU
+``_Schedule.apply_spill`` adds it after the plain pass.
 
 On a mesh of ranks a rank builds only its part of the reference's mesh
 layouts: its shard of the rows over every feature
@@ -57,8 +59,6 @@ from photon_ml_tpu_torch.ops import schedule_cache
 from photon_ml_tpu_torch.ops.kernels.bilinear_pass import (
     bilinear_pass,
     gathers_in_order,
-    spill_add,
-    spill_plan,
     step_sizes,
 )
 from photon_ml_tpu_torch.ops.kernels.grid_bilinear_pass import grid_bilinear_pass
@@ -111,10 +111,6 @@ class TileParams:
             c = 1 << int(np.round(np.log2(avg)))
             c = max(lo, min(4096, c))
         return dataclasses.replace(self, chunk=c)
-
-
-# K3 launches on the CUDA path (a run sets it to 0 and reads it).
-spill_launches = 0
 
 
 @dataclass
@@ -205,25 +201,23 @@ class _Schedule:
         self, out_flat: Tensor, src_flat: Tensor, vals: Optional[Tensor] = None
     ) -> Tensor:
         """out_flat[spill_out] += spill_vals * src_flat[spill_in], in place
-        (K3: the exact remainder completing K1's and K2's partial sums),
-        over the last axis, so a bank [G, n] takes it row by row. ``vals``
-        overrides the values (the Hessian diagonal squares them). The sums
-        come in a fixed order: on the card K3's kernel
-        (``bilinear_pass.spill_add``) sums each output's spilled entries in
-        entry order and adds them once; on the CPU ``index_add_`` adds
-        them one by one in entry order."""
+        (the exact remainder completing a pass's partial sums), over the
+        last axis, so a bank [G, n] takes it row by row. ``vals``
+        overrides the values (the Hessian diagonal squares them). The CPU
+        path of every pass: ``index_add_`` adds the entries one by one in
+        entry order. On the card a pass folds the remainder into its own
+        launch (``bilinear_pass(spill=True)``), so a CUDA tensor raises."""
+        if out_flat.device.type != "cpu":
+            raise ValueError(
+                f"apply_spill: the CPU path only, got {out_flat.device}; on the card "
+                "a pass folds the spill in (bilinear_pass(spill=True))"
+            )
         if self.spill_vals.shape[0] == 0:
             return out_flat
-        global spill_launches
-        if not out_flat.is_cuda:
-            v = self.spill_vals if vals is None else vals
-            return out_flat.index_add_(
-                -1, self.spill_out, v * src_flat.index_select(-1, self.spill_in)
-            )
-        if "spill" not in self.plans:
-            self.plans["spill"] = spill_plan(self.spill_out, self.spill_in, self.spill_vals)
-        spill_launches += 1
-        return spill_add(out_flat, src_flat.contiguous(), self.plans["spill"], vals)
+        v = self.spill_vals if vals is None else vals
+        return out_flat.index_add_(
+            -1, self.spill_out, v * src_flat.index_select(-1, self.spill_in)
+        )
 
 
 def sort_steps_by_output(sizes: np.ndarray, window: int, *entries: np.ndarray):
@@ -1115,17 +1109,17 @@ def feature_shard_tiled_batch(
 # ---------------------------------------------------------------------------
 
 
-def _pass(sched, src: Tensor, num_out_blocks: int, window: int, vals=None):
-    """K1 for a vector, K2 for a bank (the spills are the caller's)."""
+def _pass(sched, src: Tensor, num_out_blocks: int, window: int, vals=None, spill_vals=None):
+    """K1 for a vector, K2 for a bank, the schedule's spill remainder
+    folded in (``spill_vals`` overriding its values)."""
     run = grid_bilinear_pass if src.dim() == 2 else bilinear_pass
-    return run(sched, src, num_out_blocks, window, vals=vals)
+    return run(sched, src, num_out_blocks, window, vals=vals, spill=True, spill_vals=spill_vals)
 
 
 def tiled_z_pass(batch: TiledSparseBatch, w_padded: Tensor) -> Tensor:
     """Raw row sums [num_rows] (or [G, num_rows]) of X . w, for a
     contiguous ``w_padded`` [dim] (or [G, dim])."""
-    raw = _pass(batch.z_sched, w_padded, batch.num_row_blocks, batch.params.window)
-    return batch.z_sched.apply_spill(raw, w_padded)
+    return _pass(batch.z_sched, w_padded, batch.num_row_blocks, batch.params.window)
 
 
 def tiled_g_pass(
@@ -1134,12 +1128,10 @@ def tiled_g_pass(
 ) -> Tensor:
     """X^T . c [dim] (or [G, dim]), padded; ``vals`` / ``spill_vals``
     override the values (the Hessian diagonal squares them)."""
-    c_rows = c_rows.contiguous()
-    g = _pass(
-        batch.g_sched, c_rows, batch.num_feat_blocks, batch.params.window,
-        vals=vals,
+    return _pass(
+        batch.g_sched, c_rows.contiguous(), batch.num_feat_blocks, batch.params.window,
+        vals=vals, spill_vals=spill_vals,
     )
-    return batch.g_sched.apply_spill(g, c_rows, vals=spill_vals)
 
 
 @dataclass(frozen=True)

@@ -149,12 +149,13 @@ def dot(a: Tensor, b: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:
 
 
 def dots(*pairs, mesh: Optional[MeshReductions] = None) -> List[Tensor]:
-    """:func:`dot` of each pair; on a sharded mesh the partials share ONE
-    all-reduce."""
-    if not _sharded(mesh):
-        return [dot(a, b) for a, b in pairs]
-    parts = torch.stack([entity_products.row_dot(a, b) for a, b in pairs])
-    return list(all_reduce(parts, mesh.model).unbind(0))
+    """:func:`dot` of each pair, the pairs of one shape in one launch on
+    the card (``entity_products.row_dots``); on a sharded mesh the
+    partials share ONE all-reduce."""
+    parts = entity_products.row_dots(pairs)
+    if _sharded(mesh):
+        parts = all_reduce(parts, mesh.model)
+    return list(parts.unbind(0))
 
 
 def norm(a: Tensor, mesh: Optional[MeshReductions] = None) -> Tensor:

@@ -28,7 +28,9 @@ public ``bilinear_pass`` and ``grid_bilinear_pass``: that runs on any
 checkout of the port since its mesh slice, so run it as a file with an
 older checkout first on ``PYTHONPATH``, in turns with the current one, to
 compare the two on one card with one timer (this file's
-``device_timing``). Times are CUDA events over ``--reps`` launches queued
+``device_timing``). Where the checkout's wrappers take ``spill=`` it
+also times each pass with the schedule's spill remainder folded in
+(``design_spill``; its bound is the pass's). Times are CUDA events over ``--reps`` launches queued
 behind a sleep, so they are the card's and not the wrappers'; cell passes
 are also timed with the 50 MB L2 flushed before each launch. Each line
 prints the ms per pass, the bytes bound and (without ``--design-only``)
@@ -43,6 +45,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -175,6 +178,13 @@ def main() -> int:
                 record(shape, "k2", pass_name, "design",
                        lambda: k2.grid_bilinear_pass(sched, bank, n_blocks, win),
                        sched, n_src, n_out, G, None)
+                if "spill" in inspect.signature(k1.bilinear_pass).parameters:
+                    record(shape, "k1", pass_name, "design_spill",
+                           lambda: k1.bilinear_pass(sched, src, n_blocks, win, spill=True),
+                           sched, n_src, n_out, 1, None)
+                    record(shape, "k2", pass_name, "design_spill",
+                           lambda: k2.grid_bilinear_pass(sched, bank, n_blocks, win, spill=True),
+                           sched, n_src, n_out, G, None)
                 continue
             padded = dataclasses.replace(
                 sched, plans={},

@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions:
 K1 (the bilinear pass) and K2 (its grid form over a coefficient bank),
-and both on the cells of a 2 x 2 mesh of spawned ranks.
+with the spill remainder folded in (bitwise the pass without it followed
+by ``spill_ordered``), both on the cells of a 2 x 2 mesh of spawned ranks,
+and K4 (the per-entity products and the row kernel's member-wise dots and
+norms, bitwise their ``row_sum`` forms).
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports neither jax nor the JAX package,
@@ -199,24 +202,114 @@ def test_grid_pass_matches_plain_and_k1(cuda, name, G):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_passes_repeat_bitwise(cuda, name):
-    """K1 (z, g and squared g), K2 over a bank of 4 and K3 (the spill
-    remainder, on a vector and on the bank): two launches on the same
-    operands give the same bits, and K3 agrees with ``index_add_``."""
+    """K1 (z, g and squared g) and K2 over a bank of 4, each with its
+    spill remainder folded in (on a vector and on the bank): two launches
+    on the same operands give the same bits, and the fold agrees with
+    ``index_add_`` of the spilled products."""
     rng, tb, _ = _batch(name, cuda)
     win = tb.params.window
     w = torch.as_tensor(rng.normal(size=(4, tb.dim)).astype(np.float32), device=cuda)
     c = torch.as_tensor(rng.normal(size=(4, tb.num_rows)).astype(np.float32), device=cuda)
     for sched, src, n_out, vals in _passes(tb, w, c):
+        spill_vals = None if vals is None else sched.spill_vals ** 2
         for run, x in ((k1.bilinear_pass, src[0]), (k2.grid_bilinear_pass, src)):
-            first = run(sched, x, n_out, win, vals=vals)
-            again = run(sched, x, n_out, win, vals=vals)
+            first = run(sched, x, n_out, win, vals=vals, spill=True, spill_vals=spill_vals)
+            again = run(sched, x, n_out, win, vals=vals, spill=True, spill_vals=spill_vals)
             assert torch.equal(first, again)
-            spill_vals = sched.spill_vals if vals is None else sched.spill_vals ** 2
-            spills = [sched.apply_spill(first.clone(), x, vals=spill_vals) for _ in range(2)]
-            assert torch.equal(spills[0], spills[1])
-            plain = first.clone().index_add_(
-                -1, sched.spill_out, spill_vals * x.index_select(-1, sched.spill_in))
-            _close(spills[0], plain)
+            unfused = run(sched, x, n_out, win, vals=vals)
+            sv = sched.spill_vals if spill_vals is None else spill_vals
+            plain = unfused.clone().index_add_(
+                -1, sched.spill_out, sv * x.index_select(-1, sched.spill_in))
+            _close(first, plain)
+
+
+def _sole_and_shared(sched, cfg):
+    """(blocks one item writes alone, blocks several items share) of a
+    launch's plan that hold a spilled slot."""
+    plan, _ = k1.spill_operands(sched)
+    spilled = set((plan.slots.cpu().numpy() // sched.window).tolist())
+    items = cfg.plan.items.cpu().numpy()
+    sole = {int(b) for b in items[items[:, 6] < 0, 0]} & spilled
+    shared = {int(b) for b in cfg.plan.shared.cpu().numpy()[:, 0]} & spilled
+    return sole, shared
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spills", "ads_window"])
+def test_fused_passes_bitwise_unfused_then_spill_ordered(cuda, name):
+    """K1 (z, g and squared g; source windows staged and gathered) and K2
+    (G = 1, 3, 4, 5) with the spill folded in are bitwise the same launch
+    without it followed by ``spill_ordered``, the plain form of the fold;
+    each launch also on a plan for 4 CTAs, whose blocks an item writes
+    alone, beside the card's plan, whose blocks several items share, so
+    both places the kernels add the spill are met."""
+    rng, tb, _ = _batch(name, cuda)
+    win = tb.params.window
+    met = {"sole": 0, "shared": 0}
+    for G in (None, 1, 3, 4, 5):
+        shape = () if G is None else (G,)
+        w = torch.as_tensor(rng.normal(size=shape + (tb.dim,)).astype(np.float32), device=cuda)
+        c = torch.as_tensor(rng.normal(size=shape + (tb.num_rows,)).astype(np.float32), device=cuda)
+        for sched, src, n_out, vals in _passes(tb, w, c):
+            v = sched.vals if vals is None else vals
+            spill = k1.spill_operands(sched, None if vals is None else sched.spill_vals ** 2)
+            if G is None:
+                cfg = k1.launch_config(sched, v, cuda)
+                cfgs = [dataclasses.replace(cfg, mode=mode) for mode in (k1.STAGED, k1.GATHERED)]
+                launch = k1.launch_with
+            else:
+                cfgs = [k2.launch_config(sched, v, cuda, G)]
+                launch = k2.launch_with
+            cfgs += [dataclasses.replace(cfg, plan=k1.make_plan(sched, 4)) for cfg in cfgs]
+            for cfg in cfgs:
+                fused = launch(cfg, sched, src, n_out, win, v, spill)
+                unfused = launch(cfg, sched, src, n_out, win, v)
+                torch.cuda.synchronize()
+                assert torch.equal(fused, k1.spill_ordered(unfused, src, *spill))
+                sole, shared = _sole_and_shared(sched, cfg)
+                met["sole"] += len(sole)
+                met["shared"] += len(shared)
+    assert met["sole"] and met["shared"], met
+
+
+ROW_SHAPES = [(2, 1 << 20), (4, 1 << 20), (25_000, 16), (25_000, 437)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", ROW_SHAPES + ["strided"], ids=str)
+def test_row_kernel_gives_row_sums_bits_in_one_launch(cuda, dtype, shape):
+    """``row_dot`` (a dot and a sum), ``row_norm`` and ``row_dots`` (three
+    pairs) are bitwise their ordered forms (``row_sum`` of the products on
+    the CPU; the norm its sqrt), one launch a call at any row length; a
+    strided view takes the kernel's one-element loads."""
+    from photon_ml_tpu_torch.ops.kernels import entity_products as ep
+
+    ep.build_kernel()
+    rng = np.random.default_rng(17)
+    n, k = (6, 20_000) if shape == "strided" else shape
+    a, b, e = (torch.as_tensor(rng.normal(size=(n, k)), dtype=dtype) for _ in range(3))
+    ad, bd, ed = (t.to(cuda) for t in (a, b, e))
+    if shape == "strided":
+        ad, bd = (torch.stack([t, t], -1).reshape(n, 2 * k)[:, ::2] for t in (ad, bd))
+        assert ep.row_vector(k, [ad, bd]) == 1
+    ep.reset_launches()
+    got = {
+        "dot": ep.row_dot(ad, bd), "sum": ep.row_dot(ad), "norm": ep.row_norm(ad),
+        "dots": ep.row_dots([(ad, bd), (bd, ed), (ad, ad)]),
+    }
+    torch.cuda.synchronize()
+    assert ep.launches == ep.launches_by["row_dot"] == 4
+    assert torch.equal(got["dot"].cpu(), ep.row_dot_ordered(a, b))
+    assert torch.equal(got["sum"].cpu(), ep.row_dot_ordered(a))
+    # sqrt, correctly rounded on the card as in numpy
+    assert torch.equal(got["norm"].cpu(), torch.as_tensor(np.sqrt(ep.row_dot_ordered(a, a).numpy())))
+    assert torch.equal(got["norm"], torch.sqrt(ep.row_dot_ordered(ad, ad)))
+    want = torch.stack([ep.row_dot_ordered(a, b), ep.row_dot_ordered(b, e),
+                        ep.row_dot_ordered(a, a)])
+    assert torch.equal(got["dots"].cpu(), want)
+    again = ep.row_dot(ad, bd)  # the tickets reset themselves
+    assert torch.equal(again, got["dot"])
 
 
 @pytest.mark.cuda

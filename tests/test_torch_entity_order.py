@@ -10,10 +10,13 @@ for the dense Newton solver, dense L-BFGS, TRON and a sparse bucket.
 On the CPU the solves run the products' plain versions (PyTorch's own
 ``bmm`` and sums); the card's kernel (``ops/kernels/entity_products.py``)
 adds in ``data/batch.py`` ``row_sum``'s order, and the second half holds
-its launch plans' tree (the serial leaves of a thread, then the group's
-halving, then the partial launches of a long row) to ``row_sum`` bit for
-bit, emulated here in plain PyTorch. ``chip_smoke.py`` holds the kernel
-itself to the same bits on the card.
+its launch plans' trees to ``row_sum`` bit for bit, emulated here in plain
+PyTorch: the general kernel's (the serial leaves of a thread, then the
+group's halving, then the partial launches of a long row) and the row
+kernel's (V positions a thread, the group's halving, a long row's CTAs'
+partials merged by the tickets, the last widths inside the thread).
+``chip_smoke.py`` holds the kernels themselves to the same bits on the
+card.
 """
 
 import numpy as np
@@ -131,21 +134,91 @@ def _emulate(rows):
     raise AssertionError("a launch plan must end with a full launch")
 
 
+def _halve(x, dim):
+    """Halve dimension ``dim`` of ``x`` (a power of two) down to 1, slot
+    m taking slot m + h: the tree's order over it."""
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
+def _emulate_rows(a, b, mode, v, plan):
+    """The row kernel over ``a`` (and ``b``) [n, k] as ``row_plan`` gives
+    it, in plain PyTorch. A short row: thread u of its U owns positions v u
+    + j + v U m and halves its M leaves of each j serially, then the
+    halving across the threads. A long row: CTA c's lane l owns residues q
+    = 32 v c + v l + j of P, warp w the leaves q + P (w + 8 s), halved over
+    s by the thread, then over w across the warps; the CTAs' partials
+    (items of 32 v) in groups of up to ROW_FANIN items g + (n / f) k,
+    halved over k, level by level; then the halving across warp 0's lanes.
+    Last, the log2(v) widths inside the thread."""
+    m, lu, lc = plan
+    n, k = a.shape
+    x = a if mode == ep.SUM else a * (b if mode == ep.DOT else a)
+    if lc:
+        Q = 32 * v
+        P = Q << lc
+        assert 8 * P * m == ep.padded_width(k) and lu == 8
+        x = torch.nn.functional.pad(x, (0, 8 * P * m - k))
+        # position q + P i, leaf i = 8 s + w
+        items = _halve(_halve(x.view(n, m, ep.ROW_WARPS, 1 << lc, Q), 1), 1)
+        count = 1 << lc
+        while count > 1:
+            f = min(ep.ROW_FANIN, count)
+            count //= f
+            items = _halve(items.view(n, f, count, Q), 1)  # item g + count * k
+        part = items.view(n, 32, v)
+    else:
+        U = 1 << lu
+        assert v * U * m == ep.padded_width(k)
+        x = torch.nn.functional.pad(x, (0, v * U * m - k))
+        part = _halve(x.view(n, m, U, v), 1)  # [n, U, v]: S(v u + j, v U)
+    out = _halve(_halve(part, 1), 1)
+    return torch.sqrt(out) if mode == ep.NORM else out
+
+
+ROW_LAYOUTS = ["tree_dot", "rows_f32", "rows_f64", "rows_strided", "rows_square"]
+
+
+@pytest.mark.parametrize("layout", ROW_LAYOUTS)
 @pytest.mark.parametrize(
-    "k", [0, 1, 2, 3, 5, 8, 17, 32, 33, 100, 512, 513, 777, 4096, 16384, 16385, 40000, 300_000],
+    "k", [0, 1, 2, 3, 5, 8, 17, 32, 33, 100, 512, 513, 777, 4096, 16384, 16385, 40000, 300_000,
+          1 << 20],
 )
-def test_launch_plans_follow_row_sums_tree(k):
+def test_launch_plans_follow_row_sums_tree(k, layout):
+    """Each plan of ``k``: the general kernel's launches (``launch_plan``:
+    bmv, the Gram past shared memory) and the row kernel's single launch
+    (``row_plan``: row_dot in float32 and float64, a strided view read an
+    element at a time, the norm's squares) give ``row_sum``'s bits."""
     rng = np.random.default_rng(k)
     n = 3 if k > 10_000 else 17
-    rows = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32) * 10.0 ** rng.integers(
+    dtype = np.float64 if layout == "rows_f64" else np.float32
+    rows = torch.as_tensor(rng.normal(size=(n, k)).astype(dtype) * 10.0 ** rng.integers(
         -3, 4, size=(n, k)))
-    want = row_sum(rows)
-    got = _emulate(rows)
+    if layout == "tree_dot":
+        assert torch.equal(_emulate(rows), row_sum(rows))
+        plan = ep.launch_plan(k)
+        assert all((partial or p <= 1024) and (p & (p - 1)) == 0 and 1 <= m <= 16
+                   for p, m, partial in plan)
+        assert not plan[-1][2] and all(partial for _, _, partial in plan[:-1])
+        return
+    other = torch.as_tensor(rng.normal(size=(n, k)).astype(dtype))
+    if layout == "rows_strided":
+        rows = torch.as_tensor(np.repeat(rows.numpy(), 2, axis=1))[:, ::2]
+    v = ep.row_vector(k, [rows, other])
+    widest = 16 // rows.element_size()
+    assert v == (1 if k == 0 or k % widest or layout == "rows_strided" else widest)
+    plan = ep.row_plan(k, v)
+    m, lu, lc = plan
+    assert 1 <= m <= 16 and lu <= 8 and (lc == 0 or lu == 8)
+    if layout == "rows_square":
+        got, want = _emulate_rows(rows, None, ep.NORM, v, plan), torch.sqrt(row_sum(rows * rows))
+    else:
+        got, want = _emulate_rows(rows, other, ep.DOT, v, plan), row_sum(rows * other)
     assert torch.equal(got, want)
-    plan = ep.launch_plan(k)
-    assert all((partial or p <= 1024) and (p & (p - 1)) == 0 and 1 <= m <= 16
-               for p, m, partial in plan)
-    assert not plan[-1][2] and all(partial for _, _, partial in plan[:-1])
+    if layout == "rows_f32":
+        assert torch.equal(_emulate_rows(rows, None, ep.SUM, v, plan), row_sum(rows))
 
 
 def test_ordered_forms_are_row_sums_of_the_products():
@@ -205,11 +278,26 @@ def _emulated_kernel(src, src_b, dst, E, I, J, K, sa, sb, p, m, partial):
     dst.copy_(v[:, 0])
 
 
+def _emulated_rows_call(pairs, out, mode, v, plan):
+    """The row kernel's C entry point in plain PyTorch on CPU tensors: each
+    pair's rows read through their strides (a 16-byte load only where the
+    kernel may take one), reduced by ``_emulate_rows`` into ``out``."""
+    for i, (a, b) in enumerate(pairs):
+        R, K = a.shape
+        if v > 1:
+            for t in (a,) if b is None else (a, b):
+                assert t.stride(1) == 1 and t.stride(0) % v == 0 and K % v == 0
+        read = [t.as_strided((R, K), t.stride(), t.storage_offset()) if t is not None else None
+                for t in (a, b)]
+        out[i] = _emulate_rows(*read, mode, v, plan)
+
+
 def test_wrapper_operands_give_the_ordered_forms():
     """The operands each wrapper hands the kernel (its strides, output
-    grid and the partial launches' chaining), run through an emulation of
-    the kernel, give the ``*_ordered`` forms bit for bit: a transposed
-    view, a Gram, and rows long enough for two partial launches."""
+    grid and the partial launches' chaining; the row kernel's pairs, V and
+    plan), run through an emulation of the kernel, give the ``*_ordered``
+    forms bit for bit: a transposed view, a Gram, and rows long enough for
+    a long row's CTAs; one launch each."""
     rng = np.random.default_rng(5)
     X = torch.as_tensor(rng.normal(size=(6, 9, 37)).astype(np.float32))
     c = torch.as_tensor(rng.normal(size=(6, 37)).astype(np.float32))
@@ -225,19 +313,44 @@ def test_wrapper_operands_give_the_ordered_forms():
     Xt = X.transpose(1, 2)
     assert torch.equal(run("bmv", Xt, r, ep.bmv_args(Xt, r)).reshape(6, 37),
                        ep.bmv_ordered(Xt, r))
+    def rows(pairs, mode):
+        return ep.run_rows(_emulated_rows_call, pairs, mode)
+
     for k in (5, 700, 300_000):
         a = torch.as_tensor(rng.normal(size=(3, k)).astype(np.float32))
         b = torch.as_tensor(rng.normal(size=(3, k)).astype(np.float32))
-        assert torch.equal(run("row_dot", a, b, ep.row_dot_args(a, b)), ep.row_dot_ordered(a, b))
-        assert torch.equal(run("row_dot", a, None, ep.row_dot_args(a, None)),
-                           ep.row_dot_ordered(a))
+        assert torch.equal(rows([(a, b)], ep.DOT)[0], ep.row_dot_ordered(a, b))
+        assert torch.equal(rows([(a, None)], ep.SUM)[0], ep.row_dot_ordered(a))
+        assert torch.equal(rows([(a, None)], ep.NORM)[0], torch.sqrt(ep.row_dot_ordered(a, a)))
         col = a[:, :1].expand(3, k)  # a broadcast operand: stride 0 along the row
-        assert torch.equal(run("row_dot", col, b, ep.row_dot_args(col, b)),
-                           ep.row_dot_ordered(col, b))
-    # one launch a call, three for the rows of 300,000 (two partial)
-    assert ep.launches - before == 3 + 3 * (1 + 1 + 3)
+        assert torch.equal(rows([(col, b)], ep.DOT)[0], ep.row_dot_ordered(col, b))
+    # one launch a call, whatever the row's length
+    assert ep.launches - before == 3 + 3 * 4
     assert {k: ep.launches_by[k] - before_by[k] for k in before_by} == {
-        "gram": 1, "bmv": 2, "row_dot": 3 * (1 + 1 + 3)}
+        "gram": 1, "bmv": 2, "row_dot": 3 * 4}
+
+
+@pytest.mark.parametrize("k", [16, 437, 300_000])
+def test_row_dots_of_several_pairs_equal_each_pairs_dot(k):
+    """``optim.common.dots`` of several pairs gives each pair's ``dot``
+    (on the CPU the plain sums), and one row launch over up to eight pairs
+    of one shape gives each pair's own launch's bits (emulated), in as
+    many launches as groups of eight."""
+    from photon_ml_tpu_torch.optim import common
+
+    rng = np.random.default_rng(k)
+    banks = [torch.as_tensor(rng.normal(size=(2, k)).astype(np.float32)) for _ in range(5)]
+    pairs = [(banks[i % 5], banks[(i * 3 + 1) % 5]) for i in range(10)]
+    for got, (a, b) in zip(common.dots(*pairs), pairs):
+        assert torch.equal(got, common.dot(a, b))
+    assert torch.equal(ep.row_dots(pairs), torch.stack([ep.row_dot(a, b) for a, b in pairs]))
+    before = ep.launches_by["row_dot"]
+    together = torch.cat([ep.run_rows(_emulated_rows_call, pairs[i:i + ep.MAX_PAIRS], ep.DOT)
+                          for i in range(0, len(pairs), ep.MAX_PAIRS)])
+    assert ep.launches_by["row_dot"] - before == 2
+    for got, (a, b) in zip(together, pairs):
+        assert torch.equal(got, ep.run_rows(_emulated_rows_call, [(a, b)], ep.DOT)[0])
+        assert torch.equal(got, ep.row_dot_ordered(a, b))
 
 
 def _emulated_gram(X, p, m):

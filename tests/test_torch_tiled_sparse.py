@@ -180,16 +180,15 @@ def test_apply_spill_adds_remainder_in_place():
 
 @pytest.mark.parametrize("members", [0, 3])
 def test_sorted_spill_matches_reference_apply_spill(members):
-    """K3 in its card kernel's order (each output's spilled entries summed
-    in entry order, then added once; emulated here by
-    ``fixed_order.segmented_add`` over the same sort) and in its CPU order,
-    on a vector and a bank, against the JAX package's
+    """The spill remainder in the card's order (each output's spilled
+    products summed in entry order, then added once, as K1 and K2 fold it
+    into a pass; ``bilinear_pass.spill_ordered``) and in its CPU order, on
+    a vector and a bank, against the JAX package's
     ``_Schedule.apply_spill``: within 1e-6 of scale; the CPU order is
-    ``index_add_``'s, bitwise. The sort the kernel reads covers every
-    spilled entry once, its outputs ascending."""
+    ``index_add_``'s, bitwise. The sort the kernels read covers every
+    spilled entry once, its outputs ascending, and its map gives each
+    spilled output its slot and every other output -1."""
     import jax.numpy as jnp
-
-    from photon_ml_tpu_torch.ops import fixed_order
 
     rows, feats, vals = _coo(3, 300, 200, 1500)
     params = dict(s_hi=8, s_lo=8, chunk=32, spill_cap=8)
@@ -220,17 +219,16 @@ def test_sorted_spill_matches_reference_apply_spill(members):
     assert torch.equal(got, plain)
     from photon_ml_tpu_torch.ops.kernels.bilinear_pass import spill_plan
 
-    plan = spill_plan(sched.spill_out, sched.spill_in, sched.spill_vals)
+    plan = spill_plan(sched.spill_out, sched.spill_in, sched.spill_vals, 64, 4)
     assert sorted(plan.order.tolist()) == list(range(sched.spill_out.shape[0]))
     assert int(plan.offsets[-1]) == sched.spill_out.shape[0]
     assert bool((plan.slots[1:] > plan.slots[:-1]).all())
     assert torch.equal(plan.in_pos.long(), sched.spill_in[plan.order].long())
     assert torch.equal(plan.vals, sched.spill_vals[plan.order])
-    card_order = fixed_order.segmented_add(
-        torch.as_tensor(base).clone(),
-        sched.spill_vals * torch.as_tensor(src).index_select(-1, sched.spill_in),
-        fixed_order.segment_plan(sched.spill_out),
-    )
+    slot_map = torch.full((4 * 64,), -1, dtype=torch.int32)
+    slot_map[plan.slots.long()] = torch.arange(plan.num_segments, dtype=torch.int32)
+    assert torch.equal(plan.map, slot_map)
+    card_order = k1.spill_ordered(torch.as_tensor(base).clone(), torch.as_tensor(src), plan)
     scale = float(np.abs(expected).max())
     for out in (got, card_order):
         np.testing.assert_allclose(out.numpy(), expected, rtol=0, atol=1e-6 * scale)
