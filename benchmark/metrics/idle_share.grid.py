@@ -1,0 +1,3 @@
+"""Percent of the grid window in which the device ran nothing."""
+
+from readers import idle_share as read  # noqa: F401
